@@ -1,0 +1,68 @@
+"""Byte segments of a row-major array (the port's copy of the first half of
+``strom/delivery/shard.py``). A shard that restricts only leading axes is a
+handful of large contiguous reads; inner-axis slices decompose into per-row
+segments. Per-device sharded planning waits for a multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Iterator
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """Copy file[file_offset : +length] → dest[dest_offset : +length]."""
+
+    file_offset: int
+    dest_offset: int
+    length: int
+
+
+def _normalize_index(index: tuple, shape: tuple[int, ...]) -> list[tuple[int, int]]:
+    out = []
+    for sl, dim in itertools.zip_longest(index, shape, fillvalue=slice(None)):
+        if dim is None:
+            raise ValueError("index longer than shape")
+        if not isinstance(sl, slice):
+            raise ValueError(f"only slice indices supported, got {sl!r}")
+        start, stop, step = sl.indices(dim)
+        if step != 1:
+            raise ValueError("strided shards not supported")
+        out.append((start, stop))
+    return out
+
+
+def contiguous_segments(shape: tuple[int, ...], itemsize: int,
+                        index: tuple) -> Iterator[Segment]:
+    """Decompose a rectangular sub-block (tuple of slices) of a row-major array
+    into contiguous (file_offset, dest_offset, length) segments."""
+    if not shape:
+        yield Segment(0, 0, itemsize)
+        return
+    bounds = _normalize_index(index, shape)
+    # byte strides, row-major
+    strides = [0] * len(shape)
+    acc = itemsize
+    for i in range(len(shape) - 1, -1, -1):
+        strides[i] = acc
+        acc *= shape[i]
+    # k = number of leading dims that are NOT part of the trailing full block
+    k = len(shape)
+    while k > 0 and bounds[k - 1] == (0, shape[k - 1]):
+        k -= 1
+    if k == 0:
+        total = math.prod(shape) * itemsize
+        yield Segment(0, 0, total)
+        return
+    inner = strides[k - 1]  # bytes per index step along dim k-1
+    start_k, stop_k = bounds[k - 1]
+    run = (stop_k - start_k) * inner
+    outer = [range(lo, hi) for lo, hi in bounds[: k - 1]]
+    dest = 0
+    for combo in itertools.product(*outer):
+        off = sum(c * strides[i] for i, c in enumerate(combo)) + start_k * inner
+        yield Segment(off, dest, run)
+        dest += run

@@ -1,0 +1,227 @@
+"""Pure-Python engine: a preadv worker pool over an O_DIRECT / buffered fd
+pair per file (the port's copy of ``strom/engine/python_engine.py``,
+without the page-cache residency hybrid).
+
+An aligned op (offset, length and destination address all on the file's
+DIO alignment) reads through the O_DIRECT fd, straight from the device into
+the caller's slab; an unaligned op, and the unaligned tail O_DIRECT returns
+short at EOF, read through the buffered fd.
+"""
+
+from __future__ import annotations
+
+import errno as _errno
+import mmap
+import os
+import queue
+import threading
+import time
+from typing import Sequence
+
+import numpy as np
+
+from strom_torch.config import StromConfig
+from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
+                                     ReadRequest)
+from strom_torch.probe.odirect import probe_dio
+
+
+class _File:
+    __slots__ = ("fd", "fd_buffered", "o_direct", "mem_align", "offset_align",
+                 "path")
+
+    def __init__(self, path: str, fd: int, fd_buffered: int, o_direct: bool,
+                 mem_align: int, offset_align: int):
+        self.path = path
+        self.fd = fd
+        self.fd_buffered = fd_buffered
+        self.o_direct = o_direct
+        self.mem_align = mem_align
+        self.offset_align = offset_align
+
+
+class PythonEngine(Engine):
+    """Thread-pool preadv engine. Default 4 I/O threads (they block in the
+    kernel, so >1 helps even on a single core)."""
+
+    name = "python"
+
+    def __init__(self, config: StromConfig, *, n_workers: int = 4):
+        super().__init__(config)
+        self._pool = mmap.mmap(-1, config.num_buffers * config.buffer_size)
+        self._np_pool = np.frombuffer(self._pool, dtype=np.uint8)
+        self._files: dict[int, _File] = {}
+        self._next_file = 0
+        self._submit_q: queue.SimpleQueue = queue.SimpleQueue()
+        self._done_q: queue.SimpleQueue[Completion] = queue.SimpleQueue()
+        self._in_flight = 0
+        self._lock = threading.Lock()
+        self._stats = {"ops_submitted": 0, "ops_completed": 0,
+                       "ops_errored": 0, "bytes_read": 0, "media_bytes": 0,
+                       "unaligned_fallback_reads": 0, "o_direct_denied": 0}
+        self._closed = False
+        self._workers = [
+            threading.Thread(target=self._worker, name=f"strom-io-{i}",
+                             daemon=True)
+            for i in range(n_workers)
+        ]
+        for w in self._workers:
+            w.start()
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._stats[key] += n
+
+    # -- files --------------------------------------------------------------
+    def register_file(self, path: str, *, o_direct: bool | None = None) -> int:
+        want_direct = self.config.o_direct if o_direct is None else o_direct
+        dio = probe_dio(path)
+        use_direct = dio.supported if want_direct is None \
+            else (want_direct and dio.supported)
+        if want_direct is True and not dio.supported:
+            self._count("o_direct_denied")  # observable degrade, not an error
+        fd_buffered = os.open(path, os.O_RDONLY)
+        if use_direct:
+            try:
+                fd = os.open(path, os.O_RDONLY | os.O_DIRECT)
+            except OSError:
+                fd = os.dup(fd_buffered)
+                use_direct = False
+                self._count("o_direct_denied")
+        else:
+            fd = os.dup(fd_buffered)
+        with self._lock:
+            idx = self._next_file
+            self._next_file += 1
+            self._files[idx] = _File(path, fd, fd_buffered, use_direct,
+                                     dio.mem_align or 4096,
+                                     dio.offset_align or 4096)
+        return idx
+
+    def unregister_file(self, file_index: int) -> None:
+        with self._lock:
+            f = self._files.pop(file_index, None)
+        if f is not None:
+            os.close(f.fd)
+            os.close(f.fd_buffered)
+
+    def file_uses_o_direct(self, file_index: int) -> bool:
+        return self._files[file_index].o_direct
+
+    # -- pool ---------------------------------------------------------------
+    def buffer(self, buf_index: int) -> np.ndarray:
+        if not 0 <= buf_index < self.config.num_buffers:
+            raise IndexError(buf_index)
+        start = buf_index * self.config.buffer_size
+        return self._np_pool[start: start + self.config.buffer_size]
+
+    # -- submit/wait --------------------------------------------------------
+    def _admit(self, n: int) -> None:
+        if self._closed:
+            raise EngineError(_errno.EBADF, "engine closed")
+        with self._lock:
+            if self._in_flight + n > self.config.queue_depth:
+                raise EngineError(
+                    _errno.EAGAIN,
+                    f"queue depth exceeded ({self._in_flight}+{n} > "
+                    f"{self.config.queue_depth})")
+            self._in_flight += n
+            self._stats["ops_submitted"] += n
+
+    def submit(self, requests: Sequence[ReadRequest]) -> int:
+        for r in requests:  # validate everything before committing any state
+            if r.buf_offset + r.length > self.config.buffer_size:
+                raise EngineError(_errno.EINVAL, "read larger than buffer slot")
+        self._admit(len(requests))
+        for r in requests:
+            self._submit_q.put(r)
+        return len(requests)
+
+    def submit_raw(self, requests: Sequence[RawRead]) -> int:
+        self._admit(len(requests))
+        for r in requests:
+            self._submit_q.put(r)
+        return len(requests)
+
+    def wait(self, min_completions: int = 1,
+             timeout_s: float | None = None) -> list[Completion]:
+        out: list[Completion] = []
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        while len(out) < min_completions:
+            remaining = None if deadline is None \
+                else max(0.0, deadline - time.monotonic())
+            try:
+                out.append(self._done_q.get(timeout=remaining))
+            except queue.Empty:
+                break
+        while True:  # drain anything else already complete
+            try:
+                out.append(self._done_q.get_nowait())
+            except queue.Empty:
+                break
+        if out:
+            with self._lock:
+                self._in_flight -= len(out)
+        return out
+
+    def in_flight(self) -> int:
+        with self._lock:
+            return self._in_flight
+
+    def stats(self) -> dict:
+        with self._lock:
+            snap = dict(self._stats)
+            snap["in_flight"] = self._in_flight
+        snap["engine"] = self.name
+        return snap
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for _ in self._workers:
+            self._submit_q.put(None)  # workers drain queued reads first
+        for w in self._workers:
+            w.join(timeout=5)
+        for idx in list(self._files):
+            self.unregister_file(idx)
+
+    # -- worker -------------------------------------------------------------
+    def _worker(self) -> None:
+        while True:
+            req = self._submit_q.get()
+            if req is None:
+                return
+            f = self._files.get(req.file_index)
+            if f is None:
+                self._done_q.put(Completion(req.tag, -_errno.EBADF))
+                continue
+            if isinstance(req, RawRead):
+                view = memoryview(req.dest.view(np.uint8).reshape(-1))[: req.length]
+                addr = req.dest.__array_interface__["data"][0]
+            else:
+                start = req.buf_index * self.config.buffer_size + req.buf_offset
+                view = memoryview(self._pool)[start: start + req.length]
+                addr = start  # the pool base is page-aligned
+            aligned = (req.offset % f.offset_align == 0
+                       and req.length % f.offset_align == 0
+                       and addr % f.mem_align == 0)
+            direct = f.o_direct and aligned
+            if f.o_direct and not aligned:
+                self._count("unaligned_fallback_reads")
+            try:
+                n = os.preadv(f.fd if direct else f.fd_buffered, [view],
+                              req.offset)
+                if direct and n < req.length:
+                    # O_DIRECT may return short at an aligned EOF: top up
+                    # the unaligned tail through the buffered fd
+                    n += os.preadv(f.fd_buffered, [view[n:]], req.offset + n)
+                with self._lock:
+                    self._stats["bytes_read"] += n
+                    self._stats["ops_completed"] += 1
+                    if direct:
+                        self._stats["media_bytes"] += n
+                self._done_q.put(Completion(req.tag, n))
+            except OSError as e:
+                self._count("ops_errored")
+                self._done_q.put(Completion(req.tag, -(e.errno or _errno.EIO)))
