@@ -4,10 +4,13 @@
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
-1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a).
+1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
+               a tensor-core kernel that spills registers fails the phase.
 2. kernels  -- each flash-attention kernel against its plain PyTorch version
-               on the card, at the main path's shape and at ``small``'s,
-               timed with CUDA events beside its bound and SDPA's time.
+               on the card: f32 and bf16 at small shapes (causal and not, S
+               a multiple of 64 but not of 128), then bf16 at the main
+               path's shape and at ``small``'s, timed with CUDA events beside
+               its bound and SDPA's forward or backward time.
 3. ssd2gpu  -- a seeded 1 GiB file delivered into device memory by
                memcpy_ssd2gpu: a 64 MiB unstreamed read, then the whole file
                streamed, sync and async; bytes checked exactly.
@@ -29,6 +32,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -54,13 +58,22 @@ MiB = 1 << 20
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# (name, file:line of the TPU kernel it replaces)
+SM90 = "strom_torch/csrc/flash_attention_sm90.cu"
+SCALAR = "strom_torch/csrc/flash_attention.cu"
+# name -> the TPU kernel it replaces (file:line), the source and design of
+# the kernel the main path (bf16) runs, and the device symbols of every
+# instantiation (f32 ones included) for the profile's grouping
 KERNELS = {
-    "fa_fwd": "strom/ops/flash_attention.py:42",
-    "fa_bwd_dkv": "strom/ops/flash_attention.py:158",
-    "fa_bwd_dq": "strom/ops/flash_attention.py:204",
+    "fa_fwd": {"replaces": "strom/ops/flash_attention.py:42", "source": SM90,
+               "design": "wgmma",
+               "symbols": ("fa_fwd_wgmma_kernel", "fa_fwd_kernel")},
+    "fa_bwd_dkv": {"replaces": "strom/ops/flash_attention.py:158",
+                   "source": SM90, "design": "wgmma",
+                   "symbols": ("fa_bwd_dkv_wgmma_kernel", "fa_bwd_dkv_kernel")},
+    "fa_bwd_dq": {"replaces": "strom/ops/flash_attention.py:204",
+                  "source": SCALAR, "design": "scalar",
+                  "symbols": ("fa_bwd_dq_kernel",)},
 }
-SOURCE = "strom_torch/csrc/flash_attention.cu"
 
 
 def say(phase: str, **kv) -> None:
@@ -86,14 +99,21 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     libs = build.build_all()
     dt = time.perf_counter() - t0
+    spilled = []
     for name, path in libs.items():
         log = build.build_logs.get(name, "(cached)")
         say("build", source=name, lib=os.path.relpath(path),
             nvcc_s=f"{build.build_seconds.get(name, 0.0):.2f}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "registers" in line or "spill" in line or "error" in line \
+                    or "C75" in line:
                 print("  " + line.strip())
+            stores = re.search(r"(\d+) bytes spill stores", line)
+            if name == os.path.basename(SM90) and stores and int(stores[1]):
+                spilled.append(line.strip())
     say("build", total_s=f"{dt:.2f}")
+    if spilled:
+        raise AssertionError(f"{SM90} spills registers: {spilled}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -130,36 +150,108 @@ def _inputs(B, S, H, KV, Dh, dtype, seed):
     return mk(B, S, H, Dh), mk(B, S, KV, Dh), mk(B, S, KV, Dh), mk(B, S, H, Dh)
 
 
-def check_kernels_f32() -> None:
-    """Small f32 shapes, causal and not: the kernels against their plain
-    versions at the tolerance of f32 sums taken in another order."""
-    for (B, S, H, KV, Dh) in [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128)]:
+def _check_against_plain(label, kernel_out, q, k, v, g, lse, delta, causal,
+                         block, tol) -> dict[str, float]:
+    """The kernels' (out, lse, dq, dk, dv) against the plain versions run on
+    (q, k, v, g); tol = (rtol, atol as a fraction of max|ref|, lse atol).
+    Returns the largest difference by kernel."""
+    rtol, frac, lse_atol = tol
+    pout, plse = fa._flash_fwd_plain(q, k, v, causal=causal, block_q=block,
+                                     block_k=block)
+    pdq, pdk, pdv = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
+                                        block_q=block, block_k=block)
+    out, klse, dq, dk, dv = kernel_out
+    lse_err = _close(f"{label} lse", klse, plse, 0.0, lse_atol / max(
+        plse.abs().max().item(), 1e-6))
+    return {"fa_fwd": max(_close(f"{label} out", out, pout, rtol, frac), lse_err),
+            "fa_bwd_dkv": max(_close(f"{label} dk", dk, pdk, rtol, frac),
+                              _close(f"{label} dv", dv, pdv, rtol, frac)),
+            "fa_bwd_dq": _close(f"{label} dq", dq, pdq, rtol, frac)}
+
+
+# Tolerances (rtol, atol as a fraction of max|ref|, lse atol), by comparison:
+# - f32 kernels against the f32 plain version: f32 sums in another order;
+F32_TOL = (1e-4, 1e-5, 1e-3)
+# - bf16 kernels against the plain version in f32 on the same bf16 inputs:
+#   the kernels round their outputs to bf16 (2^-9 relative), and, as the JAX
+#   package does, P before P.V and dV and dS before dK and dQ; an element
+#   that cancels in a sum of such rounded terms over up to S rows can differ
+#   by a few 2^-9 of the largest value, hence 5e-3 of it;
+BF16_VS_F32_TOL = (1e-2, 5e-3, 1e-3)
+# - bf16 kernels against the plain version in bf16, which rounds at the same
+#   points as the kernels and the JAX package: the f32 sums before the last
+#   rounding differ only in order, so an output may land one bf16 ulp away
+#   (8e-3 relative), plus 2e-3 of the largest value for elements that
+#   cancel; lse is f32 in both.
+BF16_TOL = (8e-3, 2e-3, 2e-5)
+
+
+def _run_kernels(q, k, v, g, causal):
+    """Forward, then both backward kernels with the forward's lse and Δ."""
+    out, lse = fa._flash_fwd_kernel(q, k, v, causal=causal)
+    delta = fa._delta(out, g)
+    dq, dk, dv = fa._flash_bwd_kernel(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    return (out, lse, dq, dk, dv), lse, delta
+
+
+def check_kernels_small() -> None:
+    """Small shapes, causal and not, S = 192 among them (a multiple of 64
+    but not of the forward's 128-row tile). f32 inputs run the scalar
+    kernels, bf16 the tensor-core ones (and the scalar dQ)."""
+    for (B, S, H, KV, Dh) in [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
+                              (1, 192, 4, 2, 128)]:
         for causal in (True, False):
-            q, k, v, g = _inputs(B, S, H, KV, Dh, torch.float32, 1)
-            out, lse = fa._flash_fwd_kernel(q, k, v, causal=causal)
-            pout, plse = fa._flash_fwd_plain(q, k, v, causal=causal,
-                                             block_q=64, block_k=64)
-            delta = fa._delta(pout, g)
-            grads = fa._flash_bwd_kernel(q, k, v, g, plse, delta, causal=causal)
-            pgrads = fa._flash_bwd_plain(q, k, v, g, plse, delta, causal=causal,
-                                         block_q=64, block_k=64)
-            torch.cuda.synchronize()
-            errs = [_close("out", out, pout, 1e-4, 1e-5),
-                    _close("lse", lse, plse, 1e-5, 1e-6)]
-            for n, a, b in zip(("dq", "dk", "dv"), grads, pgrads):
-                errs.append(_close(n, a, b, 1e-4, 1e-5))
-            say("kernels", check="f32", shape=(B, S, H, KV, Dh), causal=causal,
-                max_abs_err=f"{max(errs):.2e}")
+            for dt in (torch.float32, torch.bfloat16):
+                q, k, v, g = _inputs(B, S, H, KV, Dh, dt, 1)
+                res, lse, delta = _run_kernels(q, k, v, g, causal)
+                f32 = [t.float() for t in (q, k, v, g)]
+                if dt == torch.float32:
+                    errs = _check_against_plain("f32", res, *f32, lse, delta,
+                                                causal, 64, F32_TOL)
+                else:
+                    _check_against_plain("bf16 vs f32 plain", res, *f32, lse,
+                                         delta, causal, 64, BF16_VS_F32_TOL)
+                    errs = _check_against_plain("bf16", res, q, k, v, g, lse,
+                                                delta, causal, 64, BF16_TOL)
+                say("kernels", check=str(dt).split(".")[-1],
+                    shape=(B, S, H, KV, Dh), causal=causal,
+                    max_abs_err=f"{max(errs.values()):.2e}")
+
+
+def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
+    """SDPA's backward alone (dq, dk and dv), flash backend, on the same
+    inputs and output gradient: the forward runs once outside the timed
+    region and each timed call is torch.autograd.grad over its graph."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    gh = g.transpose(1, 2)
+    note = "flash backend, enable_gqa"
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        try:
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True)
+        except RuntimeError:
+            rep = q.shape[2] // k.shape[2]
+            kh, vh = (t.detach().repeat_interleave(rep, dim=1).requires_grad_()
+                      for t in (kh, vh))
+            note = ("flash backend refused enable_gqa: k/v repeated to H "
+                    "heads outside the timed region")
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
+                                             retain_graph=True), n_iter)
+    return ms, note
 
 
 def phase_kernels() -> dict:
-    """bf16 at the main path's and small's shapes. The plain versions run
-    in f32 on the same bf16 inputs, so the only differences are the
-    kernels' bf16 rounding of their outputs (relative 2^-9 = 2e-3) and the
-    order of f32 sums: out, dq, dk and dv must agree within 1e-2 relative
-    plus 1e-3 of the tensor's largest value; lse is f32 in both and must
-    agree within 1e-3 absolute (values near log S ~ 8)."""
-    check_kernels_f32()
+    """bf16 at the main path's and small's shapes, causal: each kernel
+    against the plain versions on the same bf16 inputs (BF16_TOL) and in f32
+    (BF16_VS_F32_TOL), then timed beside its bound, the plain version and
+    SDPA (forward for fa_fwd; backward for the fa_bwd_dkv + fa_bwd_dq pair)."""
+    check_kernels_small()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = {}
@@ -167,40 +259,31 @@ def phase_kernels() -> dict:
                                      ("small", (2, 2048, 12, 4, 64))]:
         dt = torch.bfloat16
         q, k, v, g = _inputs(B, S, H, KV, Dh, dt, 0)
-        qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
-        out, lse = fa._flash_fwd_kernel(q, k, v, causal=True)
-        pout, plse = fa._flash_fwd_plain(qf, kf, vf, causal=True,
-                                         block_q=128, block_k=128)
-        delta = fa._delta(pout, gf)
-        dq, dk, dv = fa._flash_bwd_kernel(q, k, v, g, plse, delta, causal=True)
-        pdq, pdk, pdv = fa._flash_bwd_plain(qf, kf, vf, gf, plse, delta,
-                                            causal=True, block_q=128,
-                                            block_k=128)
-        torch.cuda.synchronize()
-        err_fwd = max(_close("out", out, pout, 1e-2, 1e-3),
-                      _close("lse", lse, plse, 0.0, 1e-3 / max(
-                          plse.abs().max().item(), 1e-6)))
-        err_dkv = max(_close("dk", dk, pdk, 1e-2, 1e-3),
-                      _close("dv", dv, pdv, 1e-2, 1e-3))
-        err_dq = _close("dq", dq, pdq, 1e-2, 1e-3)
+        res, lse, delta = _run_kernels(q, k, v, g, True)
+        f32 = [t.float() for t in (q, k, v, g)]
+        errs_f32 = _check_against_plain(f"{label} bf16 vs f32 plain", res,
+                                        *f32, lse, delta, True, 128,
+                                        BF16_VS_F32_TOL)
+        errs = _check_against_plain(f"{label} bf16", res, q, k, v, g, lse,
+                                    delta, True, 128, BF16_TOL)
 
         n_iter = 10 if label == "main" else 5
         ms = {
             "fa_fwd": cuda_ms(lambda: fa._flash_fwd_kernel(q, k, v, causal=True),
                               n_iter),
             "fa_bwd_dkv": cuda_ms(lambda: fa._bwd_dkv_kernel(
-                q, k, v, g, plse, delta, causal=True), n_iter),
+                q, k, v, g, lse, delta, causal=True), n_iter),
             "fa_bwd_dq": cuda_ms(lambda: fa._bwd_dq_kernel(
-                q, k, v, g, plse, delta, causal=True), n_iter),
+                q, k, v, g, lse, delta, causal=True), n_iter),
         }
         plain_fwd = cuda_ms(lambda: fa._flash_fwd_plain(
-            qf, kf, vf, causal=True, block_q=128, block_k=128), 2)
+            q, k, v, causal=True, block_q=128, block_k=128), 2)
         plain_bwd = cuda_ms(lambda: fa._flash_bwd_plain(
-            qf, kf, vf, gf, plse, delta, causal=True, block_q=128,
-            block_k=128), 2)
+            q, k, v, g, lse, delta, causal=True, block_q=128, block_k=128), 2)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, is_causal=True, enable_gqa=True), n_iter)
+        sdpa_bwd, sdpa_bwd_note = _sdpa_bwd_ms(q, k, v, g, n_iter)
         pairs = _pairs(B, S, H, True)
         e = q.element_size()
         qb, kvb, rowb = B * S * H * Dh * e, B * S * KV * Dh * e, B * H * S * 4
@@ -209,21 +292,28 @@ def phase_kernels() -> dict:
             "fa_bwd_dkv": (2 * qb + 2 * kvb + 2 * rowb + 2 * kvb, 8 * Dh * pairs),
             "fa_bwd_dq": (2 * qb + 2 * kvb + 2 * rowb + qb, 6 * Dh * pairs),
         }
-        errs = {"fa_fwd": err_fwd, "fa_bwd_dkv": err_dkv, "fa_bwd_dq": err_dq}
         plain = {"fa_fwd": plain_fwd, "fa_bwd_dkv": plain_bwd,
                  "fa_bwd_dq": plain_bwd}
+        library = {"fa_fwd": sdpa, "fa_bwd_dkv": sdpa_bwd, "fa_bwd_dq": sdpa_bwd}
         for name in KERNELS:
             bound, by = _bound_ms(*work[name], dt)
             row = {"ms": ms[name], "plain_ms": plain[name], "bound_ms": bound,
                    "bound_by": by, "max_abs_err": errs[name],
-                   "library_ms": sdpa if name == "fa_fwd" else None}
+                   "max_abs_err_vs_f32_plain": errs_f32[name],
+                   "library_ms": library[name],
+                   "tflops": work[name][1] / ms[name] / 1e9}
             say("kernels", kernel=name, shape=label,
                 **{k_: (f"{v_:.4g}" if isinstance(v_, float) else v_)
                    for k_, v_ in row.items()})
             rows.setdefault(name, {})[label] = row
+        pair = ms["fa_bwd_dkv"] + ms["fa_bwd_dq"]
+        say("kernels", shape=label, backward_pair_ms=f"{pair:.4g}",
+            sdpa_backward_ms=f"{sdpa_bwd:.4g}",
+            pair_over_sdpa=f"{pair / sdpa_bwd:.3g}", sdpa_backward=sdpa_bwd_note)
     say("kernels", note="plain_ms of the backward kernels is one plain "
-        "backward computing dq, dk and dv together; library_ms is SDPA "
-        "forward (flash backend), a yardstick the port never calls")
+        "backward computing dq, dk and dv together; library_ms is SDPA's "
+        "forward for fa_fwd and SDPA's backward (dq, dk and dv) for the "
+        "backward pair: yardsticks the port never calls")
     return rows
 
 
@@ -404,8 +494,8 @@ def phase_train(workdir: str) -> dict[str, int]:
 
 
 def _kernel_group(name: str) -> str:
-    for kernel in KERNELS:
-        if f"{kernel}_kernel" in name:
+    for kernel, info in KERNELS.items():
+        if any(sym in name for sym in info["symbols"]):
             return kernel
     low = name.lower()
     if "memcpy" in low or "memset" in low:
@@ -480,12 +570,15 @@ def main() -> int:
         launches = phase_train(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces, "launches": launches[name],
+    kernels = [{"name": name, "route": "cuda", "source": info["source"],
+                "design": info["design"], "replaces": info["replaces"],
+                "launches": launches[name],
                 **{k: rows[name]["main"][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
-               for name, replaces in KERNELS.items()]
+                    "library_ms")},
+                **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
+                   if name != "fa_fwd" else {})}
+               for name, info in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
-// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels.
+// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels in
+// scalar f32 FMAs.
 //
 // Replaces the three Pallas TPU kernels of strom/ops/flash_attention.py:
 //   fa_fwd_kernel      <- _fa_kernel          (launched by _flash_fwd)
 //   fa_bwd_dkv_kernel  <- _fa_bwd_dkv_kernel  (launched by _flash_bwd)
 //   fa_bwd_dq_kernel   <- _fa_bwd_dq_kernel   (launched by _flash_bwd)
+// The forward and dK/dV kernels here serve float32 inputs only; bf16 inputs
+// take the tensor-core kernels of flash_attention_sm90.cu. The dQ kernel
+// serves both types.
 //
 // What bounds them on an H100: at the main path's shape (S = 2048,
 // Dh = 128) attention does ~Dh/2 = 64 multiply-adds per byte of q/k/v it
@@ -474,12 +478,14 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16; dh: 64 or
-// 128. Returns the cudaError_t of the launch (0 = launched), or -1 for a
-// type / head width this library was not built for.
-#define STROM_DISPATCH(CALL)                                          \
+// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16 (dQ only);
+// dh: 64 or 128. Returns the cudaError_t of the launch (0 = launched), or -1
+// for a type / head width this library was not built for.
+#define STROM_DISPATCH_F32(CALL)                                      \
   if (dtype == 0 && dh == 64) return (int)CALL(float, 64);            \
-  if (dtype == 0 && dh == 128) return (int)CALL(float, 128);          \
+  if (dtype == 0 && dh == 128) return (int)CALL(float, 128);
+#define STROM_DISPATCH(CALL)                                          \
+  STROM_DISPATCH_F32(CALL)                                            \
   if (dtype == 1 && dh == 64) return (int)CALL(__nv_bfloat16, 64);    \
   if (dtype == 1 && dh == 128) return (int)CALL(__nv_bfloat16, 128);  \
   return -1;
@@ -491,7 +497,8 @@ int strom_fa_fwd(int dtype, int dh, const void* q, const void* k, const void* v,
                  float scale, void* stream) {
 #define CALL(T, D) launch_fwd<T, D>(q, k, v, o, lse, B, S, H, KV, causal, scale, \
                                     (cudaStream_t)stream)
-  STROM_DISPATCH(CALL)
+  STROM_DISPATCH_F32(CALL)
+  return -1;
 #undef CALL
 }
 
@@ -511,7 +518,8 @@ int strom_fa_bwd_dkv(int dtype, int dh, const void* q, const void* k,
                      int H, int KV, int causal, float scale, void* stream) {
 #define CALL(T, D) launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, B, S, H, \
                                     KV, causal, scale, (cudaStream_t)stream)
-  STROM_DISPATCH(CALL)
+  STROM_DISPATCH_F32(CALL)
+  return -1;
 #undef CALL
 }
 

@@ -5,18 +5,20 @@ Counterpart of ``strom/ops/flash_attention.py``, with its signature and
 layout: q ``[B, S, H, Dh]``, k and v ``[B, S, KV, Dh]`` (GQA, q head h reads
 kv head h // (H / KV)), out ``[B, S, H, Dh]``, and the per-row logsumexp
 ``lse`` in the ``[B, H, S, 1]`` f32 layout. The three Pallas kernels map to
-three CUDA kernels in ``strom_torch/csrc/flash_attention.cu``:
+CUDA kernels under ``strom_torch/csrc/``; the dtype picks the kernel:
 
-=======================  ==========================  =====================
-Pallas (TPU)             CUDA (H100, sm_90a)         plain PyTorch version
-=======================  ==========================  =====================
-``_fa_kernel``           ``fa_fwd_kernel``           ``_flash_fwd_plain``
-``_fa_bwd_dkv_kernel``   ``fa_bwd_dkv_kernel``       ``_flash_bwd_plain``
-``_fa_bwd_dq_kernel``    ``fa_bwd_dq_kernel``        ``_flash_bwd_plain``
-=======================  ==========================  =====================
+======================  ====================================  ==========================  =====================
+Pallas (TPU)            bf16 (H100, sm_90a)                   float32 (H100, sm_90a)      plain PyTorch version
+======================  ====================================  ==========================  =====================
+``_fa_kernel``          ``fa_fwd_wgmma_kernel`` (sm90 file)   ``fa_fwd_kernel``           ``_flash_fwd_plain``
+``_fa_bwd_dkv_kernel``  ``fa_bwd_dkv_wgmma_kernel`` (sm90)    ``fa_bwd_dkv_kernel``       ``_flash_bwd_plain``
+``_fa_bwd_dq_kernel``   ``fa_bwd_dq_kernel``                  ``fa_bwd_dq_kernel``        ``_flash_bwd_plain``
+======================  ====================================  ==========================  =====================
 
-The source note in the ``.cu`` file says what bounds each kernel on the card
-and what its design does about it. Dispatch is by the tensors' device, never
+``flash_attention_sm90.cu`` holds the bf16 tensor-core kernels (wgmma, TMA,
+warp-specialised); ``flash_attention.cu`` the scalar-FMA kernels. The source
+note in each ``.cu`` file says what bounds its kernels on the card and what
+their design does about it. Dispatch is by the tensors' device, never
 by a failure: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. ``_delta`` (Δ = rowsum(dO ∘ O)) was an XLA-fused reduce in
 the reference and is a torch op here.
@@ -41,6 +43,7 @@ KERNEL_TILE = 64   # the CUDA kernels' q and kv tile (rows)
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "flash_attention.cu"
+_SOURCE_SM90 = "flash_attention_sm90.cu"
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
 LAUNCHES: collections.Counter = collections.Counter(
@@ -87,6 +90,19 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def _sm90_lib() -> ctypes.CDLL:
+    lib = build.load(_SOURCE_SM90)
+    if not getattr(lib, "_strom_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.strom_fa_fwd_sm90.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.strom_fa_bwd_dkv_sm90.argtypes = [i, p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, f, p]
+        for fn in (lib.strom_fa_fwd_sm90, lib.strom_fa_bwd_dkv_sm90):
+            fn.restype = ctypes.c_int
+        lib._strom_typed = True
+    return lib
+
+
 def _check_kernel_inputs(typed: tuple, rows: tuple = ()) -> None:
     """*typed*: q, k, v (and dO) of one float32/bfloat16 dtype; *rows*: the
     f32 lse/delta columns."""
@@ -109,27 +125,37 @@ def _check_kernel_inputs(typed: tuple, rows: tuple = ()) -> None:
                              f"q/k/v/dO of one dtype, got {t.dtype}")
 
 
+# A launcher returns 0, a cudaError_t, or one of these (the .cu files').
+_LAUNCH_ERRORS = {-1: "unsupported dtype/head dim",
+                  -2: "the driver has no cuTensorMapEncodeTiled",
+                  -3: "cuTensorMapEncodeTiled refused a tensor map"}
+
+
 def _launch(name: str, fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
-        msg = "unsupported dtype/head dim" if rc < 0 else \
+        msg = _LAUNCH_ERRORS.get(rc) or \
             _kernel_lib().strom_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed ({rc}): {msg}")
     LAUNCHES[name] += 1
 
 
 def _flash_fwd_kernel(q, k, v, *, causal: bool):
+    """bf16: the wgmma kernel; float32: the scalar kernel."""
     _check_kernel_inputs((q, k, v))
     B, S, H, Dh = q.shape
-    lib = _kernel_lib()
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, S, H, k.shape[2], int(causal),
+            1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("fa_fwd", lib.strom_fa_fwd, _KERNEL_DTYPES[q.dtype], Dh,
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, S, H, k.shape[2], int(causal),
-                1.0 / math.sqrt(Dh), stream)
+        if q.dtype == torch.bfloat16:
+            _launch("fa_fwd", _sm90_lib().strom_fa_fwd_sm90, Dh, *ptrs, stream)
+        else:
+            _launch("fa_fwd", _kernel_lib().strom_fa_fwd,
+                    _KERNEL_DTYPES[q.dtype], Dh, *ptrs, stream)
     return out, lse
 
 
@@ -144,15 +170,21 @@ def _bwd_args(q, k, v, g, lse, delta):
 
 
 def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
+    """bf16: the wgmma kernel; float32: the scalar kernel."""
     args = _bwd_args(q, k, v, g, lse, delta)
     B, S, H, Dh = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    rest = (dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], int(causal),
+            1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
-        _launch("fa_bwd_dkv", _kernel_lib().strom_fa_bwd_dkv, *args,
-                dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2],
-                int(causal), 1.0 / math.sqrt(Dh),
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if q.dtype == torch.bfloat16:
+            _launch("fa_bwd_dkv", _sm90_lib().strom_fa_bwd_dkv_sm90,
+                    *args[1:], *rest, stream)
+        else:
+            _launch("fa_bwd_dkv", _kernel_lib().strom_fa_bwd_dkv, *args,
+                    *rest, stream)
     return dk, dv
 
 

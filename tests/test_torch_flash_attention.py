@@ -165,6 +165,42 @@ def test_cpu_path_launches_no_kernel():
     assert dict(tfa.LAUNCHES) == {"fa_fwd": 0, "fa_bwd_dkv": 0, "fa_bwd_dq": 0}
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,Dh", [
+    (1, 256, 4, 2, 64),    # GQA, head dim 64
+    (1, 128, 4, 2, 128),   # GQA, head dim 128
+])
+def test_bf16_plain_matches_jax_flash(causal, B, S, H, KV, Dh):
+    """bf16 inputs through the Pallas kernels (interpret mode) and the port's
+    plain versions, which the bf16 CUDA kernels are held to on the card. Both
+    round P to bf16 before P·V and dV, and dS before dK and dQ, so they agree
+    to the last bf16 bit up to f32 sums in another order: out, dq, dk and dv
+    within 4e-3 of the largest value (two bf16 ulps there), lse (f32 in both)
+    within 1e-5."""
+    q, k, v = _qkv(11, B, S, H, KV, Dh)
+    g = np.random.default_rng(12).normal(size=q.shape).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v, g))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64, interpret=True)
+    jgrads = jfa._flash_bwd(jq, jk, jv, jout, jlse, jg, causal=causal,
+                            block_q=64, block_k=64, interpret=True)
+    tq, tk, tv, tg = (torch.tensor(x).bfloat16() for x in (q, k, v, g))
+    tout, tlse = tfa._flash_fwd(tq, tk, tv, causal=causal, block_q=64,
+                                block_k=64)
+    tgrads = tfa._flash_bwd(tq, tk, tv, tout, tlse, tg, causal=causal,
+                            block_q=64, block_k=64)
+    assert tout.dtype == torch.bfloat16
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-5, err_msg="lse")
+    for name, t, j in zip(("out", "dq", "dk", "dv"), (tout, *tgrads),
+                          (jout, *jgrads)):
+        want = np.asarray(j.astype(jnp.float32))
+        got = t.float().numpy()
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=4e-3 * np.abs(want).max(), err_msg=name)
+
+
 def test_bf16_plain_version_tracks_f32():
     """bf16 inputs: the plain version rounds P to v's dtype before P·V, as
     the Pallas kernel does; it stays within bf16 noise of the f32 result."""
