@@ -9,8 +9,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. kernels  -- each flash-attention kernel against its plain PyTorch version
                on the card: f32 and bf16 at small shapes (causal and not, S
                a multiple of 64 but not of 128), then bf16 at the main
-               path's shape and at ``small``'s, timed with CUDA events beside
-               its bound and SDPA's forward or backward time.
+               path's shape and at ``small``'s; bf16 dq must round dS as
+               the JAX package does (share of elements that differ from
+               the bf16 plain version). Each kernel is timed with CUDA
+               events, median of 5 runs with min and max, beside its
+               bound and SDPA's forward or backward time.
 3. ssd2gpu  -- a seeded 1 GiB file delivered into device memory by
                memcpy_ssd2gpu: a 64 MiB unstreamed read, then the whole file
                streamed, sync and async; bytes checked exactly.
@@ -59,10 +62,10 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SM90 = "strom_torch/csrc/flash_attention_sm90.cu"
-SCALAR = "strom_torch/csrc/flash_attention.cu"
 # name -> the TPU kernel it replaces (file:line), the source and design of
 # the kernel the main path (bf16) runs, and the device symbols of every
-# instantiation (f32 ones included) for the profile's grouping
+# instantiation (the f32 ones of flash_attention.cu included) for the
+# profile's grouping
 KERNELS = {
     "fa_fwd": {"replaces": "strom/ops/flash_attention.py:42", "source": SM90,
                "design": "wgmma",
@@ -71,8 +74,8 @@ KERNELS = {
                    "source": SM90, "design": "wgmma",
                    "symbols": ("fa_bwd_dkv_wgmma_kernel", "fa_bwd_dkv_kernel")},
     "fa_bwd_dq": {"replaces": "strom/ops/flash_attention.py:204",
-                  "source": SCALAR, "design": "scalar",
-                  "symbols": ("fa_bwd_dq_kernel",)},
+                  "source": SM90, "design": "wgmma",
+                  "symbols": ("fa_bwd_dq_wgmma_kernel", "fa_bwd_dq_kernel")},
 }
 
 
@@ -92,6 +95,15 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+REPEATS = 5
+
+
+def cuda_ms_spread(fn, iters: int) -> tuple[float, float, float]:
+    """(median, min, max) of REPEATS runs of cuda_ms(fn, iters)."""
+    runs = [cuda_ms(fn, iters) for _ in range(REPEATS)]
+    return statistics.median(runs), min(runs), max(runs)
 
 
 # ------------------------------------------------------------------ build
@@ -169,6 +181,29 @@ def _check_against_plain(label, kernel_out, q, k, v, g, lse, delta, causal,
             "fa_bwd_dq": _close(f"{label} dq", dq, pdq, rtol, frac)}
 
 
+def _check_dq_rounding(label, dq, q, k, v, g, lse, delta, causal, block):
+    """bf16 dq against the bf16 plain version, which rounds dS to bf16
+    before dS·K as the JAX package does (strom/ops/flash_attention.py:230):
+    under 5 % of the elements may differ (f32 sums in another order that
+    cross a bf16 rounding). The plain version with dS kept in f32 (fed k in
+    f32) differs in some 40 %; it must differ in over 30 %, which shows the
+    share tells the two rounding points apart."""
+    plain = fa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
+                                block_q=block, block_k=block)[0]
+    f32_ds = fa._flash_bwd_plain(q, k.float(), v, g, lse, delta,
+                                 causal=causal, block_q=block,
+                                 block_k=block)[0]
+    share = (dq != plain).float().mean().item()
+    share_f32_ds = (f32_ds != plain).float().mean().item()
+    say("kernels", check=f"{label} dq rounds dS to bf16",
+        differ_share=f"{share:.5f}", f32_ds_differ_share=f"{share_f32_ds:.4f}")
+    if not (share < 0.05 and share_f32_ds > 0.30):
+        raise AssertionError(
+            f"{label}: dq differs from the bf16 plain version in {share:.4f} "
+            f"of its elements (limit 0.05); dS kept in f32 in "
+            f"{share_f32_ds:.4f} (must exceed 0.30)")
+
+
 # Tolerances (rtol, atol as a fraction of max|ref|, lse atol), by comparison:
 # - f32 kernels against the f32 plain version: f32 sums in another order;
 F32_TOL = (1e-4, 1e-5, 1e-3)
@@ -197,8 +232,8 @@ def _run_kernels(q, k, v, g, causal):
 
 def check_kernels_small() -> None:
     """Small shapes, causal and not, S = 192 among them (a multiple of 64
-    but not of the forward's 128-row tile). f32 inputs run the scalar
-    kernels, bf16 the tensor-core ones (and the scalar dQ)."""
+    but not of the forward's and dQ's 128-row q tile). f32 inputs run the
+    scalar kernels, bf16 the tensor-core ones."""
     for (B, S, H, KV, Dh) in [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
                               (1, 192, 4, 2, 128)]:
         for causal in (True, False):
@@ -214,6 +249,9 @@ def check_kernels_small() -> None:
                                          delta, causal, 64, BF16_VS_F32_TOL)
                     errs = _check_against_plain("bf16", res, q, k, v, g, lse,
                                                 delta, causal, 64, BF16_TOL)
+                    _check_dq_rounding(f"bf16 {(B, S, H, KV, Dh)} causal="
+                                       f"{causal}", res[2], q, k, v, g, lse,
+                                       delta, causal, 64)
                 say("kernels", check=str(dt).split(".")[-1],
                     shape=(B, S, H, KV, Dh), causal=causal,
                     max_abs_err=f"{max(errs.values()):.2e}")
@@ -241,8 +279,8 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
                     "heads outside the timed region")
             out = torch.nn.functional.scaled_dot_product_attention(
                 qh, kh, vh, is_causal=True)
-    ms = cuda_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), gh,
-                                             retain_graph=True), n_iter)
+    ms = cuda_ms_spread(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), gh, retain_graph=True), n_iter)[0]
     return ms, note
 
 
@@ -250,7 +288,9 @@ def phase_kernels() -> dict:
     """bf16 at the main path's and small's shapes, causal: each kernel
     against the plain versions on the same bf16 inputs (BF16_TOL) and in f32
     (BF16_VS_F32_TOL), then timed beside its bound, the plain version and
-    SDPA (forward for fa_fwd; backward for the fa_bwd_dkv + fa_bwd_dq pair)."""
+    SDPA (forward for fa_fwd; backward for the fa_bwd_dkv + fa_bwd_dq pair).
+    Each time is the median of REPEATS runs of cuda_ms; the kernels' rows
+    also carry the runs' min and max."""
     check_kernels_small()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -266,23 +306,26 @@ def phase_kernels() -> dict:
                                         BF16_VS_F32_TOL)
         errs = _check_against_plain(f"{label} bf16", res, q, k, v, g, lse,
                                     delta, True, 128, BF16_TOL)
+        _check_dq_rounding(label, res[2], q, k, v, g, lse, delta, True, 128)
 
         n_iter = 10 if label == "main" else 5
-        ms = {
-            "fa_fwd": cuda_ms(lambda: fa._flash_fwd_kernel(q, k, v, causal=True),
-                              n_iter),
-            "fa_bwd_dkv": cuda_ms(lambda: fa._bwd_dkv_kernel(
+        spread = {
+            "fa_fwd": cuda_ms_spread(lambda: fa._flash_fwd_kernel(
+                q, k, v, causal=True), n_iter),
+            "fa_bwd_dkv": cuda_ms_spread(lambda: fa._bwd_dkv_kernel(
                 q, k, v, g, lse, delta, causal=True), n_iter),
-            "fa_bwd_dq": cuda_ms(lambda: fa._bwd_dq_kernel(
+            "fa_bwd_dq": cuda_ms_spread(lambda: fa._bwd_dq_kernel(
                 q, k, v, g, lse, delta, causal=True), n_iter),
         }
+        ms = {name: med for name, (med, _, _) in spread.items()}
         plain_fwd = cuda_ms(lambda: fa._flash_fwd_plain(
             q, k, v, causal=True, block_q=128, block_k=128), 2)
         plain_bwd = cuda_ms(lambda: fa._flash_bwd_plain(
             q, k, v, g, lse, delta, causal=True, block_q=128, block_k=128), 2)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True, enable_gqa=True), n_iter)
+        sdpa = cuda_ms_spread(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True), n_iter)[0]
         sdpa_bwd, sdpa_bwd_note = _sdpa_bwd_ms(q, k, v, g, n_iter)
         pairs = _pairs(B, S, H, True)
         e = q.element_size()
@@ -297,7 +340,9 @@ def phase_kernels() -> dict:
         library = {"fa_fwd": sdpa, "fa_bwd_dkv": sdpa_bwd, "fa_bwd_dq": sdpa_bwd}
         for name in KERNELS:
             bound, by = _bound_ms(*work[name], dt)
-            row = {"ms": ms[name], "plain_ms": plain[name], "bound_ms": bound,
+            row = {"ms": ms[name], "ms_min": spread[name][1],
+                   "ms_max": spread[name][2], "plain_ms": plain[name],
+                   "bound_ms": bound,
                    "bound_by": by, "max_abs_err": errs[name],
                    "max_abs_err_vs_f32_plain": errs_f32[name],
                    "library_ms": library[name],
@@ -479,6 +524,7 @@ def phase_train(workdir: str) -> dict[str, int]:
     steady = sum(times[1:]) / (steps - 1)
     say("train", step_ms_first=f"{times[0] * 1e3:.1f}",
         step_ms_steady=f"{steady * 1e3:.1f}",
+        step_ms_median_after_first=f"{statistics.median(times[1:]) * 1e3:.1f}",
         tokens_per_s=f"{B * (seq_len + 1) / steady:.0f}",
         max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / GiB:.2f}",
         data_stall_steps=pipe.data_stall_steps,
@@ -574,8 +620,8 @@ def main() -> int:
                 "design": info["design"], "replaces": info["replaces"],
                 "launches": launches[name],
                 **{k: rows[name]["main"][k] for k in
-                   ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")},
+                   ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")},
                 **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
                    if name != "fa_fwd" else {})}
                for name, info in KERNELS.items()]

@@ -5,17 +5,16 @@
 //   fa_fwd_kernel      <- _fa_kernel          (launched by _flash_fwd)
 //   fa_bwd_dkv_kernel  <- _fa_bwd_dkv_kernel  (launched by _flash_bwd)
 //   fa_bwd_dq_kernel   <- _fa_bwd_dq_kernel   (launched by _flash_bwd)
-// The forward and dK/dV kernels here serve float32 inputs only; bf16 inputs
-// take the tensor-core kernels of flash_attention_sm90.cu. The dQ kernel
-// serves both types.
+// All three serve float32 inputs only; bf16 inputs take the tensor-core
+// kernels of flash_attention_sm90.cu.
 //
 // What bounds them on an H100: at the main path's shape (S = 2048,
 // Dh = 128) attention does ~Dh/2 = 64 multiply-adds per byte of q/k/v it
 // reads once, far above the card's ~295 operations per byte, so all three
-// are bound by arithmetic, not by device memory. This first version does
-// that arithmetic with scalar f32 FMAs (the tensor cores, via mma.sync or
-// wgmma, are later work); its design keeps the FMA units fed from shared
-// memory instead of device memory:
+// are bound by arithmetic, not by device memory. f32 has no dense
+// tensor-core path that keeps f32's precision, so these kernels do that
+// arithmetic with scalar f32 FMAs; their design keeps the FMA units fed
+// from shared memory instead of device memory:
 //   - one CTA of 256 threads per 64-row tile; q/k/v/dO tiles are staged in
 //     dynamic shared memory as f32 (rows padded to Dh+1 floats, so a
 //     half-warp reading 16 different rows at one column hits 16 banks);
@@ -30,10 +29,9 @@
 //     head and every q tile itself, so the sum the TPU grid carried across
 //     sequential grid steps stays inside the CTA: no atomics, no second pass.
 // Tensors keep the model's layout: q, o, dO, dq are [B, S, H, Dh]; k, v, dk,
-// dv are [B, S, KV, Dh]; lse and delta are [B, H, S] f32. Inputs are f32 or
-// bf16; every sum is f32. The wrapper checks shapes; S must divide by 64.
+// dv are [B, S, KV, Dh]; lse and delta are [B, H, S] f32. The wrapper
+// checks shapes; S must divide by 64.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,13 +43,9 @@ constexpr int SLD = TILE + 1;  // padded row length of a 64x64 score tile
 constexpr float NEG_BIG = -0.7f * 3.402823466e38f;  // as the Pallas kernel
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Stage a TILE x DH tile (row r at src + r * row_stride) into shared memory
 // as f32 with row length DH + 1.
@@ -478,17 +472,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Plain C interface for ctypes. dtype: 0 = float32, 1 = bfloat16 (dQ only);
+// Plain C interface for ctypes. dtype: 0 = float32 (the only one built);
 // dh: 64 or 128. Returns the cudaError_t of the launch (0 = launched), or -1
 // for a type / head width this library was not built for.
 #define STROM_DISPATCH_F32(CALL)                                      \
   if (dtype == 0 && dh == 64) return (int)CALL(float, 64);            \
   if (dtype == 0 && dh == 128) return (int)CALL(float, 128);
-#define STROM_DISPATCH(CALL)                                          \
-  STROM_DISPATCH_F32(CALL)                                            \
-  if (dtype == 1 && dh == 64) return (int)CALL(__nv_bfloat16, 64);    \
-  if (dtype == 1 && dh == 128) return (int)CALL(__nv_bfloat16, 128);  \
-  return -1;
 
 extern "C" {
 
@@ -508,7 +497,8 @@ int strom_fa_bwd_dq(int dtype, int dh, const void* q, const void* k,
                     int causal, float scale, void* stream) {
 #define CALL(T, D) launch_dq<T, D>(q, k, v, dout, lse, delta, dq, B, S, H, KV, \
                                    causal, scale, (cudaStream_t)stream)
-  STROM_DISPATCH(CALL)
+  STROM_DISPATCH_F32(CALL)
+  return -1;
 #undef CALL
 }
 

@@ -1,38 +1,55 @@
 // Flash attention for Hopper (sm_90a) in bf16 on the tensor cores: the
-// forward and the dK/dV backward.
+// forward, the dK/dV backward and the dQ backward.
 //
-// Replaces, for bf16 inputs, two Pallas TPU kernels of
+// Replaces, for bf16 inputs, the three Pallas TPU kernels of
 // strom/ops/flash_attention.py:
-//   fa_fwd_wgmma_kernel      <- _fa_kernel          (launched by _flash_fwd)
-//   fa_bwd_dkv_wgmma_kernel  <- _fa_bwd_dkv_kernel  (launched by _flash_bwd)
-// f32 inputs, and the dQ kernel in both types, take the scalar kernels of
-// flash_attention.cu; the wrapper picks the library by dtype.
+//   fa_fwd_wgmma_kernel      <- _fa_kernel          :42  (launched by _flash_fwd)
+//   fa_bwd_dkv_wgmma_kernel  <- _fa_bwd_dkv_kernel  :158 (launched by _flash_bwd)
+//   fa_bwd_dq_wgmma_kernel   <- _fa_bwd_dq_kernel   :204 (launched by _flash_bwd)
+// f32 inputs take the scalar kernels of flash_attention.cu; the wrapper
+// picks the library by dtype.
 //
 // What bounds them on an H100: attention at the main path's shape does
 // ~Dh/2 = 64 multiply-adds per byte of q/k/v it reads once, far above the
-// card's ~295 operations per byte, so both kernels are bound by the bf16
-// tensor-core rate (989 TFLOP/s). The design puts every product on the
+// card's ~295 operations per byte, so all three kernels are bound by the
+// bf16 tensor-core rate (989 TFLOP/s): at B 2, S 2048, H 32, Dh 128, causal,
+// 0.07 ms for the forward (4*Dh flops per (q, kv) pair), 0.14 ms for dK/dV
+// (8*Dh) and 0.10 ms for dQ (6*Dh). The design puts every product on the
 // tensor cores and keeps them fed (FlashAttention-3's shape):
 //   - warp specialisation: 384 threads; warpgroups 0 and 1 consume (wgmma),
-//     one thread of warpgroup 2 produces (TMA). In the forward, setmaxnreg
-//     moves registers from the producer (24) to the consumers (240); one big
-//     if/else, so the two roles never reconverge;
+//     one thread of warpgroup 2 produces (TMA). In the forward and dQ,
+//     setmaxnreg moves registers from the producer (24) to the consumers
+//     (240); one big if/else, so the two roles never reconverge;
 //   - TMA loads each tile into 128-byte-swizzled shared memory, signalled on
-//     an mbarrier; a ring of full/empty barriers (2 stages forward, 3 dK/dV)
-//     lets the next tiles land while the current one is multiplied;
+//     an mbarrier; a ring of full/empty barriers (2 stages forward, 3 dK/dV
+//     and dQ) lets the next tiles land while the current one is multiplied;
 //   - products are wgmma m64nNk16, bf16 x bf16 -> f32 in registers. Operands
-//     read straight from the swizzled tiles are K-major (Q.K^T, K.Q^T, V.dO^T)
-//     or MN-major (the "transpose B" flag: V in P.V, dO in P^T.dO, Q in
-//     dS^T.Q). The bf16 A operand of P.V, P^T.dO and dS^T.Q is the f32
-//     accumulator fragment rounded in registers: wgmma's A register layout is
-//     its accumulator's, so P and dS^T are never written as bf16 tiles;
+//     read straight from the swizzled tiles are K-major (Q.K^T, K.Q^T, V.dO^T,
+//     dO.V^T) or MN-major (the "transpose B" flag: V in P.V, dO in P^T.dO, Q
+//     in dS^T.Q, K in dS.K). The bf16 A operand of P.V, P^T.dO, dS^T.Q and
+//     dS.K is the f32 accumulator fragment rounded in registers: wgmma's A
+//     register layout is its accumulator's, so P, dS and dS^T are never
+//     written as bf16 tiles;
 //   - the online softmax works on the accumulator fragment: a thread holds
 //     two rows (lane/4 and lane/4 + 8 of its warp's 16), so row max and row
 //     sum are two xor-shuffles among the 4 lanes of a row; exp2f with
 //     scale*log2(e) folded into one multiply;
 //   - rounding matches the JAX package: P to bf16 before P.V (:79) and before
-//     dV (:185), dS to bf16 before dK (:194); every sum is f32;
-//   - the causal skip is a loop bound; only the diagonal tile is masked.
+//     dV (:185), dS to bf16 before dK (:194) and before dQ (:230), once, in
+//     to_a_frag; lse, delta and every sum are f32;
+//   - the causal skip is a loop bound; only the tiles the diagonal crosses
+//     are masked.
+//
+// dQ (fa_bwd_dq_wgmma_kernel) has the forward's shape: one CTA per 128-row
+// q tile whose two warpgroups own 64 rows each, Q and dO resident, K and V
+// streamed. Its kv tiles are 64 rows, not the forward's 128, so that each
+// warpgroup's S and dP accumulators are m64n64 (32 f32 registers each)
+// beside dQ's 64 x Dh (Dh/2 registers); S = Q.K^T and dP = dO.V^T go out in
+// one commit group. The diagonal of a 128-row q tile crosses two 64-row kv
+// tiles (2qi and 2qi + 1), so both are masked elementwise; for warpgroup 0
+// the second is wholly masked (P = 0) but still takes part in the
+// warpgroup's wgmmas and in the ring's barriers. Each CTA owns its dQ rows:
+// no atomics, no second pass, a deterministic result.
 //
 // Where the trouble was, and what the code does about it:
 //   - TMA descriptors: cuTensorMapEncodeTiled is reached through
@@ -49,9 +66,13 @@
 //     aligned, so the swizzle phase is that of the TMA write.
 //   - accumulator layout (m64nN f32): register i of thread (warp w, lane l)
 //     holds row 16w + l/4 + 8*((i/2)%2), column 8*(i/4) + 2*(l%4) + i%2.
-//   - S a multiple of 64 but not of 128 (the forward's tiles are 128 rows):
-//     TMA zero-fills the rows past S, the forward masks kv columns >= S, and
-//     no row >= S is stored. dK/dV tiles are 64 rows, so always whole.
+//   - S a multiple of 64 but not of 128 (the forward's and dQ's q tiles are
+//     128 rows): TMA zero-fills the rows past S, the forward masks kv
+//     columns >= S, and no row >= S is stored. dQ loads lse and delta only
+//     for the rows below S (the next 64 values would be another head's, or
+//     past the end of the [B, H, S] arrays) and gives the rows past S
+//     lse = +inf and delta = 0, so their P and dS are 0, not inf or NaN.
+//     dK/dV's tiles, and dQ's kv tiles, are 64 rows, so always whole.
 //   - wgmma is asynchronous: after each wait the accumulators pass through
 //     an empty asm (fence_regs), so no read of them moves above the wait.
 //   - spills: one warpgroup holding dK, dV (128 f32 at Dh 128), S^T and dP^T
@@ -60,14 +81,15 @@
 //     tile between the two consumer warpgroups, one accumulator each, and
 //     passes P^T between them in f32 through shared memory; no kernel here
 //     spills (ptxas -v is printed by chip_smoke.py's build phase).
-//   - load balance: the forward schedules the longest causal q tiles first;
-//     the dK/dV grid starts at kv tile 0, which has the most causal q tiles.
+//   - load balance: the forward and dQ schedule the longest causal q tiles
+//     first; the dK/dV grid starts at kv tile 0, which has the most causal
+//     q tiles.
 //   - a lost barrier: every mbarrier wait traps after 2^22 polls, so a fault
 //     shows as a launch error instead of a hung card.
 //
-// Layouts are those of flash_attention.cu: q, o, dO [B, S, H, Dh]; k, v, dk,
-// dv [B, S, KV, Dh]; lse and delta [B, H, S] f32. Dh is 64 or 128; S is a
-// multiple of 64 (the wrapper checks).
+// Layouts are those of flash_attention.cu: q, o, dO, dq [B, S, H, Dh]; k, v,
+// dk, dv [B, S, KV, Dh]; lse and delta [B, H, S] f32. Dh is 64 or 128; S is
+// a multiple of 64 (the wrapper checks).
 
 #include <cuda.h>  // CUtensorMap and its enums; the entry point comes from the runtime
 #include <cuda_bf16.h>
@@ -581,6 +603,177 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ----------------------------------------------------------- backward dQ
+// One CTA per (128-row q tile, q head, batch), longest causal rows first;
+// warpgroup w owns q rows 64w..64w+63 of the tile. Q, dO, lse and delta of
+// the tile stay resident; K and V tiles of 64 kv rows go through a
+// DQ_STAGES-stage TMA ring. Per kv tile, each consumer warpgroup computes
+//   S = Q.K^T and dP = dO.V^T (one commit group),
+//   P = exp(S*scale - lse), dS = P o (dP - delta)*scale, rounded to bf16,
+//   dQ += bf16(dS).K
+// with its 64 x Dh f32 dQ in registers.
+constexpr int DQ_STAGES = 3;
+
+template <int DH>
+struct DqLayout {
+  static constexpr int NBOX = DH / 64;
+  static constexpr uint32_t Q_BOX = 128 * ROW_BYTES;   // 128 rows x 64 columns
+  static constexpr uint32_t KV_BOX = 64 * ROW_BYTES;   // 64 rows x 64 columns
+  static constexpr uint32_t KV_TILE = NBOX * KV_BOX;   // one K or one V tile
+  static constexpr uint32_t Q_OFF = 0;
+  static constexpr uint32_t G_OFF = NBOX * Q_BOX;      // dO
+  static constexpr uint32_t RING_OFF = 2 * NBOX * Q_BOX;
+  static constexpr uint32_t STAGE = 2 * KV_TILE;       // K tile, then V tile
+  static constexpr uint32_t LSE_OFF = RING_OFF + DQ_STAGES * STAGE;  // 128 f32
+  static constexpr uint32_t DLT_OFF = LSE_OFF + 512;                 // 128 f32
+  static constexpr uint32_t BAR_OFF = DLT_OFF + 512;
+  static constexpr uint32_t BYTES = BAR_OFF + 64 + 1024;  // + barriers, alignment
+};
+
+template <int DH>
+__global__ void __launch_bounds__(NTHREADS, 1)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int causal,
+                       float scale) {
+  using L = DqLayout<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* gbase = smem_raw + (base - raw);  // generic pointer to `base`
+  const uint32_t sQ = base + L::Q_OFF, sG = base + L::G_OFF, sRing = base + L::RING_OFF;
+  // barriers, 8 bytes each: q, full[DQ_STAGES], empty[DQ_STAGES]
+  const uint32_t bar_q = base + L::BAR_OFF;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * DQ_STAGES;
+
+  const int nq = (S + 127) / 128;
+  const int qi = nq - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q0 = qi * 128;
+  const int rows = min(128, S - q0);  // rows of this tile below S: 64 or 128
+  // causal: kv tiles up to the diagonal, which crosses tiles 2qi and 2qi + 1
+  const int nkv = causal ? min(2 * qi + 2, S / 64) : S / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------- producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      const long row = ((long)b * H + h) * S + q0;
+      mbar_expect_tx(bar_q, 2 * L::NBOX * L::Q_BOX + 8 * rows);
+      for (int c = 0; c < L::NBOX; ++c) {
+        tma_load_3d(sQ + c * L::Q_BOX, &tm_q, bar_q, h * DH + 64 * c, q0, b);
+        tma_load_3d(sG + c * L::Q_BOX, &tm_do, bar_q, h * DH + 64 * c, q0, b);
+      }
+      bulk_load(base + L::LSE_OFF, lse + row, 4 * rows, bar_q);
+      bulk_load(base + L::DLT_OFF, delta + row, 4 * rows, bar_q);
+      for (int j = 0; j < nkv; ++j) {
+        const int s = j % DQ_STAGES;
+        const uint32_t st = sRing + s * L::STAGE, full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((j / DQ_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full, L::STAGE);
+        for (int c = 0; c < L::NBOX; ++c) {
+          tma_load_3d(st + c * L::KV_BOX, &tm_k, full, kvh * DH + 64 * c, j * 64, b);
+          tma_load_3d(st + L::KV_TILE + c * L::KV_BOX, &tm_v, full, kvh * DH + 64 * c,
+                      j * 64, b);
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int r = wg * 64 + warp * 16 + lane / 4;  // rows r, r + 8 of the tile
+    const float c = scale * LOG2E;
+    float acc[DH / 2];  // dQ: 64 q rows x Dh
+    zero(acc);
+
+    mbar_wait(bar_q, 0);
+    const float* lse_s = reinterpret_cast<const float*>(gbase + L::LSE_OFF);
+    const float* dlt_s = reinterpret_cast<const float*>(gbase + L::DLT_OFF);
+    // a row past S (zeros from TMA, no lse or delta loaded) gets P = 0, dS = 0
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const bool in = r + 8 * hf < rows;
+      lse2[hf] = in ? lse_s[r + 8 * hf] * LOG2E : INFINITY;
+      dlt[hf] = in ? dlt_s[r + 8 * hf] : 0.f;
+    }
+
+    for (int j = 0; j < nkv; ++j) {
+      const int s = j % DQ_STAGES;
+      const uint32_t tK = sRing + s * L::STAGE, tV = tK + L::KV_TILE;
+      mbar_wait(bar_full + 8 * s, (j / DQ_STAGES) & 1);
+
+      float sc[32], dp[32];  // S and dP: 64 q rows x 64 kv columns
+      zero(sc);
+      zero(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss(sc, kmajor(sQ + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
+                 kmajor(tK + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss(dp, kmajor(sG + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
+                 kmajor(tV + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P = exp(S*scale - lse), zero above the diagonal; dS = P o (dP - delta)*scale
+      const bool masked = causal && j >= 2 * qi;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hf = (i / 2) % 2;
+        float p = exp2f(sc[i] * c - lse2[hf]);
+        if (masked && j * 64 + frag_col(i, lane) > q0 + r + 8 * hf) p = 0.f;
+        sc[i] = p * (dp[i] - dlt[hf]) * scale;
+      }
+
+      // dQ += bf16(dS).K
+      uint32_t fa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_a_frag(fa[kk], sc, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(acc, fa[kk], mnmajor(tK + kk * 16 * ROW_BYTES, L::KV_BOX));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + r + 8 * hf;
+      if (row < S) {
+        __nv_bfloat16* drow = dq + ((long)b * S + row) * H * DH + (long)h * DH;
+#pragma unroll
+        for (int jj = 0; jj < DH / 8; ++jj)
+          *reinterpret_cast<uint32_t*>(drow + jj * 8 + (lane % 4) * 2) =
+              pack_bf16(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -663,6 +856,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dq, int B, int S, int H, int KV,
+              int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mg;
+  int rc;
+  if ((rc = make_map(&mq, q, B, S, H * DH, 128)) ||
+      (rc = make_map(&mg, dout, B, S, H * DH, 128)) ||
+      (rc = make_map(&mk, k, B, S, KV * DH, 64)) || (rc = make_map(&mv, v, B, S, KV * DH, 64)))
+    return rc;
+  const int smem = DqLayout<DH>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_wgmma_kernel<DH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  fa_bwd_dq_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), NTHREADS, smem, stream>>>(
+      mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dq, S, H, KV, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes; bf16 tensors only, dh 64 or 128. Returns 0
@@ -689,6 +901,18 @@ int strom_fa_bwd_dkv_sm90(int dh, const void* q, const void* k, const void* v,
   if (dh == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, causal, scale,
                            (cudaStream_t)stream);
+  return ERR_UNSUPPORTED;
+}
+
+int strom_fa_bwd_dq_sm90(int dh, const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse, const float* delta, void* dq,
+                         int B, int S, int H, int KV, int causal, float scale, void* stream) {
+  if (dh == 64)
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, causal, scale,
+                         (cudaStream_t)stream);
+  if (dh == 128)
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, causal, scale,
+                          (cudaStream_t)stream);
   return ERR_UNSUPPORTED;
 }
 

@@ -12,7 +12,7 @@ Pallas (TPU)            bf16 (H100, sm_90a)                   float32 (H100, sm_
 ======================  ====================================  ==========================  =====================
 ``_fa_kernel``          ``fa_fwd_wgmma_kernel`` (sm90 file)   ``fa_fwd_kernel``           ``_flash_fwd_plain``
 ``_fa_bwd_dkv_kernel``  ``fa_bwd_dkv_wgmma_kernel`` (sm90)    ``fa_bwd_dkv_kernel``       ``_flash_bwd_plain``
-``_fa_bwd_dq_kernel``   ``fa_bwd_dq_kernel``                  ``fa_bwd_dq_kernel``        ``_flash_bwd_plain``
+``_fa_bwd_dq_kernel``   ``fa_bwd_dq_wgmma_kernel`` (sm90)     ``fa_bwd_dq_kernel``        ``_flash_bwd_plain``
 ======================  ====================================  ==========================  =====================
 
 ``flash_attention_sm90.cu`` holds the bf16 tensor-core kernels (wgmma, TMA,
@@ -97,7 +97,10 @@ def _sm90_lib() -> ctypes.CDLL:
         lib.strom_fa_fwd_sm90.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.strom_fa_bwd_dkv_sm90.argtypes = [i, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, f, p]
-        for fn in (lib.strom_fa_fwd_sm90, lib.strom_fa_bwd_dkv_sm90):
+        lib.strom_fa_bwd_dq_sm90.argtypes = [i, p, p, p, p, p, p, p,
+                                             i, i, i, i, i, f, p]
+        for fn in (lib.strom_fa_fwd_sm90, lib.strom_fa_bwd_dkv_sm90,
+                   lib.strom_fa_bwd_dq_sm90):
             fn.restype = ctypes.c_int
         lib._strom_typed = True
     return lib
@@ -189,13 +192,20 @@ def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
 
 
 def _bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool):
+    """bf16: the wgmma kernel; float32: the scalar kernel."""
     args = _bwd_args(q, k, v, g, lse, delta)
     B, S, H, Dh = q.shape
     dq = torch.empty_like(q)
+    rest = (dq.data_ptr(), B, S, H, k.shape[2], int(causal),
+            1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
-        _launch("fa_bwd_dq", _kernel_lib().strom_fa_bwd_dq, *args,
-                dq.data_ptr(), B, S, H, k.shape[2], int(causal),
-                1.0 / math.sqrt(Dh), torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if q.dtype == torch.bfloat16:
+            _launch("fa_bwd_dq", _sm90_lib().strom_fa_bwd_dq_sm90,
+                    *args[1:], *rest, stream)
+        else:
+            _launch("fa_bwd_dq", _kernel_lib().strom_fa_bwd_dq, *args,
+                    *rest, stream)
     return dq
 
 

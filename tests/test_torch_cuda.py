@@ -81,6 +81,58 @@ def test_kernels_match_plain(cuda_device, dtype, causal, B, S, H, KV, Dh):
         check([q, k, v, g], 8e-3, 2e-3, 2e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("S", [192, 2048])   # 192: a 128-row q tile half past S
+def test_bf16_dq_rounds_ds_like_plain(cuda_device, causal, Dh, S):
+    """The bf16 dQ kernel rounds dS to bf16 before dS·K, once, as the JAX
+    package and the bf16 plain version do. Given the same lse and Δ, the two
+    dq differ only where f32 sums in another order cross a bf16 rounding:
+    within one bf16 ulp (8e-3 relative) plus 2e-3 of the largest value, and
+    in under 5 % of the elements. A dS kept in f32 (the plain version fed k
+    in f32) moves some 40 % of them, which shows the share can tell."""
+    B, H, KV = 1, 4, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, g = (torch.randn(*s, generator=gen, device=cuda_device)
+                  .to(torch.bfloat16)
+                  for s in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh),
+                            (B, S, H, Dh)))
+    out, lse = tfa._flash_fwd(q, k, v, causal=causal, block_q=64, block_k=64)
+    delta = tfa._delta(out, g)
+    before = tfa.LAUNCHES["fa_bwd_dq"]
+    dq = tfa._bwd_dq_kernel(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fa_bwd_dq"] == before + 1
+    plain = tfa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
+                                 block_q=64, block_k=64)[0]
+    f32_ds = tfa._flash_bwd_plain(q, k.float(), v, g, lse, delta,
+                                  causal=causal, block_q=64, block_k=64)[0]
+    assert dq.dtype == plain.dtype == f32_ds.dtype == torch.bfloat16
+    torch.testing.assert_close(dq.float(), plain.float(), rtol=8e-3,
+                               atol=2e-3 * plain.float().abs().max().item())
+    assert (dq != plain).float().mean().item() < 0.05
+    assert (f32_ds != plain).float().mean().item() > 0.30
+
+
+def test_dq_kernel_by_dtype(cuda_device):
+    """bf16 dq runs the tensor-core kernel, f32 dq the scalar one: the
+    kernels' names as the profiler sees them on the device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn(1, 128, 2, 64, device=cuda_device).to(dtype)
+        k = torch.randn(1, 128, 1, 64, device=cuda_device).to(dtype)
+        lse = torch.zeros(1, 2, 128, 1, device=cuda_device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tfa._bwd_dq_kernel(q, k, k, q, lse, lse, causal=True)
+            torch.cuda.synchronize()
+        names[dtype] = " ".join(e.name for e in prof.events())
+    assert "fa_bwd_dq_wgmma_kernel" in names[torch.bfloat16]
+    assert "fa_bwd_dq_kernel" in names[torch.float32]
+    assert "fa_bwd_dq_wgmma_kernel" not in names[torch.float32]
+
+
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
     """A CUDA tensor the kernel does not take raises; nothing falls back to
     the plain version."""
@@ -93,6 +145,19 @@ def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
     q = torch.zeros(1, 64, 2, 128, device=cuda_device).transpose(1, 3)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q, q, q)
+    # the dQ wrapper itself, bf16 (the tensor-core kernel's dtype)
+    lse = torch.zeros(1, 2, 128, 1, device=cuda_device)
+    q = torch.zeros(1, 128, 2, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa._bwd_dq_kernel(q, q, q, q, lse, lse, causal=True)
+    q = torch.zeros(1, 96, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="divisible by 64"):
+        tfa._bwd_dq_kernel(q, q, q, q, lse, lse, causal=True)
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        tfa._bwd_dq_kernel(q, q, q, q, lse.bfloat16(), lse, causal=True)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa._bwd_dq_kernel(q, q, q, q, lse.cpu(), lse, causal=True)
 
 
 def test_streamed_delivery_recycles_slabs(cuda_device, tmp_path):

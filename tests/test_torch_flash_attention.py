@@ -201,6 +201,45 @@ def test_bf16_plain_matches_jax_flash(causal, B, S, H, KV, Dh):
                                    atol=4e-3 * np.abs(want).max(), err_msg=name)
 
 
+def _dq_with_f32_ds(q, k, v, g, lse, delta, causal, block):
+    """The plain dq with dS kept in f32 before dS·K: the plain version fed
+    k in f32, so its ``ds.to(k.dtype)`` rounds nothing; every other step is
+    the same (dq still ends in q's dtype)."""
+    return tfa._flash_bwd_plain(q, k.float(), v, g, lse, delta, causal=causal,
+                                block_q=block, block_k=block)[0]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,Dh", [(1, 256, 4, 2, 64),
+                                         (1, 128, 4, 2, 128)])
+def test_dq_rounds_ds_like_jax(causal, B, S, H, KV, Dh):
+    """bf16 dq: the Pallas dQ kernel rounds dS to bf16 before dS·K
+    (``ds.astype(k.dtype)``); the port's plain version, which the bf16 CUDA
+    kernel is held to on the card, rounds at the same point. Both get the
+    same bf16 inputs, lse and Δ, so their dq differ only where f32 sums in
+    another order land on the other side of a bf16 rounding: under 1 % of
+    the elements. Keeping dS in f32 moves some 40 % of them, so the share
+    tells the two rounding points apart."""
+    q, k, v = _qkv(11, B, S, H, KV, Dh)
+    g = np.random.default_rng(12).normal(size=q.shape).astype(np.float32)
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v, g))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, causal=causal, block_q=64,
+                                block_k=64, interpret=True)
+    jdelta = jfa._delta(jout, jg)
+    jdq = jfa._flash_bwd(jq, jk, jv, jout, jlse, jg, causal=causal,
+                         block_q=64, block_k=64, interpret=True,
+                         delta=jdelta)[0]
+    tq, tk, tv, tg = (torch.tensor(x).bfloat16() for x in (q, k, v, g))
+    lse, delta = (torch.from_numpy(np.array(x)) for x in (jlse, jdelta))
+    want = np.asarray(jdq.astype(jnp.float32))
+    port = tfa._flash_bwd(tq, tk, tv, None, lse, tg, causal=causal,
+                          block_q=64, block_k=64, delta=delta)[0]
+    f32_ds = _dq_with_f32_ds(tq, tk, tv, tg, lse, delta, causal, 64)
+    assert port.dtype == f32_ds.dtype == torch.bfloat16
+    assert (port.float().numpy() != want).mean() < 0.01
+    assert (f32_ds.float().numpy() != want).mean() > 0.30
+
+
 def test_bf16_plain_version_tracks_f32():
     """bf16 inputs: the plain version rounds P to v's dtype before P·V, as
     the Pallas kernel does; it stays within bf16 noise of the f32 result."""
