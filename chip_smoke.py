@@ -14,9 +14,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the bf16 plain version). Each kernel is timed with CUDA
                events, median of 5 runs with min and max, beside its
                bound and SDPA's forward or backward time.
-3. ssd2gpu  -- a seeded 1 GiB file delivered into device memory by
-               memcpy_ssd2gpu: a 64 MiB unstreamed read, then the whole file
-               streamed, sync and async; bytes checked exactly.
+3. ssd2gpu  -- the [engine] line (io_uring available or why not, the
+               engine engine="auto" chose, the native library's build time);
+               then a seeded 1 GiB file delivered into device memory by
+               memcpy_ssd2gpu under engine="auto": a 64 MiB unstreamed read,
+               then the whole file streamed, sync and async; bytes checked
+               exactly; the engine's READ_FIXED share and routes. Then
+               alternating rounds of three arms on the cold file: the
+               python engine alone, the io_uring engine alone (skipped,
+               with the errno, where the kernel refuses a ring) and a
+               delivery, each with GB/s and host CPU seconds per GiB. Last,
+               the file striped RAID0 over 4 member files and delivered
+               through a striped alias under 4 rings and under 1, exact.
 4. train    -- seeded packed-token shards through make_llama_pipeline into
                make_train_step(Llama-3-8B widths, 2 layers, attn="flash"),
                4 steps; every kernel must have launched during the steps.
@@ -32,10 +41,12 @@ with an error and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import errno
 import json
 import math
 import os
 import re
+import resource
 import shutil
 import statistics
 import subprocess
@@ -47,7 +58,12 @@ import torch
 
 import strom_torch
 from strom_torch.config import StromConfig
+from strom_torch._core import build as core_build
 from strom_torch.delivery.buffers import alloc_aligned
+from strom_torch.engine import make_engine
+from strom_torch.engine import uring_engine
+from strom_torch.engine.python_engine import PythonEngine
+from strom_torch.engine.raid0 import stripe_file
 from strom_torch.formats.rawbin import write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
 from strom_torch.ops import build
@@ -363,41 +379,108 @@ def phase_kernels() -> dict:
 
 
 # ---------------------------------------------------------------- ssd2gpu
+def _drop_cache(path: str) -> None:
+    """Evict *path* from the page cache, so the next read goes to disk."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
 def _write_file(path: str, data: np.ndarray) -> None:
     with open(path, "wb") as f:
         data.tofile(f)
         f.flush()
         os.fsync(f.fileno())
-        # drop the written pages from the page cache, so the reads go to disk
-        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+    _drop_cache(path)
 
 
-def _timed_delivery(label: str, call, want: torch.Tensor) -> float:
-    t0 = time.perf_counter()
+def _cpu_s() -> float:
+    """This process's user + system CPU seconds (every thread of it)."""
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    return ru.ru_utime + ru.ru_stime
+
+
+def _timed_delivery(label: str, call, want: torch.Tensor) -> tuple[float, float]:
+    """(GB/s, host CPU s per GiB) of one delivery, checked byte for byte."""
+    cpu0, t0 = _cpu_s(), time.perf_counter()
     out = call()
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    dt, cpu = time.perf_counter() - t0, _cpu_s() - cpu0
     if out.device.type != "cuda" or not torch.equal(out, want):
-        raise AssertionError(f"ssd2gpu {label}: delivered bytes differ "
-                             f"from the file")
-    gbps = want.numel() / dt / 1e9
+        bad = (out.reshape(-1) != want.reshape(-1)).nonzero()
+        raise AssertionError(
+            f"ssd2gpu {label}: delivered bytes differ from the file: "
+            f"{bad.numel()} bytes, first at {bad[:1].tolist()}, last at "
+            f"{bad[-1:].tolist()}")
+    gbps, cpu_per_gib = want.numel() / dt / 1e9, cpu / (want.numel() / GiB)
     say("ssd2gpu", read=label, bytes=want.numel(), s=f"{dt:.4f}",
-        gbps=f"{gbps:.3f}", exact=True)
-    return gbps
+        gbps=f"{gbps:.3f}", cpu_s_per_gib=f"{cpu_per_gib:.4f}", exact=True)
+    return gbps, cpu_per_gib
+
+
+def engine_report() -> tuple[bool, str]:
+    """The [engine] line; returns (io_uring available, errno name or "")."""
+    t0 = time.perf_counter()
+    avail = uring_engine.uring_available()
+    probe_s = time.perf_counter() - t0
+    err = uring_engine.create_errno
+    err_name = errno.errorcode.get(err, str(err)) if err else ""
+    sysctl = "/proc/sys/kernel/io_uring_disabled"
+    disabled = open(sysctl).read().strip() if os.path.exists(sysctl) \
+        else "absent"
+    eng = make_engine(StromConfig.from_env(engine="auto"))
+    chosen = eng.stats()["engine"]
+    eng.close()
+    build_s = core_build.build_seconds
+    # io_uring's buffer registration counts against RLIMIT_MEMLOCK unless
+    # the process holds CAP_IPC_LOCK: a refusal shows as dest_refused
+    memlock = resource.getrlimit(resource.RLIMIT_MEMLOCK)[0]
+    with open("/proc/self/status") as f:
+        capeff = next(int(line.split()[1], 16) for line in f
+                      if line.startswith("CapEff:"))
+    say("engine", uring_available=avail,
+        sc_create_errno=(err_name or ("none" if avail else "n/a")),
+        reason=(uring_engine.unavailable_reason or "-").replace(" ", "_"),
+        io_uring_disabled=disabled, auto_chose=chosen,
+        native_build_s=(f"{build_s:.2f}" if build_s is not None else "cached"),
+        probe_s=f"{probe_s:.2f}",
+        memlock_limit=("unlimited" if memlock == resource.RLIM_INFINITY
+                       else memlock),
+        cap_ipc_lock=bool(capeff >> 14 & 1))
+    if not avail and not err:
+        # the kernel was never asked: the port's native library did not
+        # build or load, which is a fault of the port, not of the machine
+        raise AssertionError(f"native engine unavailable without an errno: "
+                             f"{uring_engine.unavailable_reason}")
+    return avail, err_name
+
+
+def _engine_only(eng, fi: int, slab: np.ndarray, path: str) -> tuple[float, float]:
+    """(GB/s, CPU s per GiB) of one engine reading the cold file whole."""
+    _drop_cache(path)
+    cpu0, t0 = _cpu_s(), time.perf_counter()
+    if eng.read_vectored([(fi, 0, 0, GiB)], slab) != GiB:
+        raise AssertionError(f"{eng.name} engine-only read came up short")
+    dt, cpu = time.perf_counter() - t0, _cpu_s() - cpu0
+    return GiB / dt / 1e9, cpu
 
 
 def phase_ssd2gpu(workdir: str) -> None:
-    """A seeded 1 GiB file into device memory: 64 MiB unstreamed (twice:
-    the first call also pins the pool's slab), then the whole file
-    streamed, sync and async; every byte compared on the card. Then four
-    more streamed reads, each paired with an engine-only read."""
+    """A seeded 1 GiB file into device memory under engine="auto": 64 MiB
+    unstreamed (twice: the first call also pins and ring-registers the
+    pool's slab), then the whole file streamed, sync and async; every byte
+    compared on the card. Then four rounds of engine-only reads by each
+    engine beside a delivery, and the striped deliveries."""
+    uring_ok, why_not = engine_report()
     path = os.path.join(workdir, "ssd2gpu.bin")
     data = np.frombuffer(bytearray(np.random.default_rng(0).bytes(GiB)),
                          dtype=np.uint8)
     _write_file(path, data)
     want = torch.from_numpy(data).to("cuda")
     del data
-    ctx = strom_torch.init(StromConfig.from_env())
+    ctx = strom_torch.init(StromConfig.from_env(engine="auto"))
     cfg = ctx.config
     say("ssd2gpu", engine=ctx.engine.stats()["engine"],
         o_direct=ctx.uses_o_direct(path), block_size=cfg.block_size,
@@ -416,44 +499,128 @@ def phase_ssd2gpu(workdir: str) -> None:
     st = strom_torch.stats()
     if st["streamed_transfers"] != 2:
         raise AssertionError(f"expected 2 streamed transfers, got {st}")
+    eng = st["engine"]
     say("ssd2gpu", stats=json.dumps(st, sort_keys=True))
+    say("ssd2gpu", engine=eng["engine"],
+        **{k: eng.get(k, "n/a") for k in (
+            "engine_fixed_buf_ratio", "ops_fixed", "ops_submitted",
+            "cached_bytes", "media_bytes", "ext_buffers")},
+        refused_slab_registrations=eng.get("dest_refused", "n/a"))
+    if uring_ok and eng["engine"] != "uring":
+        raise AssertionError(f"engine=auto chose {eng['engine']} though "
+                             f"io_uring is available")
 
-    # The yardstick of a delivery: the engine alone reading the file into a
-    # host slab (prefaulted, as the pool's slabs are). The disk's rate
-    # drifts within a run, so the two arms alternate which goes first.
+    # The yardstick of a delivery: each engine alone reading the cold file
+    # into a prefaulted host slab, as the pool's slabs are (the io_uring
+    # engine's slab registered with its ring, as the pool's are). The
+    # disk's rate drifts within a run, so the arms alternate their order.
     slab = alloc_aligned(GiB, populate=True)
-    fi = ctx.file_index(path)
+    engines = {"python": PythonEngine(StromConfig.from_env(engine="python"))}
+    if uring_ok:
+        engines["uring"] = uring_engine.UringEngine(
+            StromConfig.from_env(engine="uring"))
+        if engines["uring"].register_dest(slab) < 0:
+            say("ssd2gpu", note="the ring refused the engine-only slab")
+    files = {name: e.register_file(path) for name, e in engines.items()}
+    yard = "uring" if uring_ok else "python"
+    arms = ["python", "uring", "delivered"]
+    res: dict[str, list[tuple[float, float]]] = {a: [] for a in arms}
     ratios = []
     for i in range(4):
-        gbps = {}
-        for arm in (("engine", "delivered") if i % 2 == 0
-                    else ("delivered", "engine")):
-            if arm == "delivered":
-                gbps[arm] = _timed_delivery(
-                    f"1GiB-streamed-pair{i}", lambda: strom_torch.memcpy_ssd2gpu(
-                        path, device="cuda"), want)
+        for arm in (arms if i % 2 == 0 else arms[::-1]):
+            if arm == "uring" and not uring_ok:
                 continue
-            t0 = time.perf_counter()
-            if ctx.engine.read_vectored([(fi, 0, 0, GiB)], slab) != GiB:
-                raise AssertionError("engine-only read came up short")
-            gbps[arm] = GiB / (time.perf_counter() - t0) / 1e9
-        ratios.append(gbps["delivered"] / gbps["engine"])
-        say("ssd2gpu", pair=i, first=("engine" if i % 2 == 0 else "delivered"),
-            engine_only_gbps=f"{gbps['engine']:.3f}",
-            delivered_gbps=f"{gbps['delivered']:.3f}",
-            ratio=f"{ratios[-1]:.3f}")
+            if arm == "delivered":
+                _drop_cache(path)
+                res[arm].append(_timed_delivery(
+                    f"1GiB-streamed-round{i}", lambda: strom_torch.memcpy_ssd2gpu(
+                        path, device="cuda"), want))
+            else:
+                res[arm].append(_engine_only(engines[arm], files[arm], slab,
+                                             path))
+        ratios.append(res["delivered"][-1][0] / res[yard][-1][0])
+        say("ssd2gpu", round=i, order="-".join(arms if i % 2 == 0 else arms[::-1]),
+            **{f"{a}_gbps": (f"{res[a][-1][0]:.3f}" if res[a] else
+                             f"skipped={why_not}") for a in arms},
+            **{f"{a}_cpu_s_per_gib": f"{res[a][-1][1]:.4f}"
+               for a in arms if res[a]},
+            delivered_vs=yard, ratio=f"{ratios[-1]:.3f}")
     if not torch.equal(torch.from_numpy(slab).to("cuda"), want):
         raise AssertionError("engine-only read differs from the file")
+    if uring_ok:
+        ust = engines["uring"].stats()
+        say("ssd2gpu", arm="uring-engine-only",
+            engine_fixed_buf_ratio=f"{ust['engine_fixed_buf_ratio']:.4f}",
+            ops_fixed=ust["ops_fixed"], media_bytes=ust["media_bytes"],
+            cached_bytes=ust["cached_bytes"])
+    for e in engines.values():
+        e.close()
+    summary = {f"{a}_gbps_median": statistics.median(g for g, _ in res[a])
+               for a in arms if res[a]}
+    summary.update({f"{a}_cpu_s_per_gib_median":
+                    statistics.median(c for _, c in res[a])
+                    for a in arms if res[a]})
     say("ssd2gpu", delivered_vs_engine_only_median=f"{statistics.median(ratios):.3f}",
-        pairs=len(ratios))
+        engine_only_arm=yard, pairs=len(ratios),
+        **{k: f"{v:.4f}" for k, v in summary.items()})
     # the other half of a delivery: one host-to-device copy of 1 GiB out of
-    # pinned memory
+    # pinned memory (into a tensor of its own: want stays the file's bytes)
     pinned = torch.empty(GiB, dtype=torch.uint8, pin_memory=True)
-    h2d_ms = cuda_ms(lambda: want.copy_(pinned, non_blocking=True), 3)
+    dst = torch.empty_like(want)
+    h2d_ms = cuda_ms(lambda: dst.copy_(pinned, non_blocking=True), 3)
+    del pinned, dst
     say("ssd2gpu", read="1GiB-pinned-host-to-device-copy", ms=f"{h2d_ms:.3f}",
         gbps=f"{GiB / h2d_ms / 1e6:.3f}")
     strom_torch.close()
+    phase_striped(workdir, path, want, uring_ok, why_not)
     os.unlink(path)
+
+
+def phase_striped(workdir: str, path: str, want: torch.Tensor,
+                  uring_ok: bool, why_not: str) -> None:
+    """The 1 GiB file striped RAID0 over 4 member files (512 KiB chunks),
+    aliased with register_striped and delivered to the card under 4 rings
+    and under 1: exact bytes, and with 4 rings bytes on every ring."""
+    chunk = StromConfig().raid_chunk
+    members = [os.path.join(workdir, f"member{i}.bin") for i in range(4)]
+    t0 = time.perf_counter()
+    if stripe_file(path, members, chunk) != GiB:
+        raise AssertionError("stripe_file lost bytes")
+    for m in members:   # on disk before the deliveries drop them from cache
+        fd = os.open(m, os.O_RDWR)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    say("striped", members=len(members), raid_chunk=chunk,
+        stripe_s=f"{time.perf_counter() - t0:.2f}")
+    alias = os.path.join(workdir, "striped.bin")
+    for rings in (4, 1):
+        ctx = strom_torch.init(StromConfig.from_env(engine="auto",
+                                                    engine_rings=rings))
+        sf = strom_torch.register_striped(alias, members, chunk)
+        if sf.size != GiB:
+            raise AssertionError(f"striped size {sf.size}")
+        for m in members:
+            _drop_cache(m)
+        gbps, cpu = _timed_delivery(f"1GiB-striped-{rings}ring",
+                                    lambda: strom_torch.memcpy_ssd2gpu(
+                                        alias, device="cuda"), want)
+        eng = strom_torch.stats()["engine"]
+        ring_bytes = [r["bytes_read"] for r in eng.get("ring_stats", [])]
+        if rings > 1 and uring_ok and not (
+                eng["engine"] == "multi" and len(ring_bytes) == rings
+                and all(b > 0 for b in ring_bytes)):
+            raise AssertionError(f"4 rings: bytes per ring {ring_bytes} "
+                                 f"on engine {eng['engine']}")
+        say("striped", rings=rings, engine=eng["engine"],
+            ring_bytes=(json.dumps(ring_bytes) if ring_bytes else
+                        (f"skipped={why_not}" if rings > 1 else "one_ring")),
+            gbps=f"{gbps:.3f}", cpu_s_per_gib=f"{cpu:.4f}",
+            engine_fixed_buf_ratio=eng.get("engine_fixed_buf_ratio", "n/a"),
+            media_bytes=eng.get("media_bytes", "n/a"),
+            cached_bytes=eng.get("cached_bytes", "n/a"))
+        strom_torch.close()
 
 
 # ------------------------------------------------------------------ train
@@ -473,6 +640,7 @@ def phase_train(workdir: str) -> dict[str, int]:
     all_records = torch.from_numpy(np.concatenate(shards)).to("cuda")
 
     ctx = strom_torch.init(StromConfig.from_env())
+    say("train", engine=ctx.engine.stats()["engine"])
     pipe = make_llama_pipeline(ctx, paths, batch=B, seq_len=seq_len,
                                device="cuda", seed=0)
     order = iter(EpochShuffleSampler(2 * records, B, seed=0))

@@ -12,6 +12,7 @@ STROM_IOCTL__MEMCPY_SSD2GPU    strom_torch.memcpy_ssd2gpu(..., async_=False)
   ..._ASYNC                    strom_torch.memcpy_ssd2gpu(..., async_=True)
 STROM_IOCTL__MEMCPY_WAIT       strom_torch.memcpy_wait(handle)
 /proc/nvme-strom               strom_torch.stats()
+(in-kernel md-raid0 decode)    strom_torch.StripedFile / register_striped
 =============================  ==========================================
 
 Entry points target the current CUDA device unless the caller passes
@@ -24,7 +25,8 @@ import threading
 from typing import Any
 
 from strom_torch.config import StromConfig  # noqa: F401
-from strom_torch.delivery.core import Source, StromContext  # noqa: F401
+from strom_torch.delivery.core import (Source, StripedFile,  # noqa: F401
+                                       StromContext)
 from strom_torch.delivery.extents import Extent, ExtentList  # noqa: F401
 from strom_torch.delivery.handle import DMAHandle  # noqa: F401
 
@@ -63,6 +65,15 @@ def memcpy_wait(handle: DMAHandle, timeout: float | None = None):
     """Block until an async copy retires; returns the delivered tensor.
     ≙ STROM_IOCTL__MEMCPY_WAIT."""
     return handle.result(timeout)
+
+
+def register_striped(path: str, members: "StripedFile | Any",
+                     chunk: int | None = None,
+                     size: int | None = None) -> StripedFile:
+    """Alias *path* to a RAID0 striped set on the process-wide context: reads
+    addressed to the path, extent lists planned against it included,
+    stripe-decode across the members. See StromContext.register_striped."""
+    return context().register_striped(path, members, chunk, size)
 
 
 def stats() -> dict:

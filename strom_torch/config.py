@@ -40,8 +40,25 @@ class StromConfig:
     num_buffers: int = 64              # staging pool slots
     buffer_size: int = 0               # 0 → same as block_size
     o_direct: bool | None = None       # None → auto-probe per file
-    engine: str = "python"             # only the preadv engine is ported
+    engine: str = "auto"               # "auto" | "uring" | "python": auto
+                                       # takes io_uring when the kernel
+                                       # allows a ring, else the preadv pool
+    mlock: bool = True                 # pin the engine's staging pool
+    register_buffers: bool = True      # io_uring fixed buffers
+    coop_taskrun: bool = True          # IORING_SETUP_COOP_TASKRUN (5.19+;
+                                       # falls back when absent)
+    engine_rings: int = 1              # independent io_uring rings: a
+                                       # multi-file gather fans out per file
+                                       # (RAID0 member i → ring i mod N)
+    sqpoll: bool = False               # IORING_SETUP_SQPOLL: a kernel thread
+                                       # polls the SQ (falls back when refused)
     io_retries: int = 1                # per-chunk resubmits before erroring
+    # route page-cache-resident ranges of a gather through the buffered fd
+    # (a memcpy from the cache) instead of re-reading them O_DIRECT; the
+    # native engine does this, the preadv pool does not
+    residency_hybrid: bool = True
+    raid_chunk: int = 512 * KiB        # RAID0 stripe chunk
+    fault_every: int = 0               # fail every Nth op with EIO (tests)
 
     # delivery
     prefetch_depth: int = 2            # batches dispatched ahead of consumption
@@ -49,6 +66,10 @@ class StromConfig:
     # merge caller fragments contiguous in both file and dest space into
     # fewer engine ops; merged ops split at this cap (0 = off)
     coalesce_max_bytes: int = 32 * MiB
+    # striped reads: member ops go out as per-member sequential runs within
+    # windows of this many bytes; -1 = auto (queue_depth * block_size),
+    # 0 = keep chunk-granular logical order
+    stripe_window_bytes: int = -1
     slab_pool_bytes: int = 512 * MiB   # recycled pinned host slabs (0 = off);
                                        # used only for CUDA targets
     # intra-transfer streaming: read piece k+1 from disk while piece k is
@@ -66,16 +87,28 @@ class StromConfig:
             raise ValueError("buffer_size must be >= block_size")
         if self.queue_depth <= 0:
             raise ValueError("queue_depth must be positive")
+        if self.engine_rings < 1:
+            raise ValueError("engine_rings must be >= 1")
         if self.num_buffers <= 0:
             raise ValueError("num_buffers must be positive")
-        if self.engine != "python":
-            raise ValueError(f"the port has only the python engine, "
-                             f"got {self.engine!r}")
+        if self.engine not in ("auto", "uring", "python"):
+            raise ValueError(f"unknown engine {self.engine!r}")
         if self.overlap_chunk_bytes and self.overlap_chunk_bytes % 4096:
             raise ValueError("overlap_chunk_bytes must be a multiple of 4096 "
                              "(O_DIRECT alignment and dtype itemsize)")
         if self.coalesce_max_bytes < 0:
             raise ValueError("coalesce_max_bytes must be >= 0 (0 = off)")
+        if self.stripe_window_bytes < -1:
+            raise ValueError("stripe_window_bytes must be >= 0 (0 = off) "
+                             "or exactly -1 (auto)")
+
+    @property
+    def resolved_stripe_window_bytes(self) -> int:
+        """The effective striped-overlap window: -1 resolves to the engine's
+        in-flight budget (queue_depth × block_size)."""
+        if self.stripe_window_bytes >= 0:
+            return self.stripe_window_bytes
+        return self.queue_depth * self.block_size
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "StromConfig":
@@ -87,7 +120,7 @@ class StromConfig:
             if env_key not in os.environ:
                 continue
             raw = os.environ[env_key]
-            if field.name == "o_direct":
+            if field.name == "o_direct" or field.type in ("bool", bool):
                 kwargs[field.name] = _env_cast(raw, bool)
             elif field.type in ("int", int):
                 kwargs[field.name] = _env_cast(raw, int)

@@ -8,12 +8,18 @@ through ``torch.cuda.cudart()``), so ``copy_(..., non_blocking=True)`` out
 of it is a DMA the copy engine runs while the next read proceeds.
 Registration leaves the pages where they are, so the slab keeps its page
 alignment and O_DIRECT still reads straight into it.
+
+A slab stays an anonymous ``mmap``: io_uring may refuse to register memory
+that CUDA's own host allocator mapped (``pin_memory=True``), and the
+delivery layer registers every pool slab with the engine's ring as well
+(``on_alloc``/``on_free``), so gathers into it ride ``READ_FIXED``.
 """
 
 from __future__ import annotations
 
 import mmap
 import threading
+from typing import Callable
 
 import numpy as np
 
@@ -62,18 +68,25 @@ class SlabPool:
 
     Slabs are allocated at size-class granularity; acquire() hands out a
     view of the first ``nbytes``; release() walks the view back to its slab.
-    With ``pin=True`` each slab is registered with CUDA when it is made, and
-    unregistered when it leaves the pool (past ``max_bytes`` cached) or at
-    :meth:`close`; the pool keeps every registered slab alive until then.
+    With ``pin=True`` each slab is registered with CUDA when it is made, then
+    handed to ``on_alloc`` (the engine's ring registration); when it leaves
+    the pool (past ``max_bytes`` cached, or at :meth:`close`) ``on_free``
+    runs first and the CUDA registration goes second, so the ring never
+    holds pages CUDA has released. The pool keeps every registered slab
+    alive until then.
 
     The recycle contract: ``release()`` only once nothing reads the slab —
     for delivery, after the device copy out of it has *retired* (its CUDA
     event completed), not when ``copy_()`` returns.
     """
 
-    def __init__(self, max_bytes: int = 512 * 1024 * 1024, *, pin: bool = False):
+    def __init__(self, max_bytes: int = 512 * 1024 * 1024, *, pin: bool = False,
+                 on_alloc: Callable[[np.ndarray], object] | None = None,
+                 on_free: Callable[[np.ndarray], None] | None = None):
         self.max_bytes = max_bytes
         self.pin = pin
+        self._on_alloc = on_alloc
+        self._on_free = on_free
         self._free: dict[int, list[np.ndarray]] = {}  # class size -> slabs
         self._registered: dict[int, np.ndarray] = {}  # addr -> slab
         self._cached_bytes = 0
@@ -93,12 +106,16 @@ class SlabPool:
             raise RuntimeError(f"cudaHostRegister of a {slab.nbytes}-byte "
                                f"slab failed (cudaError {rc})")
         self._registered[addr] = slab
+        if self._on_alloc is not None:
+            self._on_alloc(slab)
 
     def _unregister(self, slab: np.ndarray) -> None:
         import torch
 
         addr = buf_addr(slab)
         if self._registered.pop(addr, None) is not None:
+            if self._on_free is not None:
+                self._on_free(slab)   # the ring lets go before CUDA does
             rc = int(torch.cuda.cudart().cudaHostUnregister(addr))
             if rc != 0:
                 raise RuntimeError(f"cudaHostUnregister failed (cudaError {rc})")

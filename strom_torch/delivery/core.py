@@ -1,8 +1,10 @@
 """memcpy_ssd2gpu — the hot path (the port's counterpart of
 ``StromContext.memcpy_ssd2tpu`` in ``strom/delivery/core.py``).
 
-Read a file range (or an ExtentList) with the engine, O_DIRECT where the
-file allows, into a page-aligned pinned host slab; copy the slab into a
+Read a file range (an ExtentList, or a RAID0 striped set) with the engine,
+O_DIRECT where the file allows, into a page-aligned pinned host slab
+(registered with the engine's io_uring ring too, so the reads ride
+``READ_FIXED``); copy the slab into a
 ``torch.empty(..., device=)`` tensor with ``copy_(non_blocking=True)`` on a
 dedicated copy stream; record an event and make the caller's stream wait on
 it. A slab goes back to the pool only after the copy that reads it has
@@ -18,6 +20,8 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
+import dataclasses
 import errno
 import math
 import os
@@ -36,13 +40,54 @@ from strom_torch.delivery.handle import DMAHandle, deferred_handle
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
 from strom_torch.engine.base import Engine, EngineError
+from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX, plan_stripe_reads,
+                                      plan_stripe_windows)
+
+
+@dataclasses.dataclass(frozen=True)
+class StripedFile:
+    """A logical file striped RAID0-style over member files or devices:
+    logical chunk k lives on member k % n at member chunk k // n, the
+    kernel's md-raid0 map applied before submission."""
+
+    members: tuple[str, ...]
+    chunk: int
+    # logical size override: a set striped with zero padding to a full
+    # stripe width (engine/raid0.stripe_file) reports its true size here
+    size_bytes: int | None = None
+
+    @property
+    def size(self) -> int:
+        if self.size_bytes is not None:
+            return self.size_bytes
+        # cached: read per transfer, and a mid-run rewrite of the sidecar
+        # must not shift the perceived EOF
+        cached = getattr(self, "_size_cache", None)
+        if cached is not None:
+            return cached
+        sizes = [os.stat(m).st_size for m in self.members]
+        capacity = min(sizes) // self.chunk * self.chunk * len(self.members)
+        size = capacity
+        # sets written by stripe_file carry their true size in a sidecar; a
+        # stale one (members re-striped under it) is trusted only when the
+        # members can hold what it claims
+        try:
+            with open(self.members[0] + SIZE_SIDECAR_SUFFIX) as f:
+                claimed = int(f.read())
+            if 0 < claimed <= capacity:
+                size = claimed
+        except (OSError, ValueError):
+            pass
+        object.__setattr__(self, "_size_cache", size)
+        return size
+
 
 # anything memcpy_ssd2gpu can read from
-Source = str | ExtentList
+Source = str | StripedFile | ExtentList
 
 
 def source_size(source: Source) -> int:
-    return source.size if isinstance(source, ExtentList) \
+    return source.size if isinstance(source, (StripedFile, ExtentList)) \
         else os.stat(source).st_size
 
 
@@ -103,16 +148,26 @@ class StromContext:
         self.config = config or StromConfig.from_env()
         self.engine = engine or make_engine(self.config)
         self._files: dict[str, int] = {}
+        # path -> StripedFile aliases (register_striped)
+        self._striped: dict[str, StripedFile] = {}
         self._files_lock = threading.Lock()
         # one gather at a time on the engine: concurrent transfers must not
-        # interleave queue-depth budgets
-        self._engine_lock = threading.Lock()
+        # interleave queue-depth budgets. A multi-ring engine serializes per
+        # ring instead (concurrent_gathers); a lock here would re-serialize
+        # the very transfers its rings exist to interleave.
+        self._engine_lock = contextlib.nullcontext() \
+            if self.engine.concurrent_gathers else threading.Lock()
         self._executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(2, self.config.delivery_workers),
             thread_name_prefix="strom-delivery")
         # slabs are pinned on first use, which needs CUDA: the pool serves
-        # CUDA targets only
-        self._slab_pool = SlabPool(self.config.slab_pool_bytes, pin=True) \
+        # CUDA targets only. Each slab is registered with CUDA and then with
+        # the engine's ring (gathers into it ride READ_FIXED); leaving the
+        # pool, it leaves the ring first and CUDA second.
+        self._slab_pool = SlabPool(
+            self.config.slab_pool_bytes, pin=True,
+            on_alloc=self.engine.register_dest,
+            on_free=self.engine.unregister_dest) \
             if self.config.slab_pool_bytes > 0 else None
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
@@ -132,6 +187,44 @@ class StromContext:
         """Whether reads of *path* go through O_DIRECT."""
         return self.engine.file_uses_o_direct(self.file_index(path))
 
+    def register_striped(self, path: str,
+                         striped: "StripedFile | Sequence[str]",
+                         chunk: int | None = None,
+                         size: int | None = None) -> StripedFile:
+        """Alias *path* to a RAID0 striped set: every read addressed to the
+        path, extents a format reader planned against it included, is
+        stripe-decoded across the members."""
+        if isinstance(striped, StripedFile):
+            if chunk is not None and chunk != striped.chunk:
+                raise ValueError(
+                    f"chunk={chunk} conflicts with StripedFile.chunk="
+                    f"{striped.chunk}; pass one or the other")
+            if size is not None:
+                striped = dataclasses.replace(striped, size_bytes=size)
+        else:
+            if chunk is None:
+                # the chunk is how the members were written: a default would
+                # de-interleave with the wrong geometry, silently
+                raise ValueError("chunk is required when registering a "
+                                 "member list: it must match the chunk the "
+                                 "set was striped with")
+            striped = StripedFile(tuple(striped), chunk, size)
+        with self._files_lock:
+            self._striped[path] = striped
+        return striped
+
+    def striped_source(self, path: str) -> StripedFile | None:
+        """The StripedFile aliased to *path*, if any."""
+        with self._files_lock:
+            return self._striped.get(path)
+
+    def resolve_source(self, source: Source) -> Source:
+        """*source* with any registered striped alias applied."""
+        if isinstance(source, str):
+            with self._files_lock:
+                return self._striped.get(source, source)
+        return source
+
     def _count(self, **kv: int) -> None:
         with self._counts_lock:
             self._counts.update(kv)
@@ -139,22 +232,67 @@ class StromContext:
     # -- planning and the engine gather -------------------------------------
     def _plan_chunks(self, source: Source, segments: Sequence[Segment],
                      base_offset: int = 0) -> list[tuple[int, int, int, int]]:
-        """Logical (file_offset+base_offset → dest_offset) segments →
-        physical (file_index, file_offset, dest_offset, length) engine ops,
-        coalesced where contiguous in both file and dest space."""
+        """Logical (file_offset+base_offset → dest_offset) segments of a
+        resolved source → physical (file_index, file_offset, dest_offset,
+        length) engine ops: striped sources (and extents over a striped
+        alias) stripe-decoded, fragments coalesced where contiguous in both
+        file and dest space."""
         cmax = self.config.coalesce_max_bytes
         if cmax and len(segments) > 1:
+            # merge before expansion: a merged logical run stripes as one
             segments = coalesce_segments(segments, cmax)
-        if isinstance(source, ExtentList):
-            chunks = [(self.file_index(r.path), r.offset, r.dest_offset, r.length)
-                      for seg in segments
-                      for r in source.locate(base_offset + seg.file_offset,
-                                             seg.length, seg.dest_offset)]
+        # member file indexes, resolved once per transfer
+        member_cache: dict[StripedFile, list[int]] = {}
+        chunks: list[tuple[int, int, int, int]] = []
+
+        def stripe_chunks(sf: StripedFile, file_off: int, dest_off: int,
+                          length: int) -> None:
+            member_idx = member_cache.get(sf)
+            if member_idx is None:
+                member_idx = member_cache[sf] = [self.file_index(m)
+                                                 for m in sf.members]
+            segs = plan_stripe_reads(file_off, length, len(sf.members),
+                                     sf.chunk)
+            wb = self.config.resolved_stripe_window_bytes
+            if wb > 0 and len(sf.members) > 1 and length > wb:
+                # per-member sequential runs inside windows of the in-flight
+                # budget, not a round-robin hopping members every chunk
+                segs = plan_stripe_windows(segs, len(sf.members), wb)
+            chunks.extend((member_idx[s.member], s.member_offset,
+                           dest_off + (s.logical_offset - file_off), s.length)
+                          for s in segs)
+
+        if isinstance(source, StripedFile):
+            for seg in segments:
+                stripe_chunks(source, base_offset + seg.file_offset,
+                              seg.dest_offset, seg.length)
+        elif isinstance(source, ExtentList):
+            # runs over a striped alias gather per StripedFile and coalesce
+            # before expansion, so adjacent extents stripe (and window) as
+            # one run
+            striped_runs: dict[StripedFile, list[Segment]] = {}
+            for seg in segments:
+                for r in source.locate(base_offset + seg.file_offset,
+                                       seg.length, seg.dest_offset):
+                    sf = self.striped_source(r.path)
+                    if sf is not None:
+                        striped_runs.setdefault(sf, []).append(
+                            Segment(r.offset, r.dest_offset, r.length))
+                    else:
+                        chunks.append((self.file_index(r.path), r.offset,
+                                       r.dest_offset, r.length))
+            for sf, runs in striped_runs.items():
+                if cmax and len(runs) > 1:
+                    runs = coalesce_segments(runs, cmax)
+                for s in runs:
+                    stripe_chunks(sf, s.file_offset, s.dest_offset, s.length)
         else:
             fi = self.file_index(source)
             chunks = [(fi, base_offset + s.file_offset, s.dest_offset, s.length)
                       for s in segments]
-        if cmax and len(chunks) > 1:
+        if cmax and len(chunks) > 1 and not member_cache:
+            # striped gathers are exempt: member ops interleave by design,
+            # and their fragments merged at the segment level above
             chunks = coalesce_chunks(chunks, cmax)
         return chunks
 
@@ -299,6 +437,7 @@ class StromContext:
         if self._closed:
             raise RuntimeError("StromContext is closed")
         device = resolve_device(device)
+        source = self.resolve_source(source)
         shape, np_dtype, nbytes = self._resolve_read_shape(
             source, offset, shape, dtype, length)
         if nbytes <= 0:

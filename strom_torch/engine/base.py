@@ -12,8 +12,9 @@ stat ioctl / /proc node     Engine.stats()
 
 The gather the delivery layer runs is :meth:`Engine.read_vectored`:
 block_size chunking, queue_depth pipelining, per-chunk resubmits, and
-short-read (EOF) accounting. The async token API, stats scopes, deadlines
-and the retry backoff policy of the reference are not ported yet.
+short-read (EOF) accounting; the io_uring engine runs the whole gather in
+C++ instead. The async token API, stats scopes, deadlines, writes and the
+retry backoff policy of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -70,6 +71,9 @@ class Engine(abc.ABC):
     """Owns the staging pool and the submission/completion machinery."""
 
     name: str = "abstract"
+    # True: the engine serializes gathers itself (per ring), so the delivery
+    # layer must not wrap each transfer in its own lock
+    concurrent_gathers: bool = False
 
     def __init__(self, config: StromConfig):
         self.config = config
@@ -99,6 +103,18 @@ class Engine(abc.ABC):
     @property
     def buffer_size(self) -> int:
         return self.config.buffer_size
+
+    def register_dest(self, arr: np.ndarray) -> int:
+        """Register a caller slab so gathers into it can use pre-pinned
+        fixed buffers. -1 = not supported by this engine (the default);
+        reads work identically either way."""
+        return -1
+
+    def unregister_dest(self, arr: np.ndarray) -> None:
+        pass
+
+    def unregister_dest_addr(self, addr: int) -> None:
+        pass
 
     # -- submission / completion (≙ MEMCPY_SSD2GPU_ASYNC / MEMCPY_WAIT) -----
     @abc.abstractmethod

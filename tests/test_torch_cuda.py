@@ -189,6 +189,44 @@ def test_streamed_delivery_recycles_slabs(cuda_device, tmp_path):
         ctx.close()
 
 
+def test_ring_registered_slabs_recycle_byte_exact(cuda_device, tmp_path):
+    """Pool slabs pinned by CUDA and registered with the io_uring ring as
+    well: two back-to-back streamed transfers of a cold file, the second
+    recycling the first's slabs, both byte-exact on the card; the gathers
+    land in registered slabs (READ_FIXED where the file takes O_DIRECT)."""
+    import os
+
+    from strom_torch.engine import uring_engine
+
+    if not uring_engine.uring_available():
+        pytest.skip(f"io_uring unavailable: {uring_engine.unavailable_reason}")
+    data = np.random.default_rng(1).integers(0, 256, 6 * MiB, dtype=np.uint8)
+    path = str(tmp_path / "cold.bin")
+    with open(path, "wb") as f:
+        data.tofile(f)
+        f.flush()
+        os.fsync(f.fileno())
+        os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+    want = torch.from_numpy(data).to(cuda_device)
+    ctx = StromContext(StromConfig(engine="uring", queue_depth=8, num_buffers=8,
+                                   overlap_chunk_bytes=MiB,
+                                   overlap_min_bytes=2 * MiB))
+    try:
+        a = ctx.memcpy_ssd2gpu(path, device=cuda_device)
+        b = ctx.memcpy_ssd2gpu(path, device=cuda_device, async_=True).result(60)
+        torch.cuda.synchronize()
+        assert torch.equal(a, want) and torch.equal(b, want)
+        st = ctx.stats()
+        assert st["streamed_transfers"] == 2 and st["slab_pool"]["hits"] > 0
+        eng = st["engine"]
+        assert eng["engine"] == "uring" and eng["dest_refused"] == 0
+        assert eng["ext_buffers"] == st["slab_pool"]["misses"] > 0
+        if ctx.uses_o_direct(path):
+            assert eng["ops_fixed"] > 0
+    finally:
+        ctx.close()
+
+
 def test_train_step_goes_through_the_kernels(cuda_device):
     cfg = dataclasses.replace(LlamaConfig.tiny(), d_model=256, n_heads=2,
                               n_kv_heads=1)   # head dim 128

@@ -35,16 +35,28 @@ MiB = 1024 * 1024
 STREAM = dict(overlap_chunk_bytes=1 * MiB, overlap_min_bytes=2 * MiB)
 
 
-@pytest.fixture()
-def contexts():
-    """(port context, JAX context) with one config: python engine, small
-    queues; *stream* picks the tiny streaming thresholds."""
+def skip_without_uring():
+    from strom_torch.engine import uring_engine
+
+    if not uring_engine.uring_available():
+        pytest.skip(f"io_uring unavailable: {uring_engine.unavailable_reason}")
+
+
+@pytest.fixture(params=["python", "uring"])
+def contexts(request):
+    """(port context, JAX context) with one config: the engine of the
+    parameter (uring skips where the kernel refuses a ring), small queues;
+    *stream* picks the tiny streaming thresholds."""
+    engine = request.param
+    if engine == "uring":
+        skip_without_uring()
     made = []
 
     def make(stream: bool = False):
-        kw = dict(queue_depth=8, num_buffers=8, **(STREAM if stream else {}))
-        pair = StromContext(StromConfig(**kw)), \
-            JContext(JConfig(engine="python", **kw))
+        kw = dict(engine=engine, queue_depth=8, num_buffers=8,
+                  **(STREAM if stream else {}))
+        pair = StromContext(StromConfig(**kw)), JContext(JConfig(**kw))
+        assert pair[0].engine.name == pair[1].engine.name == engine
         made.extend(pair)
         return pair
 
@@ -123,7 +135,12 @@ def test_module_level_api(data_file):
         np.testing.assert_array_equal(got.numpy(), data[:65536])
         st = strom_torch.stats()
         assert st["transfers"] == 1 and st["ssd2gpu_bytes"] == 65536
-        assert st["engine"]["engine"] == "python"
+        # engine="auto" (the default) picks what the reference picks
+        want = JContext(JConfig(queue_depth=4, num_buffers=4))
+        try:
+            assert st["engine"]["engine"] == want.engine.name
+        finally:
+            want.close()
     finally:
         strom_torch.close()
     assert strom_torch.stats() == {}
@@ -173,8 +190,12 @@ def test_config_env_overrides(monkeypatch):
     jcfg = JConfig.from_env(num_buffers=3)
     assert (jcfg.queue_depth, jcfg.overlap_chunk_bytes, jcfg.o_direct) == \
         (cfg.queue_depth, cfg.overlap_chunk_bytes, cfg.o_direct)
-    with pytest.raises(ValueError, match="python engine"):
-        StromConfig(engine="uring")
+    assert StromConfig().engine == JConfig().engine == "auto"
+    for bad in ("io_uring", "multi", ""):
+        with pytest.raises(ValueError, match="unknown engine"):
+            StromConfig(engine=bad)
+        with pytest.raises(ValueError, match="unknown engine"):
+            JConfig(engine=bad)
 
 
 # --------------------------------------------------------------- pipelines
