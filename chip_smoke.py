@@ -31,6 +31,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
                4 steps; every kernel must have launched during the steps.
                Then one more step under torch.profiler: device time by
                kernel group and the device's idle share.
+5. stream   -- StromContext.stream_segments under engine="auto": 2048
+               seeded, scattered 150,528-byte records of phase 3's file
+               gathered into a pinned slab; the completed ranges must tile
+               the slab exactly once and the bytes, copied to the card,
+               equal the file's. GB/s, the engine's in-flight peak and the
+               poll calls. Then a second gather closed mid-flight, and a
+               third on the same context that must be exact.
+6. resnet   -- a seeded predecoded shard (2048 records of 224x224x3 and
+               labels, written in the format, no decoder needed) through
+               make_predecoded_vision_pipeline(batch=128): the first batch
+               must equal the sampler's records byte for byte, labels too;
+               the loader alone, images/s over 8 batches; then ResNet-50 at
+               full width (bf16) under make_resnet_sgd_step, 1 warm-up and
+               8 timed steps (finite loss and grad norm), one more under
+               torch.profiler.
+7. resnet_jpeg -- the [decode] line (native libjpeg-turbo build, cv2, PIL).
+               Where an encoder and a resize exist (cv2 or PIL): a seeded
+               WebDataset tar of 512 448x448 JPEGs (quality 90) through
+               make_imagenet_resnet_pipeline(batch=128), streamed and with
+               stream_intra_batch=False: 4 batches each, bit-identical, and
+               stream_samples_early > 0; then 4 ResNet-50 steps fed by the
+               streamed pipeline. Elsewhere the phase prints
+               skipped=<what is missing>: a host library that is absent.
 
 Each phase prints its own lines. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -60,20 +83,30 @@ import strom_torch
 from strom_torch.config import StromConfig
 from strom_torch._core import build as core_build
 from strom_torch.delivery.buffers import alloc_aligned
+from strom_torch.delivery.extents import Extent, ExtentList
+from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
 from strom_torch.engine import uring_engine
 from strom_torch.engine.python_engine import PythonEngine
 from strom_torch.engine.raid0 import stripe_file
+from strom_torch.formats import jpeg
+from strom_torch.formats.predecoded import LABELS_SUFFIX, META_SUFFIX
 from strom_torch.formats.rawbin import write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
+from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
-from strom_torch.parallel.train import init_train_state, make_train_step
+from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
+                                        make_train_step)
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
 from strom_torch.pipelines.sampler import EpochShuffleSampler
+from strom_torch.pipelines.vision import (make_imagenet_resnet_pipeline,
+                                          make_predecoded_vision_pipeline)
 
 GiB = 1 << 30
 MiB = 1 << 20
+IMAGE = 224
+RECORD = IMAGE * IMAGE * 3          # one 224x224x3 uint8 image: 150,528 B
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -467,12 +500,13 @@ def _engine_only(eng, fi: int, slab: np.ndarray, path: str) -> tuple[float, floa
     return GiB / dt / 1e9, cpu
 
 
-def phase_ssd2gpu(workdir: str) -> None:
+def phase_ssd2gpu(workdir: str) -> str:
     """A seeded 1 GiB file into device memory under engine="auto": 64 MiB
     unstreamed (twice: the first call also pins and ring-registers the
     pool's slab), then the whole file streamed, sync and async; every byte
     compared on the card. Then four rounds of engine-only reads by each
-    engine beside a delivery, and the striped deliveries."""
+    engine beside a delivery, and the striped deliveries. Returns the
+    file's path."""
     uring_ok, why_not = engine_report()
     path = os.path.join(workdir, "ssd2gpu.bin")
     data = np.frombuffer(bytearray(np.random.default_rng(0).bytes(GiB)),
@@ -573,7 +607,7 @@ def phase_ssd2gpu(workdir: str) -> None:
         gbps=f"{GiB / h2d_ms / 1e6:.3f}")
     strom_torch.close()
     phase_striped(workdir, path, want, uring_ok, why_not)
-    os.unlink(path)
+    return path   # phase 5 gathers records of it
 
 
 def phase_striped(workdir: str, path: str, want: torch.Tensor,
@@ -714,9 +748,276 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
+    # cuDNN's convolutions: implicit-GEMM fprop / dgrad / wgrad kernels
+    if any(s in low for s in ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                              "implicit_gemm", "winograd")):
+        return "conv"
+    if "batch_norm" in low or "batchnorm" in low or "bn_" in low:
+        return "batch_norm"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul"
     return "other"
+
+
+# ----------------------------------------------------------------- stream
+def _check_tiling(ranges: list[tuple[int, int]], size: int, label: str) -> None:
+    """The completed ranges cover [0, size) exactly once."""
+    pos = 0
+    for lo, hi in sorted(ranges):
+        if lo != pos or hi <= lo:
+            raise AssertionError(f"{label}: ranges do not tile the dest at "
+                                 f"{pos} (next range {lo}..{hi})")
+        pos = hi
+    if pos != size:
+        raise AssertionError(f"{label}: ranges end at {pos}, dest is {size}")
+
+
+def _drive(g) -> tuple[list[tuple[int, int]], int]:
+    """Poll a streamed gather to its end: (completed ranges, poll calls)."""
+    ranges: list[tuple[int, int]] = []
+    polls = 0
+    while not g.done:
+        ranges.extend(g.poll(min_completions=1, timeout_s=0.05))
+        polls += 1
+    return ranges, polls
+
+
+def phase_stream(path: str) -> None:
+    """2048 seeded, scattered records of the 1 GiB file through
+    stream_segments into a pinned slab, checked on the card; then a gather
+    closed mid-flight and an exact one after it on the same context."""
+    cuda = torch.device("cuda")
+    recs = np.random.default_rng(5).choice(GiB // RECORD, 2048, replace=False)
+    el = ExtentList([Extent(path, int(r) * RECORD, RECORD) for r in recs])
+    file = np.memmap(path, dtype=np.uint8, mode="r")
+    want = torch.from_numpy(np.concatenate(
+        [file[r * RECORD: (r + 1) * RECORD] for r in recs])).to(cuda)
+    del file
+    ctx = strom_torch.init(StromConfig.from_env(engine="auto"))
+    slab = ctx.host_batch((el.size,), cuda)
+    _drop_cache(path)
+    t0 = time.perf_counter()
+    g = ctx.stream_segments(el, [Segment(0, 0, el.size)], slab)
+    ranges, polls = _drive(g)
+    if g.finish() != el.size:
+        raise AssertionError("stream: finish() counted the wrong bytes")
+    dt = time.perf_counter() - t0
+    _check_tiling(ranges, el.size, "stream")
+    peak = g.inflight_peak
+    got = ctx.put_host_batch(slab, cuda)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("stream: gathered bytes differ from the file")
+    say("stream", engine=ctx.engine.stats()["engine"], records=len(recs),
+        record_bytes=RECORD, bytes=el.size, chunks=len(ranges),
+        s=f"{dt:.4f}", gbps=f"{el.size / dt / 1e9:.3f}", inflight_peak=peak,
+        polls=polls, queue_depth=ctx.config.queue_depth, exact=True)
+    # close mid-flight, then an exact gather on the same context
+    _drop_cache(path)
+    g2 = ctx.stream_segments(el, [Segment(0, 0, el.size)],
+                             ctx.alloc_read_buffer(el, el.size))
+    first = g2.poll(min_completions=1)
+    g2.close()
+    g2.close()
+    if ctx.engine.in_flight() != 0:
+        raise AssertionError("stream: ops in flight after close()")
+    slab = ctx.host_batch((el.size,), cuda)
+    g3 = ctx.stream_segments(el, [Segment(0, 0, el.size)], slab)
+    ranges, _ = _drive(g3)
+    g3.finish()
+    _check_tiling(ranges, el.size, "stream after close")
+    if not torch.equal(ctx.put_host_batch(slab, cuda), want):
+        raise AssertionError("stream: the gather after close() differs")
+    say("stream", check="close mid-flight, then a gather", closed_after_ranges=
+        len(first), in_flight_after_close=0, next_gather_exact=True,
+        stream_gathers=ctx.stats()["stream_gathers"])
+    strom_torch.close()
+
+
+# ----------------------------------------------------------------- resnet
+def _write_predecoded(path: str, records: np.ndarray, labels: np.ndarray) -> None:
+    """A predecoded shard straight in the format: records, labels, meta."""
+    _write_file(path, records)
+    np.save(path + LABELS_SUFFIX, labels)
+    with open(path + META_SUFFIX, "w") as f:
+        json.dump({"image_size": records.shape[1], "n": len(records)}, f)
+
+
+def _resnet_steps(label: str, model, step, pipe, n_steps: int) -> None:
+    """1 warm-up step, then *n_steps* timed iterations (next batch + step +
+    the loss read back), each checked finite."""
+    B = None
+    times, stalls0 = [], None
+    for i in range(n_steps + 1):
+        t0 = time.perf_counter()
+        imgs, lbls = next(pipe)
+        B = imgs.shape[0]
+        m = step(model, imgs, lbls)
+        loss, norm = m["loss"].item(), m["grad_norm"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not (math.isfinite(loss) and math.isfinite(norm)):
+            raise AssertionError(f"{label} step {i}: loss {loss}, grad_norm {norm}")
+        if i == 0:
+            stalls0 = pipe.data_stall_steps
+        say(label, step=i, loss=f"{loss:.5f}", grad_norm=f"{norm:.5f}",
+            ms=f"{times[-1] * 1e3:.1f}", warmup=(i == 0))
+    steady = sum(times[1:]) / n_steps
+    say(label, step_ms_first=f"{times[0] * 1e3:.1f}",
+        step_ms_steady=f"{steady * 1e3:.2f}",
+        step_ms_median=f"{statistics.median(times[1:]) * 1e3:.2f}",
+        images_per_s=f"{B / steady:.1f}", timed_steps=n_steps,
+        data_stall_steps_timed=pipe.data_stall_steps - stalls0,
+        data_stall_steps_all=pipe.data_stall_steps,
+        max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / GiB:.2f}")
+
+
+def phase_resnet(workdir: str):
+    """Predecoded shard → make_predecoded_vision_pipeline → ResNet-50 SGD.
+    Returns (model, step) for phase 7."""
+    cuda = torch.device("cuda")
+    n, B = 2048, 128
+    rng = np.random.default_rng(6)
+    records = np.frombuffer(rng.bytes(n * RECORD), dtype=np.uint8).reshape(
+        n, IMAGE, IMAGE, 3)
+    labels = rng.integers(0, 1000, n, dtype=np.int32)
+    pdec = os.path.join(workdir, "imagenet.pdec")
+    _write_predecoded(pdec, records, labels)
+    all_records = torch.from_numpy(records).to(cuda)
+    ctx = strom_torch.init(StromConfig.from_env())
+    say("resnet", shard=os.path.basename(pdec), records=n,
+        shard_bytes=records.nbytes, batch=B, image_size=IMAGE,
+        engine=ctx.engine.stats()["engine"], o_direct=ctx.uses_o_direct(pdec))
+
+    pipe = make_predecoded_vision_pipeline(ctx, [pdec], batch=B,
+                                           image_size=IMAGE, device=cuda)
+    order = iter(EpochShuffleSampler(n, B, seed=0))
+    imgs, lbls = next(pipe)
+    idx = next(order)
+    if imgs.shape != (B, IMAGE, IMAGE, 3) or imgs.device.type != "cuda" \
+            or not torch.equal(imgs, all_records[torch.from_numpy(idx).to(cuda)]) \
+            or not torch.equal(lbls.cpu(), torch.from_numpy(labels[idx])):
+        raise AssertionError("resnet: the first batch differs from the "
+                             "sampler's records or labels")
+    say("resnet", check="first batch equals the sampler's records and labels",
+        exact=True)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        imgs, lbls = next(pipe)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    say("resnet", loader="predecoded alone", batches=8,
+        images_per_s=f"{8 * B / dt:.1f}",
+        gbps=f"{8 * B * RECORD / dt / 1e9:.3f}",
+        data_stall_steps=pipe.data_stall_steps)
+    pipe.close()
+    del all_records
+
+    cfg = ResNetConfig.resnet50()
+    model = ResNet(cfg, device=cuda)
+    step = make_resnet_sgd_step(cfg, device=cuda)
+    say("resnet", config="resnet50", stages=cfg.stages, width=cfg.width,
+        classes=cfg.num_classes, dtype=cfg.dtype,
+        params=sum(p.numel() for p in model.parameters()))
+    _drop_cache(pdec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = make_predecoded_vision_pipeline(ctx, [pdec], batch=B,
+                                           image_size=IMAGE, device=cuda)
+    _resnet_steps("resnet", model, step, pipe, 8)
+    profile_step(lambda m, b: (m, step(m, *b)), model, next(pipe))
+    pipe.close()
+    strom_torch.close()
+    return model, step
+
+
+def _jpeg_fixture(path: str, n: int, side: int) -> None:
+    """A WebDataset tar of n seeded side×side noise JPEGs (quality 90) with
+    ASCII class labels, as strom/cli.py's bench fixture makes it."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(0)
+    with tarfile.open(path, "w") as tf:
+        for i in range(n):
+            img = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+            if jpeg._HAVE_CV2:
+                ok, buf = jpeg.cv2.imencode(".jpg", img,
+                                            [jpeg.cv2.IMWRITE_JPEG_QUALITY, 90])
+                if not ok:
+                    raise AssertionError("cv2 could not encode the fixture")
+                data = buf.tobytes()
+            else:
+                out = io.BytesIO()
+                jpeg.Image.fromarray(img).save(out, format="JPEG", quality=90)
+                data = out.getvalue()
+            for name, payload in ((f"s{i:06d}.jpg", data),
+                                  (f"s{i:06d}.cls", str(i % 1000).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(payload)
+                tf.addfile(info, io.BytesIO(payload))
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    _drop_cache(path)
+
+
+def phase_resnet_jpeg(workdir: str, model, step) -> None:
+    """JPEG WebDataset → make_imagenet_resnet_pipeline, streamed and not,
+    then ResNet-50 steps fed by the streamed pipeline; skipped, saying
+    what is missing, where the host has no JPEG encoder and resize."""
+    native = jpeg.native_available()
+    so = core_build.ensure_built()
+    say("decode", native_libjpeg_turbo=native,
+        native_built_with_jpeg=core_build.built_with_jpeg(so),
+        cv2=jpeg._HAVE_CV2, PIL=jpeg._HAVE_PIL)
+    if not (jpeg._HAVE_CV2 or jpeg._HAVE_PIL):
+        say("resnet_jpeg", skipped="no_cv2_and_no_PIL:_neither_a_JPEG_encoder_"
+            "for_the_fixture_nor_the_resize_of_the_train_transform")
+        return
+    cuda = torch.device("cuda")
+    tar = os.path.join(workdir, "imagenet.tar")
+    t0 = time.perf_counter()
+    _jpeg_fixture(tar, 512, 448)
+    say("resnet_jpeg", fixture_samples=512, side=448, quality=90,
+        tar_bytes=os.path.getsize(tar), fixture_s=f"{time.perf_counter() - t0:.2f}")
+    ctx = strom_torch.init(StromConfig.from_env())
+    runs = {}
+    for stream in (True, False):
+        _drop_cache(tar)
+        pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=128, device=cuda,
+                                             stream_intra_batch=stream)
+        t0 = time.perf_counter()
+        batches = [next(pipe) for _ in range(4)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        st = pipe.stats()
+        pipe.close()
+        runs[stream] = batches
+        say("resnet_jpeg", streamed=stream, batches=4,
+            images_per_s=f"{4 * 128 / dt:.1f}",
+            stream_samples_early=st.get("stream_samples_early", 0),
+            stream_batches=st.get("stream_batches", 0),
+            decode_errors=st["decode_errors"],
+            routes=json.dumps({k: v for k, v in st.items()
+                               if k.endswith("_imgs") or "hits" in k},
+                              sort_keys=True))
+        if stream and st.get("stream_samples_early", 0) <= 0:
+            raise AssertionError("resnet_jpeg: the streamed pipeline dispatched "
+                                 "no sample while extents were in flight")
+    for (a, la), (b, lb) in zip(runs[True], runs[False]):
+        if not (torch.equal(a, b) and torch.equal(la, lb)):
+            raise AssertionError("resnet_jpeg: streamed and barrier batches "
+                                 "differ")
+    say("resnet_jpeg", check="streamed and barrier batches bit-identical",
+        batches=4, exact=True)
+    _drop_cache(tar)
+    pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=128, device=cuda)
+    _resnet_steps("resnet_jpeg", model, step, pipe, 3)
+    pipe.close()
+    strom_torch.close()
 
 
 def profile_step(step, state, batch) -> None:
@@ -740,6 +1041,10 @@ def profile_step(step, state, batch) -> None:
         say("profile", device_time="not measured",
             note="the profiler recorded no device events")
         return
+    # host time inside ATen ops (self time, so nested ops count once); the
+    # rest of the host clock is Python and the autograd engine
+    host_ops_us = sum(e.self_cpu_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU)
     groups: dict[str, float] = {}
     by_name: dict[str, list[float]] = {}
     busy, reach = 0.0, -math.inf
@@ -754,6 +1059,7 @@ def profile_step(step, state, batch) -> None:
     say("profile", step_ms=f"{wall_us / 1e3:.1f}",
         device_busy_ms=f"{busy / 1e3:.1f}",
         device_idle_share=f"{1 - busy / wall_us:.3f}",
+        host_aten_self_ms=f"{host_ops_us / 1e3:.1f}",
         **{f"{g}_ms": f"{us / 1e3:.2f}" for g, us in
            sorted(groups.items(), key=lambda kv: -kv[1])})
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
@@ -780,8 +1086,12 @@ def main() -> int:
     try:
         phase_build()
         rows = phase_kernels()
-        phase_ssd2gpu(workdir)
+        path = phase_ssd2gpu(workdir)
         launches = phase_train(workdir)
+        phase_stream(path)
+        os.unlink(path)
+        model, step = phase_resnet(workdir)
+        phase_resnet_jpeg(workdir, model, step)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

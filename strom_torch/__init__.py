@@ -15,6 +15,11 @@ STROM_IOCTL__MEMCPY_WAIT       strom_torch.memcpy_wait(handle)
 (in-kernel md-raid0 decode)    strom_torch.StripedFile / register_striped
 =============================  ==========================================
 
+The workload pipelines (``make_llama_pipeline``, and for ImageNet →
+ResNet-50 ``make_imagenet_resnet_pipeline``, ``make_wds_vision_pipeline``
+and ``make_predecoded_vision_pipeline``) take a context and yield batches
+as tensors on one device.
+
 Entry points target the current CUDA device unless the caller passes
 ``device="cpu"``; with no device given and no CUDA present they raise.
 """
@@ -29,6 +34,9 @@ from strom_torch.delivery.core import (Source, StripedFile,  # noqa: F401
                                        StromContext)
 from strom_torch.delivery.extents import Extent, ExtentList  # noqa: F401
 from strom_torch.delivery.handle import DMAHandle  # noqa: F401
+from strom_torch.pipelines import (  # noqa: F401
+    make_imagenet_resnet_pipeline, make_llama_pipeline,
+    make_predecoded_vision_pipeline, make_wds_vision_pipeline)
 
 __version__ = "0.1.0"
 

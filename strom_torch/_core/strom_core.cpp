@@ -1,7 +1,7 @@
 // strom_core — C++ io_uring read engine of strom_torch, the PyTorch port.
 //
-// The port's copy of strom/_core/strom_core.cpp (the JPEG decoder left out),
-// with the same C ABI: struct layouts, flag bits and function names. Where
+// The port's copy of strom/_core/strom_core.cpp, with the same C ABI: struct
+// layouts, flag bits and function names. Where
 // nvme_strom.ko builds NVMe READ requests on blk-mq queues whose PRPs point
 // at pinned GPU BAR1 pages, strom_core issues O_DIRECT reads through io_uring
 // into page-aligned host slabs registered with the ring (and with CUDA, by
@@ -20,6 +20,7 @@
 //   sc_register_dest / sc_unregister_dest— caller slabs in the buffer table
 //   sc_get_stats                         — counters + latency histogram (≙ /proc/nvme-strom)
 //   sc_set_fault_every                   — fault injection for tests
+//   sc_jpeg_available / sc_jpeg_decode   — libjpeg-turbo decode (when built in)
 
 #include <algorithm>
 #include <atomic>
@@ -29,6 +30,15 @@
 #include <cstring>
 #include <mutex>
 #include <vector>
+
+// libjpeg-turbo decode, compiled in only when the build probe
+// (strom_torch/_core/build.py) finds jpeglib.h with the turbo partial-decode
+// API (jpeg_crop_scanline / jpeg_skip_scanlines) and links -ljpeg. Without
+// the define sc_jpeg_available() reports 0 and Python keeps cv2/PIL.
+#ifdef STROM_HAVE_JPEG
+#include <csetjmp>
+#include <jpeglib.h>
+#endif
 
 #include <fcntl.h>
 #include <linux/io_uring.h>
@@ -1588,6 +1598,154 @@ void sc_get_stats(sc_engine *e, sc_stats *s) {
   s->enter_submit_calls =
       e->enter_submit_calls.load(std::memory_order_relaxed);
   s->sqpoll_wakeups = e->sqpoll_wakeups.load(std::memory_order_relaxed);
+}
+
+}  // extern "C"
+
+// ------------------------------------------------------------- JPEG decode
+// Direct libjpeg-turbo bindings: one C call decodes a JPEG straight into a
+// caller buffer — none of cv2's per-call Mat setup,
+// no BGR intermediate (libjpeg emits RGB natively), and access to the
+// turbo-only partial-decode API so a RandomResizedCrop can decode ONLY the
+// crop's scanlines (jpeg_skip_scanlines) and iMCU columns
+// (jpeg_crop_scanline). The GIL is released for the whole call via ctypes,
+// so the decode pool's threads scale exactly like the cv2 path did.
+
+#ifdef STROM_HAVE_JPEG
+namespace {
+
+struct sc_jpeg_err {
+  struct jpeg_error_mgr pub;
+  jmp_buf jb;
+};
+
+void sc_jpeg_error_exit(j_common_ptr cinfo) {
+  sc_jpeg_err *e = reinterpret_cast<sc_jpeg_err *>(cinfo->err);
+  longjmp(e->jb, 1);
+}
+
+// corrupt-but-recoverable data (truncated entropy segment, bad restart
+// marker) emits warnings through these; the decode pool's per-sample
+// failure policy owns error reporting — a library printing to the
+// consumer's stderr from 8 worker threads is not observability
+void sc_jpeg_silence(j_common_ptr, int) {}
+void sc_jpeg_no_output(j_common_ptr) {}
+
+}  // namespace
+#endif  // STROM_HAVE_JPEG
+
+extern "C" {
+
+int sc_jpeg_available(void) {
+#ifdef STROM_HAVE_JPEG
+  return 1;
+#else
+  return 0;
+#endif
+}
+
+// Decode JPEG bytes [src, src+len) to packed RGB8 rows at *out* (row stride
+// out_stride bytes; <= 0 packs rows contiguously at the decoded width).
+// reduced in {1,2,4,8} maps to libjpeg's scale_denom (the IDCT does 1/d of
+// the work). With roi_h > 0, only scanlines [roi_y, roi_y+roi_h) of the
+// SCALED image are decoded, horizontally cropped to the iMCU-aligned
+// superset of [roi_x, roi_x+roi_w) that jpeg_crop_scanline grants
+// (x0 <= roi_x, width >= roi_w); rows land from *out* upward and the
+// granted geometry is returned in got[] = {rows, cols, x0, y0}. Without an
+// ROI, got[] carries the full scaled dims {oh, ow, 0, 0}. Progressive
+// sources reject an ROI with -EOPNOTSUPP: the partial-scanline API
+// silently produces wrong pixels on multi-scan files, so the caller must
+// route those to a full decode (strom_torch/formats/jpeg.py does, off the
+// SOF2 flag). Returns 0 on success; decode failures are -EIO, capacity
+// mismatches -ERANGE, bad arguments -EINVAL, jpeg-less builds -ENOSYS.
+int sc_jpeg_decode(const uint8_t *src, uint64_t len, uint8_t *out,
+                   uint64_t out_cap, int64_t out_stride, int32_t reduced,
+                   int32_t roi_y, int32_t roi_x, int32_t roi_h,
+                   int32_t roi_w, int32_t got[4]) {
+#ifndef STROM_HAVE_JPEG
+  (void)src; (void)len; (void)out; (void)out_cap; (void)out_stride;
+  (void)reduced; (void)roi_y; (void)roi_x; (void)roi_h; (void)roi_w;
+  (void)got;
+  return -ENOSYS;
+#else
+  if (!src || !out || !got || len < 4) return -EINVAL;
+  if (reduced != 1 && reduced != 2 && reduced != 4 && reduced != 8)
+    return -EINVAL;
+  struct jpeg_decompress_struct cinfo;
+  sc_jpeg_err jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = sc_jpeg_error_exit;
+  jerr.pub.emit_message = sc_jpeg_silence;
+  jerr.pub.output_message = sc_jpeg_no_output;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    return -EIO;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, const_cast<unsigned char *>(src),
+               (unsigned long)len);
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return -EIO;
+  }
+  if (roi_h > 0 && cinfo.progressive_mode) {
+    jpeg_destroy_decompress(&cinfo);
+    return -EOPNOTSUPP;
+  }
+  cinfo.out_color_space = JCS_RGB;
+  cinfo.scale_num = 1;
+  cinfo.scale_denom = (unsigned)reduced;
+  jpeg_start_decompress(&cinfo);
+  JDIMENSION oh = cinfo.output_height, ow = cinfo.output_width;
+  JDIMENSION x0 = 0, gw = ow, y0 = 0, gh = oh;
+  if (roi_h > 0) {
+    if (roi_y < 0 || roi_x < 0 || roi_w <= 0 ||
+        (uint64_t)roi_y + (uint64_t)roi_h > oh ||
+        (uint64_t)roi_x + (uint64_t)roi_w > ow) {
+      jpeg_abort_decompress(&cinfo);
+      jpeg_destroy_decompress(&cinfo);
+      return -EINVAL;
+    }
+    x0 = (JDIMENSION)roi_x;
+    gw = (JDIMENSION)roi_w;
+    jpeg_crop_scanline(&cinfo, &x0, &gw);
+    y0 = (JDIMENSION)roi_y;
+    gh = (JDIMENSION)roi_h;
+    if (y0 != 0 && jpeg_skip_scanlines(&cinfo, y0) != y0) {
+      jpeg_abort_decompress(&cinfo);
+      jpeg_destroy_decompress(&cinfo);
+      return -EIO;
+    }
+  }
+  int64_t stride = out_stride > 0 ? out_stride : (int64_t)gw * 3;
+  if (stride < (int64_t)gw * 3 ||
+      (uint64_t)stride * (gh > 0 ? gh - 1 : 0) + (uint64_t)gw * 3 >
+          out_cap) {
+    jpeg_abort_decompress(&cinfo);
+    jpeg_destroy_decompress(&cinfo);
+    return -ERANGE;
+  }
+  while (cinfo.output_scanline < y0 + gh) {
+    JSAMPROW row = out + (int64_t)(cinfo.output_scanline - y0) * stride;
+    if (jpeg_read_scanlines(&cinfo, &row, 1) != 1) {
+      jpeg_abort_decompress(&cinfo);
+      jpeg_destroy_decompress(&cinfo);
+      return -EIO;
+    }
+  }
+  // a partial read (ROI) must not run the full-consumption epilogue:
+  // abort discards the remaining entropy data without decoding it
+  if (cinfo.output_scanline < cinfo.output_height)
+    jpeg_abort_decompress(&cinfo);
+  else
+    jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  got[0] = (int32_t)gh;
+  got[1] = (int32_t)gw;
+  got[2] = (int32_t)x0;
+  got[3] = (int32_t)y0;
+  return 0;
+#endif  // STROM_HAVE_JPEG
 }
 
 }  // extern "C"

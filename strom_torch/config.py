@@ -26,6 +26,8 @@ def _env_cast(value: str, typ: Any) -> Any:
                 mult = m
                 break
         return int(v) * mult
+    if typ is float:
+        return float(value)
     return value
 
 
@@ -59,6 +61,9 @@ class StromConfig:
     residency_hybrid: bool = True
     raid_chunk: int = 512 * KiB        # RAID0 stripe chunk
     fault_every: int = 0               # fail every Nth op with EIO (tests)
+    # the longest a gather waits with no progress before it raises
+    # EngineStallError naming the stuck ops
+    engine_wait_timeout_s: float = 30.0
 
     # delivery
     prefetch_depth: int = 2            # batches dispatched ahead of consumption
@@ -76,6 +81,25 @@ class StromConfig:
     # copied host->device, for transfers >= overlap_min_bytes (0 = off)
     overlap_chunk_bytes: int = 128 * MiB
     overlap_min_bytes: int = 256 * MiB
+
+    # host JPEG decode of the vision pipelines (formats/jpeg.py)
+    # decode at 1/d (d in 2, 4, 8) when the sampled crop still covers the
+    # target at that scale; the crop is sampled first, in full resolution
+    decode_reduced_scale: bool = True
+    # decode workers write their rows straight into the batch slot
+    decode_to_slot: bool = True
+    # put the batch the moment its rows finish decoding
+    decode_overlap_put: bool = True
+    # decode through the libjpeg-turbo binding of the native library when
+    # it was built with one (formats/jpeg.native_available())
+    decode_native: bool = True
+    # one decode-pool task decodes a run of samples
+    decode_fuse_runs: bool = True
+    # decode only the crop's scanlines and iMCU columns (native path)
+    decode_roi: bool = True
+    # streamed batches (delivery/stream.py): each sample goes to the decode
+    # pool the moment its extents land, not after the whole batch gather
+    stream_intra_batch: bool = True
 
     def __post_init__(self) -> None:
         if self.buffer_size == 0:
@@ -98,6 +122,8 @@ class StromConfig:
                              "(O_DIRECT alignment and dtype itemsize)")
         if self.coalesce_max_bytes < 0:
             raise ValueError("coalesce_max_bytes must be >= 0 (0 = off)")
+        if self.engine_wait_timeout_s <= 0:
+            raise ValueError("engine_wait_timeout_s must be positive")
         if self.stripe_window_bytes < -1:
             raise ValueError("stripe_window_bytes must be >= 0 (0 = off) "
                              "or exactly -1 (auto)")
@@ -124,6 +150,8 @@ class StromConfig:
                 kwargs[field.name] = _env_cast(raw, bool)
             elif field.type in ("int", int):
                 kwargs[field.name] = _env_cast(raw, int)
+            elif field.type in ("float", float):
+                kwargs[field.name] = _env_cast(raw, float)
             else:
                 kwargs[field.name] = raw
         kwargs.update(overrides)

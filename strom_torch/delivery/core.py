@@ -23,6 +23,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import errno
+import io
 import math
 import os
 import queue
@@ -139,6 +140,61 @@ def split_segments(segments: Sequence[Segment], chunk: int
     return pieces
 
 
+class SourceIO(io.RawIOBase):
+    """A seekable read-only file over any Source, reading through
+    ``ctx.pread``: indexing a tar on a striped set, say. Small reads are
+    served from a *readahead* window, one engine gather per window, since a
+    tar header walk reads 512 bytes per member."""
+
+    def __init__(self, ctx: "StromContext", source: Source,
+                 readahead: int = 1 << 20):
+        self._ctx = ctx
+        self._source = source
+        self._size = source_size(ctx.resolve_source(source))
+        self._pos = 0
+        self._ra = max(readahead, 1)
+        self._buf = b""
+        self._buf_off = 0  # source offset of _buf[0]
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def seek(self, offset: int, whence: int = io.SEEK_SET) -> int:
+        try:
+            base = {io.SEEK_SET: 0, io.SEEK_CUR: self._pos,
+                    io.SEEK_END: self._size}[whence]
+        except KeyError:
+            raise ValueError(f"unsupported whence {whence}") from None
+        pos = base + offset
+        if pos < 0:
+            raise ValueError(f"negative seek position {pos}")
+        self._pos = pos
+        return self._pos
+
+    def tell(self) -> int:
+        return self._pos
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            n = self._size - self._pos
+        n = min(n, self._size - self._pos)
+        if n <= 0:
+            return b""
+        lo = self._pos - self._buf_off
+        if not (0 <= lo and lo + n <= len(self._buf)):
+            fetch = min(max(n, self._ra), self._size - self._pos)
+            self._buf = self._ctx.pread(self._source, self._pos,
+                                        fetch).tobytes()
+            self._buf_off = self._pos
+            lo = 0
+        data = self._buf[lo: lo + n]
+        self._pos += len(data)
+        return data
+
+
 class StromContext:
     """Owns the engine, the file registrations, the pinned slab pool, the
     per-device copy streams and the executor of async transfers."""
@@ -171,7 +227,8 @@ class StromContext:
             if self.config.slab_pool_bytes > 0 else None
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
-            {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0})
+            {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
+             "stream_gathers": 0})
         self._counts_lock = threading.Lock()
         self._closed = False
 
@@ -315,6 +372,45 @@ class StromContext:
         self._count(ssd2gpu_bytes=total)
         return total
 
+    # -- completion-driven gather and host reads -----------------------------
+    def stream_segments(self, source: Source, segments: Sequence[Segment],
+                        dest: np.ndarray, base_offset: int = 0):
+        """Begin a completion-driven gather of *segments* into *dest*: the
+        plan ``_read_segments`` would run, submitted through the engine's
+        async API so dest ranges surface as their chunks land. Returns a
+        :class:`strom_torch.delivery.stream.StreamingGather` (see its
+        poll/finish/close protocol); it holds the engine until its token
+        drains."""
+        from strom_torch.delivery.stream import StreamingGather
+
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        return StreamingGather(self, self.resolve_source(source), segments,
+                               dest, base_offset)
+
+    def alloc_read_buffer(self, source: Source, nbytes: int) -> np.ndarray:
+        """A fresh page-aligned host buffer for a gather from *source* that
+        the caller drives itself (the streamed batch assembly), as ``pread``
+        allocates its own. (The reference binds it to *source*'s NUMA node;
+        the port binds none.)"""
+        return alloc_aligned(nbytes)
+
+    def pread(self, source: Source, offset: int = 0,
+              length: int | None = None) -> np.ndarray:
+        """Read bytes of *source* into a fresh aligned host buffer, with no
+        device copy: the path format readers take for indexes, labels and
+        members before decode."""
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        source = self.resolve_source(source)
+        if length is None:
+            length = source_size(source) - offset
+        if length == 0:
+            return np.empty(0, dtype=np.uint8)
+        dest = alloc_aligned(length)
+        self._read_segments(source, [Segment(0, 0, length)], dest, offset)
+        return dest
+
     # -- host -> device ------------------------------------------------------
     def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
         with self._files_lock:
@@ -341,6 +437,46 @@ class StromContext:
             ev = torch.cuda.Event()
             ev.record(stream)
         return ev
+
+    def host_batch(self, shape: Sequence[int], device: torch.device
+                   ) -> np.ndarray:
+        """A uint8 host array of *shape* to fill and then hand to
+        :meth:`put_host_batch`: for a CUDA target a pinned slab from the
+        pool, else plain page-aligned memory."""
+        nbytes = math.prod(shape)
+        return self._acquire(nbytes, device.type == "cuda").reshape(shape)
+
+    def put_host_batch(self, host: np.ndarray, device: torch.device
+                       ) -> torch.Tensor:
+        """*host* (from :meth:`host_batch`) as a tensor on *device*. CUDA:
+        copied on the copy stream, ordered before later work on the stream
+        current at the call; the slab returns to the pool only after the
+        copy that reads it has retired. CPU: a tensor aliasing *host*."""
+        if device.type != "cuda":
+            return torch.from_numpy(host)
+        return self._put_slab(host, device, torch.cuda.current_stream(device))
+
+    def _put_slab(self, slab: np.ndarray, device: torch.device,
+                  consumer: torch.cuda.Stream) -> torch.Tensor:
+        """Copy a pool slab into a new tensor on *device*, ordered before
+        later work on *consumer*; the slab goes back to the pool once the
+        copy that reads it has retired (its event completed)."""
+        try:
+            with torch.cuda.stream(consumer):
+                out = torch.empty(slab.shape, dtype=torch_dtype(slab.dtype),
+                                  device=device)
+            ev = self._copy_async(out, slab, self._copy_stream(device))
+            consumer.wait_event(ev)
+            ev.synchronize()   # the slab's last reader has retired
+        finally:
+            self._release(slab, True)
+        return out
+
+    def release_host_batch(self, host: np.ndarray,
+                           device: torch.device) -> None:
+        """Give back a :meth:`host_batch` array that was never put (its
+        batch failed): only once nothing writes into it any more."""
+        self._release(host, device.type == "cuda")
 
     def _deliver_streamed(self, source: Source, segments: Sequence[Segment],
                           base_offset: int, out: torch.Tensor) -> torch.Tensor:
@@ -464,19 +600,15 @@ class StromContext:
                     consumer.wait_stream(self._copy_stream(device))
                 return out.view(tdt).reshape(shape)
             slab = self._acquire(nbytes, cuda)
-            if not cuda:
-                self._read_segments(source, segs, slab, offset)
-                return torch.from_numpy(slab.view(np_dtype).reshape(shape))
             try:
                 self._read_segments(source, segs, slab, offset)
-                with torch.cuda.stream(consumer):
-                    out = torch.empty(nbytes, dtype=torch.uint8, device=device)
-                ev = self._copy_async(out, slab, self._copy_stream(device))
-                consumer.wait_event(ev)
-                ev.synchronize()   # the slab's last reader has retired
-            finally:
+            except BaseException:
                 self._release(slab, cuda)
-            return out.view(tdt).reshape(shape)
+                raise
+            if not cuda:
+                return torch.from_numpy(slab.view(np_dtype).reshape(shape))
+            return self._put_slab(slab, device, consumer).view(tdt).reshape(
+                shape)
 
         if async_:
             return deferred_handle(run, self._executor, nbytes,

@@ -1,0 +1,191 @@
+"""Completion-driven gather (the port's copy of ``strom/delivery/stream.py``,
+without the hot cache, peers, scheduler, hedges and fallback recovery).
+
+A blocking gather makes every sample of a batch wait for the slowest
+extent. :class:`StreamingGather` plans the gather as
+``StromContext._read_segments`` does (``_plan_chunks``: striped aliases,
+coalescing, stripe windows), submits it through the engine's async API
+(``submit_vectored`` / ``poll``) and reports dest byte ranges the moment
+their chunks land, so the vision pipeline can decode a sample while later
+extents are still in flight.
+
+Rules:
+
+- Completions are unordered across chunks, and every dest byte completes
+  exactly once: ranges from distinct completions never overlap.
+- The gather owns the engine's transfer path from construction until its
+  token drains: the context's engine lock (per-ring locks on the multi-ring
+  engine) is held that long, then released at once.
+- ``finish`` raises ``EngineError`` only after every in-flight piece has
+  retired, and checks that the engine moved exactly the planned bytes.
+- ``close`` is idempotent and safe mid-flight: the token is cancelled
+  (every in-flight piece reaped) before the engine lock is released, so no
+  engine write lands in *dest* after it returns.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import errno
+import time
+from typing import Sequence
+
+import numpy as np
+
+from strom_torch.delivery.shard import Segment
+from strom_torch.engine.base import EngineError, EngineStallError
+
+
+class StreamingGather:
+    """One completion-driven gather of *segments* from *source* into *dest*.
+
+    Protocol::
+
+        g = ctx.stream_segments(source, segments, dest)
+        try:
+            while not g.done:
+                for lo, hi in g.poll():   # dest byte ranges, landed
+                    ...work on dest[lo:hi]...
+            g.finish()                    # integrity check
+        finally:
+            g.close()                     # idempotent; cancels if unfinished
+    """
+
+    def __init__(self, ctx, source, segments: Sequence[Segment],
+                 dest: np.ndarray, base_offset: int = 0):
+        self._ctx = ctx
+        self._dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
+            else dest.reshape(-1).view(np.uint8)
+        self._closed = False
+        self._finished = False
+        self._token = None
+        self._failed: set[int] = set()   # chunk indices that failed
+        self._stack = contextlib.ExitStack()
+        self._engine_released = False
+        # gather-level watchdog: piece progress (bytes_done) resets it
+        self._stall_t0 = time.monotonic()
+        self._stall_bytes = -1
+        try:
+            self._chunks = ctx._plan_chunks(source, segments, base_offset)
+            self.total_bytes = sum(ln for (_, _, _, ln) in self._chunks)
+            if self.total_bytes > self._dflat.nbytes:
+                raise ValueError(f"dest holds {self._dflat.nbytes} bytes, the "
+                                 f"gather plans {self.total_bytes}")
+            if self._chunks:
+                # held for the token's lifetime; released by
+                # _release_engine the moment the last piece retires
+                self._stack.enter_context(ctx._engine_lock)
+                self._token = ctx.engine.submit_vectored(
+                    self._chunks, self._dflat, retries=ctx.config.io_retries,
+                    fail_fast=False)
+            ctx._count(stream_gathers=1)
+        except BaseException:
+            self._stack.close()
+            self._closed = True
+            raise
+
+    @property
+    def done(self) -> bool:
+        """Every piece retired (or the gather was cancelled). ``finish``
+        must still be called."""
+        return self._token is None or self._token.done
+
+    @property
+    def inflight_peak(self) -> int:
+        """The deepest the engine's queue ran for this gather."""
+        return self._token.inflight_peak if self._token is not None else 0
+
+    def poll(self, min_completions: int = 1,
+             timeout_s: float | None = None) -> list[tuple[int, int]]:
+        """Dest ranges landed since the last call. ``min_completions=0``
+        never blocks. A failed chunk yields no range; ``finish`` raises
+        for it."""
+        tok = self._token
+        if self._closed or tok is None:
+            return []
+        out: list[tuple[int, int]] = []
+        if not tok.done:
+            for c in self._ctx.engine.poll(tok, min_completions, timeout_s):
+                _, _, do, ln = self._chunks[c.index]
+                if c.result < 0:
+                    self._failed.add(c.index)
+                else:
+                    out.append((do, do + ln))
+        if out:
+            self._stall_t0 = time.monotonic()
+        elif min_completions > 0 and not tok.done:
+            # callers poll in short slices, so the engine's own watchdog
+            # never fires from here: this one turns a silent hang into an
+            # error. One long chunk moving at full speed retires no chunk
+            # for a while, so piece progress counts as progress.
+            if tok.bytes_done != self._stall_bytes:
+                self._stall_bytes = tok.bytes_done
+                self._stall_t0 = time.monotonic()
+            elif time.monotonic() - self._stall_t0 \
+                    >= self._ctx.config.engine_wait_timeout_s:
+                raise EngineStallError(self._ctx.config.engine_wait_timeout_s,
+                                       list(tok._pending), "stream.poll")
+        if tok.done:
+            # drained: hand the engine back now, not at finish()
+            self._release_engine()
+        return out
+
+    def finish(self) -> int:
+        """Run the gather to its end and verify it. Returns the bytes
+        gathered. Raises the first chunk error after every piece retired."""
+        if self._finished:
+            return self.total_bytes
+        tok = self._token
+        try:
+            while tok is not None and not tok.done:
+                self.poll(min_completions=1, timeout_s=1.0)
+        except EngineError as e:
+            # cancel before the caller can react: the engine owns the
+            # in-flight pieces' dest bytes until each retires
+            if tok is not None and not tok.done:
+                self._ctx.engine.cancel(tok)
+            self._release()
+            if isinstance(e, EngineStallError):
+                raise
+            raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
+        self._release()
+        if self._failed:
+            err = tok.error
+            code = err.errno if err is not None else errno.EIO
+            why = err.strerror if err is not None \
+                else f"{len(self._failed)} chunk(s) failed"
+            raise EngineError(code or errno.EIO, f"ssd2gpu {why}")
+        if tok is not None and tok.bytes_done != self.total_bytes:
+            # any engine accounting bug surfaces here, not as a batch with
+            # a zero tail
+            raise EngineError(errno.EIO,
+                              f"ssd2gpu streamed read {tok.bytes_done} "
+                              f"bytes, planned {self.total_bytes}")
+        self._ctx._count(ssd2gpu_bytes=self.total_bytes)
+        return self.total_bytes
+
+    def _release_engine(self) -> None:
+        """Drop the engine lock; idempotent."""
+        if not self._engine_released:
+            self._engine_released = True
+            self._stack.close()
+
+    def _release(self) -> None:
+        self._finished = True
+        self._closed = True
+        self._release_engine()
+
+    def close(self) -> None:
+        """Idempotent teardown. A live token is cancelled, every in-flight
+        piece reaped, before the engine lock is released."""
+        if self._finished:
+            return
+        if self._token is not None and not self._token.done:
+            self._ctx.engine.cancel(self._token)
+        self._release()
+
+    def __enter__(self) -> "StreamingGather":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

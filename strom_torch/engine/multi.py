@@ -1,5 +1,6 @@
 """Multi-ring engine: N independent io_uring rings, gathers fanned out per
-file (the port's copy of the synchronous half of ``strom/engine/multi.py``).
+file (the port's copy of ``strom/engine/multi.py``, without ring quarantine
+and recovery).
 
 Each ring is a child :class:`UringEngine` with its own SQ/CQ, staging pool,
 locks and counters. Routing:
@@ -12,7 +13,10 @@ locks and counters. Routing:
   userspace twin of per-device blk-mq queues.
 
 ``concurrent_gathers = True`` tells the delivery layer to skip its
-whole-transfer engine lock; serialization happens here, per ring.
+whole-transfer engine lock; serialization happens here, per ring. An async
+gather (:meth:`MultiRingEngine.submit_vectored`) is routed the same way:
+one child token per ring, its ring's lock held until the fan token drains
+or is cancelled.
 """
 
 from __future__ import annotations
@@ -21,14 +25,70 @@ import concurrent.futures
 import errno as _errno
 import itertools
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
 
 from strom_torch.config import StromConfig
-from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
-                                     ReadRequest)
+from strom_torch.engine.base import (ChunkCompletion, Completion, Engine,
+                                     EngineError, EngineStallError, RawRead,
+                                     ReadRequest, StreamToken)
 from strom_torch.engine.uring_engine import UringEngine
+
+
+class _FanToken:
+    """A multi-ring async gather: one child StreamToken per ring, chunk
+    indices mapped back to the caller's list. Reads like a StreamToken to
+    the delivery layer (done, cancelled, bytes_done, inflight_peak, error,
+    _pending, pending_chunk_indices)."""
+
+    __slots__ = ("chunks", "parts", "locks", "cancelled", "last_progress_t",
+                 "last_bytes_done")
+
+    def __init__(self, chunks, parts, locks):
+        self.chunks = list(chunks)
+        # [(ring, child_engine, child_token, [parent chunk index]), ...]
+        self.parts = parts
+        self.locks = locks  # the rings' locks, released exactly once
+        self.cancelled = False
+        # the fan's own stall clock: child polls run in short slices, so
+        # the children's watchdog never fires; piece progress resets it
+        self.last_progress_t = time.monotonic()
+        self.last_bytes_done = -1
+
+    @property
+    def done(self) -> bool:
+        return self.cancelled or all(p[2].done for p in self.parts)
+
+    @property
+    def bytes_done(self) -> int:
+        return sum(p[2].bytes_done for p in self.parts)
+
+    @property
+    def inflight_peak(self) -> int:
+        # the rings' queues fill independently: their depths add up
+        return sum(p[2].inflight_peak for p in self.parts)
+
+    @property
+    def error(self) -> EngineError | None:
+        return next((p[2].error for p in self.parts
+                     if p[2].error is not None), None)
+
+    @property
+    def _pending(self) -> dict:
+        # keyed (ring, tag): each child numbers its tags from 0
+        return {(ring, tag): piece for ring, _, ctok, _ in self.parts
+                for tag, piece in ctok._pending.items()}
+
+    def pending_chunk_indices(self) -> set:
+        return {imap[ci] for _, _, ctok, imap in self.parts
+                for ci in ctok.pending_chunk_indices()}
+
+    def _release_locks(self) -> None:
+        locks, self.locks = self.locks, []
+        for lk in locks:
+            lk.release()
 
 
 class MultiRingEngine(Engine):
@@ -147,6 +207,11 @@ class MultiRingEngine(Engine):
             c.unregister_dest_addr(addr)
 
     # -- the vectored hot path: route, fan out, join ------------------------
+    def _route(self, fi: int) -> int:
+        """A file's home ring: stable, so its fds and READ_FIXED
+        registrations stay where its gathers land."""
+        return fi % len(self._children)
+
     def read_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                       dest: np.ndarray, *, retries: int = 1) -> int:
         if self._closed:
@@ -161,7 +226,7 @@ class MultiRingEngine(Engine):
                                                           retries=retries)
         per_ring: list[list[tuple[int, int, int, int]]] = [[] for _ in range(n)]
         for (fi, fo, do, ln) in chunks:
-            ring = fi % n
+            ring = self._route(fi)
             per_ring[ring].append((self._child_index(ring, fi), fo, do, ln))
 
         def run(ring: int) -> int:
@@ -179,6 +244,135 @@ class MultiRingEngine(Engine):
         if err is not None:
             raise err
         return sum(f.result() for f in futs)
+
+    # -- async vectored gather: fan tokens across the rings ------------------
+    def submit_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
+                        dest: np.ndarray, *, retries: int = 1,
+                        fail_fast: bool = True) -> _FanToken:
+        """The async twin of read_vectored's routing: one child token per
+        ring, completions mapped back to the caller's chunk indices. The
+        live rings' locks are held for the token's lifetime (a blocking
+        gather on the same ring would reap, and drop as foreign, the
+        token's completions) and released at drain or cancel."""
+        if self._closed:
+            raise EngineError(_errno.EBADF, "engine closed")
+        n = len(self._children)
+        per_ring: dict[int, tuple[list, list]] = {}  # ring -> (chunks, imap)
+        if chunks and (n == 1 or len({c[0] for c in chunks}) == 1):
+            ring = next(self._rr) % n
+            per_ring[ring] = ([(self._child_index(ring, fi), fo, do, ln)
+                               for (fi, fo, do, ln) in chunks],
+                              list(range(len(chunks))))
+        else:
+            for i, (fi, fo, do, ln) in enumerate(chunks):
+                ring = self._route(fi)
+                ch, imap = per_ring.setdefault(ring, ([], []))
+                ch.append((self._child_index(ring, fi), fo, do, ln))
+                imap.append(i)
+        live = sorted(per_ring)  # lock in ring order: no ABBA with a peer
+        locks: list[threading.Lock] = []
+        parts = []
+        try:
+            for r in live:
+                # held until the token drains or is cancelled
+                self._ring_locks[r].acquire()
+                locks.append(self._ring_locks[r])
+            for r in live:
+                ch, imap = per_ring[r]
+                parts.append((r, self._children[r],
+                              self._children[r].submit_vectored(
+                                  ch, dest, retries=retries,
+                                  fail_fast=fail_fast), imap))
+        except BaseException:
+            for _, child, ctok, _ in parts:
+                child.cancel(ctok)
+            for lk in locks:
+                lk.release()
+            raise
+        tok = _FanToken(chunks, parts, locks)
+        self._track_token(tok)
+        if tok.done:  # empty gather
+            tok._release_locks()
+            self._untrack_token(tok)
+        return tok
+
+    def poll(self, token, min_completions: int = 1,
+             timeout_s: float | None = None) -> list[ChunkCompletion]:
+        if isinstance(token, StreamToken):  # a child token handed back
+            return super().poll(token, min_completions, timeout_s)
+        if token.cancelled:
+            raise EngineError(_errno.ECANCELED,
+                              "token cancelled (engine closing?)")
+        out: list[ChunkCompletion] = []
+
+        def land(imap, cs) -> None:
+            for c in cs:
+                token.last_progress_t = time.monotonic()
+                out.append(ChunkCompletion(imap[c.index], c.result))
+
+        deadline = None if timeout_s is None else \
+            time.monotonic() + timeout_s
+        block_rr = 0
+        while True:
+            for _, child, ctok, imap in token.parts:
+                if not ctok.done:
+                    land(imap, child.poll(ctok, min_completions=0))
+            if len(out) >= min_completions or min_completions <= 0 \
+                    or token.done:
+                break
+            if deadline is not None and time.monotonic() >= deadline:
+                break
+            # block briefly on one unfinished ring, in turn, so a quiet
+            # ring cannot starve completions waiting on another
+            live = [p for p in token.parts if not p[2].done]
+            _, child, ctok, imap = live[block_rr % len(live)]
+            block_rr += 1
+            wait_s = 0.005
+            if deadline is not None:
+                wait_s = min(wait_s, max(0.0, deadline - time.monotonic()))
+            land(imap, child.poll(ctok, min_completions=1, timeout_s=wait_s))
+            now_bytes = token.bytes_done
+            if now_bytes != token.last_bytes_done:
+                token.last_bytes_done = now_bytes
+                token.last_progress_t = time.monotonic()
+            elif time.monotonic() - token.last_progress_t \
+                    >= self.wait_timeout_s and token._pending:
+                raise EngineStallError(self.wait_timeout_s,
+                                       list(token._pending), "multi.poll")
+        if token.done:
+            token._release_locks()
+            self._untrack_token(token)
+        return out
+
+    def drain(self, token) -> int:
+        if isinstance(token, StreamToken):
+            return super().drain(token)
+        while not token.done:
+            self.poll(token, min_completions=1)
+        token._release_locks()
+        self._untrack_token(token)
+        if token.cancelled:
+            raise EngineError(_errno.ECANCELED,
+                              "token cancelled (engine closing?)")
+        if token.error is not None:
+            raise token.error
+        return token.bytes_done
+
+    def cancel(self, token, timeout_s: float | None = None) -> None:
+        """One deadline shared by the child tokens, so cancelling a wedged
+        N-ring gather costs about *timeout_s*, not N times it; each child
+        still gets a floored slice, so every one is marked cancelled and
+        reaped once."""
+        if timeout_s is None:
+            timeout_s = self.wait_timeout_s
+        if isinstance(token, StreamToken):
+            return super().cancel(token, timeout_s)
+        deadline = time.monotonic() + timeout_s
+        for _, child, ctok, _ in token.parts:
+            child.cancel(ctok, max(deadline - time.monotonic(), 0.05))
+        token.cancelled = True
+        token._release_locks()
+        self._untrack_token(token)
 
     # -- observability and lifecycle ----------------------------------------
     def stats(self) -> dict:
@@ -225,6 +419,9 @@ class MultiRingEngine(Engine):
     def close(self) -> None:
         if self._closed:
             return
+        # fan tokens first, while the rings live: their ring locks release
+        # and every child piece is reaped before a ring is torn down
+        self._cancel_live_tokens()
         self._closed = True
         self._pool.shutdown(wait=True)
         for c in self._children:

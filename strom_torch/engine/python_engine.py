@@ -58,7 +58,9 @@ class PythonEngine(Engine):
         self._lock = threading.Lock()
         self._stats = {"ops_submitted": 0, "ops_completed": 0,
                        "ops_errored": 0, "bytes_read": 0, "media_bytes": 0,
-                       "unaligned_fallback_reads": 0, "o_direct_denied": 0}
+                       "unaligned_fallback_reads": 0, "o_direct_denied": 0,
+                       "ops_faulted": 0}
+        self._fault_counter = 0
         self._closed = False
         self._workers = [
             threading.Thread(target=self._worker, name=f"strom-io-{i}",
@@ -178,6 +180,7 @@ class PythonEngine(Engine):
     def close(self) -> None:
         if self._closed:
             return
+        self._cancel_live_tokens()
         self._closed = True
         for _ in self._workers:
             self._submit_q.put(None)  # workers drain queued reads first
@@ -187,11 +190,24 @@ class PythonEngine(Engine):
             self.unregister_file(idx)
 
     # -- worker -------------------------------------------------------------
+    def _take_fault(self) -> bool:
+        """fault_every=N: every Nth op completes with EIO unread."""
+        n = self.config.fault_every
+        if n <= 0:
+            return False
+        with self._lock:
+            self._fault_counter += 1
+            return self._fault_counter % n == 0
+
     def _worker(self) -> None:
         while True:
             req = self._submit_q.get()
             if req is None:
                 return
+            if self._take_fault():
+                self._count("ops_faulted")
+                self._done_q.put(Completion(req.tag, -_errno.EIO))
+                continue
             f = self._files.get(req.file_index)
             if f is None:
                 self._done_q.put(Completion(req.tag, -_errno.EBADF))

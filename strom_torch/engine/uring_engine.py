@@ -481,6 +481,9 @@ class UringEngine(Engine):
         return out
 
     def close(self) -> None:
+        if not self._closed:
+            # reap live async tokens while the ring can still complete them
+            self._cancel_live_tokens()
         # take the dest lock before flipping _closed and destroying the ring:
         # a slab unregistering from another thread would otherwise race
         # sc_destroy and call into a freed engine

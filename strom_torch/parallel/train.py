@@ -1,5 +1,7 @@
-"""Training step for the flagship model, single device (the port's
-counterpart of ``strom/parallel/train.py``).
+"""Training steps, single device: the flagship Llama model (the port's
+counterpart of ``strom/parallel/train.py``) and ResNet-50 under plain SGD
+(``make_resnet_sgd_step``, the counterpart of the ``sgd_step`` that
+``strom/cli.py``'s ResNet bench builds).
 
 The optimizer reproduces the reference's optax chain: clip-by-global-norm
 1.0, then AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay on every
@@ -20,6 +22,8 @@ import torch
 
 from strom_torch.delivery.core import resolve_device
 from strom_torch.models.llama import Llama, LlamaConfig, next_token_loss
+from strom_torch.models.resnet import (ResNet, ResNetConfig, loss_fn,
+                                       normalize_images)
 
 DECAY_STEPS = 10_000
 
@@ -118,5 +122,40 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
         state.scheduler.step()
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": norm}
+
+    return step
+
+
+def make_resnet_sgd_step(cfg: ResNetConfig, *, lr: float = 1e-3,
+                         device: Any = None
+                         ) -> Callable[[ResNet, torch.Tensor, torch.Tensor],
+                                       dict]:
+    """A ``(model, images, labels) -> metrics`` step: the counterpart of
+    ``sgd_step`` in ``strom/cli.py``'s ResNet bench. uint8 NHWC images are
+    normalised inside the step, labels taken ``% num_classes``; then plain
+    SGD ``w - lr·g`` over every parameter (batch-norm scale and bias
+    included), rounded as the JAX package rounds it (``lr·g`` in the
+    parameter's dtype, then the difference), and the new batch-norm
+    statistics stored. Updates are in place, where the reference's jitted
+    step donated its parameters. Metrics ``{"loss", "grad_norm"}`` are
+    0-dim tensors (reading them waits for the step)."""
+    device = resolve_device(device)
+
+    def step(model: ResNet, images: torch.Tensor, labels: torch.Tensor
+             ) -> dict:
+        images = images.to(device, non_blocking=True)
+        labels = labels.to(device, non_blocking=True)
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        loss, new_state = loss_fn(model, normalize_images(images),
+                                  labels.long() % cfg.num_classes)
+        loss.backward()
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        with torch.no_grad():
+            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
+            model.load_bn_state(new_state)
+        return {"loss": loss.detach(), "grad_norm": norm}
 
     return step

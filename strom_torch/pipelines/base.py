@@ -30,12 +30,19 @@ class Pipeline:
                  make_batch: Callable[[np.ndarray, int], Any], *,
                  depth: int = 2,
                  fingerprint: dict | None = None,
-                 executor: concurrent.futures.Executor | None = None):
+                 executor: concurrent.futures.Executor | None = None,
+                 on_close: Callable[[], None] | None = None,
+                 counters: Callable[[], dict] | None = None):
+        """*on_close* runs once the prefetcher has stopped (a decode pool's
+        shutdown, say); *counters* adds the pipeline's own counts to
+        :meth:`stats`."""
         self.sampler = sampler
         self.fingerprint = fingerprint or {}
         self._make_batch = make_batch
         self._depth = depth
         self._executor = executor
+        self._on_close = on_close
+        self._counters = counters
         st = sampler.state
         self._consumed = st.epoch * sampler.batches_per_epoch + st.batch_in_epoch
         self._seed = st.seed
@@ -101,8 +108,18 @@ class Pipeline:
     def data_stall_steps(self) -> int:
         return self._prefetcher.data_stall_steps
 
+    def stats(self) -> dict:
+        """``data_stall_steps`` and the pipeline's own counters."""
+        out = {"data_stall_steps": self.data_stall_steps}
+        if self._counters is not None:
+            out.update(self._counters())
+        return out
+
     def close(self) -> None:
         self._prefetcher.close()
+        if self._on_close is not None:
+            on_close, self._on_close = self._on_close, None
+            on_close()
 
     def __enter__(self) -> "Pipeline":
         return self
@@ -112,12 +129,12 @@ class Pipeline:
 
 
 def resolve_state(paths: tuple[str, ...], *, seed: int,
-                  resume_from: "str | SamplerState | None"
-                  ) -> tuple[SamplerState | None, dict]:
-    """Fingerprint the shard list and, when resuming, validate both the
-    dataset identity and the shuffle seed. Accepts a loader-state path or a
-    SamplerState."""
-    fp = dataset_fingerprint(paths)
+                  resume_from: "str | SamplerState | None",
+                  ctx=None) -> tuple[SamplerState | None, dict]:
+    """Fingerprint the shard list (striped aliases through *ctx*) and, when
+    resuming, validate both the dataset identity and the shuffle seed.
+    Accepts a loader-state path or a SamplerState."""
+    fp = dataset_fingerprint(paths, ctx)
     if resume_from is None:
         return None, fp
     if isinstance(resume_from, SamplerState):

@@ -13,7 +13,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from strom_torch.delivery.core import StromContext, resolve_device
+from strom_torch.delivery.core import StromContext, resolve_device, source_size
 from strom_torch.formats.rawbin import TokenShardSet
 from strom_torch.pipelines.base import Pipeline, resolve_state
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
@@ -34,9 +34,13 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
     SamplerState; a live pipeline also restores in place with
     ``Pipeline.restore(state)``."""
     device = resolve_device(device)
-    shards = TokenShardSet(tuple(paths), record_tokens=seq_len + 1,
-                           dtype=np.dtype(dtype))
-    state, fp = resolve_state(shards.paths, seed=seed, resume_from=resume_from)
+    # sizes through the context, so striped-set aliases (paths that need
+    # not exist on disk) work like files
+    shards = TokenShardSet(
+        tuple(paths), record_tokens=seq_len + 1, dtype=np.dtype(dtype),
+        shard_sizes=tuple(source_size(ctx.resolve_source(p)) for p in paths))
+    state, fp = resolve_state(shards.paths, seed=seed, resume_from=resume_from,
+                              ctx=ctx)
     sampler = EpochShuffleSampler(shards.num_records, batch, seed=seed,
                                   shuffle=shuffle, state=state)
     shape = (batch, seq_len + 1)

@@ -87,9 +87,15 @@ class EpochShuffleSampler:
             self.state.batch_in_epoch = 0
 
 
-def dataset_fingerprint(paths: tuple[str, ...]) -> dict:
-    """Identity of the shard list a loader state is valid against."""
-    return {"paths": list(paths), "sizes": [os.stat(p).st_size for p in paths]}
+def dataset_fingerprint(paths: tuple[str, ...], ctx=None) -> dict:
+    """Identity of the shard list a loader state is valid against. Paths the
+    *ctx* aliases to striped sets (``register_striped``) fingerprint by their
+    striped logical size: they need not exist on disk."""
+    def size(p: str) -> int:
+        sf = ctx.striped_source(p) if ctx is not None else None
+        return os.stat(p).st_size if sf is None else sf.size
+
+    return {"paths": list(paths), "sizes": [size(p) for p in paths]}
 
 
 def save_loader_state(path: str, state: SamplerState,

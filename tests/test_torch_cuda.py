@@ -1,6 +1,8 @@
 """The PyTorch port on the card: the CUDA flash-attention kernels against
-their plain versions, delivery into device memory with slab recycling, and
-a train step that goes through the kernels. Every test is marked ``cuda``
+their plain versions, delivery into device memory with slab recycling, a
+train step that goes through the kernels, vision batches on the card equal
+to the CPU's with the pinned batch slot recycled only after its copy, and a
+ResNet step on the card against the CPU's. Every test is marked ``cuda``
 and skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -14,10 +16,16 @@ import pytest
 import torch
 
 from strom_torch.config import StromConfig
+from strom_torch.delivery.buffers import buf_addr
 from strom_torch.delivery.core import StromContext
+from strom_torch.formats.predecoded import LABELS_SUFFIX
 from strom_torch.models.llama import LlamaConfig
+from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.ops import flash_attention as tfa
-from strom_torch.parallel.train import init_train_state, make_train_step
+from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
+                                        make_train_step)
+from strom_torch.pipelines import (make_predecoded_vision_pipeline,
+                                   make_wds_vision_pipeline)
 
 MiB = 1024 * 1024
 pytestmark = pytest.mark.cuda
@@ -242,3 +250,127 @@ def test_train_step_goes_through_the_kernels(cuda_device):
     assert all(np.isfinite(losses))
     # forward + remat recompute per layer and step; one of each backward
     assert dict(tfa.LAUNCHES) == {"fa_fwd": 8, "fa_bwd_dkv": 4, "fa_bwd_dq": 4}
+
+
+def _raw_tar(path: str, n: int = 12, side: int = 8) -> None:
+    """A WebDataset tar whose "jpg" members are raw side×side×3 pixels."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(4)
+    with tarfile.open(path, "w") as tf:
+        for i in range(n):
+            px = rng.integers(0, 256, side * side * 3, dtype=np.uint8).tobytes()
+            for name, data in ((f"s{i:04d}.jpg", px),
+                               (f"s{i:04d}.cls", str(i).encode())):
+                info = tarfile.TarInfo(name)
+                info.size = len(data)
+                tf.addfile(info, io.BytesIO(data))
+
+
+def _raw_transform(side: int):
+    """A decoder-free transform with out=: the member's pixels xor one
+    random byte, so the slot path runs on a host without cv2 or PIL."""
+    def tf(data, rng, out=None):
+        img = np.frombuffer(bytes(data), np.uint8).reshape(side, side, 3) \
+            ^ np.uint8(rng.integers(0, 256))
+        if out is None:
+            return img.copy()
+        out[...] = img
+        return out
+
+    return tf
+
+
+@pytest.mark.parametrize("stream", [True, False])
+def test_vision_slot_batches_on_cuda(cuda_device, tmp_path, monkeypatch,
+                                     stream):
+    """make_wds_vision_pipeline on the card: batches equal the CPU's, and a
+    pinned batch slot goes back to the pool only once the copy that reads
+    it has retired (its event has completed), streamed or not."""
+    path = str(tmp_path / "raw.tar")
+    _raw_tar(path)
+    ctx = StromContext(StromConfig(queue_depth=8, num_buffers=8))
+    copies: dict[int, torch.cuda.Event] = {}
+    recycled: list[bool] = []
+    real_copy, real_release = ctx._copy_async, ctx._slab_pool.release
+
+    def copy_async(dst, slab, stream_):
+        ev = real_copy(dst, slab, stream_)
+        copies[buf_addr(slab)] = ev
+        return ev
+
+    def release(arr):
+        recycled.append(copies[buf_addr(arr)].query())
+        real_release(arr)
+
+    monkeypatch.setattr(ctx, "_copy_async", copy_async)
+    monkeypatch.setattr(ctx._slab_pool, "release", release)
+
+    def batches(device):
+        with make_wds_vision_pipeline(ctx, [path], batch=4, image_size=8,
+                                      device=device, seed=2,
+                                      transform=_raw_transform(8),
+                                      decode_workers=2,
+                                      stream_intra_batch=stream) as pipe:
+            out = [next(pipe) for _ in range(5)]
+            torch.cuda.synchronize()
+            return out, pipe.stats()
+
+    try:
+        on_card, stats = batches(cuda_device)
+        on_cpu, _ = batches("cpu")
+        for (ci, cl), (hi, hl) in zip(on_card, on_cpu):
+            assert ci.is_cuda and cl.is_cuda and cl.dtype == torch.int32
+            assert torch.equal(ci.cpu(), hi) and torch.equal(cl.cpu(), hl)
+        assert recycled and all(recycled)
+        assert ctx._slab_pool.stats()["hits"] > 0
+        assert ("stream_batches" in stats) == stream
+    finally:
+        ctx.close()
+
+
+def test_predecoded_batches_on_cuda_equal_cpu(cuda_device, tmp_path):
+    rng = np.random.default_rng(8)
+    path = str(tmp_path / "p.pdec")
+    records = rng.integers(0, 256, (20, 16, 16, 3), dtype=np.uint8)
+    records.tofile(path)
+    np.save(path + LABELS_SUFFIX, rng.integers(0, 1000, 20, dtype=np.int32))
+    ctx = StromContext(StromConfig())
+    try:
+        out = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            with make_predecoded_vision_pipeline(ctx, [path], batch=8,
+                                                 image_size=16, device=dev,
+                                                 seed=4) as pipe:
+                out[dev.type] = [tuple(t.cpu() for t in next(pipe))
+                                 for _ in range(4)]
+        for (a, la), (b, lb) in zip(out["cuda"], out["cpu"]):
+            assert torch.equal(a, b) and torch.equal(la, lb)
+    finally:
+        ctx.close()
+
+
+def test_resnet_step_on_cuda_matches_cpu(cuda_device):
+    """Two SGD steps of the tiny ResNet in f32, TF32 off: cuDNN's
+    channels_last convolutions against the CPU's, same weights and
+    batches. f32 sums in another order: 1e-4 of the largest value."""
+    import dataclasses
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(ResNetConfig.tiny(), dtype="float32")
+    models = {d: ResNet(cfg, device=d) for d in ("cpu", cuda_device)}
+    models[cuda_device].load_state_dict(models["cpu"].state_dict())
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 1000, 8, dtype=np.int32))
+    for d, model in models.items():
+        step = make_resnet_sgd_step(cfg, device=d)
+        for _ in range(2):
+            m = step(model, images, labels)
+        assert np.isfinite(m["loss"].item())
+    want = models["cpu"].state_dict()
+    for k, v in models[cuda_device].state_dict().items():
+        torch.testing.assert_close(v.cpu(), want[k], rtol=0,
+                                   atol=1e-4 * want[k].abs().max().item() + 1e-7)

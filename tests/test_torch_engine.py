@@ -468,10 +468,14 @@ def test_two_processes_build_one_library(tmp_path):
     paths, built = zip(*(o.split() for o, _ in outs))
     assert paths[0] == paths[1] == core_build.lib_path(build_dir)
     assert sorted(built) == ["False", "True"]
-    libs = [n for n in os.listdir(build_dir) if not n.endswith(".lock")]
+    libs = [n for n in os.listdir(build_dir)
+            if not n.endswith((".lock", ".jpeg"))]
     assert libs == [os.path.basename(paths[0])]
+    # beside it, the marker of the libjpeg-turbo probe it was built with
+    assert core_build.built_with_jpeg(paths[0]) is core_build.jpeg_probe()
     lib = ctypes.CDLL(paths[0])
     assert lib.sc_create and lib.sc_read_vectored
+    assert lib.sc_jpeg_available() == int(core_build.jpeg_probe())
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

@@ -158,6 +158,33 @@ def test_extent_list_over_striped_alias_matches_reference(contexts, striped,
                                   data)
 
 
+def test_llama_pipeline_over_striped_alias_matches_reference(contexts,
+                                                            striped):
+    """A loader over a striped alias (a path that is not on disk): the
+    shard's size and the loader's fingerprint come through the context, as
+    the reference's do, and the batches equal the reference's."""
+    import jax
+    from jax.sharding import SingleDeviceSharding
+
+    from strom.pipelines import make_llama_pipeline as j_make_llama_pipeline
+    from strom_torch.pipelines import make_llama_pipeline
+
+    tctx, jctx, _ = contexts
+    _, _, members = striped
+    alias = str(os.path.dirname(members[0])) + "/tokens.raid0"
+    for ctx in (tctx, jctx):
+        ctx.register_striped(alias, members, CHUNK)
+    kw = dict(batch=4, seq_len=255, seed=3)
+    with make_llama_pipeline(tctx, [alias], device="cpu", **kw) as tp, \
+            j_make_llama_pipeline(
+                jctx, [alias], sharding=SingleDeviceSharding(jax.devices()[0]),
+                **kw) as jp:
+        assert tp.fingerprint == jp.fingerprint
+        assert tp.sampler.num_records == (3 * MiB + 999) // 1024
+        for _ in range(3):
+            np.testing.assert_array_equal(next(tp).numpy(), np.asarray(next(jp)))
+
+
 def test_plan_windows_members_and_skips_op_coalescing(striped):
     """Striped plans match the reference's op for op: member ops come in
     per-member runs inside windows of the in-flight budget, and are not
