@@ -8,8 +8,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
                a tensor-core kernel that spills registers fails the phase.
 2. kernels  -- each flash-attention kernel against its plain PyTorch version
                on the card: f32 and bf16 at small shapes (causal and not, S
-               a multiple of 64 but not of 128), then bf16 at the main
-               path's shape and at ``small``'s; bf16 dq must round dS as
+               a multiple of 64 but not of 128, head dims 32, 48 and 96 that
+               the wrappers zero-pad, S 63 and 96 off the 64-row tile), then
+               bf16 at the main path's shape and at ``small``'s; bf16 dq
+               must round dS as
                the JAX package does (share of elements that differ from
                the bf16 plain version). Each kernel is timed with CUDA
                events, median of 5 runs with min and max, beside its
@@ -23,9 +25,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                alternating rounds of three arms on the cold file: the
                python engine alone, the io_uring engine alone (skipped,
                with the errno, where the kernel refuses a ring) and a
-               delivery, each with GB/s and host CPU seconds per GiB. Last,
-               the file striped RAID0 over 4 member files and delivered
-               through a striped alias under 4 rings and under 1, exact.
+               delivery, each with GB/s and host CPU seconds per GiB. The
+               [check] line (check_file: tier, filesystem, extents,
+               cached_frac); the [ssd2host] rounds, memcpy_ssd2host against
+               the context's engine alone on the cold file, alternating,
+               exact, with vs_raw; one more memcpy_ssd2host of the file
+               warm in the page cache, with the engine's cached_bytes.
+               Last, the file striped RAID0 over 4 member files, checked
+               with check_file, and delivered through a striped alias
+               under 4 rings and under 1, exact.
 4. train    -- seeded packed-token shards through make_llama_pipeline into
                make_train_step(Llama-3-8B widths, 2 layers, attn="flash"),
                4 steps; every kernel must have launched during the steps.
@@ -54,6 +62,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
                stream_samples_early > 0; then 4 ResNet-50 steps fed by the
                streamed pipeline. Elsewhere the phase prints
                skipped=<what is missing>: a host library that is absent.
+8. vit      -- BASELINE config #3. Phase 6's predecoded shard striped RAID0
+               over 4 member files in 512 KiB chunks
+               (stage_striped_predecoded) through
+               make_predecoded_vision_pipeline(batch=64): the first batch
+               byte-exact, the loader alone; then ViT-B/16 at full width
+               (bf16) under make_vit_sgd_step, 1 warm-up and 8 timed steps
+               (finite loss and grad norm), one more under torch.profiler.
+               Where phase 7 made its JPEG tar: the tar striped over 4
+               members the same way through make_vit_wds_pipeline(batch=64),
+               the loader alone and 4 ViT steps; elsewhere skipped=.
 
 Each phase prints its own lines. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -83,6 +101,7 @@ import strom_torch
 from strom_torch.config import StromConfig
 from strom_torch._core import build as core_build
 from strom_torch.delivery.buffers import alloc_aligned
+from strom_torch.delivery.core import StripedFile, StromContext
 from strom_torch.delivery.extents import Extent, ExtentList
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
@@ -90,18 +109,21 @@ from strom_torch.engine import uring_engine
 from strom_torch.engine.python_engine import PythonEngine
 from strom_torch.engine.raid0 import stripe_file
 from strom_torch.formats import jpeg
-from strom_torch.formats.predecoded import LABELS_SUFFIX, META_SUFFIX
+from strom_torch.formats.predecoded import (LABELS_SUFFIX, META_SUFFIX,
+                                            stage_striped_predecoded)
 from strom_torch.formats.rawbin import write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
 from strom_torch.models.resnet import ResNet, ResNetConfig
+from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
 from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
-                                        make_train_step)
+                                        make_train_step, make_vit_sgd_step)
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
 from strom_torch.pipelines.sampler import EpochShuffleSampler
 from strom_torch.pipelines.vision import (make_imagenet_resnet_pipeline,
-                                          make_predecoded_vision_pipeline)
+                                          make_predecoded_vision_pipeline,
+                                          make_vit_wds_pipeline)
 
 GiB = 1 << 30
 MiB = 1 << 20
@@ -279,28 +301,42 @@ def _run_kernels(q, k, v, g, causal):
     return (out, lse, dq, dk, dv), lse, delta
 
 
+# small shapes: (B, S, H, KV, Dh)
+SMALL_SHAPES = [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
+                # S a multiple of 64 but not of the 128-row q tile
+                (1, 192, 4, 2, 128),
+                # head dims the wrappers zero-pad to 64 or 128, S off the
+                # kernels' 64-row tile (LlamaConfig.tiny's head dim is 32)
+                (2, 128, 4, 2, 32), (1, 63, 4, 2, 32), (1, 96, 4, 2, 48),
+                (2, 192, 4, 2, 32), (1, 96, 4, 2, 96)]
+
+
 def check_kernels_small() -> None:
-    """Small shapes, causal and not, S = 192 among them (a multiple of 64
-    but not of the forward's and dQ's 128-row q tile). f32 inputs run the
-    scalar kernels, bf16 the tensor-core ones."""
-    for (B, S, H, KV, Dh) in [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
-                              (1, 192, 4, 2, 128)]:
+    """SMALL_SHAPES, causal and not. f32 inputs run the scalar kernels,
+    bf16 the tensor-core ones. The plain versions take one block of S rows
+    where 64 does not divide S, as the reference requires."""
+    for (B, S, H, KV, Dh) in SMALL_SHAPES:
+        block = S if S % 64 else 64
         for causal in (True, False):
             for dt in (torch.float32, torch.bfloat16):
                 q, k, v, g = _inputs(B, S, H, KV, Dh, dt, 1)
                 res, lse, delta = _run_kernels(q, k, v, g, causal)
+                if res[0].shape != q.shape or res[2].shape != q.shape \
+                        or res[3].shape != k.shape:
+                    raise AssertionError(f"{(B, S, H, KV, Dh)}: output shapes "
+                                         f"{[tuple(t.shape) for t in res]}")
                 f32 = [t.float() for t in (q, k, v, g)]
                 if dt == torch.float32:
                     errs = _check_against_plain("f32", res, *f32, lse, delta,
-                                                causal, 64, F32_TOL)
+                                                causal, block, F32_TOL)
                 else:
                     _check_against_plain("bf16 vs f32 plain", res, *f32, lse,
-                                         delta, causal, 64, BF16_VS_F32_TOL)
+                                         delta, causal, block, BF16_VS_F32_TOL)
                     errs = _check_against_plain("bf16", res, q, k, v, g, lse,
-                                                delta, causal, 64, BF16_TOL)
+                                                delta, causal, block, BF16_TOL)
                     _check_dq_rounding(f"bf16 {(B, S, H, KV, Dh)} causal="
                                        f"{causal}", res[2], q, k, v, g, lse,
-                                       delta, causal, 64)
+                                       delta, causal, block)
                 say("kernels", check=str(dt).split(".")[-1],
                     shape=(B, S, H, KV, Dh), causal=causal,
                     max_abs_err=f"{max(errs.values()):.2e}")
@@ -605,9 +641,101 @@ def phase_ssd2gpu(workdir: str) -> str:
     del pinned, dst
     say("ssd2gpu", read="1GiB-pinned-host-to-device-copy", ms=f"{h2d_ms:.3f}",
         gbps=f"{GiB / h2d_ms / 1e6:.3f}")
+    _drop_cache(path)
+    report_check("file", strom_torch.check_file(path))
+    phase_ssd2host(ctx, path, slab, want)
     strom_torch.close()
+    del slab
     phase_striped(workdir, path, want, uring_ok, why_not)
     return path   # phase 5 gathers records of it
+
+
+def report_check(label: str, rep) -> None:
+    """The [check] line of one check_file report."""
+    say("check", of=label, tier=rep.tier.value, supported=rep.supported,
+        fs_type=rep.fs_type, size=rep.size, extents=rep.extents,
+        extent_coverage=f"{rep.extent_coverage:.3f}",
+        fragmented=rep.fragmented, mean_extent_bytes=rep.mean_extent_bytes,
+        cached_frac=("none" if rep.cached_frac is None
+                     else f"{rep.cached_frac:.3f}"),
+        device=(f"{rep.device.name}:{rep.device.fast_class}" if rep.device
+                else "none"),
+        dio=f"{rep.dio.source}:{rep.dio.offset_align}",
+        reason=rep.reasons[-1].replace(" ", "_") if rep.reasons else "-")
+    if rep.size <= 0 or not 0.0 <= (rep.cached_frac or 0.0) <= 1.0:
+        raise AssertionError(f"check_file {label}: {rep}")
+
+
+def _host_exact(label: str, host: np.ndarray, want: torch.Tensor) -> None:
+    if not torch.equal(torch.from_numpy(host).to(want.device), want):
+        raise AssertionError(f"ssd2host {label}: bytes differ from the file")
+
+
+def phase_ssd2host(ctx, path: str, slab: np.ndarray, want: torch.Tensor
+                   ) -> None:
+    """memcpy_ssd2host (the delivered path stopped before the copy to the
+    device: planning, residency routing, the gather) against the same
+    context's engine reading the dropped file into the same slab, and
+    against memcpy_ssd2host with the residency hybrid off (every aligned
+    read O_DIRECT), in four rounds of alternating order; then one
+    memcpy_ssd2host of the file read once through the page cache, with the
+    engine's cached_bytes and media_bytes."""
+    fi = ctx.file_index(path)
+    off = StromContext(dataclasses.replace(ctx.config, residency_hybrid=False))
+    arms = ("raw", "ssd2host", "ssd2host_hybrid_off")
+    res: dict[str, list[float]] = {a: [] for a in arms}
+    for i in range(4):
+        order = arms if i % 2 == 0 else arms[::-1]
+        for arm in order:
+            _drop_cache(path)
+            t0 = time.perf_counter()
+            if arm == "raw":
+                if ctx.engine.read_vectored([(fi, 0, 0, GiB)], slab) != GiB:
+                    raise AssertionError("ssd2host: the raw read came up short")
+                out = slab
+            else:
+                out = (ctx if arm == "ssd2host" else off).memcpy_ssd2host(
+                    path, out=slab)
+            dt = time.perf_counter() - t0
+            if not np.shares_memory(out, slab):
+                raise AssertionError("ssd2host: out= was not the dest")
+            res[arm].append(GiB / dt / 1e9)
+            _host_exact(f"{arm} round {i}", slab, want)
+        say("ssd2host", round=i, order="-".join(order),
+            **{f"{a}_gbps": f"{res[a][-1]:.3f}" for a in arms},
+            vs_raw=f"{res['ssd2host'][-1] / res['raw'][-1]:.3f}")
+    med = {a: statistics.median(res[a]) for a in arms}
+    ost = off.engine.stats()
+    off.close()
+    say("ssd2host", engine=ctx.engine.name,
+        **{f"{a}_gbps_median": f"{m:.4f}" for a, m in med.items()},
+        vs_raw=f"{med['ssd2host'] / med['raw']:.4f}",
+        hybrid_off_vs_on=f"{med['ssd2host_hybrid_off'] / med['ssd2host']:.4f}",
+        hybrid_off_media_bytes=ost.get("media_bytes", "n/a"),
+        hybrid_off_cached_bytes=ost.get("cached_bytes", "n/a"),
+        rounds=4, exact=True)
+    # warm: the whole file read once through the page cache first
+    with open(path, "rb") as f:
+        while f.readinto(memoryview(slab)[:64 * MiB]):
+            pass
+    warm_frac = strom_torch.check_file(path, want_extents=False).cached_frac
+    before = dict(ctx.engine.stats())
+    t0 = time.perf_counter()
+    strom_torch.memcpy_ssd2host(path, out=slab)
+    dt = time.perf_counter() - t0
+    _host_exact("warm", slab, want)
+    after = ctx.engine.stats()
+    delta = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("cached_bytes", "media_bytes", "residency_probes")}
+    say("ssd2host", read="1GiB-warm", engine=after["engine"],
+        residency_hybrid=ctx.config.residency_hybrid,
+        o_direct=ctx.uses_o_direct(path),
+        cached_frac_before=("none" if warm_frac is None else f"{warm_frac:.3f}"),
+        gbps=f"{GiB / dt / 1e9:.3f}", exact=True, **delta)
+    if ctx.uses_o_direct(path) and delta["cached_bytes"] + \
+            delta["media_bytes"] != GiB:
+        raise AssertionError(f"ssd2host warm: the engine routed "
+                             f"{delta} bytes of a 1 GiB read")
 
 
 def phase_striped(workdir: str, path: str, want: torch.Tensor,
@@ -616,19 +744,13 @@ def phase_striped(workdir: str, path: str, want: torch.Tensor,
     aliased with register_striped and delivered to the card under 4 rings
     and under 1: exact bytes, and with 4 rings bytes on every ring."""
     chunk = StromConfig().raid_chunk
-    members = [os.path.join(workdir, f"member{i}.bin") for i in range(4)]
     t0 = time.perf_counter()
-    if stripe_file(path, members, chunk) != GiB:
-        raise AssertionError("stripe_file lost bytes")
-    for m in members:   # on disk before the deliveries drop them from cache
-        fd = os.open(m, os.O_RDWR)
-        try:
-            os.fsync(fd)
-        finally:
-            os.close(fd)
+    members = _stripe_members(path, 4, chunk)
     say("striped", members=len(members), raid_chunk=chunk,
         stripe_s=f"{time.perf_counter() - t0:.2f}")
     alias = os.path.join(workdir, "striped.bin")
+    report_check("striped-set", strom_torch.check_file(StripedFile(
+        tuple(members), chunk)))
     for rings in (4, 1):
         ctx = strom_torch.init(StromConfig.from_env(engine="auto",
                                                     engine_rings=rings))
@@ -843,7 +965,7 @@ def _write_predecoded(path: str, records: np.ndarray, labels: np.ndarray) -> Non
         json.dump({"image_size": records.shape[1], "n": len(records)}, f)
 
 
-def _resnet_steps(label: str, model, step, pipe, n_steps: int) -> None:
+def _train_steps(label: str, model, step, pipe, n_steps: int) -> None:
     """1 warm-up step, then *n_steps* timed iterations (next batch + step +
     the loss read back), each checked finite."""
     B = None
@@ -874,7 +996,7 @@ def _resnet_steps(label: str, model, step, pipe, n_steps: int) -> None:
 
 def phase_resnet(workdir: str):
     """Predecoded shard → make_predecoded_vision_pipeline → ResNet-50 SGD.
-    Returns (model, step) for phase 7."""
+    Returns (model, step) for phase 7 and the shard's path for phase 8."""
     cuda = torch.device("cuda")
     n, B = 2048, 128
     rng = np.random.default_rng(6)
@@ -924,11 +1046,11 @@ def phase_resnet(workdir: str):
     torch.cuda.reset_peak_memory_stats()
     pipe = make_predecoded_vision_pipeline(ctx, [pdec], batch=B,
                                            image_size=IMAGE, device=cuda)
-    _resnet_steps("resnet", model, step, pipe, 8)
+    _train_steps("resnet", model, step, pipe, 8)
     profile_step(lambda m, b: (m, step(m, *b)), model, next(pipe))
     pipe.close()
     strom_torch.close()
-    return model, step
+    return model, step, pdec
 
 
 def _jpeg_fixture(path: str, n: int, side: int) -> None:
@@ -964,19 +1086,19 @@ def _jpeg_fixture(path: str, n: int, side: int) -> None:
     _drop_cache(path)
 
 
-def phase_resnet_jpeg(workdir: str, model, step) -> None:
+def phase_resnet_jpeg(workdir: str, model, step) -> str | None:
     """JPEG WebDataset → make_imagenet_resnet_pipeline, streamed and not,
     then ResNet-50 steps fed by the streamed pipeline; skipped, saying
-    what is missing, where the host has no JPEG encoder and resize."""
+    what is missing, where the host has no JPEG encoder and resize.
+    Returns the tar's path for phase 8 (None when skipped)."""
     native = jpeg.native_available()
     so = core_build.ensure_built()
     say("decode", native_libjpeg_turbo=native,
         native_built_with_jpeg=core_build.built_with_jpeg(so),
         cv2=jpeg._HAVE_CV2, PIL=jpeg._HAVE_PIL)
     if not (jpeg._HAVE_CV2 or jpeg._HAVE_PIL):
-        say("resnet_jpeg", skipped="no_cv2_and_no_PIL:_neither_a_JPEG_encoder_"
-            "for_the_fixture_nor_the_resize_of_the_train_transform")
-        return
+        say("resnet_jpeg", skipped=NO_JPEG)
+        return None
     cuda = torch.device("cuda")
     tar = os.path.join(workdir, "imagenet.tar")
     t0 = time.perf_counter()
@@ -1015,8 +1137,114 @@ def phase_resnet_jpeg(workdir: str, model, step) -> None:
         batches=4, exact=True)
     _drop_cache(tar)
     pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=128, device=cuda)
-    _resnet_steps("resnet_jpeg", model, step, pipe, 3)
+    _train_steps("resnet_jpeg", model, step, pipe, 3)
     pipe.close()
+    strom_torch.close()
+    return tar
+
+
+NO_JPEG = ("no_cv2_and_no_PIL:_neither_a_JPEG_encoder_for_the_fixture_nor_"
+           "the_resize_of_the_train_transform")
+
+
+# -------------------------------------------------------------------- vit
+def _stripe_members(src: str, n: int, chunk: int) -> list[str]:
+    """*src* striped RAID0 over n member files beside it, on disk and out
+    of the page cache."""
+    members = [f"{src}.m{i}" for i in range(n)]
+    if stripe_file(src, members, chunk) != os.path.getsize(src):
+        raise AssertionError(f"stripe_file lost bytes of {src}")
+    for m in members:
+        fd = os.open(m, os.O_RDWR)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+        _drop_cache(m)
+    return members
+
+
+def _loader_alone(label: str, pipe, batches: int, B: int) -> None:
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(pipe)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    say(label, loader="alone", batches=batches,
+        images_per_s=f"{batches * B / dt:.1f}",
+        data_stall_steps=pipe.data_stall_steps)
+
+
+def phase_vit(pdec: str, tar: str | None) -> None:
+    """BASELINE config #3: ViT-B/16 (bf16, batch 64) fed from a RAID0 set
+    of 4 members: phase 6's predecoded shard staged striped, then, where
+    phase 7 made it, the JPEG tar striped through make_vit_wds_pipeline."""
+    cuda = torch.device("cuda")
+    B, chunk = 64, StromConfig().raid_chunk
+    ctx = strom_torch.init(StromConfig.from_env())
+    t0 = time.perf_counter()
+    members = _stripe_members(pdec, 4, chunk)
+    alias = stage_striped_predecoded(ctx, pdec, members, chunk, stripe=False)
+    say("vit", shard=os.path.basename(alias), members=len(members),
+        raid_chunk=chunk, stage_s=f"{time.perf_counter() - t0:.2f}",
+        engine=ctx.engine.stats()["engine"])
+    report_check("vit-striped-set", strom_torch.check_file(alias))
+
+    records = np.memmap(pdec, dtype=np.uint8, mode="r").reshape(
+        -1, IMAGE, IMAGE, 3)
+    labels = np.load(pdec + LABELS_SUFFIX)
+    pipe = make_predecoded_vision_pipeline(ctx, [alias], batch=B,
+                                           image_size=IMAGE, device=cuda)
+    idx = next(iter(EpochShuffleSampler(len(records), B, seed=0)))
+    imgs, lbls = next(pipe)
+    if imgs.shape != (B, IMAGE, IMAGE, 3) or not torch.equal(
+            imgs.cpu(), torch.from_numpy(records[idx])) \
+            or not torch.equal(lbls.cpu(), torch.from_numpy(labels[idx])):
+        raise AssertionError("vit: the first striped batch differs from the "
+                             "sampler's records or labels")
+    say("vit", check="first striped batch equals the sampler's records and "
+        "labels", exact=True)
+    _loader_alone("vit", pipe, 8, B)
+    pipe.close()
+    del records
+
+    cfg = ViTConfig.vit_b16()
+    model = ViT(cfg, device=cuda,
+                generator=torch.Generator(device=cuda).manual_seed(0))
+    step = make_vit_sgd_step(cfg, device=cuda)
+    say("vit", config="vit_b16", d_model=cfg.d_model, layers=cfg.n_layers,
+        heads=cfg.n_heads, d_mlp=cfg.d_mlp, classes=cfg.num_classes,
+        image_size=cfg.image_size, patch=cfg.patch, dtype=cfg.dtype,
+        params=sum(p.numel() for p in model.parameters()), batch=B)
+    for m in members:
+        _drop_cache(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = make_predecoded_vision_pipeline(ctx, [alias], batch=B,
+                                           image_size=IMAGE, device=cuda)
+    _train_steps("vit", model, step, pipe, 8)
+    profile_step(lambda m, b: (m, step(m, *b)), model, next(pipe))
+    pipe.close()
+
+    if tar is None:
+        say("vit_jpeg", skipped=NO_JPEG)
+    else:
+        members = _stripe_members(tar, 4, chunk)
+        walias = tar + ".raid0"
+        ctx.register_striped(walias, members, chunk, size=os.path.getsize(tar))
+        report_check("vit-jpeg-striped-set", strom_torch.check_file(walias))
+        pipe = make_vit_wds_pipeline(ctx, [walias], batch=B, image_size=IMAGE,
+                                     device=cuda)
+        _loader_alone("vit_jpeg", pipe, 4, B)
+        say("vit_jpeg", scope=json.dumps(pipe.stats()["scope"]),
+            stream_samples_early=pipe.stats().get("stream_samples_early", 0))
+        pipe.close()
+        for m in members:
+            _drop_cache(m)
+        pipe = make_vit_wds_pipeline(ctx, [walias], batch=B, image_size=IMAGE,
+                                     device=cuda)
+        _train_steps("vit_jpeg", model, step, pipe, 3)
+        pipe.close()
     strom_torch.close()
 
 
@@ -1090,8 +1318,11 @@ def main() -> int:
         launches = phase_train(workdir)
         phase_stream(path)
         os.unlink(path)
-        model, step = phase_resnet(workdir)
-        phase_resnet_jpeg(workdir, model, step)
+        model, step, pdec = phase_resnet(workdir)
+        tar = phase_resnet_jpeg(workdir, model, step)
+        del model, step
+        torch.cuda.empty_cache()
+        phase_vit(pdec, tar)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

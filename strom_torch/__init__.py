@@ -7,7 +7,9 @@ contract:
 =============================  ==========================================
 reference (ioctl ABI)          strom_torch (this module)
 =============================  ==========================================
-STROM_IOCTL__MAP_GPU_MEMORY    strom_torch.init(config)
+STROM_IOCTL__CHECK_FILE        strom_torch.check_file(path | StripedFile)
+STROM_IOCTL__MAP_GPU_MEMORY    strom_torch.init(config) / map_buffers()
+STROM_IOCTL__LIST/INFO...      strom_torch.buffer_info()
 STROM_IOCTL__MEMCPY_SSD2GPU    strom_torch.memcpy_ssd2gpu(..., async_=False)
   ..._ASYNC                    strom_torch.memcpy_ssd2gpu(..., async_=True)
 STROM_IOCTL__MEMCPY_WAIT       strom_torch.memcpy_wait(handle)
@@ -15,10 +17,12 @@ STROM_IOCTL__MEMCPY_WAIT       strom_torch.memcpy_wait(handle)
 (in-kernel md-raid0 decode)    strom_torch.StripedFile / register_striped
 =============================  ==========================================
 
-The workload pipelines (``make_llama_pipeline``, and for ImageNet →
+``memcpy_ssd2host`` is the delivered path stopped before the copy to the
+device. The workload pipelines (``make_llama_pipeline``; for ImageNet →
 ResNet-50 ``make_imagenet_resnet_pipeline``, ``make_wds_vision_pipeline``
-and ``make_predecoded_vision_pipeline``) take a context and yield batches
-as tensors on one device.
+and ``make_predecoded_vision_pipeline``; for WebDataset → ViT-B/16
+``make_vit_wds_pipeline``) take a context and yield batches as tensors on
+one device.
 
 Entry points target the current CUDA device unless the caller passes
 ``device="cpu"``; with no device given and no CUDA present they raise.
@@ -36,12 +40,26 @@ from strom_torch.delivery.extents import Extent, ExtentList  # noqa: F401
 from strom_torch.delivery.handle import DMAHandle  # noqa: F401
 from strom_torch.pipelines import (  # noqa: F401
     make_imagenet_resnet_pipeline, make_llama_pipeline,
-    make_predecoded_vision_pipeline, make_wds_vision_pipeline)
+    make_predecoded_vision_pipeline, make_vit_wds_pipeline,
+    make_wds_vision_pipeline)
+from strom_torch.probe.check import FileReport, PathTier  # noqa: F401
+from strom_torch.probe.check import check_file as _probe_check_file
 
 __version__ = "0.1.0"
 
 _ctx: StromContext | None = None
 _ctx_lock = threading.Lock()
+
+
+def check_file(path, **kwargs) -> FileReport:
+    """≙ STROM_IOCTL__CHECK_FILE. Accepts a path or a StripedFile; a path
+    the process context aliases to a striped set (``register_striped``) is
+    checked as that set, without creating a context."""
+    source = path
+    with _ctx_lock:
+        if _ctx is not None and isinstance(path, str):
+            source = _ctx.resolve_source(path)
+    return _probe_check_file(source, **kwargs)
 
 
 def init(config: StromConfig | None = None) -> StromContext:
@@ -69,6 +87,13 @@ def memcpy_ssd2gpu(source: Source, **kwargs: Any):
     return context().memcpy_ssd2gpu(source, **kwargs)
 
 
+def memcpy_ssd2host(source: Source, **kwargs: Any):
+    """The delivered path stopped before the copy to the device: plan,
+    route, gather into the final host array zero-copy. See
+    StromContext.memcpy_ssd2host."""
+    return context().memcpy_ssd2host(source, **kwargs)
+
+
 def memcpy_wait(handle: DMAHandle, timeout: float | None = None):
     """Block until an async copy retires; returns the delivered tensor.
     ≙ STROM_IOCTL__MEMCPY_WAIT."""
@@ -84,11 +109,26 @@ def register_striped(path: str, members: "StripedFile | Any",
     return context().register_striped(path, members, chunk, size)
 
 
+def buffer_info() -> dict:
+    """The engine's staging pool: slots, slot size, bytes, engine."""
+    return context().buffer_info()
+
+
+def map_buffers() -> list:
+    """Zero-copy numpy views of the engine's staging-pool slots
+    (≙ MAP_GPU_MEMORY handing back the pinned window)."""
+    ctx = context()
+    return [ctx.engine.buffer(i) for i in range(ctx.engine.num_buffers)]
+
+
 def stats() -> dict:
     """Plain counters of the process-wide context (bytes, transfers, engine
-    and slab-pool counters)."""
+    and slab-pool counters), creating the context as the reference does."""
+    global _ctx
     with _ctx_lock:
-        return _ctx.stats() if _ctx is not None else {}
+        if _ctx is None:
+            _ctx = StromContext()
+        return _ctx.stats()
 
 
 def close() -> None:

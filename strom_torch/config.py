@@ -56,8 +56,8 @@ class StromConfig:
                                        # polls the SQ (falls back when refused)
     io_retries: int = 1                # per-chunk resubmits before erroring
     # route page-cache-resident ranges of a gather through the buffered fd
-    # (a memcpy from the cache) instead of re-reading them O_DIRECT; the
-    # native engine does this, the preadv pool does not
+    # (a memcpy from the cache) instead of re-reading them O_DIRECT; both
+    # the native engine and the preadv pool do
     residency_hybrid: bool = True
     raid_chunk: int = 512 * KiB        # RAID0 stripe chunk
     fault_every: int = 0               # fail every Nth op with EIO (tests)
@@ -66,6 +66,11 @@ class StromConfig:
     engine_wait_timeout_s: float = 30.0
 
     # delivery
+    # extent-aware gather planning: split plain-file chunks at FIEMAP extent
+    # boundaries and submit them in physical-address order (helps
+    # fragmented files, a no-op on contiguous ones; one cached FIEMAP per
+    # file)
+    extent_aware: bool = True
     prefetch_depth: int = 2            # batches dispatched ahead of consumption
     delivery_workers: int = 2          # threads running async transfers
     # merge caller fragments contiguous in both file and dest space into

@@ -28,9 +28,14 @@
 //   - dK/dV: one CTA per (batch, kv head, kv tile) loops over every group
 //     head and every q tile itself, so the sum the TPU grid carried across
 //     sequential grid steps stays inside the CTA: no atomics, no second pass.
+//   - any S: tiles are staged with a row bound (rows past S read as 0), the
+//     tile the end of S crosses masks its kv columns >= S (the forward:
+//     NEG_BIG before the row max; the backward: P = 0), and no row >= S is
+//     stored.
 // Tensors keep the model's layout: q, o, dO, dq are [B, S, H, Dh]; k, v, dk,
-// dv are [B, S, KV, Dh]; lse and delta are [B, H, S] f32. The wrapper
-// checks shapes; S must divide by 64.
+// dv are [B, S, KV, Dh]; lse is [B, H, S] f32 out of the forward, lse and
+// delta [B, H, SL] f32 into the backward (SL = S rounded up to 64; the
+// wrapper pads). Dh is 64 or 128: the wrapper zero-pads a narrower head.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,14 +53,14 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 
 // Stage a TILE x DH tile (row r at src + r * row_stride) into shared memory
-// as f32 with row length DH + 1.
+// as f32 with row length DH + 1; rows from `rows` on (past S) are zeros.
 template <typename T, int DH>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long row_stride) {
+                                          long row_stride, int rows) {
   constexpr int LD = DH + 1;
   for (int e = threadIdx.x; e < TILE * DH; e += NT) {
     const int r = e / DH, d = e % DH;
-    dst[r * LD + d] = to_f(src[(long)r * row_stride + d]);
+    dst[r * LD + d] = r < rows ? to_f(src[(long)r * row_stride + d]) : 0.f;
   }
 }
 
@@ -85,7 +90,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + TILE * LD;
   float* Ps = Vs + TILE * LD;  // TILE x SLD
 
-  const int nq = S / TILE;
+  const int nq = (S + TILE - 1) / TILE;
   const int qi = nq - 1 - blockIdx.x;  // longest causal rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -94,7 +99,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (long)b * S * kvrow + (long)kvh * DH;
   const T* vb = v + (long)b * S * kvrow + (long)kvh * DH;
 
-  load_tile<T, DH>(Qs, q + ((long)b * S + (long)qi * TILE) * qrow + (long)h * DH, qrow);
+  load_tile<T, DH>(Qs, q + ((long)b * S + (long)qi * TILE) * qrow + (long)h * DH, qrow,
+                   S - qi * TILE);
 
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
@@ -108,8 +114,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nk = causal ? qi + 1 : nq;
   for (int kj = 0; kj < nk; ++kj) {
     __syncthreads();  // the previous tile's Ks/Vs/Ps are no longer read
-    load_tile<T, DH>(Ks, kb + (long)kj * TILE * kvrow, kvrow);
-    load_tile<T, DH>(Vs, vb + (long)kj * TILE * kvrow, kvrow);
+    load_tile<T, DH>(Ks, kb + (long)kj * TILE * kvrow, kvrow, S - kj * TILE);
+    load_tile<T, DH>(Vs, vb + (long)kj * TILE * kvrow, kvrow, S - kj * TILE);
     __syncthreads();
 
     float s[4][4];
@@ -131,13 +137,15 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     const bool diag = causal && kj == qi;
+    const bool edge = (kj + 1) * TILE > S;  // kv columns past S
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = NEG_BIG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float x = s[i][j] * scale;
-        if (diag && tx + 16 * j > ty + 16 * i) x = NEG_BIG;
+        if ((diag && tx + 16 * j > ty + 16 * i) || (edge && kj * TILE + tx + 16 * j >= S))
+          x = NEG_BIG;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -174,6 +182,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = qi * TILE + ty + 16 * i;
+    if (r >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
     T* orow = o + ((long)b * S + r) * qrow + (long)h * DH;
 #pragma unroll
@@ -188,7 +197,8 @@ __global__ void __launch_bounds__(NT)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dq, int S, int H, int KV, int causal, float scale) {
+                 T* __restrict__ dq, int S, int SL, int H, int KV, int causal,
+                 float scale) {
   constexpr int LD = DH + 1;
   constexpr int NJ = DH / 16;
   extern __shared__ float smem[];
@@ -198,7 +208,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + TILE * LD;
   float* Ds = Vs + TILE * LD;  // dS tile, TILE x SLD
 
-  const int nq = S / TILE;
+  const int nq = (S + TILE - 1) / TILE;
   const int qi = nq - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -207,10 +217,10 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long qoff = ((long)b * S + (long)qi * TILE) * qrow + (long)h * DH;
   const T* kb = k + (long)b * S * kvrow + (long)kvh * DH;
   const T* vb = v + (long)b * S * kvrow + (long)kvh * DH;
-  const long rowbase = ((long)b * H + h) * S + (long)qi * TILE;
+  const long rowbase = ((long)b * H + h) * SL + (long)qi * TILE;
 
-  load_tile<T, DH>(Qs, q + qoff, qrow);
-  load_tile<T, DH>(Gs, dout + qoff, qrow);
+  load_tile<T, DH>(Qs, q + qoff, qrow, S - qi * TILE);
+  load_tile<T, DH>(Gs, dout + qoff, qrow, S - qi * TILE);
   float lse_r[4], dlt_r[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -223,8 +233,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nk = causal ? qi + 1 : nq;
   for (int kj = 0; kj < nk; ++kj) {
     __syncthreads();
-    load_tile<T, DH>(Ks, kb + (long)kj * TILE * kvrow, kvrow);
-    load_tile<T, DH>(Vs, vb + (long)kj * TILE * kvrow, kvrow);
+    load_tile<T, DH>(Ks, kb + (long)kj * TILE * kvrow, kvrow, S - kj * TILE);
+    load_tile<T, DH>(Vs, vb + (long)kj * TILE * kvrow, kvrow, S - kj * TILE);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -255,12 +265,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     const bool diag = causal && kj == qi;
+    const bool edge = (kj + 1) * TILE > S;  // kv columns past S
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float p = expf(s[i][j] * scale - lse_r[i]);
-        if (diag && tx + 16 * j > ty + 16 * i) p = 0.f;
+        if ((diag && tx + 16 * j > ty + 16 * i) || (edge && kj * TILE + tx + 16 * j >= S))
+          p = 0.f;
         Ds[(ty + 16 * i) * SLD + tx + 16 * j] = p * (dp[i][j] - dlt_r[i]) * scale;
       }
     __syncthreads();
@@ -281,6 +293,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    if (qi * TILE + ty + 16 * i >= S) continue;
     T* row = dq + qoff + (long)(ty + 16 * i) * qrow;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) row[tx + 16 * j] = from_f<T>(acc[i][j]);
@@ -294,7 +307,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   T* __restrict__ dk, T* __restrict__ dv,
-                  int S, int H, int KV, int causal, float scale) {
+                  int S, int SL, int H, int KV, int causal, float scale) {
   constexpr int LD = DH + 1;
   constexpr int NJ = DH / 16;
   extern __shared__ float smem[];
@@ -307,7 +320,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = St + TILE * SLD;
   float* dlt_s = lse_s + TILE;
 
-  const int nq = S / TILE;
+  const int nq = (S + TILE - 1) / TILE;
   const int kj = blockIdx.x;  // small kj has the most causal q tiles: first
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
@@ -315,8 +328,8 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long qrow = (long)H * DH, kvrow = (long)KV * DH;
   const long kvoff = ((long)b * S + (long)kj * TILE) * kvrow + (long)kvh * DH;
 
-  load_tile<T, DH>(Ks, k + kvoff, kvrow);
-  load_tile<T, DH>(Vs, v + kvoff, kvrow);
+  load_tile<T, DH>(Ks, k + kvoff, kvrow, S - kj * TILE);
+  load_tile<T, DH>(Vs, v + kvoff, kvrow, S - kj * TILE);
   float dka[4][NJ], dva[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -328,10 +341,10 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kvh * G + g;
     for (int qi = q0; qi < nq; ++qi) {
       const long qoff = ((long)b * S + (long)qi * TILE) * qrow + (long)h * DH;
-      const long rowbase = ((long)b * H + h) * S + (long)qi * TILE;
+      const long rowbase = ((long)b * H + h) * SL + (long)qi * TILE;
       __syncthreads();
-      load_tile<T, DH>(Qs, q + qoff, qrow);
-      load_tile<T, DH>(Gs, dout + qoff, qrow);
+      load_tile<T, DH>(Qs, q + qoff, qrow, S - qi * TILE);
+      load_tile<T, DH>(Gs, dout + qoff, qrow, S - qi * TILE);
       if (threadIdx.x < TILE) {
         lse_s[threadIdx.x] = lse[rowbase + threadIdx.x];
         dlt_s[threadIdx.x] = delta[rowbase + threadIdx.x];
@@ -367,13 +380,14 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
       const bool diag = causal && qi == kj;
+      const bool edge = (qi + 1) * TILE > S;  // q rows past S
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = tx + 16 * j;
           float p = expf(s[i][j] * scale - lse_s[r]);
-          if (diag && r < ty + 16 * i) p = 0.f;
+          if ((diag && r < ty + 16 * i) || (edge && qi * TILE + r >= S)) p = 0.f;
           Pt[(ty + 16 * i) * SLD + r] = p;
           St[(ty + 16 * i) * SLD + r] = p * (dp[i][j] - dlt_s[r]) * scale;
         }
@@ -405,6 +419,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    if (kj * TILE + ty + 16 * i >= S) continue;
     const long off = kvoff + (long)(ty + 16 * i) * kvrow;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -433,7 +448,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  fa_fwd_kernel<T, DH><<<dim3(S / TILE, H, B), NT, smem, stream>>>(
+  fa_fwd_kernel<T, DH><<<dim3((S + TILE - 1) / TILE, H, B), NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, H, KV, causal, scale);
   return cudaGetLastError();
 }
@@ -441,40 +456,41 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 template <typename T, int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, int B, int S, int H, int KV, int causal,
+                      void* dq, int B, int S, int SL, int H, int KV, int causal,
                       float scale, cudaStream_t stream) {
   const size_t smem = dq_smem<DH>();
   cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_kernel<T, DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  fa_bwd_dq_kernel<T, DH><<<dim3(S / TILE, H, B), NT, smem, stream>>>(
+  fa_bwd_dq_kernel<T, DH><<<dim3((S + TILE - 1) / TILE, H, B), NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, S, H, KV, causal, scale);
+      (T*)dq, S, SL, H, KV, causal, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, int B, int S, int H, int KV,
+                       void* dk, void* dv, int B, int S, int SL, int H, int KV,
                        int causal, float scale, cudaStream_t stream) {
   const size_t smem = dkv_smem<DH>();
   cudaError_t e = cudaFuncSetAttribute(fa_bwd_dkv_kernel<T, DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
-  fa_bwd_dkv_kernel<T, DH><<<dim3(S / TILE, KV, B), NT, smem, stream>>>(
+  fa_bwd_dkv_kernel<T, DH><<<dim3((S + TILE - 1) / TILE, KV, B), NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, S, H, KV, causal, scale);
+      (T*)dk, (T*)dv, S, SL, H, KV, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. dtype: 0 = float32 (the only one built);
-// dh: 64 or 128. Returns the cudaError_t of the launch (0 = launched), or -1
-// for a type / head width this library was not built for.
+// dh: 64 or 128; SL: the row length of lse and delta in the backward, a
+// multiple of 64 and >= S. Returns the cudaError_t of the launch (0 =
+// launched), or -1 for a type / head width this library was not built for.
 #define STROM_DISPATCH_F32(CALL)                                      \
   if (dtype == 0 && dh == 64) return (int)CALL(float, 64);            \
   if (dtype == 0 && dh == 128) return (int)CALL(float, 128);
@@ -493,9 +509,9 @@ int strom_fa_fwd(int dtype, int dh, const void* q, const void* k, const void* v,
 
 int strom_fa_bwd_dq(int dtype, int dh, const void* q, const void* k,
                     const void* v, const void* dout, const float* lse,
-                    const float* delta, void* dq, int B, int S, int H, int KV,
-                    int causal, float scale, void* stream) {
-#define CALL(T, D) launch_dq<T, D>(q, k, v, dout, lse, delta, dq, B, S, H, KV, \
+                    const float* delta, void* dq, int B, int S, int SL, int H,
+                    int KV, int causal, float scale, void* stream) {
+#define CALL(T, D) launch_dq<T, D>(q, k, v, dout, lse, delta, dq, B, S, SL, H, KV, \
                                    causal, scale, (cudaStream_t)stream)
   STROM_DISPATCH_F32(CALL)
   return -1;
@@ -505,9 +521,9 @@ int strom_fa_bwd_dq(int dtype, int dh, const void* q, const void* k,
 int strom_fa_bwd_dkv(int dtype, int dh, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
                      const float* delta, void* dk, void* dv, int B, int S,
-                     int H, int KV, int causal, float scale, void* stream) {
-#define CALL(T, D) launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, B, S, H, \
-                                    KV, causal, scale, (cudaStream_t)stream)
+                     int SL, int H, int KV, int causal, float scale, void* stream) {
+#define CALL(T, D) launch_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, B, S, SL, \
+                                    H, KV, causal, scale, (cudaStream_t)stream)
   STROM_DISPATCH_F32(CALL)
   return -1;
 #undef CALL

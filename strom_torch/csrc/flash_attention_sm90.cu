@@ -66,13 +66,16 @@
 //     aligned, so the swizzle phase is that of the TMA write.
 //   - accumulator layout (m64nN f32): register i of thread (warp w, lane l)
 //     holds row 16w + l/4 + 8*((i/2)%2), column 8*(i/4) + 2*(l%4) + i%2.
-//   - S a multiple of 64 but not of 128 (the forward's and dQ's q tiles are
-//     128 rows): TMA zero-fills the rows past S, the forward masks kv
-//     columns >= S, and no row >= S is stored. dQ loads lse and delta only
-//     for the rows below S (the next 64 values would be another head's, or
-//     past the end of the [B, H, S] arrays) and gives the rows past S
-//     lse = +inf and delta = 0, so their P and dS are 0, not inf or NaN.
-//     dK/dV's tiles, and dQ's kv tiles, are 64 rows, so always whole.
+//   - any S (the reference takes any S that its block divides, 63 or 96 or
+//     192): the last q tile and the last kv tile may be cut by S. TMA
+//     zero-fills every row past S. The tile the end of S crosses masks its
+//     columns >= S (the forward: -inf before the row max; dK/dV and dQ:
+//     P = 0, so dS = 0 too), and no row >= S is stored. lse and delta come
+//     from the wrapper with rows of SL floats, SL = S rounded up to 64 (a
+//     copy only where S % 64 != 0): the bulk copies need 16-byte-aligned
+//     sources and must not read past the arrays. dQ also gives its rows
+//     past S lse = +inf and delta = 0, so their P and dS are 0, not inf or
+//     NaN.
 //   - wgmma is asynchronous: after each wait the accumulators pass through
 //     an empty asm (fence_regs), so no read of them moves above the wait.
 //   - spills: one warpgroup holding dK, dV (128 f32 at Dh 128), S^T and dP^T
@@ -88,8 +91,10 @@
 //     shows as a launch error instead of a hung card.
 //
 // Layouts are those of flash_attention.cu: q, o, dO, dq [B, S, H, Dh]; k, v,
-// dk, dv [B, S, KV, Dh]; lse and delta [B, H, S] f32. Dh is 64 or 128; S is
-// a multiple of 64 (the wrapper checks).
+// dk, dv [B, S, KV, Dh]; lse [B, H, S] f32 out of the forward, lse and delta
+// [B, H, SL] f32 into the backward. Dh is 64 or 128: the wrapper zero-pads
+// a narrower head (exact: zero columns add nothing to Q.K^T and give zero
+// output and gradient columns, which it slices off).
 
 #include <cuda.h>  // CUtensorMap and its enums; the entry point comes from the runtime
 #include <cuda_bf16.h>
@@ -425,6 +430,25 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------- backward dK/dV
+// Warpgroup 0's P^T = exp(S^T*scale - lse), into sc and the hand-over
+// buffer. MASKED: P^T = 0 above the diagonal (causal) and in q columns >= S;
+// instantiated with MASKED false for every other tile, which then carries
+// no mask arithmetic at all.
+template <bool MASKED>
+__device__ __forceinline__ void dkv_p(float (&sc)[32], float* pbuf, const float* lse_s,
+                                      float c, int lane, int q0, int kv_row, int causal,
+                                      int S) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int col = frag_col(i, lane);
+    float p = exp2f(sc[i] * c - lse_s[col] * LOG2E);
+    if (MASKED && ((causal && q0 + col < kv_row + 8 * ((i / 2) % 2)) || q0 + col >= S))
+      p = 0.f;
+    sc[i] = p;
+    pbuf[i * 128] = p;
+  }
+}
+
 // One CTA per (64-row kv tile, kv head, batch). K and V stay resident; the
 // CTA loops over the G group heads and the causal q tiles (64 rows), whose
 // Q, dO, lse and delta go through a DKV_STAGES-stage TMA ring. The sum the TPU grid
@@ -464,7 +488,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_do,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                        int S, int H, int KV, int causal, float scale) {
+                        int S, int SL, int H, int KV, int causal, float scale) {
   using L = DkvLayout<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -480,7 +504,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kj = blockIdx.x;  // small kj has the most causal q tiles: first
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / KV;
-  const int nq = S / 64;
+  const int nq = (S + 63) / 64;
   const int i0 = causal ? kj : 0;  // first q tile that sees this kv tile
   const int nqt = nq - i0;
   const int ntiles = G * nqt;
@@ -513,7 +537,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = t % DKV_STAGES;
         const int h = kvh * G + t / nqt, qi = i0 + t % nqt;
         const uint32_t st = sSt + s * L::STAGE, full = bar_full + 8 * s;
-        const long row = ((long)b * H + h) * S + (long)qi * 64;
+        const long row = ((long)b * H + h) * SL + (long)qi * 64;
         mbar_wait(bar_empty + 8 * s, ((t / DKV_STAGES) & 1) ^ 1);
         mbar_expect_tx(full, 2 * L::TILE + 512);
         for (int c = 0; c < L::NBOX; ++c) {
@@ -556,17 +580,13 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
 
     if (wg == 0) {
-      // P^T = exp(S^T*scale - lse), zero above the diagonal; hand it over
-      const bool masked = causal && qi == kj;
+      // P^T = exp(S^T*scale - lse), zero above the diagonal and in the q
+      // columns past S; hand it over
       mbar_wait(bar_pempty + 8 * pb, ((t >> 1) & 1) ^ 1);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int col = frag_col(i, lane);
-        float p = exp2f(sc[i] * c - lse_s[col] * LOG2E);
-        if (masked && qi * 64 + col < kv_row + 8 * ((i / 2) % 2)) p = 0.f;
-        sc[i] = p;
-        pbuf[i * 128] = p;
-      }
+      if ((causal && qi == kj) || (qi + 1) * 64 > S)
+        dkv_p<true>(sc, pbuf, lse_s, c, lane, qi * 64, kv_row, causal, S);
+      else
+        dkv_p<false>(sc, pbuf, lse_s, c, lane, qi * 64, kv_row, causal, S);
       mbar_arrive(bar_pfull + 8 * pb);
     } else {
       // dS^T = P^T o (dP^T - delta) * scale
@@ -595,6 +615,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   __nv_bfloat16* out = wg == 0 ? dv : dk;
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
+    if (kv_row + 8 * hf >= S) continue;
     const long off = ((long)b * S + kv_row + 8 * hf) * KV * DH + (long)kvh * DH;
 #pragma unroll
     for (int jj = 0; jj < DH / 8; ++jj)
@@ -637,8 +658,8 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_v,
                        const __grid_constant__ CUtensorMap tm_do,
                        const float* __restrict__ lse, const float* __restrict__ delta,
-                       __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int causal,
-                       float scale) {
+                       __nv_bfloat16* __restrict__ dq, int S, int SL, int H, int KV,
+                       int causal, float scale) {
   using L = DqLayout<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -654,9 +675,11 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q0 = qi * 128;
-  const int rows = min(128, S - q0);  // rows of this tile below S: 64 or 128
+  const int rows = min(128, S - q0);     // rows of this tile below S
+  const int lrows = min(128, SL - q0);  // lse/delta values loaded: 64 or 128
   // causal: kv tiles up to the diagonal, which crosses tiles 2qi and 2qi + 1
-  const int nkv = causal ? min(2 * qi + 2, S / 64) : S / 64;
+  const int nk = (S + 63) / 64;
+  const int nkv = causal ? min(2 * qi + 2, nk) : nk;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -673,14 +696,14 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---------------- producer: one thread issues every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
-      const long row = ((long)b * H + h) * S + q0;
-      mbar_expect_tx(bar_q, 2 * L::NBOX * L::Q_BOX + 8 * rows);
+      const long row = ((long)b * H + h) * SL + q0;
+      mbar_expect_tx(bar_q, 2 * L::NBOX * L::Q_BOX + 8 * lrows);
       for (int c = 0; c < L::NBOX; ++c) {
         tma_load_3d(sQ + c * L::Q_BOX, &tm_q, bar_q, h * DH + 64 * c, q0, b);
         tma_load_3d(sG + c * L::Q_BOX, &tm_do, bar_q, h * DH + 64 * c, q0, b);
       }
-      bulk_load(base + L::LSE_OFF, lse + row, 4 * rows, bar_q);
-      bulk_load(base + L::DLT_OFF, delta + row, 4 * rows, bar_q);
+      bulk_load(base + L::LSE_OFF, lse + row, 4 * lrows, bar_q);
+      bulk_load(base + L::DLT_OFF, delta + row, 4 * lrows, bar_q);
       for (int j = 0; j < nkv; ++j) {
         const int s = j % DQ_STAGES;
         const uint32_t st = sRing + s * L::STAGE, full = bar_full + 8 * s;
@@ -705,13 +728,17 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_wait(bar_q, 0);
     const float* lse_s = reinterpret_cast<const float*>(gbase + L::LSE_OFF);
     const float* dlt_s = reinterpret_cast<const float*>(gbase + L::DLT_OFF);
-    // a row past S (zeros from TMA, no lse or delta loaded) gets P = 0, dS = 0
+    // a row past S (zeros from TMA, no lse or delta loaded) gets P = 0, dS = 0;
+    // lim: the last kv column each of the thread's two rows sees (the
+    // diagonal, causal, and the end of S), so a masked tile tests one bound
     float lse2[2], dlt[2];
+    int lim[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const bool in = r + 8 * hf < rows;
       lse2[hf] = in ? lse_s[r + 8 * hf] * LOG2E : INFINITY;
       dlt[hf] = in ? dlt_s[r + 8 * hf] : 0.f;
+      lim[hf] = causal ? min(q0 + r + 8 * hf, S - 1) : S - 1;
     }
 
     for (int j = 0; j < nkv; ++j) {
@@ -736,13 +763,14 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(sc);
       fence_regs(dp);
 
-      // P = exp(S*scale - lse), zero above the diagonal; dS = P o (dP - delta)*scale
-      const bool masked = causal && j >= 2 * qi;
+      // P = exp(S*scale - lse), zero above the diagonal and in the kv
+      // columns past S; dS = P o (dP - delta)*scale
+      const bool masked = (causal && j >= 2 * qi) || (j + 1) * 64 > S;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int hf = (i / 2) % 2;
         float p = exp2f(sc[i] * c - lse2[hf]);
-        if (masked && j * 64 + frag_col(i, lane) > q0 + r + 8 * hf) p = 0.f;
+        if (masked && j * 64 + frag_col(i, lane) > lim[hf]) p = 0.f;
         sc[i] = p * (dp[i] - dlt[hf]) * scale;
       }
 
@@ -781,7 +809,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-constexpr int ERR_UNSUPPORTED = -1;  // head width not 64 or 128
+constexpr int ERR_UNSUPPORTED = -1;  // head width not 64 or 128 (the wrapper pads)
 constexpr int ERR_NO_ENCODER = -2;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_TENSOR_MAP = -3;   // the driver refused a tensor map
 
@@ -839,8 +867,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
 
 template <int DH>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dk, void* dv, int B, int S, int H,
-               int KV, int causal, float scale, cudaStream_t stream) {
+               const float* lse, const float* delta, void* dk, void* dv, int B, int S, int SL,
+               int H, int KV, int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg;
   int rc;
   if ((rc = make_map(&mq, q, B, S, H * DH, 64)) || (rc = make_map(&mg, dout, B, S, H * DH, 64)) ||
@@ -850,16 +878,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaFuncSetAttribute(fa_bwd_dkv_wgmma_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkv_wgmma_kernel<DH><<<dim3(S / 64, KV, B), NTHREADS, smem, stream>>>(
-      mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H, KV, causal,
-      scale);
+  fa_bwd_dkv_wgmma_kernel<DH><<<dim3((S + 63) / 64, KV, B), NTHREADS, smem, stream>>>(
+      mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, SL, H, KV,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int B, int S, int H, int KV,
-              int causal, float scale, cudaStream_t stream) {
+              const float* lse, const float* delta, void* dq, int B, int S, int SL, int H,
+              int KV, int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mg;
   int rc;
   if ((rc = make_map(&mq, q, B, S, H * DH, 128)) ||
@@ -871,14 +899,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   fa_bwd_dq_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), NTHREADS, smem, stream>>>(
-      mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dq, S, H, KV, causal, scale);
+      mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dq, S, SL, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes; bf16 tensors only, dh 64 or 128. Returns 0
-// when the kernel was launched, a cudaError_t, or a negative ERR_ code.
+// Plain C interface for ctypes; bf16 tensors only, dh 64 or 128; SL, the row
+// length of lse and delta in the backward, a multiple of 64 and >= S.
+// Returns 0 when the kernel was launched, a cudaError_t, or a negative ERR_
+// code.
 extern "C" {
 
 int strom_fa_fwd_sm90(int dh, const void* q, const void* k, const void* v, void* o,
@@ -893,25 +923,26 @@ int strom_fa_fwd_sm90(int dh, const void* q, const void* k, const void* v, void*
 
 int strom_fa_bwd_dkv_sm90(int dh, const void* q, const void* k, const void* v,
                           const void* dout, const float* lse, const float* delta, void* dk,
-                          void* dv, int B, int S, int H, int KV, int causal, float scale,
-                          void* stream) {
+                          void* dv, int B, int S, int SL, int H, int KV, int causal,
+                          float scale, void* stream) {
   if (dh == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, causal, scale,
+    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, SL, H, KV, causal, scale,
                           (cudaStream_t)stream);
   if (dh == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, KV, causal, scale,
-                           (cudaStream_t)stream);
+    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, SL, H, KV, causal,
+                           scale, (cudaStream_t)stream);
   return ERR_UNSUPPORTED;
 }
 
 int strom_fa_bwd_dq_sm90(int dh, const void* q, const void* k, const void* v,
                          const void* dout, const float* lse, const float* delta, void* dq,
-                         int B, int S, int H, int KV, int causal, float scale, void* stream) {
+                         int B, int S, int SL, int H, int KV, int causal, float scale,
+                         void* stream) {
   if (dh == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, H, KV, causal, scale,
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, SL, H, KV, causal, scale,
                          (cudaStream_t)stream);
   if (dh == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, H, KV, causal, scale,
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, SL, H, KV, causal, scale,
                           (cudaStream_t)stream);
   return ERR_UNSUPPORTED;
 }

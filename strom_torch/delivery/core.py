@@ -35,6 +35,7 @@ import torch
 
 from strom_torch.config import StromConfig
 from strom_torch.delivery.buffers import SlabPool, alloc_aligned
+from strom_torch.delivery.chunk_plan import plan_chunks_multi
 from strom_torch.delivery.coalesce import coalesce_chunks, coalesce_segments
 from strom_torch.delivery.extents import ExtentList
 from strom_torch.delivery.handle import DMAHandle, deferred_handle
@@ -43,6 +44,7 @@ from strom_torch.engine import make_engine
 from strom_torch.engine.base import Engine, EngineError
 from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX, plan_stripe_reads,
                                       plan_stripe_windows)
+from strom_torch.probe.fiemap import fiemap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,6 +208,8 @@ class StromContext:
         self._files: dict[str, int] = {}
         # path -> StripedFile aliases (register_striped)
         self._striped: dict[str, StripedFile] = {}
+        # path -> FIEMAP extent map (None: unavailable), probed once
+        self._extent_maps: dict[str, list | None] = {}
         self._files_lock = threading.Lock()
         # one gather at a time on the engine: concurrent transfers must not
         # interleave queue-depth budgets. A multi-ring engine serializes per
@@ -286,6 +290,19 @@ class StromContext:
         with self._counts_lock:
             self._counts.update(kv)
 
+    def extent_map(self, path: str) -> list | None:
+        """Cached FIEMAP extent map for *path* (None: unavailable)."""
+        with self._files_lock:
+            if path in self._extent_maps:
+                return self._extent_maps[path]
+        try:
+            em = fiemap(path)
+        except OSError:
+            em = None
+        with self._files_lock:
+            self._extent_maps[path] = em
+        return em
+
     # -- planning and the engine gather -------------------------------------
     def _plan_chunks(self, source: Source, segments: Sequence[Segment],
                      base_offset: int = 0) -> list[tuple[int, int, int, int]]:
@@ -293,21 +310,27 @@ class StromContext:
         resolved source → physical (file_index, file_offset, dest_offset,
         length) engine ops: striped sources (and extents over a striped
         alias) stripe-decoded, fragments coalesced where contiguous in both
-        file and dest space."""
+        file and dest space, and plain-file gathers put in physical-address
+        order (``extent_aware``)."""
         cmax = self.config.coalesce_max_bytes
         if cmax and len(segments) > 1:
             # merge before expansion: a merged logical run stripes as one
             segments = coalesce_segments(segments, cmax)
         # member file indexes, resolved once per transfer
         member_cache: dict[StripedFile, list[int]] = {}
+        idx_paths: dict[int, str] = {}   # file index -> path, for FIEMAP
         chunks: list[tuple[int, int, int, int]] = []
+
+        def findex(path: str) -> int:
+            idx = self.file_index(path)
+            idx_paths[idx] = path
+            return idx
 
         def stripe_chunks(sf: StripedFile, file_off: int, dest_off: int,
                           length: int) -> None:
             member_idx = member_cache.get(sf)
             if member_idx is None:
-                member_idx = member_cache[sf] = [self.file_index(m)
-                                                 for m in sf.members]
+                member_idx = member_cache[sf] = [findex(m) for m in sf.members]
             segs = plan_stripe_reads(file_off, length, len(sf.members),
                                      sf.chunk)
             wb = self.config.resolved_stripe_window_bytes
@@ -336,7 +359,7 @@ class StromContext:
                         striped_runs.setdefault(sf, []).append(
                             Segment(r.offset, r.dest_offset, r.length))
                     else:
-                        chunks.append((self.file_index(r.path), r.offset,
+                        chunks.append((findex(r.path), r.offset,
                                        r.dest_offset, r.length))
             for sf, runs in striped_runs.items():
                 if cmax and len(runs) > 1:
@@ -344,13 +367,22 @@ class StromContext:
                 for s in runs:
                     stripe_chunks(sf, s.file_offset, s.dest_offset, s.length)
         else:
-            fi = self.file_index(source)
+            fi = findex(source)
             chunks = [(fi, base_offset + s.file_offset, s.dest_offset, s.length)
                       for s in segments]
         if cmax and len(chunks) > 1 and not member_cache:
             # striped gathers are exempt: member ops interleave by design,
             # and their fragments merged at the segment level above
             chunks = coalesce_chunks(chunks, cmax)
+        if self.config.extent_aware and chunks and not member_cache:
+            # per-file runs, each in physical-address order. Striped gathers
+            # are exempt: the engine submits in list order within a
+            # queue-depth window, so regrouping the member interleave into
+            # per-member runs would serialize the devices RAID0 spreads over
+            maps = {fi: em for fi, p in idx_paths.items()
+                    if (em := self.extent_map(p))}
+            if maps:
+                chunks = plan_chunks_multi(chunks, maps)
         return chunks
 
     def _read_segments(self, source: Source, segments: Sequence[Segment],
@@ -410,6 +442,39 @@ class StromContext:
         dest = alloc_aligned(length)
         self._read_segments(source, [Segment(0, 0, length)], dest, offset)
         return dest
+
+    def memcpy_ssd2host(self, source: Source, *, offset: int = 0,
+                        shape: Sequence[int] | None = None,
+                        dtype: Any = np.uint8, length: int | None = None,
+                        out: np.ndarray | None = None) -> np.ndarray:
+        """Everything ``memcpy_ssd2gpu`` does up to the host-to-device copy:
+        striped-alias resolution, extent-aware planning, residency routing
+        and the engine gather, assembled zero-copy into the returned host
+        array (the buffer the blocks land in is the array). Measured
+        against a bare engine read, it isolates the delivery layer's host
+        cost from the link's.
+
+        *out*: a preallocated C-contiguous destination of at least the
+        read's size (one registered with the engine rides READ_FIXED);
+        default: a fresh page-aligned buffer."""
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        source = self.resolve_source(source)
+        shape, np_dtype, nbytes = self._resolve_read_shape(
+            source, offset, shape, dtype, length)
+        if out is None:
+            dest = alloc_aligned(nbytes)
+        else:
+            if not out.flags.c_contiguous:
+                # reshape(-1) of a strided view copies: the engine would
+                # land bytes the caller never sees
+                raise ValueError("out must be C-contiguous")
+            flat = out.reshape(-1).view(np.uint8)
+            if flat.nbytes < nbytes:
+                raise ValueError(f"out holds {flat.nbytes} bytes, need {nbytes}")
+            dest = flat[:nbytes]
+        self._read_segments(source, [Segment(0, 0, nbytes)], dest, offset)
+        return dest.view(np_dtype).reshape(shape)
 
     # -- host -> device ------------------------------------------------------
     def _copy_stream(self, device: torch.device) -> torch.cuda.Stream:
@@ -615,7 +680,11 @@ class StromContext:
                                    f"{source!r}@{offset}")
         return run()
 
-    # -- lifecycle -----------------------------------------------------------
+    # -- introspection and lifecycle -----------------------------------------
+    def buffer_info(self) -> dict:
+        """The engine's staging pool (≙ LIST/INFO_GPU_MEMORY)."""
+        return self.engine.buffer_info()
+
     def stats(self) -> dict:
         with self._counts_lock:
             out = dict(self._counts)

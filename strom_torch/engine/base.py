@@ -190,6 +190,15 @@ class Engine(abc.ABC):
     def buffer_size(self) -> int:
         return self.config.buffer_size
 
+    def buffer_info(self) -> dict:
+        """The staging pool's geometry (≙ LIST/INFO_GPU_MEMORY)."""
+        return {
+            "num_buffers": self.num_buffers,
+            "buffer_size": self.buffer_size,
+            "total_bytes": self.num_buffers * self.buffer_size,
+            "engine": self.name,
+        }
+
     def register_dest(self, arr: np.ndarray) -> int:
         """Register a caller slab so gathers into it can use pre-pinned
         fixed buffers. -1 = not supported by this engine (the default);

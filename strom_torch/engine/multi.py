@@ -168,6 +168,15 @@ class MultiRingEngine(Engine):
     def buffer(self, buf_index: int) -> np.ndarray:
         return self._children[0].buffer(buf_index)
 
+    def buffer_info(self) -> dict:
+        """Every ring owns a full staging pool: the total is the pinned
+        footprint of all of them, with one ring's beside it."""
+        info = self._children[0].buffer_info()
+        info.update(engine=self.name, rings=len(self._children),
+                    per_ring_bytes=info["total_bytes"],
+                    total_bytes=info["total_bytes"] * len(self._children))
+        return info
+
     def submit(self, requests: Sequence[ReadRequest]) -> int:
         return self._children[0].submit([
             ReadRequest(self._child_index(0, r.file_index), r.offset, r.length,

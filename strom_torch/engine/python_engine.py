@@ -1,11 +1,18 @@
 """Pure-Python engine: a preadv worker pool over an O_DIRECT / buffered fd
-pair per file (the port's copy of ``strom/engine/python_engine.py``,
-without the page-cache residency hybrid).
+pair per file (the port's copy of ``strom/engine/python_engine.py``).
 
 An aligned op (offset, length and destination address all on the file's
 DIO alignment) reads through the O_DIRECT fd, straight from the device into
 the caller's slab; an unaligned op, and the unaligned tail O_DIRECT returns
 short at EOF, read through the buffered fd.
+
+The residency hybrid (``residency_hybrid``, on by default): an aligned op
+whose pages are all in the page cache reads through the buffered fd
+instead, a memcpy from the cache, and counts as ``cached_bytes``; the rest
+count as ``media_bytes``. A gather's residency is snapshotted before any of
+its reads runs (``_snapshot_residency``), since a warm read's readahead
+would otherwise warm the ranges ahead of it; a stand-alone op probes
+itself. Neither probe populates the cache.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from strom_torch.config import StromConfig
 from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
                                      ReadRequest)
 from strom_torch.probe.odirect import probe_dio
+from strom_torch.probe.residency import cached_pages, range_fully_cached
 
 
 class _File:
@@ -58,10 +66,14 @@ class PythonEngine(Engine):
         self._lock = threading.Lock()
         self._stats = {"ops_submitted": 0, "ops_completed": 0,
                        "ops_errored": 0, "bytes_read": 0, "media_bytes": 0,
+                       "cached_bytes": 0, "residency_probes": 0,
                        "unaligned_fallback_reads": 0, "o_direct_denied": 0,
                        "ops_faulted": 0}
         self._fault_counter = 0
         self._closed = False
+        # the gather in flight's residency snapshot, {(file_index, offset):
+        # warm} per block_size piece (read_vectored); None between gathers
+        self._warm_map: dict[tuple[int, int], bool] | None = None
         self._workers = [
             threading.Thread(target=self._worker, name=f"strom-io-{i}",
                              daemon=True)
@@ -189,6 +201,85 @@ class PythonEngine(Engine):
         for idx in list(self._files):
             self.unregister_file(idx)
 
+    # -- vectored gather: residency snapshotted first -----------------------
+    # residency probes per mixed (part warm, part cold) chunk: its pieces
+    # are probed in groups of ceil(n / 256), a group warm only when fully
+    # resident, so coarse probing can send warm bytes to media, never cold
+    # bytes to the cache
+    MAX_RESIDENCY_PROBES = 256
+
+    def _snapshot_residency(self, chunks) -> dict[tuple[int, int], bool] | None:
+        """{(file_index, piece_offset): warm} for every block_size piece the
+        gather will submit, probed before any read runs. One probe decides a
+        file-contiguous run of chunks that is wholly warm or wholly cold;
+        only a mixed run is probed chunk by chunk."""
+        if not self.config.residency_hybrid:
+            return None
+        block = self.config.block_size
+        m: dict[tuple[int, int], bool] = {}
+        elig = []
+        for fi, fo, _do, ln in chunks:
+            f = self._files.get(fi)
+            if f is not None and f.o_direct and ln > 0:
+                elig.append((fi, fo, ln, f))
+        elig.sort(key=lambda t: (t[0], t[1]))
+        runs: list[list] = []   # [fi, start, end, file, [(offset, length)]]
+        for fi, fo, ln, f in elig:
+            if runs and runs[-1][0] == fi and runs[-1][2] == fo:
+                runs[-1][2] = fo + ln
+                runs[-1][4].append((fo, ln))
+            else:
+                runs.append([fi, fo, fo + ln, f, [(fo, ln)]])
+
+        def mark(fi: int, fo: int, ln: int, warm: bool) -> None:
+            for p in range(0, ln, block):
+                m[(fi, fo + p)] = warm
+
+        def probe_chunk(fi: int, fo: int, ln: int, f) -> None:
+            self._count("residency_probes")
+            r = cached_pages(f.fd_buffered, fo, ln)
+            if r is None:
+                return   # unprobeable: the worker probes the piece itself
+            res, tot = r
+            if res >= tot or res == 0:
+                # cold pieces get an explicit False: an absent key would
+                # have the worker probe after readahead may have warmed it
+                mark(fi, fo, ln, res >= tot)
+                return
+            npieces = (ln + block - 1) // block
+            group = -(-npieces // self.MAX_RESIDENCY_PROBES)
+            for g0 in range(0, npieces, group):
+                self._count("residency_probes")
+                warm = range_fully_cached(
+                    f.fd_buffered, fo + g0 * block,
+                    min(group * block, ln - g0 * block)) is True
+                for ci in range(g0, min(g0 + group, npieces)):
+                    m[(fi, fo + ci * block)] = warm
+
+        for fi, start, end, f, members in runs:
+            if len(members) == 1:
+                probe_chunk(fi, start, end - start, f)
+                continue
+            self._count("residency_probes")
+            r = cached_pages(f.fd_buffered, start, end - start)
+            if r is None:
+                continue
+            res, tot = r
+            if res >= tot or res == 0:
+                for fo, ln in members:
+                    mark(fi, fo, ln, res >= tot)
+                continue
+            for fo, ln in members:   # a mixed run: chunk by chunk
+                probe_chunk(fi, fo, ln, f)
+        return m
+
+    def read_vectored(self, chunks, dest, *, retries: int = 1) -> int:
+        self._warm_map = self._snapshot_residency(chunks)
+        try:
+            return super().read_vectored(chunks, dest, retries=retries)
+        finally:
+            self._warm_map = None
+
     # -- worker -------------------------------------------------------------
     def _take_fault(self) -> bool:
         """fault_every=N: every Nth op completes with EIO unread."""
@@ -222,7 +313,18 @@ class PythonEngine(Engine):
             aligned = (req.offset % f.offset_align == 0
                        and req.length % f.offset_align == 0
                        and addr % f.mem_align == 0)
-            direct = f.o_direct and aligned
+            # residency hybrid: a warm piece is a memcpy from the page cache
+            # through the buffered fd, not a media read
+            warm = False
+            if f.o_direct and aligned and self.config.residency_hybrid:
+                wm = self._warm_map
+                warm = None if wm is None else wm.get((req.file_index,
+                                                       req.offset))
+                if warm is None:
+                    self._count("residency_probes")
+                    warm = range_fully_cached(f.fd_buffered, req.offset,
+                                              req.length) is True
+            direct = f.o_direct and aligned and not warm
             if f.o_direct and not aligned:
                 self._count("unaligned_fallback_reads")
             try:
@@ -235,8 +337,9 @@ class PythonEngine(Engine):
                 with self._lock:
                     self._stats["bytes_read"] += n
                     self._stats["ops_completed"] += 1
-                    if direct:
-                        self._stats["media_bytes"] += n
+                    if f.o_direct and aligned:
+                        self._stats["cached_bytes" if warm else
+                                    "media_bytes"] += n
                 self._done_q.put(Completion(req.tag, n))
             except OSError as e:
                 self._count("ops_errored")

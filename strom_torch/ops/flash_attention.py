@@ -23,6 +23,14 @@ by a failure: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. ``_delta`` (Δ = rowsum(dO ∘ O)) was an XLA-fused reduce in
 the reference and is a torch op here.
 
+The kernels take the reference's shapes up to a head dim of 128. A head
+the kernels are not built for (any width other than 64 and 128) is
+zero-padded to the next one and the outputs sliced back: exact, since zero
+columns add nothing to q·kᵀ, give zero output and gradient columns and
+leave Δ unchanged; the scale stays 1/sqrt(Dh) of the real width. A head
+above 128 raises. Any S the blocks divide runs: the kernels mask the
+ragged last tile themselves.
+
 ``_flash_fwd``/``_flash_bwd`` keep the reference's block-pair contract:
 ``_flash_bwd(..., delta=)`` takes an explicit global ``lse`` and Δ, so ring
 attention can reuse the kernels per (q block, kv block) pair.
@@ -35,12 +43,13 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from strom_torch.ops import build
 
 _NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 KERNEL_TILE = 64   # the CUDA kernels' q and kv tile (rows)
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128)   # the widths the kernels are built for
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "flash_attention.cu"
 _SOURCE_SM90 = "flash_attention_sm90.cu"
@@ -79,9 +88,9 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.strom_fa_fwd.argtypes = [i, i, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.strom_fa_bwd_dq.argtypes = [i, i, p, p, p, p, p, p, p,
-                                        i, i, i, i, i, f, p]
+                                        i, i, i, i, i, i, f, p]
         lib.strom_fa_bwd_dkv.argtypes = [i, i, p, p, p, p, p, p, p, p,
-                                         i, i, i, i, i, f, p]
+                                         i, i, i, i, i, i, f, p]
         for fn in (lib.strom_fa_fwd, lib.strom_fa_bwd_dq, lib.strom_fa_bwd_dkv):
             fn.restype = ctypes.c_int
         lib.strom_cuda_error_string.argtypes = [i]
@@ -96,9 +105,9 @@ def _sm90_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.strom_fa_fwd_sm90.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
         lib.strom_fa_bwd_dkv_sm90.argtypes = [i, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, i, f, p]
+                                              i, i, i, i, i, i, f, p]
         lib.strom_fa_bwd_dq_sm90.argtypes = [i, p, p, p, p, p, p, p,
-                                             i, i, i, i, i, f, p]
+                                             i, i, i, i, i, i, f, p]
         for fn in (lib.strom_fa_fwd_sm90, lib.strom_fa_bwd_dkv_sm90,
                    lib.strom_fa_bwd_dq_sm90):
             fn.restype = ctypes.c_int
@@ -106,17 +115,37 @@ def _sm90_lib() -> ctypes.CDLL:
     return lib
 
 
+def kernel_head_dim(Dh: int) -> int:
+    """The narrowest width the kernels are built for that holds a head of
+    *Dh*; the wrappers zero-pad q, k, v and dO to it. Raises above 128."""
+    for width in KERNEL_HEAD_DIMS:
+        if Dh <= width:
+            return width
+    raise ValueError(f"CUDA flash attention takes head dims up to "
+                     f"{KERNEL_HEAD_DIMS[-1]}, got {Dh}")
+
+
+def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    """*t* [..., Dh] zero-padded to [..., width] (itself when Dh == width)."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def _rows_padded(t: torch.Tensor, S: int) -> tuple[torch.Tensor, int]:
+    """lse or Δ [B,H,S,1] as rows of SL = S rounded up to the kernels' tile,
+    and SL: the backward kernels' bulk copies read whole 64-row runs from
+    16-byte-aligned rows. A copy only where S is ragged; otherwise *t*
+    itself, whose memory already has that layout."""
+    pad = -S % KERNEL_TILE
+    if pad:
+        t = F.pad(t.reshape(t.shape[0], t.shape[1], S), (0, pad))
+    return t, S + pad
+
+
 def _check_kernel_inputs(typed: tuple, rows: tuple = ()) -> None:
     """*typed*: q, k, v (and dO) of one float32/bfloat16 dtype; *rows*: the
     f32 lse/delta columns."""
     q = typed[0]
-    B, S, H, Dh = q.shape
-    if Dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"CUDA flash attention supports head dims "
-                         f"{KERNEL_HEAD_DIMS}, got {Dh}")
-    if S % KERNEL_TILE:
-        raise ValueError(f"CUDA flash attention needs seq len divisible by "
-                         f"{KERNEL_TILE}, got {S}")
+    kernel_head_dim(q.shape[-1])
     for t in typed + rows:
         if not t.is_cuda or t.device != q.device:
             raise ValueError("all inputs must be on one CUDA device")
@@ -143,10 +172,16 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _unpad(t: torch.Tensor, Dh: int) -> torch.Tensor:
+    return t if t.shape[-1] == Dh else t[..., :Dh].contiguous()
+
+
 def _flash_fwd_kernel(q, k, v, *, causal: bool):
     """bf16: the wgmma kernel; float32: the scalar kernel."""
     _check_kernel_inputs((q, k, v))
     B, S, H, Dh = q.shape
+    width = kernel_head_dim(Dh)
+    q, k, v = (pad_head(t, width) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -155,58 +190,64 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         if q.dtype == torch.bfloat16:
-            _launch("fa_fwd", _sm90_lib().strom_fa_fwd_sm90, Dh, *ptrs, stream)
+            _launch("fa_fwd", _sm90_lib().strom_fa_fwd_sm90, width, *ptrs,
+                    stream)
         else:
             _launch("fa_fwd", _kernel_lib().strom_fa_fwd,
-                    _KERNEL_DTYPES[q.dtype], Dh, *ptrs, stream)
-    return out, lse
+                    _KERNEL_DTYPES[q.dtype], width, *ptrs, stream)
+    return _unpad(out, Dh), lse
 
 
-def _bwd_args(q, k, v, g, lse, delta):
-    _check_kernel_inputs((q, k, v, g), (lse, delta))
+def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
+    """Launch backward kernel *name* writing *outs* (tensors shaped as the
+    padded q or k): (q, k, v, dO) at the kernel's head width, lse and Δ as
+    [B,H,SL] rows, scale 1/sqrt(Dh) of the real head."""
     B, S, H, Dh = q.shape
+    width = kernel_head_dim(Dh)
+    q, k, v, g = (pad_head(t, width) for t in (q, k, v, g))
+    lse, SL = _rows_padded(lse, S)
+    delta, _ = _rows_padded(delta, S)
+    args = (width, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            B, S, SL, H, k.shape[2], int(causal), 1.0 / math.sqrt(Dh))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if q.dtype == torch.bfloat16:
+            _launch(name, getattr(_sm90_lib(), f"strom_{name}_sm90"), *args,
+                    stream)
+        else:
+            _launch(name, getattr(_kernel_lib(), f"strom_{name}"),
+                    _KERNEL_DTYPES[q.dtype], *args, stream)
+
+
+def _check_bwd_inputs(q, k, v, g, lse, delta) -> None:
+    _check_kernel_inputs((q, k, v, g), (lse, delta))
+    B, S, H, _ = q.shape
     if lse.dtype != torch.float32 or delta.dtype != torch.float32 \
             or lse.numel() != B * H * S or delta.numel() != B * H * S:
         raise ValueError("lse and delta must be [B,H,S,1] float32")
-    return (_KERNEL_DTYPES[q.dtype], Dh, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr())
+
+
+def _padded_empty(t: torch.Tensor) -> torch.Tensor:
+    """An output shaped as *t* at the kernels' head width."""
+    return t.new_empty((*t.shape[:-1], kernel_head_dim(t.shape[-1])))
 
 
 def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
     """bf16: the wgmma kernel; float32: the scalar kernel."""
-    args = _bwd_args(q, k, v, g, lse, delta)
-    B, S, H, Dh = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    rest = (dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], int(causal),
-            1.0 / math.sqrt(Dh))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
-            _launch("fa_bwd_dkv", _sm90_lib().strom_fa_bwd_dkv_sm90,
-                    *args[1:], *rest, stream)
-        else:
-            _launch("fa_bwd_dkv", _kernel_lib().strom_fa_bwd_dkv, *args,
-                    *rest, stream)
-    return dk, dv
+    _check_bwd_inputs(q, k, v, g, lse, delta)
+    dk, dv = _padded_empty(k), _padded_empty(v)
+    _bwd_launch("fa_bwd_dkv", q, k, v, g, lse, delta, (dk, dv), causal)
+    Dh = k.shape[-1]
+    return _unpad(dk, Dh), _unpad(dv, Dh)
 
 
 def _bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool):
     """bf16: the wgmma kernel; float32: the scalar kernel."""
-    args = _bwd_args(q, k, v, g, lse, delta)
-    B, S, H, Dh = q.shape
-    dq = torch.empty_like(q)
-    rest = (dq.data_ptr(), B, S, H, k.shape[2], int(causal),
-            1.0 / math.sqrt(Dh))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
-            _launch("fa_bwd_dq", _sm90_lib().strom_fa_bwd_dq_sm90,
-                    *args[1:], *rest, stream)
-        else:
-            _launch("fa_bwd_dq", _kernel_lib().strom_fa_bwd_dq, *args,
-                    *rest, stream)
-    return dq
+    _check_bwd_inputs(q, k, v, g, lse, delta)
+    dq = _padded_empty(q)
+    _bwd_launch("fa_bwd_dq", q, k, v, g, lse, delta, (dq,), causal)
+    return _unpad(dq, q.shape[-1])
 
 
 def _flash_bwd_kernel(q, k, v, g, lse, delta, *, causal: bool):
@@ -215,14 +256,16 @@ def _flash_bwd_kernel(q, k, v, g, lse, delta, *, causal: bool):
 
 
 # ------------------------------------------------------ plain versions
-def _flash_fwd_plain(q, k, v, *, causal: bool, block_q: int, block_k: int):
+def _flash_fwd_plain(q, k, v, *, causal: bool, block_q: int, block_k: int,
+                     scale: float | None = None):
     """The Pallas forward's blockwise online softmax in eager torch: f32
-    scores and statistics, p cast to v's dtype before p·v as on the TPU."""
+    scores and statistics, p cast to v's dtype before p·v as on the TPU.
+    *scale* defaults to 1/sqrt(Dh) (another one: a zero-padded head)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
     blk_q, blk_k = _blocks(S, block_q, block_k)
-    scale = 1.0 / math.sqrt(Dh)
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
     qt = q.permute(0, 2, 1, 3).reshape(B, KV, G, S, Dh)
     kt = k.permute(0, 2, 1, 3).unsqueeze(2)   # [B,KV,1,S,Dh]
     vt = v.permute(0, 2, 1, 3).unsqueeze(2)
@@ -259,7 +302,7 @@ def _flash_fwd_plain(q, k, v, *, causal: bool, block_q: int, block_k: int):
 
 
 def _flash_bwd_plain(q, k, v, g, lse, delta, *, causal: bool, block_q: int,
-                     block_k: int):
+                     block_k: int, scale: float | None = None):
     """Both Pallas backward kernels' arithmetic in eager torch: P rebuilt
     from (q, k, lse) per block pair, dV += Pᵀ dO, dS = P ∘ (dO Vᵀ − Δ) ·
     scale, dK += dSᵀ Q, dQ += dS K, with f32 sums."""
@@ -267,7 +310,7 @@ def _flash_bwd_plain(q, k, v, g, lse, delta, *, causal: bool, block_q: int,
     KV = k.shape[2]
     G = H // KV
     blk_q, blk_k = _blocks(S, block_q, block_k)
-    scale = 1.0 / math.sqrt(Dh)
+    scale = 1.0 / math.sqrt(Dh) if scale is None else scale
     qt = q.permute(0, 2, 1, 3).reshape(B, KV, G, S, Dh)
     gt = g.permute(0, 2, 1, 3).reshape(B, KV, G, S, Dh)
     kt = k.permute(0, 2, 1, 3).unsqueeze(2)

@@ -1,7 +1,8 @@
 """Training steps, single device: the flagship Llama model (the port's
-counterpart of ``strom/parallel/train.py``) and ResNet-50 under plain SGD
-(``make_resnet_sgd_step``, the counterpart of the ``sgd_step`` that
-``strom/cli.py``'s ResNet bench builds).
+counterpart of ``strom/parallel/train.py``), and ResNet-50 and ViT-B/16
+under plain SGD (``make_resnet_sgd_step`` and ``make_vit_sgd_step``, the
+counterparts of the ``sgd_step`` that ``strom/cli.py``'s ResNet and ViT
+benches build).
 
 The optimizer reproduces the reference's optax chain: clip-by-global-norm
 1.0, then AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay on every
@@ -22,6 +23,7 @@ import torch
 
 from strom_torch.delivery.core import resolve_device
 from strom_torch.models.llama import Llama, LlamaConfig, next_token_loss
+from strom_torch.models import vit
 from strom_torch.models.resnet import (ResNet, ResNetConfig, loss_fn,
                                        normalize_images)
 
@@ -156,6 +158,38 @@ def make_resnet_sgd_step(cfg: ResNetConfig, *, lr: float = 1e-3,
         with torch.no_grad():
             torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
             model.load_bn_state(new_state)
+        return {"loss": loss.detach(), "grad_norm": norm}
+
+    return step
+
+
+def make_vit_sgd_step(cfg: vit.ViTConfig, *, lr: float = 1e-3,
+                      device: Any = None
+                      ) -> Callable[[vit.ViT, torch.Tensor, torch.Tensor],
+                                    dict]:
+    """A ``(model, images, labels) -> metrics`` step: the counterpart of the
+    ``sgd_step`` of ``strom/cli.py``'s ViT bench. The loss is taken on
+    ``normalize_images(images)`` and ``labels % num_classes``; then
+    ``w - lr·g`` in each parameter's own dtype (bf16 parameters stay bf16,
+    with no f32 master copy), in place, where the reference's jitted step
+    donated its parameters. Eager, as the other steps. Metrics ``{"loss",
+    "grad_norm"}`` are 0-dim tensors (reading them waits for the step)."""
+    device = resolve_device(device)
+
+    def step(model: vit.ViT, images: torch.Tensor, labels: torch.Tensor
+             ) -> dict:
+        images = images.to(device, non_blocking=True)
+        labels = labels.to(device, non_blocking=True)
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        loss = vit.loss_fn(model, normalize_images(images),
+                           labels.long() % cfg.num_classes)
+        loss.backward()
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        with torch.no_grad():
+            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
         return {"loss": loss.detach(), "grad_norm": norm}
 
     return step

@@ -216,7 +216,8 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                              decode_fuse_runs: bool | None = None,
                              decode_roi: bool | None = None,
                              stream_intra_batch: bool | None = None,
-                             resume_from: "str | SamplerState | None" = None
+                             resume_from: "str | SamplerState | None" = None,
+                             scope: dict | None = None
                              ) -> Pipeline:
     """Infinite stream of ``(images [B,S,S,3] uint8, labels [B] int32)``
     tensors on *device* (None → the current CUDA device; raises without
@@ -225,8 +226,9 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     Augmentation is deterministic in (seed, batch serial, row): Philox keys
     ``[seed, (serial << 32) + row]``, identical across resume.
     ``pipe.stats()`` reports ``data_stall_steps``, ``decode_errors``, the
-    decode routes taken and the streamed counters (``stream_batches``,
-    ``stream_samples_early``)."""
+    decode routes taken, the streamed counters (``stream_batches``,
+    ``stream_samples_early``) and, given one, the *scope* labels under
+    ``"scope"``."""
     device = resolve_device(device)
     ss = WdsShardSet(paths, ctx=ctx)
     if len(ss) < batch:
@@ -310,7 +312,10 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     depth = prefetch_depth if prefetch_depth is not None else cfg.prefetch_depth
 
     def counters() -> dict:
-        return {"decode_errors": pool.decode_errors, **counts.snapshot()}
+        out = {"decode_errors": pool.decode_errors, **counts.snapshot()}
+        if scope:
+            out["scope"] = dict(scope)
+        return out
 
     return Pipeline(sampler, make_batch, depth=depth, fingerprint=fp,
                     on_close=pool.close, counters=counters)
@@ -373,6 +378,20 @@ def make_imagenet_resnet_pipeline(ctx: StromContext, paths: Sequence[str], *,
                                   batch: int, image_size: int = 224,
                                   device: Any = None, **kw: Any) -> Pipeline:
     """BASELINE config #2: ImageNet raw-JPEG WebDataset shards → the
-    ResNet-50 input pipeline."""
+    ResNet-50 input pipeline, its stats tagged ``{"pipeline": "resnet"}``."""
+    kw.setdefault("scope", {"pipeline": "resnet"})
+    return make_wds_vision_pipeline(ctx, paths, batch=batch,
+                                    image_size=image_size, device=device, **kw)
+
+
+def make_vit_wds_pipeline(ctx: StromContext, paths: Sequence[str], *,
+                          batch: int, image_size: int = 224,
+                          device: Any = None, **kw: Any) -> Pipeline:
+    """BASELINE config #3: WebDataset .tar shards → the ViT-B/16 training
+    loader; the mechanics of :func:`make_wds_vision_pipeline`, with its
+    stats tagged ``scope={"pipeline": "vit"}``. The shard *paths* typically
+    name striped-set aliases (``register_striped``), so each batch's gather
+    fans out over the members."""
+    kw.setdefault("scope", {"pipeline": "vit"})
     return make_wds_vision_pipeline(ctx, paths, batch=batch,
                                     image_size=image_size, device=device, **kw)

@@ -1,13 +1,16 @@
 """The PyTorch port on the card: the CUDA flash-attention kernels against
-their plain versions, delivery into device memory with slab recycling, a
-train step that goes through the kernels, vision batches on the card equal
-to the CPU's with the pinned batch slot recycled only after its copy, and a
-ResNet step on the card against the CPU's. Every test is marked ``cuda``
+their plain versions (at the reference's shapes too: head dims below 64,
+seq lens off the 64-row tile), delivery into device memory with slab
+recycling, a train step that goes through the kernels, vision batches on
+the card equal to the CPU's with the pinned batch slot recycled only after
+its copy, a ResNet step on the card against the CPU's, and ViT steps: the
+tiny one against the CPU's, ViT-B/16 at full width. Every test is marked ``cuda``
 and skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda -q tests/test_torch_cuda.py
 """
+
 
 import dataclasses
 
@@ -21,9 +24,10 @@ from strom_torch.delivery.core import StromContext
 from strom_torch.formats.predecoded import LABELS_SUFFIX
 from strom_torch.models.llama import LlamaConfig
 from strom_torch.models.resnet import ResNet, ResNetConfig
+from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import flash_attention as tfa
 from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
-                                        make_train_step)
+                                        make_train_step, make_vit_sgd_step)
 from strom_torch.pipelines import (make_predecoded_vision_pipeline,
                                    make_wds_vision_pipeline)
 
@@ -45,6 +49,22 @@ def cuda_device():
                                          (1, 192, 4, 2, 128),   # S % 128 == 64
                                          (1, 256, 12, 4, 64)])  # small's heads
 def test_kernels_match_plain(cuda_device, dtype, causal, B, S, H, KV, Dh):
+    _check_kernels_against_plain(cuda_device, dtype, causal, B, S, H, KV, Dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [63, 96, 192])
+@pytest.mark.parametrize("Dh", [32, 48])
+def test_kernels_take_the_reference_shapes(cuda_device, dtype, causal, S, Dh):
+    """Head dims below 64 (zero-padded by the wrappers) and seq lens off the
+    64-row tile (masked inside the kernels) against the plain versions at
+    the same tolerances; the plain versions run with one block of S rows
+    where 64 does not divide S, as the reference requires."""
+    _check_kernels_against_plain(cuda_device, dtype, causal, 1, S, 4, 2, Dh)
+
+
+def _check_kernels_against_plain(cuda_device, dtype, causal, B, S, H, KV, Dh):
     """Each CUDA kernel against its plain version on the same inputs.
 
     Against the plain version in f32: f32 kernels differ only in the order
@@ -61,20 +81,22 @@ def test_kernels_match_plain(cuda_device, dtype, causal, B, S, H, KV, Dh):
     q, k, v, g = (torch.randn(*s, generator=gen, device=cuda_device).to(dtype)
                   for s in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh),
                             (B, S, H, Dh)))
+    block = S if S % 64 else 64
+    blk = dict(block_q=block, block_k=block)
     before = dict(tfa.LAUNCHES)
-    out, lse = tfa._flash_fwd(q, k, v, causal=causal, block_q=64, block_k=64)
+    out, lse = tfa._flash_fwd(q, k, v, causal=causal, **blk)
     delta = tfa._delta(out, g)
-    grads = tfa._flash_bwd(q, k, v, out, lse, g, causal=causal, block_q=64,
-                           block_k=64, delta=delta)
+    grads = tfa._flash_bwd(q, k, v, out, lse, g, causal=causal, delta=delta,
+                           **blk)
     torch.cuda.synchronize()
     assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
         "fa_fwd": 1, "fa_bwd_dkv": 1, "fa_bwd_dq": 1}
+    assert out.shape == q.shape and grads[0].shape == q.shape
+    assert grads[1].shape == grads[2].shape == k.shape
 
     def check(ins, rtol, frac, lse_atol):
-        pout, plse = tfa._flash_fwd_plain(*ins[:3], causal=causal, block_q=64,
-                                          block_k=64)
-        pgrads = tfa._flash_bwd_plain(*ins, lse, delta, causal=causal,
-                                      block_q=64, block_k=64)
+        pout, plse = tfa._flash_fwd_plain(*ins[:3], causal=causal, **blk)
+        pgrads = tfa._flash_bwd_plain(*ins, lse, delta, causal=causal, **blk)
         torch.testing.assert_close(lse, plse, rtol=0, atol=lse_atol)
         for got, want in zip((out, *grads), (pout, *pgrads)):
             got, want = got.float(), want.float()
@@ -143,9 +165,9 @@ def test_dq_kernel_by_dtype(cuda_device):
 
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
     """A CUDA tensor the kernel does not take raises; nothing falls back to
-    the plain version."""
-    q = torch.zeros(1, 128, 2, 32, device=cuda_device)
-    with pytest.raises(ValueError, match="head dims"):
+    the plain version. Head dims up to 128 and any seq len are taken."""
+    q = torch.zeros(1, 64, 2, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="up to 128"):
         tfa.flash_attention(q, q, q)
     q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -155,11 +177,11 @@ def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
         tfa.flash_attention(q, q, q)
     # the dQ wrapper itself, bf16 (the tensor-core kernel's dtype)
     lse = torch.zeros(1, 2, 128, 1, device=cuda_device)
-    q = torch.zeros(1, 128, 2, 32, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
+    q = torch.zeros(1, 128, 2, 256, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 128"):
         tfa._bwd_dq_kernel(q, q, q, q, lse, lse, causal=True)
     q = torch.zeros(1, 96, 2, 64, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="divisible by 64"):
+    with pytest.raises(ValueError, match=r"\[B,H,S,1\]"):
         tfa._bwd_dq_kernel(q, q, q, q, lse, lse, causal=True)
     q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="float32"):
@@ -235,13 +257,15 @@ def test_ring_registered_slabs_recycle_byte_exact(cuda_device, tmp_path):
         ctx.close()
 
 
-def test_train_step_goes_through_the_kernels(cuda_device):
-    cfg = dataclasses.replace(LlamaConfig.tiny(), d_model=256, n_heads=2,
-                              n_kv_heads=1)   # head dim 128
+@pytest.mark.parametrize("S", [128, 63])
+def test_train_step_goes_through_the_kernels(cuda_device, S):
+    """LlamaConfig.tiny() as it is (head dim 32, zero-padded to the kernels'
+    64), at a seq len on the kernels' tile and at 63, off it."""
+    cfg = LlamaConfig.tiny()
     state = init_train_state(cfg, device=cuda_device, seed=0)
     step = make_train_step(cfg, attn="flash", device=cuda_device)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 128), dtype=np.int32)).to(cuda_device)
+        0, cfg.vocab, (2, S), dtype=np.int32)).to(cuda_device)
     tfa.reset_launch_counts()
     losses = []
     for _ in range(2):
@@ -355,8 +379,6 @@ def test_resnet_step_on_cuda_matches_cpu(cuda_device):
     """Two SGD steps of the tiny ResNet in f32, TF32 off: cuDNN's
     channels_last convolutions against the CPU's, same weights and
     batches. f32 sums in another order: 1e-4 of the largest value."""
-    import dataclasses
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(ResNetConfig.tiny(), dtype="float32")
@@ -374,3 +396,44 @@ def test_resnet_step_on_cuda_matches_cpu(cuda_device):
     for k, v in models[cuda_device].state_dict().items():
         torch.testing.assert_close(v.cpu(), want[k], rtol=0,
                                    atol=1e-4 * want[k].abs().max().item() + 1e-7)
+
+
+def test_vit_step_on_cuda_matches_cpu(cuda_device):
+    """Two SGD steps of the tiny ViT in f32, TF32 off, on the card and on
+    the CPU from the same weights and batches: f32 sums in another order,
+    1e-4 of each tensor's largest value."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(ViTConfig.tiny(), dtype="float32")
+    models = {d: ViT(cfg, device=d) for d in ("cpu", cuda_device)}
+    models[cuda_device].load_state_dict(models["cpu"].state_dict())
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (8, 32, 32, 3), np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 1000, 8, dtype=np.int32))
+    for d, model in models.items():
+        step = make_vit_sgd_step(cfg, device=d)
+        for _ in range(2):
+            assert np.isfinite(step(model, images, labels)["loss"].item())
+    want = models["cpu"].state_dict()
+    for k, v in models[cuda_device].state_dict().items():
+        torch.testing.assert_close(v.cpu(), want[k], rtol=0,
+                                   atol=1e-4 * want[k].abs().max().item() + 1e-7)
+
+
+def test_vit_b16_step_on_cuda(cuda_device):
+    """ViT-B/16 at full width in bf16, batch 16: two steps with a finite
+    loss and grad norm; the bf16 weights stay bf16 and move."""
+    cfg = ViTConfig.vit_b16()
+    model = ViT(cfg, device=cuda_device,
+                generator=torch.Generator(device=cuda_device).manual_seed(0))
+    before = model.layers[0].wqkv.detach().clone()
+    step = make_vit_sgd_step(cfg, device=cuda_device)
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.integers(0, 256, (16, 224, 224, 3),
+                                           np.uint8)).to(cuda_device)
+    labels = torch.from_numpy(rng.integers(0, 1000, 16, dtype=np.int32))
+    for _ in range(2):
+        m = step(model, images, labels.to(cuda_device))
+        assert np.isfinite(m["loss"].item()) and np.isfinite(
+            m["grad_norm"].item())
+    assert model.layers[0].wqkv.dtype == torch.bfloat16
+    assert not torch.equal(model.layers[0].wqkv, before)

@@ -143,7 +143,11 @@ def test_module_level_api(data_file):
             want.close()
     finally:
         strom_torch.close()
-    assert strom_torch.stats() == {}
+    # as the reference's: stats() with no context creates a fresh one
+    try:
+        assert strom_torch.stats()["transfers"] == 0
+    finally:
+        strom_torch.close()
 
 
 def test_read_past_eof_raises(contexts, data_file):
