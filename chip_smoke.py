@@ -15,7 +15,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the JAX package does (share of elements that differ from
                the bf16 plain version). Each kernel is timed with CUDA
                events, median of 5 runs with min and max, beside its
-               bound and SDPA's forward or backward time.
+               bound and SDPA's forward or backward time. Then head dims
+               160, 192, 256, 320 and 512 (the scalar kernels in both
+               dtypes, zero-padded to a multiple of 128) at S 63 and 192, and the three
+               kernels timed at Gemma-2-9B's attention shape (B 2, S 2048,
+               H 16, KV 8, Dh 256, bf16, causal).
+2b. wide_path -- flash_attention, forward and backward, at that shape:
+               the scalar kernels' launches at wide heads (the "_wide"
+               rows of the JSON).
 3. ssd2gpu  -- the [engine] line (io_uring available or why not, the
                engine engine="auto" chose, the native library's build time);
                then a seeded 1 GiB file delivered into device memory by
@@ -62,6 +69,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
                stream_samples_early > 0; then 4 ResNet-50 steps fed by the
                streamed pipeline. Elsewhere the phase prints
                skipped=<what is missing>: a host library that is absent.
+   7b. auto_depth -- that pipeline feeding ResNet-50 at fixed prefetch
+               depth 2, then with prefetch_auto: 16 timed steps each, the
+               depth trajectory (start, max, grows, shrinks) and stalls.
+   7c. cache -- phase 6's shard with hot_cache_bytes 512 MiB and
+               readahead_window_batches 4, three epochs, three passes on
+               fresh contexts: loader images/s, cache, engine and readahead
+               bytes per epoch; every batch equal to the uncached
+               pipeline's; the third epoch served from the cache
+               (second-touch admission); each epoch's median, min and max
+               images/s over the passes.
+   7d. decoded_cache -- the JPEG tar at full-resolution decode, uncached
+               and then with hot_cache_bytes 1 GiB and decode_cache on
+               (three passes on fresh contexts): four epochs each, the
+               third feeding ResNet-50 steps timed in one loop in both
+               arms, the others the loader alone; decoded-cache hits and
+               plan-time hits per epoch; every batch equal to the uncached
+               pipeline's; each epoch's images/s over the passes.
 8. vit      -- BASELINE config #3. Phase 6's predecoded shard striped RAID0
                over 4 member files in 512 KiB chunks
                (stage_striped_predecoded) through
@@ -110,6 +134,7 @@ from strom_torch.engine.python_engine import PythonEngine
 from strom_torch.engine.raid0 import stripe_file
 from strom_torch.formats import jpeg
 from strom_torch.formats.predecoded import (LABELS_SUFFIX, META_SUFFIX,
+                                            PredecodedShardSet,
                                             stage_striped_predecoded)
 from strom_torch.formats.rawbin import write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
@@ -133,6 +158,7 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SM90 = "strom_torch/csrc/flash_attention_sm90.cu"
+SCALAR = "strom_torch/csrc/flash_attention.cu"
 # name -> the TPU kernel it replaces (file:line), the source and design of
 # the kernel the main path (bf16) runs, and the device symbols of every
 # instantiation (the f32 ones of flash_attention.cu included) for the
@@ -148,6 +174,17 @@ KERNELS = {
                   "source": SM90, "design": "wgmma",
                   "symbols": ("fa_bwd_dq_wgmma_kernel", "fa_bwd_dq_kernel")},
 }
+# the kernels bf16 heads wider than 128 run (flash_attention.cu's scalar
+# kernels, counted under the same names); their path is flash_attention at
+# Gemma-2-9B's attention shape (phase 2b)
+WIDE_KERNELS = {
+    f"{name}_wide": {"counter": name, "replaces": info["replaces"],
+                     "source": SCALAR, "design": "scalar f32 FMA, 128-column "
+                     "head chunks"}
+    for name, info in KERNELS.items()}
+# B, S, H, KV, Dh: Gemma-2-9B's attention (16 query heads, 8 kv heads,
+# head 256) at the train batch of phase 4
+GEMMA2_9B = (2, 2048, 16, 8, 256)
 
 
 def say(phase: str, **kv) -> None:
@@ -301,6 +338,11 @@ def _run_kernels(q, k, v, g, causal):
     return (out, lse, dq, dk, dv), lse, delta
 
 
+# heads wider than 128 (the scalar kernels; zero-padded to 256, 384 or 512),
+# S a multiple of 64 and S off the 64-row tile
+WIDE_SHAPES = [(1, S, 4, 2, Dh) for Dh in (160, 192, 256, 320, 512)
+               for S in (63, 192)]
+
 # small shapes: (B, S, H, KV, Dh)
 SMALL_SHAPES = [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
                 # S a multiple of 64 but not of the 128-row q tile
@@ -311,11 +353,12 @@ SMALL_SHAPES = [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
                 (2, 192, 4, 2, 32), (1, 96, 4, 2, 96)]
 
 
-def check_kernels_small() -> None:
-    """SMALL_SHAPES, causal and not. f32 inputs run the scalar kernels,
-    bf16 the tensor-core ones. The plain versions take one block of S rows
-    where 64 does not divide S, as the reference requires."""
-    for (B, S, H, KV, Dh) in SMALL_SHAPES:
+def check_kernels_small(shapes=SMALL_SHAPES) -> None:
+    """*shapes*, causal and not. f32 inputs run the scalar kernels, bf16
+    the tensor-core ones (heads above 128: the scalar kernels in both
+    dtypes). The plain versions take one block of S rows where 64 does not
+    divide S, as the reference requires."""
+    for (B, S, H, KV, Dh) in shapes:
         block = S if S % 64 else 64
         for causal in (True, False):
             for dt in (torch.float32, torch.bfloat16):
@@ -345,43 +388,55 @@ def check_kernels_small() -> None:
 def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
     """SDPA's backward alone (dq, dk and dv), flash backend, on the same
     inputs and output gradient: the forward runs once outside the timed
-    region and each timed call is torch.autograd.grad over its graph."""
+    region and each timed call is torch.autograd.grad over its graph.
+    Where the flash backend refuses the shape, PyTorch picks the backend,
+    and the note says so."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     gh = g.transpose(1, 2)
     note = "flash backend, enable_gqa"
-    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
-        try:
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True, enable_gqa=True)
-        except RuntimeError:
-            rep = q.shape[2] // k.shape[2]
-            kh, vh = (t.detach().repeat_interleave(rep, dim=1).requires_grad_()
-                      for t in (kh, vh))
-            note = ("flash backend refused enable_gqa: k/v repeated to H "
-                    "heads outside the timed region")
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            try:
+                out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+            except RuntimeError:
+                rep = q.shape[2] // k.shape[2]
+                kh, vh = (t.detach().repeat_interleave(rep, dim=1)
+                          .requires_grad_() for t in (kh, vh))
+                note = ("flash backend refused enable_gqa: k/v repeated to "
+                        "H heads outside the timed region")
+                out = sdpa(qh, kh, vh, is_causal=True)
+    except RuntimeError as e:
+        note = ("flash backend refused the shape, PyTorch's choice of "
+                f"backend: {str(e).splitlines()[0][:80]}")
+        qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
     ms = cuda_ms_spread(lambda: torch.autograd.grad(
         out, (qh, kh, vh), gh, retain_graph=True), n_iter)[0]
     return ms, note
 
 
 def phase_kernels() -> dict:
-    """bf16 at the main path's and small's shapes, causal: each kernel
-    against the plain versions on the same bf16 inputs (BF16_TOL) and in f32
-    (BF16_VS_F32_TOL), then timed beside its bound, the plain version and
-    SDPA (forward for fa_fwd; backward for the fa_bwd_dkv + fa_bwd_dq pair).
-    Each time is the median of REPEATS runs of cuda_ms; the kernels' rows
-    also carry the runs' min and max."""
+    """SMALL_SHAPES and WIDE_SHAPES against the plain versions; then bf16 at
+    the main path's, small's and Gemma-2-9B's shapes (the last runs the
+    scalar kernels), causal: each kernel against the plain versions on the
+    same bf16 inputs (BF16_TOL) and in f32 (BF16_VS_F32_TOL), then timed
+    beside its bound, the plain version and SDPA (forward for fa_fwd;
+    backward for the fa_bwd_dkv + fa_bwd_dq pair). Each time is the median
+    of REPEATS runs of cuda_ms; the kernels' rows also carry the runs' min
+    and max. Returns rows[kernel][shape label]."""
     check_kernels_small()
+    check_kernels_small(WIDE_SHAPES)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = {}
     for label, (B, S, H, KV, Dh) in [("main", (2, 2048, 32, 8, 128)),
-                                     ("small", (2, 2048, 12, 4, 64))]:
+                                     ("small", (2, 2048, 12, 4, 64)),
+                                     ("gemma2_9b", GEMMA2_9B)]:
         dt = torch.bfloat16
         q, k, v, g = _inputs(B, S, H, KV, Dh, dt, 0)
         res, lse, delta = _run_kernels(q, k, v, g, True)
@@ -394,6 +449,8 @@ def phase_kernels() -> dict:
         _check_dq_rounding(label, res[2], q, k, v, g, lse, delta, True, 128)
 
         n_iter = 10 if label == "main" else 5
+        if Dh > 128:
+            n_iter = 2   # the scalar kernels take milliseconds there
         spread = {
             "fa_fwd": cuda_ms_spread(lambda: fa._flash_fwd_kernel(
                 q, k, v, causal=True), n_iter),
@@ -445,6 +502,39 @@ def phase_kernels() -> dict:
         "forward for fa_fwd and SDPA's backward (dq, dk and dv) for the "
         "backward pair: yardsticks the port never calls")
     return rows
+
+
+def phase_wide_path() -> dict[str, int]:
+    """Phase 2b, the wide heads' path: flash_attention at Gemma-2-9B's
+    attention shape (bf16, causal), the forward and then the backward
+    through autograd, with the launch counts set to 0 just before and read
+    just after; finite outputs of the right shapes. Returns the scalar
+    kernels' launches there."""
+    B, S, H, KV, Dh = GEMMA2_9B
+    q, k, v, g = _inputs(B, S, H, KV, Dh, torch.bfloat16, 4)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fa.flash_attention(q, k, v, True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fa.LAUNCHES[info["counter"]]
+                for name, info in WIDE_KERNELS.items()}
+    grads = (q.grad, k.grad, v.grad)
+    if out.shape != q.shape or any(t.shape != s.shape for t, s in
+                                   zip(grads, (q, k, v))) \
+            or not all(torch.isfinite(t).all() for t in (out, *grads)):
+        raise AssertionError("wide path: outputs of the wrong shape or not "
+                             "finite")
+    say("wide_path", shape=GEMMA2_9B, dtype="bf16", causal=True,
+        fwd_bwd_ms=f"{dt * 1e3:.2f}", launches=json.dumps(launches))
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the wide "
+                                 f"path")
+    return launches
 
 
 # ---------------------------------------------------------------- ssd2gpu
@@ -965,9 +1055,10 @@ def _write_predecoded(path: str, records: np.ndarray, labels: np.ndarray) -> Non
         json.dump({"image_size": records.shape[1], "n": len(records)}, f)
 
 
-def _train_steps(label: str, model, step, pipe, n_steps: int) -> None:
+def _train_steps(label: str, model, step, pipe, n_steps: int) -> dict:
     """1 warm-up step, then *n_steps* timed iterations (next batch + step +
-    the loss read back), each checked finite."""
+    the loss read back), each checked finite. Returns the steady step ms
+    and the timed stalls."""
     B = None
     times, stalls0 = [], None
     for i in range(n_steps + 1):
@@ -992,6 +1083,8 @@ def _train_steps(label: str, model, step, pipe, n_steps: int) -> None:
         data_stall_steps_timed=pipe.data_stall_steps - stalls0,
         data_stall_steps_all=pipe.data_stall_steps,
         max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / GiB:.2f}")
+    return {"step_ms_steady": steady * 1e3,
+            "stalls_timed": pipe.data_stall_steps - stalls0}
 
 
 def phase_resnet(workdir: str):
@@ -1145,6 +1238,219 @@ def phase_resnet_jpeg(workdir: str, model, step) -> str | None:
 
 NO_JPEG = ("no_cv2_and_no_PIL:_neither_a_JPEG_encoder_for_the_fixture_nor_"
            "the_resize_of_the_train_transform")
+
+
+# ------------------------------------------------ auto depth and caches
+def phase_auto_depth(tar: str, model, step, steps: int = 16, *,
+                     batch: int = 128, device: str = "cuda") -> None:
+    """Phase 7b: the JPEG-fed ResNet pipeline at fixed prefetch depth 2 and
+    with prefetch_auto (starting at 2), 1 warm-up and *steps* timed steps
+    each: the depth trajectory, timed stalls and step ms per arm."""
+    ctx = strom_torch.init(StromConfig.from_env())
+    for arm, auto in (("fixed2", False), ("auto", True)):
+        _drop_cache(tar)
+        pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=batch,
+                                             device=torch.device(device),
+                                             prefetch_depth=2,
+                                             auto_prefetch=auto)
+        res = _train_steps(f"auto_depth_{arm}", model, step, pipe, steps)
+        trace = pipe.prefetch_depth_trace
+        st = pipe.stats()
+        pipe.close()
+        say("auto_depth", arm=arm, prefetch_auto=auto,
+            depth_start=trace[0][1], depth_max=max(d for _, d in trace),
+            depth_end=st["prefetch_depth"],
+            grows=st.get("prefetch_depth_grow", 0),
+            shrinks=st.get("prefetch_depth_shrink", 0),
+            trace=json.dumps(trace).replace(" ", ""),
+            stalls_timed=res["stalls_timed"],
+            step_ms_steady=f"{res['step_ms_steady']:.2f}", timed_steps=steps)
+        if not auto and len(trace) != 1:
+            raise AssertionError(f"fixed depth moved: {trace}")
+    strom_torch.close()
+
+
+def _cache_counts(ctx: StromContext) -> dict:
+    c = ctx.stats().get("cache", {})
+    return {"cache_hit_bytes": c.get("cache_hit_bytes", 0),
+            "cache_miss_bytes": c.get("cache_miss_bytes", 0),
+            "cache_admitted_bytes": c.get("cache_admitted_bytes", 0),
+            "readahead_bytes": c.get("cache_readahead_bytes", 0),
+            "engine_bytes": ctx.engine.stats().get("bytes_read", 0)}
+
+
+def _same_batches(label: str, got: list, want: list) -> None:
+    for i, ((gi, gl), (wi, wl)) in enumerate(zip(got, want)):
+        if not (torch.equal(gi, wi) and torch.equal(gl, wl)):
+            raise AssertionError(f"{label}: batch {i} differs from the "
+                                 f"uncached pipeline's")
+
+
+def _spread(label: str, rates: list[list[float]], **kv) -> None:
+    """One line per epoch: median, min and max of its images/s over the
+    passes."""
+    for e, rs in enumerate(rates):
+        say(label, epoch=e, passes=len(rs), **kv,
+            images_per_s_median=f"{statistics.median(rs):.1f}",
+            images_per_s_min=f"{min(rs):.1f}", images_per_s_max=f"{max(rs):.1f}")
+
+
+def phase_cache(pdec: str, *, batch: int = 128, epochs: int = 3,
+                passes: int = 3, device: str = "cuda") -> None:
+    """Phase 7c: the predecoded shard through make_predecoded_vision_pipeline
+    with hot_cache_bytes 512 MiB and readahead_window_batches 4 (admission
+    second_touch), *epochs* epochs, *passes* times over, each pass on a
+    fresh context: per epoch the loader-alone images/s and the cache's, the
+    engine's and the readahead's bytes (read between epochs, while the
+    prefetcher already holds the next epoch's first batches); every batch
+    equal to the uncached pipeline's, byte for byte; the last epoch must be
+    served from the cache. Then each epoch's images/s over the passes."""
+    dev = torch.device(device)
+    image = IMAGE
+    n = PredecodedShardSet((pdec,), image).num_records
+    bpe = n // batch
+    off = StromContext(StromConfig.from_env())
+    with make_predecoded_vision_pipeline(off, [pdec], batch=batch,
+                                         image_size=image, device=dev) as p:
+        want = [next(p) for _ in range(epochs * bpe)]
+    off.close()
+    epoch_bytes = bpe * batch * image * image * 3
+    rates: list[list[float]] = [[] for _ in range(epochs)]
+    for r in range(passes):
+        _drop_cache(pdec)
+        ctx = StromContext(StromConfig.from_env(hot_cache_bytes=512 * MiB,
+                                                readahead_window_batches=4))
+        if r == 0:
+            say("cache", shard=os.path.basename(pdec), records=n, batch=batch,
+                hot_cache_bytes=ctx.config.hot_cache_bytes,
+                admit=ctx.config.hot_cache_admit,
+                readahead_window_batches=ctx.config.readahead_window_batches)
+        pipe = make_predecoded_vision_pipeline(ctx, [pdec], batch=batch,
+                                               image_size=image, device=dev)
+        try:
+            for e in range(epochs):
+                before = _cache_counts(ctx)
+                t0 = time.perf_counter()
+                got = [next(pipe) for _ in range(bpe)]
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                delta = {k: v - before[k] for k, v in _cache_counts(ctx).items()}
+                _same_batches(f"cache pass {r} epoch {e}", got,
+                              want[e * bpe:(e + 1) * bpe])
+                rates[e].append(bpe * batch / dt)
+                say("cache", run=r, epoch=e, loader="alone", batches=bpe,
+                    images_per_s=f"{rates[e][-1]:.1f}",
+                    hit_share=f"{delta['cache_hit_bytes'] / epoch_bytes:.3f}",
+                    exact=True, **delta)
+            if delta["cache_hit_bytes"] <= 0:
+                raise AssertionError("cache: the last epoch was not served "
+                                     "from the cache")
+            if r == passes - 1:
+                say("cache", stats=json.dumps(ctx.stats()["cache"],
+                                              sort_keys=True),
+                    data_stall_steps=pipe.data_stall_steps)
+        finally:
+            pipe.close()
+            ctx.close()
+    _spread("cache", rates, loader="alone")
+
+
+def _epoch(label: str, pipe, bpe: int, model, step, train: bool):
+    """*bpe* batches of *pipe*, each followed, where *train*, by a ResNet
+    step whose loss is read back; per batch the ms of next + step +
+    synchronize. Returns (batches, per-batch seconds, total seconds)."""
+    got, times = [], []
+    t0 = time.perf_counter()
+    for _ in range(bpe):
+        ts = time.perf_counter()
+        imgs, lbls = next(pipe)
+        got.append((imgs, lbls))
+        if train:
+            loss = step(model, imgs, lbls)["loss"].item()
+            if not math.isfinite(loss):
+                raise AssertionError(f"{label}: loss {loss}")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    return got, times, time.perf_counter() - t0
+
+
+def _step_ms(times: list[float]) -> dict:
+    return {"resnet_step_ms_mean": f"{statistics.mean(times) * 1e3:.2f}",
+            "resnet_step_ms_median": f"{statistics.median(times) * 1e3:.2f}"}
+
+
+def phase_decoded_cache(tar: str | None, model, step, *, batch: int = 128,
+                        epochs: int = 4, passes: int = 3,
+                        device: str = "cuda") -> None:
+    """Phase 7d: the JPEG tar through make_imagenet_resnet_pipeline with
+    full-resolution decode (decode_reduced_scale=False: cached frames are
+    full decodes), first uncached, then *passes* times with hot_cache_bytes
+    1 GiB and decode_cache on (admission second_touch, so the third epoch
+    is the first served from the cache), each pass on a fresh context. In
+    every arm the third epoch feeds ResNet-50 steps, timed per batch (next
+    + step + synchronize) in the same loop, the other epochs run the loader
+    alone. Per epoch the images/s and the decoded cache's hits and
+    plan-time hits; every batch equal to the uncached pipeline's; then each
+    epoch's images/s over the passes."""
+    if tar is None:
+        say("decoded_cache", skipped=NO_JPEG)
+        return
+    dev = torch.device(device)
+    kw = dict(batch=batch, device=dev, decode_reduced_scale=False)
+    off = StromContext(StromConfig.from_env())
+    want = []
+    with make_imagenet_resnet_pipeline(off, [tar], **kw) as p:
+        bpe = p.sampler.batches_per_epoch
+        n = p.sampler.num_records
+        for e in range(epochs):
+            train = e == 2
+            got, times, dt = _epoch("decoded_cache uncached", p, bpe, model,
+                                    step, train)
+            want.extend(got)
+            say("decoded_cache", arm="uncached", epoch=e, batches=bpe,
+                images_per_s=f"{bpe * batch / dt:.1f}",
+                **(_step_ms(times) if train else {"loader": "alone"}))
+    off.close()
+    keys = ("decode_cache_hits", "decode_cache_misses",
+            "decode_cache_plan_hits", "decode_cache_admitted_bytes")
+    rates: list[list[float]] = [[] for _ in range(epochs)]
+    for r in range(passes):
+        _drop_cache(tar)
+        ctx = StromContext(StromConfig.from_env(hot_cache_bytes=GiB))
+        if r == 0:
+            say("decoded_cache", samples=n, batch=batch,
+                hot_cache_bytes=ctx.config.hot_cache_bytes,
+                admit=ctx.config.hot_cache_admit, decode_reduced_scale=False)
+        pipe = make_imagenet_resnet_pipeline(ctx, [tar], decode_cache=True,
+                                             **kw)
+        try:
+            for e in range(epochs):
+                before = {k: pipe.stats().get(k, 0) for k in keys}
+                stalls0 = pipe.data_stall_steps
+                train = e == 2
+                got, times, dt = _epoch("decoded_cache", pipe, bpe, model,
+                                        step, train)
+                delta = {k: pipe.stats().get(k, 0) - before[k] for k in keys}
+                _same_batches(f"decoded_cache pass {r} epoch {e}", got,
+                              want[e * bpe:(e + 1) * bpe])
+                rates[e].append(bpe * batch / dt)
+                extra = ({**_step_ms(times),
+                          "data_stall_steps": pipe.data_stall_steps - stalls0}
+                         if train else {"loader": "alone"})
+                say("decoded_cache", arm="cached", run=r, epoch=e,
+                    batches=bpe, images_per_s=f"{rates[e][-1]:.1f}",
+                    exact=True, **delta, **extra)
+                if train and delta["decode_cache_plan_hits"] <= 0:
+                    raise AssertionError("decoded_cache: the third epoch "
+                                         "found no frame in the cache")
+            if r == passes - 1:
+                say("decoded_cache", stats=json.dumps(
+                    ctx.stats()["decode_cache"], sort_keys=True))
+        finally:
+            pipe.close()
+            ctx.close()
+    _spread("decoded_cache", rates, arm="cached",
+            note="the third epoch's rate includes its ResNet steps")
 
 
 # -------------------------------------------------------------------- vit
@@ -1314,12 +1620,19 @@ def main() -> int:
     try:
         phase_build()
         rows = phase_kernels()
+        wide_launches = phase_wide_path()
         path = phase_ssd2gpu(workdir)
         launches = phase_train(workdir)
         phase_stream(path)
         os.unlink(path)
         model, step, pdec = phase_resnet(workdir)
         tar = phase_resnet_jpeg(workdir, model, step)
+        if tar is None:
+            say("auto_depth", skipped=NO_JPEG)
+        else:
+            phase_auto_depth(tar, model, step)
+        phase_cache(pdec)
+        phase_decoded_cache(tar, model, step)
         del model, step
         torch.cuda.empty_cache()
         phase_vit(pdec, tar)
@@ -1334,6 +1647,16 @@ def main() -> int:
                 **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
                    if name != "fa_fwd" else {})}
                for name, info in KERNELS.items()]
+    kernels += [{"name": name, "route": "cuda", "source": info["source"],
+                 "design": info["design"], "replaces": info["replaces"],
+                 "launches": wide_launches[name],
+                 "shape": "gemma2_9b " + json.dumps(GEMMA2_9B),
+                 **{k: rows[info["counter"]]["gemma2_9b"][k] for k in
+                    ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
+                     "bound_ms", "bound_by", "library_ms")},
+                 **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
+                    if info["counter"] != "fa_fwd" else {})}
+                for name, info in WIDE_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

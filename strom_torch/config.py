@@ -72,6 +72,12 @@ class StromConfig:
     # file)
     extent_aware: bool = True
     prefetch_depth: int = 2            # batches dispatched ahead of consumption
+    prefetch_auto: bool = False        # auto-tune prefetch depth: grow on
+                                       # data stalls, shrink when the queue
+                                       # runs fully ready; prefetch_depth is
+                                       # the STARTING depth
+    prefetch_max_depth: int = 16       # auto-tune ceiling (further bounded by
+                                       # slab-pool capacity per batch)
     delivery_workers: int = 2          # threads running async transfers
     # merge caller fragments contiguous in both file and dest space into
     # fewer engine ops; merged ops split at this cap (0 = off)
@@ -105,6 +111,27 @@ class StromConfig:
     # streamed batches (delivery/stream.py): each sample goes to the decode
     # pool the moment its extents land, not after the whole batch gather
     stream_intra_batch: bool = True
+    # decoded-output cache (formats/decoded_cache.py): admit first-epoch
+    # decode OUTPUT (full-frame RGB8, keyed by member extent and decoder)
+    # into the hot cache, so a later epoch pays only crop and resize. Needs
+    # hot_cache_bytes > 0; off by default (the decoded working set is ~5x
+    # the compressed bytes)
+    decode_cache: bool = False
+
+    # hot-set host cache (delivery/hotcache.py): an extent-keyed,
+    # byte-budgeted, refcounted LRU of physical byte ranges, consulted
+    # before engine submission, so repeat traffic (epoch 2+) serves from
+    # RAM instead of re-gathering from NVMe. 0 = off
+    hot_cache_bytes: int = 0
+    # admission: "second_touch" (the first epoch observes through a
+    # block-granular touch ledger, the second admits) or "always"
+    hot_cache_admit: str = "second_touch"
+    # the touch ledger's quantum
+    hot_cache_block_bytes: int = 1 * MiB
+    # epoch-aware readahead: warm the sampler's next N batches into the hot
+    # cache from a background thread that yields to demand reads (0 = off;
+    # needs hot_cache_bytes > 0)
+    readahead_window_batches: int = 0
 
     def __post_init__(self) -> None:
         if self.buffer_size == 0:
@@ -132,6 +159,18 @@ class StromConfig:
         if self.stripe_window_bytes < -1:
             raise ValueError("stripe_window_bytes must be >= 0 (0 = off) "
                              "or exactly -1 (auto)")
+        if self.prefetch_max_depth < 1:
+            raise ValueError("prefetch_max_depth must be >= 1")
+        if self.hot_cache_bytes < 0:
+            raise ValueError("hot_cache_bytes must be >= 0 (0 = off)")
+        if self.hot_cache_admit not in ("second_touch", "always"):
+            raise ValueError("hot_cache_admit must be 'second_touch' or "
+                             f"'always', got {self.hot_cache_admit!r}")
+        if self.hot_cache_block_bytes <= 0 or self.hot_cache_block_bytes % 4096:
+            raise ValueError("hot_cache_block_bytes must be a positive "
+                             "multiple of 4096")
+        if self.readahead_window_batches < 0:
+            raise ValueError("readahead_window_batches must be >= 0 (0 = off)")
 
     @property
     def resolved_stripe_window_bytes(self) -> int:

@@ -5,15 +5,23 @@ Read a file range (an ExtentList, or a RAID0 striped set) with the engine,
 O_DIRECT where the file allows, into a page-aligned pinned host slab
 (registered with the engine's io_uring ring too, so the reads ride
 ``READ_FIXED``); copy the slab into a
-``torch.empty(..., device=)`` tensor with ``copy_(non_blocking=True)`` on a
-dedicated copy stream; record an event and make the caller's stream wait on
-it. A slab goes back to the pool only after the copy that reads it has
-retired (its event completed), never when ``copy_()`` returns.
+``torch.empty(..., device=)`` tensor, allocated on a dedicated copy stream,
+with ``copy_(non_blocking=True)`` on that stream; record an event and make
+the caller's stream wait on it. A slab goes back to the pool only after the
+copy that reads it has retired (its event completed), never when
+``copy_()`` returns.
 
 Transfers of at least ``max(overlap_min_bytes, overlap_chunk_bytes)`` are
 streamed: one preallocated device tensor, and piece k+1 is read from disk
 while piece k's slice copy is in flight. A CPU target takes no pool: the
 result aliases a fresh slab through ``torch.from_numpy``.
+
+With ``hot_cache_bytes > 0`` every gather (``pread``, ``memcpy_ssd2host``,
+``memcpy_ssd2gpu`` streamed or not, ``stream_segments``) consults the hot
+cache (``delivery/hotcache.py``) after physical planning and before engine
+submission: cached ranges are copied from RAM into the gather's buffer,
+only the misses reach the engine, and the bytes the engine read are
+offered for admission. ``warm`` is the readahead's entry point.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from strom_torch.delivery.chunk_plan import plan_chunks_multi
 from strom_torch.delivery.coalesce import coalesce_chunks, coalesce_segments
 from strom_torch.delivery.extents import ExtentList
 from strom_torch.delivery.handle import DMAHandle, deferred_handle
+from strom_torch.delivery.hotcache import HotCache
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
 from strom_torch.engine.base import Engine, EngineError
@@ -232,8 +241,21 @@ class StromContext:
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
             {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
-             "stream_gathers": 0})
+             "stream_gathers": 0, "stream_instant_bytes": 0})
         self._counts_lock = threading.Lock()
+        # hot-set host cache: repeat traffic serves from RAM instead of the
+        # engine. Its buffers are its own aligned allocations, not pool
+        # slabs (see delivery/hotcache.py); bound_depth still subtracts
+        # hot_cache_bytes from the pool's budget, as the reference does
+        self._hot_cache = HotCache(
+            self.config.hot_cache_bytes, admit=self.config.hot_cache_admit,
+            block_bytes=self.config.hot_cache_block_bytes) \
+            if self.config.hot_cache_bytes > 0 else None
+        # the vision pipeline's decoded-frame cache (attach_decoded_cache)
+        self._decoded_cache = None
+        # demand gathers in flight: readahead yields to them
+        self._demand_lock = threading.Lock()
+        self._demand_reads = 0
         self._closed = False
 
     # -- files --------------------------------------------------------------
@@ -290,6 +312,41 @@ class StromContext:
         with self._counts_lock:
             self._counts.update(kv)
 
+    @property
+    def hot_cache(self) -> HotCache | None:
+        """The hot-set cache when ``hot_cache_bytes > 0``, else None."""
+        return self._hot_cache
+
+    def _active_cache(self) -> HotCache | None:
+        cache = self._hot_cache
+        return cache if cache is not None and cache.enabled else None
+
+    @property
+    def decoded_cache(self):
+        """The DecodedCache registered with :meth:`attach_decoded_cache`
+        (the vision pipeline's decode-once tier), else None."""
+        return self._decoded_cache
+
+    def attach_decoded_cache(self, dcache) -> None:
+        """Register a pipeline's DecodedCache (its counters show in
+        :meth:`stats`); the last registration wins."""
+        self._decoded_cache = dcache
+
+    @contextlib.contextmanager
+    def _demand_gate(self):
+        """Marks a demand engine gather in flight (readahead yields to it)."""
+        with self._demand_lock:
+            self._demand_reads += 1
+        try:
+            yield
+        finally:
+            with self._demand_lock:
+                self._demand_reads -= 1
+
+    def _demand_active(self) -> bool:
+        with self._demand_lock:
+            return self._demand_reads > 0
+
     def extent_map(self, path: str) -> list | None:
         """Cached FIEMAP extent map for *path* (None: unavailable)."""
         with self._files_lock:
@@ -312,6 +369,13 @@ class StromContext:
         alias) stripe-decoded, fragments coalesced where contiguous in both
         file and dest space, and plain-file gathers put in physical-address
         order (``extent_aware``)."""
+        return self._plan(source, segments, base_offset)[0]
+
+    def _plan(self, source: Source, segments: Sequence[Segment],
+              base_offset: int = 0
+              ) -> tuple[list[tuple[int, int, int, int]], dict[int, str]]:
+        """:meth:`_plan_chunks` and the path of every file index it used
+        (the hot cache keys on physical paths)."""
         cmax = self.config.coalesce_max_bytes
         if cmax and len(segments) > 1:
             # merge before expansion: a merged logical run stripes as one
@@ -383,26 +447,168 @@ class StromContext:
                     if (em := self.extent_map(p))}
             if maps:
                 chunks = plan_chunks_multi(chunks, maps)
-        return chunks
+        return chunks, idx_paths
+
+    def _consult_cache(self, cache: HotCache,
+                       chunks: list[tuple[int, int, int, int]],
+                       idx_paths: dict[int, str],
+                       dflat: "np.ndarray | None", *, warm: bool = False
+                       ) -> tuple[list[tuple[int, int, int, int]], int,
+                                  list[tuple[int, int]]]:
+        """Split every physical chunk into cached ranges (copied from RAM
+        into *dflat* under a pin that blocks eviction) and miss runs (the
+        only ops the engine sees). Returns ``(miss_chunks, hit_bytes,
+        hit_ranges)``: *hit_ranges* are the dest [lo, hi) spans served from
+        RAM, which the streamed gather reports as instant completions.
+        ``warm=True`` (readahead) records nothing and copies nothing
+        (*dflat* may be None)."""
+        cache_hit = 0
+        miss_chunks: list[tuple[int, int, int, int]] = []
+        hit_ranges: list[tuple[int, int]] = []
+        pinned: list = []
+        try:
+            for fi, fo, do, ln in chunks:
+                path = idx_paths.get(fi)
+                if path is None:  # an untracked file index: bypass the cache
+                    miss_chunks.append((fi, fo, do, ln))
+                    continue
+                hits, misses, pins = cache.lookup(path, fo, fo + ln,
+                                                  record=not warm)
+                pinned.extend(pins)
+                for s, t, view in hits:
+                    if not warm:
+                        dflat[do + (s - fo): do + (t - fo)] = view
+                        hit_ranges.append((do + (s - fo), do + (t - fo)))
+                    cache_hit += t - s
+                miss_chunks.extend((fi, s, do + (s - fo), t - s)
+                                   for s, t in misses)
+        finally:
+            cache.unpin(pinned)
+        return miss_chunks, cache_hit, hit_ranges
 
     def _read_segments(self, source: Source, segments: Sequence[Segment],
-                       dest: np.ndarray, base_offset: int = 0) -> int:
+                       dest: "np.ndarray | None", base_offset: int = 0, *,
+                       _warm: bool = False) -> int:
         """Read (file_offset+base_offset → dest_offset) segments into *dest*,
         chunked at block_size, pipelined at queue_depth. Raises EngineError
-        on any failed or short chunk."""
-        chunks = self._plan_chunks(source, segments, base_offset)
+        on any failed or short chunk.
+
+        The hot cache (when on) is consulted after physical planning and
+        before engine submission: cached ranges are copied into *dest*, the
+        misses go to the engine, and the bytes it read are offered for
+        admission. ``_warm=True`` is the readahead path (:meth:`warm`):
+        cached ranges are skipped, *dest* may be None, misses are read in
+        engine-budget slices that yield to demand reads and force-admitted,
+        and a short pass returns quietly."""
+        chunks, idx_paths = self._plan(source, segments, base_offset)
+        cache = self._active_cache()
+        if _warm:
+            if cache is None:
+                return 0
+            if chunks:
+                chunks, _, _ = self._consult_cache(cache, chunks, idx_paths,
+                                                   None, warm=True)
+            return self._warm_read_chunks(cache, chunks, dest, idx_paths)
+        cache_hit = 0
+        dflat = None
+        if cache is not None and chunks:
+            dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
+                else dest.reshape(-1).view(np.uint8)
+            chunks, cache_hit, _ = self._consult_cache(cache, chunks,
+                                                       idx_paths, dflat)
         planned = sum(ln for (_, _, _, ln) in chunks)
-        try:
-            with self._engine_lock:
-                total = self.engine.read_vectored(chunks, dest,
-                                                  retries=self.config.io_retries)
-        except EngineError as e:
-            raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
+        total = 0
+        if chunks:
+            try:
+                with self._demand_gate(), self._engine_lock:
+                    total = self.engine.read_vectored(
+                        chunks, dest, retries=self.config.io_retries)
+            except EngineError as e:
+                raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
         if total != planned:
             raise EngineError(errno.EIO,
                               f"ssd2gpu read {total} bytes, planned {planned}")
-        self._count(ssd2gpu_bytes=total)
+        if cache is not None:
+            # the engine already landed the bytes: admitting is one memcpy
+            # into a cache buffer (the admission policy decides)
+            for fi, fo, do, ln in chunks:
+                path = idx_paths.get(fi)
+                if path is not None:
+                    cache.admit(path, fo, fo + ln, dflat[do: do + ln])
+        self._count(ssd2gpu_bytes=total + cache_hit)
+        return total + cache_hit
+
+    def _warm_read_chunks(self, cache: HotCache,
+                          chunks: list[tuple[int, int, int, int]],
+                          dest: "np.ndarray | None",
+                          idx_paths: dict[int, str]) -> int:
+        """Readahead engine path: read miss chunks in slices of the
+        in-flight budget (queue_depth × block_size), force-admitting each
+        slice, and stop when a demand gather is in flight, so a demand read
+        queues behind at most one warming slice. Advisory: engine errors
+        and short slices end the pass quietly."""
+        if not chunks:
+            return 0
+        cfg = self.config
+        # dest only once there are misses: a fully warm window costs a
+        # consult and nothing else
+        if dest is None:
+            dest = alloc_aligned(max(do + ln for (_, _, do, ln) in chunks))
+        dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
+            else dest.reshape(-1).view(np.uint8)
+        budget = max(cfg.queue_depth * cfg.block_size, cfg.block_size)
+        total = 0
+        i = 0
+        while i < len(chunks):
+            if self._demand_active():
+                cache.note_yield()
+                break
+            batch: list[tuple[int, int, int, int]] = []
+            b = 0
+            while i < len(chunks) and b < budget:
+                batch.append(chunks[i])
+                b += chunks[i][3]
+                i += 1
+            try:
+                with self._engine_lock:
+                    n = self.engine.read_vectored(batch, dest,
+                                                  retries=cfg.io_retries)
+            except EngineError:
+                break
+            if n != b:
+                break
+            for fi, fo, do, ln in batch:
+                path = idx_paths.get(fi)
+                if path is not None:
+                    cache.admit(path, fo, fo + ln, dflat[do: do + ln],
+                                force=True)
+            total += n
         return total
+
+    def warm(self, source: Source, segments: Sequence[Segment],
+             base_offset: int = 0) -> int:
+        """The readahead's entry point (``hotcache.Readahead``): make the
+        given ranges cache-resident. Serves nothing: cached ranges are
+        skipped without a copy, misses are read into a throwaway buffer and
+        force-admitted. Returns bytes warmed; yields (returns 0 or short)
+        whenever a demand gather is in flight."""
+        cache = self._active_cache()
+        if cache is None or self._closed:
+            return 0
+        if self._demand_active():
+            cache.note_yield()
+            return 0
+        if sum(s.length for s in segments) <= 0:
+            return 0
+        try:
+            warmed = self._read_segments(self.resolve_source(source),
+                                         segments, None, base_offset,
+                                         _warm=True)
+        except (EngineError, OSError, ValueError):
+            warmed = 0  # advisory: readahead never turns into a crash
+        if warmed:
+            cache.note_readahead(warmed)
+        return warmed
 
     # -- completion-driven gather and host reads -----------------------------
     def stream_segments(self, source: Source, segments: Sequence[Segment],
@@ -527,14 +733,27 @@ class StromContext:
         later work on *consumer*; the slab goes back to the pool once the
         copy that reads it has retired (its event completed)."""
         try:
-            with torch.cuda.stream(consumer):
-                out = torch.empty(slab.shape, dtype=torch_dtype(slab.dtype),
-                                  device=device)
+            out = self._device_out(slab.shape, torch_dtype(slab.dtype),
+                                   device, consumer)
             ev = self._copy_async(out, slab, self._copy_stream(device))
             consumer.wait_event(ev)
             ev.synchronize()   # the slab's last reader has retired
         finally:
             self._release(slab, True)
+        return out
+
+    def _device_out(self, shape: Sequence[int], dtype: torch.dtype,
+                    device: torch.device, consumer: torch.cuda.Stream
+                    ) -> torch.Tensor:
+        """A new tensor on *device* for the copy stream to write and
+        *consumer* to read. It is allocated on the copy stream: a block
+        from *consumer*'s pool may have just been freed by work still
+        queued there, and the copy stream, not ordered after that work,
+        would write under it. ``record_stream`` keeps the block from being
+        reused before *consumer*'s reads of it have run."""
+        with torch.cuda.stream(self._copy_stream(device)):
+            out = torch.empty(shape, dtype=dtype, device=device)
+        out.record_stream(consumer)
         return out
 
     def release_host_batch(self, host: np.ndarray,
@@ -655,9 +874,8 @@ class StromContext:
             self._count(transfers=1)
             if streamed:
                 if cuda:
-                    with torch.cuda.stream(consumer):
-                        out = torch.empty(nbytes, dtype=torch.uint8,
-                                          device=device)
+                    out = self._device_out((nbytes,), torch.uint8, device,
+                                           consumer)
                 else:
                     out = torch.empty(nbytes, dtype=torch.uint8)
                 out = self._deliver_streamed(source, segs, offset, out)
@@ -691,6 +909,10 @@ class StromContext:
         out["engine"] = self.engine.stats()
         if self._slab_pool is not None:
             out["slab_pool"] = self._slab_pool.stats()
+        if self._hot_cache is not None:
+            out["cache"] = self._hot_cache.stats()
+        if self._decoded_cache is not None:
+            out["decode_cache"] = self._decoded_cache.stats()
         return out
 
     def close(self) -> None:

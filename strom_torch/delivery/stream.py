@@ -1,5 +1,5 @@
 """Completion-driven gather (the port's copy of ``strom/delivery/stream.py``,
-without the hot cache, peers, scheduler, hedges and fallback recovery).
+without peers, scheduler, hedges and fallback recovery).
 
 A blocking gather makes every sample of a batch wait for the slowest
 extent. :class:`StreamingGather` plans the gather as
@@ -7,7 +7,11 @@ extent. :class:`StreamingGather` plans the gather as
 coalescing, stripe windows), submits it through the engine's async API
 (``submit_vectored`` / ``poll``) and reports dest byte ranges the moment
 their chunks land, so the vision pipeline can decode a sample while later
-extents are still in flight.
+extents are still in flight. With the hot cache on, the gather consults
+it after planning: cached ranges are copied into *dest* at construction and
+surface as INSTANT completions on the first ``poll`` (counted as
+``stream_instant_bytes``); only the misses reach the engine, and each
+landed chunk is offered for admission.
 
 Rules:
 
@@ -65,20 +69,31 @@ class StreamingGather:
         # gather-level watchdog: piece progress (bytes_done) resets it
         self._stall_t0 = time.monotonic()
         self._stall_bytes = -1
+        self._instant: list[tuple[int, int]] = []
         try:
-            self._chunks = ctx._plan_chunks(source, segments, base_offset)
-            self.total_bytes = sum(ln for (_, _, _, ln) in self._chunks)
-            if self.total_bytes > self._dflat.nbytes:
+            chunks, self._idx_paths = ctx._plan(source, segments, base_offset)
+            planned = sum(ln for (_, _, _, ln) in chunks)
+            if planned > self._dflat.nbytes:
                 raise ValueError(f"dest holds {self._dflat.nbytes} bytes, the "
-                                 f"gather plans {self.total_bytes}")
+                                 f"gather plans {planned}")
+            self._cache = ctx._active_cache()
+            hit_bytes = 0
+            if self._cache is not None and chunks:
+                chunks, hit_bytes, self._instant = ctx._consult_cache(
+                    self._cache, chunks, self._idx_paths, self._dflat)
+            self._chunks = chunks
+            self._miss_planned = planned - hit_bytes
+            self.total_bytes = planned
+            self.instant_bytes = hit_bytes
             if self._chunks:
-                # held for the token's lifetime; released by
+                # both held for the token's lifetime; released by
                 # _release_engine the moment the last piece retires
+                self._stack.enter_context(ctx._demand_gate())
                 self._stack.enter_context(ctx._engine_lock)
                 self._token = ctx.engine.submit_vectored(
                     self._chunks, self._dflat, retries=ctx.config.io_retries,
                     fail_fast=False)
-            ctx._count(stream_gathers=1)
+            ctx._count(stream_gathers=1, stream_instant_bytes=hit_bytes)
         except BaseException:
             self._stack.close()
             self._closed = True
@@ -86,8 +101,10 @@ class StreamingGather:
 
     @property
     def done(self) -> bool:
-        """Every piece retired (or the gather was cancelled). ``finish``
-        must still be called."""
+        """Every cache-served range reported and every piece retired (or
+        the gather was cancelled). ``finish`` must still be called."""
+        if self._instant:
+            return False
         return self._token is None or self._token.done
 
     @property
@@ -97,20 +114,34 @@ class StreamingGather:
 
     def poll(self, min_completions: int = 1,
              timeout_s: float | None = None) -> list[tuple[int, int]]:
-        """Dest ranges landed since the last call. ``min_completions=0``
-        never blocks. A failed chunk yields no range; ``finish`` raises
-        for it."""
+        """Dest ranges landed since the last call. The first call returns
+        the cache-served ranges at once; later calls reap the engine.
+        ``min_completions=0`` never blocks. A failed chunk yields no range;
+        ``finish`` raises for it."""
+        if self._closed:
+            return []
+        if self._instant:
+            out, self._instant = self._instant, []
+            self._stall_t0 = time.monotonic()
+            return out
         tok = self._token
-        if self._closed or tok is None:
+        if tok is None:
             return []
         out: list[tuple[int, int]] = []
         if not tok.done:
             for c in self._ctx.engine.poll(tok, min_completions, timeout_s):
-                _, _, do, ln = self._chunks[c.index]
+                fi, fo, do, ln = self._chunks[c.index]
                 if c.result < 0:
                     self._failed.add(c.index)
-                else:
-                    out.append((do, do + ln))
+                    continue
+                out.append((do, do + ln))
+                if self._cache is not None:
+                    # the bytes just landed in dest: admitting is one
+                    # memcpy (the admission policy decides)
+                    path = self._idx_paths.get(fi)
+                    if path is not None:
+                        self._cache.admit(path, fo, fo + ln,
+                                          self._dflat[do: do + ln])
         if out:
             self._stall_t0 = time.monotonic()
         elif min_completions > 0 and not tok.done:
@@ -155,17 +186,17 @@ class StreamingGather:
             why = err.strerror if err is not None \
                 else f"{len(self._failed)} chunk(s) failed"
             raise EngineError(code or errno.EIO, f"ssd2gpu {why}")
-        if tok is not None and tok.bytes_done != self.total_bytes:
+        if tok is not None and tok.bytes_done != self._miss_planned:
             # any engine accounting bug surfaces here, not as a batch with
             # a zero tail
             raise EngineError(errno.EIO,
                               f"ssd2gpu streamed read {tok.bytes_done} "
-                              f"bytes, planned {self.total_bytes}")
+                              f"bytes, planned {self._miss_planned}")
         self._ctx._count(ssd2gpu_bytes=self.total_bytes)
         return self.total_bytes
 
     def _release_engine(self) -> None:
-        """Drop the engine lock; idempotent."""
+        """Drop the engine lock and the demand gate; idempotent."""
         if not self._engine_released:
             self._engine_released = True
             self._stack.close()

@@ -1,5 +1,5 @@
 """JPEG host decode and ImageNet-style transforms (the port's copy of
-``strom/formats/jpeg.py``, without the decoded-output cache).
+``strom/formats/jpeg.py``).
 
 The engine lands compressed bytes in host memory; decode runs on a thread
 pool (cv2 and the native binding release the GIL, so threads scale) and the
@@ -24,6 +24,11 @@ vision pipelines.
 - **Fused runs**: :meth:`DecodePool.submit_run_into` decodes a run of
   samples per pool task; the run length tunes itself from a per-image
   decode-time average.
+- **Decoded-output cache**: with a ``DecodedCache``
+  (``formats/decoded_cache.py``) and a per-sample key, the full decoded
+  frame is served from or offered to the hot cache, so a repeat epoch pays
+  only crop and resize; a frame found at plan time arrives as a
+  ``ServedFrame`` in place of the member bytes.
 
 ``cv2`` and ``PIL`` are optional: decode and resize use cv2 where it
 imports, else PIL, else raise.
@@ -40,6 +45,8 @@ import time
 from typing import Callable, Iterable, NamedTuple, Sequence
 
 import numpy as np
+
+from strom_torch.formats.decoded_cache import ServedFrame
 
 try:
     import cv2
@@ -386,9 +393,9 @@ def make_train_transform(size: int, *, reduced_scale: bool = True,
                          ratio: tuple[float, float] = (3 / 4, 4 / 3),
                          native: bool = True,
                          roi: bool = True,
-                         counts: DecodeCounts | None = None
-                         ) -> Callable[..., np.ndarray]:
-    """Transform(jpeg_bytes, rng, out=None) -> size×size×3 uint8.
+                         counts: DecodeCounts | None = None,
+                         dcache=None) -> Callable[..., np.ndarray]:
+    """Transform(jpeg_bytes, rng, out=None, ckey=None) -> size×size×3 uint8.
 
     With *reduced_scale*, the crop is sampled first (full-resolution
     coordinates, from the SOF header), then the largest denominator at
@@ -397,12 +404,33 @@ def make_train_transform(size: int, *, reduced_scale: bool = True,
     With *native* (and the binding built), decode runs through the native
     library, falling back to cv2/PIL per sample on a native error; with
     *roi* as well, only the crop is decoded. *counts* records the route
-    each sample took."""
+    each sample took. With *dcache* (a ``DecodedCache``) and a *ckey*, the
+    FULL decoded frame is served from or offered to the hot cache: a hit
+    gives the pixels of the ``reduced_scale=False`` path, bit for bit, and
+    costs only the crop and resize. *data* may be a ``ServedFrame`` (a
+    plan-time hit), which the transform releases."""
     note = counts.add if counts is not None else (lambda key, n=1: None)
 
     def tf(data, rng: np.random.Generator,
-           out: np.ndarray | None = None) -> np.ndarray:
-        info = parse_jpeg_info(data) if (reduced_scale or native) else None
+           out: np.ndarray | None = None, ckey=None) -> np.ndarray:
+        if isinstance(data, ServedFrame):
+            # a plan-time hit: the member was never gathered. The same
+            # random draws as every other path (geometry, then one flip)
+            img = data.img
+            try:
+                fh, fw = img.shape[:2]
+                top, left, ch, cw = sample_rrc_geometry(
+                    fh, fw, rng, scale=scale, ratio=ratio)
+                dst = _resize_into(img[top: top + ch, left: left + cw],
+                                   size, out)
+            finally:
+                data.release()
+            note("frames_from_cache")
+            if rng.random() < 0.5:
+                return _flip_h(dst, out)
+            return np.ascontiguousarray(dst) if out is None else dst
+        info = parse_jpeg_info(data) if (reduced_scale or native
+                                         or dcache is not None) else None
         if info is None:
             return random_resized_crop(decode_jpeg(data), size, rng,
                                        scale=scale, ratio=ratio, out=out)
@@ -418,6 +446,33 @@ def make_train_transform(size: int, *, reduced_scale: bool = True,
             return np.ascontiguousarray(dst) if out is None else dst
 
         nat = _resolve_native() if native else None
+        if dcache is not None and ckey is not None and dcache.enabled:
+            # serve the decoded frame from RAM; on a miss decode the FULL
+            # frame (no ROI, no reduced scale) and offer it, so a later
+            # epoch pays only the crop and resize
+            hit = dcache.get(ckey, fh, fw)
+            if hit is not None:
+                img, pin = hit
+                try:
+                    dst = _resize_into(img[top: top + ch, left: left + cw],
+                                       size, out)
+                finally:
+                    dcache.release(pin)
+                note("frames_from_cache")
+                return finish(dst)
+            img = None
+            if nat is not None:
+                try:
+                    img = nat(data)
+                    note("native_imgs")
+                except ValueError:
+                    note("native_fallbacks")
+            if img is None:
+                img = decode_jpeg(data)
+                note("cv2_imgs" if _HAVE_CV2 else "pil_imgs")
+            dcache.offer(ckey, img)
+            return finish(_resize_into(img[top: top + ch, left: left + cw],
+                                       size, out))
         denom = reduced_denom(ch, cw, size) if reduced_scale else 1
         if denom == 1:
             rh, rw = fh, fw
@@ -509,9 +564,12 @@ class DecodePool:
 
     # -- direct-to-slot mapping --------------------------------------------
     def _one_sample(self, fn: Callable[..., np.ndarray], item, rng,
-                    row: np.ndarray) -> None:
+                    row: np.ndarray, ckey=None) -> None:
         try:
-            fn(item, rng, out=row)
+            if ckey is None:
+                fn(item, rng, out=row)
+            else:
+                fn(item, rng, out=row, ckey=ckey)
         except ValueError:
             # per-sample failure policy: a truncated/corrupt member costs
             # one zero image and a counter bump, not the whole batch
@@ -520,42 +578,48 @@ class DecodePool:
                 self.decode_errors += 1
 
     def _run_into(self, fn: Callable[..., np.ndarray], items: Sequence,
-                  rngs: Sequence, rows: Sequence) -> None:
+                  rngs: Sequence, rows: Sequence, ckeys=None) -> None:
         """One pool task decoding a run of samples; feeds the per-image
         average :meth:`run_size` tunes from."""
         t0 = time.perf_counter()
-        for item, rng, row in zip(items, rngs, rows):
-            self._one_sample(fn, item, rng, row)
+        for i, (item, rng, row) in enumerate(zip(items, rngs, rows)):
+            self._one_sample(fn, item, rng, row,
+                             None if ckeys is None else ckeys[i])
         n = len(items)
         per_img = (time.perf_counter() - t0) * 1e6 / max(n, 1)
         with self._err_lock:
             self._img_us += 0.2 * (per_img - self._img_us)
 
     def submit_into(self, fn: Callable[..., np.ndarray], item, rng,
-                    row: np.ndarray) -> concurrent.futures.Future:
-        """One decode+transform job writing its result into *row*."""
-        return self._pool.submit(self._one_sample, fn, item, rng, row)
+                    row: np.ndarray, ckey=None) -> concurrent.futures.Future:
+        """One decode+transform job writing its result into *row*
+        (*ckey*: the sample's decoded-cache key, passed to *fn*)."""
+        return self._pool.submit(self._one_sample, fn, item, rng, row, ckey)
 
     def submit_run_into(self, fn: Callable[..., np.ndarray],
-                        items: Sequence, rngs: Sequence, rows: Sequence
+                        items: Sequence, rngs: Sequence, rows: Sequence,
+                        ckeys: "Sequence | None" = None
                         ) -> concurrent.futures.Future:
         """A fused run: one pool task decoding items[i] into rows[i]."""
-        return self._pool.submit(self._run_into, fn, items, rngs, rows)
+        return self._pool.submit(self._run_into, fn, items, rngs, rows, ckeys)
 
     def map_into(self, fn: Callable[..., np.ndarray], items: Sequence,
-                 rngs: Sequence, out: np.ndarray) -> np.ndarray:
+                 rngs: Sequence, out: np.ndarray,
+                 ckeys: "Sequence | None" = None) -> np.ndarray:
         """Map fn(item, rng, out=out[i]) over the batch, every worker
         writing straight into its row; contiguous runs fuse into one task
         each per :meth:`run_size`. Returns *out*."""
         n = len(items)
         run = self.run_size(n)
         if run <= 1:
-            futs = [self.submit_into(fn, item, rng, out[i])
+            futs = [self.submit_into(fn, item, rng, out[i],
+                                     None if ckeys is None else ckeys[i])
                     for i, (item, rng) in enumerate(zip(items, rngs))]
         else:
             futs = [self.submit_run_into(
                         fn, items[i: i + run], rngs[i: i + run],
-                        [out[j] for j in range(i, min(i + run, n))])
+                        [out[j] for j in range(i, min(i + run, n))],
+                        None if ckeys is None else ckeys[i: i + run])
                     for i in range(0, n, run)]
         # every job done before any error surfaces: none may still write
         # into *out* when the caller reacts

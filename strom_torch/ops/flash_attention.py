@@ -16,20 +16,21 @@ Pallas (TPU)            bf16 (H100, sm_90a)                   float32 (H100, sm_
 ======================  ====================================  ==========================  =====================
 
 ``flash_attention_sm90.cu`` holds the bf16 tensor-core kernels (wgmma, TMA,
-warp-specialised); ``flash_attention.cu`` the scalar-FMA kernels. The source
-note in each ``.cu`` file says what bounds its kernels on the card and what
-their design does about it. Dispatch is by the tensors' device, never
+warp-specialised); ``flash_attention.cu`` the scalar-FMA kernels, which
+also take bf16 heads wider than 128 (the wgmma layouts stop at 128). The
+source note in each ``.cu`` file says what bounds its kernels on the card
+and what their design does about it. Dispatch is by the tensors' device, never
 by a failure: CPU tensors take the plain version; CUDA tensors launch the
 kernel or raise. ``_delta`` (Δ = rowsum(dO ∘ O)) was an XLA-fused reduce in
 the reference and is a torch op here.
 
-The kernels take the reference's shapes up to a head dim of 128. A head
-the kernels are not built for (any width other than 64 and 128) is
-zero-padded to the next one and the outputs sliced back: exact, since zero
-columns add nothing to q·kᵀ, give zero output and gradient columns and
-leave Δ unchanged; the scale stays 1/sqrt(Dh) of the real width. A head
-above 128 raises. Any S the blocks divide runs: the kernels mask the
-ragged last tile themselves.
+The kernels take every head dim the reference takes. A head the kernels
+are not built for is zero-padded to the next width they are (64, or a
+multiple of 128: ``kernel_head_dim``) and the outputs sliced
+back: exact, since zero columns add nothing to q·kᵀ, give zero output and
+gradient columns and leave Δ unchanged; the scale stays 1/sqrt(Dh) of the
+real width. Any S the blocks divide runs: the kernels mask the ragged
+last tile themselves.
 
 ``_flash_fwd``/``_flash_bwd`` keep the reference's block-pair contract:
 ``_flash_bwd(..., delta=)`` takes an explicit global ``lse`` and Δ, so ring
@@ -49,7 +50,8 @@ from strom_torch.ops import build
 
 _NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 KERNEL_TILE = 64   # the CUDA kernels' q and kv tile (rows)
-KERNEL_HEAD_DIMS = (64, 128)   # the widths the kernels are built for
+KERNEL_HEAD_DIMS = (64, 128)   # the tensor-core kernels' widths
+WIDE_CHUNK = 128   # above 128 the scalar kernels take multiples of this
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "flash_attention.cu"
 _SOURCE_SM90 = "flash_attention_sm90.cu"
@@ -116,13 +118,15 @@ def _sm90_lib() -> ctypes.CDLL:
 
 
 def kernel_head_dim(Dh: int) -> int:
-    """The narrowest width the kernels are built for that holds a head of
-    *Dh*; the wrappers zero-pad q, k, v and dO to it. Raises above 128."""
+    """The width the wrappers zero-pad a head of *Dh* to: 64 or 128 (the
+    widths of both kernel families), above 128 the next multiple of
+    ``WIDE_CHUNK`` (the scalar kernels, which take any such width)."""
+    if Dh < 1:
+        raise ValueError(f"head dim must be positive, got {Dh}")
     for width in KERNEL_HEAD_DIMS:
         if Dh <= width:
             return width
-    raise ValueError(f"CUDA flash attention takes head dims up to "
-                     f"{KERNEL_HEAD_DIMS[-1]}, got {Dh}")
+    return -(-Dh // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -172,12 +176,17 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _tensor_cores(dtype: torch.dtype, width: int) -> bool:
+    """True where the wgmma kernels take the launch: bf16 up to 128."""
+    return dtype == torch.bfloat16 and width <= KERNEL_HEAD_DIMS[-1]
+
+
 def _unpad(t: torch.Tensor, Dh: int) -> torch.Tensor:
     return t if t.shape[-1] == Dh else t[..., :Dh].contiguous()
 
 
 def _flash_fwd_kernel(q, k, v, *, causal: bool):
-    """bf16: the wgmma kernel; float32: the scalar kernel."""
+    """bf16 up to Dh 128: the wgmma kernel; else the scalar kernel."""
     _check_kernel_inputs((q, k, v))
     B, S, H, Dh = q.shape
     width = kernel_head_dim(Dh)
@@ -189,7 +198,7 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool):
             1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
+        if _tensor_cores(q.dtype, width):
             _launch("fa_fwd", _sm90_lib().strom_fa_fwd_sm90, width, *ptrs,
                     stream)
         else:
@@ -212,7 +221,7 @@ def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
             B, S, SL, H, k.shape[2], int(causal), 1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if q.dtype == torch.bfloat16:
+        if _tensor_cores(q.dtype, width):
             _launch(name, getattr(_sm90_lib(), f"strom_{name}_sm90"), *args,
                     stream)
         else:
@@ -234,7 +243,7 @@ def _padded_empty(t: torch.Tensor) -> torch.Tensor:
 
 
 def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
-    """bf16: the wgmma kernel; float32: the scalar kernel."""
+    """bf16 up to Dh 128: the wgmma kernel; else the scalar kernel."""
     _check_bwd_inputs(q, k, v, g, lse, delta)
     dk, dv = _padded_empty(k), _padded_empty(v)
     _bwd_launch("fa_bwd_dkv", q, k, v, g, lse, delta, (dk, dv), causal)
@@ -243,7 +252,7 @@ def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
 
 
 def _bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool):
-    """bf16: the wgmma kernel; float32: the scalar kernel."""
+    """bf16 up to Dh 128: the wgmma kernel; else the scalar kernel."""
     _check_bwd_inputs(q, k, v, g, lse, delta)
     dq = _padded_empty(q)
     _bwd_launch("fa_bwd_dq", q, k, v, g, lse, delta, (dq,), causal)

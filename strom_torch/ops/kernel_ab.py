@@ -1,15 +1,16 @@
 """Time the flash kernels of several checkouts of this repo on one card, in
 turns, so two versions are compared on the same card in the same call.
 
-    python3 -m strom_torch.ops.kernel_ab DIR [DIR ...]
+    python3 -m strom_torch.ops.kernel_ab [--shape B,S,H,KV,Dh] [--dtype bf16|f32] DIR [DIR ...]
 
 Each DIR is a checkout: this repo's root, or an older commit unpacked
 with ``git archive``. Each runs in its own process, in the order given
 (parent, change, change, parent for an A/B), builds its own kernels with
 its own ``chip_smoke.py`` and prints one JSON line: the checkout, the card
 and its power limit, nvcc's register and spill report of the tensor-core
-source, and each kernel's median, min and max ms over 5 runs at the main
-path's shape (B 2, S 2048, H 32, KV 8, Dh 128, bf16, causal): ``ms`` as
+source, and each kernel's median, min and max ms over 5 runs, causal, at
+``--shape`` and ``--dtype`` (default: the main path's, B 2, S 2048, H 32,
+KV 8, Dh 128, bf16; f32 runs the scalar kernels): ``ms`` as
 that checkout's own ``chip_smoke`` times a call (host and device, as a
 caller sees it), and ``device_ms`` with the launches queued behind a sleep
 on the card, so the host's dispatch never leaves the card idle between
@@ -24,10 +25,12 @@ import sys
 
 CHILD = r"""
 import json, os, re, subprocess, sys
+import torch
 root = sys.argv[1]
+shape = tuple(int(x) for x in sys.argv[2].split(","))
+dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[sys.argv[3]]
 os.chdir(root)
 sys.path.insert(0, root)
-import torch
 import chip_smoke as cs
 from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
@@ -35,7 +38,7 @@ from strom_torch.ops import flash_attention as fa
 build.build_all()
 regs = [f"{name}: {line.strip()}" for name, log in build.build_logs.items()
         for line in log.splitlines() if "registers" in line or "spill" in line]
-q, k, v, g = cs._inputs(2, 2048, 32, 8, 128, torch.bfloat16, 0)
+q, k, v, g = cs._inputs(*shape, dtype, 0)
 _, lse, delta = cs._run_kernels(q, k, v, g, True)
 calls = {
     "fa_fwd": lambda: fa._flash_fwd_kernel(q, k, v, causal=True),
@@ -64,6 +67,7 @@ def spread(fn):
 smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True, text=True)
 print(json.dumps({"checkout": root, "card": smi.stdout.strip(),
+                  "shape": shape, "dtype": sys.argv[3],
                   "ms": {n: cs.cuda_ms_spread(f, 10) for n, f in calls.items()},
                   "device_ms": {n: spread(f) for n, f in calls.items()},
                   "ptxas": regs}), flush=True)
@@ -71,13 +75,19 @@ print(json.dumps({"checkout": root, "card": smi.stdout.strip(),
 
 
 def main() -> int:
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        return 2
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--shape", default="2,2048,32,8,128",
+                    help="B,S,H,KV,Dh")
+    ap.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("dirs", nargs="+")
+    args = ap.parse_args()
     rc = 0
-    for root in sys.argv[1:]:
+    for root in args.dirs:
         rc |= subprocess.run([sys.executable, "-c", CHILD,
-                              os.path.abspath(root)]).returncode
+                              os.path.abspath(root), args.shape,
+                              args.dtype]).returncode
     return rc
 
 

@@ -15,7 +15,7 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 
-from strom_torch.delivery.prefetch import Prefetcher
+from strom_torch.delivery.prefetch import Prefetcher, bound_depth
 from strom_torch.pipelines.sampler import (EpochShuffleSampler, SamplerState,
                                            dataset_fingerprint,
                                            load_loader_state,
@@ -29,17 +29,21 @@ class Pipeline:
     def __init__(self, sampler: EpochShuffleSampler,
                  make_batch: Callable[[np.ndarray, int], Any], *,
                  depth: int = 2,
+                 auto_depth: bool = False,
+                 max_depth: int | None = None,
                  fingerprint: dict | None = None,
                  executor: concurrent.futures.Executor | None = None,
                  on_close: Callable[[], None] | None = None,
                  counters: Callable[[], dict] | None = None):
-        """*on_close* runs once the prefetcher has stopped (a decode pool's
+        """*depth* is the prefetch depth, the starting one when
+        *auto_depth* moves it inside [1, *max_depth*]. *on_close* runs once
+        the prefetcher has stopped (a readahead thread's or a decode pool's
         shutdown, say); *counters* adds the pipeline's own counts to
         :meth:`stats`."""
         self.sampler = sampler
         self.fingerprint = fingerprint or {}
         self._make_batch = make_batch
-        self._depth = depth
+        self._depth_args = (depth, auto_depth, max_depth)
         self._executor = executor
         self._on_close = on_close
         self._counters = counters
@@ -62,7 +66,9 @@ class Pipeline:
                 yield lambda idx=indices, s=serial: make_batch(idx, s)
                 serial += 1
 
-        return Prefetcher(thunks(), depth=self._depth, executor=self._executor)
+        depth, auto_depth, max_depth = self._depth_args
+        return Prefetcher(thunks(), depth=depth, auto_depth=auto_depth,
+                          max_depth=max_depth, executor=self._executor)
 
     def __iter__(self) -> "Pipeline":
         return self
@@ -108,9 +114,23 @@ class Pipeline:
     def data_stall_steps(self) -> int:
         return self._prefetcher.data_stall_steps
 
+    @property
+    def prefetch_depth(self) -> int:
+        """Current prefetch depth (moves when auto_depth is on)."""
+        return self._prefetcher.depth
+
+    @property
+    def prefetch_depth_trace(self) -> list[tuple[int, int]]:
+        """(step, depth) at every controller move, starting depth included."""
+        return list(self._prefetcher.depth_trace)
+
     def stats(self) -> dict:
-        """``data_stall_steps`` and the pipeline's own counters."""
+        """``data_stall_steps``, the prefetcher's counters (``prefetch_*``)
+        and the pipeline's own counters."""
         out = {"data_stall_steps": self.data_stall_steps}
+        out.update({k if k.startswith("prefetch_") else f"prefetch_{k}": v
+                    for k, v in self._prefetcher.snapshot().items()
+                    if k != "data_stall_steps"})
         if self._counters is not None:
             out.update(self._counters())
         return out
@@ -126,6 +146,22 @@ class Pipeline:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def _auto_depth_bounds(ctx, auto_prefetch: bool | None,
+                       batch_bytes: int) -> tuple[bool, int | None]:
+    """(auto_depth, max_depth) for a pipeline: *auto_prefetch* None defers
+    to ``ctx.config.prefetch_auto``; when auto, the ceiling is the config's
+    prefetch_max_depth further bounded by what the slab pool can stage at
+    *batch_bytes* per in-flight batch, less the hot cache's budget
+    (:func:`strom_torch.delivery.prefetch.bound_depth`)."""
+    cfg = ctx.config
+    auto = cfg.prefetch_auto if auto_prefetch is None else auto_prefetch
+    if not auto:
+        return False, None
+    return True, bound_depth(cfg.slab_pool_bytes, batch_bytes,
+                             cap=cfg.prefetch_max_depth,
+                             reserve_bytes=cfg.hot_cache_bytes)
 
 
 def resolve_state(paths: tuple[str, ...], *, seed: int,

@@ -15,7 +15,8 @@ import torch
 
 from strom_torch.delivery.core import StromContext, resolve_device, source_size
 from strom_torch.formats.rawbin import TokenShardSet
-from strom_torch.pipelines.base import Pipeline, resolve_state
+from strom_torch.pipelines.base import (Pipeline, _auto_depth_bounds,
+                                        resolve_state)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 
 
@@ -26,11 +27,14 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                         seed: int = 0,
                         shuffle: bool = True,
                         prefetch_depth: int | None = None,
+                        auto_prefetch: bool | None = None,
                         resume_from: "str | SamplerState | None" = None
                         ) -> Pipeline:
     """Infinite stream of token batches [batch, seq_len+1] (inputs+targets
     window) as torch tensors on *device* (None → the current CUDA device;
-    raises without one). *resume_from* accepts a loader-state path or a
+    raises without one). *auto_prefetch* (None: the config's
+    ``prefetch_auto``) lets the prefetch depth move from *prefetch_depth*
+    on stalls and ample lead. *resume_from* accepts a loader-state path or a
     SamplerState; a live pipeline also restores in place with
     ``Pipeline.restore(state)``."""
     device = resolve_device(device)
@@ -51,4 +55,7 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
 
     depth = prefetch_depth if prefetch_depth is not None \
         else ctx.config.prefetch_depth
-    return Pipeline(sampler, make_batch, depth=depth, fingerprint=fp)
+    auto, max_depth = _auto_depth_bounds(
+        ctx, auto_prefetch, batch * (seq_len + 1) * np.dtype(dtype).itemsize)
+    return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
+                    max_depth=max_depth, fingerprint=fp)

@@ -62,6 +62,10 @@ class EpochShuffleSampler:
         # point along with the prefetch window
         self.state = dataclasses.replace(state) if state is not None \
             else SamplerState(seed=seed)
+        # permutation memo for peek(): the readahead thread polls the
+        # upcoming window every few ms. Two epochs are kept: near an epoch
+        # boundary every peek needs both perm(e) and perm(e+1)
+        self._peek_perms: dict[int, np.ndarray] = {}
 
     @property
     def batches_per_epoch(self) -> int:
@@ -72,6 +76,36 @@ class EpochShuffleSampler:
             return np.arange(self.num_records, dtype=np.int64)
         rng = np.random.Generator(np.random.Philox(key=[self.state.seed, epoch]))
         return rng.permutation(self.num_records).astype(np.int64)
+
+    def _perm_cached(self, epoch: int) -> np.ndarray:
+        perm = self._peek_perms.get(epoch)
+        if perm is None:
+            perm = self._perm(epoch)
+            # keep this epoch and its neighbour; drop anything older
+            self._peek_perms = {e: p for e, p in self._peek_perms.items()
+                                if e >= epoch - 1}
+            self._peek_perms[epoch] = perm
+        return perm
+
+    def peek(self, n: int) -> list[np.ndarray]:
+        """The next *n* index batches from the current cursor, without
+        advancing it: the window the epoch-aware readahead
+        (``delivery/hotcache.py``) warms. Crosses the epoch boundary, since
+        the permutation is deterministic in (seed, epoch).
+
+        An advisory read: the consumer's thunk generator advances ``state``
+        concurrently, and a torn (epoch, cursor) read at the boundary only
+        shifts which batches warm."""
+        epoch, i = self.state.epoch, self.state.batch_in_epoch
+        out: list[np.ndarray] = []
+        while len(out) < n:
+            if i >= self.batches_per_epoch:
+                epoch += 1
+                i = 0
+            perm = self._perm_cached(epoch)
+            out.append(perm[i * self.batch: (i + 1) * self.batch])
+            i += 1
+        return out
 
     def __iter__(self) -> Iterator[np.ndarray]:
         """Infinite stream of batches; advance `state` as a side effect so a

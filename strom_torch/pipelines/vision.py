@@ -13,6 +13,12 @@ bit-identical either way.
 
 The predecoded pipeline is a pure engine gather and one copy per batch: no
 decoder on the host at all.
+
+With the hot cache on (``hot_cache_bytes``), both pipelines warm the
+sampler's upcoming batches into it from a readahead thread
+(``readahead_window_batches``), and the JPEG pipeline can keep decoded
+frames there too (``decode_cache``): a frame found at plan time skips its
+member's read and its decode, leaving crop and resize.
 """
 
 from __future__ import annotations
@@ -29,12 +35,16 @@ import torch
 
 from strom_torch.delivery.core import (StromContext, resolve_device,
                                        source_size)
+from strom_torch.delivery.extents import ExtentList
 from strom_torch.delivery.shard import Segment
+from strom_torch.formats import jpeg
+from strom_torch.formats.decoded_cache import DecodedCache
 from strom_torch.formats.jpeg import (DecodeCounts, DecodePool,
                                       make_train_transform)
 from strom_torch.formats.predecoded import PredecodedShardSet
 from strom_torch.formats.wds import WdsShardSet
-from strom_torch.pipelines.base import Pipeline, resolve_state
+from strom_torch.pipelines.base import (Pipeline, _auto_depth_bounds,
+                                        resolve_state)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 
 # transform(jpeg_bytes, rng[, out=row]) -> HWC uint8; transforms accepting
@@ -42,9 +52,47 @@ from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 Transform = Callable[..., np.ndarray]
 
 
+def _make_readahead(ctx: StromContext, sampler: EpochShuffleSampler,
+                    extents_for_batch: Callable[[np.ndarray], ExtentList]):
+    """Epoch-aware readahead for a vision pipeline: a background thread
+    that maps the sampler's upcoming-batch window (``peek`` crosses the
+    epoch boundary) to ExtentLists and warms their cache misses through
+    ``ctx.warm``, which yields to demand gathers. None when the hot cache
+    or the readahead window is off."""
+    if ctx.hot_cache is None or ctx.config.readahead_window_batches <= 0:
+        return None
+    from strom_torch.delivery.hotcache import Readahead
+
+    def window(n: int):
+        out = []
+        for indices in sampler.peek(max(int(n), 0)):
+            el = extents_for_batch(indices)
+            if el.size:
+                out.append((el, [Segment(0, 0, el.size)], 0))
+        return out
+
+    return Readahead(ctx, window,
+                     window_batches=ctx.config.readahead_window_batches)
+
+
+def _chain_close(*closers) -> Callable[[], None] | None:
+    """One on_close running every non-None closer in order (readahead stops
+    before the decode pool)."""
+    live = [c for c in closers if c is not None]
+    if not live:
+        return None
+
+    def close() -> None:
+        for c in live:
+            c()
+
+    return close
+
+
 def _decode_put_overlapped(pool: DecodePool, tf: Transform, blobs: Sequence,
                            rngs: Sequence, images: np.ndarray,
-                           put: Callable[[np.ndarray], Any]) -> Any:
+                           put: Callable[[np.ndarray], Any],
+                           ckeys: "Sequence | None" = None) -> Any:
     """Decode every row into its slot and put the batch the moment the last
     row finishes (completion-ordered; with one device the batch is one row
     group). Contiguous rows fuse into one pool task per ``pool.run_size``.
@@ -52,12 +100,15 @@ def _decode_put_overlapped(pool: DecodePool, tf: Transform, blobs: Sequence,
     n = images.shape[0]
     run = pool.run_size(n)
     if run <= 1:
-        futs = [pool.submit_into(tf, blobs[i], rngs[i], images[i])
+        futs = [pool.submit_into(tf, blobs[i], rngs[i], images[i],
+                                 None if ckeys is None else ckeys[i])
                 for i in range(n)]
     else:
         futs = [pool.submit_run_into(tf, blobs[i: i + run], rngs[i: i + run],
                                      [images[j] for j in
-                                      range(i, min(i + run, n))])
+                                      range(i, min(i + run, n))],
+                                     None if ckeys is None
+                                     else ckeys[i: i + run])
                 for i in range(0, n, run)]
     try:
         for f in concurrent.futures.as_completed(futs):
@@ -73,14 +124,19 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
                          el, sizes: Sequence[tuple[int, int]],
                          rngs: Sequence, images: np.ndarray,
                          put: Callable[[np.ndarray], Any],
-                         counts: DecodeCounts) -> tuple[Any, list[int]]:
+                         counts: DecodeCounts,
+                         ckeys: "Sequence | None" = None,
+                         served: "Sequence | None" = None
+                         ) -> tuple[Any, list[int]]:
     """Completion-driven batch assembly: the member gather goes through
     ``ctx.stream_segments`` and each sample goes to the decode pool the
     moment its extents land; the batch is put when its last row decodes.
 
     *sizes* is ``[(image_bytes, label_bytes)]`` per row, in the order *el*
-    concatenates them. Returns ``(put(images), labels)``, the same contents
-    as the barrier path: decode order differs, bytes do not.
+    concatenates them; a row *served* from the decoded cache at plan time
+    has image_bytes 0 and decodes from its ``ServedFrame``. Returns
+    ``(put(images), labels)``, the same contents as the barrier path:
+    decode order differs, bytes do not.
 
     A pump thread drives the gather (poll → per-sample byte countdown →
     decode submit), so the engine's queue refills at read pace; decode
@@ -116,18 +172,24 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
             counts.add("stream_samples_early")
         ready.append(i)
 
+    def blob(i: int):
+        if served is not None and served[i] is not None:
+            return served[i]
+        return buf[starts[i]: starts[i] + sizes[i][0]]
+
     def flush_ready() -> None:
         while ready:
             grp = tuple(ready[:run])
             del ready[: run]
             if len(grp) == 1:
                 i = grp[0]
-                f = pool.submit_into(tf, buf[starts[i]: starts[i] + sizes[i][0]],
-                                     rngs[i], images[i])
+                f = pool.submit_into(tf, blob(i), rngs[i], images[i],
+                                     None if ckeys is None else ckeys[i])
             else:
                 f = pool.submit_run_into(
-                    tf, [buf[starts[i]: starts[i] + sizes[i][0]] for i in grp],
-                    [rngs[i] for i in grp], [images[i] for i in grp])
+                    tf, [blob(i) for i in grp], [rngs[i] for i in grp],
+                    [images[i] for i in grp],
+                    None if ckeys is None else [ckeys[i] for i in grp])
             with futs_lock:
                 futs.append(f)
             f.add_done_callback(
@@ -209,12 +271,14 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                              seed: int = 0,
                              shuffle: bool = True,
                              prefetch_depth: int | None = None,
+                             auto_prefetch: bool | None = None,
                              decode_reduced_scale: bool | None = None,
                              decode_to_slot: bool | None = None,
                              decode_overlap_put: bool | None = None,
                              decode_native: bool | None = None,
                              decode_fuse_runs: bool | None = None,
                              decode_roi: bool | None = None,
+                             decode_cache: bool | None = None,
                              stream_intra_batch: bool | None = None,
                              resume_from: "str | SamplerState | None" = None,
                              scope: dict | None = None
@@ -225,10 +289,17 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
 
     Augmentation is deterministic in (seed, batch serial, row): Philox keys
     ``[seed, (serial << 32) + row]``, identical across resume.
-    ``pipe.stats()`` reports ``data_stall_steps``, ``decode_errors``, the
-    decode routes taken, the streamed counters (``stream_batches``,
-    ``stream_samples_early``) and, given one, the *scope* labels under
-    ``"scope"``."""
+    ``pipe.stats()`` reports ``data_stall_steps``, the prefetcher's
+    counters, ``decode_errors``, the decode routes taken, the streamed
+    counters (``stream_batches``, ``stream_samples_early``), the decoded
+    cache's (``decode_cache_*``) and, given one, the *scope* labels under
+    ``"scope"``.
+
+    *decode_cache* (needs the context's hot cache and the built-in
+    transform) keeps full decoded frames in the hot cache: a frame found
+    at plan time skips its member's read and its decode. Cached frames are
+    full-resolution, so batches equal the cache-off pipeline's bit for bit
+    where that one decodes in full too (``decode_reduced_scale=False``)."""
     device = resolve_device(device)
     ss = WdsShardSet(paths, ctx=ctx)
     if len(ss) < batch:
@@ -246,10 +317,18 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     to_slot = knob(decode_to_slot, cfg.decode_to_slot)
     overlap_put = knob(decode_overlap_put, cfg.decode_overlap_put)
     counts = DecodeCounts()
+    native = knob(decode_native, cfg.decode_native)
+    # decoded-output cache: only with a hot cache to admit into, and only
+    # for the built-in transform (the ckey keyword is its contract)
+    dcache = None
+    if knob(decode_cache, cfg.decode_cache) and transform is None \
+            and ctx.hot_cache is not None:
+        engine = "turbo" if (native and jpeg.native_available()) else "cv2"
+        dcache = DecodedCache(ctx.hot_cache, fingerprint=f"rgb8/{engine}")
+        ctx.attach_decoded_cache(dcache)
     tf = transform or make_train_transform(
-        image_size, reduced_scale=reduced,
-        native=knob(decode_native, cfg.decode_native),
-        roi=knob(decode_roi, cfg.decode_roi), counts=counts)
+        image_size, reduced_scale=reduced, native=native,
+        roi=knob(decode_roi, cfg.decode_roi), counts=counts, dcache=dcache)
     try:
         tf_out_ok = "out" in inspect.signature(tf).parameters
     except (TypeError, ValueError):  # pragma: no cover - exotic callables
@@ -271,12 +350,48 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
         samples = [ss.samples[int(i)] for i in indices]
         rngs = [np.random.Generator(np.random.Philox(
                     key=[seed, (serial << 32) + r])) for r in range(batch)]
-        el = ss.batch_extents([int(i) for i in indices], [image_ext, label_ext])
-        sizes = [(s.members[image_ext].size, s.members[label_ext].size)
-                 for s in samples]
+        ckeys = served = None
+        if dcache is not None:
+            # the image member's physical extent: stable across epochs
+            ckeys = [dcache.key(s.shard, s.members[image_ext].offset,
+                                s.members[image_ext].offset
+                                + s.members[image_ext].size)
+                     for s in samples]
+            # probe before planning the gather: a resident frame skips its
+            # image member's read (only labels and misses reach the engine)
+            served = [dcache.probe(ck, s.members[image_ext].size)
+                      for ck, s in zip(ckeys, samples)]
+            if all(sv is None for sv in served):
+                served = None
+        if served is not None:
+            el = ExtentList.concat([
+                s.extents([label_ext] if sv is not None
+                          else [image_ext, label_ext])
+                for s, sv in zip(samples, served)])
+            sizes = [(0 if sv is not None else s.members[image_ext].size,
+                      s.members[label_ext].size)
+                     for s, sv in zip(samples, served)]
+        else:
+            el = ss.batch_extents([int(i) for i in indices],
+                                  [image_ext, label_ext])
+            sizes = [(s.members[image_ext].size, s.members[label_ext].size)
+                     for s in samples]
+        try:
+            return assemble_batch(el, sizes, rngs, ckeys, served)
+        except BaseException:
+            # a transform releases its frame; a batch that died before (or
+            # instead of) a transform still holds pins: release is
+            # idempotent, so sweep them all
+            for sv in served or ():
+                if sv is not None:
+                    sv.release()
+            raise
+
+    def assemble_batch(el, sizes, rngs, ckeys, served
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
         if not to_slot:
             buf = ctx.pread(el)
-            blobs, labels = _split_members(buf, sizes)
+            blobs, labels = _split_members(buf, sizes, served)
             images = np.stack(pool.map(tf, blobs, rngs))
             return torch.from_numpy(images).to(device), labels_out(labels)
         # workers write the final rows straight into the batch slot
@@ -291,15 +406,16 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
         try:
             if stream:
                 out, labels = _decode_put_streamed(ctx, pool, tf, el, sizes,
-                                                   rngs, images, put, counts)
+                                                   rngs, images, put, counts,
+                                                   ckeys, served)
                 return out, labels_out(labels)
             buf = ctx.pread(el)
-            blobs, labels = _split_members(buf, sizes)
+            blobs, labels = _split_members(buf, sizes, served)
             if overlap_put:
                 out = _decode_put_overlapped(pool, tf, blobs, rngs, images,
-                                             put)
+                                             put, ckeys)
             else:
-                pool.map_into(tf, blobs, rngs, images)
+                pool.map_into(tf, blobs, rngs, images, ckeys)
                 out = put(images)
             return out, labels_out(labels)
         except BaseException:
@@ -310,24 +426,43 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             raise
 
     depth = prefetch_depth if prefetch_depth is not None else cfg.prefetch_depth
+    auto, max_depth = _auto_depth_bounds(ctx, auto_prefetch,
+                                         batch * image_size * image_size * 3)
+    # warm the members of the upcoming batches (the tar payloads are read
+    # again every epoch; decode still runs per step, the gather not)
+    ra = _make_readahead(
+        ctx, sampler,
+        lambda indices: ss.batch_extents([int(i) for i in indices],
+                                         [image_ext, label_ext]))
 
     def counters() -> dict:
         out = {"decode_errors": pool.decode_errors, **counts.snapshot()}
+        if dcache is not None:
+            out.update(dcache.stats())
         if scope:
             out["scope"] = dict(scope)
         return out
 
-    return Pipeline(sampler, make_batch, depth=depth, fingerprint=fp,
-                    on_close=pool.close, counters=counters)
+    return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
+                    max_depth=max_depth, fingerprint=fp,
+                    on_close=_chain_close(ra.close if ra else None,
+                                          pool.close),
+                    counters=counters)
 
 
-def _split_members(buf: np.ndarray, sizes: Sequence[tuple[int, int]]
-                   ) -> tuple[list[np.ndarray], list[int]]:
+def _split_members(buf: np.ndarray, sizes: Sequence[tuple[int, int]],
+                   served: "Sequence | None" = None
+                   ) -> tuple[list, list[int]]:
     """A gathered batch buffer back into per-sample image members and
-    labels (a label member is its class index in ASCII)."""
+    labels (a label member is its class index in ASCII). A row served from
+    the decoded cache at plan time (image bytes 0) carries its
+    ``ServedFrame`` in place of bytes that were never gathered."""
     blobs, labels, pos = [], [], 0
-    for isz, lsz in sizes:
-        blobs.append(buf[pos: pos + isz])
+    for i, (isz, lsz) in enumerate(sizes):
+        if served is not None and served[i] is not None:
+            blobs.append(served[i])
+        else:
+            blobs.append(buf[pos: pos + isz])
         labels.append(int(buf[pos + isz: pos + isz + lsz].tobytes() or b"0"))
         pos += isz + lsz
     return blobs, labels
@@ -339,6 +474,7 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                                     seed: int = 0,
                                     shuffle: bool = True,
                                     prefetch_depth: int | None = None,
+                                    auto_prefetch: bool | None = None,
                                     resume_from: "str | SamplerState | None" = None
                                     ) -> Pipeline:
     """Decode-free vision loader over predecoded shards
@@ -371,7 +507,16 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
 
     depth = prefetch_depth if prefetch_depth is not None \
         else ctx.config.prefetch_depth
-    return Pipeline(sampler, make_batch, depth=depth, fingerprint=fp)
+    auto, max_depth = _auto_depth_bounds(ctx, auto_prefetch,
+                                         batch * image_size * image_size * 3)
+    # a pure engine gather: warming the upcoming record extents turns a
+    # later epoch into RAM copies end to end
+    ra = _make_readahead(ctx, sampler,
+                         lambda indices: shards.extents([int(i)
+                                                         for i in indices]))
+    return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
+                    max_depth=max_depth, fingerprint=fp,
+                    on_close=ra.close if ra else None)
 
 
 def make_imagenet_resnet_pipeline(ctx: StromContext, paths: Sequence[str], *,

@@ -64,6 +64,16 @@ def test_kernels_take_the_reference_shapes(cuda_device, dtype, causal, S, Dh):
     _check_kernels_against_plain(cuda_device, dtype, causal, 1, S, 4, 2, Dh)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [63, 192])
+@pytest.mark.parametrize("Dh", [160, 256, 320])
+def test_kernels_take_wide_heads(cuda_device, dtype, causal, S, Dh):
+    """Heads wider than 128 run the scalar kernels in both dtypes
+    (zero-padded to a multiple of 128) against the plain versions at the same tolerances."""
+    _check_kernels_against_plain(cuda_device, dtype, causal, 1, S, 4, 2, Dh)
+
+
 def _check_kernels_against_plain(cuda_device, dtype, causal, B, S, H, KV, Dh):
     """Each CUDA kernel against its plain version on the same inputs.
 
@@ -165,10 +175,13 @@ def test_dq_kernel_by_dtype(cuda_device):
 
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
     """A CUDA tensor the kernel does not take raises; nothing falls back to
-    the plain version. Head dims up to 128 and any seq len are taken."""
+    the plain version. Every head dim and any seq len are taken: a head of
+    256 launches the scalar kernel."""
     q = torch.zeros(1, 64, 2, 256, device=cuda_device)
-    with pytest.raises(ValueError, match="up to 128"):
-        tfa.flash_attention(q, q, q)
+    before = tfa.LAUNCHES["fa_fwd"]
+    out = tfa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and tfa.LAUNCHES["fa_fwd"] == before + 1
     q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.flash_attention(q, q, q)
@@ -177,9 +190,6 @@ def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
         tfa.flash_attention(q, q, q)
     # the dQ wrapper itself, bf16 (the tensor-core kernel's dtype)
     lse = torch.zeros(1, 2, 128, 1, device=cuda_device)
-    q = torch.zeros(1, 128, 2, 256, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 128"):
-        tfa._bwd_dq_kernel(q, q, q, q, lse, lse, causal=True)
     q = torch.zeros(1, 96, 2, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=r"\[B,H,S,1\]"):
         tfa._bwd_dq_kernel(q, q, q, q, lse, lse, causal=True)
@@ -215,6 +225,79 @@ def test_streamed_delivery_recycles_slabs(cuda_device, tmp_path):
         torch.cuda.synchronize()
         assert torch.equal(small.cpu(), torch.from_numpy(
             data[4096: 4096 + 256 * 256 * 4].view(np.int32).reshape(256, 256)))
+    finally:
+        ctx.close()
+
+
+def test_cache_served_delivery_recycles_slabs(cuda_device, tmp_path):
+    """With the hot cache on, a repeat streamed transfer is served from
+    RAM into the pool's pinned slabs, which recycle only after their copies
+    retired: byte-exact on the card, the cache's hits counted, pool hits."""
+    data = np.random.default_rng(2).integers(0, 256, 6 * MiB, dtype=np.uint8)
+    path = str(tmp_path / "c.bin")
+    data.tofile(path)
+    want = torch.from_numpy(data).to(cuda_device)
+    ctx = StromContext(StromConfig(queue_depth=8, num_buffers=8,
+                                   overlap_chunk_bytes=MiB,
+                                   overlap_min_bytes=2 * MiB,
+                                   hot_cache_bytes=16 * MiB,
+                                   hot_cache_admit="always"))
+    try:
+        outs = [ctx.memcpy_ssd2gpu(path, device=cuda_device)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in outs)
+        st = ctx.stats()
+        assert st["cache"]["cache_hit_bytes"] == 2 * 6 * MiB
+        assert st["slab_pool"]["hits"] > 0
+    finally:
+        ctx.close()
+
+
+@pytest.mark.parametrize("route", ["put_host_batch", "streamed"])
+def test_delivered_tensor_never_takes_a_block_in_queued_use(cuda_device,
+                                                            tmp_path, route):
+    """A block freed while work that writes it is still queued on the
+    consumer stream must not become the delivered tensor: the copy stream
+    is not ordered after that work, so the queued fill would land on top of
+    the delivered bytes."""
+    n = 4 * MiB
+    data = np.random.default_rng(3).integers(0, 256, n, dtype=np.uint8)
+    path = str(tmp_path / "q.bin")
+    data.tofile(path)
+    want = torch.from_numpy(data).to(cuda_device)
+    ctx = StromContext(StromConfig(queue_depth=8, num_buffers=8,
+                                   overlap_chunk_bytes=MiB,
+                                   overlap_min_bytes=2 * MiB))
+
+    def staged():
+        """A delivery ready to launch. Pinning a host slab may wait for
+        the card, so a host batch is filled here, not in the launch."""
+        if route == "put_host_batch":
+            host = ctx.host_batch((n,), cuda_device)
+            host[:] = data
+            return lambda: ctx.put_host_batch(host, cuda_device)
+        return lambda: ctx.memcpy_ssd2gpu(path, length=n, device=cuda_device)
+
+    try:
+        # what may wait for the card happens before the queued work: the
+        # first delivery sets up the copy stream, and the first launch of
+        # a kernel loads its module. The first delivery stays alive, so
+        # the only free block of its size is the one freed below
+        first = staged()()
+        deliver = staged()
+        torch.cuda._sleep(1)
+        torch.empty(1, dtype=torch.uint8, device=cuda_device).fill_(7)
+        torch.cuda.synchronize()
+        busy = torch.empty(n, dtype=torch.uint8, device=cuda_device)
+        torch.cuda._sleep(1 << 30)   # about half a second of queued work
+        busy.fill_(7)
+        del busy                     # its block is free, its fill queued
+        out = deliver()
+        torch.cuda.synchronize()
+        assert torch.equal(first, want) and torch.equal(out, want)
+        if route == "streamed":
+            assert ctx.stats()["streamed_transfers"] == 2
     finally:
         ctx.close()
 

@@ -141,14 +141,14 @@ def test_mismatched_shapes_rejected():
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    """The CUDA wrappers never run the plain version: a CPU tensor or a head
-    wider than 128 raises. A head of 32 and a seq len off the 64-row tile
-    are taken, so on the CPU they too reach the device check."""
+    """The CUDA wrappers never run the plain version: a CPU tensor raises.
+    Every head dim (32, 256) and a seq len off the 64-row tile are taken,
+    so on the CPU they too reach the device check."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(8, 1, 128, 2, 2, 64))
     with pytest.raises(ValueError, match="CUDA device"):
         tfa._flash_fwd_kernel(q, k, v, causal=True)
     q256, k256, v256 = (torch.from_numpy(x) for x in _qkv(8, 1, 64, 2, 2, 256))
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match="CUDA device"):
         tfa._flash_fwd_kernel(q256, k256, v256, causal=True)
     q32, k32, v32 = (torch.from_numpy(x) for x in _qkv(8, 1, 128, 2, 2, 32))
     with pytest.raises(ValueError, match="CUDA device"):

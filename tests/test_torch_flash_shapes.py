@@ -1,8 +1,9 @@
 """The shapes the CUDA flash kernels took on only after the reference's:
-head dims below 64 and seq lens off the kernels' 64-row tile.
+head dims below 64, heads wider than 128, and seq lens off the kernels'
+64-row tile.
 
-The wrappers zero-pad a head of Dh < 64 (or 64 < Dh < 128) to the kernels'
-width and slice the outputs back, with the scale kept at 1/sqrt(Dh): here
+The wrappers zero-pad a head of Dh < 64 (or 64 < Dh < 128, or above 128
+to a multiple of 128) to the kernels' width and slice the outputs back, with the scale kept at 1/sqrt(Dh): here
 the plain versions run through that padding and slicing must equal the
 plain versions on the unpadded inputs, forward and backward. Zero columns
 add exact zeros to every dot product, so the two differ only where f32
@@ -50,9 +51,72 @@ def test_kernel_head_dim(Dh, width):
     assert tfa.pad_head(t, Dh) is t
 
 
-def test_head_dim_above_128_refused():
-    with pytest.raises(ValueError, match="up to 128"):
-        tfa.kernel_head_dim(129)
+@pytest.mark.parametrize("Dh,width", [(129, 256), (160, 256), (192, 256),
+                                      (256, 256), (257, 384), (320, 384),
+                                      (512, 512), (513, 640)])
+def test_kernel_head_dim_wide(Dh, width):
+    """Above 128 a head pads to the next multiple of 128, the scalar
+    kernels' chunk: no head dim is refused."""
+    assert tfa.kernel_head_dim(Dh) == width
+    assert width % tfa.WIDE_CHUNK == 0 and width - Dh < tfa.WIDE_CHUNK
+
+
+@pytest.mark.parametrize("Dh", [0, -1])
+def test_kernel_head_dim_refuses_empty_heads(Dh):
+    with pytest.raises(ValueError, match="positive"):
+        tfa.kernel_head_dim(Dh)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [64, 128])
+@pytest.mark.parametrize("Dh", [160, 256, 320])
+def test_wide_heads_match_jax_flash(Dh, S, causal):
+    """out, lse and the gradients of sum(out**2) at heads wider than 128
+    (B 1, H 2, KV 1, 64-row blocks), the port's plain versions against the
+    Pallas kernels in interpret mode, at the tolerances of
+    tests/test_torch_flash_attention.py."""
+    q, k, v, _ = _inputs(3 * S + Dh, 1, S, 2, 1, Dh)
+    block = 64
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    jout, jlse = jfa._flash_fwd(jq, jk, jv, causal=causal, block_q=block,
+                                block_k=block, interpret=True)
+    jgrads = jax.grad(lambda a, b, c: jnp.sum(jfa.flash_attention(
+        a, b, c, causal, block, block) ** 2), argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal, block, block)
+    (out ** 2).sum().backward()
+    _, lse = tfa._flash_fwd(q, k, v, causal=causal, block_q=block,
+                            block_k=block)
+    for name, got, want, tol in zip(
+            ("out", "lse", "dq", "dk", "dv"),
+            (out.detach(), lse, tq.grad, tk.grad, tv.grad),
+            (jout, jlse, *jgrads),
+            (FWD_TOL, FWD_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                                   atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Dh", [160, 320])
+def test_wide_padded_plain_equals_unpadded(Dh, causal):
+    """The wrappers' padding at wide heads (160 to 256, 320 to 384), with
+    the plain versions in the kernels' place, equals the unpadded plain
+    versions within PAD_TOL."""
+    q, k, v, g = _inputs(Dh, 1, 128, 2, 1, Dh)
+    width = tfa.kernel_head_dim(Dh)
+    blk = dict(causal=causal, block_q=64, block_k=64)
+    out, lse = tfa._flash_fwd_plain(q, k, v, **blk)
+    grads = tfa._flash_bwd_plain(q, k, v, g, lse, tfa._delta(out, g), **blk)
+    qp, kp, vp, gp = (tfa.pad_head(t, width) for t in (q, k, v, g))
+    scale = 1.0 / math.sqrt(Dh)
+    pout, plse = tfa._flash_fwd_plain(qp, kp, vp, scale=scale, **blk)
+    pgrads = tfa._flash_bwd_plain(qp, kp, vp, gp, plse, tfa._delta(pout, gp),
+                                  scale=scale, **blk)
+    torch.testing.assert_close(plse, lse, rtol=0, atol=PAD_TOL)
+    for got, want in zip((pout, *pgrads), (out, *grads)):
+        assert (got[..., Dh:] == 0).all()
+        torch.testing.assert_close(got[..., :Dh], want, rtol=0,
+                                   atol=PAD_TOL * want.abs().max().item())
 
 
 @pytest.mark.parametrize("causal", [True, False])
