@@ -16,13 +16,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the bf16 plain version). Each kernel is timed with CUDA
                events, median of 5 runs with min and max, beside its
                bound and SDPA's forward or backward time. Then head dims
-               160, 192, 256, 320 and 512 (the scalar kernels in both
-               dtypes, zero-padded to a multiple of 128) at S 63 and 192, and the three
-               kernels timed at Gemma-2-9B's attention shape (B 2, S 2048,
-               H 16, KV 8, Dh 256, bf16, causal).
+               160, 192, 256, 320 and 512 (zero-padded to a multiple of
+               128; bf16 at 256 runs the wgmma forward and dK/dV and the
+               scalar dQ, every other wide head the scalar kernels) at S 63
+               and 192, and the three kernels timed at Gemma-2-9B's
+               attention shape (B 2, S 2048, H 16, KV 8, Dh 256, bf16,
+               causal). Last, the scalar f32 kernels timed at the main
+               shape beside SDPA in f32 with TF32 off (the "_f32" rows of
+               the JSON; no f32 call is on the main path).
 2b. wide_path -- flash_attention, forward and backward, at that shape:
-               the scalar kernels' launches at wide heads (the "_wide"
-               rows of the JSON).
+               the wide kernels' launches (the "_wide" rows of the JSON),
+               counted per kernel, library and dtype: each row's kernel
+               must have run from the source the row names, and from no
+               other.
 3. ssd2gpu  -- the [engine] line (io_uring available or why not, the
                engine engine="auto" chose, the native library's build time);
                then a seeded 1 GiB file delivered into device memory by
@@ -43,7 +49,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                under 4 rings and under 1, exact.
 4. train    -- seeded packed-token shards through make_llama_pipeline into
                make_train_step(Llama-3-8B widths, 2 layers, attn="flash"),
-               4 steps; every kernel must have launched during the steps.
+               4 steps; every kernel must have launched during the steps,
+               from the source its row names (the bf16 wgmma kernels) and
+               from no other; the f32 rows' launches are read there too.
                Then one more step under torch.profiler: device time by
                kernel group and the device's idle share.
 5. stream   -- StromContext.stream_segments under engine="auto": 2048
@@ -159,32 +167,74 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SM90 = "strom_torch/csrc/flash_attention_sm90.cu"
 SCALAR = "strom_torch/csrc/flash_attention.cu"
+LIBRARY = {SM90: "sm90", SCALAR: "scalar"}   # fa.kernel_route's names
 # name -> the TPU kernel it replaces (file:line), the source and design of
 # the kernel the main path (bf16) runs, and the device symbols of every
 # instantiation (the f32 ones of flash_attention.cu included) for the
-# profile's grouping
+# profile's grouping; each table's "variant" is its fa.VARIANT_LAUNCHES key
 KERNELS = {
     "fa_fwd": {"replaces": "strom/ops/flash_attention.py:42", "source": SM90,
-               "design": "wgmma",
+               "design": "wgmma, 128-row kv tiles, no producer warpgroup",
                "symbols": ("fa_fwd_wgmma_kernel", "fa_fwd_kernel")},
     "fa_bwd_dkv": {"replaces": "strom/ops/flash_attention.py:158",
-                   "source": SM90, "design": "wgmma",
+                   "source": SM90, "design": "wgmma, producer warpgroup",
                    "symbols": ("fa_bwd_dkv_wgmma_kernel", "fa_bwd_dkv_kernel")},
     "fa_bwd_dq": {"replaces": "strom/ops/flash_attention.py:204",
-                  "source": SM90, "design": "wgmma",
+                  "source": SM90, "design": "wgmma, producer warpgroup",
                   "symbols": ("fa_bwd_dq_wgmma_kernel", "fa_bwd_dq_kernel")},
 }
-# the kernels bf16 heads wider than 128 run (flash_attention.cu's scalar
-# kernels, counted under the same names); their path is flash_attention at
-# Gemma-2-9B's attention shape (phase 2b)
+for _name, _info in KERNELS.items():
+    _info.update(counter=_name, variant=fa.variant(_name, "sm90",
+                                                   torch.bfloat16))
+SCALAR_DESIGN = "scalar f32 FMA, 128-column head chunks"
+# the kernels bf16 heads of 129-256 run (padded to 256, counted under the
+# same names): the wgmma forward and dK/dV, the scalar dQ; their path is
+# flash_attention at Gemma-2-9B's attention shape (phase 2b), which checks
+# each source against the library its launches were counted under
 WIDE_KERNELS = {
-    f"{name}_wide": {"counter": name, "replaces": info["replaces"],
-                     "source": SCALAR, "design": "scalar f32 FMA, 128-column "
-                     "head chunks"}
+    f"{name}_wide": {"counter": name, "replaces": KERNELS[name]["replaces"],
+                     "source": source, "design": design,
+                     "variant": fa.variant(name, LIBRARY[source],
+                                           torch.bfloat16)}
+    for name, source, design in (
+        ("fa_fwd", SM90, "wgmma, 64-row kv tiles, m64n256 P.V, no producer "
+         "warpgroup"),
+        ("fa_bwd_dkv", SM90, "wgmma, 2-stage ring, one P^T buffer, no "
+         "producer warpgroup"),
+        ("fa_bwd_dq", SCALAR, SCALAR_DESIGN))}
+# the f32 kernels (flash_attention.cu at every head), timed at the main
+# shape; no f32 call is on the main path, which runs bf16
+F32_KERNELS = {
+    f"{name}_f32": {"counter": name, "replaces": info["replaces"],
+                    "source": SCALAR, "design": SCALAR_DESIGN,
+                    "variant": fa.variant(name, "scalar", torch.float32)}
     for name, info in KERNELS.items()}
 # B, S, H, KV, Dh: Gemma-2-9B's attention (16 query heads, 8 kv heads,
 # head 256) at the train batch of phase 4
 GEMMA2_9B = (2, 2048, 16, 8, 256)
+
+
+def check_variants(table: dict, variants: dict[str, int],
+                   path: str) -> dict[str, int]:
+    """Each row of *table*'s launches on *path*, given *variants*, the
+    fa.VARIANT_LAUNCHES of that run (set to 0 just before it, read just
+    after): the launches of the row's variant (its kernel from the row's
+    source, in its dtype). Fails where a row's kernel never launched, or
+    launched as another variant as well (another library or dtype than
+    the row names)."""
+    launched = {v: n for v, n in variants.items() if n}
+    for name, info in table.items():
+        if launched.get(info["variant"], 0) <= 0:
+            raise AssertionError(f"kernel {name} ({info['variant']}) never "
+                                 f"launched on the {path}; launched: "
+                                 f"{launched}")
+        other = [v for v in launched if v != info["variant"]
+                 and v.startswith(info["counter"] + "@")]
+        if other:
+            raise AssertionError(f"kernel {name}: the row names "
+                                 f"{info['variant']}, the {path} also "
+                                 f"launched {other}")
+    return {name: launched[info["variant"]] for name, info in table.items()}
 
 
 def say(phase: str, **kv) -> None:
@@ -338,8 +388,8 @@ def _run_kernels(q, k, v, g, causal):
     return (out, lse, dq, dk, dv), lse, delta
 
 
-# heads wider than 128 (the scalar kernels; zero-padded to 256, 384 or 512),
-# S a multiple of 64 and S off the 64-row tile
+# heads wider than 128 (zero-padded to 256, 384 or 512; bf16 at 256 runs the
+# wgmma forward and dK/dV), S a multiple of 64 and S off the 64-row tile
 WIDE_SHAPES = [(1, S, 4, 2, Dh) for Dh in (160, 192, 256, 320, 512)
                for S in (63, 192)]
 
@@ -355,8 +405,8 @@ SMALL_SHAPES = [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
 
 def check_kernels_small(shapes=SMALL_SHAPES) -> None:
     """*shapes*, causal and not. f32 inputs run the scalar kernels, bf16
-    the tensor-core ones (heads above 128: the scalar kernels in both
-    dtypes). The plain versions take one block of S rows where 64 does not
+    the ones fa.kernel_route names (heads above 128: the scalar kernels
+    but the wgmma forward and dK/dV at width 256). The plain versions take one block of S rows where 64 does not
     divide S, as the reference requires."""
     for (B, S, H, KV, Dh) in shapes:
         block = S if S % 64 else 64
@@ -423,34 +473,43 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
 def phase_kernels() -> dict:
     """SMALL_SHAPES and WIDE_SHAPES against the plain versions; then bf16 at
     the main path's, small's and Gemma-2-9B's shapes (the last runs the
-    scalar kernels), causal: each kernel against the plain versions on the
-    same bf16 inputs (BF16_TOL) and in f32 (BF16_VS_F32_TOL), then timed
-    beside its bound, the plain version and SDPA (forward for fa_fwd;
-    backward for the fa_bwd_dkv + fa_bwd_dq pair). Each time is the median
-    of REPEATS runs of cuda_ms; the kernels' rows also carry the runs' min
-    and max. Returns rows[kernel][shape label]."""
+    wgmma forward and dK/dV at width 256 and the scalar dQ), causal: each
+    kernel against the plain versions on the same bf16 inputs (BF16_TOL)
+    and in f32 (BF16_VS_F32_TOL), then timed beside its bound, the plain
+    version and SDPA (forward for fa_fwd; backward for the fa_bwd_dkv +
+    fa_bwd_dq pair). Last, f32 at the main shape (the scalar kernels)
+    against the f32 plain version (F32_TOL), beside SDPA in f32 with TF32
+    off. Each time is the median of REPEATS runs of cuda_ms; the kernels'
+    rows also carry the runs' min and max. Returns rows[kernel][shape
+    label]."""
     check_kernels_small()
     check_kernels_small(WIDE_SHAPES)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = {}
-    for label, (B, S, H, KV, Dh) in [("main", (2, 2048, 32, 8, 128)),
-                                     ("small", (2, 2048, 12, 4, 64)),
-                                     ("gemma2_9b", GEMMA2_9B)]:
-        dt = torch.bfloat16
+    main = (2, 2048, 32, 8, 128)
+    for label, (B, S, H, KV, Dh), dt in [
+            ("main", main, torch.bfloat16),
+            ("small", (2, 2048, 12, 4, 64), torch.bfloat16),
+            ("gemma2_9b", GEMMA2_9B, torch.bfloat16),
+            ("main_f32", main, torch.float32)]:
         q, k, v, g = _inputs(B, S, H, KV, Dh, dt, 0)
         res, lse, delta = _run_kernels(q, k, v, g, True)
-        f32 = [t.float() for t in (q, k, v, g)]
-        errs_f32 = _check_against_plain(f"{label} bf16 vs f32 plain", res,
-                                        *f32, lse, delta, True, 128,
-                                        BF16_VS_F32_TOL)
-        errs = _check_against_plain(f"{label} bf16", res, q, k, v, g, lse,
-                                    delta, True, 128, BF16_TOL)
-        _check_dq_rounding(label, res[2], q, k, v, g, lse, delta, True, 128)
+        if dt == torch.float32:
+            errs = errs_f32 = _check_against_plain(
+                f"{label} f32", res, q, k, v, g, lse, delta, True, 128,
+                F32_TOL)
+        else:
+            f32 = [t.float() for t in (q, k, v, g)]
+            errs_f32 = _check_against_plain(f"{label} bf16 vs f32 plain", res,
+                                            *f32, lse, delta, True, 128,
+                                            BF16_VS_F32_TOL)
+            errs = _check_against_plain(f"{label} bf16", res, q, k, v, g, lse,
+                                        delta, True, 128, BF16_TOL)
+            _check_dq_rounding(label, res[2], q, k, v, g, lse, delta, True,
+                               128)
 
         n_iter = 10 if label == "main" else 5
-        if Dh > 128:
-            n_iter = 2   # the scalar kernels take milliseconds there
         spread = {
             "fa_fwd": cuda_ms_spread(lambda: fa._flash_fwd_kernel(
                 q, k, v, causal=True), n_iter),
@@ -460,10 +519,13 @@ def phase_kernels() -> dict:
                 q, k, v, g, lse, delta, causal=True), n_iter),
         }
         ms = {name: med for name, (med, _, _) in spread.items()}
+        # the f32 plain versions take 60-110 ms a call: one timed call each
+        plain_iter = 1 if dt == torch.float32 else 2
         plain_fwd = cuda_ms(lambda: fa._flash_fwd_plain(
-            q, k, v, causal=True, block_q=128, block_k=128), 2)
+            q, k, v, causal=True, block_q=128, block_k=128), plain_iter)
         plain_bwd = cuda_ms(lambda: fa._flash_bwd_plain(
-            q, k, v, g, lse, delta, causal=True, block_q=128, block_k=128), 2)
+            q, k, v, g, lse, delta, causal=True, block_q=128, block_k=128),
+            plain_iter)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = cuda_ms_spread(
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -508,8 +570,9 @@ def phase_wide_path() -> dict[str, int]:
     """Phase 2b, the wide heads' path: flash_attention at Gemma-2-9B's
     attention shape (bf16, causal), the forward and then the backward
     through autograd, with the launch counts set to 0 just before and read
-    just after; finite outputs of the right shapes. Returns the scalar
-    kernels' launches there."""
+    just after; finite outputs of the right shapes. Returns the wide
+    kernels' launches there (check_variants: each from the source its
+    WIDE_KERNELS row names)."""
     B, S, H, KV, Dh = GEMMA2_9B
     q, k, v, g = _inputs(B, S, H, KV, Dh, torch.bfloat16, 4)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
@@ -520,8 +583,7 @@ def phase_wide_path() -> dict[str, int]:
     out.backward(g)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: fa.LAUNCHES[info["counter"]]
-                for name, info in WIDE_KERNELS.items()}
+    variants = dict(fa.VARIANT_LAUNCHES)
     grads = (q.grad, k.grad, v.grad)
     if out.shape != q.shape or any(t.shape != s.shape for t, s in
                                    zip(grads, (q, k, v))) \
@@ -529,12 +591,9 @@ def phase_wide_path() -> dict[str, int]:
         raise AssertionError("wide path: outputs of the wrong shape or not "
                              "finite")
     say("wide_path", shape=GEMMA2_9B, dtype="bf16", causal=True,
-        fwd_bwd_ms=f"{dt * 1e3:.2f}", launches=json.dumps(launches))
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the wide "
-                                 f"path")
-    return launches
+        fwd_bwd_ms=f"{dt * 1e3:.2f}",
+        launches=json.dumps(variants, sort_keys=True))
+    return check_variants(WIDE_KERNELS, variants, "wide path")
 
 
 # ---------------------------------------------------------------- ssd2gpu
@@ -872,8 +931,10 @@ def phase_striped(workdir: str, path: str, want: torch.Tensor,
 # ------------------------------------------------------------------ train
 def phase_train(workdir: str) -> dict[str, int]:
     """Packed-token shards → make_llama_pipeline → make_train_step at
-    Llama-3-8B widths, 2 layers, flash attention; 4 steps. Returns each
-    kernel's launches during the steps."""
+    Llama-3-8B widths, 2 layers, flash attention; 4 steps. Returns the
+    launches during the steps of each row of KERNELS (check_variants: each
+    from the source its row names) and of F32_KERNELS (no f32 call is on
+    this bf16 path: 0 unless one was)."""
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
     B, seq_len, steps, records = 2, 2047, 4, 16
     rng = np.random.default_rng(1)
@@ -934,7 +995,7 @@ def phase_train(workdir: str) -> dict[str, int]:
             raise AssertionError(f"step {i}: loss {loss}, grad_norm {norm}")
         say("train", step=i, loss=f"{loss:.5f}", grad_norm=f"{norm:.5f}",
             ms=f"{times[-1] * 1e3:.1f}")
-    launches = dict(fa.LAUNCHES)
+    variants = dict(fa.VARIANT_LAUNCHES)
     steady = sum(times[1:]) / (steps - 1)
     say("train", step_ms_first=f"{times[0] * 1e3:.1f}",
         step_ms_steady=f"{steady * 1e3:.1f}",
@@ -942,15 +1003,13 @@ def phase_train(workdir: str) -> dict[str, int]:
         tokens_per_s=f"{B * (seq_len + 1) / steady:.0f}",
         max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / GiB:.2f}",
         data_stall_steps=pipe.data_stall_steps,
-        launches=json.dumps(launches, sort_keys=True))
+        launches=json.dumps(variants, sort_keys=True))
     profile_step(step, state, next_batch())
     pipe.close()
     strom_torch.close()
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched in the train "
-                                 f"steps")
-    return launches
+    launches = check_variants(KERNELS, variants, "train steps")
+    return launches | {name: variants.get(info["variant"], 0)
+                       for name, info in F32_KERNELS.items()}
 
 
 def _kernel_group(name: str) -> str:
@@ -1657,6 +1716,18 @@ def main() -> int:
                  **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
                     if info["counter"] != "fa_fwd" else {})}
                 for name, info in WIDE_KERNELS.items()]
+    kernels += [{"name": name, "route": "cuda", "source": info["source"],
+                 "design": info["design"], "replaces": info["replaces"],
+                 "launches": launches[name],
+                 "shape": "main_f32 [2, 2048, 32, 8, 128]",
+                 **{k: rows[info["counter"]]["main_f32"][k] for k in
+                    ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
+                     "bound_ms", "bound_by", "library_ms")},
+                 "library_covers": ("SDPA f32 forward, TF32 off"
+                                    if info["counter"] == "fa_fwd" else
+                                    "fa_bwd_dkv + fa_bwd_dq (SDPA f32 "
+                                    "backward, TF32 off)")}
+                for name, info in F32_KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@
 //   fa_fwd_wgmma_kernel      <- _fa_kernel          :42  (launched by _flash_fwd)
 //   fa_bwd_dkv_wgmma_kernel  <- _fa_bwd_dkv_kernel  :158 (launched by _flash_bwd)
 //   fa_bwd_dq_wgmma_kernel   <- _fa_bwd_dq_kernel   :204 (launched by _flash_bwd)
-// f32 inputs take the scalar kernels of flash_attention.cu; the wrapper
-// picks the library by dtype.
+// f32 inputs, bf16 heads above 256, and the bf16 dQ above 128 take the
+// scalar kernels of flash_attention.cu; the wrapper's route (kernel_route in
+// strom_torch/ops/flash_attention.py) picks the library per kernel.
 //
 // What bounds them on an H100: attention at the main path's shape does
 // ~Dh/2 = 64 multiply-adds per byte of q/k/v it reads once, far above the
@@ -16,13 +17,22 @@
 // 0.07 ms for the forward (4*Dh flops per (q, kv) pair), 0.14 ms for dK/dV
 // (8*Dh) and 0.10 ms for dQ (6*Dh). The design puts every product on the
 // tensor cores and keeps them fed (FlashAttention-3's shape):
-//   - warp specialisation: 384 threads; warpgroups 0 and 1 consume (wgmma),
-//     one thread of warpgroup 2 produces (TMA). In the forward and dQ,
-//     setmaxnreg moves registers from the producer (24) to the consumers
-//     (240); one big if/else, so the two roles never reconverge;
+//   - warpgroups 0 and 1 consume (wgmma). In dQ, and in dK/dV up to DH 128,
+//     one thread of a third warpgroup produces (TMA; 384 threads); in dQ
+//     setmaxnreg moves registers from it (24) to the consumers (240), one
+//     big if/else, so the two roles never reconverge. The forward at every
+//     width, and dK/dV at DH 256, have no producer group (256 threads):
+//     thread 0 issues each load while a tile's first wgmma runs, once the
+//     stage it fills is free, and then the warp reconverges (__syncwarp)
+//     before its next .aligned instruction. On an H100 (700 W) at B 2,
+//     S 2048, H 32, KV 8, DH 128, a producer-free forward ran 4 % faster
+//     than one with a producer, a producer-free dK/dV 15 % slower: thread 0
+//     waits for the stage the slower warpgroup still holds, so the two
+//     warpgroups run in lockstep;
 //   - TMA loads each tile into 128-byte-swizzled shared memory, signalled on
 //     an mbarrier; a ring of full/empty barriers (2 stages forward, 3 dK/dV
-//     and dQ) lets the next tiles land while the current one is multiplied;
+//     and dQ, 2 dK/dV at DH 256) lets the next tiles land while the current
+//     one is multiplied;
 //   - products are wgmma m64nNk16, bf16 x bf16 -> f32 in registers. Operands
 //     read straight from the swizzled tiles are K-major (Q.K^T, K.Q^T, V.dO^T,
 //     dO.V^T) or MN-major (the "transpose B" flag: V in P.V, dO in P^T.dO, Q
@@ -50,6 +60,18 @@
 // the second is wholly masked (P = 0) but still takes part in the
 // warpgroup's wgmmas and in the ring's barriers. Each CTA owns its dQ rows:
 // no atomics, no second pass, a deterministic result.
+//
+// At DH 256 (heads of 129-256, zero-padded) the forward streams 64-row kv
+// tiles as dQ does, with dQ's masking of the two diagonal tiles: Q (64 KB)
+// and two stages of K and V (128 KB) fit a block. P.V is one chain of
+// m64n256k16, N 256 spanning V's four 64-column boxes. dK/dV keeps its
+// design with a 2-stage ring and one P^T buffer. A consumer then holds a
+// 128-register accumulator (O, dV or dK) beside a 32-register S or P tile
+// and its 16-register bf16 fragment; both kernels spilled at the 168
+// registers a 384-thread block gets, setmaxnreg notwithstanding. So at DH
+// 256 dK/dV drops its producer warpgroup, as the forward does at every
+// width (256 threads, up to 255 registers; ptxas gives the forward 199 and
+// dK/dV 211, no spill). The bf16 dQ at DH 256 runs the scalar kernel.
 //
 // Where the trouble was, and what the code does about it:
 //   - TMA descriptors: cuTensorMapEncodeTiled is reached through
@@ -92,9 +114,9 @@
 //
 // Layouts are those of flash_attention.cu: q, o, dO, dq [B, S, H, Dh]; k, v,
 // dk, dv [B, S, KV, Dh]; lse [B, H, S] f32 out of the forward, lse and delta
-// [B, H, SL] f32 into the backward. Dh is 64 or 128: the wrapper zero-pads
-// a narrower head (exact: zero columns add nothing to Q.K^T and give zero
-// output and gradient columns, which it slices off).
+// [B, H, SL] f32 into the backward. Dh is 64, 128 or 256 (dQ: 64 or 128):
+// the wrapper zero-pads a narrower head (exact: zero columns add nothing to
+// Q.K^T and give zero output and gradient columns, which it slices off).
 
 #include <cuda.h>  // CUtensorMap and its enums; the entry point comes from the runtime
 #include <cuda_bf16.h>
@@ -104,8 +126,15 @@
 
 namespace {
 
-constexpr int NTHREADS = 384;   // warpgroups 0, 1: consumers; 2: producer
-constexpr int CONSUMERS = 256;  // threads that arrive on an "empty" barrier
+// Warpgroups 0 and 1 consume: they arrive on an "empty" barrier. dQ, and
+// dK/dV up to DH 128, add warpgroup 2, one thread of which loads; in the
+// forward, and in dK/dV at DH 256, thread 0 loads (ptxas gives a 384-thread
+// block 168 registers a thread, too few for DH 256's accumulators; a
+// 256-thread block up to 255).
+constexpr int CONSUMERS = 256;
+constexpr int WITH_PRODUCER = 384;
+template <int DH>
+__host__ __device__ constexpr bool dkv_producer() { return DH <= 128; }
 constexpr uint32_t ROW_BYTES = 128;  // one swizzled box row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -271,14 +300,30 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 256] += A[64 x 16] * B[16 x 256]; A from registers (the accumulator
+// fragment layout, packed to bf16x2), B from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ------------------------------------------------------------- forward
 // One CTA per (128-row q tile, q head, batch); warpgroup w owns q rows
-// 64w..64w+63 of the tile. kv tiles of 128 rows go through a 2-stage ring.
+// 64w..64w+63 of the tile. kv tiles of BK rows go through a 2-stage ring:
+// 128 rows up to DH 128; 64 at DH 256, where Q (64 KB) and two stages of
+// 128-row K and V tiles (256 KB) would not fit a block's 227 KB, and where
+// each warpgroup's O (64 x 256 f32, 128 registers a thread) leaves room for
+// an m64n64 S tile (32) beside it, not an m64n128 one.
 template <int DH>
 struct FwdLayout {
   static constexpr int NBOX = DH / 64;
+  static constexpr int BK = DH > 128 ? 64 : 128;       // kv tile rows
   static constexpr uint32_t Q_BOX = 128 * ROW_BYTES;   // 128 rows x 64 columns
-  static constexpr uint32_t KV_BOX = 128 * ROW_BYTES;
+  static constexpr uint32_t KV_BOX = BK * ROW_BYTES;
   static constexpr uint32_t KV_TILE = NBOX * KV_BOX;   // one K or one V tile
   static constexpr uint32_t Q_OFF = 0;
   static constexpr uint32_t K_OFF = NBOX * Q_BOX;
@@ -288,7 +333,7 @@ struct FwdLayout {
 };
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(CONSUMERS, 1)
 fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v,
@@ -306,7 +351,10 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int q0 = qi * 128;
-  const int nkv = causal ? qi + 1 : nq;
+  // causal: kv tiles up to the diagonal, which crosses tile qi (BK 128) or
+  // tiles 2qi and 2qi + 1 (BK 64)
+  const int nk = (S + L::BK - 1) / L::BK;
+  const int nkv = causal ? min((q0 + 128) / L::BK, nk) : nk;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -318,113 +366,121 @@ fa_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
+  // the loads, each by one thread: Q, and kv tile j into stage j & 1 once
+  // the tile before in that stage is consumed
+  auto load_q = [&]() {
+    mbar_expect_tx(bar_q, L::NBOX * L::Q_BOX);
+    for (int c = 0; c < L::NBOX; ++c)
+      tma_load_3d(sQ + c * L::Q_BOX, &tm_q, bar_q, h * DH + 64 * c, q0, b);
+  };
+  auto load_kv = [&](int j) {
+    const int s = j & 1;
+    mbar_wait(bar_empty + 8 * s, ((j >> 1) & 1) ^ 1);
+    mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_TILE);
+    for (int c = 0; c < L::NBOX; ++c) {
+      tma_load_3d(sK + s * L::KV_TILE + c * L::KV_BOX, &tm_k, bar_full + 8 * s,
+                  kvh * DH + 64 * c, j * L::BK, b);
+      tma_load_3d(sV + s * L::KV_TILE + c * L::KV_BOX, &tm_v, bar_full + 8 * s,
+                  kvh * DH + 64 * c, j * L::BK, b);
+    }
+  };
+
+  // consumers: S = Q.K^T, online softmax, O += P.V; thread 0 also loads
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // ---------------- producer: one thread issues every TMA load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(bar_q, L::NBOX * L::Q_BOX);
-      for (int c = 0; c < L::NBOX; ++c)
-        tma_load_3d(sQ + c * L::Q_BOX, &tm_q, bar_q, h * DH + 64 * c, q0, b);
-      for (int j = 0; j < nkv; ++j) {
-        const int s = j & 1;
-        mbar_wait(bar_empty + 8 * s, ((j >> 1) & 1) ^ 1);
-        mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_TILE);
-        for (int c = 0; c < L::NBOX; ++c) {
-          tma_load_3d(sK + s * L::KV_TILE + c * L::KV_BOX, &tm_k, bar_full + 8 * s,
-                      kvh * DH + 64 * c, j * 128, b);
-          tma_load_3d(sV + s * L::KV_TILE + c * L::KV_BOX, &tm_v, bar_full + 8 * s,
-                      kvh * DH + 64 * c, j * 128, b);
-        }
+  if (threadIdx.x == 0) {
+    load_q();
+    for (int j = 0; j < min(2, nkv); ++j) load_kv(j);
+  }
+  __syncwarp();  // warp 0 converged before its next .aligned wgmma
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0, row0 + 8
+  const float c = scale * LOG2E;
+  float acc[DH / 2];
+  zero(acc);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < nkv; ++j) {
+    const int s = j & 1;
+    mbar_wait(bar_full + 8 * s, (j >> 1) & 1);
+    const uint32_t tK = sK + s * L::KV_TILE, tV = sV + s * L::KV_TILE;
+
+    float sc[L::BK / 2];  // S tile: 64 q rows x BK kv columns
+    zero(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss(sc, kmajor(sQ + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
+               kmajor(tK + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+    // while S runs, tile j + 1 goes where tile j - 1 was
+    if (threadIdx.x == 0 && j >= 1 && j + 1 < nkv) load_kv(j + 1);
+    __syncwarp();
+    wgmma_wait0();
+    fence_regs(sc);
+
+    // causal: only the tiles the diagonal crosses have kv > q (for
+    // warpgroup 0 the second of two is wholly masked, P = 0); otherwise
+    // only the last tile can hold kv rows past S
+    const bool masked = causal ? (j + 1) * L::BK > q0 : (j + 1) * L::BK > S;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < L::BK / 2; ++i) {
+      const int hf = (i / 2) % 2;
+      float x = sc[i] * c;
+      if (masked) {
+        const int col = j * L::BK + frag_col(i, lane);
+        if (causal ? col > row0 + 8 * hf : col >= S) x = -INFINITY;
       }
+      sc[i] = x;
+      mx[hf] = fmaxf(mx[hf], x);
     }
-  } else {
-    // ---------------- consumers: S = Q.K^T, online softmax, O += P.V
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0, row0 + 8
-    const float c = scale * LOG2E;
-    float acc[DH / 2];
-    zero(acc);
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-    mbar_wait(bar_q, 0);
-    for (int j = 0; j < nkv; ++j) {
-      const int s = j & 1;
-      mbar_wait(bar_full + 8 * s, (j >> 1) & 1);
-      const uint32_t tK = sK + s * L::KV_TILE, tV = sV + s * L::KV_TILE;
-
-      float sc[64];  // S tile: 64 q rows x 128 kv columns
-      zero(sc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss(sc, kmajor(sQ + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
-                 kmajor(tK + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(sc);
-
-      // causal: only the diagonal tile has kv > q; otherwise only the last
-      // tile can hold kv rows past S
-      const bool masked = causal ? j == qi : (j + 1) * 128 > S;
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const int hf = (i / 2) % 2;
-        float x = sc[i] * c;
-        if (masked) {
-          const int col = j * 128 + frag_col(i, lane);
-          if (causal ? col > row0 + 8 * hf : col >= S) x = -INFINITY;
-        }
-        sc[i] = x;
-        mx[hf] = fmaxf(mx[hf], x);
-      }
-      float alpha[2], mu[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float mn = quad_max(mx[hf]);
-        mu[hf] = mn == -INFINITY ? 0.f : mn;  // a row masked so far stays all-zero
-        alpha[hf] = exp2f(m[hf] - mu[hf]);
-        m[hf] = mn;
-      }
-#pragma unroll
-      for (int i = 0; i < 64; ++i) {
-        const int hf = (i / 2) % 2;
-        const float p = exp2f(sc[i] - mu[hf]);
-        sc[i] = p;
-        rs[hf] += p;
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + rs[hf];  // per-thread part
-#pragma unroll
-      for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
-
-      uint32_t pa[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) to_a_frag(pa[kk], sc, kk);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs(acc, pa[kk], mnmajor(tV + kk * 16 * ROW_BYTES, L::KV_BOX));
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(acc);
-      mbar_arrive(bar_empty + 8 * s);
-    }
-
+    float alpha[2], mu[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int row = row0 + 8 * hf;
-      const float denom = fmaxf(quad_sum(l[hf]), 1e-30f);
-      if (row < S) {
-        __nv_bfloat16* orow = o + ((long)b * S + row) * H * DH + (long)h * DH;
+      const float mn = quad_max(mx[hf]);
+      mu[hf] = mn == -INFINITY ? 0.f : mn;  // a row masked so far stays all-zero
+      alpha[hf] = exp2f(m[hf] - mu[hf]);
+      m[hf] = mn;
+    }
 #pragma unroll
-        for (int jj = 0; jj < DH / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(orow + jj * 8 + (lane % 4) * 2) =
-              pack_bf16(acc[4 * jj + 2 * hf] / denom, acc[4 * jj + 2 * hf + 1] / denom);
-        if (lane % 4 == 0) lse[((long)b * H + h) * S + row] = m[hf] * LN2 + logf(denom);
-      }
+    for (int i = 0; i < L::BK / 2; ++i) {
+      const int hf = (i / 2) % 2;
+      const float p = exp2f(sc[i] - mu[hf]);
+      sc[i] = p;
+      rs[hf] += p;
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + rs[hf];  // per-thread part
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+    // O += bf16(P).V: m64nDHk16, DH 256 being wgmma's widest N; V is the
+    // MN-major B operand across NBOX 64-column boxes KV_BOX apart
+    uint32_t pa[L::BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 16; ++kk) to_a_frag(pa[kk], sc, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::BK / 16; ++kk)
+      wgmma_rs(acc, pa[kk], mnmajor(tV + kk * 16 * ROW_BYTES, L::KV_BOX));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    mbar_arrive(bar_empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + 8 * hf;
+    const float denom = fmaxf(quad_sum(l[hf]), 1e-30f);
+    if (row < S) {
+      __nv_bfloat16* orow = o + ((long)b * S + row) * H * DH + (long)h * DH;
+#pragma unroll
+      for (int jj = 0; jj < DH / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(orow + jj * 8 + (lane % 4) * 2) =
+            pack_bf16(acc[4 * jj + 2 * hf] / denom, acc[4 * jj + 2 * hf + 1] / denom);
+      if (lane % 4 == 0) lse[((long)b * H + h) * S + row] = m[hf] * LN2 + logf(denom);
     }
   }
 }
@@ -451,7 +507,7 @@ __device__ __forceinline__ void dkv_p(float (&sc)[32], float* pbuf, const float*
 
 // One CTA per (64-row kv tile, kv head, batch). K and V stay resident; the
 // CTA loops over the G group heads and the causal q tiles (64 rows), whose
-// Q, dO, lse and delta go through a DKV_STAGES-stage TMA ring. The sum the TPU grid
+// Q, dO, lse and delta go through a STAGES-stage TMA ring. The sum the TPU grid
 // carried stays in the CTA's registers: no atomics, no second pass.
 // The two consumer warpgroups split the four products of a tile two and two,
 // so each holds one 64 x Dh accumulator:
@@ -460,12 +516,17 @@ __device__ __forceinline__ void dkv_p(float (&sc)[32], float* pbuf, const float*
 //                dK += bf16(dS^T).Q
 // P^T passes from 0 to 1 in f32 through shared memory, in the accumulator's
 // fragment order (thread t of one warpgroup writes what thread t of the other
-// reads), double-buffered behind its own full/empty mbarriers.
-constexpr int DKV_STAGES = 3;
+// reads), in PBUFS buffers behind their own full/empty mbarriers.
+// Up to DH 128: 3 stages, 2 P buffers. At DH 256 a stage is 65 KB, so the
+// ring has 2 stages and P^T one buffer (216 KB in all; two buffers would
+// make 232,576 bytes, 128 over a block's limit), and the block has no
+// producer warpgroup (thread 0 loads), as the forward has none.
 
 template <int DH>
 struct DkvLayout {
   static constexpr int NBOX = DH / 64;
+  static constexpr int STAGES = DH > 128 ? 2 : 3;
+  static constexpr int PBUFS = DH > 128 ? 1 : 2;
   static constexpr uint32_t BOX = 64 * ROW_BYTES;  // 64 rows x 64 columns
   static constexpr uint32_t TILE = NBOX * BOX;     // one K, V, Q or dO tile
   static constexpr uint32_t K_OFF = 0;
@@ -474,14 +535,14 @@ struct DkvLayout {
   // a stage: Q tile, dO tile, 64 lse, 64 delta; 1024-byte aligned
   static constexpr uint32_t LSE_OFF = 2 * TILE, DLT_OFF = LSE_OFF + 256;
   static constexpr uint32_t STAGE = 2 * TILE + 1024;
-  static constexpr uint32_t P_OFF = ST_OFF + DKV_STAGES * STAGE;  // 2 x [32][128] f32
+  static constexpr uint32_t P_OFF = ST_OFF + STAGES * STAGE;  // PBUFS x [32][128] f32
   static constexpr uint32_t P_BUF = 32 * 128 * 4;
-  static constexpr uint32_t BAR_OFF = P_OFF + 2 * P_BUF;
+  static constexpr uint32_t BAR_OFF = P_OFF + PBUFS * P_BUF;
   static constexpr uint32_t BYTES = BAR_OFF + 128 + 1024;
 };
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(dkv_producer<DH>() ? WITH_PRODUCER : CONSUMERS, 1)
 fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
@@ -495,11 +556,11 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - raw);  // generic pointer to `base`
   const uint32_t sK = base + L::K_OFF, sV = base + L::V_OFF, sSt = base + L::ST_OFF;
-  // barriers, 8 bytes each: kv, full[DKV_STAGES], empty[DKV_STAGES],
-  // p_full[2], p_empty[2]
+  // barriers, 8 bytes each: kv, full[STAGES], empty[STAGES], p_full[PBUFS],
+  // p_empty[PBUFS]
   const uint32_t bar_kv = base + L::BAR_OFF;
-  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_full + 8 * DKV_STAGES;
-  const uint32_t bar_pfull = bar_empty + 8 * DKV_STAGES, bar_pempty = bar_pfull + 16;
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_full + 8 * L::STAGES;
+  const uint32_t bar_pfull = bar_empty + 8 * L::STAGES, bar_pempty = bar_pfull + 8 * L::PBUFS;
 
   const int kj = blockIdx.x;  // small kj has the most causal q tiles: first
   const int kvh = blockIdx.y, b = blockIdx.z;
@@ -511,11 +572,11 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(bar_full + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, CONSUMERS);
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < L::PBUFS; ++s) {
       mbar_init(bar_pfull + 8 * s, 128);
       mbar_init(bar_pempty + 8 * s, 128);
     }
@@ -523,49 +584,65 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
+  // the loads, each by one thread: K and V, and the Q, dO, lse and delta of
+  // tile t into stage t % STAGES once the tile before in that stage is
+  // consumed
+  auto load_kv = [&]() {
+    mbar_expect_tx(bar_kv, 2 * L::TILE);
+    for (int c = 0; c < L::NBOX; ++c) {
+      tma_load_3d(sK + c * L::BOX, &tm_k, bar_kv, kvh * DH + 64 * c, kj * 64, b);
+      tma_load_3d(sV + c * L::BOX, &tm_v, bar_kv, kvh * DH + 64 * c, kj * 64, b);
+    }
+  };
+  auto load_stage = [&](int t) {
+    const int s = t % L::STAGES;
+    const int h = kvh * G + t / nqt, qi = i0 + t % nqt;
+    const uint32_t st = sSt + s * L::STAGE, full = bar_full + 8 * s;
+    const long row = ((long)b * H + h) * SL + (long)qi * 64;
+    mbar_wait(bar_empty + 8 * s, ((t / L::STAGES) & 1) ^ 1);
+    mbar_expect_tx(full, 2 * L::TILE + 512);
+    for (int c = 0; c < L::NBOX; ++c) {
+      tma_load_3d(st + c * L::BOX, &tm_q, full, h * DH + 64 * c, qi * 64, b);
+      tma_load_3d(st + L::TILE + c * L::BOX, &tm_do, full, h * DH + 64 * c, qi * 64, b);
+    }
+    bulk_load(st + L::LSE_OFF, lse + row, 256, full);
+    bulk_load(st + L::DLT_OFF, delta + row, 256, full);
+  };
+
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  if (wg == 2) {
+  if (dkv_producer<DH>() && wg == 2) {
     // ---------------- producer: one thread issues every load
     if (threadIdx.x == 256) {
-      mbar_expect_tx(bar_kv, 2 * L::TILE);
-      for (int c = 0; c < L::NBOX; ++c) {
-        tma_load_3d(sK + c * L::BOX, &tm_k, bar_kv, kvh * DH + 64 * c, kj * 64, b);
-        tma_load_3d(sV + c * L::BOX, &tm_v, bar_kv, kvh * DH + 64 * c, kj * 64, b);
-      }
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % DKV_STAGES;
-        const int h = kvh * G + t / nqt, qi = i0 + t % nqt;
-        const uint32_t st = sSt + s * L::STAGE, full = bar_full + 8 * s;
-        const long row = ((long)b * H + h) * SL + (long)qi * 64;
-        mbar_wait(bar_empty + 8 * s, ((t / DKV_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::TILE + 512);
-        for (int c = 0; c < L::NBOX; ++c) {
-          tma_load_3d(st + c * L::BOX, &tm_q, full, h * DH + 64 * c, qi * 64, b);
-          tma_load_3d(st + L::TILE + c * L::BOX, &tm_do, full, h * DH + 64 * c, qi * 64, b);
-        }
-        bulk_load(st + L::LSE_OFF, lse + row, 256, full);
-        bulk_load(st + L::DLT_OFF, delta + row, 256, full);
-      }
+      load_kv();
+      for (int t = 0; t < ntiles; ++t) load_stage(t);
     }
     return;
   }
 
   // ---------------- consumers
+  if constexpr (!dkv_producer<DH>()) {
+    if (threadIdx.x == 0) {
+      load_kv();
+      for (int t = 0; t < min(L::STAGES, ntiles); ++t) load_stage(t);
+    }
+    __syncwarp();  // warp 0 converged before its next .aligned wgmma
+  }
   const int kv_row = kj * 64 + warp * 16 + lane / 4;  // rows kv_row, kv_row + 8
   const float c = scale * LOG2E;
   float acc[DH / 2];  // warpgroup 0: dV; warpgroup 1: dK
   zero(acc);
   mbar_wait(bar_kv, 0);
   for (int t = 0; t < ntiles; ++t) {
-    const int s = t % DKV_STAGES, pb = t & 1;  // ring stage, P buffer
+    const int s = t % L::STAGES, pb = t % L::PBUFS;  // ring stage, P buffer
+    const uint32_t pphase = (t / L::PBUFS) & 1;
     const int qi = i0 + t % nqt;
     const uint32_t tQ = sSt + s * L::STAGE, tG = tQ + L::TILE;
     const float* lse_s = reinterpret_cast<const float*>(gbase + L::ST_OFF + s * L::STAGE +
                                                         L::LSE_OFF);
     const float* dlt_s = lse_s + 64;
     float* pbuf = reinterpret_cast<float*>(gbase + L::P_OFF + pb * L::P_BUF) + tid;
-    mbar_wait(bar_full + 8 * s, (t / DKV_STAGES) & 1);
+    mbar_wait(bar_full + 8 * s, (t / L::STAGES) & 1);
 
     float sc[32];  // S^T or dP^T: 64 kv rows x 64 q columns
     zero(sc);
@@ -576,13 +653,18 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_ss(sc, kmajor(a + (kk / 4) * L::BOX + (kk % 4) * 32),
                kmajor(bt + (kk / 4) * L::BOX + (kk % 4) * 32), kk > 0);
     wgmma_commit();
+    // no producer: while S^T runs, tile t + STAGES - 1 goes where tile t - 1 was
+    if constexpr (!dkv_producer<DH>()) {
+      if (threadIdx.x == 0 && t >= 1 && t + L::STAGES - 1 < ntiles) load_stage(t + L::STAGES - 1);
+      __syncwarp();
+    }
     wgmma_wait0();
     fence_regs(sc);
 
     if (wg == 0) {
       // P^T = exp(S^T*scale - lse), zero above the diagonal and in the q
       // columns past S; hand it over
-      mbar_wait(bar_pempty + 8 * pb, ((t >> 1) & 1) ^ 1);
+      mbar_wait(bar_pempty + 8 * pb, pphase ^ 1);
       if ((causal && qi == kj) || (qi + 1) * 64 > S)
         dkv_p<true>(sc, pbuf, lse_s, c, lane, qi * 64, kv_row, causal, S);
       else
@@ -590,7 +672,7 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(bar_pfull + 8 * pb);
     } else {
       // dS^T = P^T o (dP^T - delta) * scale
-      mbar_wait(bar_pfull + 8 * pb, (t >> 1) & 1);
+      mbar_wait(bar_pfull + 8 * pb, pphase);
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         sc[i] = pbuf[i * 128] * (sc[i] - dlt_s[frag_col(i, lane)]) * scale;
@@ -652,7 +734,7 @@ struct DqLayout {
 };
 
 template <int DH>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(WITH_PRODUCER, 1)
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -809,7 +891,10 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-constexpr int ERR_UNSUPPORTED = -1;  // head width not 64 or 128 (the wrapper pads)
+// head width with no layout here: the forward and dK/dV take 64, 128 and
+// 256, dQ 64 and 128 (the wrapper pads a head to one of these, and sends a
+// bf16 dQ at 256 and every other width to flash_attention.cu)
+constexpr int ERR_UNSUPPORTED = -1;
 constexpr int ERR_NO_ENCODER = -2;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_TENSOR_MAP = -3;   // the driver refused a tensor map
 
@@ -853,14 +938,15 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                int S, int H, int KV, int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int rc;
-  if ((rc = make_map(&mq, q, B, S, H * DH, 128)) || (rc = make_map(&mk, k, B, S, KV * DH, 128)) ||
-      (rc = make_map(&mv, v, B, S, KV * DH, 128)))
+  constexpr int BK = FwdLayout<DH>::BK;
+  if ((rc = make_map(&mq, q, B, S, H * DH, 128)) || (rc = make_map(&mk, k, B, S, KV * DH, BK)) ||
+      (rc = make_map(&mv, v, B, S, KV * DH, BK)))
     return rc;
   const int smem = FwdLayout<DH>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(fa_fwd_wgmma_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fa_fwd_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), NTHREADS, smem, stream>>>(
+  fa_fwd_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), CONSUMERS, smem, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, lse, S, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -878,7 +964,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaFuncSetAttribute(fa_bwd_dkv_wgmma_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dkv_wgmma_kernel<DH><<<dim3((S + 63) / 64, KV, B), NTHREADS, smem, stream>>>(
+  fa_bwd_dkv_wgmma_kernel<DH><<<dim3((S + 63) / 64, KV, B),
+                                dkv_producer<DH>() ? WITH_PRODUCER : CONSUMERS, smem, stream>>>(
       mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, SL, H, KV,
       causal, scale);
   return (int)cudaGetLastError();
@@ -898,15 +985,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_wgmma_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dq_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), NTHREADS, smem, stream>>>(
+  fa_bwd_dq_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), WITH_PRODUCER, smem, stream>>>(
       mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dq, S, SL, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes; bf16 tensors only, dh 64 or 128; SL, the row
-// length of lse and delta in the backward, a multiple of 64 and >= S.
+// Plain C interface for ctypes; bf16 tensors only, dh 64, 128 or 256 (dQ: 64
+// or 128); SL, the row length of lse and delta in the backward, a multiple of
+// 64 and >= S.
 // Returns 0 when the kernel was launched, a cudaError_t, or a negative ERR_
 // code.
 extern "C" {
@@ -918,6 +1006,8 @@ int strom_fa_fwd_sm90(int dh, const void* q, const void* k, const void* v, void*
     return launch_fwd<64>(q, k, v, o, lse, B, S, H, KV, causal, scale, (cudaStream_t)stream);
   if (dh == 128)
     return launch_fwd<128>(q, k, v, o, lse, B, S, H, KV, causal, scale, (cudaStream_t)stream);
+  if (dh == 256)
+    return launch_fwd<256>(q, k, v, o, lse, B, S, H, KV, causal, scale, (cudaStream_t)stream);
   return ERR_UNSUPPORTED;
 }
 
@@ -930,6 +1020,9 @@ int strom_fa_bwd_dkv_sm90(int dh, const void* q, const void* k, const void* v,
                           (cudaStream_t)stream);
   if (dh == 128)
     return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, SL, H, KV, causal,
+                           scale, (cudaStream_t)stream);
+  if (dh == 256)
+    return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, B, S, SL, H, KV, causal,
                            scale, (cudaStream_t)stream);
   return ERR_UNSUPPORTED;
 }

@@ -5,7 +5,8 @@ Counterpart of ``strom/ops/flash_attention.py``, with its signature and
 layout: q ``[B, S, H, Dh]``, k and v ``[B, S, KV, Dh]`` (GQA, q head h reads
 kv head h // (H / KV)), out ``[B, S, H, Dh]``, and the per-row logsumexp
 ``lse`` in the ``[B, H, S, 1]`` f32 layout. The three Pallas kernels map to
-CUDA kernels under ``strom_torch/csrc/``; the dtype picks the kernel:
+CUDA kernels under ``strom_torch/csrc/``; ``kernel_route`` picks the kernel
+by dtype and padded head width:
 
 ======================  ====================================  ==========================  =====================
 Pallas (TPU)            bf16 (H100, sm_90a)                   float32 (H100, sm_90a)      plain PyTorch version
@@ -16,8 +17,9 @@ Pallas (TPU)            bf16 (H100, sm_90a)                   float32 (H100, sm_
 ======================  ====================================  ==========================  =====================
 
 ``flash_attention_sm90.cu`` holds the bf16 tensor-core kernels (wgmma, TMA,
-warp-specialised); ``flash_attention.cu`` the scalar-FMA kernels, which
-also take bf16 heads wider than 128 (the wgmma layouts stop at 128). The
+warp-specialised) for heads up to 128, and the forward and dK/dV at 256;
+``flash_attention.cu`` the scalar-FMA kernels, which also take the bf16
+dQ at 256 and bf16 heads wider than 256. The
 source note in each ``.cu`` file says what bounds its kernels on the card
 and what their design does about it. Dispatch is by the tensors' device, never
 by a failure: CPU tensors take the plain version; CUDA tensors launch the
@@ -50,20 +52,32 @@ from strom_torch.ops import build
 
 _NEG_BIG = -0.7 * torch.finfo(torch.float32).max
 KERNEL_TILE = 64   # the CUDA kernels' q and kv tile (rows)
-KERNEL_HEAD_DIMS = (64, 128)   # the tensor-core kernels' widths
+KERNEL_HEAD_DIMS = (64, 128)   # the widths a head up to 128 pads to
 WIDE_CHUNK = 128   # above 128 the scalar kernels take multiples of this
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "flash_attention.cu"
 _SOURCE_SM90 = "flash_attention_sm90.cu"
 
-# Launches per kernel: each wrapper adds one where it launches its kernel.
+# Launches per kernel: each wrapper adds one where it launches its kernel,
+# under the kernel's name in LAUNCHES and under the variant that ran in
+# VARIANT_LAUNCHES (``variant``: name, library and dtype).
 LAUNCHES: collections.Counter = collections.Counter(
     {"fa_fwd": 0, "fa_bwd_dkv": 0, "fa_bwd_dq": 0})
+VARIANT_LAUNCHES: collections.Counter = collections.Counter()
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def variant(name: str, library: str, dtype: torch.dtype) -> str:
+    """The ``VARIANT_LAUNCHES`` key of kernel *name* launched from
+    *library* (``"sm90"`` or ``"scalar"``, as ``kernel_route`` says) on
+    inputs of *dtype*: e.g. ``"fa_fwd@sm90/bf16"``."""
+    return f"{name}@{library}/{_DTYPE_NAMES[dtype]}"
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
 
 
 def _blocks(S: int, block_q: int, block_k: int) -> tuple[int, int]:
@@ -120,7 +134,8 @@ def _sm90_lib() -> ctypes.CDLL:
 def kernel_head_dim(Dh: int) -> int:
     """The width the wrappers zero-pad a head of *Dh* to: 64 or 128 (the
     widths of both kernel families), above 128 the next multiple of
-    ``WIDE_CHUNK`` (the scalar kernels, which take any such width)."""
+    ``WIDE_CHUNK`` (the scalar kernels, which take any such width; the
+    wgmma forward and dK/dV take 256 too)."""
     if Dh < 1:
         raise ValueError(f"head dim must be positive, got {Dh}")
     for width in KERNEL_HEAD_DIMS:
@@ -167,18 +182,30 @@ _LAUNCH_ERRORS = {-1: "unsupported dtype/head dim",
                   -3: "cuTensorMapEncodeTiled refused a tensor map"}
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, library: str, dtype: torch.dtype, fn, *args) -> None:
+    """Call launcher *fn* of kernel *name* in *library*; count the launch,
+    or raise if *fn* refused it."""
     rc = fn(*args)
     if rc != 0:
         msg = _LAUNCH_ERRORS.get(rc) or \
             _kernel_lib().strom_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed ({rc}): {msg}")
     LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[variant(name, library, dtype)] += 1
 
 
-def _tensor_cores(dtype: torch.dtype, width: int) -> bool:
-    """True where the wgmma kernels take the launch: bf16 up to 128."""
-    return dtype == torch.bfloat16 and width <= KERNEL_HEAD_DIMS[-1]
+# The padded head widths the sm90 (wgmma) kernels take in bf16, by kernel.
+SM90_WIDTHS = {"fa_fwd": (64, 128, 256), "fa_bwd_dkv": (64, 128, 256),
+               "fa_bwd_dq": (64, 128)}
+
+
+def kernel_route(name: str, dtype: torch.dtype, width: int) -> str:
+    """The library that launches kernel *name* (a ``LAUNCHES`` key) for
+    inputs of *dtype* zero-padded to *width*: ``"sm90"`` (the wgmma kernels
+    of flash_attention_sm90.cu) for bf16 at the widths in ``SM90_WIDTHS``,
+    else ``"scalar"`` (flash_attention.cu)."""
+    return "sm90" if dtype == torch.bfloat16 and width in SM90_WIDTHS[name] \
+        else "scalar"
 
 
 def _unpad(t: torch.Tensor, Dh: int) -> torch.Tensor:
@@ -186,7 +213,7 @@ def _unpad(t: torch.Tensor, Dh: int) -> torch.Tensor:
 
 
 def _flash_fwd_kernel(q, k, v, *, causal: bool):
-    """bf16 up to Dh 128: the wgmma kernel; else the scalar kernel."""
+    """The kernel ``kernel_route`` names: wgmma or scalar."""
     _check_kernel_inputs((q, k, v))
     B, S, H, Dh = q.shape
     width = kernel_head_dim(Dh)
@@ -198,11 +225,12 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool):
             1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tensor_cores(q.dtype, width):
-            _launch("fa_fwd", _sm90_lib().strom_fa_fwd_sm90, width, *ptrs,
-                    stream)
+        library = kernel_route("fa_fwd", q.dtype, width)
+        if library == "sm90":
+            _launch("fa_fwd", library, q.dtype, _sm90_lib().strom_fa_fwd_sm90,
+                    width, *ptrs, stream)
         else:
-            _launch("fa_fwd", _kernel_lib().strom_fa_fwd,
+            _launch("fa_fwd", library, q.dtype, _kernel_lib().strom_fa_fwd,
                     _KERNEL_DTYPES[q.dtype], width, *ptrs, stream)
     return _unpad(out, Dh), lse
 
@@ -221,11 +249,13 @@ def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
             B, S, SL, H, k.shape[2], int(causal), 1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if _tensor_cores(q.dtype, width):
-            _launch(name, getattr(_sm90_lib(), f"strom_{name}_sm90"), *args,
-                    stream)
+        library = kernel_route(name, q.dtype, width)
+        if library == "sm90":
+            _launch(name, library, q.dtype,
+                    getattr(_sm90_lib(), f"strom_{name}_sm90"), *args, stream)
         else:
-            _launch(name, getattr(_kernel_lib(), f"strom_{name}"),
+            _launch(name, library, q.dtype,
+                    getattr(_kernel_lib(), f"strom_{name}"),
                     _KERNEL_DTYPES[q.dtype], *args, stream)
 
 
@@ -243,7 +273,7 @@ def _padded_empty(t: torch.Tensor) -> torch.Tensor:
 
 
 def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
-    """bf16 up to Dh 128: the wgmma kernel; else the scalar kernel."""
+    """The kernel ``kernel_route`` names: wgmma or scalar."""
     _check_bwd_inputs(q, k, v, g, lse, delta)
     dk, dv = _padded_empty(k), _padded_empty(v)
     _bwd_launch("fa_bwd_dkv", q, k, v, g, lse, delta, (dk, dv), causal)
@@ -252,7 +282,7 @@ def _bwd_dkv_kernel(q, k, v, g, lse, delta, *, causal: bool):
 
 
 def _bwd_dq_kernel(q, k, v, g, lse, delta, *, causal: bool):
-    """bf16 up to Dh 128: the wgmma kernel; else the scalar kernel."""
+    """The kernel ``kernel_route`` names: wgmma or scalar."""
     _check_bwd_inputs(q, k, v, g, lse, delta)
     dq = _padded_empty(q)
     _bwd_launch("fa_bwd_dq", q, k, v, g, lse, delta, (dq,), causal)

@@ -12,6 +12,7 @@ package, so it runs on a machine that has only PyTorch:
 """
 
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -69,8 +70,10 @@ def test_kernels_take_the_reference_shapes(cuda_device, dtype, causal, S, Dh):
 @pytest.mark.parametrize("S", [63, 192])
 @pytest.mark.parametrize("Dh", [160, 256, 320])
 def test_kernels_take_wide_heads(cuda_device, dtype, causal, S, Dh):
-    """Heads wider than 128 run the scalar kernels in both dtypes
-    (zero-padded to a multiple of 128) against the plain versions at the same tolerances."""
+    """Heads wider than 128 (zero-padded to a multiple of 128) against the
+    plain versions at the same tolerances: in bf16 at Dh 160 and 256 the
+    wgmma forward and dK/dV beside the scalar dQ, else the scalar
+    kernels."""
     _check_kernels_against_plain(cuda_device, dtype, causal, 1, S, 4, 2, Dh)
 
 
@@ -171,6 +174,95 @@ def test_dq_kernel_by_dtype(cuda_device):
     assert "fa_bwd_dq_wgmma_kernel" in names[torch.bfloat16]
     assert "fa_bwd_dq_kernel" in names[torch.float32]
     assert "fa_bwd_dq_wgmma_kernel" not in names[torch.float32]
+
+
+@pytest.mark.parametrize("Dh", [256, 320])
+def test_wide_kernels_by_name(cuda_device, Dh):
+    """bf16 at Dh 256: the forward and dK/dV run the wgmma kernels, dQ the
+    scalar one; at Dh 320 all three run the scalar kernels. The kernels'
+    names as the profiler sees them on the device, and the one variant
+    (kernel, library, dtype) each call counts a launch under."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q = torch.randn(1, 128, 2, Dh, generator=gen, device=cuda_device).bfloat16()
+    k = torch.randn(1, 128, 1, Dh, generator=gen, device=cuda_device).bfloat16()
+    lse = torch.zeros(1, 2, 128, 1, device=cuda_device)
+    calls = {"fa_fwd": lambda: tfa._flash_fwd_kernel(q, k, k, causal=True),
+             "fa_bwd_dkv": lambda: tfa._bwd_dkv_kernel(q, k, k, q, lse, lse,
+                                                       causal=True),
+             "fa_bwd_dq": lambda: tfa._bwd_dq_kernel(q, k, k, q, lse, lse,
+                                                     causal=True)}
+    for name, call in calls.items():
+        before = collections.Counter(tfa.VARIANT_LAUNCHES)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = " ".join(e.name for e in prof.events())
+        wgmma = Dh == 256 and name != "fa_bwd_dq"
+        assert (f"{name}_wgmma_kernel" in names) == wgmma, (name, names)
+        assert (f"{name}_kernel" in names) == (not wgmma), (name, names)
+        library = "sm90" if wgmma else "scalar"
+        assert tfa.VARIANT_LAUNCHES - before == collections.Counter(
+            {tfa.variant(name, library, torch.bfloat16): 1})
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [192, 2048])
+def test_bf16_dkv_rounds_like_plain(cuda_device, causal, S):
+    """The bf16 dK/dV kernel at Dh 256 (wgmma) rounds P to bf16 before dV
+    and dS to bf16 before dK, once, as the JAX package and the bf16 plain
+    version do. Given the same lse and Δ, the two differ only where f32 sums
+    in another order cross a bf16 rounding: within one bf16 ulp (8e-3
+    relative) plus 2e-3 of the largest value, and in under 5 % of the
+    elements. P kept in f32 before dV (the plain version fed v in f32, its
+    dv rounded to bf16 at the end) and dS kept in f32 before dK (fed q in
+    f32) each move some 40 % of them, which shows the share can tell."""
+    B, H, KV, Dh = 1, 4, 2, 256
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, g = (torch.randn(*s, generator=gen, device=cuda_device)
+                  .to(torch.bfloat16)
+                  for s in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh),
+                            (B, S, H, Dh)))
+    blk = dict(causal=causal, block_q=64, block_k=64)
+    out, lse = tfa._flash_fwd(q, k, v, **blk)
+    delta = tfa._delta(out, g)
+    before = tfa.LAUNCHES["fa_bwd_dkv"]
+    dk, dv = tfa._bwd_dkv_kernel(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fa_bwd_dkv"] == before + 1
+    _, pdk, pdv = tfa._flash_bwd_plain(q, k, v, g, lse, delta, **blk)
+    f32_ds = tfa._flash_bwd_plain(q.float(), k, v, g, lse, delta, **blk)[1]
+    f32_p = tfa._flash_bwd_plain(q, k, v.float(), g, lse, delta,
+                                 **blk)[2].to(torch.bfloat16)
+    for got, plain, f32 in ((dk, pdk, f32_ds), (dv, pdv, f32_p)):
+        assert got.dtype == plain.dtype == f32.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), plain.float(), rtol=8e-3,
+                                   atol=2e-3 * plain.float().abs().max().item())
+        assert (got != plain).float().mean().item() < 0.05
+        assert (f32 != plain).float().mean().item() > 0.30
+
+
+def test_sm90_dq_refuses_width_256(cuda_device):
+    """The tensor-core library has no dQ at width 256: asked for one it
+    refuses, the launch raises and counts nothing. The route sends that dQ
+    to the scalar kernel, so no wrapper asks."""
+    S, H, KV = 128, 2, 1
+    q = torch.zeros(1, S, H, 256, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros(1, S, KV, 256, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, H, S, device=cuda_device)
+    dq = torch.empty_like(q)
+    before = tfa.LAUNCHES["fa_bwd_dq"]
+    variants = dict(tfa.VARIANT_LAUNCHES)
+    with pytest.raises(RuntimeError, match="unsupported"):
+        tfa._launch("fa_bwd_dq", "sm90", torch.bfloat16,
+                    tfa._sm90_lib().strom_fa_bwd_dq_sm90, 256, q.data_ptr(),
+                    k.data_ptr(), k.data_ptr(), q.data_ptr(), lse.data_ptr(),
+                    lse.data_ptr(), dq.data_ptr(), 1, S, S, H, KV, 1, 1.0 / 16,
+                    torch.cuda.current_stream().cuda_stream)
+    assert tfa.LAUNCHES["fa_bwd_dq"] == before
+    assert dict(tfa.VARIANT_LAUNCHES) == variants
+    assert tfa.kernel_route("fa_bwd_dq", torch.bfloat16, 256) == "scalar"
 
 
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):

@@ -67,6 +67,50 @@ def test_kernel_head_dim_refuses_empty_heads(Dh):
         tfa.kernel_head_dim(Dh)
 
 
+@pytest.mark.parametrize("kernel", ["fa_fwd", "fa_bwd_dkv", "fa_bwd_dq"])
+@pytest.mark.parametrize("Dh", [32, 64, 96, 128, 160, 192, 256, 320, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_route(dtype, Dh, kernel):
+    """Which library launches each kernel, at the width the wrappers pad
+    *Dh* to: bf16 up to 128 runs the wgmma kernels for all three; bf16 of
+    129-256 (padded to 256) the wgmma forward and dK/dV beside the scalar
+    dQ; f32 at every head and bf16 above 256 the scalar kernels."""
+    wgmma = dtype == torch.bfloat16 and (
+        Dh <= 128 or (Dh <= 256 and kernel != "fa_bwd_dq"))
+    route = tfa.kernel_route(kernel, dtype, tfa.kernel_head_dim(Dh))
+    assert route == ("sm90" if wgmma else "scalar")
+
+
+@pytest.mark.parametrize("rc", [0, -1])
+@pytest.mark.parametrize("library, dtype, key", [
+    ("sm90", torch.bfloat16, "fa_bwd_dkv@sm90/bf16"),
+    ("scalar", torch.float32, "fa_bwd_dkv@scalar/f32")])
+def test_launch_counts_by_variant(library, dtype, key, rc):
+    """A launch counts once under the kernel's name and once under its
+    variant (kernel, library, dtype); a launch the library refuses raises
+    and counts nothing; reset_launch_counts zeroes both. A stand-in
+    launcher returns *rc* (0: launched; -1: unsupported width)."""
+    saved = (dict(tfa.LAUNCHES), dict(tfa.VARIANT_LAUNCHES))
+    tfa.reset_launch_counts()
+    try:
+        if rc:
+            with pytest.raises(RuntimeError, match="unsupported"):
+                tfa._launch("fa_bwd_dkv", library, dtype, lambda *a: rc, 256)
+        else:
+            tfa._launch("fa_bwd_dkv", library, dtype, lambda *a: rc, 256)
+        assert dict(tfa.LAUNCHES) == {"fa_fwd": 0, "fa_bwd_dq": 0,
+                                      "fa_bwd_dkv": 0 if rc else 1}
+        assert dict(tfa.VARIANT_LAUNCHES) == ({} if rc else {key: 1})
+        assert tfa.variant("fa_bwd_dkv", library, dtype) == key
+        tfa.reset_launch_counts()
+        assert not any(tfa.LAUNCHES.values()) and not tfa.VARIANT_LAUNCHES
+    finally:
+        for counter, values in zip((tfa.LAUNCHES, tfa.VARIANT_LAUNCHES),
+                                   saved):
+            counter.clear()
+            counter.update(values)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("S", [64, 128])
 @pytest.mark.parametrize("Dh", [160, 256, 320])
