@@ -17,17 +17,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
                events, median of 5 runs with min and max, beside its
                bound and SDPA's forward or backward time. Then head dims
                160, 192, 256, 320 and 512 (zero-padded to a multiple of
-               128; bf16 at 256 runs the wgmma forward and dK/dV and the
-               scalar dQ, every other wide head the scalar kernels) at S 63
-               and 192, and the three kernels timed at Gemma-2-9B's
-               attention shape (B 2, S 2048, H 16, KV 8, Dh 256, bf16,
-               causal). Last, the scalar f32 kernels timed at the main
+               128; bf16 at 256 runs the three wgmma kernels, dq with its
+               dS rounding checked, every other wide head the scalar
+               kernels) at S 63 and 192, and the three kernels timed at
+               Gemma-2-9B's attention shape (B 2, S 2048, H 16, KV 8,
+               Dh 256, bf16, causal): ms, TFLOP/s, bound and SDPA's time,
+               and the backward pair over SDPA's backward. Last, the
+               scalar f32 kernels timed at the main
                shape beside SDPA in f32 with TF32 off (the "_f32" rows of
                the JSON; no f32 call is on the main path).
 2b. wide_path -- flash_attention, forward and backward, at that shape:
                the wide kernels' launches (the "_wide" rows of the JSON),
                counted per kernel, library and dtype: each row's kernel
-               must have run from the source the row names, and from no
+               must have run from the source the row names (all three the
+               wgmma kernels of flash_attention_sm90.cu), and from no
                other.
 3. ssd2gpu  -- the [engine] line (io_uring available or why not, the
                engine engine="auto" chose, the native library's build time);
@@ -188,9 +191,10 @@ for _name, _info in KERNELS.items():
                                                    torch.bfloat16))
 SCALAR_DESIGN = "scalar f32 FMA, 128-column head chunks"
 # the kernels bf16 heads of 129-256 run (padded to 256, counted under the
-# same names): the wgmma forward and dK/dV, the scalar dQ; their path is
+# same names): the three wgmma kernels at width 256; their path is
 # flash_attention at Gemma-2-9B's attention shape (phase 2b), which checks
-# each source against the library its launches were counted under
+# each source against the library its launches were counted under (a wide
+# dQ launched from the scalar library fails the run)
 WIDE_KERNELS = {
     f"{name}_wide": {"counter": name, "replaces": KERNELS[name]["replaces"],
                      "source": source, "design": design,
@@ -201,7 +205,8 @@ WIDE_KERNELS = {
          "warpgroup"),
         ("fa_bwd_dkv", SM90, "wgmma, 2-stage ring, one P^T buffer, no "
          "producer warpgroup"),
-        ("fa_bwd_dq", SCALAR, SCALAR_DESIGN))}
+        ("fa_bwd_dq", SM90, "wgmma, 256 threads (no producer warpgroup), "
+         "K/V slot ring: K double-buffered, V in one slot"))}
 # the f32 kernels (flash_attention.cu at every head), timed at the main
 # shape; no f32 call is on the main path, which runs bf16
 F32_KERNELS = {
@@ -389,7 +394,7 @@ def _run_kernels(q, k, v, g, causal):
 
 
 # heads wider than 128 (zero-padded to 256, 384 or 512; bf16 at 256 runs the
-# wgmma forward and dK/dV), S a multiple of 64 and S off the 64-row tile
+# three wgmma kernels), S a multiple of 64 and S off the 64-row tile
 WIDE_SHAPES = [(1, S, 4, 2, Dh) for Dh in (160, 192, 256, 320, 512)
                for S in (63, 192)]
 
@@ -406,8 +411,9 @@ SMALL_SHAPES = [(1, 256, 4, 2, 64), (2, 128, 4, 4, 128),
 def check_kernels_small(shapes=SMALL_SHAPES) -> None:
     """*shapes*, causal and not. f32 inputs run the scalar kernels, bf16
     the ones fa.kernel_route names (heads above 128: the scalar kernels
-    but the wgmma forward and dK/dV at width 256). The plain versions take one block of S rows where 64 does not
-    divide S, as the reference requires."""
+    but the three wgmma kernels at width 256); bf16 dq must round dS as
+    the JAX package does. The plain versions take one block of S rows
+    where 64 does not divide S, as the reference requires."""
     for (B, S, H, KV, Dh) in shapes:
         block = S if S % 64 else 64
         for causal in (True, False):
@@ -473,7 +479,7 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
 def phase_kernels() -> dict:
     """SMALL_SHAPES and WIDE_SHAPES against the plain versions; then bf16 at
     the main path's, small's and Gemma-2-9B's shapes (the last runs the
-    wgmma forward and dK/dV at width 256 and the scalar dQ), causal: each
+    three wgmma kernels at width 256), causal: each
     kernel against the plain versions on the same bf16 inputs (BF16_TOL)
     and in f32 (BF16_VS_F32_TOL), then timed beside its bound, the plain
     version and SDPA (forward for fa_fwd; backward for the fa_bwd_dkv +

@@ -6,8 +6,8 @@
 //   fa_fwd_wgmma_kernel      <- _fa_kernel          :42  (launched by _flash_fwd)
 //   fa_bwd_dkv_wgmma_kernel  <- _fa_bwd_dkv_kernel  :158 (launched by _flash_bwd)
 //   fa_bwd_dq_wgmma_kernel   <- _fa_bwd_dq_kernel   :204 (launched by _flash_bwd)
-// f32 inputs, bf16 heads above 256, and the bf16 dQ above 128 take the
-// scalar kernels of flash_attention.cu; the wrapper's route (kernel_route in
+// f32 inputs and bf16 heads above 256 take the scalar kernels of
+// flash_attention.cu; the wrapper's route (kernel_route in
 // strom_torch/ops/flash_attention.py) picks the library per kernel.
 //
 // What bounds them on an H100: attention at the main path's shape does
@@ -17,11 +17,12 @@
 // 0.07 ms for the forward (4*Dh flops per (q, kv) pair), 0.14 ms for dK/dV
 // (8*Dh) and 0.10 ms for dQ (6*Dh). The design puts every product on the
 // tensor cores and keeps them fed (FlashAttention-3's shape):
-//   - warpgroups 0 and 1 consume (wgmma). In dQ, and in dK/dV up to DH 128,
+//   - warpgroups 0 and 1 consume (wgmma). In dQ and dK/dV up to DH 128,
 //     one thread of a third warpgroup produces (TMA; 384 threads); in dQ
-//     setmaxnreg moves registers from it (24) to the consumers (240), one
-//     big if/else, so the two roles never reconverge. The forward at every
-//     width, and dK/dV at DH 256, have no producer group (256 threads):
+//     setmaxnreg moves registers from it (24) to the consumers (240), and
+//     the producer returns, so the two roles never reconverge. The forward
+//     at every width, and dK/dV and dQ at DH 256, have no producer group
+//     (256 threads):
 //     thread 0 issues each load while a tile's first wgmma runs, once the
 //     stage it fills is free, and then the warp reconverges (__syncwarp)
 //     before its next .aligned instruction. On an H100 (700 W) at B 2,
@@ -31,8 +32,9 @@
 //     warpgroups run in lockstep;
 //   - TMA loads each tile into 128-byte-swizzled shared memory, signalled on
 //     an mbarrier; a ring of full/empty barriers (2 stages forward, 3 dK/dV
-//     and dQ, 2 dK/dV at DH 256) lets the next tiles land while the current
-//     one is multiplied;
+//     and dQ, 2 dK/dV at DH 256; dQ at DH 256: 3 one-tile slots, two for K
+//     and one for V) lets the next tiles land while the current one is
+//     multiplied;
 //   - products are wgmma m64nNk16, bf16 x bf16 -> f32 in registers. Operands
 //     read straight from the swizzled tiles are K-major (Q.K^T, K.Q^T, V.dO^T,
 //     dO.V^T) or MN-major (the "transpose B" flag: V in P.V, dO in P^T.dO, Q
@@ -59,7 +61,8 @@
 // tiles (2qi and 2qi + 1), so both are masked elementwise; for warpgroup 0
 // the second is wholly masked (P = 0) but still takes part in the
 // warpgroup's wgmmas and in the ring's barriers. Each CTA owns its dQ rows:
-// no atomics, no second pass, a deterministic result.
+// no atomics, no second pass, a deterministic result. dQ takes DH 64, 128
+// and 256.
 //
 // At DH 256 (heads of 129-256, zero-padded) the forward streams 64-row kv
 // tiles as dQ does, with dQ's masking of the two diagonal tiles: Q (64 KB)
@@ -71,7 +74,14 @@
 // registers a 384-thread block gets, setmaxnreg notwithstanding. So at DH
 // 256 dK/dV drops its producer warpgroup, as the forward does at every
 // width (256 threads, up to 255 registers; ptxas gives the forward 199 and
-// dK/dV 211, no spill). The bf16 dQ at DH 256 runs the scalar kernel.
+// dK/dV 211, no spill). dQ at DH 256 keeps its shape with no producer
+// either: Q and dO (128 KB) leave room for three 32 KB one-tile slots, not
+// three 64 KB K+V stages (231,488 bytes in all; the sum is under
+// DqLayout). Its consumer holds dQ's m64n256 accumulator (128 f32), S and
+// dP (32 + 32) and dS's bf16 fragments (16): 208 before addresses, kept
+// under 255 by writing dS over S, so dP dies before the four packs (ptxas
+// gives it 218, no spill). dS.K is one m64n256k16 chain over K's four
+// boxes, as P.V is in the forward.
 //
 // Where the trouble was, and what the code does about it:
 //   - TMA descriptors: cuTensorMapEncodeTiled is reached through
@@ -114,7 +124,7 @@
 //
 // Layouts are those of flash_attention.cu: q, o, dO, dq [B, S, H, Dh]; k, v,
 // dk, dv [B, S, KV, Dh]; lse [B, H, S] f32 out of the forward, lse and delta
-// [B, H, SL] f32 into the backward. Dh is 64, 128 or 256 (dQ: 64 or 128):
+// [B, H, SL] f32 into the backward. Dh is 64, 128 or 256 for all three:
 // the wrapper zero-pads a narrower head (exact: zero columns add nothing to
 // Q.K^T and give zero output and gradient columns, which it slices off).
 
@@ -126,9 +136,9 @@
 
 namespace {
 
-// Warpgroups 0 and 1 consume: they arrive on an "empty" barrier. dQ, and
-// dK/dV up to DH 128, add warpgroup 2, one thread of which loads; in the
-// forward, and in dK/dV at DH 256, thread 0 loads (ptxas gives a 384-thread
+// Warpgroups 0 and 1 consume: they arrive on an "empty" barrier. dQ and
+// dK/dV up to DH 128 add warpgroup 2, one thread of which loads; in the
+// forward, and in dK/dV and dQ at DH 256, thread 0 loads (ptxas gives a 384-thread
 // block 168 registers a thread, too few for DH 256's accumulators; a
 // 256-thread block up to 255).
 constexpr int CONSUMERS = 256;
@@ -709,13 +719,25 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ----------------------------------------------------------- backward dQ
 // One CTA per (128-row q tile, q head, batch), longest causal rows first;
 // warpgroup w owns q rows 64w..64w+63 of the tile. Q, dO, lse and delta of
-// the tile stay resident; K and V tiles of 64 kv rows go through a
-// DQ_STAGES-stage TMA ring. Per kv tile, each consumer warpgroup computes
+// the tile stay resident; K and V tiles of 64 kv rows stream in by TMA. Per
+// kv tile, each consumer warpgroup computes
 //   S = Q.K^T and dP = dO.V^T (one commit group),
 //   P = exp(S*scale - lse), dS = P o (dP - delta)*scale, rounded to bf16,
 //   dQ += bf16(dS).K
 // with its 64 x Dh f32 dQ in registers.
-constexpr int DQ_STAGES = 3;
+// Up to DH 128 a producer warpgroup streams K and V together through a
+// DQ_STAGES-stage ring (384 threads). At DH 256 one K+V stage is 64 KB and
+// Q with dO take 128 KB, so three stages would make 320 KB. There the ring
+// holds DQ_STAGES slots of 32 KB, one tile each: K_j in slot j & 1
+// (double-buffered: K_j serves both S and dS.K, so it lives the whole tile)
+// and V_j in slot 2, released as soon as dP is done. Thread 0 issues every
+// load (256 threads, as the forward): K_{j+1} while S_j runs, V_{j+1} while
+// dS_j.K_j runs, so V lands a product ahead and K a tile ahead. Bytes at
+// DH 256: Q 65,536 + dO 65,536 + 3 x 32,768 + lse and delta 1,024 +
+// 7 barriers (64) + 1,024 alignment = 231,488 of a block's 232,448.
+constexpr int DQ_STAGES = 3;  // ring stages (up to DH 128), or slots (DH 256)
+template <int DH>
+__host__ __device__ constexpr bool dq_producer() { return DH <= 128; }
 
 template <int DH>
 struct DqLayout {
@@ -726,15 +748,17 @@ struct DqLayout {
   static constexpr uint32_t Q_OFF = 0;
   static constexpr uint32_t G_OFF = NBOX * Q_BOX;      // dO
   static constexpr uint32_t RING_OFF = 2 * NBOX * Q_BOX;
-  static constexpr uint32_t STAGE = 2 * KV_TILE;       // K tile, then V tile
+  // a stage: K tile, then V tile; a slot (DH 256): one tile
+  static constexpr uint32_t STAGE = dq_producer<DH>() ? 2 * KV_TILE : KV_TILE;
   static constexpr uint32_t LSE_OFF = RING_OFF + DQ_STAGES * STAGE;  // 128 f32
   static constexpr uint32_t DLT_OFF = LSE_OFF + 512;                 // 128 f32
   static constexpr uint32_t BAR_OFF = DLT_OFF + 512;
   static constexpr uint32_t BYTES = BAR_OFF + 64 + 1024;  // + barriers, alignment
+  static_assert(BYTES <= 232448, "dQ's layout exceeds a block's shared memory");
 };
 
 template <int DH>
-__global__ void __launch_bounds__(WITH_PRODUCER, 1)
+__global__ void __launch_bounds__(dq_producer<DH>() ? WITH_PRODUCER : CONSUMERS, 1)
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
@@ -748,7 +772,8 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint8_t* gbase = smem_raw + (base - raw);  // generic pointer to `base`
   const uint32_t sQ = base + L::Q_OFF, sG = base + L::G_OFF, sRing = base + L::RING_OFF;
-  // barriers, 8 bytes each: q, full[DQ_STAGES], empty[DQ_STAGES]
+  // barriers, 8 bytes each: q, full[DQ_STAGES], empty[DQ_STAGES] (one pair
+  // per stage, or per slot)
   const uint32_t bar_q = base + L::BAR_OFF;
   const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * DQ_STAGES;
 
@@ -773,113 +798,161 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   __syncthreads();
 
+  // the loads, each by one thread: Q, dO, lse and delta; at DH 256 K_j into
+  // slot j & 1 and V_j into slot 2, each once the tile before in its slot
+  // is consumed
+  auto load_q = [&]() {
+    const long row = ((long)b * H + h) * SL + q0;
+    mbar_expect_tx(bar_q, 2 * L::NBOX * L::Q_BOX + 8 * lrows);
+    for (int c = 0; c < L::NBOX; ++c) {
+      tma_load_3d(sQ + c * L::Q_BOX, &tm_q, bar_q, h * DH + 64 * c, q0, b);
+      tma_load_3d(sG + c * L::Q_BOX, &tm_do, bar_q, h * DH + 64 * c, q0, b);
+    }
+    bulk_load(base + L::LSE_OFF, lse + row, 4 * lrows, bar_q);
+    bulk_load(base + L::DLT_OFF, delta + row, 4 * lrows, bar_q);
+  };
+  auto load_slot = [&](int s, uint32_t phase, const CUtensorMap* map, int j) {
+    const uint32_t full = bar_full + 8 * s;
+    mbar_wait(bar_empty + 8 * s, phase ^ 1);
+    mbar_expect_tx(full, L::KV_TILE);
+    for (int c = 0; c < L::NBOX; ++c)
+      tma_load_3d(sRing + s * L::STAGE + c * L::KV_BOX, map, full, kvh * DH + 64 * c,
+                  j * 64, b);
+  };
+  auto load_k = [&](int j) { load_slot(j & 1, (j >> 1) & 1, &tm_k, j); };
+  auto load_v = [&](int j) { load_slot(2, j & 1, &tm_v, j); };
+
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
-    // ---------------- producer: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      const long row = ((long)b * H + h) * SL + q0;
-      mbar_expect_tx(bar_q, 2 * L::NBOX * L::Q_BOX + 8 * lrows);
-      for (int c = 0; c < L::NBOX; ++c) {
-        tma_load_3d(sQ + c * L::Q_BOX, &tm_q, bar_q, h * DH + 64 * c, q0, b);
-        tma_load_3d(sG + c * L::Q_BOX, &tm_do, bar_q, h * DH + 64 * c, q0, b);
-      }
-      bulk_load(base + L::LSE_OFF, lse + row, 4 * lrows, bar_q);
-      bulk_load(base + L::DLT_OFF, delta + row, 4 * lrows, bar_q);
-      for (int j = 0; j < nkv; ++j) {
-        const int s = j % DQ_STAGES;
-        const uint32_t st = sRing + s * L::STAGE, full = bar_full + 8 * s;
-        mbar_wait(bar_empty + 8 * s, ((j / DQ_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full, L::STAGE);
-        for (int c = 0; c < L::NBOX; ++c) {
-          tma_load_3d(st + c * L::KV_BOX, &tm_k, full, kvh * DH + 64 * c, j * 64, b);
-          tma_load_3d(st + L::KV_TILE + c * L::KV_BOX, &tm_v, full, kvh * DH + 64 * c,
-                      j * 64, b);
+  if constexpr (dq_producer<DH>()) {
+    if (wg == 2) {
+      // ---------------- producer: one thread issues every load
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+      if (threadIdx.x == 256) {
+        load_q();
+        for (int j = 0; j < nkv; ++j) {
+          const int s = j % DQ_STAGES;
+          const uint32_t st = sRing + s * L::STAGE, full = bar_full + 8 * s;
+          mbar_wait(bar_empty + 8 * s, ((j / DQ_STAGES) & 1) ^ 1);
+          mbar_expect_tx(full, L::STAGE);
+          for (int c = 0; c < L::NBOX; ++c) {
+            tma_load_3d(st + c * L::KV_BOX, &tm_k, full, kvh * DH + 64 * c, j * 64, b);
+            tma_load_3d(st + L::KV_TILE + c * L::KV_BOX, &tm_v, full, kvh * DH + 64 * c,
+                        j * 64, b);
+          }
         }
       }
+      return;
     }
-  } else {
-    // ---------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-    const int r = wg * 64 + warp * 16 + lane / 4;  // rows r, r + 8 of the tile
-    const float c = scale * LOG2E;
-    float acc[DH / 2];  // dQ: 64 q rows x Dh
-    zero(acc);
+  } else {
+    if (threadIdx.x == 0) {
+      load_q();
+      load_k(0);
+      load_v(0);
+      if (nkv > 1) load_k(1);
+    }
+    __syncwarp();  // warp 0 converged before its next .aligned wgmma
+  }
 
-    mbar_wait(bar_q, 0);
-    const float* lse_s = reinterpret_cast<const float*>(gbase + L::LSE_OFF);
-    const float* dlt_s = reinterpret_cast<const float*>(gbase + L::DLT_OFF);
-    // a row past S (zeros from TMA, no lse or delta loaded) gets P = 0, dS = 0;
-    // lim: the last kv column each of the thread's two rows sees (the
-    // diagonal, causal, and the end of S), so a masked tile tests one bound
-    float lse2[2], dlt[2];
-    int lim[2];
+  // ---------------- consumers
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r = wg * 64 + warp * 16 + lane / 4;  // rows r, r + 8 of the tile
+  const float c = scale * LOG2E;
+  float acc[DH / 2];  // dQ: 64 q rows x Dh
+  zero(acc);
+
+  mbar_wait(bar_q, 0);
+  const float* lse_s = reinterpret_cast<const float*>(gbase + L::LSE_OFF);
+  const float* dlt_s = reinterpret_cast<const float*>(gbase + L::DLT_OFF);
+  // a row past S (zeros from TMA, no lse or delta loaded) gets P = 0, dS = 0;
+  // lim: the last kv column each of the thread's two rows sees (the
+  // diagonal, causal, and the end of S), so a masked tile tests one bound
+  float lse2[2], dlt[2];
+  int lim[2];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const bool in = r + 8 * hf < rows;
-      lse2[hf] = in ? lse_s[r + 8 * hf] * LOG2E : INFINITY;
-      dlt[hf] = in ? dlt_s[r + 8 * hf] : 0.f;
-      lim[hf] = causal ? min(q0 + r + 8 * hf, S - 1) : S - 1;
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool in = r + 8 * hf < rows;
+    lse2[hf] = in ? lse_s[r + 8 * hf] * LOG2E : INFINITY;
+    dlt[hf] = in ? dlt_s[r + 8 * hf] : 0.f;
+    lim[hf] = causal ? min(q0 + r + 8 * hf, S - 1) : S - 1;
+  }
+
+  for (int j = 0; j < nkv; ++j) {
+    // K_j's stage (K and V together) or slot, and the phase of its barriers
+    const int ks = dq_producer<DH>() ? j % DQ_STAGES : j & 1;
+    const uint32_t phase = dq_producer<DH>() ? (j / DQ_STAGES) & 1 : (j >> 1) & 1;
+    const uint32_t tK = sRing + ks * L::STAGE;
+    const uint32_t tV = dq_producer<DH>() ? tK + L::KV_TILE : sRing + 2 * L::STAGE;
+    mbar_wait(bar_full + 8 * ks, phase);
+
+    float sc[32], dp[32];  // S and dP: 64 q rows x 64 kv columns
+    zero(sc);
+    zero(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss(sc, kmajor(sQ + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
+               kmajor(tK + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
+    if constexpr (!dq_producer<DH>()) {
+      // while S runs, K_{j+1} goes where K_{j-1} was; then V_j must be in.
+      // Without the fence after the wait ptxas puts its own in the
+      // divergent load path and serialises every wgmma (C7520; 30 % slower
+      // on an H100 at Gemma-2-9B's shape)
+      if (threadIdx.x == 0 && j >= 1 && j + 1 < nkv) load_k(j + 1);
+      __syncwarp();
+      mbar_wait(bar_full + 8 * 2, j & 1);
+      wgmma_fence();
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss(dp, kmajor(sG + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
+               kmajor(tV + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sc);
+    fence_regs(dp);
+    if constexpr (!dq_producer<DH>()) mbar_arrive(bar_empty + 8 * 2);  // V_j is done
+
+    // P = exp(S*scale - lse), zero above the diagonal and in the kv
+    // columns past S; dS = P o (dP - delta)*scale, in place of S
+    const bool masked = (causal && j >= 2 * qi) || (j + 1) * 64 > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hf = (i / 2) % 2;
+      float p = exp2f(sc[i] * c - lse2[hf]);
+      if (masked && j * 64 + frag_col(i, lane) > lim[hf]) p = 0.f;
+      sc[i] = p * (dp[i] - dlt[hf]) * scale;
     }
 
-    for (int j = 0; j < nkv; ++j) {
-      const int s = j % DQ_STAGES;
-      const uint32_t tK = sRing + s * L::STAGE, tV = tK + L::KV_TILE;
-      mbar_wait(bar_full + 8 * s, (j / DQ_STAGES) & 1);
-
-      float sc[32], dp[32];  // S and dP: 64 q rows x 64 kv columns
-      zero(sc);
-      zero(dp);
-      wgmma_fence();
+    // dQ += bf16(dS).K: m64nDHk16, K the MN-major B operand across NBOX
+    // 64-column boxes KV_BOX apart
+    uint32_t fa[4][4];
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss(sc, kmajor(sQ + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
-                 kmajor(tK + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
+    for (int kk = 0; kk < 4; ++kk) to_a_frag(fa[kk], sc, kk);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk)
-        wgmma_ss(dp, kmajor(sG + (kk / 4) * L::Q_BOX + wg * 64 * ROW_BYTES + (kk % 4) * 32),
-                 kmajor(tV + (kk / 4) * L::KV_BOX + (kk % 4) * 32), kk > 0);
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(sc);
-      fence_regs(dp);
-
-      // P = exp(S*scale - lse), zero above the diagonal and in the kv
-      // columns past S; dS = P o (dP - delta)*scale
-      const bool masked = (causal && j >= 2 * qi) || (j + 1) * 64 > S;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int hf = (i / 2) % 2;
-        float p = exp2f(sc[i] * c - lse2[hf]);
-        if (masked && j * 64 + frag_col(i, lane) > lim[hf]) p = 0.f;
-        sc[i] = p * (dp[i] - dlt[hf]) * scale;
-      }
-
-      // dQ += bf16(dS).K
-      uint32_t fa[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) to_a_frag(fa[kk], sc, kk);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs(acc, fa[kk], mnmajor(tK + kk * 16 * ROW_BYTES, L::KV_BOX));
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(acc);
-      mbar_arrive(bar_empty + 8 * s);
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(acc, fa[kk], mnmajor(tK + kk * 16 * ROW_BYTES, L::KV_BOX));
+    wgmma_commit();
+    if constexpr (!dq_producer<DH>()) {
+      // while dS.K runs, V_{j+1} goes where V_j was
+      if (threadIdx.x == 0 && j + 1 < nkv) load_v(j + 1);
+      __syncwarp();
     }
+    wgmma_wait0();
+    fence_regs(acc);
+    mbar_arrive(bar_empty + 8 * ks);
+  }
 
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + r + 8 * hf;
-      if (row < S) {
-        __nv_bfloat16* drow = dq + ((long)b * S + row) * H * DH + (long)h * DH;
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = q0 + r + 8 * hf;
+    if (row < S) {
+      __nv_bfloat16* drow = dq + ((long)b * S + row) * H * DH + (long)h * DH;
 #pragma unroll
-        for (int jj = 0; jj < DH / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(drow + jj * 8 + (lane % 4) * 2) =
-              pack_bf16(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
-      }
+      for (int jj = 0; jj < DH / 8; ++jj)
+        *reinterpret_cast<uint32_t*>(drow + jj * 8 + (lane % 4) * 2) =
+            pack_bf16(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
     }
   }
 }
@@ -891,9 +964,9 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// head width with no layout here: the forward and dK/dV take 64, 128 and
-// 256, dQ 64 and 128 (the wrapper pads a head to one of these, and sends a
-// bf16 dQ at 256 and every other width to flash_attention.cu)
+// head width with no layout here: the forward, dK/dV and dQ take 64, 128
+// and 256 (the wrapper pads a head to one of these, and sends every other
+// width to flash_attention.cu)
 constexpr int ERR_UNSUPPORTED = -1;
 constexpr int ERR_NO_ENCODER = -2;   // the driver has no cuTensorMapEncodeTiled
 constexpr int ERR_TENSOR_MAP = -3;   // the driver refused a tensor map
@@ -985,16 +1058,17 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t e = cudaFuncSetAttribute(fa_bwd_dq_wgmma_kernel<DH>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  fa_bwd_dq_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B), WITH_PRODUCER, smem, stream>>>(
+  fa_bwd_dq_wgmma_kernel<DH><<<dim3((S + 127) / 128, H, B),
+                               dq_producer<DH>() ? WITH_PRODUCER : CONSUMERS, smem, stream>>>(
       mq, mk, mv, mg, lse, delta, (__nv_bfloat16*)dq, S, SL, H, KV, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes; bf16 tensors only, dh 64, 128 or 256 (dQ: 64
-// or 128); SL, the row length of lse and delta in the backward, a multiple of
-// 64 and >= S.
+// Plain C interface for ctypes; bf16 tensors only, dh 64, 128 or 256 for
+// every kernel; SL, the row length of lse and delta in the backward, a
+// multiple of 64 and >= S.
 // Returns 0 when the kernel was launched, a cudaError_t, or a negative ERR_
 // code.
 extern "C" {
@@ -1036,6 +1110,9 @@ int strom_fa_bwd_dq_sm90(int dh, const void* q, const void* k, const void* v,
                          (cudaStream_t)stream);
   if (dh == 128)
     return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, SL, H, KV, causal, scale,
+                          (cudaStream_t)stream);
+  if (dh == 256)
+    return launch_dq<256>(q, k, v, dout, lse, delta, dq, B, S, SL, H, KV, causal, scale,
                           (cudaStream_t)stream);
   return ERR_UNSUPPORTED;
 }

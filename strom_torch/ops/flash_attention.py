@@ -16,10 +16,9 @@ Pallas (TPU)            bf16 (H100, sm_90a)                   float32 (H100, sm_
 ``_fa_bwd_dq_kernel``   ``fa_bwd_dq_wgmma_kernel`` (sm90)     ``fa_bwd_dq_kernel``        ``_flash_bwd_plain``
 ======================  ====================================  ==========================  =====================
 
-``flash_attention_sm90.cu`` holds the bf16 tensor-core kernels (wgmma, TMA,
-warp-specialised) for heads up to 128, and the forward and dK/dV at 256;
-``flash_attention.cu`` the scalar-FMA kernels, which also take the bf16
-dQ at 256 and bf16 heads wider than 256. The
+``flash_attention_sm90.cu`` holds the bf16 tensor-core kernels (wgmma, TMA)
+for heads up to 256; ``flash_attention.cu`` the scalar-FMA kernels, which
+take f32 at every head and bf16 heads wider than 256. The
 source note in each ``.cu`` file says what bounds its kernels on the card
 and what their design does about it. Dispatch is by the tensors' device, never
 by a failure: CPU tensors take the plain version; CUDA tensors launch the
@@ -135,7 +134,7 @@ def kernel_head_dim(Dh: int) -> int:
     """The width the wrappers zero-pad a head of *Dh* to: 64 or 128 (the
     widths of both kernel families), above 128 the next multiple of
     ``WIDE_CHUNK`` (the scalar kernels, which take any such width; the
-    wgmma forward and dK/dV take 256 too)."""
+    three wgmma kernels take 256 too)."""
     if Dh < 1:
         raise ValueError(f"head dim must be positive, got {Dh}")
     for width in KERNEL_HEAD_DIMS:
@@ -196,14 +195,15 @@ def _launch(name: str, library: str, dtype: torch.dtype, fn, *args) -> None:
 
 # The padded head widths the sm90 (wgmma) kernels take in bf16, by kernel.
 SM90_WIDTHS = {"fa_fwd": (64, 128, 256), "fa_bwd_dkv": (64, 128, 256),
-               "fa_bwd_dq": (64, 128)}
+               "fa_bwd_dq": (64, 128, 256)}
 
 
 def kernel_route(name: str, dtype: torch.dtype, width: int) -> str:
     """The library that launches kernel *name* (a ``LAUNCHES`` key) for
     inputs of *dtype* zero-padded to *width*: ``"sm90"`` (the wgmma kernels
     of flash_attention_sm90.cu) for bf16 at the widths in ``SM90_WIDTHS``,
-    else ``"scalar"`` (flash_attention.cu)."""
+    64, 128 and 256 for all three kernels; else ``"scalar"``
+    (flash_attention.cu): f32 at every width, bf16 above 256."""
     return "sm90" if dtype == torch.bfloat16 and width in SM90_WIDTHS[name] \
         else "scalar"
 

@@ -72,8 +72,7 @@ def test_kernels_take_the_reference_shapes(cuda_device, dtype, causal, S, Dh):
 def test_kernels_take_wide_heads(cuda_device, dtype, causal, S, Dh):
     """Heads wider than 128 (zero-padded to a multiple of 128) against the
     plain versions at the same tolerances: in bf16 at Dh 160 and 256 the
-    wgmma forward and dK/dV beside the scalar dQ, else the scalar
-    kernels."""
+    three wgmma kernels, else the scalar kernels."""
     _check_kernels_against_plain(cuda_device, dtype, causal, 1, S, 4, 2, Dh)
 
 
@@ -125,11 +124,14 @@ def _check_kernels_against_plain(cuda_device, dtype, causal, B, S, H, KV, Dh):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("S", [192, 2048])   # 192: a 128-row q tile half past S
+# 192: a 128-row q tile half past S; 63: one tile, cut by S
+@pytest.mark.parametrize("S, Dh", [(192, 64), (2048, 64), (192, 128),
+                                   (2048, 128), (63, 256), (192, 256)])
 def test_bf16_dq_rounds_ds_like_plain(cuda_device, causal, Dh, S):
     """The bf16 dQ kernel rounds dS to bf16 before dS·K, once, as the JAX
-    package and the bf16 plain version do. Given the same lse and Δ, the two
+    package and the bf16 plain version do, at every width it has a layout
+    for (64, 128, and 256 with no producer warpgroup and its K/V slot
+    ring). Given the same lse and Δ, the two
     dq differ only where f32 sums in another order cross a bf16 rounding:
     within one bf16 ulp (8e-3 relative) plus 2e-3 of the largest value, and
     in under 5 % of the elements. A dS kept in f32 (the plain version fed k
@@ -178,10 +180,10 @@ def test_dq_kernel_by_dtype(cuda_device):
 
 @pytest.mark.parametrize("Dh", [256, 320])
 def test_wide_kernels_by_name(cuda_device, Dh):
-    """bf16 at Dh 256: the forward and dK/dV run the wgmma kernels, dQ the
-    scalar one; at Dh 320 all three run the scalar kernels. The kernels'
-    names as the profiler sees them on the device, and the one variant
-    (kernel, library, dtype) each call counts a launch under."""
+    """bf16 at Dh 256: all three run the wgmma kernels; at Dh 320 all
+    three run the scalar kernels. The kernels' names as the profiler sees
+    them on the device, and the one variant (kernel, library, dtype) each
+    call counts a launch under."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=cuda_device).manual_seed(4)
@@ -199,7 +201,7 @@ def test_wide_kernels_by_name(cuda_device, Dh):
             call()
             torch.cuda.synchronize()
         names = " ".join(e.name for e in prof.events())
-        wgmma = Dh == 256 and name != "fa_bwd_dq"
+        wgmma = Dh == 256
         assert (f"{name}_wgmma_kernel" in names) == wgmma, (name, names)
         assert (f"{name}_kernel" in names) == (not wgmma), (name, names)
         library = "sm90" if wgmma else "scalar"
@@ -243,26 +245,40 @@ def test_bf16_dkv_rounds_like_plain(cuda_device, causal, S):
         assert (f32 != plain).float().mean().item() > 0.30
 
 
-def test_sm90_dq_refuses_width_256(cuda_device):
-    """The tensor-core library has no dQ at width 256: asked for one it
-    refuses, the launch raises and counts nothing. The route sends that dQ
-    to the scalar kernel, so no wrapper asks."""
+@pytest.mark.parametrize("width", [192, 256, 384])
+def test_sm90_dq_refuses_width_256(cuda_device, width):
+    """The tensor-core dQ straight from its library at *width*: 256 has a
+    layout (no producer warpgroup, a K/V slot ring), launches and counts
+    one launch, and on zero inputs gives a zero dq; 192 and 384 have none,
+    so the library refuses them, the launch raises and counts nothing. The
+    route sends only 64, 128 and 256 there."""
     S, H, KV = 128, 2, 1
-    q = torch.zeros(1, S, H, 256, device=cuda_device, dtype=torch.bfloat16)
-    k = torch.zeros(1, S, KV, 256, device=cuda_device, dtype=torch.bfloat16)
+    q = torch.zeros(1, S, H, width, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.zeros(1, S, KV, width, device=cuda_device, dtype=torch.bfloat16)
     lse = torch.zeros(1, H, S, device=cuda_device)
-    dq = torch.empty_like(q)
+    dq = torch.full_like(q, float("nan"))
     before = tfa.LAUNCHES["fa_bwd_dq"]
-    variants = dict(tfa.VARIANT_LAUNCHES)
-    with pytest.raises(RuntimeError, match="unsupported"):
-        tfa._launch("fa_bwd_dq", "sm90", torch.bfloat16,
-                    tfa._sm90_lib().strom_fa_bwd_dq_sm90, 256, q.data_ptr(),
-                    k.data_ptr(), k.data_ptr(), q.data_ptr(), lse.data_ptr(),
-                    lse.data_ptr(), dq.data_ptr(), 1, S, S, H, KV, 1, 1.0 / 16,
-                    torch.cuda.current_stream().cuda_stream)
-    assert tfa.LAUNCHES["fa_bwd_dq"] == before
-    assert dict(tfa.VARIANT_LAUNCHES) == variants
-    assert tfa.kernel_route("fa_bwd_dq", torch.bfloat16, 256) == "scalar"
+    variants = collections.Counter(tfa.VARIANT_LAUNCHES)
+    launch = lambda: tfa._launch(  # noqa: E731
+        "fa_bwd_dq", "sm90", torch.bfloat16,
+        tfa._sm90_lib().strom_fa_bwd_dq_sm90, width, q.data_ptr(),
+        k.data_ptr(), k.data_ptr(), q.data_ptr(), lse.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), 1, S, S, H, KV, 1, 1.0 / 16,
+        torch.cuda.current_stream().cuda_stream)
+    if width == 256:
+        launch()
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES["fa_bwd_dq"] == before + 1
+        assert tfa.VARIANT_LAUNCHES - variants == collections.Counter(
+            {"fa_bwd_dq@sm90/bf16": 1})
+        assert (dq == 0).all()
+    else:
+        with pytest.raises(RuntimeError, match="unsupported"):
+            launch()
+        assert tfa.LAUNCHES["fa_bwd_dq"] == before
+        assert collections.Counter(tfa.VARIANT_LAUNCHES) == variants
+    assert tfa.kernel_route("fa_bwd_dq", torch.bfloat16, width) == (
+        "sm90" if width == 256 else "scalar")
 
 
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):

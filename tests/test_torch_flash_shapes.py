@@ -72,11 +72,10 @@ def test_kernel_head_dim_refuses_empty_heads(Dh):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route(dtype, Dh, kernel):
     """Which library launches each kernel, at the width the wrappers pad
-    *Dh* to: bf16 up to 128 runs the wgmma kernels for all three; bf16 of
-    129-256 (padded to 256) the wgmma forward and dK/dV beside the scalar
-    dQ; f32 at every head and bf16 above 256 the scalar kernels."""
-    wgmma = dtype == torch.bfloat16 and (
-        Dh <= 128 or (Dh <= 256 and kernel != "fa_bwd_dq"))
+    *Dh* to: bf16 up to 256 (padded to 64, 128 or 256) runs the wgmma
+    kernels for all three; f32 at every head and bf16 above 256 the
+    scalar kernels."""
+    wgmma = dtype == torch.bfloat16 and Dh <= 256
     route = tfa.kernel_route(kernel, dtype, tfa.kernel_head_dim(Dh))
     assert route == ("sm90" if wgmma else "scalar")
 
