@@ -5,7 +5,8 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
-               a tensor-core kernel that spills registers fails the phase.
+               print each kernel instantiation's ptxas registers and
+               spills; a spill in either source fails the phase.
 2. kernels  -- each flash-attention kernel against its plain PyTorch version
                on the card: f32 and bf16 at small shapes (causal and not, S
                a multiple of 64 but not of 128, head dims 32, 48 and 96 that
@@ -22,10 +23,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
                kernels) at S 63 and 192, and the three kernels timed at
                Gemma-2-9B's attention shape (B 2, S 2048, H 16, KV 8,
                Dh 256, bf16, causal): ms, TFLOP/s, bound and SDPA's time,
-               and the backward pair over SDPA's backward. Last, the
-               scalar f32 kernels timed at the main
-               shape beside SDPA in f32 with TF32 off (the "_f32" rows of
-               the JSON; no f32 call is on the main path).
+               and the backward pair over SDPA's backward; then the scalar
+               kernels' bf16 route at that shape with heads of 512 (the
+               "_dh512" rows of the JSON). Last, the f32 kernels (the
+               forward in scalar f32 FMAs; dK/dV and dQ in 4x8 and 8x8
+               register tiles over two 128-thread groups, float4 reads of
+               swizzled tiles, a 2-stage cp.async ring) at the main shape
+               beside SDPA in f32 with TF32 off (the "_f32" rows; no f32
+               or Dh-512 call is on the main path).
 2b. wide_path -- flash_attention, forward and backward, at that shape:
                the wide kernels' launches (the "_wide" rows of the JSON),
                counted per kernel, library and dtype: each row's kernel
@@ -189,7 +194,18 @@ KERNELS = {
 for _name, _info in KERNELS.items():
     _info.update(counter=_name, variant=fa.variant(_name, "sm90",
                                                    torch.bfloat16))
-SCALAR_DESIGN = "scalar f32 FMA, 128-column head chunks"
+# the scalar kernels of flash_attention.cu, by kernel
+SCALAR_DESIGNS = {
+    "fa_fwd": "scalar f32 FMA, 4x4 register tiles, 128-column head chunks",
+    "fa_bwd_dkv": "f32 FMA, two 128-thread groups (S^T | dP^T, then dV | "
+                  "dK; P, dS by all threads), 4x8 and 8x8 register tiles, "
+                  "float4 reads of XOR-swizzled tiles, 2-stage cp.async "
+                  "ring of q/dO tiles",
+    "fa_bwd_dq": "f32 FMA, two 128-thread groups (S | dP, then dq's two "
+                 "column halves; dS by all threads), 4x8 register tiles, "
+                 "float4 reads of XOR-swizzled tiles, 2-stage cp.async "
+                 "ring of k/v tiles",
+}
 # the kernels bf16 heads of 129-256 run (padded to 256, counted under the
 # same names): the three wgmma kernels at width 256; their path is
 # flash_attention at Gemma-2-9B's attention shape (phase 2b), which checks
@@ -207,16 +223,24 @@ WIDE_KERNELS = {
          "producer warpgroup"),
         ("fa_bwd_dq", SM90, "wgmma, 256 threads (no producer warpgroup), "
          "K/V slot ring: K double-buffered, V in one slot"))}
-# the f32 kernels (flash_attention.cu at every head), timed at the main
-# shape; no f32 call is on the main path, which runs bf16
+# the scalar kernels (flash_attention.cu): f32 at every head, timed at the
+# main shape, and bf16 above 256, timed at Gemma-2-9B's batch and heads
+# with Dh 512; no such call is on the main path, which runs bf16 at 128
 F32_KERNELS = {
     f"{name}_f32": {"counter": name, "replaces": info["replaces"],
-                    "source": SCALAR, "design": SCALAR_DESIGN,
+                    "source": SCALAR, "design": SCALAR_DESIGNS[name],
                     "variant": fa.variant(name, "scalar", torch.float32)}
     for name, info in KERNELS.items()}
+DH512_KERNELS = {
+    f"{name}_dh512": {"counter": name, "replaces": info["replaces"],
+                      "source": SCALAR, "design": SCALAR_DESIGNS[name]
+                      + "; bf16 converted to f32 when staged",
+                      "variant": fa.variant(name, "scalar", torch.bfloat16)}
+    for name, info in KERNELS.items()}
 # B, S, H, KV, Dh: Gemma-2-9B's attention (16 query heads, 8 kv heads,
-# head 256) at the train batch of phase 4
+# head 256) at the train batch of phase 4; and the same with heads of 512
 GEMMA2_9B = (2, 2048, 16, 8, 256)
+GEMMA2_9B_DH512 = GEMMA2_9B[:4] + (512,)
 
 
 def check_variants(table: dict, variants: dict[str, int],
@@ -270,7 +294,33 @@ def cuda_ms_spread(fn, iters: int) -> tuple[float, float, float]:
 
 
 # ------------------------------------------------------------------ build
+def ptxas_report(log: str) -> list[dict]:
+    """One entry per kernel instantiation in nvcc's ``-Xptxas -v`` output:
+    its name with template arguments (``fa_bwd_dq_kernel<f,128>``,
+    ``fa_fwd_wgmma_kernel<256>``),
+    registers and spill stores."""
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+        if entry:
+            m = re.search(r"(fa_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
+                          entry[1])
+            dtype = {"f": "f,", "13__nv_bfloat16": "bf16,"}.get(m and m[2], "")
+            name = f"{m[1]}<{dtype}{m[3]}>" if m else entry[1]
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores and name:
+            out.append({"kernel": name, "spill_stores": int(stores[1])})
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and out and out[-1]["kernel"] == name:
+            out[-1]["registers"] = int(regs[1])
+    return out
+
+
 def phase_build() -> None:
+    """Build both sources; print each kernel instantiation's registers and
+    spills; fail on any spill (8 x 8 register tiles beside the score tiles
+    are where the scalar backward kernels would start to spill)."""
     t0 = time.perf_counter()
     libs = build.build_all()
     dt = time.perf_counter() - t0
@@ -280,15 +330,15 @@ def phase_build() -> None:
         say("build", source=name, lib=os.path.relpath(path),
             nvcc_s=f"{build.build_seconds.get(name, 0.0):.2f}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line \
-                    or "C75" in line:
+            if "error" in line or "C75" in line:
                 print("  " + line.strip())
-            stores = re.search(r"(\d+) bytes spill stores", line)
-            if name == os.path.basename(SM90) and stores and int(stores[1]):
-                spilled.append(line.strip())
+        for entry in ptxas_report(log):
+            say("build", **entry)
+            if entry["spill_stores"]:
+                spilled.append(f"{name}: {entry}")
     say("build", total_s=f"{dt:.2f}")
     if spilled:
-        raise AssertionError(f"{SM90} spills registers: {spilled}")
+        raise AssertionError(f"kernels spill registers: {spilled}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -445,8 +495,9 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
     """SDPA's backward alone (dq, dk and dv), flash backend, on the same
     inputs and output gradient: the forward runs once outside the timed
     region and each timed call is torch.autograd.grad over its graph.
-    Where the flash backend refuses the shape, PyTorch picks the backend,
-    and the note says so."""
+    Where the flash backend refuses the shape, the first of the
+    memory-efficient, cuDNN and math backends that takes it runs, and the
+    note names it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
@@ -465,12 +516,19 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
                 note = ("flash backend refused enable_gqa: k/v repeated to "
                         "H heads outside the timed region")
                 out = sdpa(qh, kh, vh, is_causal=True)
-    except RuntimeError as e:
-        note = ("flash backend refused the shape, PyTorch's choice of "
-                f"backend: {str(e).splitlines()[0][:80]}")
+    except RuntimeError:
         qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
-        out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+        for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel(backend):
+                    out = sdpa(qh, kh, vh, is_causal=True, enable_gqa=True)
+                break
+            except RuntimeError:
+                continue
+        note = (f"flash backend refused the shape; {backend.name} backend, "
+                "enable_gqa")
     ms = cuda_ms_spread(lambda: torch.autograd.grad(
         out, (qh, kh, vh), gh, retain_graph=True), n_iter)[0]
     return ms, note
@@ -479,7 +537,8 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
 def phase_kernels() -> dict:
     """SMALL_SHAPES and WIDE_SHAPES against the plain versions; then bf16 at
     the main path's, small's and Gemma-2-9B's shapes (the last runs the
-    three wgmma kernels at width 256), causal: each
+    three wgmma kernels at width 256) and at Gemma-2-9B's with heads of 512
+    (the scalar kernels), causal: each
     kernel against the plain versions on the same bf16 inputs (BF16_TOL)
     and in f32 (BF16_VS_F32_TOL), then timed beside its bound, the plain
     version and SDPA (forward for fa_fwd; backward for the fa_bwd_dkv +
@@ -498,6 +557,7 @@ def phase_kernels() -> dict:
             ("main", main, torch.bfloat16),
             ("small", (2, 2048, 12, 4, 64), torch.bfloat16),
             ("gemma2_9b", GEMMA2_9B, torch.bfloat16),
+            ("gemma2_9b_dh512", GEMMA2_9B_DH512, torch.bfloat16),
             ("main_f32", main, torch.float32)]:
         q, k, v, g = _inputs(B, S, H, KV, Dh, dt, 0)
         res, lse, delta = _run_kernels(q, k, v, g, True)
@@ -939,8 +999,8 @@ def phase_train(workdir: str) -> dict[str, int]:
     """Packed-token shards → make_llama_pipeline → make_train_step at
     Llama-3-8B widths, 2 layers, flash attention; 4 steps. Returns the
     launches during the steps of each row of KERNELS (check_variants: each
-    from the source its row names) and of F32_KERNELS (no f32 call is on
-    this bf16 path: 0 unless one was)."""
+    from the source its row names) and of F32_KERNELS and DH512_KERNELS
+    (no scalar call is on this path: 0 unless one was)."""
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
     B, seq_len, steps, records = 2, 2047, 4, 16
     rng = np.random.default_rng(1)
@@ -1015,7 +1075,8 @@ def phase_train(workdir: str) -> dict[str, int]:
     strom_torch.close()
     launches = check_variants(KERNELS, variants, "train steps")
     return launches | {name: variants.get(info["variant"], 0)
-                       for name, info in F32_KERNELS.items()}
+                       for table in (F32_KERNELS, DH512_KERNELS)
+                       for name, info in table.items()}
 
 
 def _kernel_group(name: str) -> str:
@@ -1725,15 +1786,19 @@ def main() -> int:
     kernels += [{"name": name, "route": "cuda", "source": info["source"],
                  "design": info["design"], "replaces": info["replaces"],
                  "launches": launches[name],
-                 "shape": "main_f32 [2, 2048, 32, 8, 128]",
-                 **{k: rows[info["counter"]]["main_f32"][k] for k in
+                 "shape": f"{label} {json.dumps(shape)}",
+                 **{k: rows[info["counter"]][label][k] for k in
                     ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
                      "bound_ms", "bound_by", "library_ms")},
-                 "library_covers": ("SDPA f32 forward, TF32 off"
+                 "library_covers": (f"SDPA {kind} forward, TF32 off"
                                     if info["counter"] == "fa_fwd" else
-                                    "fa_bwd_dkv + fa_bwd_dq (SDPA f32 "
+                                    f"fa_bwd_dkv + fa_bwd_dq (SDPA {kind} "
                                     "backward, TF32 off)")}
-                for name, info in F32_KERNELS.items()]
+                for table, label, shape, kind in (
+                    (F32_KERNELS, "main_f32", [2, 2048, 32, 8, 128], "f32"),
+                    (DH512_KERNELS, "gemma2_9b_dh512", GEMMA2_9B_DH512,
+                     "bf16"))
+                for name, info in table.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

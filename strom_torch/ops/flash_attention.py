@@ -241,15 +241,18 @@ def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
     [B,H,SL] rows, scale 1/sqrt(Dh) of the real head."""
     B, S, H, Dh = q.shape
     width = kernel_head_dim(Dh)
+    library = kernel_route(name, q.dtype, width)
     q, k, v, g = (pad_head(t, width) for t in (q, k, v, g))
     lse, SL = _rows_padded(lse, S)
     delta, _ = _rows_padded(delta, S)
+    if library == "scalar":   # its cp.async staging reads 16-byte chunks
+        q, k, v, g, lse, delta = (_aligned16(t)
+                                  for t in (q, k, v, g, lse, delta))
     args = (width, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
             B, S, SL, H, k.shape[2], int(causal), 1.0 / math.sqrt(Dh))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        library = kernel_route(name, q.dtype, width)
         if library == "sm90":
             _launch(name, library, q.dtype,
                     getattr(_sm90_lib(), f"strom_{name}_sm90"), *args, stream)
@@ -257,6 +260,12 @@ def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
             _launch(name, library, q.dtype,
                     getattr(_kernel_lib(), f"strom_{name}"),
                     _KERNEL_DTYPES[q.dtype], *args, stream)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """*t*, or a copy of it where its data does not start on a 16-byte
+    boundary (a contiguous view at an odd offset)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_bwd_inputs(q, k, v, g, lse, delta) -> None:

@@ -7,14 +7,16 @@ Each DIR is a checkout: this repo's root, or an older commit unpacked
 with ``git archive``. Each runs in its own process, in the order given
 (parent, change, change, parent for an A/B), builds its own kernels with
 its own ``chip_smoke.py`` and prints one JSON line: the checkout, the card
-and its power limit, nvcc's register and spill report of the tensor-core
-source, and each kernel's median, min and max ms over 5 runs, causal, at
+and its power limit, nvcc's register and spill report of every kernel
+instantiation, and each kernel's median, min and max ms over 5 runs, causal, at
 ``--shape`` and ``--dtype`` (default: the main path's, B 2, S 2048, H 32,
 KV 8, Dh 128, bf16; f32 runs the scalar kernels): ``ms`` as
 that checkout's own ``chip_smoke`` times a call (host and device, as a
 caller sees it), and ``device_ms`` with the launches queued behind a sleep
 on the card, so the host's dispatch never leaves the card idle between
-them. Needs one CUDA device.
+them. Beside them, SDPA's forward and backward (dq, dk and dv) on the same
+inputs with TF32 off, as that checkout's ``chip_smoke`` times SDPA: the
+yardstick the port never calls. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -36,8 +38,12 @@ from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
 
 build.build_all()
-regs = [f"{name}: {line.strip()}" for name, log in build.build_logs.items()
-        for line in log.splitlines() if "registers" in line or "spill" in line]
+if hasattr(cs, "ptxas_report"):
+    regs = [dict(source=name, **entry) for name, log in build.build_logs.items()
+            for entry in cs.ptxas_report(log)]
+else:
+    regs = [f"{name}: {line.strip()}" for name, log in build.build_logs.items()
+            for line in log.splitlines() if "registers" in line or "spill" in line]
 q, k, v, g = cs._inputs(*shape, dtype, 0)
 _, lse, delta = cs._run_kernels(q, k, v, g, True)
 calls = {
@@ -64,12 +70,19 @@ def spread(fn):
     return [runs[2], runs[0], runs[-1]]
 
 
+torch.backends.cuda.matmul.allow_tf32 = False
+qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+sdpa_fwd = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+    qh, kh, vh, is_causal=True, enable_gqa=True)
+sdpa_bwd_ms, sdpa_note = cs._sdpa_bwd_ms(q, k, v, g, 5)
 smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                       "--format=csv,noheader"], capture_output=True, text=True)
 print(json.dumps({"checkout": root, "card": smi.stdout.strip(),
                   "shape": shape, "dtype": sys.argv[3],
                   "ms": {n: cs.cuda_ms_spread(f, 10) for n, f in calls.items()},
                   "device_ms": {n: spread(f) for n, f in calls.items()},
+                  "sdpa_ms": {"fwd": cs.cuda_ms_spread(sdpa_fwd, 5)[0],
+                              "bwd": sdpa_bwd_ms, "bwd_note": sdpa_note},
                   "ptxas": regs}), flush=True)
 """
 

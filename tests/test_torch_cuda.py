@@ -281,6 +281,108 @@ def test_sm90_dq_refuses_width_256(cuda_device, width):
         "sm90" if width == 256 else "scalar")
 
 
+def _bwd_inputs(device, dtype, seed, B, S, H, KV, Dh, causal):
+    """Seeded q, k, v, dO, the forward kernel's lse and Δ, and the plain
+    versions' block (S where 64 does not divide S, as the reference
+    requires)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(*s, generator=gen, device=device).to(dtype)
+                  for s in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh),
+                            (B, S, H, Dh)))
+    block = S if S % 64 else 64
+    out, lse = tfa._flash_fwd(q, k, v, causal=causal, block_q=block,
+                              block_k=block)
+    return q, k, v, g, lse, tfa._delta(out, g), block
+
+
+def _scalar_bwd(q, k, v, g, lse, delta, causal):
+    """dq, dk, dv from the scalar kernels, each launched once (counted
+    under its scalar variant)."""
+    before = collections.Counter(tfa.VARIANT_LAUNCHES)
+    dk, dv = tfa._bwd_dkv_kernel(q, k, v, g, lse, delta, causal=causal)
+    dq = tfa._bwd_dq_kernel(q, k, v, g, lse, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES - before == collections.Counter(
+        {tfa.variant(n, "scalar", q.dtype): 1
+         for n in ("fa_bwd_dkv", "fa_bwd_dq")})
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("S", [63, 192, 320])
+def test_f32_backward_at_tile_edges(cuda_device, S, Dh, G, causal):
+    """The f32 dK/dV and dQ kernels against the plain backward at the edges
+    of their tiles: S 63 (one 64-row tile cut by S: rows past S staged as
+    zeros, lse and Δ read as zeros past S), 192 and 320 (3 and 5 tiles, so
+    the two-stage cp.async ring wraps), Dh 64 and 128 (one staged chunk)
+    and 256 (two chunks restaged in turn), G 1 and 4 query heads a kv
+    head (the loop a dK/dV CTA runs over them), causal and not. Given the
+    same lse and Δ the two differ only in the order of f32 sums: 1e-4
+    relative and 1e-5 of the largest value, as in
+    _check_kernels_against_plain."""
+    H, KV = (8, 2) if G == 4 else (2, 2)
+    q, k, v, g, lse, delta, block = _bwd_inputs(cuda_device, torch.float32,
+                                                6, 1, S, H, KV, Dh, causal)
+    got = _scalar_bwd(q, k, v, g, lse, delta, causal)
+    want = tfa._flash_bwd_plain(q, k, v, g, lse, delta, causal=causal,
+                                block_q=block, block_k=block)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * b.abs().max().item(), msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [63, 192])
+@pytest.mark.parametrize("Dh", [320, 512])
+def test_bf16_scalar_backward_rounds_like_plain(cuda_device, Dh, S, causal):
+    """bf16 heads above 256 run the scalar dK/dV and dQ (tiles converted to
+    f32 when staged). They round P to bf16 before dV and dS before dK and
+    dQ, once, as the JAX package and the bf16 plain version do: given the
+    same lse and Δ, each output within one bf16 ulp (8e-3 relative) plus
+    2e-3 of the largest value, and under 5 % of the elements different.
+    P or dS kept in f32 (the plain version fed v, q or k in f32) moves
+    over 30 % of them, which shows the share can tell."""
+    q, k, v, g, lse, delta, block = _bwd_inputs(cuda_device, torch.bfloat16,
+                                                7, 1, S, 8, 2, Dh, causal)
+    got = _scalar_bwd(q, k, v, g, lse, delta, causal)
+    blk = dict(causal=causal, block_q=block, block_k=block)
+    plain = tfa._flash_bwd_plain(q, k, v, g, lse, delta, **blk)
+    unrounded = (tfa._flash_bwd_plain(q, k.float(), v, g, lse, delta, **blk)[0],
+                 tfa._flash_bwd_plain(q.float(), k, v, g, lse, delta,
+                                      **blk)[1],
+                 tfa._flash_bwd_plain(q, k, v.float(), g, lse, delta,
+                                      **blk)[2].to(torch.bfloat16))
+    for name, a, b, f32 in zip(("dq", "dk", "dv"), got, plain, unrounded):
+        assert a.dtype == b.dtype == f32.dtype == torch.bfloat16, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=8e-3,
+                                   atol=2e-3 * b.float().abs().max().item(),
+                                   msg=name)
+        assert (a != b).float().mean().item() < 0.05, name
+        assert (f32 != b).float().mean().item() > 0.30, name
+
+
+def test_scalar_backward_takes_unaligned_inputs(cuda_device):
+    """The scalar backward stages its tiles with 16-byte cp.async copies.
+    Contiguous inputs that start 4 bytes into their storage are copied to
+    aligned memory first: dq, dk and dv equal those of aligned copies of
+    the same inputs, bit for bit."""
+    B, S, H, KV, Dh = 1, 128, 4, 2, 64
+    aligned = _bwd_inputs(cuda_device, torch.float32, 8, B, S, H, KV, Dh,
+                          True)[:6]
+
+    def offset(t):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)[1:]
+        return flat.view(t.shape).copy_(t)
+
+    shifted = [offset(t) for t in aligned]
+    assert all(t.data_ptr() % 16 == 4 and t.is_contiguous() for t in shifted)
+    for a, b in zip(_scalar_bwd(*aligned, True), _scalar_bwd(*shifted, True)):
+        assert torch.equal(a, b)
+
+
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
     """A CUDA tensor the kernel does not take raises; nothing falls back to
     the plain version. Every head dim and any seq len are taken: a head of

@@ -59,6 +59,7 @@ def _torch_all(q, k, v, causal, block):
     (2, 256, 4, 2, 128, 128),   # GQA, 2x2 blocks
     (1, 128, 2, 2, 64, 64),     # MHA, head dim 64, 2x2 blocks
     (1, 128, 4, 1, 64, 128),    # MQA, one block
+    (1, 384, 8, 2, 128, 128),   # the main shape's GQA group (G 4), 3 blocks
 ])
 def test_matches_jax_flash(causal, B, S, H, KV, Dh, block):
     q, k, v = _qkv(0, B, S, H, KV, Dh)
