@@ -25,12 +25,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                Dh 256, bf16, causal): ms, TFLOP/s, bound and SDPA's time,
                and the backward pair over SDPA's backward; then the scalar
                kernels' bf16 route at that shape with heads of 512 (the
-               "_dh512" rows of the JSON). Last, the f32 kernels (the
-               forward in scalar f32 FMAs; dK/dV and dQ in 4x8 and 8x8
-               register tiles over two 128-thread groups, float4 reads of
-               swizzled tiles, a 2-stage cp.async ring) at the main shape
-               beside SDPA in f32 with TF32 off (the "_f32" rows; no f32
-               or Dh-512 call is on the main path).
+               "_dh512" rows of the JSON). Last, the f32 kernels (4x8 and
+               8x8 register tiles fed by float4 reads of swizzled tiles
+               and a 2-stage cp.async ring; the forward over 128-row q
+               tiles, a wide head's chunks in one cluster) at the main
+               shape beside SDPA in f32 with TF32 off (the "_f32" rows; no
+               f32 or Dh-512 call is on the main path). Before the timed
+               shapes, each kernel fed bf16 inputs that start 4 bytes into
+               their storage must equal its result on aligned copies, bit
+               for bit.
 2b. wide_path -- flash_attention, forward and backward, at that shape:
                the wide kernels' launches (the "_wide" rows of the JSON),
                counted per kernel, library and dtype: each row's kernel
@@ -196,7 +199,11 @@ for _name, _info in KERNELS.items():
                                                    torch.bfloat16))
 # the scalar kernels of flash_attention.cu, by kernel
 SCALAR_DESIGNS = {
-    "fa_fwd": "scalar f32 FMA, 4x4 register tiles, 128-column head chunks",
+    "fa_fwd": "f32 FMA, 128-row q tiles over 64-row k/v tiles, 4x8 score "
+              "and 8x8 P.V register tiles, float4 reads of XOR-swizzled "
+              "tiles, 2-stage cp.async ring of k/v tiles; a wider head: a "
+              "cluster of one CTA a 128-column chunk summing partial scores "
+              "through distributed shared memory (scores computed once)",
     "fa_bwd_dkv": "f32 FMA, two 128-thread groups (S^T | dP^T, then dV | "
                   "dK; P, dS by all threads), 4x8 and 8x8 register tiles, "
                   "float4 reads of XOR-swizzled tiles, 2-stage cp.async "
@@ -297,17 +304,19 @@ def cuda_ms_spread(fn, iters: int) -> tuple[float, float, float]:
 def ptxas_report(log: str) -> list[dict]:
     """One entry per kernel instantiation in nvcc's ``-Xptxas -v`` output:
     its name with template arguments (``fa_bwd_dq_kernel<f,128>``,
-    ``fa_fwd_wgmma_kernel<256>``),
+    ``fa_fwd_wgmma_kernel<256>``, ``fa_fwd_kernel<bf16,128,true>``: the
+    forward's last argument says whether it runs in clusters),
     registers and spill stores."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?(\w+)", line)
         if entry:
-            m = re.search(r"(fa_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
-                          entry[1])
+            m = re.search(r"(fa_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E"
+                          r"(?:Lb([01])E)?", entry[1])
             dtype = {"f": "f,", "13__nv_bfloat16": "bf16,"}.get(m and m[2], "")
-            name = f"{m[1]}<{dtype}{m[3]}>" if m else entry[1]
+            flag = {"0": ",false", "1": ",true"}.get(m and m[4], "")
+            name = f"{m[1]}<{dtype}{m[3]}{flag}>" if m else entry[1]
         stores = re.search(r"(\d+) bytes spill stores", line)
         if stores and name:
             out.append({"kernel": name, "spill_stores": int(stores[1])})
@@ -443,9 +452,10 @@ def _run_kernels(q, k, v, g, causal):
     return (out, lse, dq, dk, dv), lse, delta
 
 
-# heads wider than 128 (zero-padded to 256, 384 or 512; bf16 at 256 runs the
-# three wgmma kernels), S a multiple of 64 and S off the 64-row tile
-WIDE_SHAPES = [(1, S, 4, 2, Dh) for Dh in (160, 192, 256, 320, 512)
+# heads wider than 128 (zero-padded to 256, 384, 512 or 640; bf16 at 256 runs
+# the three wgmma kernels; 640 is a forward cluster of 5 CTAs), S a
+# multiple of 64 and S off the 64-row tile
+WIDE_SHAPES = [(1, S, 4, 2, Dh) for Dh in (160, 192, 256, 320, 512, 640)
                for S in (63, 192)]
 
 # small shapes: (B, S, H, KV, Dh)
@@ -489,6 +499,38 @@ def check_kernels_small(shapes=SMALL_SHAPES) -> None:
                 say("kernels", check=str(dt).split(".")[-1],
                     shape=(B, S, H, KV, Dh), causal=causal,
                     max_abs_err=f"{max(errs.values()):.2e}")
+
+
+def _shifted(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of *t* that starts 4 bytes into its storage."""
+    skip = 4 // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)[skip:]
+    return flat.view(t.shape).copy_(t)
+
+
+def check_unaligned(shape=(1, 128, 4, 2, 128)) -> None:
+    """Each kernel on bf16 inputs at Dh 128 (the wgmma kernels, which read
+    through TMA maps and bulk copies) that start 4 bytes into their
+    storage, lse and Δ too: the wrappers copy them to aligned memory
+    first, so out, lse, dq, dk and dv equal the results on aligned
+    copies, bit for bit."""
+    q, k, v, g = _inputs(*shape, torch.bfloat16, 5)
+    want, lse, delta = _run_kernels(q, k, v, g, True)
+    sq, sk, sv, sg, slse, sdelta = (_shifted(t)
+                                    for t in (q, k, v, g, lse, delta))
+    if any(t.data_ptr() % 16 != 4 for t in (sq, sk, sv, sg, slse, sdelta)):
+        raise AssertionError("unaligned check: the views are not 4 bytes off")
+    out, flse = fa._flash_fwd_kernel(sq, sk, sv, causal=True)
+    dk, dv = fa._bwd_dkv_kernel(sq, sk, sv, sg, slse, sdelta, causal=True)
+    dq = fa._bwd_dq_kernel(sq, sk, sv, sg, slse, sdelta, causal=True)
+    torch.cuda.synchronize()
+    differ = [name for name, a, b in zip(("out", "lse", "dq", "dk", "dv"),
+                                         want, (out, flse, dq, dk, dv))
+              if not torch.equal(a, b)]
+    say("kernels", check="inputs 4 bytes off alignment, bf16", shape=shape,
+        bit_equal_to_aligned=not differ)
+    if differ:
+        raise AssertionError(f"unaligned inputs changed {differ}")
 
 
 def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
@@ -535,7 +577,8 @@ def _sdpa_bwd_ms(q, k, v, g, n_iter: int) -> tuple[float, str]:
 
 
 def phase_kernels() -> dict:
-    """SMALL_SHAPES and WIDE_SHAPES against the plain versions; then bf16 at
+    """SMALL_SHAPES and WIDE_SHAPES against the plain versions, and
+    check_unaligned; then bf16 at
     the main path's, small's and Gemma-2-9B's shapes (the last runs the
     three wgmma kernels at width 256) and at Gemma-2-9B's with heads of 512
     (the scalar kernels), causal: each
@@ -549,6 +592,7 @@ def phase_kernels() -> dict:
     label]."""
     check_kernels_small()
     check_kernels_small(WIDE_SHAPES)
+    check_unaligned()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = {}

@@ -14,60 +14,77 @@
 // reads once, far above the card's ~295 operations per byte, so all three
 // are bound by arithmetic, not by device memory. f32 has no dense
 // tensor-core path that keeps f32's precision, so these kernels do that
-// arithmetic with f32 FMAs (67 TFLOP/s at most), fed from shared memory,
-// which serves one 128-byte wavefront a clock against four warp-FMAs.
+// arithmetic with f32 FMAs (67 TFLOP/s at most), fed from shared memory.
+// A warp's float4 read (LDS.128) hands 512 bytes to its threads, and
+// shared memory serves 128 bytes a clock against 128 FMAs, so the size of
+// a thread's register tile sets the ceiling: 4 x 8 needs 1.5 bytes a FMA
+// (at most 0.67 of the FMA peak), 8 x 8 1.0.
 //
-// The forward (scalar loads):
-//   - one CTA of 256 threads per 64-row tile and DC-column chunk of the
-//     head (DC = 64 or 128); q/k/v chunks are staged in dynamic shared
-//     memory as f32 (rows padded to DC+1 floats, so a half-warp reading 16
-//     different rows at one column hits 16 banks);
-//   - each thread owns a 4x4 block of every 64x64 score tile and a 4 x DC/16
-//     block of the 64 x DC accumulator, kept in registers, with rows
-//     ty + 16*i and columns tx + 16*j (ty, tx = thread / 16, thread % 16);
-//     row reductions of the online softmax are 16-lane shuffles.
-// The backward pair (register micro-tiles, vector reads, async staging):
-//   - 256 threads as two groups of 128. On each 64 x 64 score tile group 0
-//     computes S = Q K^T (dK/dV: S^T) and group 1 dP = dO V^T (dP^T), a
-//     4 x 8 block a thread; both write them to shared memory, where all
-//     256 threads form P and dS (so no group waits out the other's
-//     exponentials); then dK/dV's group 0 adds P^T dO to dV and group 1
-//     dS^T Q to dK
-//     (8 x 8 a thread at DC 128), and dQ's groups each add dS K to half of
-//     dq's columns (4 x 8). The per-thread reads are float4 (LDS.128): 12
-//     feed 128 FMAs in the score phase, 16 feed 256 in dK/dV's, against
-//     8 scalar reads per 16 FMAs in the forward's layout;
+// Common to all three (256 threads, one CTA of 8 warps an SM):
 //   - operands sit in shared memory as rows of f32, unpadded, with each
 //     16-byte chunk of row r XOR-swizzled by r & 7 (swz), so a quarter-
-//     warp's float4 reads hit distinct banks; the budgets (DqTiles,
-//     DkvTiles: 229 and 230 KB at DC 128) allow one CTA of 8 warps per SM;
+//     warp's float4 reads hit distinct banks; every product reads them as
+//     float4 into register micro-tiles (mm_nt, mm_nn);
 //   - f32 tiles land by cp.async (16 bytes a thread, zero-filled past S)
-//     in a two-stage ring: kv tiles in dQ, q/dO tiles with their lse and
-//     delta rows in dK/dV, so step j + 1 loads while step j is computed;
+//     in a two-stage ring, so tile j + 1 loads while tile j is computed;
 //     bf16 (heads above 256) is converted to f32 as it is staged;
-//   - the grid is one dimension, ordered by causal work, longest first.
-// Common to all three:
-//   - a head wider than DC (the Pallas kernels tile (1, 1, blk, Dh) with no
-//     bound on Dh; here shared memory and registers run out at Dh 256) is
-//     cut into DC-column chunks: the score tile S = sum_c Q_c K_c^T (and
-//     dP = sum_c dO_c V_c^T) is accumulated chunk by chunk, and each CTA
-//     owns ONE chunk of the output (o, dq, or dk and dv), so any width runs
-//     with the registers and shared memory of one chunk. The price: every
-//     chunk's CTA recomputes the full-width scores (2x the score products
-//     at Dh 256), and the backward stages each chunk and waits for it.
-//     With one chunk the operands that stay put across the loop are
-//     staged once;
+//   - the grid is one dimension, ordered by causal work, longest first;
 //   - the causal skip is a loop bound (kv tiles up to the diagonal), and
-//     only the diagonal tile is masked elementwise;
+//     only the tiles the diagonal crosses are masked elementwise;
 //   - GQA: q head h reads kv head h / (H / KV); no repeated k/v in memory;
-//   - dK/dV: one CTA per (batch, kv head, kv tile, chunk) loops over every
-//     group head and every q tile itself, so the sum the TPU grid carried
-//     across sequential grid steps stays inside the CTA: no atomics, no
-//     second pass;
 //   - any S: tiles are staged with a row bound (rows past S read as 0), the
 //     tile the end of S crosses masks its kv columns >= S (the forward:
 //     NEG_BIG before the row max; the backward: P = 0), and no row >= S is
 //     stored.
+// The forward (one CTA per 128-row q tile and DC-column chunk of the head):
+//   - Q is staged once; 64-row K and V tiles run through the ring; shared
+//     memory holds Q, two K and two V stages and the 128 x 64 P tile
+//     (FwdTiles: 229,888 bytes at DC 128);
+//   - S = Q K^T is a 4 x 8 block a thread (rows tr + 32 i, columns
+//     tc + 8 j: a row's eight threads are neighbouring lanes, so the online
+//     softmax's row max and sum take three shuffles); P goes to shared
+//     memory rounded to T with each row's rescale factor beside it, and
+//     P V adds to an 8 x 8 block (8 x 4 at DC 64) of the 128 x DC
+//     accumulator a thread;
+//   - a head wider than DC runs as a thread-block cluster of one CTA per
+//     DC-column chunk (Dh <= 1024: 8 CTAs, the portable cluster size). Each
+//     CTA computes the partial scores Q_c K_c^T of its own chunk and writes
+//     them into the K stage it has just read. After a cluster barrier the
+//     CTA of rank r sums, in rank order, the partials of the q rows it owns
+//     (rank row * C / 128) through distributed shared memory and runs their
+//     online softmax; after a second barrier every CTA copies the other
+//     CTAs' rows of P, and their factors, into its own P tile, and adds
+//     P V_c to its own output chunk. So the scores of a (q tile, kv tile)
+//     pair are computed once across the head, and each CTA reads
+//     2 (C - 1) / C of a score tile from the others (48 KB at C = 4, where
+//     reading every partial whole took 128 KB and was slower).
+//     Above 8 chunks a cluster of 8 CTAs owns 8 output chunks, CTA r
+//     summing the partials of chunks r, r + 8, ... (Q and K restaged chunk
+//     by chunk, no ring), so the scores are computed once per 8 output
+//     chunks.
+// The backward pair:
+//   - the two groups of 128 threads split each 64 x 64 score tile's
+//     products: group 0 computes S = Q K^T (dK/dV: S^T) and group 1
+//     dP = dO V^T (dP^T), a 4 x 8 block a thread; both write them to
+//     shared memory, where all 256 threads form P and dS (so no group waits
+//     out the other's exponentials); then dK/dV's group 0 adds P^T dO to dV
+//     and group 1 dS^T Q to dK (8 x 8 a thread at DC 128), and dQ's groups
+//     each add dS K to half of dq's columns (4 x 8). The budgets (DqTiles,
+//     DkvTiles: 229 and 230 KB at DC 128) allow one CTA an SM;
+//   - the ring holds kv tiles in dQ, q/dO tiles with their lse and delta
+//     rows in dK/dV;
+//   - a head wider than DC (the Pallas kernels tile (1, 1, blk, Dh) with no
+//     bound on Dh; here shared memory and registers run out at Dh 256) is
+//     cut into DC-column chunks: the score tiles S = sum_c Q_c K_c^T and
+//     dP = sum_c dO_c V_c^T are accumulated chunk by chunk, and each CTA
+//     owns ONE chunk of the output (dq, or dk and dv), so any width runs
+//     with the registers and shared memory of one chunk. The price: every
+//     chunk's CTA recomputes the full-width scores (2x the score products
+//     at Dh 256), and stages each chunk and waits for it;
+//   - dK/dV: one CTA per (batch, kv head, kv tile, chunk) loops over every
+//     group head and every q tile itself, so the sum the TPU grid carried
+//     across sequential grid steps stays inside the CTA: no atomics, no
+//     second pass.
 // bf16 inputs are computed in f32; P (before P.V and dV) and dS (before dK
 // and dQ) are rounded to bf16 where the JAX package rounds them
 // (strom/ops/flash_attention.py:79, :185, :194, :230), and the outputs once
@@ -76,18 +93,19 @@
 // dv are [B, S, KV, Dh]; lse is [B, H, S] f32 out of the forward, lse and
 // delta [B, H, SL] f32 into the backward (SL = S rounded up to 64; the
 // wrapper pads). Dh is 64 or a multiple of 128: the wrapper zero-pads any
-// other head. The backward reads its inputs in 16-byte chunks: the wrapper
-// hands it 16-byte-aligned tensors.
+// other head. The kernels read their inputs in 16-byte chunks: the wrapper
+// hands them 16-byte-aligned tensors.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int TILE = 64;       // q rows and kv rows per tile
-constexpr int NT = 256;        // threads per CTA (16 x 16)
-constexpr int SLD = TILE + 1;  // padded row length of a 64x64 score tile
+constexpr int TILE = 64;       // rows of a staged tile
 constexpr float NEG_BIG = -0.7f * 3.402823466e38f;  // as the Pallas kernel
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -105,172 +123,12 @@ template <typename T> __device__ __forceinline__ float round_t(float x) {
   return to_f(from_f<T>(x));
 }
 
-// Stage a TILE x DC chunk (row r at src + r * row_stride) into shared
-// memory as f32 with row length DC + 1; rows from `rows` on (past S) are
-// zeros.
-template <typename T, int DC>
-__device__ __forceinline__ void load_chunk(float* dst, const T* __restrict__ src,
-                                           long row_stride, int rows) {
-  constexpr int LD = DC + 1;
-  for (int e = threadIdx.x; e < TILE * DC; e += NT) {
-    const int r = e / DC, d = e % DC;
-    dst[r * LD + d] = r < rows ? to_f(src[(long)r * row_stride + d]) : 0.f;
-  }
-}
+// ------------------------------------------------------ shared building blocks
+// Every operand is staged in shared memory as f32 rows, swizzled (swz),
+// and read as float4 into register micro-tiles.
 
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// acc[i][j] += sum_d A[ty + 16 i][d] * Bm[tx + 16 j][d] over one staged
-// chunk (a 4x4 block of a 64x64 tile).
-template <int DC>
-__device__ __forceinline__ void chunk_dot(float (&acc)[4][4], const float* A,
-                                          const float* Bm) {
-  constexpr int LD = DC + 1;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int d = 0; d < DC; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = Bm[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------- forward
-template <typename T, int DC>
-__global__ void __launch_bounds__(NT)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-              int S, int H, int KV, int DHP, int causal, float scale) {
-  constexpr int LD = DC + 1;
-  constexpr int NJ = DC / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + TILE * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ps = Vs + TILE * LD;  // TILE x SLD
-
-  const int nch = DHP / DC;
-  const int nq = (S + TILE - 1) / TILE;
-  const int c = blockIdx.x % nch;                 // this CTA's output chunk
-  const int qi = nq - 1 - (int)blockIdx.x / nch;  // longest causal rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long qrow = (long)H * DHP, kvrow = (long)KV * DHP;
-  const T* qb = q + ((long)b * S + (long)qi * TILE) * qrow + (long)h * DHP;
-  const T* kb = k + (long)b * S * kvrow + (long)kvh * DHP;
-  const T* vb = v + (long)b * S * kvrow + (long)kvh * DHP + (long)c * DC;
-  const int qrows = S - qi * TILE;
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_BIG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = causal ? qi + 1 : nq;
-  for (int kj = 0; kj < nk; ++kj) {
-    const T* kt = kb + (long)kj * TILE * kvrow;
-    const int krows = S - kj * TILE;
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int cc = 0; cc < nch; ++cc) {
-      __syncthreads();  // the previous chunk (or tile's P.V) is read
-      if (nch > 1 || kj == 0) load_chunk<T, DC>(Qs, qb + cc * DC, qrow, qrows);
-      load_chunk<T, DC>(Ks, kt + cc * DC, kvrow, krows);
-      // V_c is read only after the softmax's barrier
-      if (cc == 0) load_chunk<T, DC>(Vs, vb + (long)kj * TILE * kvrow, kvrow, krows);
-      __syncthreads();
-      chunk_dot<DC>(s, Qs, Ks);
-    }
-
-    const bool diag = causal && kj == qi;
-    const bool edge = (kj + 1) * TILE > S;  // kv columns past S
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = NEG_BIG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if ((diag && tx + 16 * j > ty + 16 * i) || (edge && kj * TILE + tx + 16 * j >= S))
-          x = NEG_BIG;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty + 16 * i) * SLD + tx + 16 * j] = round_t<T>(p);
-        rs += p;
-      }
-      l[i] = l[i] * alpha + sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int cp = 0; cp < TILE; ++cp) {
-      float p[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * SLD + cp];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = Vs[cp * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = qi * TILE + ty + 16 * i;
-    if (r >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((long)b * S + r) * qrow + (long)h * DHP + (long)c * DC;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) orow[tx + 16 * j] = from_f<T>(acc[i][j] / denom);
-    if (c == 0 && tx == 0) lse[((long)b * H + h) * S + r] = m[i] + logf(denom);
-  }
-}
-
-// --------------------------------------------------------------- backward
-// The backward kernels run 256 threads as two groups of 128 (warps 0-3 and
-// 4-7). In the score phase of a 64 x 64 tile group 0 computes S = Q K^T
-// (or S^T) and group 1 dP = dO V^T (or dP^T), each thread a 4 x 8 block;
-// both write them to shared memory, where all 256 threads form P and dS
-// (ew_scores); in the accumulation phase each group owns its own outputs. Every operand is staged in shared
-// memory as f32 rows, swizzled (swz), and read as float4.
-
-constexpr int BT = 256;             // threads of a backward CTA
-constexpr int GT = BT / 2;          // threads of one group
+constexpr int BT = 256;             // threads of a CTA
+constexpr int GT = BT / 2;          // threads of one backward group
 constexpr size_t SMEM_MAX = 232448; // dynamic shared memory one CTA may use
 
 // Offset of float 4 f of row r in a tile of rows W floats wide: chunk f
@@ -457,6 +315,299 @@ __device__ __forceinline__ void ew_scores(const float* X, const float* D, float*
     if (Pout) store4(Pout + pos, p);
     store4(DSout + pos, ds);
   }
+}
+
+// ---------------------------------------------------------------- forward
+constexpr int QT = 2 * TILE;    // q rows of a forward CTA
+constexpr int MAX_CLUSTER = 8;  // CTAs of a portable thread-block cluster
+
+// Shared memory of the forward: Q (QT rows), two stages of K and of V, the
+// QT x TILE P tile, and one float a q row (P's rescale factor, then the
+// softmax denominator).
+template <int DC> struct FwdTiles {
+  static constexpr int QCH = QT * DC;   // floats of the staged Q
+  static constexpr int CH = TILE * DC;  // floats of one staged K or V tile
+  static constexpr int PT = QT * TILE;  // floats of the score tile
+  static constexpr size_t bytes = (QCH + 4 * CH + PT + QT) * sizeof(float);
+  static_assert(bytes <= SMEM_MAX, "the forward's tiles exceed a CTA's shared memory");
+  // a cluster (heads wider than DC) exchanges partial scores in a K stage
+  static constexpr bool exchange = CH >= PT;
+};
+
+__device__ __forceinline__ float max8(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float sum8(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// the thread-block cluster's barrier, in halves: arrive (release this
+// thread's shared-memory writes and reads) and wait (acquire the others')
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Float 4 f (of 8) of thread t's 32 partial scores in the exchange tile:
+// each thread's scores are contiguous, their chunks swizzled by t & 7 so
+// a quarter-warp's float4 accesses hit distinct banks.
+__device__ __forceinline__ int xpos(int t, int f) { return t * 32 + ((f ^ (t & 7)) << 2); }
+
+// One CTA per (q tile of QT rows, batch, q head, DC-column chunk of the
+// head), the longest causal rows first; the nch chunks of a q tile form a
+// cluster of C = min(nch, 8) CTAs (ncl clusters where nch > 8). Per 64-row
+// kv tile j: S = Q K_j^T (4 x 8 a thread; a cluster sums its CTAs' partial
+// scores), the online softmax on S, P rounded to T into shared memory,
+// then acc = alpha acc + P V_j (8 x 4 NG a thread). CL: the CTAs form
+// clusters (nch > 1); without, every row is the CTA's own.
+template <typename T, int DC, bool CL>
+__global__ void __launch_bounds__(BT, 1)
+fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+              int S, int H, int KV, int DHP, int causal, float scale) {
+  using L = FwdTiles<DC>;
+  static_assert(!CL || L::exchange, "a cluster exchanges scores in a K stage");
+  constexpr int CH = L::CH, NG = DC / 64;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + L::QCH;    // two stages
+  float* Vs = Ks + 2 * CH;    // two stages
+  float* Ps = Vs + 2 * CH;    // P: [q row][kv row], rows of TILE swizzled
+  float* Rs = Ps + L::PT;     // a float a q row
+
+  const int nch = DHP / DC;
+  const int C = CL ? min(nch, MAX_CLUSTER) : 1, ncl = (nch + C - 1) / C;
+  const int nq = (S + QT - 1) / QT, nkv = (S + TILE - 1) / TILE;
+  const int r = (int)blockIdx.x % C;              // rank in the cluster
+  const int cl = (int)blockIdx.x / C;
+  const int per = (int)gridDim.x / C / nq;        // clusters a q tile
+  const int qi = nq - 1 - cl / per;               // longest causal rows first
+  const int rem = cl % per;
+  const int h = rem / ncl % H, b = rem / (ncl * H);
+  const int kc = rem % ncl, c = kc * C + r;      // this CTA's output chunk
+  const bool own = c < nch;                       // false only past 8 chunks
+  const int nsc = (nch - r + C - 1) / C;          // score chunks r, r + C, ...
+  const bool ring = ncl == 1;  // one score chunk a CTA: Q staged once, K/V in the ring
+  const int kvh = h / (H / KV);
+  const int t = threadIdx.x;
+  const int tr = t / 8, tc = t % 8;     // scores: q rows tr + 32 i, kv columns tc + 8 j
+  const int ar = t / 16, ac = t % 16;   // acc: q rows ar + 16 i, column chunks ac + 16 g
+  const long qrow = (long)H * DHP, kvrow = (long)KV * DHP;
+  const int q0 = qi * QT, qrows = S - q0;
+  const T* qb = q + ((long)b * S + q0) * qrow + (long)h * DHP;
+  const T* kb = k + (long)b * S * kvrow + (long)kvh * DHP;
+  const T* vb = v + (long)b * S * kvrow + (long)kvh * DHP + (long)min(c, nch - 1) * DC;
+  const int nk = causal ? min(2 * qi + 2, nkv) : nkv;
+
+  auto stage_q = [&](int cc) {  // Q's chunk cc, in two 64-row halves
+    stage<DC>(Qs, qb + cc * DC, qrow, qrows);
+    stage<DC>(Qs + CH, qb + (qrows > TILE ? TILE * qrow : 0) + cc * DC, qrow, qrows - TILE);
+  };
+  // K_j's chunk cc into K stage `slot`, V_j's chunk c into V stage `slot`
+  auto stage_k = [&](int kj, int slot, int cc) {
+    stage<DC>(Ks + slot * CH, kb + (long)kj * TILE * kvrow + cc * DC, kvrow, S - kj * TILE);
+  };
+  auto stage_v = [&](int kj, int slot) {
+    if (own) stage<DC>(Vs + slot * CH, vb + (long)kj * TILE * kvrow, kvrow, S - kj * TILE);
+  };
+  if (ring) {
+    stage_q(r);
+    stage_k(0, 0, r);
+    stage_v(0, 0);
+    cp_async_commit();
+    if (nk > 1) {
+      stage_k(1, 1, r);
+      stage_v(1, 1);
+    }
+    cp_async_commit();
+  }
+
+  namespace cg = cooperative_groups;
+  // rows of P (with Ps) and their factors in Rs that other CTAs own, copied
+  // from them: row `row` is owned by the CTA of rank row * C / QT
+  auto gather_rows = [&](float* P, float* R) {
+    if (P) {
+      for (int e = t; e < QT * TILE / 4; e += BT) {
+        const int rk = e / (TILE / 4) * C / QT;
+        if (rk != r)
+          *reinterpret_cast<float4*>(P + 4 * e) =
+              ld4(cg::this_cluster().map_shared_rank(P, rk) + 4 * e);
+      }
+    }
+    if (t < QT && t * C / QT != r) R[t] = *cg::this_cluster().map_shared_rank(R + t, t * C / QT);
+  };
+
+  float m[4], l[4], acc[8][4 * NG];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_BIG;
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NG; ++j) acc[i][j] = 0.f;
+
+  for (int kj = 0; kj < nk; ++kj) {
+    const int slot = ring ? kj & 1 : 0;
+    // a cluster's exchange tile: the K stage the ring has just read, or the
+    // one never staged; at one offset in every CTA (`ring` is the cluster's)
+    float* X = Ks + (ring ? slot : 1) * CH;
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    if (ring) {
+      cp_async_wait<1>();  // tile kj is in; tile kj + 1 may be in flight
+      __syncthreads();
+      mm_nt<4, 8, DC, 32, 8>(s, Qs, tr, Ks + slot * CH, tc);
+    } else {
+      for (int u = 0; u < nsc; ++u) {
+        __syncthreads();  // the previous chunk (or tile) is read
+        stage_q(r + C * u);
+        stage_k(kj, 0, r + C * u);
+        if (u == 0) stage_v(kj, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        mm_nt<4, 8, DC, 32, 8>(s, Qs, tr, Ks, tc);
+      }
+    }
+
+    if (CL) {  // this CTA's partial scores into its exchange tile
+      if (ring) __syncthreads();  // every thread has read K_j
+#pragma unroll
+      for (int f = 0; f < 8; ++f)
+        *reinterpret_cast<float4*>(X + xpos(t, f)) =
+            make_float4(s[f / 2][4 * (f % 2)], s[f / 2][4 * (f % 2) + 1],
+                        s[f / 2][4 * (f % 2) + 2], s[f / 2][4 * (f % 2) + 3]);
+      cluster_arrive();
+      cluster_wait();  // every CTA's partial is written
+    }
+
+    // the online softmax over this tile's columns, each row by the CTA that
+    // owns it (in a cluster: the sum of the partials, in rank order); P
+    // rounded to T and the row's rescale factor into shared memory
+    const bool diag = causal && (kj + 1) * TILE - 1 > q0;  // a column may pass a row
+    const bool edge = (kj + 1) * TILE > S;                 // kv columns past S
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = tr + 32 * i;
+      const bool mine = !CL || row * C / QT == r;
+      if (CL && !__any_sync(0xffffffffu, mine)) continue;  // no row of this warp's
+      float x[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) x[j] = CL ? 0.f : s[i][j];
+      if (CL && mine) {
+        for (int rk = 0; rk < C; ++rk) {
+          const float* Xr = rk == r ? X : cg::this_cluster().map_shared_rank(X, rk);
+          const float4 lo = ld4(Xr + xpos(t, 2 * i)), hi = ld4(Xr + xpos(t, 2 * i + 1));
+          x[0] += lo.x;
+          x[1] += lo.y;
+          x[2] += lo.z;
+          x[3] += lo.w;
+          x[4] += hi.x;
+          x[5] += hi.y;
+          x[6] += hi.z;
+          x[7] += hi.w;
+        }
+      }
+      float mx = NEG_BIG;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = kj * TILE + tc + 8 * j;
+        x[j] *= scale;
+        if ((diag && col > q0 + row) || (edge && col >= S)) x[j] = NEG_BIG;
+        mx = fmaxf(mx, x[j]);
+      }
+      const float m_new = fmaxf(m[i], max8(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.f;
+      if (mine) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p = expf(x[j] - m_new);
+          const int col = tc + 8 * j;
+          Ps[swz<TILE>(row, col >> 2) + (col & 3)] = round_t<T>(p);
+          rs += p;
+        }
+      }
+      rs = sum8(rs);
+      if (mine) {
+        l[i] = l[i] * alpha + rs;
+        m[i] = m_new;
+        if (tc == 0) Rs[row] = alpha;
+      }
+    }
+    if (CL) {  // the other CTAs' P rows and factors into this CTA's
+      cluster_arrive();
+      cluster_wait();  // every slice is written, every partial read
+      gather_rows(Ps, Rs);
+      cluster_arrive();  // this thread's reads are done (waited below)
+    }
+    __syncthreads();
+
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float alpha = Rs[ar + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4 * NG; ++j) acc[i][j] *= alpha;
+      }
+      mm_nn<8, NG, TILE, DC, 16, 16>(acc, Ps, ar, Vs + slot * CH, ac);
+    }
+    __syncthreads();  // P, Rs and stage `slot` are read
+    if (CL) cluster_wait();  // and this CTA's P rows by the cluster
+    if (ring) {
+      if (kj + 2 < nk) {
+        stage_k(kj + 2, slot, r);
+        stage_v(kj + 2, slot);
+      }
+      cp_async_commit();
+    }
+  }
+
+  // each row's denominator into Rs, and its lse, by the CTA that owns it
+  // (of the first cluster)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tr + 32 * i;
+    if (tc == 0 && (!CL || row * C / QT == r)) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      Rs[row] = denom;
+      if (kc == 0 && row < qrows) lse[((long)b * H + h) * S + q0 + row] = m[i] + logf(denom);
+    }
+  }
+  if (CL) {
+    cluster_arrive();
+    cluster_wait();
+    gather_rows(nullptr, Rs);
+    cluster_arrive();
+  }
+  __syncthreads();
+  if (own) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = ar + 16 * i;
+      if (row >= qrows) continue;
+      const float denom = Rs[row];
+      T* orow = o + ((long)b * S + q0 + row) * qrow + (long)h * DHP + (long)c * DC;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float y[4] = {acc[i][4 * g] / denom, acc[i][4 * g + 1] / denom,
+                            acc[i][4 * g + 2] / denom, acc[i][4 * g + 3] / denom};
+        store4(orow + 4 * (ac + 16 * g), y);
+      }
+    }
+  }
+  if (CL) cluster_wait();  // no CTA leaves while its rows are read
 }
 
 // Shared memory of the dQ kernel: Q, dO, two stages of K and of V, and
@@ -741,27 +892,56 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int DC> constexpr size_t fwd_smem() {
-  return (3 * TILE * (DC + 1) + TILE * SLD) * sizeof(float);
-}
-
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
+// The forward's grid: nch CTAs a (q tile, batch, head), in clusters of
+// min(nch, MAX_CLUSTER) (no cluster for one chunk).
+template <typename T, int DC, bool CL>
+cudaError_t launch_fwd_grid(const void* q, const void* k, const void* v, void* o,
+                            float* lse, int B, int S, int H, int KV, int DHP,
+                            int causal, float scale, cudaStream_t stream) {
+  constexpr size_t smem = FwdTiles<DC>::bytes;
+  cudaError_t e = allow_smem(fa_fwd_kernel<T, DC, CL>, smem);
+  if (e != cudaSuccess) return e;
+  const int nch = DHP / DC, C = CL ? (nch < MAX_CLUSTER ? nch : MAX_CLUSTER) : 1;
+  const int ncl = (nch + C - 1) / C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((S + QT - 1) / QT) * B * H * ncl * C);
+  cfg.blockDim = dim3(BT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = C;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = CL ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, fa_fwd_kernel<T, DC, CL>, (const T*)q, (const T*)k,
+                         (const T*)v, (T*)o, lse, S, H, KV, DHP, causal, scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// One chunk (f32 at Dh 64 or 128) runs without a cluster; a wider head (f32
+// above 128, bf16 above 256) with one.
 template <typename T, int DC>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int B, int S, int H, int KV, int DHP,
                        int causal, float scale, cudaStream_t stream) {
-  cudaError_t e = allow_smem(fa_fwd_kernel<T, DC>, fwd_smem<DC>());
-  if (e != cudaSuccess) return e;
-  const int nq = (S + TILE - 1) / TILE;
-  fa_fwd_kernel<T, DC><<<dim3(nq * (DHP / DC), H, B), NT, fwd_smem<DC>(), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, H, KV, DHP, causal,
-      scale);
-  return cudaGetLastError();
+  if constexpr (DC == 128) {
+    if (DHP > DC)
+      return launch_fwd_grid<T, DC, true>(q, k, v, o, lse, B, S, H, KV, DHP, causal,
+                                          scale, stream);
+  }
+  if constexpr (std::is_same<T, float>::value)
+    return launch_fwd_grid<T, DC, false>(q, k, v, o, lse, B, S, H, KV, DHP, causal,
+                                         scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int DC>

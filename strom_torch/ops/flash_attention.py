@@ -148,15 +148,36 @@ def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
 
 
-def _rows_padded(t: torch.Tensor, S: int) -> tuple[torch.Tensor, int]:
-    """lse or Δ [B,H,S,1] as rows of SL = S rounded up to the kernels' tile,
-    and SL: the backward kernels' bulk copies read whole 64-row runs from
+def _rows_padded(t: torch.Tensor, S: int) -> torch.Tensor:
+    """lse or Δ [B,H,S,1] as rows of SL = S rounded up to the kernels' tile:
+    the backward kernels' bulk copies read whole 64-row runs from
     16-byte-aligned rows. A copy only where S is ragged; otherwise *t*
     itself, whose memory already has that layout."""
     pad = -S % KERNEL_TILE
-    if pad:
-        t = F.pad(t.reshape(t.shape[0], t.shape[1], S), (0, pad))
-    return t, S + pad
+    return F.pad(t.reshape(t.shape[0], t.shape[1], S), (0, pad)) if pad else t
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """*t*, or a copy of it where its data does not start on a 16-byte
+    boundary (a contiguous view at an odd offset)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def kernel_operands(width: int, typed: tuple, rows: tuple = ()
+                    ) -> tuple[tuple, tuple, int]:
+    """What a kernel reads, prepared for both routes: *typed* (q, k, v and
+    dO) zero-padded to the kernel's head *width* (``pad_head``), *rows*
+    (lse and Δ, [B,H,S,1]) as rows of SL = S rounded up to the tile
+    (``_rows_padded``), and each of them 16-byte aligned (``_aligned16``):
+    the sm90 kernels read through TMA maps and ``cp.async.bulk``, the
+    scalar ones by 16-byte ``cp.async``, and all of these need 16-byte
+    aligned addresses. Returns (typed, rows, SL); a tensor that needs none
+    of this is returned itself, so aligned inputs at the kernel's width
+    cost no copy."""
+    S = typed[0].shape[1]
+    typed = tuple(_aligned16(pad_head(t, width)) for t in typed)
+    rows = tuple(_aligned16(_rows_padded(t, S)) for t in rows)
+    return typed, rows, S + -S % KERNEL_TILE
 
 
 def _check_kernel_inputs(typed: tuple, rows: tuple = ()) -> None:
@@ -217,7 +238,7 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool):
     _check_kernel_inputs((q, k, v))
     B, S, H, Dh = q.shape
     width = kernel_head_dim(Dh)
-    q, k, v = (pad_head(t, width) for t in (q, k, v))
+    (q, k, v), _, _ = kernel_operands(width, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=q.device)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -242,12 +263,8 @@ def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
     B, S, H, Dh = q.shape
     width = kernel_head_dim(Dh)
     library = kernel_route(name, q.dtype, width)
-    q, k, v, g = (pad_head(t, width) for t in (q, k, v, g))
-    lse, SL = _rows_padded(lse, S)
-    delta, _ = _rows_padded(delta, S)
-    if library == "scalar":   # its cp.async staging reads 16-byte chunks
-        q, k, v, g, lse, delta = (_aligned16(t)
-                                  for t in (q, k, v, g, lse, delta))
+    (q, k, v, g), (lse, delta), SL = kernel_operands(width, (q, k, v, g),
+                                                     (lse, delta))
     args = (width, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
             B, S, SL, H, k.shape[2], int(causal), 1.0 / math.sqrt(Dh))
@@ -260,12 +277,6 @@ def _bwd_launch(name: str, q, k, v, g, lse, delta, outs, causal: bool):
             _launch(name, library, q.dtype,
                     getattr(_kernel_lib(), f"strom_{name}"),
                     _KERNEL_DTYPES[q.dtype], *args, stream)
-
-
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """*t*, or a copy of it where its data does not start on a 16-byte
-    boundary (a contiguous view at an odd offset)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_bwd_inputs(q, k, v, g, lse, delta) -> None:

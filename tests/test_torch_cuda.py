@@ -383,6 +383,140 @@ def test_scalar_backward_takes_unaligned_inputs(cuda_device):
         assert torch.equal(a, b)
 
 
+def _shifted(t):
+    """A contiguous copy of *t* that starts 4 bytes into its storage."""
+    skip = 4 // t.element_size()
+    flat = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)[skip:]
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("dtype,Dh", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                      (torch.bfloat16, 256), (torch.float32, 128)])
+def test_kernels_take_unaligned_inputs(cuda_device, dtype, Dh):
+    """Every flash kernel reads 16-byte-aligned memory: bf16 at 64, 128 and
+    256 the sm90 kernels' TMA maps and bulk copies, f32 the scalar kernels'
+    cp.async. Contiguous inputs that start 4 bytes into their storage (q,
+    k, v, dO, and lse and Δ handed to _flash_bwd(delta=), the block-pair
+    API; at S 128 no row padding copies them) are copied to aligned memory
+    first: out, lse, dq, dk and dv equal those of aligned copies of the same
+    inputs, bit for bit, launched from the route kernel_route names."""
+    B, S, H, KV = 1, 128, 4, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    q, k, v, g = (torch.randn(*s, generator=gen, device=cuda_device).to(dtype)
+                  for s in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh),
+                            (B, S, H, Dh)))
+
+    def run(q, k, v, g, lse=None, delta=None):
+        out, flse = tfa._flash_fwd(q, k, v, causal=True)
+        if lse is None:
+            lse, delta = flse, tfa._delta(out, g)
+        grads = tfa._flash_bwd(q, k, v, out, lse, g, causal=True, delta=delta)
+        return (out, flse, *grads), lse, delta
+
+    before = collections.Counter(tfa.VARIANT_LAUNCHES)
+    want, lse, delta = run(q, k, v, g)
+    shifted = [_shifted(t) for t in (q, k, v, g, lse, delta)]
+    assert all(t.data_ptr() % 16 == 4 and t.is_contiguous() for t in shifted)
+    got = run(*shifted)[0]
+    torch.cuda.synchronize()
+    library = tfa.kernel_route("fa_fwd", dtype, Dh)
+    assert library == ("sm90" if dtype == torch.bfloat16 else "scalar")
+    assert tfa.VARIANT_LAUNCHES - before == collections.Counter(
+        {tfa.variant(n, library, dtype): 2 for n in tfa.LAUNCHES})
+    for name, a, b in zip(("out", "lse", "dq", "dk", "dv"), want, got):
+        assert torch.equal(a, b), name
+
+
+def _check_fwd_against_plain(out, lse, q, k, v, causal, block):
+    """The forward kernel's out and lse against the plain forward on the
+    same inputs, at the tolerances of _check_kernels_against_plain: f32
+    1e-4 relative and 1e-5 of the largest value (f32 sums in another
+    order), lse within 1e-3; bf16 against the plain version in f32 (1e-2,
+    5e-3 of the largest value, lse 1e-3: the kernel rounds P and out to
+    bf16) and in bf16 (one bf16 ulp, 8e-3 relative, plus 2e-3 of the
+    largest value; lse within 2e-5)."""
+    blk = dict(causal=causal, block_q=block, block_k=block)
+    checks = [([t.float() for t in (q, k, v)], 1e-4, 1e-5, 1e-3)]
+    if q.dtype == torch.bfloat16:
+        checks = [([t.float() for t in (q, k, v)], 1e-2, 5e-3, 1e-3),
+                  ([q, k, v], 8e-3, 2e-3, 2e-5)]
+    for ins, rtol, frac, lse_atol in checks:
+        pout, plse = tfa._flash_fwd_plain(*ins, **blk)
+        assert out.shape == pout.shape and lse.shape == plse.shape
+        torch.testing.assert_close(lse, plse, rtol=0, atol=lse_atol)
+        torch.testing.assert_close(out.float(), pout.float(), rtol=rtol,
+                                   atol=frac * pout.float().abs().max().item())
+
+
+def _scalar_fwd(dtype, seed, S, H, KV, Dh, causal):
+    """Seeded q, k, v and the scalar forward's (out, lse), launched once
+    (counted under its scalar variant), and the plain versions' block."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(*s, generator=gen, device="cuda").to(dtype)
+               for s in ((1, S, H, Dh), (1, S, KV, Dh), (1, S, KV, Dh)))
+    before = collections.Counter(tfa.VARIANT_LAUNCHES)
+    out, lse = tfa._flash_fwd_kernel(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.VARIANT_LAUNCHES - before == collections.Counter(
+        {tfa.variant("fa_fwd", "scalar", dtype): 1})
+    return (q, k, v), out, lse, S if S % 64 else 64
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("S", [63, 96, 192, 320])
+@pytest.mark.parametrize("dtype,Dh", [(torch.float32, 64), (torch.float32, 128),
+                                      (torch.float32, 384), (torch.float32, 512),
+                                      (torch.bfloat16, 384), (torch.bfloat16, 512),
+                                      (torch.bfloat16, 640)])
+def test_scalar_forward_against_plain(cuda_device, dtype, Dh, S, G, causal):
+    """The scalar forward (128-row q tiles over 64-row kv tiles in a
+    two-stage ring; above 128 columns a cluster of one CTA a 128-column
+    chunk summing its partial scores, 3, 4 and 5 CTAs here) against the
+    plain forward, out and lse: S 63 (one tile cut by S), 96 (a q tile cut
+    by S over two kv tiles), 192 and 320 (q tiles past S, and the ring
+    wrapping), G 1 and 4 query heads a kv head, causal and not."""
+    H, KV = (8, 2) if G == 4 else (2, 2)
+    ins, out, lse, block = _scalar_fwd(dtype, 11, S, H, KV, Dh, causal)
+    _check_fwd_against_plain(out, lse, *ins, causal, block)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [63, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scalar_forward_beyond_one_cluster(cuda_device, dtype, S, causal):
+    """A head of 1152 columns is 9 chunks, more than a portable cluster of
+    8 CTAs holds: each q tile runs two clusters of 8, CTA r summing the
+    partial scores of chunks r and r + 8 (restaged chunk by chunk, no
+    ring), and only chunk 8's CTA of the second cluster writes output. The
+    same tolerances against the plain forward."""
+    ins, out, lse, block = _scalar_fwd(dtype, 12, S, 4, 2, 1152, causal)
+    _check_fwd_against_plain(out, lse, *ins, causal, block)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [63, 192])
+def test_bf16_scalar_forward_rounds_like_plain(cuda_device, S, causal):
+    """bf16 at Dh 512 runs the scalar forward (a cluster of 4 CTAs). It
+    rounds P to bf16 before P·V, as the JAX package and the bf16 plain
+    version do (strom/ops/flash_attention.py:79), and sums the row's
+    denominator from the unrounded P: out within one bf16 ulp (8e-3
+    relative) plus 2e-3 of the largest value, and under 5 % of its
+    elements different. P kept in f32 (the plain version fed v in f32)
+    moves 33-38 % of them at these shapes (the plain versions on the CPU),
+    so over 25 % shows the share can tell the two apart."""
+    (q, k, v), out, lse, block = _scalar_fwd(torch.bfloat16, 13, S, 8, 2, 512,
+                                             causal)
+    blk = dict(causal=causal, block_q=block, block_k=block)
+    plain, _ = tfa._flash_fwd_plain(q, k, v, **blk)
+    unrounded, _ = tfa._flash_fwd_plain(q, k, v.float(), **blk)
+    assert out.dtype == plain.dtype == unrounded.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), plain.float(), rtol=8e-3,
+                               atol=2e-3 * plain.float().abs().max().item())
+    assert (out != plain).float().mean().item() < 0.05
+    assert (unrounded != plain).float().mean().item() > 0.25
+
+
 def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
     """A CUDA tensor the kernel does not take raises; nothing falls back to
     the plain version. Every head dim and any seq len are taken: a head of
