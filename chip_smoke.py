@@ -60,11 +60,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
                under 4 rings and under 1, exact.
 4. train    -- seeded packed-token shards through make_llama_pipeline into
                make_train_step(Llama-3-8B widths, 2 layers, attn="flash"),
-               4 steps; every kernel must have launched during the steps,
+               which on the card runs each step as one captured CUDA
+               graph: 4 counted steps (the warm-up, the capture, two
+               replays); every kernel must have launched during them,
                from the source its row names (the bf16 wgmma kernels) and
                from no other; the f32 rows' launches are read there too.
-               Then one more step under torch.profiler: device time by
-               kernel group and the device's idle share.
+               4 more replays timed; captured=true, the graphs, the
+               warm-up's, the capture's and the steady ms. Then one more
+               replay under torch.profiler: device time by kernel group
+               and the device's idle share. Last, 4 steps of the captured
+               step and 4 of its eager body on fresh states from one seed
+               and the same batches: losses, grad norms and sampled
+               parameters bit-equal.
 5. stream   -- StromContext.stream_segments under engine="auto": 2048
                seeded, scattered 150,528-byte records of phase 3's file
                gathered into a pinned slab; the completed ranges must tile
@@ -77,9 +84,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
                make_predecoded_vision_pipeline(batch=128): the first batch
                must equal the sampler's records byte for byte, labels too;
                the loader alone, images/s over 8 batches; then ResNet-50 at
-               full width (bf16) under make_resnet_sgd_step, 1 warm-up and
-               8 timed steps (finite loss and grad norm), one more under
-               torch.profiler.
+               full width (bf16) under make_resnet_sgd_step, captured:
+               the warm-up and the capture, then 8 timed replays (finite
+               loss and grad norm), one more under torch.profiler; then 3
+               captured and 3 eager steps on fresh models, bit-equal.
+               Phase 7's arms step the same captured step.
 7. resnet_jpeg -- the [decode] line (native libjpeg-turbo build, cv2, PIL).
                Where an encoder and a resize exist (cv2 or PIL): a seeded
                WebDataset tar of 512 448x448 JPEGs (quality 90) through
@@ -110,8 +119,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
                (stage_striped_predecoded) through
                make_predecoded_vision_pipeline(batch=64): the first batch
                byte-exact, the loader alone; then ViT-B/16 at full width
-               (bf16) under make_vit_sgd_step, 1 warm-up and 8 timed steps
-               (finite loss and grad norm), one more under torch.profiler.
+               (bf16) under make_vit_sgd_step, captured: the warm-up and
+               the capture, then 8 timed replays (finite loss and grad
+               norm), one more under torch.profiler; then 3 captured and
+               3 eager steps on fresh models, bit-equal.
                Where phase 7 made its JPEG tar: the tar striped over 4
                members the same way through make_vit_wds_pipeline(batch=64),
                the loader alone and 4 ViT steps; elsewhere skipped=.
@@ -1041,12 +1052,14 @@ def phase_striped(workdir: str, path: str, want: torch.Tensor,
 # ------------------------------------------------------------------ train
 def phase_train(workdir: str) -> dict[str, int]:
     """Packed-token shards → make_llama_pipeline → make_train_step at
-    Llama-3-8B widths, 2 layers, flash attention; 4 steps. Returns the
-    launches during the steps of each row of KERNELS (check_variants: each
-    from the source its row names) and of F32_KERNELS and DH512_KERNELS
-    (no scalar call is on this path: 0 unless one was)."""
+    Llama-3-8B widths, 2 layers, flash attention, captured: 4 counted steps
+    (warm-up, capture, 2 replays), 4 more replays timed, one profiled; then
+    the captured step against its eager body. Returns the launches during
+    the counted steps of each row of KERNELS (check_variants: each from the
+    source its row names) and of F32_KERNELS and DH512_KERNELS (no scalar
+    call is on this path: 0 unless one was)."""
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
-    B, seq_len, steps, records = 2, 2047, 4, 16
+    B, seq_len, steps, timed, records = 2, 2047, 4, 4, 16
     rng = np.random.default_rng(1)
     shards = [rng.integers(0, cfg.vocab, (records, seq_len + 1), dtype=np.int32)
               for _ in range(2)]
@@ -1093,34 +1106,100 @@ def phase_train(workdir: str) -> dict[str, int]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
-    times = []
-    for i in range(steps):
+    times, calls, variants = [], [], {}
+    for i in range(steps + timed):
         batch = first if i == 0 else next_batch()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        calls.append(step.last_call)
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise AssertionError(f"step {i}: loss {loss}, grad_norm {norm}")
-        say("train", step=i, loss=f"{loss:.5f}", grad_norm=f"{norm:.5f}",
-            ms=f"{times[-1] * 1e3:.1f}")
-    variants = dict(fa.VARIANT_LAUNCHES)
-    steady = sum(times[1:]) / (steps - 1)
-    say("train", step_ms_first=f"{times[0] * 1e3:.1f}",
-        step_ms_steady=f"{steady * 1e3:.1f}",
-        step_ms_median_after_first=f"{statistics.median(times[1:]) * 1e3:.1f}",
-        tokens_per_s=f"{B * (seq_len + 1) / steady:.0f}",
+        say("train", step=i, call=step.last_call, loss=f"{loss:.5f}",
+            grad_norm=f"{norm:.5f}", ms=f"{times[-1] * 1e3:.1f}")
+        if i == steps - 1:   # the launches of the first `steps` steps
+            variants = dict(fa.VARIANT_LAUNCHES)
+    steady = [t for t, c in zip(times, calls) if c == "replay"]
+    say("train", **_step_summary(step, times, calls, steady),
+        tokens_per_s=f"{B * (seq_len + 1) / statistics.mean(steady):.0f}",
         max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / GiB:.2f}",
         data_stall_steps=pipe.data_stall_steps,
-        launches=json.dumps(variants, sort_keys=True))
+        launches=json.dumps(variants, sort_keys=True), launches_over_steps=steps)
     profile_step(step, state, next_batch())
     pipe.close()
     strom_torch.close()
+    del state, step
+    torch.cuda.empty_cache()
+    # the captured step against its eager body: 4 steps each from fresh
+    # states of one seed on the first 4 batches of the shards' records
+    fa.reset_launch_counts()
+    batches = [all_records[2 * i:2 * i + 2] for i in range(4)]
+    _captured_equals_eager(
+        "train", lambda: make_train_step(cfg, attn="flash", device="cuda"),
+        lambda: init_train_state(cfg, device="cuda", seed=0),
+        lambda step, state, b: step(state, b)[1], batches,
+        lambda state: {"wq": state.model.wq[:, :64, :64],
+                       "w_down": state.model.w_down[:, :64, :64],
+                       "embed": state.model.embed[:64],
+                       "lm_head": state.model.lm_head[:, :64],
+                       "attn_norm": state.model.attn_norm})
     launches = check_variants(KERNELS, variants, "train steps")
     return launches | {name: variants.get(info["variant"], 0)
                        for table in (F32_KERNELS, DH512_KERNELS)
                        for name, info in table.items()}
+
+
+def _step_summary(step, times: list[float], calls: list[str],
+                  steady: list[float]) -> dict:
+    """What a phase prints of its captured step: captured=true, the graphs,
+    the warm-up call's and the capturing call's ms (where this phase made
+    them), and the *steady* (replay) ms, mean and median."""
+    if any(c not in ("warmup", "capture", "replay") for c in calls):
+        raise AssertionError(f"a step on the card ran uncaptured: {calls}")
+    if not steady:
+        raise AssertionError(f"no call replayed a graph: {calls}")
+    out = {"captured": "true", "graphs": step.graphs}
+    for kind in ("warmup", "capture"):
+        if kind in calls:
+            out[f"step_ms_{kind}"] = f"{times[calls.index(kind)] * 1e3:.1f}"
+    return out | {"step_ms_steady": f"{statistics.mean(steady) * 1e3:.2f}",
+                  "step_ms_median": f"{statistics.median(steady) * 1e3:.2f}",
+                  "steady_steps": len(steady)}
+
+
+def _captured_equals_eager(label: str, make_step, make_owner, call,
+                           batches: list, sample) -> None:
+    """len(batches) steps of a captured step (warm-up, capture, replays)
+    and as many of its eager body (``step.eager``), each on a fresh owner
+    from one seed, on the same batches: the losses, grad norms and a
+    *sample* of the owner's parameters must be bit-equal, since the same
+    kernels run in the same order. *call(fn, owner, batch)* takes one step
+    and returns its metrics."""
+
+    def run(captured: bool):
+        step, owner = make_step(), make_owner()
+        fn = step if captured else step.eager
+        metrics = [call(fn, owner, b) for b in batches]
+        if captured and (step.graphs != 1 or step.last_call != "replay"):
+            raise AssertionError(f"{label}: the captured run made "
+                                 f"{step.graphs} graphs, last {step.last_call}")
+        return ([(m["loss"], m["grad_norm"]) for m in metrics],
+                {k: v.detach().clone() for k, v in sample(owner).items()})
+
+    got, gp = run(True)
+    torch.cuda.empty_cache()
+    want, wp = run(False)
+    torch.cuda.empty_cache()
+    diff = [name for name in gp if not torch.equal(gp[name], wp[name])]
+    diff += [f"step {i}" for i, (a, b) in enumerate(zip(got, want))
+             if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+    say(label, check="captured steps against the eager body, bit for bit",
+        steps=len(batches), losses=",".join(f"{float(a):.6f}" for a, _ in got),
+        params_sampled=",".join(sorted(gp)), differ=",".join(diff) or "none")
+    if diff:
+        raise AssertionError(f"{label}: captured and eager steps differ: {diff}")
 
 
 def _kernel_group(name: str) -> str:
@@ -1226,12 +1305,14 @@ def _write_predecoded(path: str, records: np.ndarray, labels: np.ndarray) -> Non
 
 
 def _train_steps(label: str, model, step, pipe, n_steps: int) -> dict:
-    """1 warm-up step, then *n_steps* timed iterations (next batch + step +
-    the loss read back), each checked finite. Returns the steady step ms
-    and the timed stalls."""
+    """The first call untimed (on a step with no graph yet the warm-up,
+    then the capturing call, also untimed), then *n_steps* timed replays
+    (next batch + step + the loss read back), each checked finite.
+    Returns the steady step ms and the timed stalls."""
     B = None
-    times, stalls0 = [], None
-    for i in range(n_steps + 1):
+    times, calls, steady, stalls0 = [], [], [], None
+    while len(steady) < n_steps:
+        i = len(times)
         t0 = time.perf_counter()
         imgs, lbls = next(pipe)
         B = imgs.shape[0]
@@ -1239,21 +1320,23 @@ def _train_steps(label: str, model, step, pipe, n_steps: int) -> dict:
         loss, norm = m["loss"].item(), m["grad_norm"].item()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        calls.append(step.last_call)
         if not (math.isfinite(loss) and math.isfinite(norm)):
             raise AssertionError(f"{label} step {i}: loss {loss}, grad_norm {norm}")
-        if i == 0:
+        timed = i > 0 and step.last_call == "replay"
+        if timed:
+            steady.append(times[-1])
+        else:
             stalls0 = pipe.data_stall_steps
-        say(label, step=i, loss=f"{loss:.5f}", grad_norm=f"{norm:.5f}",
-            ms=f"{times[-1] * 1e3:.1f}", warmup=(i == 0))
-    steady = sum(times[1:]) / n_steps
-    say(label, step_ms_first=f"{times[0] * 1e3:.1f}",
-        step_ms_steady=f"{steady * 1e3:.2f}",
-        step_ms_median=f"{statistics.median(times[1:]) * 1e3:.2f}",
-        images_per_s=f"{B / steady:.1f}", timed_steps=n_steps,
+        say(label, step=i, call=step.last_call, loss=f"{loss:.5f}",
+            grad_norm=f"{norm:.5f}", ms=f"{times[-1] * 1e3:.1f}", timed=timed)
+    summary = _step_summary(step, times, calls, steady)
+    say(label, **summary, step_ms_first=f"{times[0] * 1e3:.1f}",
+        images_per_s=f"{B / statistics.mean(steady):.1f}", timed_steps=n_steps,
         data_stall_steps_timed=pipe.data_stall_steps - stalls0,
         data_stall_steps_all=pipe.data_stall_steps,
         max_memory_allocated_gib=f"{torch.cuda.max_memory_allocated() / GiB:.2f}")
-    return {"step_ms_steady": steady * 1e3,
+    return {"step_ms_steady": statistics.mean(steady) * 1e3,
             "stalls_timed": pipe.data_stall_steps - stalls0}
 
 
@@ -1313,7 +1396,27 @@ def phase_resnet(workdir: str):
     profile_step(lambda m, b: (m, step(m, *b)), model, next(pipe))
     pipe.close()
     strom_torch.close()
+    _captured_equals_eager(
+        "resnet", lambda: make_resnet_sgd_step(cfg, device=cuda),
+        lambda: ResNet(cfg, device=cuda), _vision_call, _vision_batches(B, 3),
+        lambda m: {k: m.state_dict()[k] for k in (
+            "stem.conv", "stem.bn.scale", "stem.bn.mean", "stem.bn.var",
+            "stage3.2.conv3", "stage3.2.bn3.var", "head.w", "head.b")})
     return model, step, pdec
+
+
+def _vision_batches(B: int, n: int) -> list:
+    """n seeded batches of B uint8 224² images and int32 labels, on the
+    card."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    return [(torch.randint(0, 256, (B, IMAGE, IMAGE, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8),
+             torch.randint(0, 1000, (B,), generator=gen, device="cuda",
+                           dtype=torch.int32)) for _ in range(n)]
+
+
+def _vision_call(fn, model, batch) -> dict:
+    return fn(model, *batch)
 
 
 def _jpeg_fixture(path: str, n: int, side: int) -> None:
@@ -1701,6 +1804,14 @@ def phase_vit(pdec: str, tar: str | None) -> None:
     _train_steps("vit", model, step, pipe, 8)
     profile_step(lambda m, b: (m, step(m, *b)), model, next(pipe))
     pipe.close()
+    _captured_equals_eager(
+        "vit", lambda: make_vit_sgd_step(cfg, device=cuda),
+        lambda: ViT(cfg, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0)),
+        _vision_call, _vision_batches(B, 3),
+        lambda m: {k: m.state_dict()[k] for k in (
+            "patch_embed", "pos_embed", "layers.0.wqkv", "layers.11.w2",
+            "final_ln.scale", "head.w")})
 
     if tar is None:
         say("vit_jpeg", skipped=NO_JPEG)
@@ -1724,31 +1835,46 @@ def phase_vit(pdec: str, tar: str | None) -> None:
     strom_torch.close()
 
 
+PROFILE_PAD_S = 0.1   # on the card, ~15 us of drift a second of process age
+
+
 def profile_step(step, state, batch) -> None:
-    """One more step, after the timed ones, under torch.profiler: device
-    time by kernel group and the device's busy share of the step's wall
-    time (the union of device intervals over the host clock)."""
+    """One more step, after the timed ones, under torch.profiler: one
+    replay of the step's graph. Device time by kernel group and the
+    device's busy share of the step's wall time (the union of device
+    intervals over the host clock). Where the profiler saw no kernel but
+    the input copy (none of the graph's), it says so and reports nothing
+    as a measurement."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler keeps only device events that its clock conversion,
+        # which drifts as the process ages, puts inside the session: a
+        # pause on either side keeps the step's events inside it
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
-        step(state, batch)[1]["loss"].item()
-        torch.cuda.synchronize()
+        metrics = step(state, batch)[1]
+        torch.cuda.synchronize()   # the wait: no ATen op's self time
         wall_us = (time.perf_counter() - t0) * 1e6
+        metrics["loss"].item()
+        time.sleep(PROFILE_PAD_S)
     # device kernels and copies only: a range annotation (the optimizer's
     # step, say) is mirrored on the device timeline over its kernels
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)]
-    if not spans:
-        say("profile", device_time="not measured",
-            note="the profiler recorded no device events")
+    kernels = [sp for sp in spans if _kernel_group(sp[2]) != "memcpy/memset"]
+    if not kernels:
+        say("profile", device_time="not measured", device_events=len(spans),
+            note="the profiler recorded no kernel of the step's graph")
         return
-    # host time inside ATen ops (self time, so nested ops count once); the
-    # rest of the host clock is Python and the autograd engine
+    # host time inside ATen ops (self time, so nested ops count once; not
+    # the CUDA runtime's calls, whose synchronize is the wait for the
+    # device); the rest of the host clock is Python and the autograd engine
     host_ops_us = sum(e.self_cpu_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CPU)
+                      if e.device_type == torch.autograd.DeviceType.CPU
+                      and e.key.startswith("aten::"))
     groups: dict[str, float] = {}
     by_name: dict[str, list[float]] = {}
     busy, reach = 0.0, -math.inf
@@ -1760,12 +1886,20 @@ def profile_step(step, state, batch) -> None:
         n_us[1] += end - start
         busy += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    say("profile", step_ms=f"{wall_us / 1e3:.1f}",
+    # cuBLAS's kernels for operands not 16-byte aligned (ViT's S 197 rows)
+    align1 = [(n, us) for name, (n, us) in by_name.items() if "align1" in name]
+    say("profile", device_kernels=len(kernels), step_ms=f"{wall_us / 1e3:.1f}",
         device_busy_ms=f"{busy / 1e3:.1f}",
         device_idle_share=f"{1 - busy / wall_us:.3f}",
         host_aten_self_ms=f"{host_ops_us / 1e3:.1f}",
+        align1_calls=sum(n for n, _ in align1),
+        align1_ms=f"{sum(us for _, us in align1) / 1e3:.2f}",
         **{f"{g}_ms": f"{us / 1e3:.2f}" for g, us in
            sorted(groups.items(), key=lambda kv: -kv[1])})
+    for name, (n, us) in by_name.items():
+        if "align1" in name:
+            say("profile", align1_kernel=name[:110].replace(" ", "_"), calls=n,
+                ms=f"{us / 1e3:.3f}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         say("profile", group=_kernel_group(name), calls=n, ms=f"{us / 1e3:.2f}",
             kernel=name[:110].replace(" ", "_"))

@@ -181,8 +181,10 @@ class Llama(nn.Module):
         for i in range(cfg.n_layers):
             lp = {n: getattr(self, n)[i] for n in LAYER_PARAMS}
             if remat:
+                # the block draws no random numbers: no RNG state to keep
+                # for the recompute (whose get/set would break a capture)
                 x = checkpoint(block, x, lp, cfg, positions, attn_fn,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, lp, cfg, positions, attn_fn)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)

@@ -16,7 +16,9 @@ The same network and numerics as the JAX package's:
   and returns the new running statistics ``m·old + (1−m)·batch`` (m = 0.9,
   the biased variance) instead of updating them in place:
   ``F.batch_norm``'s own update uses the unbiased variance and the other
-  momentum convention, so it is given no running statistics to update.
+  momentum convention, so it is given no running statistics to update. The
+  batch statistics are computed once, by the normalisation's own pass, and
+  the running ones derived from them.
 
 ``forward(images, train)`` returns ``(logits, new_bn_state)``; the train
 step (``strom_torch.parallel.train.make_resnet_sgd_step``) stores the new
@@ -115,15 +117,18 @@ class BatchNorm(nn.Module):
             new_state[self] = (self.mean, self.var)
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 training=False, eps=cfg.bn_eps)
+        # one statistics pass: the batch mean and 1/sqrt(biased var + eps),
+        # in f32, normalise x (gradients through the batch statistics), and
+        # the new running statistics come from the same two numbers; no
+        # running statistics are given, so none are updated in place
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.scale, self.bias, None, None, True, 0.0, cfg.bn_eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            var = invstd.float().pow(-2) - cfg.bn_eps
             m = cfg.bn_momentum
-            new_state[self] = (m * self.mean + (1 - m) * mean,
+            new_state[self] = (m * self.mean + (1 - m) * mean.float(),
                                m * self.var + (1 - m) * var)
-        # normalised with the biased batch variance, gradients through the
-        # batch statistics; no running statistics given, so none updated
-        return F.batch_norm(x, None, None, self.scale, self.bias,
-                            training=True, eps=cfg.bn_eps)
+        return y
 
 
 class Stem(nn.Module):
@@ -243,10 +248,19 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def normalize_images(u8: torch.Tensor) -> torch.Tensor:
-    """uint8 [..., 3] → normalised f32, on the tensor's device."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=u8.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=u8.device)
+def imagenet_mean_std(device: Any) -> tuple[torch.Tensor, torch.Tensor]:
+    """The normalisation's f32 mean and std on *device*: made once by a
+    step, so that a captured step copies nothing from the host."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
+def normalize_images(u8: torch.Tensor,
+                     mean_std: tuple[torch.Tensor, torch.Tensor] | None = None
+                     ) -> torch.Tensor:
+    """uint8 [..., 3] → normalised f32, on the tensor's device (*mean_std*:
+    ``imagenet_mean_std`` of that device, made here when not given)."""
+    mean, std = mean_std or imagenet_mean_std(u8.device)
     return (u8.float() / 255.0 - mean) / std
 
 

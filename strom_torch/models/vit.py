@@ -11,9 +11,10 @@ The same network and numerics as the JAX package's:
 - weights and activations in ``cfg.dtype`` (bf16), ``cls_token`` and
   ``pos_embed`` included; layer norm in f32 with the biased variance, eps
   1e-6, cast back to the input's dtype; the head in f32 on the cls token;
-- attention is the port's dense ``models.llama.attention(causal=False)``,
-  bf16 scores before an f32 softmax as the JAX einsums give them; GELU is
-  the tanh approximation, ``jax.nn.gelu``'s default;
+- attention is the reference's dense ``attention(causal=False)``, bf16
+  scores before an f32 softmax as the JAX einsums give them, with the keys
+  and values zero-padded to a multiple of 8 rows (:func:`attention`); GELU
+  is the tanh approximation, ``jax.nn.gelu``'s default;
 - the reference's ``lax.scan`` over parameters stacked ``[L, ...]`` is a
   loop over an ``nn.ModuleList`` of one :class:`Block` per layer;
   :func:`params_from_jax` splits the stacked arrays.
@@ -31,8 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from strom_torch.delivery.core import resolve_device
-from strom_torch.models.llama import attention
 from strom_torch.models.resnet import softmax_xent
+
+SCORE_ROWS = 8   # keys padded to a multiple of this: 8 bf16 scores are 16 bytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +89,30 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, patch * patch * C)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> torch.Tensor:
+    """The reference's dense attention, not causal (``strom/models/vit.py``
+    calls ``strom.models.llama.attention(causal=False)``): q, k, v [B,S,H,Dh]
+    → [B,S,H,Dh], f32 softmax over the scaled scores.
+
+    The keys and values are zero-padded to a multiple of ``SCORE_ROWS``
+    (ViT-B/16's S 197 to 200) and the padded keys' scores set to -inf
+    before the softmax, so their probabilities are exactly 0: the GEMMs'
+    reduction over the keys gains only zero terms, and every row of scores
+    and probabilities starts on a 16-byte boundary, which lets cuBLAS take
+    its aligned kernels (a 197-element bf16 row is 394 bytes)."""
+    B, S, H, Dh = q.shape
+    pad = -S % SCORE_ROWS
+    if pad:
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    scores = torch.einsum("bqhd,bshd->bhqs", q, k).float() / math.sqrt(Dh)
+    if pad:
+        scores[..., S:] = float("-inf")
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0).to(v.dtype)  # as the reference
+    return torch.einsum("bhqs,bshd->bqhd", probs, v)
+
+
 def _dense(shape: tuple[int, ...], dtype, device, gen) -> nn.Parameter:
     """N(0, 1/fan_in) drawn in f32, then cast (as the reference)."""
     t = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
@@ -131,7 +157,7 @@ class Block(nn.Module):
         h = self.ln1(x, cfg.norm_eps)
         q, k, v = (h @ self.wqkv).reshape(B, S, 3, cfg.n_heads,
                                           cfg.head_dim).unbind(2)
-        x = x + attention(q, k, v, causal=False).reshape(B, S, D) @ self.wo
+        x = x + attention(q, k, v).reshape(B, S, D) @ self.wo
         h = self.ln2(x, cfg.norm_eps)
         h = F.gelu(h @ self.w1 + self.b1, approximate="tanh") @ self.w2 + self.b2
         return x + h

@@ -41,6 +41,7 @@ attention can reuse the kernels per (q block, kv block) pair.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import math
 
@@ -59,7 +60,9 @@ _SOURCE_SM90 = "flash_attention_sm90.cu"
 
 # Launches per kernel: each wrapper adds one where it launches its kernel,
 # under the kernel's name in LAUNCHES and under the variant that ran in
-# VARIANT_LAUNCHES (``variant``: name, library and dtype).
+# VARIANT_LAUNCHES (``variant``: name, library and dtype). Under a CUDA
+# graph capture nothing runs: ``counting_capture`` takes the capture's
+# counts back out, and each replay adds them (``count_replay``).
 LAUNCHES: collections.Counter = collections.Counter(
     {"fa_fwd": 0, "fa_bwd_dkv": 0, "fa_bwd_dq": 0})
 VARIANT_LAUNCHES: collections.Counter = collections.Counter()
@@ -77,6 +80,33 @@ def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     VARIANT_LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """Around a CUDA graph capture, where the wrappers run but no kernel
+    does: yields a Counter that receives, by variant, the launches the
+    captured work records, and leaves both counters as they were. Each
+    replay of the graph then adds them with :func:`count_replay`, so the
+    counters keep counting launches that ran on the device."""
+    launches, variants = collections.Counter(LAUNCHES), \
+        collections.Counter(VARIANT_LAUNCHES)
+    captured: collections.Counter = collections.Counter()
+    try:
+        yield captured
+    finally:
+        captured.update(VARIANT_LAUNCHES - variants)
+        for counter, before in ((LAUNCHES, launches), (VARIANT_LAUNCHES, variants)):
+            counter.clear()
+            counter.update(before)
+
+
+def count_replay(captured: collections.Counter) -> None:
+    """Count the launches one replay of a graph ran: *captured*, as
+    :func:`counting_capture` gave it."""
+    for key, n in captured.items():
+        VARIANT_LAUNCHES[key] += n
+        LAUNCHES[key.split("@", 1)[0]] += n
 
 
 def _blocks(S: int, block_q: int, block_k: int) -> tuple[int, int]:

@@ -3,8 +3,11 @@ their plain versions (at the reference's shapes too: head dims below 64,
 seq lens off the 64-row tile), delivery into device memory with slab
 recycling, a train step that goes through the kernels, vision batches on
 the card equal to the CPU's with the pinned batch slot recycled only after
-its copy, a ResNet step on the card against the CPU's, and ViT steps: the
-tiny one against the CPU's, ViT-B/16 at full width. Every test is marked ``cuda``
+its copy, a ResNet step on the card against the CPU's, ViT steps: the
+tiny one against the CPU's, ViT-B/16 at full width; and the train steps
+captured as CUDA graphs against their eager bodies, bit for bit (new
+shapes, the lr across replays, the scalar kernels' cluster launch under
+capture, a capture that fails). Every test is marked ``cuda``
 and skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -14,6 +17,7 @@ package, so it runs on a machine that has only PyTorch:
 
 import collections
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -27,8 +31,9 @@ from strom_torch.models.llama import LlamaConfig
 from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import flash_attention as tfa
-from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
-                                        make_train_step, make_vit_sgd_step)
+from strom_torch.parallel.train import (init_train_state, make_optimizer,
+                                        make_resnet_sgd_step, make_train_step,
+                                        make_vit_sgd_step)
 from strom_torch.pipelines import (make_predecoded_vision_pipeline,
                                    make_wds_vision_pipeline)
 
@@ -159,20 +164,49 @@ def test_bf16_dq_rounds_ds_like_plain(cuda_device, causal, Dh, S):
     assert (f32_ds != plain).float().mean().item() > 0.30
 
 
+PROFILE_PAD_S = 0.1
+PROFILE_TRIES = 3
+
+
+def _device_names(call, kernel: str) -> tuple[str, int]:
+    """The names of the events the profiler records for *call*, alone in a
+    session, and the number of sessions (calls) that took.
+
+    On the card's machine the profiler loses device events: the first
+    ones of a session, more of them the older the process (after ~150 s
+    every device event of a session of a few ms was gone), and now and
+    then all of a session's, even with the call 100 ms inside the session
+    (1 of 42 such sessions in one run). A pause before the call and after
+    it keeps the call's events inside the session; a session that shows
+    no event of *kernel* on either route (its name prefixes both
+    ``<kernel>_kernel`` and ``<kernel>_wgmma_kernel``) says nothing of the
+    route and is profiled again, up to PROFILE_TRIES sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            call()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        names = " ".join(e.name for e in prof.events())
+        if kernel in names:
+            break
+    return names, tries
+
+
 def test_dq_kernel_by_dtype(cuda_device):
     """bf16 dq runs the tensor-core kernel, f32 dq the scalar one: the
     kernels' names as the profiler sees them on the device."""
-    from torch.profiler import ProfilerActivity, profile
-
     names = {}
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn(1, 128, 2, 64, device=cuda_device).to(dtype)
         k = torch.randn(1, 128, 1, 64, device=cuda_device).to(dtype)
         lse = torch.zeros(1, 2, 128, 1, device=cuda_device)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tfa._bwd_dq_kernel(q, k, k, q, lse, lse, causal=True)
-            torch.cuda.synchronize()
-        names[dtype] = " ".join(e.name for e in prof.events())
+        names[dtype], _ = _device_names(
+            lambda: tfa._bwd_dq_kernel(q, k, k, q, lse, lse, causal=True),
+            "fa_bwd_dq")
     assert "fa_bwd_dq_wgmma_kernel" in names[torch.bfloat16]
     assert "fa_bwd_dq_kernel" in names[torch.float32]
     assert "fa_bwd_dq_wgmma_kernel" not in names[torch.float32]
@@ -184,8 +218,6 @@ def test_wide_kernels_by_name(cuda_device, Dh):
     three run the scalar kernels. The kernels' names as the profiler sees
     them on the device, and the one variant (kernel, library, dtype) each
     call counts a launch under."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     q = torch.randn(1, 128, 2, Dh, generator=gen, device=cuda_device).bfloat16()
     k = torch.randn(1, 128, 1, Dh, generator=gen, device=cuda_device).bfloat16()
@@ -197,16 +229,13 @@ def test_wide_kernels_by_name(cuda_device, Dh):
                                                      causal=True)}
     for name, call in calls.items():
         before = collections.Counter(tfa.VARIANT_LAUNCHES)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        names = " ".join(e.name for e in prof.events())
+        names, calls_made = _device_names(call, name)
         wgmma = Dh == 256
         assert (f"{name}_wgmma_kernel" in names) == wgmma, (name, names)
         assert (f"{name}_kernel" in names) == (not wgmma), (name, names)
         library = "sm90" if wgmma else "scalar"
         assert tfa.VARIANT_LAUNCHES - before == collections.Counter(
-            {tfa.variant(name, library, torch.bfloat16): 1})
+            {tfa.variant(name, library, torch.bfloat16): calls_made})
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -864,3 +893,172 @@ def test_vit_b16_step_on_cuda(cuda_device):
             m["grad_norm"].item())
     assert model.layers[0].wqkv.dtype == torch.bfloat16
     assert not torch.equal(model.layers[0].wqkv, before)
+
+
+# ------------------------------------------------------- captured steps
+def _llama_runs(device, cfg, batches, attn="flash", warmup=100):
+    """The same batches through the captured step and through its eager
+    body, each on a fresh state from seed 0: per step the loss and grad
+    norm, and the parameters at the end."""
+    out = {}
+    for captured in (True, False):
+        spec = make_optimizer(warmup=warmup)
+        state = init_train_state(cfg, spec, device=device, seed=0)
+        step = make_train_step(cfg, spec, attn=attn, device=device)
+        fn = step if captured else step.eager
+        metrics = []
+        for tokens in batches:
+            state, m = fn(state, tokens)
+            metrics.append((m["loss"], m["grad_norm"]))
+        out[captured] = (metrics, {k: v.clone() for k, v in
+                                   state.model.state_dict().items()}, step)
+    return out
+
+
+def _token_batches(device, cfg, shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(0, cfg.vocab, s, dtype=np.int32)
+                             ).to(device) for s in shapes]
+
+
+def _assert_bit_equal(runs):
+    (got, gp, _), (want, wp, _) = runs[True], runs[False]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (i, a, b)
+    for k in gp:
+        assert torch.equal(gp[k], wp[k]), k
+
+
+@pytest.mark.parametrize("n_heads", [2, 4])   # Dh 64, and tiny's 32 (padded)
+def test_captured_llama_steps_equal_uncaptured(cuda_device, n_heads):
+    """Five flash steps as a graph (warm-up, capture, three replays) and
+    five of the eager body: the same kernels in the same order, so the
+    losses, grad norms and parameters are bit-equal."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), n_heads=n_heads,
+                              n_kv_heads=n_heads // 2)
+    runs = _llama_runs(cuda_device, cfg,
+                       _token_batches(cuda_device, cfg, [(2, 128)] * 5))
+    _assert_bit_equal(runs)
+    step = runs[True][2]
+    assert step.graphs == 1 and step.last_call == "replay"
+
+
+def test_captured_lr_moves_across_replays(cuda_device):
+    """warmup=2: the first step runs at lr 0 and leaves the weights as they
+    were; the third, a replay at the schedule's peak, moves them, as the
+    eager body does, bit for bit."""
+    cfg = LlamaConfig.tiny()
+    spec = make_optimizer(warmup=2)
+    state = init_train_state(cfg, spec, device=cuda_device, seed=0)
+    step = make_train_step(cfg, spec, attn="flash", device=cuda_device)
+    lr = state.optimizer.param_groups[0]["lr"]
+    weights = [state.model.wq.detach().clone()]
+    lrs = []
+    for tokens in _token_batches(cuda_device, cfg, [(2, 64)] * 3):
+        lrs.append(lr.item())
+        state, _ = step(state, tokens)
+        weights.append(state.model.wq.detach().clone())
+    assert state.optimizer.param_groups[0]["lr"] is lr
+    assert step.last_call == "replay"
+    assert lrs == pytest.approx([0.0, 1.5e-4, 3e-4], rel=1e-6)
+    assert torch.equal(weights[1], weights[0])
+    assert not torch.equal(weights[3], weights[2])
+    runs = _llama_runs(cuda_device, cfg,
+                       _token_batches(cuda_device, cfg, [(2, 64)] * 3),
+                       warmup=2)
+    _assert_bit_equal(runs)
+
+
+def test_captured_step_refills_its_input(cuda_device):
+    """Two replays on different batches give different losses, each the
+    eager body's on its batch: the static input buffer is refilled."""
+    cfg = LlamaConfig.tiny()
+    batches = _token_batches(cuda_device, cfg, [(2, 64)] * 2)
+    batches += [batches[0].flip(1), batches[1].flip(1)]
+    runs = _llama_runs(cuda_device, cfg, batches)
+    _assert_bit_equal(runs)
+    losses = [m[0].item() for m in runs[True][0]]
+    assert losses[2] != losses[3]
+
+
+def test_second_shape_captures_second_graph(cuda_device):
+    """A new input shape warms up and captures a graph of its own, as jit
+    retraces; the first graph, replayed after it, still gives the eager
+    body's results."""
+    cfg = LlamaConfig.tiny()
+    shapes = [(2, 64)] * 3 + [(2, 128)] * 3 + [(2, 64)] * 2
+    runs = _llama_runs(cuda_device, cfg,
+                       _token_batches(cuda_device, cfg, shapes))
+    _assert_bit_equal(runs)
+    assert runs[True][2].graphs == 2
+
+
+def test_captured_f32_flash_step_runs_the_scalar_kernels(cuda_device):
+    """f32 at a head of 160 (padded to 256): the scalar kernels, the
+    forward a cluster of two CTAs launched with cudaLaunchKernelEx, under
+    the graph; bit-equal to the eager body, and the replays counted."""
+    cfg = dataclasses.replace(LlamaConfig.tiny(), d_model=320, n_heads=2,
+                              n_kv_heads=1, dtype="float32")
+    tfa.reset_launch_counts()
+    runs = _llama_runs(cuda_device, cfg,
+                       _token_batches(cuda_device, cfg, [(2, 128)] * 4))
+    _assert_bit_equal(runs)
+    # 4 captured and 4 eager steps, 2 layers: fwd + recompute, dkv, dq
+    assert dict(tfa.VARIANT_LAUNCHES) == {
+        "fa_fwd@scalar/f32": 32, "fa_bwd_dkv@scalar/f32": 16,
+        "fa_bwd_dq@scalar/f32": 16}
+
+
+def test_captured_vision_steps_equal_uncaptured(cuda_device):
+    """The tiny ResNet (bf16) and a tiny ViT at S 197 (bf16; keys padded
+    to 200): three captured steps against three of the eager body on
+    fresh models, bit-equal."""
+    rng = np.random.default_rng(3)
+    vit_cfg = dataclasses.replace(ViTConfig.tiny(), image_size=112)
+    for cfg, make_model, make_step, side in (
+            (ResNetConfig.tiny(), ResNet, make_resnet_sgd_step, 32),
+            (vit_cfg, ViT, make_vit_sgd_step, 112)):
+        batches = [(torch.from_numpy(rng.integers(0, 256, (4, side, side, 3),
+                                                  np.uint8)).to(cuda_device),
+                    torch.from_numpy(rng.integers(0, 1000, 4, dtype=np.int32)
+                                     ).to(cuda_device)) for _ in range(3)]
+        out = {}
+        for captured in (True, False):
+            model = make_model(cfg, device=cuda_device,
+                               generator=torch.Generator(
+                                   device=cuda_device).manual_seed(0))
+            step = make_step(cfg, device=cuda_device)
+            fn = step if captured else step.eager
+            losses = [fn(model, *b)["loss"] for b in batches]
+            out[captured] = losses, {k: v.clone() for k, v in
+                                     model.state_dict().items()}
+        assert step.last_call == "eager"
+        (gl, gp), (wl, wp) = out[True], out[False]
+        assert all(torch.equal(a, b) for a, b in zip(gl, wl)), (cfg, gl, wl)
+        for k in gp:
+            assert torch.equal(gp[k], wp[k]), (cfg, k)
+
+
+def test_failed_capture_raises_and_runs_nothing_eagerly(cuda_device):
+    """A body that syncs with the host cannot be captured: the call that
+    captures raises, and nothing ran the body eagerly in its place (the
+    owner's counter moved once, in the warm-up)."""
+    from strom_torch.parallel.capture import CapturedStep
+
+    def body(owner, x):
+        owner.add_(x)
+        if owner.sum().item() < 0:   # a host read: refused under capture
+            owner.zero_()
+        return {"loss": owner.sum()}
+
+    owner = torch.zeros(3, device=cuda_device)
+    step = CapturedStep(body, cuda_device)
+    one = torch.ones(3, device=cuda_device)
+    assert step(owner, one)["loss"].item() == 3.0
+    assert step.last_call == "warmup"
+    with pytest.raises(RuntimeError):
+        step(owner, one)
+    torch.cuda.synchronize()
+    assert owner.tolist() == [1.0, 1.0, 1.0]
+    assert step.graphs == 0
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
