@@ -126,6 +126,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
                Where phase 7 made its JPEG tar: the tar striped over 4
                members the same way through make_vit_wds_pipeline(batch=64),
                the loader alone and 4 ViT steps; elsewhere skipped=.
+9. parquet  -- BASELINE config #5. Four seeded shards written by the port's
+               write_parquet (2,097,152 rows each in row groups of 524,288:
+               seq int64, a global arange; value and f0-f15 float32;
+               payload int64; PLAIN, uncompressed, no dictionary: 704 MB).
+               pyarrow= (its version, or absent); where present, pyarrow
+               reads a shard equal to the written arrays and the port reads
+               a pyarrow-written PLAIN file equal to pyarrow's values. The
+               narrow arm (parquet_count_where over value, map_fn on the
+               card) and the wide arm (parquet_scan_aggregate over value
+               and f0-f15: hits and the sum of the 16 column sums), each
+               cold in 2 passes alternating with a bare engine gather of the
+               same extents: rows/s, selected GB/s, the gather's GB/s,
+               vs_disk, host CPU s per GiB, PLAIN and pyarrow bytes (every
+               byte PLAIN), prefetch stalls, the prefetch threads' read,
+               pack and put microseconds; counts exact against numpy, fsum
+               within a pairwise-sum bound. Where the wide scan's time
+               goes: its gathers alone, into fresh buffers and into one
+               reused one, and the scan at prefetch depth 1 and 4. One
+               wide scan under torch.profiler: device busy ms and idle
+               share. The pushdown A/B at selectivity 0.25 over seq <
+               cutoff (groups refuted, skipped bytes > 0, equal hits, both
+               arms' rows/s); shard 0
+               striped over 4 members behind an alias, narrow and wide
+               equal to the plain shard's bit for bit; where phase 7 made
+               its tar, the wds pipeline with an OpGraph (filter, project,
+               normalize, cast) fused and streamed against unfused, bit-equal.
 
 Each phase prints its own lines. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -163,6 +189,8 @@ from strom_torch.engine import uring_engine
 from strom_torch.engine.python_engine import PythonEngine
 from strom_torch.engine.raid0 import stripe_file
 from strom_torch.formats import jpeg
+from strom_torch.formats.parquet import (ParquetShard, pyarrow_version,
+                                         write_parquet)
 from strom_torch.formats.predecoded import (LABELS_SUFFIX, META_SUFFIX,
                                             PredecodedShardSet,
                                             stage_striped_predecoded)
@@ -172,13 +200,17 @@ from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
+from strom_torch.ops.pushdown import PUSHDOWN_FIELDS, OpGraph, col
 from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
                                         make_train_step, make_vit_sgd_step)
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
+from strom_torch.pipelines.parquet_scan import (parquet_count_where,
+                                                parquet_scan_aggregate)
 from strom_torch.pipelines.sampler import EpochShuffleSampler
 from strom_torch.pipelines.vision import (make_imagenet_resnet_pipeline,
                                           make_predecoded_vision_pipeline,
-                                          make_vit_wds_pipeline)
+                                          make_vit_wds_pipeline,
+                                          make_wds_vision_pipeline)
 
 GiB = 1 << 30
 MiB = 1 << 20
@@ -1835,6 +1867,397 @@ def phase_vit(pdec: str, tar: str | None) -> None:
     strom_torch.close()
 
 
+# ---------------------------------------------------------------- parquet
+PQ_SHARDS, PQ_ROWS, PQ_GROUP = 4, 2_097_152, 524_288
+PQ_FEATURES = [f"f{i}" for i in range(16)]
+PQ_WIDE = ["value"] + PQ_FEATURES            # 68 bytes a row selected
+PQ_SELECTIVITY = 0.25
+# the scan's prefetch threads: read and decode, pack, copy to the device
+PQ_STAGES = ("parquet_scan_read_us", "parquet_scan_pack_us",
+             "parquet_scan_put_us")
+
+
+def _pq_shard_columns(shard: int) -> dict[str, np.ndarray]:
+    """Shard *shard* of config #5's fixture, from its own seed: seq (a
+    global arange, so every row group's min/max are disjoint), value and
+    f0-f15 float32, payload int64: 84 bytes a row."""
+    rng = np.random.default_rng(900 + shard)
+    cols = {"seq": np.arange(shard * PQ_ROWS, (shard + 1) * PQ_ROWS,
+                             dtype=np.int64),
+            "value": rng.standard_normal(PQ_ROWS, dtype=np.float32)}
+    for name in PQ_FEATURES:
+        cols[name] = rng.standard_normal(PQ_ROWS, dtype=np.float32)
+    cols["payload"] = rng.integers(0, 1 << 40, PQ_ROWS, dtype=np.int64)
+    return cols
+
+
+def _pq_fixture(workdir: str) -> tuple[list[str], dict]:
+    """The four shards, written by the port's write_parquet, and numpy's
+    answers over them (float64 sums)."""
+    paths, ref = [], {"hits": 0, "fsum": 0.0, "fabs": 0.0, "shard0_hits": 0,
+                      "shard0_fsum": 0.0}
+    t0 = time.perf_counter()
+    nbytes = 0
+    for s in range(PQ_SHARDS):
+        cols = _pq_shard_columns(s)
+        path = os.path.join(workdir, f"scan{s}.parquet")
+        nbytes += write_parquet(None, path, cols, row_group_rows=PQ_GROUP)
+        _drop_cache(path)
+        hits = int(np.count_nonzero(cols["value"] > 0))
+        fsum = float(sum(cols[c].sum(dtype=np.float64) for c in PQ_FEATURES))
+        ref["hits"] += hits
+        ref["fsum"] += fsum
+        ref["fabs"] += float(sum(np.abs(cols[c]).sum(dtype=np.float64)
+                                 for c in PQ_FEATURES))
+        if s == 0:
+            ref["shard0_hits"], ref["shard0_fsum"] = hits, fsum
+        paths.append(path)
+    say("parquet", fixture_shards=PQ_SHARDS, rows=PQ_SHARDS * PQ_ROWS,
+        row_group_rows=PQ_GROUP, columns=2 + len(PQ_WIDE), bytes=nbytes,
+        write_s=f"{time.perf_counter() - t0:.2f}")
+    return paths, ref
+
+
+def _pq_pyarrow_check(path: str, workdir: str) -> None:
+    """Where pyarrow imports: it reads a shard of the port's writer equal to
+    the written arrays, and the port reads a pyarrow-written PLAIN file
+    equal to pyarrow's values."""
+    version = pyarrow_version()
+    say("parquet", pyarrow=version or "absent")
+    if version is None:
+        return
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    want = _pq_shard_columns(0)
+    table = pq.read_table(path)
+    for name, arr in want.items():
+        if not np.array_equal(table[name].to_numpy(), arr):
+            raise AssertionError(f"parquet: pyarrow reads column {name} of "
+                                 f"the port's file wrong")
+    theirs = os.path.join(workdir, "pyarrow_plain.parquet")
+    pq.write_table(pa.table({k: want[k][:200_000]
+                             for k in ("seq", "value", "f0")}), theirs,
+                   row_group_size=65_536, compression="NONE",
+                   use_dictionary=False)
+    ctx = StromContext(StromConfig.from_env())
+    try:
+        shard = ParquetShard(theirs, ctx=ctx)
+        got = [shard.read_row_group_arrays(ctx, g, ["seq", "value", "f0"])
+               for g in range(shard.num_row_groups)]
+        if ctx.stats().get("parquet_decode_bytes", 0):
+            raise AssertionError("parquet: pyarrow's PLAIN file left the "
+                                 "PLAIN route")
+    finally:
+        ctx.close()
+    ref = pq.read_table(theirs)
+    for name in ("seq", "value", "f0"):
+        if not np.array_equal(np.concatenate([g[name] for g in got]),
+                              ref[name].to_numpy()):
+            raise AssertionError(f"parquet: the port reads column {name} "
+                                 f"of pyarrow's file wrong")
+    os.unlink(theirs)
+    say("parquet", check="pyarrow reads the port's shard and the port "
+        "pyarrow's PLAIN file", exact=True)
+
+
+def _pq_extents(paths: list[str], cols: list[str]) -> list:
+    return [e for p in paths for s in [ParquetShard(p)]
+            for g in range(s.num_row_groups)
+            for e in s.column_chunk_extents(g, cols).extents]
+
+
+def _bare_gather(cfg: StromConfig, extents: list, dest: np.ndarray) -> float:
+    """Seconds for a bare engine (no planner, no decode, no device) to
+    gather exactly *extents* into *dest*: the reference's --disk-rate
+    yardstick. Column chunks start unaligned, so the ops take the engine's
+    buffered route, as the scan's own gathers do."""
+    eng = make_engine(cfg)
+    try:
+        fis = {p: eng.register_file(p) for p in {e.path for e in extents}}
+        ops, off = [], 0
+        for e in extents:
+            ops.append((fis[e.path], e.offset, off, e.length))
+            off += e.length
+        t0 = time.perf_counter()
+        n = eng.read_vectored(ops, dest)
+        dt = time.perf_counter() - t0
+    finally:
+        eng.close()
+    if n != off:
+        raise AssertionError(f"parquet: the bare gather read {n} of {off} "
+                             f"bytes")
+    return dt
+
+
+def _pq_arm(label: str, ctx, paths: list[str], cols: list[str], scan,
+            check) -> dict:
+    """Two cold passes of *scan* alternating with two of the bare gather of
+    the same extents, best of each: rows/s, selected GB/s, the gather's
+    GB/s, vs_disk, host CPU s per GiB, PLAIN and pyarrow bytes, stalls."""
+    extents = _pq_extents(paths, cols)
+    selected = sum(e.length for e in extents)
+    dest = alloc_aligned(selected, populate=True)
+    scans, raws, cpus = [], [], []
+    st0 = ctx.stats()
+    for i in range(2):
+        for arm in (("scan", "raw") if i % 2 == 0 else ("raw", "scan")):
+            for p in paths:
+                _drop_cache(p)
+            if arm == "raw":
+                raws.append(_bare_gather(ctx.config, extents, dest))
+                continue
+            cpu0, t0 = _cpu_s(), time.perf_counter()
+            out = scan()
+            scans.append(time.perf_counter() - t0)
+            cpus.append(_cpu_s() - cpu0)
+            check(out)
+    st1 = ctx.stats()
+    delta = {k: st1.get(k, 0) - st0.get(k, 0) for k in (
+        "parquet_plain_bytes", "parquet_decode_bytes",
+        "parquet_scan_units", "parquet_scan_data_stalls") + PQ_STAGES}
+    best = min(range(2), key=lambda i: scans[i])
+    res = {"rows_per_s": PQ_SHARDS * PQ_ROWS / scans[best],
+           "selected_gbps": selected / scans[best] / 1e9,
+           "disk_gbps": selected / min(raws) / 1e9,
+           "cpu_s_per_gib": cpus[best] / (selected / GiB)}
+    res["vs_disk"] = res["selected_gbps"] / res["disk_gbps"]
+    say("parquet", arm=label, columns=len(cols), selected_bytes=selected,
+        rows_per_s=f"{res['rows_per_s']:.1f}",
+        selected_gbps=f"{res['selected_gbps']:.3f}",
+        disk_gbps=f"{res['disk_gbps']:.3f}", vs_disk=f"{res['vs_disk']:.3f}",
+        cpu_s_per_gib=f"{res['cpu_s_per_gib']:.4f}",
+        scan_s=",".join(f"{t:.4f}" for t in scans),
+        disk_s=",".join(f"{t:.4f}" for t in raws), **delta)
+    if delta["parquet_decode_bytes"] != 0 or delta["parquet_plain_bytes"] \
+            != 2 * selected:
+        raise AssertionError(f"parquet {label}: not every byte rode the PLAIN "
+                             f"route: {delta}")
+    return res
+
+
+def _pq_stages(ctx, paths: list[str], cols: list[str], scan_at) -> None:
+    """Where a cold wide scan's time goes: the same per-unit gathers alone,
+    serial, into a fresh buffer each (as the scan's reads land) and into
+    one reused prefaulted buffer; then the whole scan at prefetch depth 1
+    and 4 beside the default 2."""
+    els = [s.column_chunk_extents(g, cols) for p in paths
+           for s in [ParquetShard(p)] for g in range(s.num_row_groups)]
+    buf = alloc_aligned(max(el.size for el in els), populate=True)
+    secs, stages = {}, {}
+    for label in ("gathers_fresh", "gathers_reused", "depth1", "depth4"):
+        for p in paths:
+            _drop_cache(p)
+        st0 = ctx.stats()
+        t0 = time.perf_counter()
+        if label == "gathers_fresh":
+            for el in els:
+                ctx.pread(el)
+        elif label == "gathers_reused":
+            for el in els:
+                ctx.memcpy_ssd2host(el, out=buf)
+        else:
+            scan_at(int(label[-1]))
+        secs[label] = time.perf_counter() - t0
+        st1 = ctx.stats()
+        stages.update({f"{label}_{k[13:]}": st1.get(k, 0) - st0.get(k, 0)
+                       for k in PQ_STAGES if label.startswith("depth")})
+    say("parquet", arm="wide_stages", units=len(els),
+        **{f"{k}_s": f"{v:.4f}" for k, v in secs.items()}, **stages)
+
+
+def _profile_scan(scan) -> None:
+    """One wide scan under torch.profiler: device busy ms (the union of
+    kernel and copy intervals) and the device's idle share of the scan's
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        scan()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_PAD_S)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    kernels = [sp for sp in spans if _kernel_group(sp[2]) != "memcpy/memset"]
+    if not kernels:
+        say("parquet", profile="not measured", device_events=len(spans),
+            note="the profiler recorded no kernel of the scan")
+        return
+    busy, reach, copy_us = 0.0, -math.inf, 0.0
+    for start, end, name in spans:
+        busy += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        if _kernel_group(name) == "memcpy/memset":
+            copy_us += end - start
+    say("parquet", profile="wide", device_kernels=len(kernels),
+        scan_ms=f"{wall_us / 1e3:.1f}", device_busy_ms=f"{busy / 1e3:.2f}",
+        device_idle_share=f"{1 - busy / wall_us:.3f}",
+        copy_ms=f"{copy_us / 1e3:.2f}",
+        kernel_ms=f"{sum(e - s for s, e, _ in kernels) / 1e3:.2f}")
+
+
+def phase_parquet(workdir: str, tar: str | None) -> None:
+    """BASELINE config #5 on one H100: the port's PLAIN shards scanned
+    into device aggregates, narrow and wide, cold, beside a bare gather of
+    the same extents; the pushdown A/B; a striped shard; the OpGraph."""
+    cuda = torch.device("cuda")
+    paths, ref = _pq_fixture(workdir)
+    _pq_pyarrow_check(paths[0], workdir)
+    ctx = StromContext(StromConfig.from_env())
+
+    def on_card(v: torch.Tensor) -> torch.Tensor:
+        if not v.is_cuda:
+            raise AssertionError("parquet: map_fn got a host tensor")
+        return v > 0
+
+    def wide_map(c: dict) -> dict:
+        if not all(c[n].is_cuda for n in PQ_WIDE):
+            raise AssertionError("parquet: map_fn got a host tensor")
+        return {"hits": (c["value"] > 0).sum(),
+                "fsum": torch.stack([c[n].sum() for n in PQ_FEATURES]).sum()}
+
+    def narrow(p=paths):
+        return parquet_count_where(ctx, p, "value", on_card)
+
+    def wide(p=paths, depth=2):
+        return parquet_scan_aggregate(ctx, p, PQ_WIDE, wide_map,
+                                      prefetch_depth=depth)
+
+    # float32 sums of 2^27 terms in another order than numpy's float64: a
+    # pairwise sum's error bound, log2(terms) x 2^-24 x sum|x|
+    fsum_tol = 27 * 2.0 ** -24 * ref["fabs"]
+
+    def check_narrow(got: int) -> None:
+        if got != ref["hits"]:
+            raise AssertionError(f"parquet narrow: {got} != {ref['hits']}")
+
+    def check_wide(out: dict) -> None:
+        if int(out["hits"]) != ref["hits"] \
+                or abs(float(out["fsum"]) - ref["fsum"]) > fsum_tol:
+            raise AssertionError(f"parquet wide: {out} against hits "
+                                 f"{ref['hits']}, fsum {ref['fsum']} "
+                                 f"(tolerance {fsum_tol:.3f})")
+
+    say("parquet", engine=ctx.engine.stats()["engine"], prefetch_depth=2,
+        unit_batch=1, units=PQ_SHARDS * PQ_ROWS // PQ_GROUP)
+    _pq_arm("narrow", ctx, paths, ["value"], narrow, check_narrow)
+    _pq_arm("wide", ctx, paths, PQ_WIDE, wide, check_wide)
+    out = wide()
+    say("parquet", check="counts against numpy", narrow_hits=ref["hits"],
+        wide_hits=int(out["hits"]), fsum=f"{float(out['fsum']):.4f}",
+        fsum_numpy_f64=f"{ref['fsum']:.4f}",
+        fsum_err=f"{abs(float(out['fsum']) - ref['fsum']):.4f}",
+        fsum_tolerance=f"{fsum_tol:.3f}", exact_counts=True)
+    _pq_stages(ctx, paths, PQ_WIDE, lambda d: check_wide(wide(depth=d)))
+    for p in paths:
+        _drop_cache(p)
+    _profile_scan(wide)
+
+    # pushdown: the reference's A/B at selectivity 0.25 over seq < cutoff
+    cutoff = int(PQ_SHARDS * PQ_ROWS * PQ_SELECTIVITY)
+
+    def pushed():
+        return parquet_scan_aggregate(
+            ctx, paths, ["value"], lambda c: {"hits": (c["value"] > 0).sum()},
+            predicate=col("seq") < cutoff)
+
+    def post():
+        return parquet_scan_aggregate(
+            ctx, paths, ["value", "seq"],
+            lambda c: {"hits": ((c["value"] > 0)
+                                & (c["seq"] < cutoff)).sum()})
+
+    rates, hits, d = {}, {}, {}
+    for label, fn in (("pushed", pushed), ("post_hoc", post)):
+        for p in paths:
+            _drop_cache(p)
+        st0 = ctx.stats()
+        t0 = time.perf_counter()
+        hits[label] = int(fn()["hits"])
+        rates[label] = PQ_SHARDS * PQ_ROWS / (time.perf_counter() - t0)
+        if label == "pushed":
+            st1 = ctx.stats()
+            d = {k: st1.get(k, 0) - st0.get(k, 0) for k in PUSHDOWN_FIELDS}
+    unpushed = d["parquet_pushdown_skipped_bytes"] \
+        + d["parquet_pushdown_submitted_bytes"]
+    say("parquet", arm="pushdown", selectivity=PQ_SELECTIVITY, cutoff=cutoff,
+        groups_refuted=f"{d['parquet_pushdown_groups_skipped']}/"
+                       f"{d['parquet_pushdown_groups_total']}",
+        skipped_bytes=d["parquet_pushdown_skipped_bytes"],
+        submitted_bytes=d["parquet_pushdown_submitted_bytes"],
+        submitted_share=f"{d['parquet_pushdown_submitted_bytes'] / unpushed:.4f}",
+        rows_masked=d["parquet_pushdown_rows_masked"],
+        pushed_rows_per_s=f"{rates['pushed']:.1f}",
+        post_hoc_rows_per_s=f"{rates['post_hoc']:.1f}",
+        hits=hits["pushed"], post_hoc_hits=hits["post_hoc"])
+    if hits["pushed"] != hits["post_hoc"] or hits["pushed"] != \
+            ref["shard0_hits"] or d["parquet_pushdown_skipped_bytes"] <= 0 \
+            or d["parquet_pushdown_submitted_bytes"] >= unpushed:
+        raise AssertionError(f"parquet pushdown: hits {hits} (numpy "
+                             f"{ref['shard0_hits']}), counters {d}")
+
+    # striped: shard 0 over 4 members in raid_chunk pieces, behind an alias
+    chunk = StromConfig().raid_chunk
+    members = _stripe_members(paths[0], 4, chunk)
+    alias = paths[0] + ".raid0"
+    ctx.register_striped(alias, members, chunk,
+                         size=os.path.getsize(paths[0]))
+    plain_n, striped_n = narrow([paths[0]]), narrow([alias])
+    plain_w, striped_w = wide([paths[0]]), wide([alias])
+    say("parquet", arm="striped", members=4, raid_chunk=chunk,
+        narrow_hits=striped_n, wide_hits=int(striped_w["hits"]),
+        fsum=f"{float(striped_w['fsum']):.4f}")
+    if not (plain_n == striped_n == ref["shard0_hits"]
+            and int(plain_w["hits"]) == int(striped_w["hits"])
+            and plain_w["fsum"].tobytes() == striped_w["fsum"].tobytes()):
+        raise AssertionError(f"parquet striped: {striped_n}, {striped_w} "
+                             f"against the plain shard's {plain_n}, "
+                             f"{plain_w}")
+    for m in members:
+        os.unlink(m)
+    os.unlink(members[0] + ".stromsz")
+    ctx.close()
+    for p in paths:
+        os.unlink(p)
+
+    if tar is None:
+        say("parquet", opgraph="skipped=" + NO_JPEG)
+        return
+    # the reference test's graph on phase 7's tar: fused and streamed
+    # against unfused, batches bit-equal
+    runs = {}
+    for fuse in (True, False):
+        gctx = StromContext(StromConfig.from_env())
+        graph = (OpGraph().filter(lambda x: x[0, 0, 0] < 250)
+                 .project(slice(0, 24), slice(0, 24))
+                 .normalize([127.5] * 3, [63.0] * 3).cast(np.float32))
+        pipe = make_wds_vision_pipeline(gctx, [tar], batch=64,
+                                        image_size=IMAGE, device=cuda,
+                                        seed=11, opgraph=graph,
+                                        opgraph_fuse=fuse,
+                                        stream_intra_batch=fuse)
+        runs[fuse] = [next(pipe) for _ in range(3)]
+        pipe.close()
+        ops = {k: v for k, v in gctx.stats().items() if k.startswith("ops_")}
+        gctx.close()
+        say("parquet", opgraph="fused" if fuse else "unfused", batches=3,
+            shape=tuple(runs[fuse][0][0].shape),
+            dtype=str(runs[fuse][0][0].dtype), **ops)
+    for (a, la), (b, lb) in zip(runs[True], runs[False]):
+        if a.dtype != torch.float32 or a.shape != (64, 24, 24, 3) \
+                or not (torch.equal(a, b) and torch.equal(la, lb)):
+            raise AssertionError("parquet opgraph: fused and unfused batches "
+                                 "differ")
+    say("parquet", opgraph="fused and streamed against unfused",
+        exact=True)
+
+
 PROFILE_PAD_S = 0.1   # on the card, ~15 us of drift a second of process age
 
 
@@ -1940,6 +2363,7 @@ def main() -> int:
         del model, step
         torch.cuda.empty_cache()
         phase_vit(pdec, tar)
+        phase_parquet(workdir, tar)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

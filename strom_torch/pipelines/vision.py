@@ -279,12 +279,15 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                              decode_fuse_runs: bool | None = None,
                              decode_roi: bool | None = None,
                              decode_cache: bool | None = None,
+                             opgraph: Any = None,
+                             opgraph_fuse: bool | None = None,
                              stream_intra_batch: bool | None = None,
                              resume_from: "str | SamplerState | None" = None,
                              scope: dict | None = None
                              ) -> Pipeline:
     """Infinite stream of ``(images [B,S,S,3] uint8, labels [B] int32)``
-    tensors on *device* (None → the current CUDA device; raises without
+    tensors (images in the *opgraph*'s output shape and dtype where one is
+    given) on *device* (None → the current CUDA device; raises without
     one). The decode knobs default to the context's config.
 
     Augmentation is deterministic in (seed, batch serial, row): Philox keys
@@ -299,7 +302,19 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     transform) keeps full decoded frames in the hot cache: a frame found
     at plan time skips its member's read and its decode. Cached frames are
     full-resolution, so batches equal the cache-off pipeline's bit for bit
-    where that one decodes in full too (``decode_reduced_scale=False``)."""
+    where that one decodes in full too (``decode_reduced_scale=False``).
+
+    *opgraph*: a :class:`strom_torch.ops.pushdown.OpGraph` compiled once
+    against the decoded sample geometry (``(image_size, image_size, 3)``
+    uint8) and run on the host between decode and the copy to the device,
+    writing the batch slot, which is sized from the graph's output shape and
+    dtype; the delivered images take that shape and dtype. With
+    *opgraph_fuse* (default on) the graph runs the moment the batch's rows
+    have decoded, inside the completion-ordered dispatch (the port's one
+    device group is the whole batch); ``opgraph_fuse=False`` is the parity
+    reference: barrier decode, then one batch-wise apply. Both give
+    bit-identical batches (the kernel is per-sample deterministic). The
+    ``ops_*`` counters go to the context's (``ctx.stats()``)."""
     device = resolve_device(device)
     ss = WdsShardSet(paths, ctx=ctx)
     if len(ss) < batch:
@@ -338,9 +353,21 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     overlap_put = overlap_put and to_slot
     # the streamed dataflow rides the slot and overlapped-put mechanics
     stream = knob(stream_intra_batch, cfg.stream_intra_batch) and overlap_put
+    # the per-sample operator graph, compiled once; unfused, it forces the
+    # barrier path, whose one batch-wise apply is the fusion-free reference
+    cgraph = None
+    if opgraph is not None:
+        cgraph = opgraph.compile((image_size, image_size, 3), np.uint8)
+        if not knob(opgraph_fuse, True):
+            stream = overlap_put = False
     pool = DecodePool(decode_workers,
                       fuse_runs=knob(decode_fuse_runs, cfg.decode_fuse_runs))
     shape = (batch, image_size, image_size, 3)
+    # what a batch slot holds: the decoded images, or the graph's output
+    out_shape = (batch,) + (cgraph.out_shape if cgraph is not None
+                            else shape[1:])
+    out_dtype = cgraph.out_dtype if cgraph is not None else np.dtype(np.uint8)
+    out_bytes = int(np.prod(out_shape)) * out_dtype.itemsize
 
     def labels_out(labels: Sequence[int]) -> torch.Tensor:
         return torch.from_numpy(np.asarray(labels, dtype=np.int32)).to(device)
@@ -377,7 +404,10 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             sizes = [(s.members[image_ext].size, s.members[label_ext].size)
                      for s in samples]
         try:
-            return assemble_batch(el, sizes, rngs, ckeys, served)
+            out = assemble_batch(el, sizes, rngs, ckeys, served)
+            if cgraph is not None:
+                cgraph.flush_stats(ctx._count)
+            return out
         except BaseException:
             # a transform releases its frame; a batch that died before (or
             # instead of) a transform still holds pins: release is
@@ -393,15 +423,22 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             buf = ctx.pread(el)
             blobs, labels = _split_members(buf, sizes, served)
             images = np.stack(pool.map(tf, blobs, rngs))
+            if cgraph is not None:
+                images = cgraph.apply_batch(images)
             return torch.from_numpy(images).to(device), labels_out(labels)
-        # workers write the final rows straight into the batch slot
-        images = ctx.host_batch(shape, device)
+        # workers write the final rows straight into the batch slot (with a
+        # graph, into a decode slot the graph reads from)
+        slot = ctx.host_batch((out_bytes,), device).view(out_dtype).reshape(
+            out_shape)
+        images = slot if cgraph is None else np.empty(shape, np.uint8)
         put_called = False
 
         def put(imgs: np.ndarray) -> torch.Tensor:
             nonlocal put_called
+            if cgraph is not None:
+                cgraph.apply_batch(imgs, out=slot)
             put_called = True   # put_host_batch hands the slot back itself
-            return ctx.put_host_batch(imgs, device)
+            return ctx.put_host_batch(slot, device)
 
         try:
             if stream:
@@ -422,12 +459,11 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             # a batch that failed before its put (every decode job has
             # finished by now) hands the slot back here
             if not put_called:
-                ctx.release_host_batch(images, device)
+                ctx.release_host_batch(slot, device)
             raise
 
     depth = prefetch_depth if prefetch_depth is not None else cfg.prefetch_depth
-    auto, max_depth = _auto_depth_bounds(ctx, auto_prefetch,
-                                         batch * image_size * image_size * 3)
+    auto, max_depth = _auto_depth_bounds(ctx, auto_prefetch, out_bytes)
     # warm the members of the upcoming batches (the tar payloads are read
     # again every epoch; decode still runs per step, the gather not)
     ra = _make_readahead(

@@ -7,7 +7,9 @@ its copy, a ResNet step on the card against the CPU's, ViT steps: the
 tiny one against the CPU's, ViT-B/16 at full width; and the train steps
 captured as CUDA graphs against their eager bodies, bit for bit (new
 shapes, the lr across replays, the scalar kernels' cluster launch under
-capture, a capture that fails). Every test is marked ``cuda``
+capture, a capture that fails); the Parquet scan on the card against the
+CPU's (one host-to-device copy a unit chunk, no host sync in its loop)
+and the OpGraph vision batches on the card. Every test is marked ``cuda``
 and skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -1062,3 +1064,142 @@ def test_failed_capture_raises_and_runs_nothing_eagerly(cuda_device):
     assert owner.tolist() == [1.0, 1.0, 1.0]
     assert step.graphs == 0
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
+
+
+# ------------------------------------------------------------ parquet scan
+def _pq_fixture(tmp_path, n=50_000, groups=5):
+    """Two PLAIN shards from the port's writer: value float32, wide
+    float64, seq int64 (a global arange), 2-page row groups."""
+    from strom_torch.formats.parquet import write_parquet
+
+    rng = np.random.default_rng(12)
+    cols = {"value": rng.standard_normal(2 * n).astype(np.float32),
+            "wide": rng.standard_normal(2 * n),
+            "seq": np.arange(2 * n, dtype=np.int64)}
+    paths = []
+    for s in range(2):
+        p = str(tmp_path / f"s{s}.parquet")
+        write_parquet(None, p, {k: v[s * n: (s + 1) * n]
+                                for k, v in cols.items()},
+                      row_group_rows=n // groups)
+        paths.append(p)
+    return paths, cols
+
+
+def _pq_map(expect_cuda: bool):
+    def map_fn(c):
+        for name, dtype in (("value", torch.float32), ("wide", torch.float64),
+                            ("seq", torch.int64)):
+            assert c[name].is_cuda == expect_cuda and c[name].dtype == dtype
+        return {"hits": (c["value"] > 0).sum(), "fsum": c["value"].sum(),
+                "wsum": c["wide"].sum(), "ssum": [c["seq"].sum()]}
+
+    return map_fn
+
+
+def test_parquet_scan_on_cuda_equals_cpu(cuda_device, tmp_path):
+    """The same scan on the card and on the CPU, with and without a
+    predicate: counts and int64 sums exact, float64 sums at rtol 1e-12,
+    float32 sums at rtol 1e-5 and atol 1e-3 (float32 summed in another
+    order over 20,000-row units: the sum of 100,000 standard normals may
+    lie near 0, so an absolute floor beside the relative one); map_fn sees
+    CUDA tensors in each column's dtype."""
+    from strom_torch.ops.pushdown import col
+    from strom_torch.pipelines import parquet_scan_aggregate
+
+    paths, cols = _pq_fixture(tmp_path)
+    ctx = StromContext(StromConfig())
+    try:
+        for pred in (None, col("seq") < 37_000):
+            out = {dev: parquet_scan_aggregate(
+                       ctx, paths, ["value", "wide", "seq"],
+                       _pq_map(dev == "cuda"), predicate=pred,
+                       unit_batch=2, devices=[dev])
+                   for dev in ("cuda", "cpu")}
+            assert out["cuda"]["hits"] == out["cpu"]["hits"]
+            assert out["cuda"]["ssum"] == out["cpu"]["ssum"]
+            np.testing.assert_allclose(out["cuda"]["wsum"], out["cpu"]["wsum"],
+                                       rtol=1e-12)
+            np.testing.assert_allclose(out["cuda"]["fsum"], out["cpu"]["fsum"],
+                                       rtol=1e-5, atol=1e-3)
+            keep = slice(None) if pred is None else slice(0, 37_000)
+            assert out["cuda"]["hits"] == int((cols["value"][keep] > 0).sum())
+        assert ctx.stats().get("parquet_decode_bytes", 0) == 0
+    finally:
+        ctx.close()
+
+
+def test_parquet_scan_one_copy_a_unit_and_no_sync(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """unit_batch 3 over 10 row groups: one put_host_batch (one
+    host-to-device copy) for each of the 4 unit chunks; the scan's loop and
+    its prefetch threads run under sync debug mode "error" (no host sync per
+    unit), and only the final copy to the host runs outside it."""
+    from strom_torch.pipelines import parquet_scan as ps
+
+    paths, cols = _pq_fixture(tmp_path)
+    ctx = StromContext(StromConfig())
+    puts: list[int] = []
+    real_put, real_to_host = ctx.put_host_batch, ps._to_host
+
+    def put(host, device):
+        puts.append(host.nbytes)
+        return real_put(host, device)
+
+    def to_host(tree):
+        torch.cuda.set_sync_debug_mode(0)
+        return real_to_host(tree)
+
+    monkeypatch.setattr(ctx, "put_host_batch", put)
+    monkeypatch.setattr(ps, "_to_host", to_host)
+    try:
+        # warm the slab pool (its first slabs are pinned, a registration)
+        ps.parquet_scan_aggregate(ctx, paths, ["value", "wide", "seq"],
+                                  _pq_map(True), unit_batch=3)
+        puts.clear()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ps.parquet_scan_aggregate(
+                ctx, paths, ["value", "wide", "seq"], _pq_map(True),
+                unit_batch=3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert len(puts) == 4
+        assert out["hits"] == int((cols["value"] > 0).sum())
+        assert out["ssum"][0] == cols["seq"].sum()
+    finally:
+        ctx.close()
+
+
+def test_opgraph_batches_on_cuda_equal_cpu(cuda_device, tmp_path):
+    """The wds pipeline with an OpGraph (project, normalize, cast) delivers
+    float32 batches of the graph's shape on the card, equal to the CPU's,
+    fused and not."""
+    from strom_torch.ops.pushdown import OpGraph
+
+    path = str(tmp_path / "raw.tar")
+    _raw_tar(path)
+    ctx = StromContext(StromConfig(queue_depth=8, num_buffers=8))
+
+    def batches(device, fuse):
+        graph = (OpGraph().project(slice(0, 6), slice(1, 7))
+                 .normalize([127.5] * 3, [63.0] * 3).cast(np.float32))
+        with make_wds_vision_pipeline(ctx, [path], batch=4, image_size=8,
+                                      device=device, seed=2,
+                                      transform=_raw_transform(8),
+                                      decode_workers=2, opgraph=graph,
+                                      opgraph_fuse=fuse) as pipe:
+            out = [tuple(t.cpu() for t in next(pipe)) for _ in range(4)]
+            torch.cuda.synchronize()
+            return out
+
+    try:
+        want = batches("cpu", False)
+        for fuse in (True, False):
+            got = batches(cuda_device, fuse)
+            for (gi, gl), (wi, wl) in zip(got, want):
+                assert gi.shape == (4, 6, 6, 3) and gi.dtype == torch.float32
+                assert torch.equal(gi, wi) and torch.equal(gl, wl)
+    finally:
+        ctx.close()

@@ -14,10 +14,13 @@ import torch
 
 import strom_torch
 from strom_torch.delivery.core import StromContext, resolve_device
+from strom_torch.formats.parquet import write_parquet
 from strom_torch.formats.rawbin import write_token_shard
 from strom_torch.models.llama import Llama, LlamaConfig
 from strom_torch.parallel.train import init_train_state, make_train_step
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
+from strom_torch.pipelines.parquet_scan import (parquet_count_where,
+                                                parquet_scan_aggregate)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "strom_torch"
@@ -72,6 +75,10 @@ def no_cuda(monkeypatch):
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     path = str(tmp_path / "t.bin")
     write_token_shard(path, np.arange(4 * 17, dtype=np.int32), fsync=False)
+    pq_path = str(tmp_path / "t.parquet")
+    values = np.arange(-50, 50, dtype=np.float32)
+    write_parquet(None, pq_path, {"value": values}, row_group_rows=40,
+                  fsync=False)
     cfg = LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
@@ -81,6 +88,17 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
             ctx.memcpy_ssd2gpu(path)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_llama_pipeline(ctx, [path], batch=2, seq_len=16)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parquet_count_where(ctx, [pq_path], "value", lambda v: v > 0)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            parquet_scan_aggregate(ctx, [pq_path], ["value"],
+                                   lambda c: c["value"].sum())
+        # asked for, the CPU runs the scan
+        assert parquet_count_where(ctx, [pq_path], "value", lambda v: v > 0,
+                                   devices=["cpu"]) == 49
+        assert parquet_scan_aggregate(ctx, [pq_path], ["value"],
+                                      lambda c: c["value"].sum(),
+                                      devices=["cpu"]) == values.sum()
     finally:
         ctx.close()
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -94,3 +112,22 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         make_train_step(cfg)
     # asked for, the CPU works
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+_TOP_LEVEL_PYARROW = re.compile(r"^(import\s+pyarrow\b|from\s+pyarrow\b)",
+                                re.MULTILINE)
+
+
+def test_pyarrow_is_imported_only_inside_functions():
+    """pyarrow is optional: no source of the port, nor chip_smoke.py,
+    imports it at module level (an indented import sits inside a function,
+    where only the route that needs it runs it)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if _TOP_LEVEL_PYARROW.search(f.read_text())]
+    assert not offenders, offenders
+    assert _TOP_LEVEL_PYARROW.search("import pyarrow.parquet as pq")
+    assert not _TOP_LEVEL_PYARROW.search("    import pyarrow.parquet as pq")
+    # and the modules that use it do import it somewhere
+    assert re.search(r"^\s+import pyarrow", (
+        PKG / "formats" / "parquet.py").read_text(), re.MULTILINE)
