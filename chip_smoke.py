@@ -72,6 +72,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
                step and 4 of its eager body on fresh states from one seed
                and the same batches: losses, grad norms and sampled
                parameters bit-equal.
+4b. ckpt    -- the write path and checkpoints. [write]: 1 GiB of seeded
+               bytes through ctx.pwrite (the engine's write path, fsync)
+               and through os.pwrite plus fsync, alternating, 2 rounds:
+               GB/s, host CPU s per GiB, the engine's direct, buffered and
+               unaligned write counts, read back exact. [ckpt]: phase 4's
+               configuration (token shards written through ctx.pwrite): 3
+               captured steps, then save_checkpoint of train_state_tree
+               (about 8.9 GB: bf16 parameters and AdamW moments, the step
+               tensors, the lr, the scheduler, the step) with its
+               StepToken (the loader's state): bytes, leaves, MB/s with
+               the commit, the device-to-host share; 3 more steps of the
+               uninterrupted run; restore_checkpoint onto a fresh state on
+               the card (load_train_state) and a fresh pipeline from the
+               token, every leaf equal to the saved one (ckpt_roundtrip_ok)
+               and restore MB/s; 3 resumed steps on a new captured step,
+               whose losses, grad norms and final leaves must equal the
+               uninterrupted run's bit for bit (resume_ok), the flash
+               kernels' launches counted over them as in phase 4;
+               save_pickle of the same host leaves (MB/s, over the save);
+               last, two AsyncCheckpointer.save calls (the first makes its
+               pinned snapshot arena, the second reuses it), each followed
+               at once by 2 replays while the commit drains: the caller's
+               stall against the blocking save, and the checkpoint equal
+               to the state at the save, leaf by leaf. Prints the disk's
+               free space first and deletes each artefact once read back.
 5. stream   -- StromContext.stream_segments under engine="auto": 2048
                seeded, scattered 150,528-byte records of phase 3's file
                gathered into a pinned slab; the completed ranges must tile
@@ -180,6 +205,12 @@ import torch
 import strom_torch
 from strom_torch.config import StromConfig
 from strom_torch._core import build as core_build
+from strom_torch.ckpt import (AsyncCheckpointer, load_manifest, load_pickle,
+                              restore_checkpoint, save_checkpoint,
+                              save_pickle)
+from strom_torch.ckpt.checkpoint import (_host_leaves, tree_flatten,
+                                         tree_unflatten)
+from strom_torch.ckpt.jobstate import TOKEN_KEY, StepToken
 from strom_torch.delivery.buffers import alloc_aligned
 from strom_torch.delivery.core import StripedFile, StromContext
 from strom_torch.delivery.extents import Extent, ExtentList
@@ -201,8 +232,9 @@ from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
 from strom_torch.ops.pushdown import PUSHDOWN_FIELDS, OpGraph, col
-from strom_torch.parallel.train import (init_train_state, make_resnet_sgd_step,
-                                        make_train_step, make_vit_sgd_step)
+from strom_torch.parallel.train import (init_train_state, load_train_state,
+                                        make_resnet_sgd_step, make_train_step,
+                                        make_vit_sgd_step, train_state_tree)
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
 from strom_torch.pipelines.parquet_scan import (parquet_count_where,
                                                 parquet_scan_aggregate)
@@ -1095,14 +1127,13 @@ def phase_train(workdir: str) -> dict[str, int]:
     rng = np.random.default_rng(1)
     shards = [rng.integers(0, cfg.vocab, (records, seq_len + 1), dtype=np.int32)
               for _ in range(2)]
+    ctx = strom_torch.init(StromConfig.from_env())
+    say("train", engine=ctx.engine.stats()["engine"])
     paths = []
     for i, toks in enumerate(shards):
         paths.append(os.path.join(workdir, f"tokens{i}.bin"))
-        write_token_shard(paths[-1], toks)
+        write_token_shard(ctx, paths[-1], toks)
     all_records = torch.from_numpy(np.concatenate(shards)).to("cuda")
-
-    ctx = strom_torch.init(StromConfig.from_env())
-    say("train", engine=ctx.engine.stats()["engine"])
     pipe = make_llama_pipeline(ctx, paths, batch=B, seq_len=seq_len,
                                device="cuda", seed=0)
     order = iter(EpochShuffleSampler(2 * records, B, seed=0))
@@ -1181,6 +1212,277 @@ def phase_train(workdir: str) -> dict[str, int]:
     return launches | {name: variants.get(info["variant"], 0)
                        for table in (F32_KERNELS, DH512_KERNELS)
                        for name, info in table.items()}
+
+
+# ------------------------------------------------------- write and ckpt
+WRITE_ROUNDS = 2
+CKPT_STEPS, RESUME_STEPS, ASYNC_SAVES, ASYNC_REPLAYS = 3, 3, 2, 2
+CKPT_DEVICE = "cuda"   # the phase's device ("cpu" rehearses it at a tiny size)
+CKPT_CONFIG = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+CKPT_SEQ = 2047
+
+
+def _write_counts(ctx) -> dict:
+    """The engine's write counters (the preadv pool counts its routes; the
+    io_uring engine its ops and bytes only)."""
+    st = ctx.engine.stats()
+    return {k: st[k] for k in ("direct_writes", "buffered_writes",
+                                "unaligned_fallback_writes", "ops_written",
+                                "bytes_written") if k in st}
+
+
+def _os_pwrite(path: str, data: np.ndarray) -> None:
+    """The plain arm: os.pwrite of the whole buffer, then fsync."""
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        view, off = memoryview(data), 0
+        while off < len(view):
+            off += os.pwrite(fd, view[off:], off)
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def phase_write(workdir: str) -> None:
+    """[write]: 1 GiB of seeded bytes through ctx.pwrite (the engine's
+    write path, fsync) and through os.pwrite plus fsync, alternating:
+    GB/s, host CPU s per GiB, the engine's direct, buffered and unaligned
+    write counts, the bytes read back exact."""
+    data = alloc_aligned(GiB)
+    data[:] = np.frombuffer(np.random.default_rng(21).bytes(GiB), np.uint8)
+    ctx = StromContext(StromConfig.from_env())
+    try:
+        for rnd in range(WRITE_ROUNDS):
+            for arm in ("engine", "os"):
+                path = os.path.join(workdir, f"write_{arm}.bin")
+                before = _write_counts(ctx)
+                cpu0, t0 = _cpu_s(), time.perf_counter()
+                if arm == "engine":
+                    n = ctx.pwrite(path, data, fsync=True)
+                else:
+                    _os_pwrite(path, data)
+                    n = GiB
+                dt, cpu = time.perf_counter() - t0, _cpu_s() - cpu0
+                counts = {k: v - before[k]
+                          for k, v in _write_counts(ctx).items()}
+                _drop_cache(path)
+                back = ctx.pread(path)
+                exact = n == GiB and back.nbytes == GiB \
+                    and np.array_equal(back, data)
+                if not exact:
+                    raise AssertionError(f"write {arm}: the bytes read back "
+                                         "differ from the bytes written")
+                extra = {"o_direct": ctx.uses_o_direct(path), **counts} \
+                    if arm == "engine" else {}
+                say("write", round=rnd, arm=arm, bytes=n, s=f"{dt:.4f}",
+                    gbps=f"{n / dt / 1e9:.3f}",
+                    cpu_s_per_gib=f"{cpu / (n / GiB):.4f}", **extra,
+                    readback_exact=exact)
+                del back
+                ctx.invalidate_file(path)
+                os.unlink(path)
+        st = ctx.stats()
+        say("write", engine=st["engine"]["engine"],
+            host2ssd_bytes=st["context"]["host2ssd_bytes"])
+    finally:
+        ctx.close()
+
+
+def _leaves(state) -> list:
+    return tree_flatten(train_state_tree(state))[0]
+
+
+def _differ(got: list, want: list) -> list[int]:
+    """Indices of the leaves that are not equal (tensors: torch.equal on
+    their own devices)."""
+    return [i for i, (a, b) in enumerate(zip(got, want))
+            if not (torch.equal(a, b.to(a.device))
+                    if isinstance(a, torch.Tensor) else a == b)]
+
+
+def _run_steps(step, state, pipe, n: int) -> tuple[object, list]:
+    out = []
+    for _ in range(n):
+        state, m = step(state, next(pipe))
+        out.append((m["loss"], m["grad_norm"]))
+    if state.model.embed.is_cuda:
+        torch.cuda.synchronize()
+    return state, out
+
+
+def _series(metrics: list) -> str:
+    return ",".join(f"{float(loss):.6f}/{float(norm):.6f}"
+                    for loss, norm in metrics)
+
+
+def phase_ckpt(workdir: str) -> dict[str, int]:
+    """Phase 4b: the write path, then checkpoints of phase 4's train state
+    (Llama-3-8B widths, 2 layers, bf16, flash, fused AdamW, captured, fed
+    by make_llama_pipeline from the engine): a blocking save against the
+    pickle baseline, the restore into a fresh state and a fresh pipeline
+    whose steps must equal the uninterrupted run's bit for bit, and an
+    async save under replays. Returns the resumed steps' launches per
+    kernel (check_variants)."""
+    phase_write(workdir)
+    usage = shutil.disk_usage(workdir)
+    say("ckpt", disk_total_gb=f"{usage.total / 1e9:.1f}",
+        disk_free_gb=f"{usage.free / 1e9:.1f}")
+    cfg, dev = CKPT_CONFIG, CKPT_DEVICE
+    B, seq_len, records = 2, CKPT_SEQ, 16
+    ctx = StromContext(StromConfig.from_env())
+    rng = np.random.default_rng(2)
+    paths = []
+    for i in range(2):
+        paths.append(os.path.join(workdir, f"ckpt_tokens{i}.bin"))
+        write_token_shard(ctx, paths[-1], rng.integers(
+            0, cfg.vocab, (records, seq_len + 1), dtype=np.int32))
+
+    def pipeline(resume_from=None):
+        return make_llama_pipeline(ctx, paths, batch=B, seq_len=seq_len,
+                                   device=dev, seed=0,
+                                   resume_from=resume_from)
+
+    pipe = pipeline()
+    state = init_train_state(cfg, device=dev, seed=0)
+    step = make_train_step(cfg, attn="flash", device=dev)
+    state, first = _run_steps(step, state, pipe, CKPT_STEPS)
+
+    # the blocking save at step k, with its resume token
+    tree = train_state_tree(state)
+    token = StepToken(sampler=pipe.state(), consumed=CKPT_STEPS,
+                      prefetch_depth=pipe.prefetch_depth,
+                      fingerprint=pipe.fingerprint)
+    # the state at step k, copied to the host: the roundtrip's and the
+    # pickle's reference
+    t0 = time.perf_counter()
+    host, treedef = _host_leaves(tree, snapshot=True)
+    snapshot_s = time.perf_counter() - t0
+    d1 = os.path.join(workdir, "ckpt_sync")
+    before = _write_counts(ctx)
+    d2h_us = ctx.stats().get("ckpt_d2h_us", 0)
+    t0 = time.perf_counter()
+    manifest = save_checkpoint(ctx, d1, tree, extra={TOKEN_KEY:
+                                                     token.to_dict()})
+    save_s = time.perf_counter() - t0
+    d2h_s = (ctx.stats()["ckpt_d2h_us"] - d2h_us) / 1e6
+    payload = manifest["payload_bytes"]
+    save_mb_s = payload / save_s / 1e6
+    counts = {k: v - before[k] for k, v in _write_counts(ctx).items()}
+    say("ckpt", arm="save", ckpt_bytes=payload,
+        total_bytes=manifest["total_bytes"], ckpt_leaves=len(host),
+        s=f"{save_s:.3f}", ckpt_save_mb_per_s=f"{save_mb_s:.1f}",
+        d2h_s=f"{d2h_s:.3f}", d2h_share=f"{d2h_s / save_s:.3f}",
+        host_snapshot_s=f"{snapshot_s:.3f}", **counts)
+    del tree
+
+    # the uninterrupted run goes on
+    state, uninterrupted = _run_steps(step, state, pipe, RESUME_STEPS)
+    pipe.close()
+
+    # restore into a fresh state on the card and a fresh pipeline
+    fresh = init_train_state(cfg, device=dev, seed=1)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    restored = restore_checkpoint(ctx, d1, train_state_tree(fresh))
+    sync()
+    restore_s = time.perf_counter() - t0
+    got = tree_flatten(restored)[0]
+    off_card = [i for i, t in enumerate(got) if isinstance(t, torch.Tensor)
+                and t.device.type != torch.device(dev).type]
+    bad = _differ(got, [h.obj if isinstance(h.obj, torch.Tensor)
+                        else h.obj.item() for h in host])
+    roundtrip_ok = not bad and not off_card
+    say("ckpt", arm="restore", s=f"{restore_s:.3f}",
+        ckpt_restore_mb_per_s=f"{payload / restore_s / 1e6:.1f}",
+        on_card=not off_card, ckpt_roundtrip_ok=roundtrip_ok,
+        differ=",".join(map(str, bad)) or "none")
+    if not roundtrip_ok:
+        raise AssertionError(f"ckpt: restored leaves {bad} differ, leaves "
+                             f"{off_card} left the card")
+    load_train_state(fresh, restored)
+    del restored, got
+    resumed = pipeline(StepToken.from_manifest(load_manifest(d1)).sampler)
+    resumed_step = make_train_step(cfg, attn="flash", device=dev)
+    fa.reset_launch_counts()
+    fresh, after = _run_steps(resumed_step, fresh, resumed, RESUME_STEPS)
+    variants = dict(fa.VARIANT_LAUNCHES)
+    launches = check_variants(KERNELS, variants, "resumed steps")
+    same_steps = all(torch.equal(a, c) and torch.equal(b, d)
+                     for (a, b), (c, d) in zip(after, uninterrupted))
+    bad = _differ(_leaves(fresh), _leaves(state))
+    resume_ok = same_steps and not bad
+    say("ckpt", arm="resume", steps_before=CKPT_STEPS,
+        steps_after=RESUME_STEPS, uninterrupted=_series(uninterrupted),
+        resumed=_series(after), calls=resumed_step.last_call,
+        leaves_differ=",".join(map(str, bad)) or "none",
+        launches=json.dumps(launches, sort_keys=True), resume_ok=resume_ok)
+    if not resume_ok:
+        raise AssertionError("ckpt: the resumed run differs from the "
+                             "uninterrupted one")
+    del state, step
+    shutil.rmtree(d1)
+    torch.cuda.empty_cache()
+
+    # the pickle baseline of the same host leaves
+    pk = os.path.join(workdir, "state.pkl")
+    host_tree = tree_unflatten(treedef, [h.obj for h in host])
+    t0 = time.perf_counter()
+    pk_bytes = save_pickle(pk, host_tree)
+    pickle_s = time.perf_counter() - t0
+    pickle_mb_s = payload / pickle_s / 1e6
+    bad = _differ(tree_flatten(load_pickle(pk))[0],
+                  tree_flatten(host_tree)[0])
+    os.unlink(pk)
+    say("ckpt", arm="pickle", bytes=pk_bytes, s=f"{pickle_s:.3f}",
+        ckpt_pickle_save_mb_per_s=f"{pickle_mb_s:.1f}",
+        ckpt_save_vs_pickle=f"{save_mb_s / pickle_mb_s:.3f}",
+        roundtrip_ok=not bad)
+    if bad:
+        raise AssertionError(f"ckpt: pickle leaves {bad} differ")
+    del host, host_tree
+
+    # async saves, the captured step replaying while each commits: the
+    # first save also makes the checkpointer's pinned arena, the second
+    # reuses it
+    d2 = os.path.join(workdir, "ckpt_async")
+    with AsyncCheckpointer(ctx, d2) as cp:
+        for save in range(ASYNC_SAVES):
+            at_save = [t.clone() if isinstance(t, torch.Tensor) else t
+                       for t in _leaves(fresh)]
+            t0 = time.perf_counter()
+            cp.save(train_state_tree(fresh))
+            stall_s = time.perf_counter() - t0
+            draining = cp.in_flight
+            fresh, _ = _run_steps(resumed_step, fresh, resumed,
+                                  ASYNC_REPLAYS)
+            cp.wait()
+            commit_s = time.perf_counter() - t0
+            moved = len(_differ(_leaves(fresh), at_save))
+            template = tree_unflatten(
+                tree_flatten(train_state_tree(fresh))[1], at_save)
+            bad = _differ(tree_flatten(restore_checkpoint(ctx, d2, template)
+                                       )[0], at_save)
+            say("ckpt", arm="async", save=save,
+                stall_ms=f"{stall_s * 1e3:.1f}",
+                blocking_save_ms=f"{save_s * 1e3:.1f}",
+                stall_frac=f"{stall_s / save_s:.3f}",
+                commit_s=f"{commit_s:.3f}",
+                replays_during_commit=ASYNC_REPLAYS,
+                commit_in_flight=draining,
+                replay_calls=resumed_step.last_call, leaves_moved=moved,
+                equal_to_state_at_save=not bad)
+            if bad or not moved:
+                raise AssertionError(
+                    f"ckpt: async checkpoint leaves {bad} differ from the "
+                    f"state at the save ({moved} moved)")
+            del at_save, template
+    shutil.rmtree(d2)
+    resumed.close()
+    ctx.close()
+    del fresh, resumed_step
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _step_summary(step, times: list[float], calls: list[str],
@@ -1898,10 +2200,11 @@ def _pq_fixture(workdir: str) -> tuple[list[str], dict]:
                       "shard0_fsum": 0.0}
     t0 = time.perf_counter()
     nbytes = 0
+    wctx = StromContext(StromConfig.from_env())
     for s in range(PQ_SHARDS):
         cols = _pq_shard_columns(s)
         path = os.path.join(workdir, f"scan{s}.parquet")
-        nbytes += write_parquet(None, path, cols, row_group_rows=PQ_GROUP)
+        nbytes += write_parquet(wctx, path, cols, row_group_rows=PQ_GROUP)
         _drop_cache(path)
         hits = int(np.count_nonzero(cols["value"] > 0))
         fsum = float(sum(cols[c].sum(dtype=np.float64) for c in PQ_FEATURES))
@@ -1912,6 +2215,7 @@ def _pq_fixture(workdir: str) -> tuple[list[str], dict]:
         if s == 0:
             ref["shard0_hits"], ref["shard0_fsum"] = hits, fsum
         paths.append(path)
+    wctx.close()
     say("parquet", fixture_shards=PQ_SHARDS, rows=PQ_SHARDS * PQ_ROWS,
         row_group_rows=PQ_GROUP, columns=2 + len(PQ_WIDE), bytes=nbytes,
         write_s=f"{time.perf_counter() - t0:.2f}")
@@ -2350,6 +2654,7 @@ def main() -> int:
         wide_launches = phase_wide_path()
         path = phase_ssd2gpu(workdir)
         launches = phase_train(workdir)
+        phase_ckpt(workdir)
         phase_stream(path)
         os.unlink(path)
         model, step, pdec = phase_resnet(workdir)

@@ -47,6 +47,26 @@ def alloc_aligned(nbytes: int, *, populate: bool = False) -> np.ndarray:
     return np.frombuffer(mm, dtype=np.uint8)[:nbytes]
 
 
+def host_register(arr: np.ndarray) -> None:
+    """Page-lock *arr*'s pages and register them with CUDA
+    (``cudaHostRegister``), so copies into or out of it are DMAs."""
+    import torch
+
+    rc = int(torch.cuda.cudart().cudaHostRegister(
+        buf_addr(arr), arr.nbytes, _HOST_REGISTER_PORTABLE))
+    if rc != 0:
+        raise RuntimeError(f"cudaHostRegister of a {arr.nbytes}-byte "
+                           f"buffer failed (cudaError {rc})")
+
+
+def host_unregister(arr: np.ndarray) -> None:
+    import torch
+
+    rc = int(torch.cuda.cudart().cudaHostUnregister(buf_addr(arr)))
+    if rc != 0:
+        raise RuntimeError(f"cudaHostUnregister failed (cudaError {rc})")
+
+
 def size_class(nbytes: int) -> int:
     """Round a request up to its allocation size class: quarter-power-of-two
     steps (4KiB, ..., 1MiB, 1.25MiB, 1.5MiB, ...), worst-case waste 25%,
@@ -97,28 +117,16 @@ class SlabPool:
         self.in_use_bytes = 0
 
     def _register(self, slab: np.ndarray) -> None:
-        import torch
-
-        addr = buf_addr(slab)
-        rc = int(torch.cuda.cudart().cudaHostRegister(
-            addr, slab.nbytes, _HOST_REGISTER_PORTABLE))
-        if rc != 0:
-            raise RuntimeError(f"cudaHostRegister of a {slab.nbytes}-byte "
-                               f"slab failed (cudaError {rc})")
-        self._registered[addr] = slab
+        host_register(slab)
+        self._registered[buf_addr(slab)] = slab
         if self._on_alloc is not None:
             self._on_alloc(slab)
 
     def _unregister(self, slab: np.ndarray) -> None:
-        import torch
-
-        addr = buf_addr(slab)
-        if self._registered.pop(addr, None) is not None:
+        if self._registered.pop(buf_addr(slab), None) is not None:
             if self._on_free is not None:
                 self._on_free(slab)   # the ring lets go before CUDA does
-            rc = int(torch.cuda.cudart().cudaHostUnregister(addr))
-            if rc != 0:
-                raise RuntimeError(f"cudaHostUnregister failed (cudaError {rc})")
+            host_unregister(slab)
 
     def acquire(self, nbytes: int) -> np.ndarray:
         cls = size_class(nbytes)

@@ -22,6 +22,11 @@ cache (``delivery/hotcache.py``) after physical planning and before engine
 submission: cached ranges are copied from RAM into the gather's buffer,
 only the misses reach the engine, and the bytes the engine read are
 offered for admission. ``warm`` is the readahead's entry point.
+
+The write path runs the other way: ``pwrite`` and ``write_chunks`` hand
+host bytes to the engine's write scatter (``Engine.write_vectored``) under
+the engine lock, count them in ``host2ssd_bytes``, and drop what the
+context cached of the path afterwards (``invalidate_file``).
 """
 
 from __future__ import annotations
@@ -215,6 +220,9 @@ class StromContext:
         self.config = config or StromConfig.from_env()
         self.engine = engine or make_engine(self.config)
         self._files: dict[str, int] = {}
+        # read-write registrations (file_index(writable=True)): the write
+        # path's own indexes, so the read side keeps its O_RDONLY fds
+        self._wfiles: dict[str, int] = {}
         # path -> StripedFile aliases (register_striped)
         self._striped: dict[str, StripedFile] = {}
         # path -> FIEMAP extent map (None: unavailable), probed once
@@ -241,7 +249,8 @@ class StromContext:
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
             {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
-             "stream_gathers": 0, "stream_instant_bytes": 0})
+             "stream_gathers": 0, "stream_instant_bytes": 0,
+             "host2ssd_bytes": 0})
         self._counts_lock = threading.Lock()
         # hot-set host cache: repeat traffic serves from RAM instead of the
         # engine. Its buffers are its own aligned allocations, not pool
@@ -259,12 +268,38 @@ class StromContext:
         self._closed = False
 
     # -- files --------------------------------------------------------------
-    def file_index(self, path: str) -> int:
+    def file_index(self, path: str, *, writable: bool = False) -> int:
+        """The engine's file index for *path*, registered at first use.
+        ``writable=True`` gives a separate read-write registration, which
+        the write path takes; the read-only one is left as it is."""
         with self._files_lock:
-            idx = self._files.get(path)
+            table = self._wfiles if writable else self._files
+            idx = table.get(path)
             if idx is None:
-                idx = self._files[path] = self.engine.register_file(path)
+                idx = table[path] = self.engine.register_file(
+                    path, writable=writable)
             return idx
+
+    def invalidate_file(self, path: str, *,
+                        registrations: bool = True) -> None:
+        """Forget what the context holds of *path*: its hot-cache entries
+        (and any derived key that embeds the path), its extent map and,
+        with *registrations*, its engine registrations. A write in place
+        keeps the registrations (same inode, only the cached bytes are
+        stale); a path that now names another inode (a tmp-and-rename
+        commit) must drop them, or a cached fd reads the old file."""
+        idxs: list[int] = []
+        with self._files_lock:
+            self._extent_maps.pop(path, None)
+            if registrations:
+                for table in (self._files, self._wfiles):
+                    idx = table.pop(path, None)
+                    if idx is not None:
+                        idxs.append(idx)
+        for idx in idxs:
+            self.engine.unregister_file(idx)
+        if self._hot_cache is not None:
+            self._hot_cache.invalidate(path)
 
     def uses_o_direct(self, path: str) -> bool:
         """Whether reads of *path* go through O_DIRECT."""
@@ -898,14 +933,88 @@ class StromContext:
                                    f"{source!r}@{offset}")
         return run()
 
+    # -- the write path: host bytes to the SSD through the engine ----------
+    def write_chunks(self, chunks: Sequence[tuple[int, int, int, int]],
+                     src: np.ndarray) -> int:
+        """Run a planned write scatter, (file_index, file_offset,
+        src_offset, length) chunks out of *src*, under the engine lock (the
+        reference's branch without a scheduler; the port has no scheduler
+        and no circuit breaker yet). Returns bytes written; raises
+        EngineError on a failed or short chunk: nothing falls back."""
+        if not chunks:
+            return 0
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        planned = sum(ln for (_, _, _, ln) in chunks)
+        try:
+            with self._demand_gate(), self._engine_lock:
+                total = self.engine.write_vectored(
+                    chunks, src, retries=self.config.io_retries)
+        except EngineError as e:
+            raise EngineError(e.errno, f"host2ssd {e.strerror}") from None
+        if total != planned:
+            raise EngineError(errno.EIO, f"host2ssd wrote {total} bytes, "
+                                         f"planned {planned}")
+        self._count(host2ssd_bytes=total)
+        return total
+
+    def pwrite(self, path: str, data: "np.ndarray | bytes | memoryview",
+               offset: int = 0, *, create: bool = True,
+               fsync: bool = False) -> int:
+        """Write *data* to ``path[offset:offset+len)`` through the engine's
+        write path: the write twin of :meth:`pread`. *create* makes the
+        file when it is absent; *fsync* makes the bytes durable before the
+        call returns. A page-aligned buffer at an aligned offset rides
+        O_DIRECT, anything else the engine's buffered fd. Afterwards the
+        context forgets its cached bytes of *path* (its registrations stay:
+        the inode is the same). A striped alias takes no writes. Returns
+        bytes written."""
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        if self.striped_source(path) is not None:
+            raise ValueError(f"{path} is a striped alias; the write path "
+                             "writes plain files only")
+        src = np.frombuffer(data, dtype=np.uint8) \
+            if not isinstance(data, np.ndarray) \
+            else np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+        n = src.nbytes
+        if n == 0:
+            return 0
+        if create and not os.path.exists(path):
+            os.close(os.open(path, os.O_WRONLY | os.O_CREAT, 0o644))
+        fi = self.file_index(path, writable=True)
+        try:
+            total = self.write_chunks([(fi, offset, 0, n)], src)
+        finally:
+            # after the write, not before: a read during the write may have
+            # admitted the old bytes, which invalidating first would keep
+            self.invalidate_file(path, registrations=False)
+        if fsync:
+            fd = os.open(path, os.O_RDONLY)
+            try:
+                os.fsync(fd)
+            finally:
+                os.close(fd)
+        return total
+
     # -- introspection and lifecycle -----------------------------------------
     def buffer_info(self) -> dict:
         """The engine's staging pool (≙ LIST/INFO_GPU_MEMORY)."""
         return self.engine.buffer_info()
 
+    def set_counters(self, **kv: int) -> None:
+        """Set counters of :meth:`stats` to values (gauges: the resume
+        layer's verdict), where ``_count`` adds."""
+        with self._counts_lock:
+            for k, v in kv.items():
+                self._counts[k] = v
+
     def stats(self) -> dict:
         with self._counts_lock:
             out = dict(self._counts)
+        with self._files_lock:
+            out["context"] = {"registered_files": len(self._files),
+                              "host2ssd_bytes": out["host2ssd_bytes"]}
         out["engine"] = self.engine.stats()
         if self._slab_pool is not None:
             out["slab_pool"] = self._slab_pool.stats()

@@ -16,7 +16,9 @@ short-read (EOF) accounting; the io_uring engine runs the whole gather in
 C++ instead. :meth:`Engine.submit_vectored` starts the same gather
 asynchronously and returns a :class:`StreamToken`; :meth:`Engine.poll`
 reports chunks as they retire, so a caller can work on early chunks while
-later ones are in flight. Stats scopes, request deadlines, writes and the
+later ones are in flight. ``op="write"`` runs the same machine in reverse
+(:meth:`Engine.write_vectored`): each chunk writes the buffer's bytes to a
+file registered ``writable=True``. Stats scopes, request deadlines and the
 retry backoff policy of the reference are not ported yet: a failed piece is
 resubmitted at once, up to ``retries`` times, as ``read_vectored`` does.
 """
@@ -65,9 +67,29 @@ class RawRead:
 
 
 @dataclasses.dataclass(frozen=True)
+class RawWrite:
+    """One block write from caller-owned memory to file[offset:offset+length)
+    (the write twin of :class:`RawRead`): *src* is a C-contiguous uint8 view
+    that outlives the op (page-aligned for the O_DIRECT path), and the file
+    was registered with ``writable=True``."""
+
+    file_index: int
+    offset: int
+    length: int
+    src: np.ndarray
+    tag: int
+
+    @property
+    def dest(self) -> np.ndarray:
+        # the op's buffer whatever its direction: engine internals
+        # (keepalives, the python workers) address it without branching
+        return self.src
+
+
+@dataclasses.dataclass(frozen=True)
 class Completion:
     tag: int
-    result: int        # bytes read (>=0) or negative errno
+    result: int        # bytes read or written (>=0) or negative errno
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,15 +127,18 @@ class StreamToken:
     chunks retired, which block-size pieces are in flight, and each chunk's
     result. Not thread-safe: one thread drives poll/drain per token."""
 
-    __slots__ = ("chunks", "retries", "fail_fast", "_d8", "_left",
+    __slots__ = ("chunks", "retries", "fail_fast", "op", "_d8", "_left",
                  "_results", "_pending", "_pieces", "_backlog", "_exhausted",
                  "_ready", "bytes_done", "cancelled", "inflight_peak", "_err")
 
     def __init__(self, chunks: Sequence[tuple[int, int, int, int]],
                  dest: np.ndarray, block: int, retries: int,
-                 fail_fast: bool = True):
+                 fail_fast: bool = True, op: str = "read"):
         self.chunks = list(chunks)
         self.retries = retries
+        # "read" gathers file -> dest; "write" scatters dest -> file (dest
+        # is then the source). Only the op built per piece differs
+        self.op = op
         # True (read_vectored's contract): the first failed chunk stops
         # feeding the rest. False: a failed chunk retires as a negative
         # ChunkCompletion and the rest of the gather keeps flowing
@@ -167,9 +192,12 @@ class Engine(abc.ABC):
 
     # -- file registration (≙ CHECK_FILE handing an fd to the kmod) ---------
     @abc.abstractmethod
-    def register_file(self, path: str, *, o_direct: bool | None = None) -> int:
+    def register_file(self, path: str, *, o_direct: bool | None = None,
+                      writable: bool = False) -> int:
         """Open *path* and return a file index for reads; o_direct=None uses
-        the config / per-file probe."""
+        the config / per-file probe. writable=True opens it read-write, so
+        the index also takes :class:`RawWrite` ops and ``op="write"``
+        gathers; the caller creates the file first."""
 
     @abc.abstractmethod
     def unregister_file(self, file_index: int) -> None: ...
@@ -330,19 +358,36 @@ class Engine(abc.ABC):
 
     def submit_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                         dest: np.ndarray, *, retries: int = 1,
-                        fail_fast: bool = True) -> StreamToken:
+                        fail_fast: bool = True,
+                        op: str = "read") -> StreamToken:
         """Begin an async gather of (file_index, file_offset, dest_offset,
         length) chunks into *dest*. Pieces go out up to queue_depth at once;
         the rest follow as :meth:`poll` reaps completions. The token must be
         driven to :meth:`drain` (or given to :meth:`cancel`) before the
         engine serves another transfer. *fail_fast*=False lets the gather
         go on past a failed chunk, which retires as a negative
-        ChunkCompletion."""
+        ChunkCompletion. ``op="write"`` runs it in reverse: *dest* is the
+        source and each chunk writes dest[dest_offset:+length) to
+        file[file_offset:), the files registered ``writable=True``; a
+        retry rewrites the whole piece, and a short write retries as a
+        short read does."""
+        if op not in ("read", "write"):
+            raise ValueError(f"op must be 'read' or 'write', got {op!r}")
         tok = StreamToken(chunks, dest, self.config.block_size, retries,
-                          fail_fast=fail_fast)
+                          fail_fast=fail_fast, op=op)
         self._track_token(tok)
         self._pump_token(tok)
         return tok
+
+    def write_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
+                       src: np.ndarray, *, retries: int = 1) -> int:
+        """The blocking write twin of :meth:`read_vectored`: (file_index,
+        file_offset, src_offset, length) chunks out of *src*, block_size
+        pieces pipelined at queue_depth with per-piece retries, through the
+        async token. Returns bytes written; raises EngineError on a failed
+        or short chunk. The same one-transfer-at-a-time contract."""
+        return self.drain(self.submit_vectored(chunks, src, retries=retries,
+                                               op="write"))
 
     def poll(self, token: StreamToken, min_completions: int = 1,
              timeout_s: float | None = None) -> list[ChunkCompletion]:
@@ -458,6 +503,7 @@ class Engine(abc.ABC):
             if not batch:
                 break
             reqs = []
+            make = RawWrite if tok.op == "write" else RawRead
             for piece in batch:
                 ci, fi, fo, do, want, attempts = piece
                 tag = self._vec_tag
@@ -465,7 +511,7 @@ class Engine(abc.ABC):
                 # registered before submission: a completion can land, and
                 # a concurrent reap must find it, inside submit_raw
                 tok._pending[tag] = piece
-                reqs.append(RawRead(fi, fo, want, tok._d8[do: do + want], tag))
+                reqs.append(make(fi, fo, want, tok._d8[do: do + want], tag))
             try:
                 self.submit_raw(reqs)
             except EngineError as e:
@@ -506,19 +552,21 @@ class Engine(abc.ABC):
             if failed and (tok._err is None or not tok.fail_fast) \
                     and not tok.cancelled and not chunk_failed \
                     and attempts < tok.retries:
-                # a short read retries the whole piece: a truncated
-                # transfer recovers, a true EOF fails once retries are spent
+                # a short read or write retries the whole piece: a
+                # truncated transfer recovers, a true EOF fails once
+                # retries are spent
                 tok._backlog.append((ci, fi, fo, do, want, attempts + 1))
                 continue
             if c.result < 0:
                 err = EngineError(
-                    -c.result, f"read failed after {attempts + 1} attempts: "
-                               f"{os.strerror(-c.result)}")
+                    -c.result, f"{tok.op} failed after {attempts + 1} "
+                               f"attempts: {os.strerror(-c.result)}")
             elif c.result < want:
                 tok.bytes_done += c.result
                 err = EngineError(
-                    _ENODATA, f"short read ({c.result} < {want}) — file "
-                              "smaller than requested range?")
+                    _ENODATA, f"short {tok.op} ({c.result} < {want})"
+                    + (" — file smaller than requested range?"
+                       if tok.op == "read" else ""))
             else:
                 tok.bytes_done += c.result
                 err = None

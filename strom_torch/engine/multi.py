@@ -33,7 +33,7 @@ import numpy as np
 from strom_torch.config import StromConfig
 from strom_torch.engine.base import (ChunkCompletion, Completion, Engine,
                                      EngineError, EngineStallError, RawRead,
-                                     ReadRequest, StreamToken)
+                                     RawWrite, ReadRequest, StreamToken)
 from strom_torch.engine.uring_engine import UringEngine
 
 
@@ -108,9 +108,10 @@ class MultiRingEngine(Engine):
             for c in self._children:
                 c.close()
             raise
-        # my file index -> (path, o_direct); child registrations are lazy (a
-        # file occupies a ring's fd table only once a transfer lands there)
-        self._files: dict[int, tuple[str, bool | None]] = {}
+        # my file index -> (path, o_direct, writable); child registrations
+        # are lazy (a file occupies a ring's fd table only once a transfer
+        # lands there), each with the writability asked for
+        self._files: dict[int, tuple[str, bool | None, bool]] = {}
         self._next_fi = 0
         self._child_fi: list[dict[int, int]] = [dict() for _ in range(n)]
         self._reg_lock = threading.Lock()
@@ -123,11 +124,12 @@ class MultiRingEngine(Engine):
         self._closed = False
 
     # -- files --------------------------------------------------------------
-    def register_file(self, path: str, *, o_direct: bool | None = None) -> int:
+    def register_file(self, path: str, *, o_direct: bool | None = None,
+                      writable: bool = False) -> int:
         with self._reg_lock:
             fi = self._next_fi
             self._next_fi += 1
-            self._files[fi] = (path, o_direct)
+            self._files[fi] = (path, o_direct, writable)
         # eager on ring 0, so the O_DIRECT probe runs once up front and
         # file_uses_o_direct answers without I/O later
         self._child_index(0, fi)
@@ -146,8 +148,9 @@ class MultiRingEngine(Engine):
             ent = self._files.get(fi)
             if ent is None:
                 raise EngineError(_errno.EBADF, f"file index {fi} not registered")
-            path, od = ent
-            ci = m[fi] = self._children[ring].register_file(path, o_direct=od)
+            path, od, wr = ent
+            ci = m[fi] = self._children[ring].register_file(
+                path, o_direct=od, writable=wr)
             return ci
 
     def unregister_file(self, file_index: int) -> None:
@@ -182,9 +185,9 @@ class MultiRingEngine(Engine):
             ReadRequest(self._child_index(0, r.file_index), r.offset, r.length,
                         r.buf_index, r.tag, r.buf_offset) for r in requests])
 
-    def submit_raw(self, requests: Sequence[RawRead]) -> int:
+    def submit_raw(self, requests: Sequence[RawRead | RawWrite]) -> int:
         return self._children[0].submit_raw([
-            RawRead(self._child_index(0, r.file_index), r.offset, r.length,
+            type(r)(self._child_index(0, r.file_index), r.offset, r.length,
                     r.dest, r.tag) for r in requests])
 
     def wait(self, min_completions: int = 1,
@@ -257,9 +260,11 @@ class MultiRingEngine(Engine):
     # -- async vectored gather: fan tokens across the rings ------------------
     def submit_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                         dest: np.ndarray, *, retries: int = 1,
-                        fail_fast: bool = True) -> _FanToken:
+                        fail_fast: bool = True,
+                        op: str = "read") -> _FanToken:
         """The async twin of read_vectored's routing: one child token per
-        ring, completions mapped back to the caller's chunk indices. The
+        ring, completions mapped back to the caller's chunk indices
+        (``op="write"``: the same fan-out of a write scatter). The
         live rings' locks are held for the token's lifetime (a blocking
         gather on the same ring would reap, and drop as foreign, the
         token's completions) and released at drain or cancel."""
@@ -291,7 +296,7 @@ class MultiRingEngine(Engine):
                 parts.append((r, self._children[r],
                               self._children[r].submit_vectored(
                                   ch, dest, retries=retries,
-                                  fail_fast=fail_fast), imap))
+                                  fail_fast=fail_fast, op=op), imap))
         except BaseException:
             for _, child, ctok, _ in parts:
                 child.cancel(ctok)
@@ -388,7 +393,8 @@ class MultiRingEngine(Engine):
         per_ring = [c.stats() for c in self._children]
         out: dict = {"engine": self.name, "rings": len(self._children)}
         for key in ("ops_submitted", "ops_completed", "ops_errored",
-                    "ops_faulted", "bytes_read", "unaligned_fallback_reads",
+                    "ops_faulted", "bytes_read", "ops_written",
+                    "bytes_written", "unaligned_fallback_reads",
                     "eof_topup_reads", "chunk_retries", "ops_fixed",
                     "cached_bytes", "media_bytes", "residency_probes",
                     "in_flight", "enter_submit_calls", "sqpoll_wakeups",

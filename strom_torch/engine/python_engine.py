@@ -13,6 +13,11 @@ count as ``media_bytes``. A gather's residency is snapshotted before any of
 its reads runs (``_snapshot_residency``), since a warm read's readahead
 would otherwise warm the ranges ahead of it; a stand-alone op probes
 itself. Neither probe populates the cache.
+
+A write (:class:`RawWrite`, to a file registered ``writable=True``) takes
+the O_DIRECT fd when it is aligned and the buffered fd otherwise
+(``unaligned_fallback_writes``); the residency hybrid is a read-side
+economy and writes skip it.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import numpy as np
 
 from strom_torch.config import StromConfig
 from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
-                                     ReadRequest)
+                                     RawWrite, ReadRequest)
 from strom_torch.probe.odirect import probe_dio
 from strom_torch.probe.residency import cached_pages, range_fully_cached
 
@@ -68,7 +73,9 @@ class PythonEngine(Engine):
                        "ops_errored": 0, "bytes_read": 0, "media_bytes": 0,
                        "cached_bytes": 0, "residency_probes": 0,
                        "unaligned_fallback_reads": 0, "o_direct_denied": 0,
-                       "ops_faulted": 0}
+                       "ops_faulted": 0, "ops_written": 0,
+                       "bytes_written": 0, "direct_writes": 0,
+                       "buffered_writes": 0, "unaligned_fallback_writes": 0}
         self._fault_counter = 0
         self._closed = False
         # the gather in flight's residency snapshot, {(file_index, offset):
@@ -87,17 +94,21 @@ class PythonEngine(Engine):
             self._stats[key] += n
 
     # -- files --------------------------------------------------------------
-    def register_file(self, path: str, *, o_direct: bool | None = None) -> int:
+    def register_file(self, path: str, *, o_direct: bool | None = None,
+                      writable: bool = False) -> int:
         want_direct = self.config.o_direct if o_direct is None else o_direct
         dio = probe_dio(path)
         use_direct = dio.supported if want_direct is None \
             else (want_direct and dio.supported)
         if want_direct is True and not dio.supported:
             self._count("o_direct_denied")  # observable degrade, not an error
-        fd_buffered = os.open(path, os.O_RDONLY)
+        # writable: both fds read-write, so aligned writes ride O_DIRECT and
+        # unaligned ones the buffered fd, as reads do
+        flags = os.O_RDWR if writable else os.O_RDONLY
+        fd_buffered = os.open(path, flags)
         if use_direct:
             try:
-                fd = os.open(path, os.O_RDONLY | os.O_DIRECT)
+                fd = os.open(path, flags | os.O_DIRECT)
             except OSError:
                 fd = os.dup(fd_buffered)
                 use_direct = False
@@ -303,7 +314,7 @@ class PythonEngine(Engine):
             if f is None:
                 self._done_q.put(Completion(req.tag, -_errno.EBADF))
                 continue
-            if isinstance(req, RawRead):
+            if isinstance(req, (RawRead, RawWrite)):
                 view = memoryview(req.dest.view(np.uint8).reshape(-1))[: req.length]
                 addr = req.dest.__array_interface__["data"][0]
             else:
@@ -313,6 +324,9 @@ class PythonEngine(Engine):
             aligned = (req.offset % f.offset_align == 0
                        and req.length % f.offset_align == 0
                        and addr % f.mem_align == 0)
+            if isinstance(req, RawWrite):
+                self._write(req, f, view, f.o_direct and aligned)
+                continue
             # residency hybrid: a warm piece is a memcpy from the page cache
             # through the buffered fd, not a media read
             warm = False
@@ -344,3 +358,25 @@ class PythonEngine(Engine):
             except OSError as e:
                 self._count("ops_errored")
                 self._done_q.put(Completion(req.tag, -(e.errno or _errno.EIO)))
+
+    def _write(self, req: RawWrite, f: _File, view: memoryview,
+               direct: bool) -> None:
+        """One write op: the O_DIRECT fd when aligned, else the buffered
+        fd. A short write counts no bytes: the retry rewrites the whole
+        piece, and its full completion counts once."""
+        try:
+            n = os.pwritev(f.fd if direct else f.fd_buffered, [view],
+                           req.offset)
+            with self._lock:
+                self._stats["ops_completed"] += 1
+                self._stats["direct_writes" if direct else
+                            "buffered_writes"] += 1
+                if f.o_direct and not direct:
+                    self._stats["unaligned_fallback_writes"] += 1
+                if n >= req.length:
+                    self._stats["ops_written"] += 1
+                    self._stats["bytes_written"] += n
+            self._done_q.put(Completion(req.tag, n))
+        except OSError as e:
+            self._count("ops_errored")
+            self._done_q.put(Completion(req.tag, -(e.errno or _errno.EIO)))

@@ -21,7 +21,7 @@ import numpy as np
 
 from strom_torch.config import StromConfig
 from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
-                                     ReadRequest)
+                                     RawWrite, ReadRequest)
 
 _HIST_BUCKETS = 24
 
@@ -89,6 +89,7 @@ class _ScRawOp(ctypes.Structure):
 # zero-tailed array with no error. Chunks are split to this limit before they
 # reach ctypes, and anything that still doesn't fit raises.
 _MAX_SEG = 1 << 31
+_SC_OP_WRITE = 2   # sc_raw_op.op_flags bit 1: IORING_OP_WRITE from addr
 
 
 def _split_chunks(chunks, limit: int = _MAX_SEG):
@@ -231,9 +232,12 @@ class UringEngine(Engine):
         self._dest_lock = threading.Lock()
 
     # -- files --------------------------------------------------------------
-    def register_file(self, path: str, *, o_direct: bool | None = None) -> int:
+    def register_file(self, path: str, *, o_direct: bool | None = None,
+                      writable: bool = False) -> int:
         want = self.config.o_direct if o_direct is None else o_direct
         mode = 2 if want is None else (1 if want else 0)
+        if writable:
+            mode |= 8  # both fds O_RDWR: the write path
         rc = self._lib.sc_register_file(self._h, os.fsencode(path), mode)
         if rc < 0:
             raise EngineError(-rc, f"register_file({path}): {os.strerror(-rc)}")
@@ -317,7 +321,7 @@ class UringEngine(Engine):
                 raise EngineError(-rc, f"submit: {os.strerror(-rc)}")
         return len(requests)
 
-    def submit_raw(self, requests: Sequence[RawRead]) -> int:
+    def submit_raw(self, requests: Sequence[RawRead | RawWrite]) -> int:
         """Batch submit through sc_submit_raw_batch: one ctypes call and one
         io_uring_enter for the whole sequence. All-or-nothing in the common
         case: a batch that cannot fit the queue depth raises EAGAIN with
@@ -334,7 +338,9 @@ class UringEngine(Engine):
                 f"{self.config.queue_depth})")
         ops = (_ScRawOp * len(requests))()
         for i, r in enumerate(requests):
-            if not r.dest.flags["C_CONTIGUOUS"] or not r.dest.flags["WRITEABLE"]:
+            is_write = isinstance(r, RawWrite)
+            if not r.dest.flags["C_CONTIGUOUS"] or \
+                    (not is_write and not r.dest.flags["WRITEABLE"]):
                 raise EngineError(_errno.EINVAL,
                                   "RawRead.dest must be writable C-contiguous")
             if r.length > 0xFFFFFFFF:
@@ -345,7 +351,8 @@ class UringEngine(Engine):
                 raise EngineError(_errno.EINVAL, "op buffer smaller than length")
             addr = r.dest.__array_interface__["data"][0]
             ops[i] = _ScRawOp(r.file_index, r.length, r.offset, r.tag,
-                              ctypes.c_void_p(addr), -1, 0)
+                              ctypes.c_void_p(addr), -1,
+                              _SC_OP_WRITE if is_write else 0)
         # keepalives before the C call: an op can complete inside
         # sc_submit_raw_batch, and a concurrent wait() must find its entry
         for r in requests:
@@ -433,6 +440,11 @@ class UringEngine(Engine):
             "ops_errored": s.ops_errored,
             "ops_faulted": s.ops_faulted,
             "bytes_read": s.bytes_read,
+            # full write completions (a short write counts nothing: its
+            # retry rewrites the piece); unaligned writes fall back to the
+            # buffered fd and count in unaligned_fallback_reads
+            "ops_written": int(s.ops_written),
+            "bytes_written": int(s.bytes_written),
             "unaligned_fallback_reads": s.unaligned_fallback_reads,
             "eof_topup_reads": s.eof_topup_reads,
             "in_flight": s.in_flight,

@@ -25,8 +25,10 @@ from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
 
+from strom_torch.delivery.buffers import alloc_aligned
 from strom_torch.delivery.core import source_size
 from strom_torch.delivery.extents import Extent, ExtentList
+from strom_torch.formats.rawbin import truncate_to
 from strom_torch.formats.parquet_thrift import (_thrift_struct, _uvarint,
                                                 encode_data_page_header,
                                                 encode_file_metadata,
@@ -580,8 +582,9 @@ def write_parquet(ctx, path: str, columns: "dict[str, np.ndarray]", *,
                   row_group_rows: "int | None" = None,
                   compression: str = "NONE",
                   fsync: bool = True) -> int:
-    """Write *columns* (equal-length 1-D arrays) as a Parquet file; returns
-    bytes written.
+    """Write *columns* (equal-length 1-D arrays) as a Parquet file through
+    the engine's write path (``ctx.pwrite``, the machinery that reads it
+    back); returns bytes written.
 
     ``compression="NONE"`` (the default) is the native PLAIN writer: every
     column an OPTIONAL leaf with an all-present definition-level run (as
@@ -589,15 +592,13 @@ def write_parquet(ctx, path: str, columns: "dict[str, np.ndarray]", *,
     most :data:`PAGE_ROWS` rows, no dictionary, per-chunk statistics
     (``min_value``, ``max_value``, ``null_count`` 0); int32, int64, float32
     and float64 only, anything else raises TypeError. The file reads back
-    on the zero-copy PLAIN route. Any other *compression* is written by
-    pyarrow (RuntimeError where it is absent).
-
-    Plain file I/O with an fsync (the reference writes through the engine's
-    write path, ``ctx.pwrite``, which the port does not have yet; *ctx* is
-    taken for that signature)."""
+    on the zero-copy PLAIN route. Any other *compression* is serialised by
+    pyarrow (RuntimeError where it is absent). Either way the file is
+    assembled in a page-aligned host buffer and handed to ``ctx.pwrite``;
+    an existing file is cut to the new size first."""
     if compression.upper() not in ("NONE", "UNCOMPRESSED"):
-        return _write_parquet_pyarrow(path, columns, row_group_rows,
-                                      compression, fsync)
+        return _pwrite_parts(ctx, path, [_pyarrow_bytes(
+            columns, row_group_rows, compression)], fsync)
     arrays: list[tuple[str, np.ndarray, str]] = []
     n = None
     for name, v in columns.items():
@@ -617,50 +618,55 @@ def write_parquet(ctx, path: str, columns: "dict[str, np.ndarray]", *,
         raise ValueError("write_parquet needs at least one column")
     rg_rows = row_group_rows or max(n, 1)
     row_groups = []
-    with open(path, "wb") as f:
-        f.write(b"PAR1")
-        pos = 4
-        for r0 in range(0, n, rg_rows):
-            r1 = min(n, r0 + rg_rows)
-            chunks = []
-            for _, a, _ in arrays:
-                start = pos
-                for p0 in range(r0, r1, PAGE_ROWS):
-                    values = a[p0: min(r1, p0 + PAGE_ROWS)]
-                    defs = _all_present_levels(len(values))
-                    header = encode_data_page_header(
-                        len(values), len(defs) + values.nbytes)
-                    f.write(header)
-                    f.write(defs)
-                    f.write(values.data)
-                    pos += len(header) + len(defs) + values.nbytes
-                chunks.append({"offset": start, "size": pos - start,
-                               "num_values": r1 - r0,
-                               "stats": _chunk_stats(a[r0:r1])})
-            row_groups.append({"num_rows": r1 - r0,
-                               "file_offset": chunks[0]["offset"],
-                               "chunks": chunks})
-        meta = encode_file_metadata([(name, t) for name, _, t in arrays], n,
-                                    row_groups, CREATED_BY)
-        f.write(meta)
-        f.write(len(meta).to_bytes(4, "little") + b"PAR1")
-        f.flush()
-        if fsync:
-            os.fsync(f.fileno())
-    return pos + len(meta) + 8
+    parts: list = [b"PAR1"]
+    pos = 4
+    for r0 in range(0, n, rg_rows):
+        r1 = min(n, r0 + rg_rows)
+        chunks = []
+        for _, a, _ in arrays:
+            start = pos
+            for p0 in range(r0, r1, PAGE_ROWS):
+                values = a[p0: min(r1, p0 + PAGE_ROWS)]
+                defs = _all_present_levels(len(values))
+                header = encode_data_page_header(
+                    len(values), len(defs) + values.nbytes)
+                parts += [header, defs, values.view(np.uint8)]
+                pos += len(header) + len(defs) + values.nbytes
+            chunks.append({"offset": start, "size": pos - start,
+                           "num_values": r1 - r0,
+                           "stats": _chunk_stats(a[r0:r1])})
+        row_groups.append({"num_rows": r1 - r0,
+                           "file_offset": chunks[0]["offset"],
+                           "chunks": chunks})
+    meta = encode_file_metadata([(name, t) for name, _, t in arrays], n,
+                                row_groups, CREATED_BY)
+    parts += [meta, len(meta).to_bytes(4, "little") + b"PAR1"]
+    return _pwrite_parts(ctx, path, parts, fsync)
 
 
-def _write_parquet_pyarrow(path: str, columns: dict, row_group_rows,
-                           compression: str, fsync: bool) -> int:
+def _pwrite_parts(ctx, path: str, parts: list, fsync: bool) -> int:
+    """Join *parts* (bytes-like) into one page-aligned buffer, so the
+    engine's aligned pieces ride O_DIRECT, and ``ctx.pwrite`` it."""
+    views = [p if isinstance(p, np.ndarray)
+             else np.frombuffer(p, dtype=np.uint8) for p in parts]
+    total = sum(v.nbytes for v in views)
+    buf = alloc_aligned(total)
+    pos = 0
+    for v in views:
+        buf[pos: pos + v.nbytes] = v
+        pos += v.nbytes
+    truncate_to(path, total)
+    return ctx.pwrite(path, buf, fsync=fsync)
+
+
+def _pyarrow_bytes(columns: dict, row_group_rows, compression: str):
+    """*columns* serialised by pyarrow (no dictionary) into a buffer."""
     pq = _pyarrow_parquet(f"write_parquet(compression={compression!r})")
     import pyarrow as pa
 
     table = pa.table({k: pa.array(np.asarray(v)) for k, v in columns.items()})
-    with open(path, "wb") as f:
-        pq.write_table(table, f, compression=compression.lower(),
-                       use_dictionary=False,
-                       row_group_size=row_group_rows or len(table))
-        f.flush()
-        if fsync:
-            os.fsync(f.fileno())
-        return f.tell()
+    sink = pa.BufferOutputStream()
+    pq.write_table(table, sink, compression=compression.lower(),
+                   use_dictionary=False,
+                   row_group_size=row_group_rows or len(table))
+    return sink.getvalue()

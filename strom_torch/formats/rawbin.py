@@ -94,14 +94,19 @@ class TokenShardSet:
         return (n_records, self.record_tokens)
 
 
-def write_token_shard(path: str, tokens: np.ndarray, *,
+def write_token_shard(ctx, path: str, tokens: np.ndarray, *,
                       fsync: bool = True) -> int:
-    """Write a packed-token shard: *tokens* lands row-major exactly as
-    :class:`TokenShardSet` slices it. Returns bytes written."""
+    """Write a packed-token shard through the engine's write path
+    (``ctx.pwrite``), the machinery that later reads it: *tokens* lands
+    row-major exactly as :class:`TokenShardSet` slices it. An existing
+    file is cut to the shard's size first. Returns bytes written."""
     arr = np.ascontiguousarray(tokens)
-    with open(path, "wb") as f:
-        arr.tofile(f)
-        f.flush()
-        if fsync:
-            os.fsync(f.fileno())
-    return arr.nbytes
+    truncate_to(path, arr.nbytes)
+    return ctx.pwrite(path, arr.reshape(-1).view(np.uint8), fsync=fsync)
+
+
+def truncate_to(path: str, nbytes: int) -> None:
+    """Cut an existing *path* to *nbytes* (a write in place over a longer
+    file would leave its old tail)."""
+    if os.path.exists(path):
+        os.truncate(path, nbytes)

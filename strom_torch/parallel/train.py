@@ -99,6 +99,74 @@ def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     return TrainState(model, opt, sched)
 
 
+def _named_optimizer_state(state: TrainState) -> dict[str, dict]:
+    """The optimizer's per-parameter state keyed by parameter name, each
+    created as AdamW creates it at its first step (zero moments in the
+    parameter's dtype, a zero ``step``) where the state has not stepped:
+    AdamW then finds it and starts from it, so creating it early changes
+    nothing."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    out = {}
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            st = state.optimizer.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32,
+                                         device=p.device) \
+                    if group["fused"] or group["capturable"] \
+                    else torch.tensor(0.0)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            out[names[id(p)]] = st
+    return out
+
+
+def train_state_tree(state: TrainState) -> dict:
+    """A Llama TrainState as a nested dict of its tensors, the tree a
+    checkpoint saves: ``model`` (its ``state_dict``), ``optimizer`` (each
+    parameter's AdamW state by name), ``lr`` (the optimizer's lr tensor),
+    ``scheduler`` (``last_epoch``) and ``step``. The tensors are the
+    state's own, not copies; the counterpart of handing the reference an
+    abstract TrainState, and a restore's template."""
+    lr = state.optimizer.param_groups[0]["lr"]
+    return {"model": dict(state.model.state_dict()),
+            "optimizer": {k: dict(v) for k, v in
+                          _named_optimizer_state(state).items()},
+            "lr": lr,
+            "scheduler": {"last_epoch": int(state.scheduler.last_epoch)},
+            "step": int(state.step)}
+
+
+@torch.no_grad()
+def load_train_state(state: TrainState, tree: dict) -> TrainState:
+    """Copy a restored :func:`train_state_tree` into *state* in place:
+    every tensor keeps its address, so a graph captured over the state
+    stays valid and its next replay continues from the restored values.
+    Creates the optimizer state where the state has not stepped yet."""
+    sd = state.model.state_dict()
+    if set(sd) != set(tree["model"]):
+        raise ValueError("model keys differ: "
+                         f"{sorted(set(sd) ^ set(tree['model']))}")
+    for k, v in tree["model"].items():
+        sd[k].copy_(v)
+    opt = _named_optimizer_state(state)
+    if set(opt) != set(tree["optimizer"]):
+        raise ValueError("optimizer state names differ")
+    for name, st in opt.items():
+        for k, v in tree["optimizer"][name].items():
+            st[k].copy_(v)
+    group = state.optimizer.param_groups[0]
+    if isinstance(group["lr"], torch.Tensor):
+        group["lr"].copy_(tree["lr"])
+    else:
+        group["lr"] = float(tree["lr"])
+    state.scheduler.last_epoch = int(tree["scheduler"]["last_epoch"])
+    state.step = int(tree["step"])
+    return state
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in f32: each tensor's
     norm accumulated in f32 without an f32 copy of it, then the norm of

@@ -25,6 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from strom_torch.ckpt import (AsyncCheckpointer, restore_checkpoint,
+                              save_checkpoint)
+from strom_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
 from strom_torch.config import StromConfig
 from strom_torch.delivery.buffers import buf_addr
 from strom_torch.delivery.core import StromContext
@@ -33,9 +36,10 @@ from strom_torch.models.llama import LlamaConfig
 from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import flash_attention as tfa
-from strom_torch.parallel.train import (init_train_state, make_optimizer,
-                                        make_resnet_sgd_step, make_train_step,
-                                        make_vit_sgd_step)
+from strom_torch.parallel.train import (init_train_state, load_train_state,
+                                        make_optimizer, make_resnet_sgd_step,
+                                        make_train_step, make_vit_sgd_step,
+                                        train_state_tree)
 from strom_torch.pipelines import (make_predecoded_vision_pipeline,
                                    make_wds_vision_pipeline)
 
@@ -1077,12 +1081,13 @@ def _pq_fixture(tmp_path, n=50_000, groups=5):
             "wide": rng.standard_normal(2 * n),
             "seq": np.arange(2 * n, dtype=np.int64)}
     paths = []
-    for s in range(2):
-        p = str(tmp_path / f"s{s}.parquet")
-        write_parquet(None, p, {k: v[s * n: (s + 1) * n]
-                                for k, v in cols.items()},
-                      row_group_rows=n // groups)
-        paths.append(p)
+    with StromContext(StromConfig()) as ctx:
+        for s in range(2):
+            p = str(tmp_path / f"s{s}.parquet")
+            write_parquet(ctx, p, {k: v[s * n: (s + 1) * n]
+                                   for k, v in cols.items()},
+                          row_group_rows=n // groups)
+            paths.append(p)
     return paths, cols
 
 
@@ -1203,3 +1208,98 @@ def test_opgraph_batches_on_cuda_equal_cpu(cuda_device, tmp_path):
                 assert torch.equal(gi, wi) and torch.equal(gl, wl)
     finally:
         ctx.close()
+
+
+# ------------------------------------------------------------ checkpoints
+def _ckpt_ctx():
+    return StromContext(StromConfig(queue_depth=8, num_buffers=8,
+                                    slab_pool_bytes=64 * MiB))
+
+
+@pytest.mark.parametrize("verify", [False, True])
+def test_cuda_state_saved_and_restored_on_the_card(cuda_device, tmp_path,
+                                                   verify):
+    """Card leaves (bf16, f32, a 0-d step, a non-contiguous view) saved
+    through the engine and restored onto the card, bit-equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    tree = {"w": torch.randn(513, 257, device=cuda_device, generator=g
+                             ).to(torch.bfloat16),
+            "m": [torch.randn(3 * MiB, device=cuda_device, generator=g),
+                  torch.zeros((), device=cuda_device)],
+            "t": torch.randn(64, 96, device=cuda_device, generator=g).t(),
+            "step": 5}
+    with _ckpt_ctx() as ctx:
+        m = save_checkpoint(ctx, str(tmp_path / "c"), tree)
+        got = restore_checkpoint(ctx, str(tmp_path / "c"), tree,
+                                 verify=verify)
+        assert ctx.stats()["context"]["host2ssd_bytes"] >= m["payload_bytes"]
+    assert got["step"] == 5
+    for a, b in ((got["w"], tree["w"]), (got["m"][0], tree["m"][0]),
+                 (got["m"][1], tree["m"][1]), (got["t"], tree["t"])):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _llama_state_and_step(device, cfg):
+    spec = make_optimizer(warmup=2)
+    return (init_train_state(cfg, spec, device=device, seed=0),
+            make_train_step(cfg, spec, attn="flash", device=device))
+
+
+def test_async_save_under_replays_commits_the_state_at_the_save(
+        cuda_device, tmp_path):
+    """The captured step replays right after AsyncCheckpointer.save
+    returns, rewriting parameters, moments and lr in place while the
+    commit drains: the checkpoint holds the state at the save."""
+    cfg = LlamaConfig.tiny()
+    batches = _token_batches(cuda_device, cfg, [(2, 64)] * 6)
+    state, step = _llama_state_and_step(cuda_device, cfg)
+    for b in batches[:3]:
+        state, _ = step(state, b)
+    at_save = [t.clone() if isinstance(t, torch.Tensor) else t
+               for t in tree_flatten(train_state_tree(state))[0]]
+    with _ckpt_ctx() as ctx, AsyncCheckpointer(ctx, str(tmp_path / "a")) as cp:
+        cp.save(train_state_tree(state))
+        for b in batches[3:]:
+            state, _ = step(state, b)
+        assert step.last_call == "replay"
+        cp.wait()
+        leaves, treedef = tree_flatten(train_state_tree(state))
+        assert any(isinstance(t, torch.Tensor) and not torch.equal(t, s)
+                   for t, s in zip(leaves, at_save))
+        got = tree_flatten(restore_checkpoint(
+            ctx, str(tmp_path / "a"), tree_unflatten(treedef, at_save)))[0]
+    for a, b in zip(got, at_save):
+        assert (torch.equal(a, b) and a.is_cuda) \
+            if isinstance(b, torch.Tensor) else a == b
+
+
+def test_load_into_a_captured_state_continues_the_run(cuda_device, tmp_path):
+    """A state whose step is already captured takes a restored tree in
+    place (load_train_state): its next replays, not a new capture,
+    continue the uninterrupted run bit for bit."""
+    cfg = LlamaConfig.tiny()
+    batches = _token_batches(cuda_device, cfg, [(2, 64)] * 5)
+    state, step = _llama_state_and_step(cuda_device, cfg)
+    want = []
+    with _ckpt_ctx() as ctx:
+        for i, b in enumerate(batches):
+            if i == 2:
+                save_checkpoint(ctx, str(tmp_path / "c"),
+                                train_state_tree(state))
+            state, m = step(state, b)
+            want.append((m["loss"], m["grad_norm"]))
+        other, step2 = _llama_state_and_step(cuda_device, cfg)
+        for b in _token_batches(cuda_device, cfg, [(2, 64)] * 3, seed=9):
+            other, _ = step2(other, b)
+        assert step2.last_call == "replay"
+        load_train_state(other, restore_checkpoint(
+            ctx, str(tmp_path / "c"), train_state_tree(other)))
+    got = []
+    for b in batches[2:]:
+        other, m = step2(other, b)
+        assert step2.last_call == "replay" and step2.graphs == 1
+        got.append((m["loss"], m["grad_norm"]))
+    for (a, b), (c, d) in zip(got, want[2:]):
+        assert torch.equal(a, c) and torch.equal(b, d)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, other.model.state_dict()[k]), k

@@ -208,13 +208,16 @@ SEQ = 16           # tokens per record = SEQ + 1
 
 @pytest.fixture()
 def token_shards(tmp_path):
-    """Two shards of 12 and 9 records, a ragged tail on the second."""
+    """Two shards of 12 and 9 records, a ragged tail on the second, written
+    through the port's engine write path."""
     rng = np.random.default_rng(11)
     paths = []
-    for i, n in enumerate((12 * (SEQ + 1), 9 * (SEQ + 1) + 5)):
-        p = str(tmp_path / f"tok{i}.bin")
-        write_token_shard(p, rng.integers(0, 1000, n, dtype=np.int32))
-        paths.append(p)
+    with StromContext(StromConfig(engine="python")) as ctx:
+        for i, n in enumerate((12 * (SEQ + 1), 9 * (SEQ + 1) + 5)):
+            p = str(tmp_path / f"tok{i}.bin")
+            write_token_shard(ctx, p, rng.integers(0, 1000, n,
+                                                   dtype=np.int32))
+            paths.append(p)
     return paths
 
 

@@ -43,6 +43,33 @@ def test_import_loads_no_jax_and_no_strom():
     assert int(proc.stdout.split()[-1]) >= 20   # every module was imported
 
 
+@pytest.mark.parametrize("module", ["strom_torch.ckpt",
+                                    "strom_torch.pipelines.checkpoint"])
+def test_checkpoint_modules_load_no_jax_strom_or_ml_dtypes(module):
+    """The checkpoint layer carries bf16 as an integer view: importing it
+    (and a save and restore of a bf16 leaf) loads no jax*, strom.* or
+    ml_dtypes module."""
+    code = (
+        f"import sys, tempfile, torch, {module}\n"
+        "from strom_torch.ckpt import restore_checkpoint, save_checkpoint\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "from strom_torch.config import StromConfig\n"
+        "d = tempfile.mkdtemp()\n"
+        "t = {'w': torch.ones(3, dtype=torch.bfloat16)}\n"
+        "with StromContext(StromConfig(engine='python')) as ctx:\n"
+        "    save_checkpoint(ctx, d + '/c', t)\n"
+        "    assert torch.equal(restore_checkpoint(ctx, d + '/c', t)['w'], "
+        "t['w'])\n"
+        "bad = sorted(n for n in sys.modules if n.startswith(('jax', "
+        "'ml_dtypes')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 _FORBIDDEN = re.compile(r"^\s*(import\s+(jax|strom)\b(?!_torch)|"
                         r"from\s+(jax|strom)\b(?!_torch))", re.MULTILINE)
 
@@ -55,6 +82,15 @@ def test_sources_import_neither_jax_nor_strom():
     assert not offenders, offenders
     chip_smoke = (ROOT / "chip_smoke.py").read_text()
     assert not _FORBIDDEN.search(chip_smoke)
+    # the write path and the checkpoint layer are scanned, and import no
+    # ml_dtypes (a dependency of JAX)
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"ckpt/checkpoint.py", "ckpt/async_save.py", "ckpt/jobstate.py",
+            "pipelines/checkpoint.py"} <= names
+    uses = [str(f.relative_to(ROOT)) for f in files + [ROOT / "chip_smoke.py"]
+            if re.search(r"^\s*(import|from)\s+ml_dtypes\b",
+                         f.read_text(), re.MULTILINE)]
+    assert not uses, uses
 
 
 def test_pattern_catches_what_it_must():
@@ -74,16 +110,17 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     path = str(tmp_path / "t.bin")
-    write_token_shard(path, np.arange(4 * 17, dtype=np.int32), fsync=False)
     pq_path = str(tmp_path / "t.parquet")
     values = np.arange(-50, 50, dtype=np.float32)
-    write_parquet(None, pq_path, {"value": values}, row_group_rows=40,
-                  fsync=False)
     cfg = LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     ctx = StromContext()
     try:
+        write_token_shard(ctx, path, np.arange(4 * 17, dtype=np.int32),
+                          fsync=False)
+        write_parquet(ctx, pq_path, {"value": values}, row_group_rows=40,
+                      fsync=False)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ctx.memcpy_ssd2gpu(path)
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -499,7 +499,7 @@ def _writer_columns(rng, n=45_001):
 
 
 @pytest.fixture(scope="module")
-def written(tmp_path_factory):
+def written(tmp_path_factory, ctxs):
     """One file from the port's writer and one from pyarrow, same columns
     (a float column whose minimum is 0 and one whose maximum is 0, for the
     signed-zero rule), 2-page row groups and a short last group."""
@@ -508,7 +508,7 @@ def written(tmp_path_factory):
     cols["pos"][17] = 0.0
     cols["zero_max"][5] = -0.0
     mine, theirs = str(td / "mine.parquet"), str(td / "theirs.parquet")
-    nbytes = tpq.write_parquet(None, mine, cols, row_group_rows=30_000)
+    nbytes = tpq.write_parquet(ctxs[0], mine, cols, row_group_rows=30_000)
     pq.write_table(pa.table({k: pa.array(v) for k, v in cols.items()}),
                    theirs, row_group_size=30_000, compression="NONE",
                    use_dictionary=False)
@@ -576,23 +576,23 @@ def test_writer_file_decodes_on_the_port_plain_route(ctxs, written):
 @pytest.mark.parametrize("bad", [np.zeros(4, np.uint8), np.zeros(4, bool),
                                  np.zeros((2, 2), np.float32),
                                  np.array(["a", "b"])])
-def test_writer_refuses_other_dtypes(tmp_path, bad):
+def test_writer_refuses_other_dtypes(ctxs, tmp_path, bad):
     with pytest.raises(TypeError, match="int32, int64, float32"):
-        tpq.write_parquet(None, str(tmp_path / "x.parquet"), {"x": bad})
+        tpq.write_parquet(ctxs[0], str(tmp_path / "x.parquet"), {"x": bad})
 
 
-def test_writer_compressed_goes_through_pyarrow(tmp_path):
+def test_writer_compressed_goes_through_pyarrow(ctxs, tmp_path):
     cols = _writer_columns(np.random.default_rng(3), 3000)
     p = str(tmp_path / "z.parquet")
-    tpq.write_parquet(None, p, cols, compression="snappy")
+    tpq.write_parquet(ctxs[0], p, cols, compression="snappy")
     assert pq.read_metadata(p).row_group(0).column(0).compression == "SNAPPY"
     assert pq.read_table(p).equals(
         pa.table({k: pa.array(v) for k, v in cols.items()}))
 
 
-def test_writer_all_nan_chunk_has_no_min_max(tmp_path):
+def test_writer_all_nan_chunk_has_no_min_max(ctxs, tmp_path):
     p = str(tmp_path / "nan.parquet")
-    tpq.write_parquet(None, p, {"x": np.full(10, np.nan)})
+    tpq.write_parquet(ctxs[0], p, {"x": np.full(10, np.nan)})
     st = pq.read_metadata(p).row_group(0).column(0).statistics
     assert not st.has_min_max and st.null_count == 0
     assert tpq.ParquetShard(p).metadata.row_group(0).column(0) \
@@ -611,9 +611,9 @@ def test_without_pyarrow_plain_files_open_write_and_scan(tmp_path,
     rng = np.random.default_rng(9)
     vals = rng.standard_normal(10_000).astype(np.float32)
     p = str(tmp_path / "plain.parquet")
-    tpq.write_parquet(None, p, {"value": vals}, row_group_rows=2_500)
     ctx = StromContext(StromConfig(engine="python"))
     try:
+        tpq.write_parquet(ctx, p, {"value": vals}, row_group_rows=2_500)
         assert tpq.ParquetShard(p, ctx=ctx).num_row_groups == 4
         assert parquet_count_where(ctx, [p], "value", lambda v: v > 0,
                                    devices=["cpu"]) == int((vals > 0).sum())
@@ -623,7 +623,7 @@ def test_without_pyarrow_plain_files_open_write_and_scan(tmp_path,
         with pytest.raises(RuntimeError, match="needs pyarrow"):
             shard.read_row_group_arrays(ctx, 0, ["f64"])
         with pytest.raises(RuntimeError, match="needs pyarrow"):
-            tpq.write_parquet(None, str(tmp_path / "z.parquet"),
+            tpq.write_parquet(ctx, str(tmp_path / "z.parquet"),
                               {"value": vals}, compression="zstd")
     finally:
         ctx.close()
@@ -639,7 +639,7 @@ def test_striped_shard_reads_equal_the_plain_file(ctxs, tmp_path, writer):
     cols = _writer_columns(np.random.default_rng(5), 5000)
     plain = str(tmp_path / "plain.parquet")
     if writer == "port":
-        tpq.write_parquet(None, plain, cols, row_group_rows=1250)
+        tpq.write_parquet(tctx, plain, cols, row_group_rows=1250)
     else:
         pq.write_table(pa.table(cols), plain, row_group_size=1250,
                        compression="zstd")
