@@ -55,9 +55,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the context's engine alone on the cold file, alternating,
                exact, with vs_raw; one more memcpy_ssd2host of the file
                warm in the page cache, with the engine's cached_bytes.
-               Last, the file striped RAID0 over 4 member files, checked
-               with check_file, and delivered through a striped alias
-               under 4 rings and under 1, exact.
+               [sched]: 2 rounds of the 1 GiB streamed delivery through a
+               context with the multi-tenant scheduler (the default) and
+               one with sched_enabled=False, beside the engine alone, in
+               alternating order: each arm's GB/s, both deliveries' ratio
+               to the engine alone, exact bytes, and the scheduler's
+               stats(), whose granted bytes must equal the bytes delivered
+               through it. Last, the file striped RAID0 over 4 member
+               files, checked with check_file, and delivered through a
+               striped alias under 4 rings and under 1, exact.
 4. train    -- seeded packed-token shards through make_llama_pipeline into
                make_train_step(Llama-3-8B widths, 2 layers, attn="flash"),
                which on the card runs each step as one captured CUDA
@@ -139,6 +145,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
                arms, the others the loader alone; decoded-cache hits and
                plan-time hits per epoch; every batch equal to the uncached
                pipeline's; each epoch's images/s over the passes.
+   7e. spill -- the NVMe spill tier under the hot cache. arm=pread: the
+               reference's spill epoch pair at 1 GiB (a seeded int32 token
+               shard, values below 2^15, written through
+               write_token_shard(ctx, ...); hot_cache_bytes 128 MiB,
+               admission "always", spill_bytes 2 GiB in the work
+               directory; 32 records of 4 KiB a pread; two epochs), with
+               spill_compress off and then on: per epoch the SPILL_FIELDS,
+               cache_miss_bytes, engine bytes, MB/s, the compression ratio
+               and the codec's name; every read equal to the shard's bytes
+               and no source miss in epoch 2. arm=resnet: phase 6's shard
+               into a fresh ResNet-50's captured step for 3 epochs (one
+               pipeline an epoch, prefetch depth 1), uncached and then
+               with hot_cache_bytes 64 MiB, "always" and a 1 GiB spill
+               file: batches and losses bit-equal to the uncached run's,
+               images/s and the spill fields per epoch, no source miss in
+               epochs 2 and 3.
 8. vit      -- BASELINE config #3. Phase 6's predecoded shard striped RAID0
                over 4 member files in 512 KiB chunks
                (stage_striped_predecoded) through
@@ -177,6 +199,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
                equal to the plain shard's bit for bit; where phase 7 made
                its tar, the wds pipeline with an OpGraph (filter, project,
                normalize, cast) fused and streamed against unfused, bit-equal.
+10. multitenant -- the reference's bench_multitenant at full width on one
+               context with three registered tenants: llama (training:
+               phase 4's shards into a fresh captured flash step, 2 warm-up
+               and capture steps, then 16 timed), vis0 (training: phase
+               6's shard through the predecoded loader alone, 48 batches
+               of 128) and pq (interactive: phase 9's narrow scan, 12
+               times). Each solo, then the three at once on threads (after
+               Llama's capture), then at once with sched_enabled=False. Per
+               tenant the SCHED_FIELDS (items/s, vs_solo, queue-wait p50
+               and p99, granted ops and bytes, throttle waits, the engine's
+               per-op p99), mt_vs_solo_mean, Llama's timed data stalls, and
+               pq's p99 queue wait beside one slice's time at 2 GB/s. The
+               concurrent Llama losses must equal solo's bit for bit (both
+               modes), every pq count is exact, and the Llama tenant must
+               launch the three sm90 kernels.
 
 Each phase prints its own lines. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -197,6 +234,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -225,7 +263,8 @@ from strom_torch.formats.parquet import (ParquetShard, pyarrow_version,
 from strom_torch.formats.predecoded import (LABELS_SUFFIX, META_SUFFIX,
                                             PredecodedShardSet,
                                             stage_striped_predecoded)
-from strom_torch.formats.rawbin import write_token_shard
+from strom_torch.delivery.spill import SPILL_FIELDS
+from strom_torch.formats.rawbin import TokenShardSet, write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
 from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.models.vit import ViT, ViTConfig
@@ -238,7 +277,9 @@ from strom_torch.parallel.train import (init_train_state, load_train_state,
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
 from strom_torch.pipelines.parquet_scan import (parquet_count_where,
                                                 parquet_scan_aggregate)
-from strom_torch.pipelines.sampler import EpochShuffleSampler
+from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
+from strom_torch.utils.codec import default_codec
+from strom_torch.utils.stats import percentile_from_buckets
 from strom_torch.pipelines.vision import (make_imagenet_resnet_pipeline,
                                           make_predecoded_vision_pipeline,
                                           make_vit_wds_pipeline,
@@ -870,6 +911,72 @@ def _engine_only(eng, fi: int, slab: np.ndarray, path: str) -> tuple[float, floa
     return GiB / dt / 1e9, cpu
 
 
+SCHED_ROUNDS = 4
+# the engine-alone median of phase 3's [sched] arms, GB/s: phase 10 prices
+# one scheduler slice at it
+ENGINE_ALONE_GBPS: list[float] = []
+
+
+def _sched_arms(path: str, want: torch.Tensor, eng, fi: int,
+                slab: np.ndarray, yard: str) -> None:
+    """Phase 3's [sched] arms: the 1 GiB streamed delivery through a
+    context with the scheduler (the default) and through one without it,
+    beside the engine alone, the three in alternating order; every
+    delivery exact. Prints each arm's GB/s, both deliveries' ratio to the
+    engine alone, and the scheduler's grants, which must cover exactly the
+    bytes delivered through it."""
+    ctxs = {"sched_on": StromContext(StromConfig.from_env(engine="auto")),
+            "sched_off": StromContext(StromConfig.from_env(
+                engine="auto", sched_enabled=False))}
+    if ctxs["sched_on"].scheduler is None or \
+            ctxs["sched_off"].scheduler is not None:
+        raise AssertionError("sched: StromContext() must build a scheduler "
+                             "by default, and sched_enabled=False none")
+    for c in ctxs.values():
+        # untimed: each context pins its pool's slabs on its first delivery
+        _drop_cache(path)
+        out = c.memcpy_ssd2gpu(path, device="cuda")
+        torch.cuda.synchronize()
+        del out
+    arms = ["engine", "sched_on", "sched_off"]
+    res: dict[str, list[float]] = {a: [] for a in arms}
+    for i in range(SCHED_ROUNDS):
+        for arm in (arms if i % 2 == 0 else arms[::-1]):
+            if arm == "engine":
+                res[arm].append(_engine_only(eng, fi, slab, path)[0])
+                continue
+            _drop_cache(path)
+            res[arm].append(_timed_delivery(
+                f"1GiB-streamed-{arm}-round{i}",
+                lambda c=ctxs[arm]: c.memcpy_ssd2gpu(path, device="cuda"),
+                want)[0])
+        say("sched", round=i,
+            order="-".join(arms if i % 2 == 0 else arms[::-1]),
+            **{f"{a}_gbps": f"{res[a][-1]:.3f}" for a in arms},
+            **{f"{a}_vs_engine": f"{res[a][-1] / res['engine'][-1]:.3f}"
+               for a in arms[1:]}, engine_arm=yard)
+    sched = ctxs["sched_on"].scheduler
+    st = sched.stats()
+    tenant = sched.tenant(None)
+    say("sched", **{k: v for k, v in st.items()},
+        slice_bytes=sched._slice_bytes(),
+        default_tenant_granted_ops=tenant.granted_ops,
+        default_tenant_granted_bytes=tenant.granted_bytes,
+        **{f"{a}_gbps_median": f"{statistics.median(res[a]):.4f}"
+           for a in arms},
+        **{f"{a}_vs_engine_median":
+           f"{statistics.median(res[a]) / statistics.median(res['engine']):.4f}"
+           for a in arms[1:]})
+    ENGINE_ALONE_GBPS.append(statistics.median(res["engine"]))
+    if st["sched_granted_bytes"] != (SCHED_ROUNDS + 1) * GiB \
+            or st["sched_active_grants"] != 0:
+        raise AssertionError(f"sched: granted {st['sched_granted_bytes']} "
+                             f"bytes for {SCHED_ROUNDS + 1} GiB delivered: "
+                             f"{st}")
+    for c in ctxs.values():
+        c.close()
+
+
 def phase_ssd2gpu(workdir: str) -> str:
     """A seeded 1 GiB file into device memory under engine="auto": 64 MiB
     unstreamed (twice: the first call also pins and ring-registers the
@@ -951,6 +1058,7 @@ def phase_ssd2gpu(workdir: str) -> str:
             delivered_vs=yard, ratio=f"{ratios[-1]:.3f}")
     if not torch.equal(torch.from_numpy(slab).to("cuda"), want):
         raise AssertionError("engine-only read differs from the file")
+    _sched_arms(path, want, engines[yard], files[yard], slab, yard)
     if uring_ok:
         ust = engines["uring"].stats()
         say("ssd2gpu", arm="uring-engine-only",
@@ -2406,10 +2514,11 @@ def _profile_scan(scan) -> None:
         kernel_ms=f"{sum(e - s for s, e, _ in kernels) / 1e3:.2f}")
 
 
-def phase_parquet(workdir: str, tar: str | None) -> None:
+def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
     """BASELINE config #5 on one H100: the port's PLAIN shards scanned
     into device aggregates, narrow and wide, cold, beside a bare gather of
-    the same extents; the pushdown A/B; a striped shard; the OpGraph."""
+    the same extents; the pushdown A/B; a striped shard; the OpGraph.
+    Returns the shards' paths and the narrow count for phase 10."""
     cuda = torch.device("cuda")
     paths, ref = _pq_fixture(workdir)
     _pq_pyarrow_check(paths[0], workdir)
@@ -2527,12 +2636,10 @@ def phase_parquet(workdir: str, tar: str | None) -> None:
         os.unlink(m)
     os.unlink(members[0] + ".stromsz")
     ctx.close()
-    for p in paths:
-        os.unlink(p)
 
     if tar is None:
         say("parquet", opgraph="skipped=" + NO_JPEG)
-        return
+        return paths, ref["hits"]
     # the reference test's graph on phase 7's tar: fused and streamed
     # against unfused, batches bit-equal
     runs = {}
@@ -2560,6 +2667,426 @@ def phase_parquet(workdir: str, tar: str | None) -> None:
                                  "differ")
     say("parquet", opgraph="fused and streamed against unfused",
         exact=True)
+    return paths, ref["hits"]
+
+
+# ------------------------------------------------------- spill (7e)
+SPILL_RECORD_TOKENS = 1024           # the reference arm's records: 4 KiB
+SPILL_STEP = 32                      # records a pread
+
+
+def _spill_counts(ctx: StromContext) -> dict:
+    st = ctx.stats()
+    sp = st.get("spill", {})
+    out = {k: sp.get(k, 0) for k in SPILL_FIELDS if k in sp}
+    out["spill_errors"] = sp.get("spill_errors", 0)
+    out["spill_comp_ratio"] = sp.get("spill_comp_ratio", 0.0)
+    out["cache_miss_bytes"] = st["cache"]["cache_miss_bytes"]
+    out["engine_bytes"] = ctx.engine.stats().get("bytes_read", 0)
+    # per-op engine latency: source reads run as the default tenant (the
+    # context's scope), spill I/O as the tenant "spill"
+    none = [0] * 24
+    out["hist"] = {
+        "source": ctx.scope.snapshot().get("engine_op_lat_hist", none),
+        "spill": ctx.scheduler.tenant("spill").scope.snapshot().get(
+            "engine_op_lat_hist", none)}
+    return out
+
+
+def _spill_epoch_line(arm: str, epoch: int, before: dict, after: dict,
+                      **kv) -> int:
+    """Print one epoch's spill fields (counters as deltas, occupancy and
+    ratios as read); returns the epoch's source misses."""
+    gauges = ("spill_entries", "spill_bytes", "spill_hit_ratio",
+              "spill_comp_ratio")
+    for k, h in after["hist"].items():
+        d = [a - b for a, b in zip(h, before["hist"][k])]
+        kv[f"{k}_op_lat_p50_us"] = percentile_from_buckets(d, 0.50)
+        kv[f"{k}_op_lat_p99_us"] = percentile_from_buckets(d, 0.99)
+        kv[f"{k}_ops"] = sum(d)
+    delta = {k: (after[k] if k in gauges else after[k] - before[k])
+             for k in after if k != "hist"}
+    miss = delta.pop("cache_miss_bytes")
+    say("spill", arm=arm, epoch=epoch, spill_cache_miss_bytes=miss,
+        cache_miss_bytes=miss, **kv, **delta)
+    return miss
+
+
+def _spill_pread_arm(workdir: str, toks: np.ndarray, compress: bool) -> None:
+    """The reference's spill epoch pair (at 1 GiB of *toks*): the token
+    shard written through the context, a hot cache of 1/8 of it with
+    admission "always", a spill file of twice it, 32 records a pread, two
+    epochs, every read checked against the tokens; the second epoch must
+    miss nothing."""
+    sdir = os.path.join(workdir, "spill")
+    ctx = StromContext(StromConfig.from_env(
+        hot_cache_bytes=toks.nbytes // 8, hot_cache_admit="always",
+        spill_bytes=2 * toks.nbytes, spill_dir=sdir,
+        spill_compress=compress),
+        scope={"phase": f"spill-pread-{compress}"})
+    path = os.path.join(workdir, "spill_tokens.bin")
+    try:
+        write_token_shard(ctx, path, toks)
+        _drop_cache(path)
+        ss = TokenShardSet((path,), record_tokens=SPILL_RECORD_TOKENS)
+        rec = ss.record_bytes
+        flat = toks.view(np.uint8)
+        codec = default_codec()
+        say("spill", arm="pread", compress=compress,
+            codec=(codec.name if codec is not None else "none"),
+            bytes=toks.nbytes, records=ss.num_records, record_bytes=rec,
+            records_per_pread=SPILL_STEP,
+            hot_cache_bytes=ctx.config.hot_cache_bytes,
+            admit=ctx.config.hot_cache_admit,
+            spill_bytes=ctx.config.spill_bytes,
+            spill_engine_io=ctx.config.spill_engine_io,
+            engine=ctx.engine.stats()["engine"])
+        misses = []
+        for epoch in range(2):
+            before = _spill_counts(ctx)
+            cpu0, t0 = _cpu_s(), time.perf_counter()
+            for lo in range(0, ss.num_records - SPILL_STEP + 1, SPILL_STEP):
+                got = ctx.pread(ss.extents(range(lo, lo + SPILL_STEP)))
+                if not np.array_equal(got, flat[lo * rec:
+                                                (lo + SPILL_STEP) * rec]):
+                    raise AssertionError(f"spill pread: records {lo}+"
+                                         f"{SPILL_STEP} differ from the "
+                                         f"shard in epoch {epoch}")
+            dt, cpu = time.perf_counter() - t0, _cpu_s() - cpu0
+            misses.append(_spill_epoch_line(
+                "pread", epoch, before, _spill_counts(ctx),
+                compress=compress, s=f"{dt:.3f}",
+                mb_per_s=f"{toks.nbytes / dt / 1e6:.1f}",
+                cpu_s_per_gib=f"{cpu / (toks.nbytes / GiB):.3f}",
+                exact=True))
+        st = _spill_counts(ctx)
+        if misses[1] != 0 or st["spill_hit_bytes"] <= 0 \
+                or st["spill_errors"]:
+            raise AssertionError(f"spill pread: epoch 2 missed {misses[1]} "
+                                 f"bytes to the source: {st}")
+    finally:
+        ctx.close()
+        if os.path.exists(path):
+            os.unlink(path)
+    if os.path.isdir(sdir) and os.listdir(sdir):
+        raise AssertionError(f"spill: the spill file outlived its context: "
+                             f"{os.listdir(sdir)}")
+
+
+def _spill_resnet_run(pdec: str, cfg: StromConfig, epochs: int, B: int,
+                      cached: bool) -> tuple[list, list, list]:
+    """*epochs* epochs of the predecoded shard into a fresh ResNet-50's
+    captured SGD step (one pipeline an epoch from its SamplerState, depth
+    1, so no read crosses an epoch). Returns the batches, the losses and
+    each epoch's counters."""
+    cuda = torch.device("cuda")
+    rcfg = ResNetConfig.resnet50()
+    model = ResNet(rcfg, device=cuda)
+    step = make_resnet_sgd_step(rcfg, device=cuda)
+    n = PredecodedShardSet((pdec,), IMAGE).num_records
+    bpe = n // B
+    ctx = StromContext(cfg, scope={"phase": f"spill-resnet-{cached}"})
+    batches, losses, counts = [], [], []
+    _drop_cache(pdec)
+    try:
+        for e in range(epochs):
+            before = _spill_counts(ctx) if cached else {}
+            pipe = make_predecoded_vision_pipeline(
+                ctx, [pdec], batch=B, image_size=IMAGE, device=cuda,
+                prefetch_depth=1,
+                resume_from=SamplerState(epoch=e, batch_in_epoch=0, seed=0))
+            t0 = time.perf_counter()
+            try:
+                for _ in range(bpe):
+                    imgs, lbls = next(pipe)
+                    m = step(model, imgs, lbls)
+                    batches.append((imgs, lbls))
+                    losses.append(m["loss"])
+                torch.cuda.synchronize()
+            finally:
+                pipe.close()
+            dt = time.perf_counter() - t0
+            counts.append((before, _spill_counts(ctx) if cached else {},
+                           bpe * B / dt))
+    finally:
+        ctx.close()
+    del model, step
+    return batches, losses, counts
+
+
+def phase_spill(workdir: str, pdec: str) -> None:
+    """Phase 7e: the NVMe spill tier under the hot cache. arm=pread: the
+    reference's epoch pair at 1 GiB, spill_compress off then on. arm=resnet:
+    BASELINE config #2's predecoded shard into ResNet-50 for 3 epochs with
+    hot_cache_bytes 64 MiB, admission "always" and a 1 GiB spill file,
+    against the same run with no cache: batches and losses bit-equal, and
+    no source misses from epoch 2 on."""
+    toks = np.random.default_rng(7).integers(0, 1 << 15, GiB // 4,
+                                             dtype=np.int32)
+    for compress in (False, True):
+        _spill_pread_arm(workdir, toks, compress)
+    del toks
+    B, epochs = 128, 3
+    base = StromConfig.from_env()
+    cached_cfg = dataclasses.replace(
+        base, hot_cache_bytes=64 * MiB, hot_cache_admit="always",
+        spill_bytes=GiB, spill_dir=os.path.join(workdir, "spill"))
+    want_b, want_l, plain = _spill_resnet_run(pdec, base, epochs, B, False)
+    say("spill", arm="resnet", batch=B, epochs=epochs,
+        hot_cache_bytes=cached_cfg.hot_cache_bytes,
+        admit=cached_cfg.hot_cache_admit, spill_bytes=cached_cfg.spill_bytes,
+        prefetch_depth=1,
+        uncached_last_losses=",".join(f"{float(x):.6f}"
+                                      for x in want_l[-3:]))
+    got_b, got_l, counts = _spill_resnet_run(pdec, cached_cfg, epochs, B,
+                                             True)
+    _same_batches("spill resnet", got_b, want_b)
+    same = [torch.equal(a, b) for a, b in zip(got_l, want_l)]
+    misses = []
+    for e, (before, after, rate) in enumerate(counts):
+        misses.append(_spill_epoch_line(
+            "resnet", e, before, after, images_per_s=f"{rate:.1f}",
+            uncached_images_per_s=f"{plain[e][2]:.1f}", batches_exact=True,
+            losses_equal=all(same[e * len(same) // epochs:
+                                  (e + 1) * len(same) // epochs])))
+    if not all(same) or len(got_l) != len(want_l):
+        raise AssertionError(f"spill resnet: losses differ from the uncached "
+                             f"run's at steps {[i for i, s in enumerate(same) if not s]}")
+    if any(m != 0 for m in misses[1:]) or counts[-1][1]["spill_hit_bytes"] \
+            <= 0 or counts[-1][1]["spill_errors"]:
+        raise AssertionError(f"spill resnet: source misses by epoch "
+                             f"{misses}, counters {counts[-1][1]}")
+    say("spill", arm="resnet", check="batches and losses equal the uncached "
+        "run's; no source misses from epoch 2 on", exact=True,
+        last_loss=f"{float(got_l[-1]):.5f}")
+    del got_b, want_b
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------- multitenant (10)
+MT_LLAMA_STEPS = 16
+MT_VIS_BATCHES = 48
+MT_PQ_SCANS = 12
+
+
+def _mt_delta(scope, snap0: dict) -> dict:
+    """A tenant's SCHED_FIELDS counters since *snap0* (a snapshot of its
+    scope), with the queue-wait and per-op latency percentiles of the
+    bucket deltas."""
+    snap1 = scope.snapshot()
+    out = {k: int(snap1.get(k, 0) - snap0.get(k, 0))
+           for k in ("sched_granted_ops", "sched_granted_bytes",
+                     "sched_throttle_waits")}
+
+    def buckets(stem: str) -> list:
+        b0 = snap0.get(stem + "_hist") or [0] * 24
+        return [a - b for a, b in zip(snap1.get(stem + "_hist") or [0] * 24,
+                                      b0)]
+
+    qw = buckets("sched_queue_wait")
+    out["sched_queue_wait_p50_us"] = percentile_from_buckets(qw, 0.50)
+    out["sched_queue_wait_p99_us"] = percentile_from_buckets(qw, 0.99)
+    out["engine_op_lat_p99_us"] = percentile_from_buckets(
+        buckets("engine_op_lat"), 0.99)
+    return out
+
+
+def phase_multitenant(workdir: str, pdec: str, pq_paths: list[str],
+                      pq_hits: int) -> None:
+    """Phase 10: the reference's bench_multitenant at full width on one
+    context with three registered tenants: llama (training; phase 4's
+    shards into the captured flash step, Llama-3-8B widths, 2 layers, batch
+    2 x 2048, from a fresh state of one seed, 16 timed steps), vis0
+    (training; the predecoded ResNet-50 loader alone, batch 128 x 224^2)
+    and pq (interactive; phase 9's narrow scan, repeated). Each solo, then
+    the three concurrently on threads, then concurrently with
+    sched_enabled=False. Concurrent Llama losses equal the solo run's bit
+    for bit, every pq count is exact, and the llama tenant launches the
+    three sm90 kernels."""
+    cuda = torch.device("cuda")
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+    tok_paths = [os.path.join(workdir, f"tokens{i}.bin") for i in range(2)]
+    for p in tok_paths + [pdec] + pq_paths:
+        if not os.path.exists(p):
+            raise AssertionError(f"multitenant: fixture {p} is gone")
+
+    def llama(ctx, ready=None, go=None) -> dict:
+        pipe = make_llama_pipeline(
+            ctx, tok_paths, batch=2, seq_len=2047, device="cuda", seed=0,
+            scope={"pipeline": "llama", "tenant": "llama"})
+        state = init_train_state(cfg, device="cuda", seed=0)
+        step = make_train_step(cfg, attn="flash", device="cuda")
+        losses = []
+        try:
+            # the warm-up and the capture before the others start
+            for _ in range(2):
+                state, m = step(state, next(pipe))
+                losses.append(m["loss"])
+            torch.cuda.current_stream().synchronize()
+            if ready is not None:
+                ready.set()
+                go.wait()
+            stalls0 = pipe.data_stall_steps
+            t0 = time.perf_counter()
+            for _ in range(MT_LLAMA_STEPS):
+                state, m = step(state, next(pipe))
+                losses.append(m["loss"])
+            torch.cuda.current_stream().synchronize()
+            dt = time.perf_counter() - t0
+            if step.last_call != "replay":
+                raise AssertionError("multitenant llama: the timed steps "
+                                     "did not replay the captured graph")
+            return {"items_per_s": MT_LLAMA_STEPS * 2 * 2048 / dt,
+                    "step_ms": dt / MT_LLAMA_STEPS * 1e3,
+                    "stalls": pipe.data_stall_steps - stalls0,
+                    "losses": torch.stack(losses).cpu()}
+        finally:
+            pipe.close()
+            del state, step
+
+    def vis(ctx, ready=None, go=None) -> dict:
+        pipe = make_predecoded_vision_pipeline(
+            ctx, [pdec], batch=128, image_size=IMAGE, device=cuda,
+            scope={"pipeline": "resnet", "tenant": "vis0"})
+        try:
+            next(pipe)
+            if ready is not None:
+                ready.set()
+                go.wait()
+            t0 = time.perf_counter()
+            for _ in range(MT_VIS_BATCHES):
+                imgs, _lbls = next(pipe)
+            torch.cuda.current_stream().synchronize()
+            dt = time.perf_counter() - t0
+            return {"items_per_s": MT_VIS_BATCHES * 128 / dt}
+        finally:
+            pipe.close()
+
+    def pq(ctx, ready=None, go=None) -> dict:
+        if ready is not None:
+            ready.set()
+            go.wait()
+        t0 = time.perf_counter()
+        counts = [parquet_count_where(
+            ctx, pq_paths, "value", lambda v: v > 0,
+            scope={"pipeline": "parquet", "tenant": "pq"})
+            for _ in range(MT_PQ_SCANS)]
+        dt = time.perf_counter() - t0
+        if any(c != pq_hits for c in counts):
+            raise AssertionError(f"multitenant pq: counts {counts} against "
+                                 f"{pq_hits}")
+        return {"items_per_s": MT_PQ_SCANS * PQ_SHARDS * PQ_ROWS / dt}
+
+    workloads = {"llama": llama, "vis0": vis, "pq": pq}
+
+    def make_ctx(sched: bool) -> StromContext:
+        ctx = StromContext(StromConfig.from_env(sched_enabled=sched),
+                           scope={"phase": f"multitenant-{sched}"})
+        if sched:
+            ctx.register_tenant("llama", priority="training")
+            ctx.register_tenant("vis0", priority="training")
+            ctx.register_tenant("pq", priority="interactive")
+        return ctx
+
+    def concurrent(ctx) -> tuple[dict, float]:
+        out: dict = {}
+        errs: list = []
+        go = threading.Event()
+        readies = {n: threading.Event() for n in workloads}
+
+        def run(name):
+            try:
+                out[name] = workloads[name](ctx, readies[name], go)
+            except BaseException as e:   # surfaced after the join
+                errs.append((name, e))
+                readies[name].set()
+
+        ths = [threading.Thread(target=run, args=(n,), name=f"mt-{n}")
+               for n in workloads]
+        for t in ths:
+            t.start()
+        for ev in readies.values():
+            ev.wait()
+        t0 = time.perf_counter()
+        go.set()
+        for t in ths:
+            t.join()
+        if errs:
+            raise errs[0][1]
+        return out, time.perf_counter() - t0
+
+    ctx = make_ctx(True)
+    sched = ctx.scheduler
+    rate = ENGINE_ALONE_GBPS[-1] if ENGINE_ALONE_GBPS else 2.0
+    slice_s = sched._slice_bytes() / (rate * 1e9)
+    say("multitenant", tenants="llama:training,vis0:training,pq:interactive",
+        exclusive=sched.exclusive, slice_bytes=sched._slice_bytes(),
+        engine=ctx.engine.stats()["engine"], llama_steps=MT_LLAMA_STEPS,
+        vis_batches=MT_VIS_BATCHES, pq_scans=MT_PQ_SCANS)
+    try:
+        solo, solo_sched = {}, {}
+        for name, fn in workloads.items():
+            t = sched.tenant(name)
+            snap0 = t.scope.snapshot()
+            solo[name] = fn(ctx)
+            solo_sched[name] = _mt_delta(t.scope, snap0)
+            say("multitenant", arm="solo", tenant=name,
+                items_per_s=f"{solo[name]['items_per_s']:.1f}",
+                **{k: v for k, v in solo[name].items()
+                   if k not in ("items_per_s", "losses")},
+                **solo_sched[name])
+        snaps = {n: sched.tenant(n).scope.snapshot() for n in workloads}
+        fa.reset_launch_counts()
+        conc, wall = concurrent(ctx)
+        launches = check_variants(KERNELS, dict(fa.VARIANT_LAUNCHES),
+                                  "multitenant llama tenant")
+        ratios = []
+        for name in workloads:
+            d = _mt_delta(sched.tenant(name).scope, snaps[name])
+            vs = conc[name]["items_per_s"] / solo[name]["items_per_s"]
+            ratios.append(vs)
+            say("multitenant", arm="concurrent", tenant=name,
+                items_per_s=f"{conc[name]['items_per_s']:.1f}",
+                vs_solo=f"{vs:.3f}",
+                **{k: v for k, v in conc[name].items()
+                   if k not in ("items_per_s", "losses")}, **d)
+        pq_wait = _mt_delta(sched.tenant("pq").scope, snaps["pq"])
+        say("multitenant", arm="concurrent", wall_s=f"{wall:.3f}",
+            mt_vs_solo_mean=f"{statistics.mean(ratios):.3f}",
+            llama_data_stalls_timed=conc["llama"]["stalls"],
+            pq_queue_wait_p99_us=pq_wait["sched_queue_wait_p99_us"],
+            one_slice_us=f"{slice_s * 1e6:.0f}",
+            one_slice_at_gbps=f"{rate:.3f}",
+            launches=json.dumps(launches, sort_keys=True),
+            sched=json.dumps(sched.stats(), sort_keys=True))
+        if not torch.equal(conc["llama"]["losses"], solo["llama"]["losses"]):
+            raise AssertionError(
+                f"multitenant: concurrent llama losses "
+                f"{conc['llama']['losses'].tolist()} differ from solo "
+                f"{solo['llama']['losses'].tolist()}")
+        say("multitenant", check="concurrent llama losses equal solo, pq "
+            "counts exact", exact=True,
+            last_losses=",".join(f"{x:.6f}" for x in
+                                 conc["llama"]["losses"].tolist()[-4:]))
+    finally:
+        ctx.close()
+    torch.cuda.empty_cache()
+    off = make_ctx(False)
+    try:
+        conc_off, wall_off = concurrent(off)
+    finally:
+        off.close()
+    say("multitenant", arm="concurrent_sched_off", wall_s=f"{wall_off:.3f}",
+        **{f"{n}_items_per_s": f"{conc_off[n]['items_per_s']:.1f}"
+           for n in workloads},
+        **{f"{n}_vs_solo":
+           f"{conc_off[n]['items_per_s'] / solo[n]['items_per_s']:.3f}"
+           for n in workloads},
+        llama_data_stalls_timed=conc_off["llama"]["stalls"])
+    if not torch.equal(conc_off["llama"]["losses"], solo["llama"]["losses"]):
+        raise AssertionError("multitenant: llama losses with the scheduler "
+                             "off differ from the solo run's")
+    torch.cuda.empty_cache()
 
 
 PROFILE_PAD_S = 0.1   # on the card, ~15 us of drift a second of process age
@@ -2667,8 +3194,10 @@ def main() -> int:
         phase_decoded_cache(tar, model, step)
         del model, step
         torch.cuda.empty_cache()
+        phase_spill(workdir, pdec)
         phase_vit(pdec, tar)
-        phase_parquet(workdir, tar)
+        pq_paths, pq_hits = phase_parquet(workdir, tar)
+        phase_multitenant(workdir, pdec, pq_paths, pq_hits)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

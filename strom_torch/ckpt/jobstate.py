@@ -9,16 +9,17 @@ cursor), so a resume point is a handful of numbers:
   check it continued at exactly the right batch;
 - **prefetch depth**: the auto-depth controller's operating point, so a
   resumed job starts where the workload had converged;
-- **warm-state hints** (optional): the hot cache's resident ``(path, lo,
-  hi)`` ranges at save time, which :func:`restore_warm_state` replays
+- **warm-state hints** (optional): the hot cache's and the spill tier's
+  resident ``(path, lo, hi)`` ranges at save time, which :func:`restore_warm_state` replays
   through ``ctx.warm``. Advisory: correctness never depends on them.
 
 A token commits with the checkpoint it describes: the manifest's
 ``extra`` carries ``{"step_token": ...}``, so one rename makes both
 durable.
 
-Until the port has a stats registry, :func:`set_resume_gauges` sets the
-verdict's numbers as counters of ``ctx.stats()``.
+The context's counters are not yet folded into the stats registry, so
+:func:`set_resume_gauges` sets the verdict's numbers as counters of
+``ctx.stats()``.
 """
 
 from __future__ import annotations
@@ -96,14 +97,19 @@ class StepToken:
 
 
 def capture_warm_state(ctx, *, max_entries: int = 4096) -> "dict | None":
-    """The hot cache's resident ranges as JSON-stable hints, ``{"cache":
-    [[path, lo, hi], ...]}``, newest first and at most *max_entries*; None
-    without a cache. (The reference adds its spill tier's, which the port
-    does not have yet.)"""
+    """The hot cache's and the spill tier's resident ranges as JSON-stable
+    hints, ``{"cache": [[path, lo, hi], ...], "spill": [...]}``, newest
+    first and at most *max_entries* a tier; None without a cache.
+    Decoded-frame keys are skipped: their bytes are decode output, not
+    ranges of a source."""
     cache = ctx.hot_cache
     if cache is None:
         return None
-    return {"cache": cache.manifest(max_entries=max_entries)}
+    out: dict = {"cache": cache.manifest(max_entries=max_entries)}
+    spill = ctx.spill_tier
+    if spill is not None:
+        out["spill"] = spill.manifest(max_entries=max_entries)
+    return out
 
 
 def restore_warm_state(ctx, warm: "dict | None") -> int:

@@ -132,6 +132,35 @@ class StromConfig:
     # cache from a background thread that yields to demand reads (0 = off;
     # needs hot_cache_bytes > 0)
     readahead_window_batches: int = 0
+    # NVMe spill tier (delivery/spill.py): hot-cache entries evicted under
+    # byte pressure demote to a spill file of this many bytes instead of
+    # vanishing, and the cache consult serves them from there (RAM → NVMe
+    # → source). 0 = off; needs hot_cache_bytes > 0
+    spill_bytes: int = 0
+    # the spill file's directory ("" = the system temp dir); the file is
+    # made per context and unlinked at close
+    spill_dir: str = ""
+    # spill I/O through the context's engine (O_DIRECT where the file
+    # system allows it, scheduler-granted as the background tenant
+    # "spill"); an op that would nest inside an outstanding exclusive grant
+    # takes the spill file's buffered fd instead. Both routes are counted
+    # (spill_engine_ops / spill_fallback_ops). Needs sched_enabled
+    spill_engine_io: bool = True
+    # compress demoted ranges with the probed codec (utils/codec.py) where
+    # that pays; served bytes are unchanged
+    spill_compress: bool = False
+
+    # multi-tenant I/O scheduler (sched/): per-tenant queues with priority
+    # classes and a weighted fair drain grant the engine one slice at a
+    # time, in place of one engine lock per whole transfer. Off = that lock
+    sched_enabled: bool = True
+    # grant granularity: a gather runs as slices of this many bytes, one
+    # grant each. -1 = auto (4 × queue_depth × block_size); 0 = no slicing
+    sched_slice_bytes: int = -1
+    # slab-pool admission high-water mark (a fraction of slab_pool_bytes):
+    # background allocations (readahead buffers) wait while the pool sits
+    # above it. 0 disables admission control
+    sched_high_water: float = 0.9
 
     def __post_init__(self) -> None:
         if self.buffer_size == 0:
@@ -171,6 +200,13 @@ class StromConfig:
                              "multiple of 4096")
         if self.readahead_window_batches < 0:
             raise ValueError("readahead_window_batches must be >= 0 (0 = off)")
+        if self.spill_bytes < 0:
+            raise ValueError("spill_bytes must be >= 0 (0 = off)")
+        if self.sched_slice_bytes < -1:
+            raise ValueError("sched_slice_bytes must be >= 0 (0 = no "
+                             "slicing) or exactly -1 (auto)")
+        if not 0.0 <= self.sched_high_water <= 1.0:
+            raise ValueError("sched_high_water must be in [0, 1] (0 = off)")
 
     @property
     def resolved_stripe_window_bytes(self) -> int:

@@ -17,6 +17,7 @@ delivery layer registers every pool slab with the engine's ring as well
 
 from __future__ import annotations
 
+import contextlib
 import mmap
 import threading
 from typing import Callable
@@ -115,6 +116,25 @@ class SlabPool:
         self.hits = 0
         self.misses = 0
         self.in_use_bytes = 0
+        # change hooks (the scheduler's admission gate): run after every
+        # acquire and release, so queued background admits re-check the
+        # occupancy without polling
+        self._change_hooks: list = []
+
+    def add_change_hook(self, fn) -> None:
+        """Register a no-argument callable run (outside the pool's lock)
+        after every change of ``in_use_bytes``."""
+        self._change_hooks.append(fn)
+
+    def _occupancy_changed(self) -> None:
+        from strom_torch.utils.stats import global_stats
+
+        global_stats.set_gauge("slab_pool_bytes_in_use", self.in_use_bytes)
+        for fn in self._change_hooks:
+            # a failing hook must not fail the allocation it rides on; the
+            # gate re-polls on a timeout anyway
+            with contextlib.suppress(Exception):
+                fn()
 
     def _register(self, slab: np.ndarray) -> None:
         host_register(slab)
@@ -135,11 +155,16 @@ class SlabPool:
                 raise RuntimeError("SlabPool is closed")
             self.in_use_bytes += cls
             bucket = self._free.get(cls)
+            slab = None
             if bucket:
                 self.hits += 1
                 self._cached_bytes -= cls
-                return bucket.pop()[:nbytes]
-            self.misses += 1
+                slab = bucket.pop()[:nbytes]
+            else:
+                self.misses += 1
+        self._occupancy_changed()
+        if slab is not None:
+            return slab
         try:
             slab = alloc_aligned(cls, populate=True)
             if self.pin:
@@ -148,6 +173,7 @@ class SlabPool:
         except BaseException:
             with self._lock:
                 self.in_use_bytes -= cls
+            self._occupancy_changed()
             raise
         return slab[:nbytes]
 
@@ -161,6 +187,7 @@ class SlabPool:
                 self._cached_bytes += cls
             elif self.pin:
                 self._unregister(slab)
+        self._occupancy_changed()
 
     def close(self) -> None:
         """Unregister and drop every cached slab; slabs still out are

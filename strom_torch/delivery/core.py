@@ -23,10 +23,22 @@ submission: cached ranges are copied from RAM into the gather's buffer,
 only the misses reach the engine, and the bytes the engine read are
 offered for admission. ``warm`` is the readahead's entry point.
 
+With ``spill_bytes > 0`` as well, entries the hot cache evicts under byte
+pressure demote to a spill file (``delivery/spill.py``), and the consult
+goes RAM → spill → engine: a spill-resident range is read from the spill
+file and promoted back to RAM, never read from the source.
+
+Every engine gather goes through the multi-tenant scheduler
+(``sched/scheduler.py``, ``sched_enabled``, on by default as in the
+reference): a gather runs as slices, one grant a slice, billed to the
+caller's *tenant*; the readahead reads as the background tenant
+``"readahead"`` and spill I/O as ``"spill"``. ``sched_enabled=False`` puts
+back one engine lock per whole transfer.
+
 The write path runs the other way: ``pwrite`` and ``write_chunks`` hand
-host bytes to the engine's write scatter (``Engine.write_vectored``) under
-the engine lock, count them in ``host2ssd_bytes``, and drop what the
-context cached of the path afterwards (``invalidate_file``).
+host bytes to the engine's write scatter (``Engine.write_vectored``), one
+grant a slice, count them in ``host2ssd_bytes``, and drop what the context
+cached of the path afterwards (``invalidate_file``).
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from strom_torch.engine.base import Engine, EngineError
 from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX, plan_stripe_reads,
                                       plan_stripe_windows)
 from strom_torch.probe.fiemap import fiemap
+from strom_torch.utils.stats import global_stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,14 +224,108 @@ class SourceIO(io.RawIOBase):
         return data
 
 
+class _SpillEngineIo:
+    """Routes the spill tier's I/O through the context's engine: demotion
+    writes and spill-serve reads go O_DIRECT where the spill file's file
+    system allows it, granted by the scheduler as the background class and
+    billed to the tenant ``"spill"``. ``write`` and ``read`` return False
+    whenever enqueueing is unsafe or fails, and the tier then takes its
+    buffered fd (counted ``spill_fallback_ops``). Unsafe means the calling
+    thread already holds a grant, or, for writes, that any exclusive grant
+    is outstanding: a demotion fired by an admission in the middle of a
+    streamed gather must not queue behind the grant that gather's own
+    progress releases. None of it runs under the tier's lock."""
+
+    def __init__(self, ctx, path: str):
+        self._ctx = ctx
+        self._path = path
+        self._closed = False
+        self.errors = 0
+
+        # registered at once (the tier made the file): O_DIRECT asked for,
+        # plain where the file system refuses it
+        def _reg(writable: bool) -> int:
+            try:
+                return ctx.engine.register_file(path, o_direct=True,
+                                                writable=writable)
+            except OSError:
+                return ctx.engine.register_file(path, o_direct=False,
+                                                writable=writable)
+
+        self._wfi = _reg(True)
+        try:
+            self._rfi = _reg(False)
+        except BaseException:
+            with contextlib.suppress(Exception):
+                ctx.engine.unregister_file(self._wfi)
+            raise
+
+    def _safe(self, *, write: bool) -> bool:
+        sched = self._ctx._scheduler
+        if sched is None or self._closed or self._ctx._closed:
+            return False
+        if sched.held_by_me():
+            return False
+        return not write or sched.engine_idle()
+
+    def _error(self) -> None:
+        self.errors += 1
+        self._ctx.scope.add("spill_errors")
+
+    def write(self, data: np.ndarray, off: int) -> bool:
+        if not self._safe(write=True):
+            return False
+        try:
+            self._ctx._scheduler.write_chunks(
+                [(self._wfi, off, 0, data.nbytes)], data, tenant="spill",
+                retries=self._ctx.config.io_retries, priority="background")
+            return True
+        # an advisory route: any failure degrades to the buffered fd (the
+        # bytes still land), counted
+        except Exception:
+            self._error()
+            return False
+
+    def read(self, dest: np.ndarray, off: int, n: int) -> bool:
+        if not self._safe(write=False):
+            return False
+        try:
+            got = self._ctx._scheduler.read_chunks(
+                [(self._rfi, off, 0, n)], dest, tenant="spill",
+                retries=self._ctx.config.io_retries, priority="background")
+            return got == n
+        except Exception:
+            self._error()
+            return False
+
+    def close(self) -> None:
+        self._closed = True
+        for fi in (self._wfi, self._rfi):
+            with contextlib.suppress(Exception):
+                self._ctx.engine.unregister_file(fi)
+
+
 class StromContext:
-    """Owns the engine, the file registrations, the pinned slab pool, the
-    per-device copy streams and the executor of async transfers."""
+    """Owns the engine, the scheduler, the file registrations, the pinned
+    slab pool, the hot cache and its spill tier, the per-device copy
+    streams and the executor of async transfers.
+
+    *scope*: the telemetry scope counters go through: None is the
+    process-wide registry (``strom_torch.utils.stats.global_stats``), a
+    dict of labels a scope of it, and a prebuilt scope passes through."""
 
     def __init__(self, config: StromConfig | None = None,
-                 engine: Engine | None = None):
+                 engine: Engine | None = None, *,
+                 scope: "dict | None | object" = None):
         self.config = config or StromConfig.from_env()
         self.engine = engine or make_engine(self.config)
+        if scope is None:
+            self.scope = global_stats
+        elif isinstance(scope, dict):
+            self.scope = global_stats.scoped(**scope)
+        else:
+            self.scope = scope
+        self.engine.set_scope(self.scope)
         self._files: dict[str, int] = {}
         # read-write registrations (file_index(writable=True)): the write
         # path's own indexes, so the read side keeps its O_RDONLY fds
@@ -228,10 +335,10 @@ class StromContext:
         # path -> FIEMAP extent map (None: unavailable), probed once
         self._extent_maps: dict[str, list | None] = {}
         self._files_lock = threading.Lock()
-        # one gather at a time on the engine: concurrent transfers must not
-        # interleave queue-depth budgets. A multi-ring engine serializes per
-        # ring instead (concurrent_gathers); a lock here would re-serialize
-        # the very transfers its rings exist to interleave.
+        # without the scheduler, one gather at a time on the engine:
+        # concurrent transfers must not interleave queue-depth budgets. A
+        # multi-ring engine serializes per ring instead (concurrent_gathers);
+        # a lock here would re-serialize the transfers its rings interleave.
         self._engine_lock = contextlib.nullcontext() \
             if self.engine.concurrent_gathers else threading.Lock()
         self._executor = concurrent.futures.ThreadPoolExecutor(
@@ -246,6 +353,17 @@ class StromContext:
             on_alloc=self.engine.register_dest,
             on_free=self.engine.unregister_dest) \
             if self.config.slab_pool_bytes > 0 else None
+        # the multi-tenant scheduler: per-tenant queues, priority classes,
+        # a weighted fair drain at slice granularity, budgets and slab-pool
+        # admission control, in place of the engine lock
+        self._scheduler = None
+        self._tenant_reg_lock = threading.Lock()
+        if self.config.sched_enabled:
+            from strom_torch.sched.scheduler import IoScheduler
+
+            self._scheduler = IoScheduler(self.engine, self.config,
+                                          pool=self._slab_pool,
+                                          scope=self.scope)
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
             {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
@@ -258,8 +376,35 @@ class StromContext:
         # hot_cache_bytes from the pool's budget, as the reference does
         self._hot_cache = HotCache(
             self.config.hot_cache_bytes, admit=self.config.hot_cache_admit,
-            block_bytes=self.config.hot_cache_block_bytes) \
+            block_bytes=self.config.hot_cache_block_bytes,
+            scope=self.scope) \
             if self.config.hot_cache_bytes > 0 else None
+        # the NVMe spill tier under the hot cache: evicted ranges demote to
+        # a spill file and the consult serves them back (RAM → NVMe →
+        # source)
+        self._spill = None
+        self._spill_io: _SpillEngineIo | None = None
+        if self.config.spill_bytes > 0 and self._hot_cache is not None:
+            import tempfile
+
+            from strom_torch.delivery.spill import SpillTier
+
+            sdir = self.config.spill_dir or tempfile.gettempdir()
+            os.makedirs(sdir, exist_ok=True)
+            self._spill = SpillTier(
+                os.path.join(sdir,
+                             f"strom-spill-{os.getpid()}-{id(self):x}.bin"),
+                self.config.spill_bytes, scope=self.scope,
+                compress=self.config.spill_compress)
+            if self.config.spill_engine_io and self._scheduler is not None:
+                # after the tier, so registration sees the file; advisory:
+                # a refused registration leaves the tier its own fd
+                try:
+                    self._spill_io = _SpillEngineIo(self, self._spill.path)
+                    self._spill.set_io(self._spill_io)
+                except OSError:
+                    self.scope.add("spill_errors")
+            self._hot_cache.spill = self._spill
         # the vision pipeline's decoded-frame cache (attach_decoded_cache)
         self._decoded_cache = None
         # demand gathers in flight: readahead yields to them
@@ -351,6 +496,57 @@ class StromContext:
     def hot_cache(self) -> HotCache | None:
         """The hot-set cache when ``hot_cache_bytes > 0``, else None."""
         return self._hot_cache
+
+    @property
+    def spill_tier(self):
+        """The NVMe spill tier under the hot cache when ``spill_bytes > 0``
+        (and a hot cache exists), else None."""
+        return self._spill
+
+    @property
+    def scheduler(self):
+        """The multi-tenant I/O scheduler when ``sched_enabled``, else
+        None."""
+        return self._scheduler
+
+    def register_tenant(self, name: str, *, priority: str = "training",
+                        weight: int = 1, byte_rate: float = 0,
+                        byte_burst: float | None = None, iops: float = 0,
+                        hot_cache_bytes: int = 0):
+        """Register a tenant with the scheduler (priority class, fair-drain
+        weight, byte/IOPS budgets) and, with a hot cache, carve its cache
+        partition, and the same partition of the spill tier. Returns the
+        Tenant; raises when the scheduler is off. Registering a name again
+        returns the live tenant unchanged, its partitions too. Pipelines
+        name their tenant in their scope:
+        ``scope={"pipeline": "resnet", "tenant": name}``."""
+        if self._scheduler is None:
+            raise RuntimeError("sched_enabled=False: no scheduler to "
+                               "register tenants with")
+        with self._tenant_reg_lock:
+            if self._scheduler.is_registered(name):
+                return self._scheduler.tenant(name)
+            t = self._scheduler.register(
+                name, priority=priority, weight=weight, byte_rate=byte_rate,
+                byte_burst=byte_burst, iops=iops,
+                hot_cache_bytes=hot_cache_bytes)
+            if hot_cache_bytes and self._hot_cache is not None:
+                self._hot_cache.set_partition(name, hot_cache_bytes)
+                if self._spill is not None:
+                    self._spill.set_partition(name, hot_cache_bytes)
+            return t
+
+    @contextlib.contextmanager
+    def engine_exclusive(self, nbytes: int = 0, tenant: str | None = None):
+        """Exclusive use of the engine's transfer path for a caller that
+        drives the engine itself: a scheduler grant where there is a
+        scheduler, the engine lock otherwise."""
+        if self._scheduler is not None:
+            with self._scheduler.grant(tenant, nbytes):
+                yield
+        else:
+            with self._engine_lock:
+                yield
 
     def _active_cache(self) -> HotCache | None:
         cache = self._hot_cache
@@ -487,54 +683,102 @@ class StromContext:
     def _consult_cache(self, cache: HotCache,
                        chunks: list[tuple[int, int, int, int]],
                        idx_paths: dict[int, str],
-                       dflat: "np.ndarray | None", *, warm: bool = False
+                       dflat: "np.ndarray | None", *, warm: bool = False,
+                       tenant: "str | None" = None
                        ) -> tuple[list[tuple[int, int, int, int]], int,
                                   list[tuple[int, int]]]:
         """Split every physical chunk into cached ranges (copied from RAM
         into *dflat* under a pin that blocks eviction) and miss runs (the
         only ops the engine sees). Returns ``(miss_chunks, hit_bytes,
-        hit_ranges)``: *hit_ranges* are the dest [lo, hi) spans served from
-        RAM, which the streamed gather reports as instant completions.
-        ``warm=True`` (readahead) records nothing and copies nothing
-        (*dflat* may be None)."""
+        hit_ranges)``: *hit_ranges* are the dest [lo, hi) spans served
+        without the engine, which the streamed gather reports as instant
+        completions. ``warm=True`` (readahead) records nothing and copies
+        nothing (*dflat* may be None).
+
+        With a spill tier, RAM misses probe the spill file next: a
+        spill-resident range is read from it into *dflat* and offered back
+        to RAM (admission policy applies; *tenant*'s partition is charged),
+        and counts as a hit, never as ``cache_miss_bytes``; only ranges
+        neither tier holds do. On the warm path a spill-resident range is
+        promoted to RAM at once (``spill_promote_bytes``)."""
         cache_hit = 0
         miss_chunks: list[tuple[int, int, int, int]] = []
         hit_ranges: list[tuple[int, int]] = []
         pinned: list = []
+        spill = cache.spill
         try:
             for fi, fo, do, ln in chunks:
                 path = idx_paths.get(fi)
                 if path is None:  # an untracked file index: bypass the cache
                     miss_chunks.append((fi, fo, do, ln))
                     continue
-                hits, misses, pins = cache.lookup(path, fo, fo + ln,
-                                                  record=not warm)
+                hits, misses, pins = cache.lookup(
+                    path, fo, fo + ln, record=not warm,
+                    count_misses=spill is None)
                 pinned.extend(pins)
                 for s, t, view in hits:
                     if not warm:
                         dflat[do + (s - fo): do + (t - fo)] = view
                         hit_ranges.append((do + (s - fo), do + (t - fo)))
                     cache_hit += t - s
-                miss_chunks.extend((fi, s, do + (s - fo), t - s)
-                                   for s, t in misses)
+                if spill is None:
+                    miss_chunks.extend((fi, s, do + (s - fo), t - s)
+                                       for s, t in misses)
+                    continue
+                for s, t in misses:
+                    sp_hits, sp_misses = spill.lookup(path, s, t,
+                                                      record=not warm)
+                    try:
+                        for ss, tt, ent in sp_hits:
+                            n = tt - ss
+                            if warm:
+                                # an upcoming range promotes now: one read
+                                # of the spill file on the readahead thread
+                                tmp = np.empty(n, np.uint8)
+                                try:
+                                    spill.read_into(ent, ss, tt, tmp)
+                                    promoted = cache.admit(
+                                        path, ss, tt, tmp, force=True,
+                                        tenant=tenant)
+                                except OSError:
+                                    promoted = 0
+                                if promoted:
+                                    spill.note_promote(promoted)
+                                cache_hit += n
+                                continue
+                            d_lo = do + (ss - fo)
+                            spill.read_into(ent, ss, tt,
+                                            dflat[d_lo: d_lo + n])
+                            hit_ranges.append((d_lo, d_lo + n))
+                            cache_hit += n
+                            cache.admit(path, ss, tt, dflat[d_lo: d_lo + n],
+                                        tenant=tenant)
+                    finally:
+                        spill.unpin([e for _, _, e in sp_hits])
+                    for ss, tt in sp_misses:
+                        miss_chunks.append((fi, ss, do + (ss - fo), tt - ss))
+                        if not warm:
+                            cache.note_miss(tt - ss)
         finally:
             cache.unpin(pinned)
         return miss_chunks, cache_hit, hit_ranges
 
     def _read_segments(self, source: Source, segments: Sequence[Segment],
                        dest: "np.ndarray | None", base_offset: int = 0, *,
-                       _warm: bool = False) -> int:
+                       _warm: bool = False, tenant: str | None = None) -> int:
         """Read (file_offset+base_offset → dest_offset) segments into *dest*,
         chunked at block_size, pipelined at queue_depth. Raises EngineError
         on any failed or short chunk.
 
         The hot cache (when on) is consulted after physical planning and
-        before engine submission: cached ranges are copied into *dest*, the
-        misses go to the engine, and the bytes it read are offered for
-        admission. ``_warm=True`` is the readahead path (:meth:`warm`):
-        cached ranges are skipped, *dest* may be None, misses are read in
-        engine-budget slices that yield to demand reads and force-admitted,
-        and a short pass returns quietly."""
+        before engine submission: cached and spilled ranges are copied into
+        *dest*, the misses go to the engine, and the bytes it read are
+        offered for admission. The engine gather runs as the scheduler's
+        slices, billed to *tenant* (one engine lock for the whole transfer
+        with ``sched_enabled=False``). ``_warm=True`` is the readahead path
+        (:meth:`warm`): cached ranges are skipped, *dest* may be None,
+        misses are read in engine-budget slices that yield to demand reads
+        and force-admitted, and a short pass returns quietly."""
         chunks, idx_paths = self._plan(source, segments, base_offset)
         cache = self._active_cache()
         if _warm:
@@ -542,22 +786,30 @@ class StromContext:
                 return 0
             if chunks:
                 chunks, _, _ = self._consult_cache(cache, chunks, idx_paths,
-                                                   None, warm=True)
-            return self._warm_read_chunks(cache, chunks, dest, idx_paths)
+                                                   None, warm=True,
+                                                   tenant=tenant)
+            return self._warm_read_chunks(cache, chunks, dest, idx_paths,
+                                          tenant)
         cache_hit = 0
         dflat = None
         if cache is not None and chunks:
             dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
                 else dest.reshape(-1).view(np.uint8)
-            chunks, cache_hit, _ = self._consult_cache(cache, chunks,
-                                                       idx_paths, dflat)
+            chunks, cache_hit, _ = self._consult_cache(
+                cache, chunks, idx_paths, dflat, tenant=tenant)
         planned = sum(ln for (_, _, _, ln) in chunks)
         total = 0
         if chunks:
+            retries = self.config.io_retries
             try:
-                with self._demand_gate(), self._engine_lock:
-                    total = self.engine.read_vectored(
-                        chunks, dest, retries=self.config.io_retries)
+                with self._demand_gate():
+                    if self._scheduler is not None:
+                        total = self._scheduler.read_chunks(
+                            chunks, dest, tenant=tenant, retries=retries)
+                    else:
+                        with self._engine_lock:
+                            total = self.engine.read_vectored(
+                                chunks, dest, retries=retries)
             except EngineError as e:
                 raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
         if total != planned:
@@ -569,26 +821,37 @@ class StromContext:
             for fi, fo, do, ln in chunks:
                 path = idx_paths.get(fi)
                 if path is not None:
-                    cache.admit(path, fo, fo + ln, dflat[do: do + ln])
+                    cache.admit(path, fo, fo + ln, dflat[do: do + ln],
+                                tenant=tenant)
         self._count(ssd2gpu_bytes=total + cache_hit)
         return total + cache_hit
 
     def _warm_read_chunks(self, cache: HotCache,
                           chunks: list[tuple[int, int, int, int]],
                           dest: "np.ndarray | None",
-                          idx_paths: dict[int, str]) -> int:
+                          idx_paths: dict[int, str],
+                          tenant: "str | None" = None) -> int:
         """Readahead engine path: read miss chunks in slices of the
         in-flight budget (queue_depth × block_size), force-admitting each
-        slice, and stop when a demand gather is in flight, so a demand read
-        queues behind at most one warming slice. Advisory: engine errors
-        and short slices end the pass quietly."""
+        slice into *tenant*'s partition, and stop when a demand gather is
+        in flight, so a demand read queues behind at most one warming
+        slice. Under the scheduler the reads are the background tenant
+        ``"readahead"``, which any demand tenant outranks, and the warm
+        buffer waits for the slab pool's admission gate first. Advisory:
+        engine errors and short slices end the pass quietly."""
         if not chunks:
             return 0
         cfg = self.config
         # dest only once there are misses: a fully warm window costs a
         # consult and nothing else
         if dest is None:
-            dest = alloc_aligned(max(do + ln for (_, _, do, ln) in chunks))
+            span = max(do + ln for (_, _, do, ln) in chunks)
+            # background memory: under slab-pool pressure it waits
+            # (bounded; a refused admit skips this pass)
+            if self._scheduler is not None and \
+                    not self._scheduler.admission.admit(span, timeout_s=5.0):
+                return 0
+            dest = alloc_aligned(span)
         dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
             else dest.reshape(-1).view(np.uint8)
         budget = max(cfg.queue_depth * cfg.block_size, cfg.block_size)
@@ -605,9 +868,14 @@ class StromContext:
                 b += chunks[i][3]
                 i += 1
             try:
-                with self._engine_lock:
-                    n = self.engine.read_vectored(batch, dest,
-                                                  retries=cfg.io_retries)
+                if self._scheduler is not None:
+                    n = self._scheduler.read_chunks(
+                        batch, dest, tenant="readahead",
+                        retries=cfg.io_retries, priority="background")
+                else:
+                    with self._engine_lock:
+                        n = self.engine.read_vectored(batch, dest,
+                                                      retries=cfg.io_retries)
             except EngineError:
                 break
             if n != b:
@@ -616,17 +884,18 @@ class StromContext:
                 path = idx_paths.get(fi)
                 if path is not None:
                     cache.admit(path, fo, fo + ln, dflat[do: do + ln],
-                                force=True)
+                                force=True, tenant=tenant)
             total += n
         return total
 
     def warm(self, source: Source, segments: Sequence[Segment],
-             base_offset: int = 0) -> int:
+             base_offset: int = 0, *, tenant: "str | None" = None) -> int:
         """The readahead's entry point (``hotcache.Readahead``): make the
         given ranges cache-resident. Serves nothing: cached ranges are
-        skipped without a copy, misses are read into a throwaway buffer and
-        force-admitted. Returns bytes warmed; yields (returns 0 or short)
-        whenever a demand gather is in flight."""
+        skipped without a copy, spilled ones promoted, misses read into a
+        throwaway buffer and force-admitted into *tenant*'s partition.
+        Returns bytes warmed; yields (returns 0 or short) whenever a demand
+        gather is in flight."""
         cache = self._active_cache()
         if cache is None or self._closed:
             return 0
@@ -638,7 +907,7 @@ class StromContext:
         try:
             warmed = self._read_segments(self.resolve_source(source),
                                          segments, None, base_offset,
-                                         _warm=True)
+                                         _warm=True, tenant=tenant)
         except (EngineError, OSError, ValueError):
             warmed = 0  # advisory: readahead never turns into a crash
         if warmed:
@@ -647,19 +916,20 @@ class StromContext:
 
     # -- completion-driven gather and host reads -----------------------------
     def stream_segments(self, source: Source, segments: Sequence[Segment],
-                        dest: np.ndarray, base_offset: int = 0):
+                        dest: np.ndarray, base_offset: int = 0, *,
+                        tenant: str | None = None):
         """Begin a completion-driven gather of *segments* into *dest*: the
         plan ``_read_segments`` would run, submitted through the engine's
         async API so dest ranges surface as their chunks land. Returns a
         :class:`strom_torch.delivery.stream.StreamingGather` (see its
-        poll/finish/close protocol); it holds the engine until its token
-        drains."""
+        poll/finish/close protocol); it holds a scheduler grant for
+        *tenant* (or the engine lock) until its token drains."""
         from strom_torch.delivery.stream import StreamingGather
 
         if self._closed:
             raise RuntimeError("StromContext is closed")
         return StreamingGather(self, self.resolve_source(source), segments,
-                               dest, base_offset)
+                               dest, base_offset, tenant=tenant)
 
     def alloc_read_buffer(self, source: Source, nbytes: int) -> np.ndarray:
         """A fresh page-aligned host buffer for a gather from *source* that
@@ -669,10 +939,12 @@ class StromContext:
         return alloc_aligned(nbytes)
 
     def pread(self, source: Source, offset: int = 0,
-              length: int | None = None) -> np.ndarray:
+              length: int | None = None, *,
+              tenant: str | None = None) -> np.ndarray:
         """Read bytes of *source* into a fresh aligned host buffer, with no
         device copy: the path format readers take for indexes, labels and
-        members before decode."""
+        members before decode. *tenant*: whose scheduler queue the gather
+        takes (None: the default tenant)."""
         if self._closed:
             raise RuntimeError("StromContext is closed")
         source = self.resolve_source(source)
@@ -681,13 +953,15 @@ class StromContext:
         if length == 0:
             return np.empty(0, dtype=np.uint8)
         dest = alloc_aligned(length)
-        self._read_segments(source, [Segment(0, 0, length)], dest, offset)
+        self._read_segments(source, [Segment(0, 0, length)], dest, offset,
+                            tenant=tenant)
         return dest
 
     def memcpy_ssd2host(self, source: Source, *, offset: int = 0,
                         shape: Sequence[int] | None = None,
                         dtype: Any = np.uint8, length: int | None = None,
-                        out: np.ndarray | None = None) -> np.ndarray:
+                        out: np.ndarray | None = None,
+                        tenant: str | None = None) -> np.ndarray:
         """Everything ``memcpy_ssd2gpu`` does up to the host-to-device copy:
         striped-alias resolution, extent-aware planning, residency routing
         and the engine gather, assembled zero-copy into the returned host
@@ -714,7 +988,8 @@ class StromContext:
             if flat.nbytes < nbytes:
                 raise ValueError(f"out holds {flat.nbytes} bytes, need {nbytes}")
             dest = flat[:nbytes]
-        self._read_segments(source, [Segment(0, 0, nbytes)], dest, offset)
+        self._read_segments(source, [Segment(0, 0, nbytes)], dest, offset,
+                            tenant=tenant)
         return dest.view(np_dtype).reshape(shape)
 
     # -- host -> device ------------------------------------------------------
@@ -798,7 +1073,8 @@ class StromContext:
         self._release(host, device.type == "cuda")
 
     def _deliver_streamed(self, source: Source, segments: Sequence[Segment],
-                          base_offset: int, out: torch.Tensor) -> torch.Tensor:
+                          base_offset: int, out: torch.Tensor,
+                          tenant: str | None = None) -> torch.Tensor:
         """Pipeline one transfer: the reader thread reads piece k+1 from disk
         while piece k's slice copy into the preallocated *out* (uint8, on
         the target device) is in flight."""
@@ -815,7 +1091,8 @@ class StromContext:
                     if stop.is_set():
                         break
                     slab = self._acquire(n, cuda)
-                    self._read_segments(source, segs, slab, base_offset)
+                    self._read_segments(source, segs, slab, base_offset,
+                                        tenant=tenant)
                     ready.put((base, slab))
             except BaseException as e:  # surfaced on the consumer side
                 fail.append(e)
@@ -877,7 +1154,8 @@ class StromContext:
                        dtype: Any = np.uint8,
                        length: int | None = None,
                        device: Any = None,
-                       async_: bool = False) -> "torch.Tensor | DMAHandle":
+                       async_: bool = False,
+                       tenant: str | None = None) -> "torch.Tensor | DMAHandle":
         """Read bytes from *source* and deliver them as a torch.Tensor.
 
         - shape/dtype: array view of the bytes (row-major on disk); shape
@@ -888,6 +1166,8 @@ class StromContext:
         - async_: return a DMAHandle at once (≙ MEMCPY_SSD2GPU_ASYNC);
           otherwise the tensor (≙ MEMCPY_SSD2GPU). The tensor is ordered
           before any later work on the stream that was current at the call.
+        - tenant: whose scheduler queue the gathers take (None: the
+          default tenant).
         """
         if self._closed:
             raise RuntimeError("StromContext is closed")
@@ -913,13 +1193,15 @@ class StromContext:
                                            consumer)
                 else:
                     out = torch.empty(nbytes, dtype=torch.uint8)
-                out = self._deliver_streamed(source, segs, offset, out)
+                out = self._deliver_streamed(source, segs, offset, out,
+                                             tenant)
                 if cuda:
                     consumer.wait_stream(self._copy_stream(device))
                 return out.view(tdt).reshape(shape)
             slab = self._acquire(nbytes, cuda)
             try:
-                self._read_segments(source, segs, slab, offset)
+                self._read_segments(source, segs, slab, offset,
+                                    tenant=tenant)
             except BaseException:
                 self._release(slab, cuda)
                 raise
@@ -935,11 +1217,12 @@ class StromContext:
 
     # -- the write path: host bytes to the SSD through the engine ----------
     def write_chunks(self, chunks: Sequence[tuple[int, int, int, int]],
-                     src: np.ndarray) -> int:
+                     src: np.ndarray, *, tenant: "str | None" = None) -> int:
         """Run a planned write scatter, (file_index, file_offset,
-        src_offset, length) chunks out of *src*, under the engine lock (the
-        reference's branch without a scheduler; the port has no scheduler
-        and no circuit breaker yet). Returns bytes written; raises
+        src_offset, length) chunks out of *src*: one scheduler grant a
+        slice, billed to *tenant* (its budgets and priority apply to
+        writes), or under the engine lock with ``sched_enabled=False``. The
+        port has no circuit breaker yet. Returns bytes written; raises
         EngineError on a failed or short chunk: nothing falls back."""
         if not chunks:
             return 0
@@ -947,9 +1230,15 @@ class StromContext:
             raise RuntimeError("StromContext is closed")
         planned = sum(ln for (_, _, _, ln) in chunks)
         try:
-            with self._demand_gate(), self._engine_lock:
-                total = self.engine.write_vectored(
-                    chunks, src, retries=self.config.io_retries)
+            with self._demand_gate():
+                if self._scheduler is not None:
+                    total = self._scheduler.write_chunks(
+                        chunks, src, tenant=tenant,
+                        retries=self.config.io_retries)
+                else:
+                    with self._engine_lock:
+                        total = self.engine.write_vectored(
+                            chunks, src, retries=self.config.io_retries)
         except EngineError as e:
             raise EngineError(e.errno, f"host2ssd {e.strerror}") from None
         if total != planned:
@@ -959,8 +1248,8 @@ class StromContext:
         return total
 
     def pwrite(self, path: str, data: "np.ndarray | bytes | memoryview",
-               offset: int = 0, *, create: bool = True,
-               fsync: bool = False) -> int:
+               offset: int = 0, *, tenant: "str | None" = None,
+               create: bool = True, fsync: bool = False) -> int:
         """Write *data* to ``path[offset:offset+len)`` through the engine's
         write path: the write twin of :meth:`pread`. *create* makes the
         file when it is absent; *fsync* makes the bytes durable before the
@@ -984,7 +1273,8 @@ class StromContext:
             os.close(os.open(path, os.O_WRONLY | os.O_CREAT, 0o644))
         fi = self.file_index(path, writable=True)
         try:
-            total = self.write_chunks([(fi, offset, 0, n)], src)
+            total = self.write_chunks([(fi, offset, 0, n)], src,
+                                      tenant=tenant)
         finally:
             # after the write, not before: a read during the write may have
             # admitted the old bytes, which invalidating first would keep
@@ -1020,6 +1310,13 @@ class StromContext:
             out["slab_pool"] = self._slab_pool.stats()
         if self._hot_cache is not None:
             out["cache"] = self._hot_cache.stats()
+        if self._spill is not None:
+            sp = self._spill.stats()
+            sp["spill_errors"] = self._hot_cache.spill_errors + (
+                self._spill_io.errors if self._spill_io is not None else 0)
+            out["spill"] = sp
+        if self._scheduler is not None:
+            out["sched"] = self._scheduler.stats()
         if self._decoded_cache is not None:
             out["decode_cache"] = self._decoded_cache.stats()
         return out
@@ -1029,7 +1326,16 @@ class StromContext:
             return
         self._closed = True
         self._executor.shutdown(wait=True)
+        if self._spill_io is not None:
+            # the spill file's registrations leave while the engine lives;
+            # the tier keeps its own fd until it closes
+            self._spill.set_io(None)
+            self._spill_io.close()
         self.engine.close()
+        if self._spill is not None:
+            # after the engine: no gather can be mid-consult any more
+            self._hot_cache.spill = None
+            self._spill.close()
         if self._slab_pool is not None:
             self._slab_pool.close()
 

@@ -28,10 +28,16 @@ submits only the miss runs.
 Buffers: entries are fresh page-aligned allocations (``alloc_aligned``),
 billed at their size class (``size_class``). The port's slab pool pins every slab for
 CUDA; cache-served bytes are copied into the batch's pinned slab, and the
-device copy reads that slab, never a cache buffer. The reference demotes
-entries evicted under byte pressure to an NVMe spill tier; the port has no
-spill tier yet, so :meth:`HotCache._demote_and_free` only frees. The
-reference's telemetry mirrors stay on :meth:`HotCache.stats`.
+device copy reads that slab, never a cache buffer. The reference's
+telemetry mirrors stay on :meth:`HotCache.stats`.
+
+- **The spill tier.** With a :class:`~strom_torch.delivery.spill.SpillTier`
+  attached (``spill``; the context attaches one for ``spill_bytes > 0``),
+  an entry evicted under byte pressure is offered to it after the cache's
+  lock is released (:meth:`HotCache._demote_and_free`), and the delivery
+  consult serves it from there. A full or closed spill file degrades to a
+  plain drop (counted ``spill_errors``). Invalidated and cleared entries
+  never demote: their bytes are stale or unwanted.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ class _Entry:
     length."""
 
     __slots__ = ("skey", "lo", "hi", "buf", "refs", "dead", "charge",
-                 "tenant")
+                 "tenant", "demote")
 
     def __init__(self, skey: Any, lo: int, hi: int, buf: np.ndarray,
                  charge: int, tenant: "str | None" = None):
@@ -69,6 +75,9 @@ class _Entry:
         self.charge = charge
         # owning tenant for partition accounting (None: the shared budget)
         self.tenant = tenant
+        # evicted under byte pressure with a spill tier attached: the
+        # freeing caller demotes the bytes before dropping the buffer
+        self.demote = False
 
     @property
     def nbytes(self) -> int:
@@ -85,7 +94,7 @@ class HotCache:
 
     def __init__(self, max_bytes: int, *,
                  admit: str = "second_touch", block_bytes: int = 1 << 20,
-                 touch_capacity: int = 1 << 16):
+                 touch_capacity: int = 1 << 16, scope=None):
         if max_bytes <= 0:
             raise ValueError("max_bytes must be positive")
         if admit not in ADMIT_POLICIES:
@@ -96,6 +105,13 @@ class HotCache:
         self.max_bytes = max_bytes
         self.admit_policy = admit
         self._block = block_bytes
+        # the NVMe spill tier evictions demote to (None: evictions drop)
+        self.spill = None
+        # telemetry scope of the owning context (spill_errors)
+        from strom_torch.utils.stats import global_stats
+
+        self._scope = scope if scope is not None else global_stats
+        self.spill_errors = 0
         # a disabled cache serves, admits and warms nothing (entries kept)
         self.enabled = True
         self._lock = threading.Lock()
@@ -210,9 +226,20 @@ class HotCache:
                     e.buf = None  # type: ignore[assignment]
 
     def _demote_and_free(self, e: _Entry, buf: np.ndarray) -> None:
-        """Outside-the-lock half of eviction. The reference offers the
-        evicted bytes to its NVMe spill tier here first; the port has none
-        yet, so dropping the last reference frees the buffer."""
+        """Outside-the-lock half of eviction: offer the evicted bytes to
+        the spill tier when one is attached and the eviction wanted it;
+        dropping the last reference then frees the buffer. A spill failure
+        is counted, never raised: losing a demotion costs a later source
+        read, the spill-less cache's behaviour."""
+        sp = self.spill
+        if e.demote and sp is not None and e.skey is not None:
+            try:
+                sp.offer(e.skey, e.lo, e.hi, buf[: e.nbytes],
+                         tenant=e.tenant)
+            except Exception:
+                with self._lock:
+                    self.spill_errors += 1
+                self._scope.add("spill_errors")
 
     # -- admission / eviction -----------------------------------------------
     def _blocks(self, skey: Any, lo: int, hi: int) -> list[tuple]:
@@ -326,10 +353,13 @@ class HotCache:
             self._demote_and_free(victim, victim_buf)
         return n if admitted else 0
 
-    def _evict_locked(self, e: _Entry) -> list[tuple[_Entry, np.ndarray]]:
+    def _evict_locked(self, e: _Entry, *, demote: bool = True
+                      ) -> list[tuple[_Entry, np.ndarray]]:
         """Remove *e* from the index and LRU (lock held). Returns the
-        (entry, buffer) pairs the caller frees after releasing the lock; a
-        pinned entry returns nothing and frees on its last unpin."""
+        (entry, buffer) pairs the caller demotes and frees after releasing
+        the lock; a pinned entry returns nothing and frees, without
+        demoting, on its last unpin. ``demote=False`` drops without
+        spilling."""
         self._lru.pop(id(e), None)
         entries = self._index.get(e.skey)
         if entries is not None:
@@ -347,6 +377,7 @@ class HotCache:
                 self._tenant_bytes.pop(e.tenant, None)
         self.evictions += 1
         self.evicted_bytes += e.nbytes
+        e.demote = demote and self.spill is not None
         if e.refs == 0:
             buf, e.buf = e.buf, None  # type: ignore[assignment]
             return [(e, buf)]
@@ -356,8 +387,9 @@ class HotCache:
     def invalidate(self, skey: Any) -> int:
         """Drop every entry of *skey* and of any derived tuple key that
         embeds it (decoded frames key as ``("jpegdec", path, lo, hi,
-        fp)``): the backing bytes changed. Returns entries dropped. Pinned
-        entries leave the index at once and free on the last unpin."""
+        fp)``), in this tier and in the spill tier, without demoting: the
+        backing bytes changed. Returns entries dropped here. Pinned entries
+        leave the index at once and free on the last unpin."""
         dropped = 0
         with self._lock:
             keys = [k for k in self._index
@@ -365,7 +397,9 @@ class HotCache:
             for k in keys:
                 for e in list(self._index.get(k, ())):
                     dropped += 1
-                    self._evict_locked(e)
+                    self._evict_locked(e, demote=False)
+        if self.spill is not None:
+            self.spill.invalidate(skey)
         return dropped
 
     def clear(self) -> None:
@@ -373,7 +407,7 @@ class HotCache:
         index at once; their buffers free on the last unpin."""
         with self._lock:
             for e in list(self._lru.values()):
-                self._evict_locked(e)
+                self._evict_locked(e, demote=False)
             self._touched.clear()
 
     # -- readahead accounting ----------------------------------------------
@@ -447,11 +481,16 @@ class Readahead:
     """
 
     def __init__(self, ctx, window_fn: Callable[[int], Iterable[tuple]], *,
-                 interval_s: float = 0.02, window_batches: int = 0):
+                 interval_s: float = 0.02, tenant: "str | None" = None,
+                 window_batches: int = 0):
         self._ctx = ctx
         self._window_fn = window_fn
         self._interval = interval_s
         self.window_batches = int(window_batches)
+        # the pipeline this thread warms for: admitted entries charge its
+        # cache partition (the engine reads ride the background
+        # "readahead" tenant)
+        self._tenant = tenant
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="strom-readahead")
@@ -471,7 +510,8 @@ class Readahead:
                         self._window_fn(self.window_batches):
                     if self._stop.is_set():
                         break
-                    warmed += self._ctx.warm(source, segments, base_offset)
+                    warmed += self._ctx.warm(source, segments, base_offset,
+                                             tenant=self._tenant)
             # an advisory path: a racing close or a transient engine error
             # must not kill the thread, but it is counted
             except Exception:

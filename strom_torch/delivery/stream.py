@@ -1,5 +1,5 @@
 """Completion-driven gather (the port's copy of ``strom/delivery/stream.py``,
-without peers, scheduler, hedges and fallback recovery).
+without peers, hedges and fallback recovery).
 
 A blocking gather makes every sample of a batch wait for the slowest
 extent. :class:`StreamingGather` plans the gather as
@@ -18,12 +18,14 @@ Rules:
 - Completions are unordered across chunks, and every dest byte completes
   exactly once: ranges from distinct completions never overlap.
 - The gather owns the engine's transfer path from construction until its
-  token drains: the context's engine lock (per-ring locks on the multi-ring
-  engine) is held that long, then released at once.
+  token drains: a scheduler grant for its miss bytes, billed to its tenant
+  (the context's engine lock with ``sched_enabled=False``; per-ring locks
+  on the multi-ring engine) is held that long, then released at once, and
+  on every error path.
 - ``finish`` raises ``EngineError`` only after every in-flight piece has
   retired, and checks that the engine moved exactly the planned bytes.
 - ``close`` is idempotent and safe mid-flight: the token is cancelled
-  (every in-flight piece reaped) before the engine lock is released, so no
+  (every in-flight piece reaped) before the grant is released, so no
   engine write lands in *dest* after it returns.
 """
 
@@ -56,8 +58,10 @@ class StreamingGather:
     """
 
     def __init__(self, ctx, source, segments: Sequence[Segment],
-                 dest: np.ndarray, base_offset: int = 0):
+                 dest: np.ndarray, base_offset: int = 0, *,
+                 tenant: str | None = None):
         self._ctx = ctx
+        self._tenant = tenant
         self._dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
             else dest.reshape(-1).view(np.uint8)
         self._closed = False
@@ -80,7 +84,8 @@ class StreamingGather:
             hit_bytes = 0
             if self._cache is not None and chunks:
                 chunks, hit_bytes, self._instant = ctx._consult_cache(
-                    self._cache, chunks, self._idx_paths, self._dflat)
+                    self._cache, chunks, self._idx_paths, self._dflat,
+                    tenant=tenant)
             self._chunks = chunks
             self._miss_planned = planned - hit_bytes
             self.total_bytes = planned
@@ -89,7 +94,11 @@ class StreamingGather:
                 # both held for the token's lifetime; released by
                 # _release_engine the moment the last piece retires
                 self._stack.enter_context(ctx._demand_gate())
-                self._stack.enter_context(ctx._engine_lock)
+                if ctx.scheduler is not None:
+                    self._stack.enter_context(ctx.scheduler.grant(
+                        tenant, self._miss_planned))
+                else:
+                    self._stack.enter_context(ctx._engine_lock)
                 self._token = ctx.engine.submit_vectored(
                     self._chunks, self._dflat, retries=ctx.config.io_retries,
                     fail_fast=False)
@@ -141,7 +150,8 @@ class StreamingGather:
                     path = self._idx_paths.get(fi)
                     if path is not None:
                         self._cache.admit(path, fo, fo + ln,
-                                          self._dflat[do: do + ln])
+                                          self._dflat[do: do + ln],
+                                          tenant=self._tenant)
         if out:
             self._stall_t0 = time.monotonic()
         elif min_completions > 0 and not tok.done:
@@ -196,7 +206,8 @@ class StreamingGather:
         return self.total_bytes
 
     def _release_engine(self) -> None:
-        """Drop the engine lock and the demand gate; idempotent."""
+        """Drop the grant (or engine lock) and the demand gate;
+        idempotent."""
         if not self._engine_released:
             self._engine_released = True
             self._stack.close()
@@ -208,7 +219,7 @@ class StreamingGather:
 
     def close(self) -> None:
         """Idempotent teardown. A live token is cancelled, every in-flight
-        piece reaped, before the engine lock is released."""
+        piece reaped, before the grant is released."""
         if self._finished:
             return
         if self._token is not None and not self._token.done:

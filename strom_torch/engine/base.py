@@ -18,9 +18,11 @@ asynchronously and returns a :class:`StreamToken`; :meth:`Engine.poll`
 reports chunks as they retire, so a caller can work on early chunks while
 later ones are in flight. ``op="write"`` runs the same machine in reverse
 (:meth:`Engine.write_vectored`): each chunk writes the buffer's bytes to a
-file registered ``writable=True``. Stats scopes, request deadlines and the
-retry backoff policy of the reference are not ported yet: a failed piece is
-resubmitted at once, up to ``retries`` times, as ``read_vectored`` does.
+file registered ``writable=True``. Each op's submit-to-completion latency
+goes to the ``engine_op_lat`` histogram of the scope :meth:`Engine.set_scope`
+installed. Request deadlines and the retry backoff policy of the reference
+are not ported yet: a failed piece is resubmitted at once, up to
+``retries`` times, as ``read_vectored`` does.
 """
 
 from __future__ import annotations
@@ -268,6 +270,46 @@ class Engine(abc.ABC):
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    # -- per-op telemetry scope --------------------------------------------
+    # The delivery context installs its scope here, and the scheduler the
+    # scope of the tenant holding an exclusive grant, so per-op latency
+    # (the engine_op_lat histogram, submit to completion) lands per tenant
+    # while the unlabelled aggregate stays the whole engine's. The
+    # reference's engine_inflight gauge is left out: reading the in-flight
+    # count takes the engine's lock twice an op.
+    def set_scope(self, scope) -> None:
+        """Install the telemetry scope (a ``StatsRegistry`` or
+        ``ScopedStats``) per-op accounting writes through."""
+        self._op_scope = scope
+
+    @property
+    def op_scope(self):
+        sc = getattr(self, "_op_scope", None)
+        if sc is None:
+            from strom_torch.utils.stats import global_stats
+
+            return global_stats
+        return sc
+
+    def _note_submitted(self, requests: Sequence) -> None:
+        """Stamp each op's submit time."""
+        m = getattr(self, "_op_submit_t", None)
+        if m is None:
+            m = self._op_submit_t = {}
+        t = time.perf_counter()
+        for r in requests:
+            m[r.tag] = t
+
+    def _note_completed(self, completions: Sequence) -> None:
+        m = getattr(self, "_op_submit_t", None)
+        if m:
+            t = time.perf_counter()
+            h = self.op_scope.histogram("engine_op_lat")
+            for c in completions:
+                t0 = m.pop(c.tag, None)
+                if t0 is not None:
+                    h.observe_us((t - t0) * 1e6)
 
     @property
     def wait_timeout_s(self) -> float:

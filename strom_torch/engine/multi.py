@@ -180,6 +180,13 @@ class MultiRingEngine(Engine):
                     total_bytes=info["total_bytes"] * len(self._children))
         return info
 
+    def set_scope(self, scope) -> None:
+        """Every ring gets the scope: the rings own the submit and wait
+        edges the per-op accounting runs on."""
+        self._op_scope = scope
+        for c in self._children:
+            c.set_scope(scope)
+
     def submit(self, requests: Sequence[ReadRequest]) -> int:
         return self._children[0].submit([
             ReadRequest(self._child_index(0, r.file_index), r.offset, r.length,

@@ -158,12 +158,14 @@ class PythonEngine(Engine):
             if r.buf_offset + r.length > self.config.buffer_size:
                 raise EngineError(_errno.EINVAL, "read larger than buffer slot")
         self._admit(len(requests))
+        self._note_submitted(requests)
         for r in requests:
             self._submit_q.put(r)
         return len(requests)
 
     def submit_raw(self, requests: Sequence[RawRead]) -> int:
         self._admit(len(requests))
+        self._note_submitted(requests)
         for r in requests:
             self._submit_q.put(r)
         return len(requests)
@@ -187,6 +189,7 @@ class PythonEngine(Engine):
         if out:
             with self._lock:
                 self._in_flight -= len(out)
+            self._note_completed(out)
         return out
 
     def in_flight(self) -> int:

@@ -319,6 +319,7 @@ class UringEngine(Engine):
                                           r.tag)
             if rc < 0:
                 raise EngineError(-rc, f"submit: {os.strerror(-rc)}")
+        self._note_submitted(requests)
         return len(requests)
 
     def submit_raw(self, requests: Sequence[RawRead | RawWrite]) -> int:
@@ -357,16 +358,19 @@ class UringEngine(Engine):
         # sc_submit_raw_batch, and a concurrent wait() must find its entry
         for r in requests:
             self._raw_keepalive[r.tag] = r.dest
+        self._note_submitted(requests)
         stop = ctypes.c_int32(0)
         rc = self._lib.sc_submit_raw_batch(self._h, ops, len(requests),
                                            ctypes.byref(stop))
         if rc < 0:
             for r in requests:
                 self._raw_keepalive.pop(r.tag, None)
+                self._op_submit_t.pop(r.tag, None)
             raise EngineError(-rc, f"submit_raw: {os.strerror(-rc)}")
         if rc < len(requests):
             for r in requests[rc:]:
                 self._raw_keepalive.pop(r.tag, None)
+                self._op_submit_t.pop(r.tag, None)
             if stop.value:
                 # an op the engine can never accept (bad file index/addr)
                 err = EngineError(stop.value, f"submit_raw: op {rc} rejected: "
@@ -392,6 +396,8 @@ class UringEngine(Engine):
         if self._raw_keepalive:
             for c in out:
                 self._raw_keepalive.pop(c.tag, None)
+        if out:
+            self._note_completed(out)
         return out
 
     def in_flight(self) -> int:

@@ -62,8 +62,11 @@ class DecodedCache:
     frames. Thread-safe: the tally lock is held only for counter updates,
     never across cache calls."""
 
-    def __init__(self, cache, *, fingerprint: str = "rgb8"):
+    def __init__(self, cache, *, tenant: "str | None" = None,
+                 fingerprint: str = "rgb8"):
         self._hot_cache = cache
+        # frames charge this tenant's cache partition (None: shared)
+        self._tenant = tenant
         self._fp = fingerprint
         self._lock = threading.Lock()
         self.hits = 0
@@ -146,12 +149,13 @@ class DecodedCache:
 
     def offer(self, ckey: Any, img: np.ndarray) -> int:
         """Offer a decoded full frame for admission (the cache's policy,
-        and budget decide). Returns bytes admitted
-        (0: refused or already resident)."""
+        budget and the owning tenant's partition decide). Returns bytes
+        admitted (0: refused or already resident)."""
         if img.ndim == 3:
             self._note_dims(ckey, img.shape[0], img.shape[1])
         flat = np.ascontiguousarray(img).reshape(-1)
-        admitted = self._hot_cache.admit(ckey, 0, flat.size, flat)
+        admitted = self._hot_cache.admit(ckey, 0, flat.size, flat,
+                                         tenant=self._tenant)
         if admitted:
             with self._lock:
                 self.admitted_bytes += admitted

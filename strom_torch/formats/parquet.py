@@ -441,18 +441,20 @@ class ParquetShard:
         return ExtentList([Extent(self.path, self._size - flen, flen)])
 
     def read_row_group(self, ctx: "StromContext", row_group: int,
-                       columns: Sequence[str] | None = None) -> "pa.Table":
+                       columns: Sequence[str] | None = None, *,
+                       tenant: str | None = None) -> "pa.Table":
         """Engine-read the selected chunks + footer, decode to a pyarrow
         Table. Everything pyarrow touches was prefetched through the
-        engine. Raises RuntimeError where pyarrow does not import."""
+        engine, in *tenant*'s scheduler queue. Raises RuntimeError where
+        pyarrow does not import."""
         pq = _pyarrow_parquet(f"reading {self.path} row group {row_group} "
                               f"through its pyarrow route")
         chunk_ext = self.column_chunk_extents(row_group, columns)
         footer_ext = self.footer_extent()
         with self._footer_lock:
             if self._footer_bytes is None:
-                self._footer_bytes = ctx.pread(footer_ext)
-        buf = ctx.pread(chunk_ext)
+                self._footer_bytes = ctx.pread(footer_ext, tenant=tenant)
+        buf = ctx.pread(chunk_ext, tenant=tenant)
         cache = _RangeCache()
         cache.insert(footer_ext.extents[0].offset, self._footer_bytes)
         pos = 0
@@ -484,7 +486,8 @@ class ParquetShard:
 
     def read_row_group_pages(self, ctx: "StromContext", row_group: int,
                              columns: Sequence[str], *,
-                             out: np.ndarray | None = None) -> dict:
+                             out: np.ndarray | None = None,
+                             tenant: str | None = None) -> dict:
         """Selected columns of one row group, each as a list of host numpy
         arrays in row order: the scan pipeline's read unit.
 
@@ -498,13 +501,14 @@ class ParquetShard:
 
         *out*: a host buffer of at least the selected chunks' bytes for the
         PLAIN route's gather (a recycled, prefaulted slab), which the pages
-        then view; else the gather lands in a fresh one."""
+        then view; else the gather lands in a fresh one. *tenant*: whose
+        scheduler queue the gathers take."""
         rg = self.metadata.row_group(row_group)
         cis = self._col_indices(columns)
         if self._plain_eligible(rg, cis):
             chunk_ext = self.column_chunk_extents(row_group, columns)
-            buf = ctx.pread(chunk_ext) if out is None \
-                else ctx.memcpy_ssd2host(chunk_ext, out=out)
+            buf = ctx.pread(chunk_ext, tenant=tenant) if out is None \
+                else ctx.memcpy_ssd2host(chunk_ext, out=out, tenant=tenant)
             pages = {}
             pos = 0
             try:
@@ -518,7 +522,8 @@ class ParquetShard:
             else:
                 ctx._count(parquet_plain_bytes=int(buf.nbytes))
                 return pages
-        table = self.read_row_group(ctx, row_group, columns=columns)
+        table = self.read_row_group(ctx, row_group, columns=columns,
+                                    tenant=tenant)
         pages = {c: [np.ascontiguousarray(
                      table[c].to_numpy(zero_copy_only=False))]
                  for c in columns}
@@ -527,13 +532,15 @@ class ParquetShard:
         return pages
 
     def read_row_group_arrays(self, ctx: "StromContext", row_group: int,
-                              columns: Sequence[str]) -> dict:
+                              columns: Sequence[str], *,
+                              tenant: str | None = None) -> dict:
         """Selected columns of one row group as host numpy arrays: the
         pages of :meth:`read_row_group_pages` joined (a view where a chunk
-        is one page, else one concatenation)."""
+        is one page, else one concatenation). *tenant*: whose scheduler
+        queue the gathers take."""
         return {c: p[0] if len(p) == 1 else np.concatenate(p)
-                for c, p in self.read_row_group_pages(ctx, row_group,
-                                                      columns).items()}
+                for c, p in self.read_row_group_pages(
+                    ctx, row_group, columns, tenant=tenant).items()}
 
 
 # --- the PLAIN writer ------------------------------------------------------

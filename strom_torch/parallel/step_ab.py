@@ -1,7 +1,9 @@
-"""Time the train steps of several checkouts of this repo on one card, in
-turns, so two versions are compared on the same card in the same call.
+"""Time the train steps, or the delivery paths, of several checkouts of
+this repo on one card, in turns, so two versions are compared on the same
+card in the same call.
 
     python3 -m strom_torch.parallel.step_ab DIR [DIR ...]
+    python3 -m strom_torch.parallel.step_ab --delivery [--sched-rounds N] DIR [DIR ...]
 
 Each DIR is a checkout: this repo's root, or an older commit unpacked
 with ``git archive``. Each runs in its own process, in the order given
@@ -12,8 +14,12 @@ layers, flash, AdamW), phase 6 (ResNet-50, batch 128) and phase 8
 ``[train]``, ``[resnet]``, ``[vit]`` and ``[profile]`` lines, after one
 ``[step_ab]`` line naming the checkout, the card and its power limit:
 steady step ms, device busy ms and idle share, as that checkout measures
-them. Host-side step times move from call to call, so only checkouts run
-in one call compare. Needs one CUDA device.
+them. ``--delivery`` drives phases 3 (the 1 GiB delivery beside the
+engine alone, and where the checkout has them the ``[sched]`` arms, N
+alternating rounds of the scheduler on and off), 5 (the streamed gather),
+6 (the predecoded loader and ResNet-50) and 7 (the JPEG-fed ResNet-50)
+instead. Host-side step times move from call to call, so only checkouts
+run in one call compare. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -36,11 +42,19 @@ cs.say("step_ab", checkout=root, card=smi.stdout.strip().replace(" ", "_"))
 workdir = os.path.join(root, ".step_ab")
 os.makedirs(workdir, exist_ok=True)
 try:
-    cs.phase_train(workdir)
-    model, step, pdec = cs.phase_resnet(workdir)
-    del model, step
-    torch.cuda.empty_cache()
-    cs.phase_vit(pdec, None)
+    if sys.argv[2] == "delivery":
+        cs.SCHED_ROUNDS = int(sys.argv[3])
+        path = cs.phase_ssd2gpu(workdir)
+        cs.phase_stream(path)
+        os.unlink(path)
+        model, step, pdec = cs.phase_resnet(workdir)
+        cs.phase_resnet_jpeg(workdir, model, step)
+    else:
+        cs.phase_train(workdir)
+        model, step, pdec = cs.phase_resnet(workdir)
+        del model, step
+        torch.cuda.empty_cache()
+        cs.phase_vit(pdec, None)
 finally:
     shutil.rmtree(workdir, ignore_errors=True)
 """
@@ -50,12 +64,18 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--delivery", action="store_true",
+                    help="phases 3, 5, 6 and 7 in place of the train phases")
+    ap.add_argument("--sched-rounds", type=int, default=4,
+                    help="rounds of phase 3's [sched] arms (--delivery)")
     ap.add_argument("dirs", nargs="+")
     args = ap.parse_args()
+    mode = "delivery" if args.delivery else "train"
     rc = 0
     for root in args.dirs:
         rc |= subprocess.run([sys.executable, "-c", CHILD,
-                              os.path.abspath(root)]).returncode
+                              os.path.abspath(root), mode,
+                              str(args.sched_rounds)]).returncode
     return rc
 
 

@@ -34,12 +34,19 @@ class Pipeline:
                  fingerprint: dict | None = None,
                  executor: concurrent.futures.Executor | None = None,
                  on_close: Callable[[], None] | None = None,
-                 counters: Callable[[], dict] | None = None):
+                 counters: Callable[[], dict] | None = None,
+                 scope: Any | None = None):
         """*depth* is the prefetch depth, the starting one when
         *auto_depth* moves it inside [1, *max_depth*]. *on_close* runs once
         the prefetcher has stopped (a readahead thread's or a decode pool's
         shutdown, say); *counters* adds the pipeline's own counts to
-        :meth:`stats`."""
+        :meth:`stats`. *scope*: the telemetry scope the pipeline counts
+        its steps in (``pipeline_steps``), a label scope of the context's
+        whose ``tenant`` label names the scheduler tenant its gathers take;
+        None is the process-wide registry."""
+        from strom_torch.utils.stats import global_stats
+
+        self.scope = scope if scope is not None else global_stats
         self.sampler = sampler
         self.fingerprint = fingerprint or {}
         self._make_batch = make_batch
@@ -76,6 +83,7 @@ class Pipeline:
     def __next__(self) -> Any:
         batch = next(self._prefetcher)
         self._consumed += 1
+        self.scope.add("pipeline_steps")
         return batch
 
     # -- checkpoint/resume --------------------------------------------------

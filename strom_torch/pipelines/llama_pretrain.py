@@ -28,7 +28,8 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                         shuffle: bool = True,
                         prefetch_depth: int | None = None,
                         auto_prefetch: bool | None = None,
-                        resume_from: "str | SamplerState | None" = None
+                        resume_from: "str | SamplerState | None" = None,
+                        scope: dict | None = None
                         ) -> Pipeline:
     """Infinite stream of token batches [batch, seq_len+1] (inputs+targets
     window) as torch tensors on *device* (None → the current CUDA device;
@@ -36,7 +37,11 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
     ``prefetch_auto``) lets the prefetch depth move from *prefetch_depth*
     on stalls and ample lead. *resume_from* accepts a loader-state path or a
     SamplerState; a live pipeline also restores in place with
-    ``Pipeline.restore(state)``."""
+    ``Pipeline.restore(state)``.
+
+    *scope*: labels of the pipeline's telemetry scope over the context's
+    (default ``{"pipeline": "llama"}``); a ``"tenant"`` label names the
+    scheduler tenant every batch gather takes."""
     device = resolve_device(device)
     # sizes through the context, so striped-set aliases (paths that need
     # not exist on disk) work like files
@@ -47,15 +52,19 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                               ctx=ctx)
     sampler = EpochShuffleSampler(shards.num_records, batch, seed=seed,
                                   shuffle=shuffle, state=state)
+    pscope = ctx.scope.scoped(**(scope if scope is not None
+                                 else {"pipeline": "llama"}))
+    tname = getattr(pscope, "labels", {}).get("tenant")
     shape = (batch, seq_len + 1)
 
     def make_batch(indices: np.ndarray, serial: int) -> torch.Tensor:
         return ctx.memcpy_ssd2gpu(shards.extents(indices), shape=shape,
-                                  dtype=shards.dtype, device=device)
+                                  dtype=shards.dtype, device=device,
+                                  tenant=tname)
 
     depth = prefetch_depth if prefetch_depth is not None \
         else ctx.config.prefetch_depth
     auto, max_depth = _auto_depth_bounds(
         ctx, auto_prefetch, batch * (seq_len + 1) * np.dtype(dtype).itemsize)
     return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
-                    max_depth=max_depth, fingerprint=fp)
+                    max_depth=max_depth, fingerprint=fp, scope=pscope)

@@ -159,7 +159,8 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
                            process_index: int | None = None,
                            process_count: int | None = None,
                            reduce: str = "collective",
-                           decode_workers: int = 4) -> Any:
+                           decode_workers: int = 4,
+                           scope: dict | None = None) -> Any:
     """Scan shards' row groups, sum map_fn's partial aggregates. Returns the
     aggregate tree with numpy leaves.
 
@@ -200,6 +201,10 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
     (``parquet_scan_data_stalls``) and the microseconds the prefetch
     threads spent reading and decoding, packing, and copying to the device
     (``parquet_scan_read_us``, ``_pack_us``, ``_put_us``).
+
+    *scope*: the scan's labels (``{"pipeline": "parquet", "tenant":
+    name}``); a ``"tenant"`` label queues every chunk gather under that
+    scheduler tenant. The scan's counters stay in ``ctx.stats()``.
     """
     if reduce not in ("collective", "allgather"):
         # fail in microseconds, not after the whole scan has run
@@ -214,6 +219,8 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
     if not devs:
         raise ValueError("devices must name at least one device")
     idx, n_proc = _process_layout(process_index, process_count)
+    # the scheduler tenant a tenant-labelled scope names, resolved once
+    tname = (scope or {}).get("tenant")
     shards = [ParquetShard(p, ctx=ctx) for p in paths]
     units = scan_units(shards)
     if not units:
@@ -257,7 +264,8 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
         """One row group's selected columns as page lists (PLAIN pages view
         *buf*, the gather's slab), and the row mask (None without a
         predicate)."""
-        pages = shard.read_row_group_pages(ctx, rg, read_cols, out=buf)
+        pages = shard.read_row_group_pages(ctx, rg, read_cols, out=buf,
+                                           tenant=tname)
         if predicate is None:
             return pages, None
         # the mask, in numpy as the reference computes it: with the

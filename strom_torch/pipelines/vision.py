@@ -53,12 +53,14 @@ Transform = Callable[..., np.ndarray]
 
 
 def _make_readahead(ctx: StromContext, sampler: EpochShuffleSampler,
-                    extents_for_batch: Callable[[np.ndarray], ExtentList]):
+                    extents_for_batch: Callable[[np.ndarray], ExtentList],
+                    tenant: str | None = None):
     """Epoch-aware readahead for a vision pipeline: a background thread
     that maps the sampler's upcoming-batch window (``peek`` crosses the
     epoch boundary) to ExtentLists and warms their cache misses through
-    ``ctx.warm``, which yields to demand gathers. None when the hot cache
-    or the readahead window is off."""
+    ``ctx.warm``, which yields to demand gathers; what it admits charges
+    *tenant*'s cache partition. None when the hot cache or the readahead
+    window is off."""
     if ctx.hot_cache is None or ctx.config.readahead_window_batches <= 0:
         return None
     from strom_torch.delivery.hotcache import Readahead
@@ -71,7 +73,7 @@ def _make_readahead(ctx: StromContext, sampler: EpochShuffleSampler,
                 out.append((el, [Segment(0, 0, el.size)], 0))
         return out
 
-    return Readahead(ctx, window,
+    return Readahead(ctx, window, tenant=tenant,
                      window_batches=ctx.config.readahead_window_batches)
 
 
@@ -126,7 +128,8 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
                          put: Callable[[np.ndarray], Any],
                          counts: DecodeCounts,
                          ckeys: "Sequence | None" = None,
-                         served: "Sequence | None" = None
+                         served: "Sequence | None" = None,
+                         tenant: str | None = None
                          ) -> tuple[Any, list[int]]:
     """Completion-driven batch assembly: the member gather goes through
     ``ctx.stream_segments`` and each sample goes to the decode pool the
@@ -156,7 +159,8 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
     stop = threading.Event()
     futs: list[concurrent.futures.Future] = []
     futs_lock = threading.Lock()
-    g = ctx.stream_segments(el, [Segment(0, 0, el.size)], buf)
+    g = ctx.stream_segments(el, [Segment(0, 0, el.size)], buf,
+                            tenant=tenant)
     counts.add("stream_batches")
     # samples whose extents land together decode together: ready rows are
     # flushed after every poll, in runs of at most run_size
@@ -314,7 +318,12 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     device group is the whole batch); ``opgraph_fuse=False`` is the parity
     reference: barrier decode, then one batch-wise apply. Both give
     bit-identical batches (the kernel is per-sample deterministic). The
-    ``ops_*`` counters go to the context's (``ctx.stats()``)."""
+    ``ops_*`` counters go to the context's (``ctx.stats()``).
+
+    *scope*: labels of the pipeline's telemetry scope over the context's
+    (default ``{"pipeline": "vision"}``); a ``"tenant"`` label routes every
+    gather, the readahead's admissions and the decoded cache's frames to
+    that tenant (its scheduler queue and cache partition)."""
     device = resolve_device(device)
     ss = WdsShardSet(paths, ctx=ctx)
     if len(ss) < batch:
@@ -333,13 +342,17 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     overlap_put = knob(decode_overlap_put, cfg.decode_overlap_put)
     counts = DecodeCounts()
     native = knob(decode_native, cfg.decode_native)
+    pscope = ctx.scope.scoped(**(scope if scope is not None
+                                 else {"pipeline": "vision"}))
+    tname = getattr(pscope, "labels", {}).get("tenant")
     # decoded-output cache: only with a hot cache to admit into, and only
     # for the built-in transform (the ckey keyword is its contract)
     dcache = None
     if knob(decode_cache, cfg.decode_cache) and transform is None \
             and ctx.hot_cache is not None:
         engine = "turbo" if (native and jpeg.native_available()) else "cv2"
-        dcache = DecodedCache(ctx.hot_cache, fingerprint=f"rgb8/{engine}")
+        dcache = DecodedCache(ctx.hot_cache, tenant=tname,
+                              fingerprint=f"rgb8/{engine}")
         ctx.attach_decoded_cache(dcache)
     tf = transform or make_train_transform(
         image_size, reduced_scale=reduced, native=native,
@@ -420,7 +433,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     def assemble_batch(el, sizes, rngs, ckeys, served
                        ) -> tuple[torch.Tensor, torch.Tensor]:
         if not to_slot:
-            buf = ctx.pread(el)
+            buf = ctx.pread(el, tenant=tname)
             blobs, labels = _split_members(buf, sizes, served)
             images = np.stack(pool.map(tf, blobs, rngs))
             if cgraph is not None:
@@ -444,9 +457,9 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             if stream:
                 out, labels = _decode_put_streamed(ctx, pool, tf, el, sizes,
                                                    rngs, images, put, counts,
-                                                   ckeys, served)
+                                                   ckeys, served, tname)
                 return out, labels_out(labels)
-            buf = ctx.pread(el)
+            buf = ctx.pread(el, tenant=tname)
             blobs, labels = _split_members(buf, sizes, served)
             if overlap_put:
                 out = _decode_put_overlapped(pool, tf, blobs, rngs, images,
@@ -469,7 +482,8 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     ra = _make_readahead(
         ctx, sampler,
         lambda indices: ss.batch_extents([int(i) for i in indices],
-                                         [image_ext, label_ext]))
+                                         [image_ext, label_ext]),
+        tenant=tname)
 
     def counters() -> dict:
         out = {"decode_errors": pool.decode_errors, **counts.snapshot()}
@@ -483,7 +497,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                     max_depth=max_depth, fingerprint=fp,
                     on_close=_chain_close(ra.close if ra else None,
                                           pool.close),
-                    counters=counters)
+                    counters=counters, scope=pscope)
 
 
 def _split_members(buf: np.ndarray, sizes: Sequence[tuple[int, int]],
@@ -511,14 +525,18 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                                     shuffle: bool = True,
                                     prefetch_depth: int | None = None,
                                     auto_prefetch: bool | None = None,
-                                    resume_from: "str | SamplerState | None" = None
+                                    resume_from: "str | SamplerState | None" = None,
+                                    scope: dict | None = None
                                     ) -> Pipeline:
     """Decode-free vision loader over predecoded shards
     (:mod:`strom_torch.formats.predecoded`): each batch is one engine gather
     and one host-to-device copy, the Llama loader's mechanics with pixel
     records. Normalisation belongs to the train step.
 
-    Yields ``(images [B,S,S,3] uint8, labels [B] int32)`` on *device*."""
+    Yields ``(images [B,S,S,3] uint8, labels [B] int32)`` on *device*.
+    *scope*: labels of the pipeline's telemetry scope (default
+    ``{"pipeline": "predecoded"}``); a ``"tenant"`` label routes the
+    gathers and the readahead's admissions to that tenant."""
     device = resolve_device(device)
     # sizes through the context, so striped-set aliases (paths that need
     # not exist on disk) work as the Llama loader's shards do
@@ -532,12 +550,16 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                               ctx=ctx)
     sampler = EpochShuffleSampler(shards.num_records, batch, seed=seed,
                                   shuffle=shuffle, state=state)
+    pscope = ctx.scope.scoped(**(scope if scope is not None
+                                 else {"pipeline": "predecoded"}))
+    tname = getattr(pscope, "labels", {}).get("tenant")
     shape = (batch, image_size, image_size, 3)
 
     def make_batch(indices: np.ndarray, serial: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         imgs = ctx.memcpy_ssd2gpu(shards.extents([int(i) for i in indices]),
-                                  shape=shape, dtype=np.uint8, device=device)
+                                  shape=shape, dtype=np.uint8, device=device,
+                                  tenant=tname)
         lbls = torch.from_numpy(shards.labels(indices)).to(device)
         return imgs, lbls
 
@@ -549,10 +571,11 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
     # later epoch into RAM copies end to end
     ra = _make_readahead(ctx, sampler,
                          lambda indices: shards.extents([int(i)
-                                                         for i in indices]))
+                                                         for i in indices]),
+                         tenant=tname)
     return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
                     max_depth=max_depth, fingerprint=fp,
-                    on_close=ra.close if ra else None)
+                    on_close=ra.close if ra else None, scope=pscope)
 
 
 def make_imagenet_resnet_pipeline(ctx: StromContext, paths: Sequence[str], *,

@@ -1303,3 +1303,58 @@ def test_load_into_a_captured_state_continues_the_run(cuda_device, tmp_path):
         assert torch.equal(a, c) and torch.equal(b, d)
     for k, v in state.model.state_dict().items():
         assert torch.equal(v, other.model.state_dict()[k]), k
+
+
+def test_spill_served_delivery_is_exact_on_the_card(cuda_device, tmp_path):
+    """A second pass of memcpy_ssd2gpu over a working set four times the
+    hot cache is served by RAM and the spill file, no source byte read,
+    and lands on the card exactly."""
+    rng = np.random.default_rng(21)
+    path = str(tmp_path / "spill_src.bin")
+    data = rng.integers(0, 1 << 15, 4 * MiB // 4, dtype=np.int32)
+    data.tofile(path)
+    rec = 64 * 1024
+    with StromContext(StromConfig(
+            hot_cache_bytes=MiB, hot_cache_admit="always",
+            spill_bytes=16 * MiB, spill_dir=str(tmp_path))) as ctx:
+        for epoch in range(2):
+            for off in range(0, data.nbytes, rec):
+                got = ctx.memcpy_ssd2gpu(path, offset=off, length=rec,
+                                         dtype=np.int32, device=cuda_device,
+                                         tenant="vis")
+                want = torch.from_numpy(data[off // 4: (off + rec) // 4])
+                assert got.is_cuda and torch.equal(got.cpu(), want)
+            if epoch == 0:
+                miss1 = ctx.stats()["cache"]["cache_miss_bytes"]
+        st = ctx.stats()
+        assert st["cache"]["cache_miss_bytes"] == miss1 == data.nbytes
+        assert st["spill"]["spill_hit_bytes"] > 0
+        assert st["spill"]["spill_errors"] == 0
+        assert st["sched"]["sched_active_grants"] == 0
+
+
+def test_cancelled_tenant_stream_releases_its_grant_on_the_card(
+        cuda_device, tmp_path):
+    """A tenant's streamed gather into a pinned slab, cancelled in the
+    middle, hands the engine back; the next tenant's delivery to the card
+    is exact."""
+    rng = np.random.default_rng(22)
+    path = str(tmp_path / "stream_src.bin")
+    data = rng.integers(0, 256, 32 * MiB, dtype=np.uint8)
+    data.tofile(path)
+    from strom_torch.delivery.shard import Segment
+
+    with StromContext(StromConfig(queue_depth=4)) as ctx:
+        sched = ctx.scheduler
+        slab = ctx.host_batch((16 * MiB,), cuda_device)
+        segs = [Segment((2 * i + 1) * MiB, i * MiB, MiB) for i in range(16)]
+        g = ctx.stream_segments(path, segs, slab, tenant="vis")
+        assert sched.tenant("vis").active == 1
+        g.poll(min_completions=1, timeout_s=10.0)
+        g.close()
+        assert sched.tenant("vis").active == 0 and sched.engine_idle()
+        ctx.release_host_batch(slab, cuda_device)
+        got = ctx.memcpy_ssd2gpu(path, device=cuda_device, tenant="pq")
+        assert torch.equal(got.cpu(), torch.from_numpy(data))
+        assert sched.tenant("pq").granted_bytes == data.nbytes
+        assert ctx.stats()["sched"]["sched_active_grants"] == 0

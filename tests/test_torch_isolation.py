@@ -168,3 +168,15 @@ def test_pyarrow_is_imported_only_inside_functions():
     # and the modules that use it do import it somewhere
     assert re.search(r"^\s+import pyarrow", (
         PKG / "formats" / "parquet.py").read_text(), re.MULTILINE)
+
+
+def test_scan_covers_the_scheduler_and_utils():
+    """The source scan reaches the scheduler, the stats registry, the
+    codec and the spill tier, and none of them imports jax or strom."""
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    assert {"sched/__init__.py", "sched/scheduler.py", "sched/budget.py",
+            "sched/tenant.py", "utils/__init__.py", "utils/stats.py",
+            "utils/codec.py", "delivery/spill.py"} <= names
+    for sub in ("sched", "utils"):
+        for f in (PKG / sub).rglob("*.py"):
+            assert not _FORBIDDEN.search(f.read_text()), f
