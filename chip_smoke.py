@@ -55,13 +55,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the context's engine alone on the cold file, alternating,
                exact, with vs_raw; one more memcpy_ssd2host of the file
                warm in the page cache, with the engine's cached_bytes.
-               [sched]: 2 rounds of the 1 GiB streamed delivery through a
+               [sched]: 6 rounds of the 1 GiB streamed delivery through a
                context with the multi-tenant scheduler (the default) and
                one with sched_enabled=False, beside the engine alone, in
                alternating order: each arm's GB/s, both deliveries' ratio
                to the engine alone, exact bytes, and the scheduler's
                stats(), whose granted bytes must equal the bytes delivered
-               through it. Last, the file striped RAID0 over 4 member
+               through it; whether the circuit breaker was on (it is by
+               default); the median ratio with the scheduler must reach
+               0.90 (SCHED_LIMIT). Last, the file striped RAID0 over 4 member
                files, checked with check_file, and delivered through a
                striped alias under 4 rings and under 1, exact.
 4. train    -- seeded packed-token shards through make_llama_pipeline into
@@ -87,11 +89,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
                captured steps, then save_checkpoint of train_state_tree
                (about 8.9 GB: bf16 parameters and AdamW moments, the step
                tensors, the lr, the scheduler, the step) with its
-               StepToken (the loader's state): bytes, leaves, MB/s with
+               StepToken (pipe.token(ctx)): bytes, leaves, MB/s with
                the commit, the device-to-host share; 3 more steps of the
                uninterrupted run; restore_checkpoint onto a fresh state on
                the card (load_train_state) and a fresh pipeline from the
-               token, every leaf equal to the saved one (ckpt_roundtrip_ok)
+               token (a fresh pipeline moved there by restore(token)),
+               every leaf equal to the saved one (ckpt_roundtrip_ok)
                and restore MB/s; 3 resumed steps on a new captured step,
                whose losses, grad norms and final leaves must equal the
                uninterrupted run's bit for bit (resume_ok), the flash
@@ -205,8 +208,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
                and capture steps, then 16 timed), vis0 (training: phase
                6's shard through the predecoded loader alone, 48 batches
                of 128) and pq (interactive: phase 9's narrow scan, 12
-               times). Each solo, then the three at once on threads (after
-               Llama's capture), then at once with sched_enabled=False. Per
+               times). Each solo, then the three started at once on
+               threads (Llama captures while the loader makes its first
+               batches), then at once with sched_enabled=False. Per
                tenant the SCHED_FIELDS (items/s, vs_solo, queue-wait p50
                and p99, granted ops and bytes, throttle waits, the engine's
                per-op p99), mt_vs_solo_mean, Llama's timed data stalls, and
@@ -214,6 +218,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
                concurrent Llama losses must equal solo's bit for bit (both
                modes), every pq count is exact, and the Llama tenant must
                launch the three sm90 kernels.
+11. resilience -- [chaos]: the reference's bench_chaos. Phase 7's JPEG
+               tar through make_imagenet_resnet_pipeline (skipped= where
+               phase 7 was) and phase 6's predecoded shard through
+               make_predecoded_vision_pipeline, batch 128 into device
+               memory, 4 batches, residency_hybrid off and io_retries 3:
+               once clean, once under fault_plan="chaos:0"; every batch
+               hashed after .cpu(); the CHAOS_BENCH_FIELDS, chaos_ok must
+               be 1 and chaos_faults_injected above 0 (chaos_hedges_fired
+               is 0: hedged reads are not ported). [breaker]: a seeded 256
+               MiB file through memcpy_ssd2gpu with the engine dead from
+               op 16 (breaker_min_events 1): exact, at least one trip,
+               failover_bytes covering the rest; then 64 MiB while the
+               breaker is open: exact, no op on the primary. [deadline]:
+               a 0.5 s latency on every read, pread(deadline_s=0.05) must
+               raise DeadlineExceeded within 0.05 s plus the 1 s drain
+               grace; a tenant queued behind a held grant with a 0.2 s
+               deadline leaves the queue at it. [handle]: 64 and 256 MiB
+               async deliveries, block_until_ready(), the tensor read on a
+               fresh stream with no synchronize: exact; elapsed_s.
+               [resume]: the reference's bench_resume phase 2,
+               run_kill_resume(seed=1) (three trainer processes: the
+               reference run, one SIGKILLed mid-epoch, the restart):
+               RESUME_FIELDS, resume_ok must be 1, the first resumed
+               serial the committed token's, no tmp checkpoint left.
 
 Each phase prints its own lines. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -225,6 +253,7 @@ from __future__ import annotations
 
 import dataclasses
 import errno
+import hashlib
 import json
 import math
 import os
@@ -248,12 +277,15 @@ from strom_torch.ckpt import (AsyncCheckpointer, load_manifest, load_pickle,
                               save_pickle)
 from strom_torch.ckpt.checkpoint import (_host_leaves, tree_flatten,
                                          tree_unflatten)
-from strom_torch.ckpt.jobstate import TOKEN_KEY, StepToken
+from strom_torch.ckpt.jobstate import RESUME_FIELDS, TOKEN_KEY, StepToken
 from strom_torch.delivery.buffers import alloc_aligned
 from strom_torch.delivery.core import StripedFile, StromContext
 from strom_torch.delivery.extents import Extent, ExtentList
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
+from strom_torch.engine.base import DeadlineExceeded
+from strom_torch.engine.resilience import (CHAOS_BENCH_FIELDS,
+                                           RESILIENCE_FIELDS)
 from strom_torch.engine import uring_engine
 from strom_torch.engine.python_engine import PythonEngine
 from strom_torch.engine.raid0 import stripe_file
@@ -279,7 +311,8 @@ from strom_torch.pipelines.parquet_scan import (parquet_count_where,
                                                 parquet_scan_aggregate)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 from strom_torch.utils.codec import default_codec
-from strom_torch.utils.stats import percentile_from_buckets
+from strom_torch.faults import run_kill_resume
+from strom_torch.utils.stats import global_stats, percentile_from_buckets
 from strom_torch.pipelines.vision import (make_imagenet_resnet_pipeline,
                                           make_predecoded_vision_pipeline,
                                           make_vit_wds_pipeline,
@@ -911,7 +944,11 @@ def _engine_only(eng, fi: int, slab: np.ndarray, path: str) -> tuple[float, floa
     return GiB / dt / 1e9, cpu
 
 
-SCHED_ROUNDS = 4
+SCHED_ROUNDS = 6
+# delivered with the scheduler (and the breaker) on, over the engine alone,
+# median of SCHED_ROUNDS: below it the phase fails. A single round read
+# 0.848-1.227 on an H100 80GB HBM3 at 700 W, so the check is on the median
+SCHED_LIMIT = 0.90
 # the engine-alone median of phase 3's [sched] arms, GB/s: phase 10 prices
 # one scheduler slice at it
 ENGINE_ALONE_GBPS: list[float] = []
@@ -958,7 +995,12 @@ def _sched_arms(path: str, want: torch.Tensor, eng, fi: int,
     sched = ctxs["sched_on"].scheduler
     st = sched.stats()
     tenant = sched.tenant(None)
+    on_vs = statistics.median(res["sched_on"]) / statistics.median(
+        res["engine"])
     say("sched", **{k: v for k, v in st.items()},
+        breaker_on=ctxs["sched_on"].resilience.breaker is not None,
+        breaker_state=ctxs["sched_on"].stats()["resilience"]["state"],
+        limit=SCHED_LIMIT, sched_on_limit_met=on_vs >= SCHED_LIMIT,
         slice_bytes=sched._slice_bytes(),
         default_tenant_granted_ops=tenant.granted_ops,
         default_tenant_granted_bytes=tenant.granted_bytes,
@@ -968,13 +1010,18 @@ def _sched_arms(path: str, want: torch.Tensor, eng, fi: int,
            f"{statistics.median(res[a]) / statistics.median(res['engine']):.4f}"
            for a in arms[1:]})
     ENGINE_ALONE_GBPS.append(statistics.median(res["engine"]))
+    for c in ctxs.values():
+        c.close()
     if st["sched_granted_bytes"] != (SCHED_ROUNDS + 1) * GiB \
             or st["sched_active_grants"] != 0:
         raise AssertionError(f"sched: granted {st['sched_granted_bytes']} "
                              f"bytes for {SCHED_ROUNDS + 1} GiB delivered: "
                              f"{st}")
-    for c in ctxs.values():
-        c.close()
+    if on_vs < SCHED_LIMIT:
+        raise AssertionError(f"sched: delivery with the scheduler and the "
+                             f"breaker on ran {on_vs:.4f} x the engine "
+                             f"alone (median of {SCHED_ROUNDS}), below "
+                             f"{SCHED_LIMIT}")
 
 
 def phase_ssd2gpu(workdir: str) -> str:
@@ -1457,9 +1504,10 @@ def phase_ckpt(workdir: str) -> dict[str, int]:
 
     # the blocking save at step k, with its resume token
     tree = train_state_tree(state)
-    token = StepToken(sampler=pipe.state(), consumed=CKPT_STEPS,
-                      prefetch_depth=pipe.prefetch_depth,
-                      fingerprint=pipe.fingerprint)
+    token = pipe.token(ctx)
+    if token.consumed != CKPT_STEPS or token.sampler != pipe.state():
+        raise AssertionError(f"ckpt: pipe.token() says {token}, the "
+                             f"pipeline consumed {CKPT_STEPS}")
     # the state at step k, copied to the host: the roundtrip's and the
     # pickle's reference
     t0 = time.perf_counter()
@@ -1510,7 +1558,8 @@ def phase_ckpt(workdir: str) -> dict[str, int]:
                              f"{off_card} left the card")
     load_train_state(fresh, restored)
     del restored, got
-    resumed = pipeline(StepToken.from_manifest(load_manifest(d1)).sampler)
+    resumed = pipeline().restore(
+        StepToken.from_manifest(load_manifest(d1)))
     resumed_step = make_train_step(cfg, attn="flash", device=dev)
     fa.reset_launch_counts()
     fresh, after = _run_steps(resumed_step, fresh, resumed, RESUME_STEPS)
@@ -3001,6 +3050,8 @@ def phase_multitenant(workdir: str, pdec: str, pq_paths: list[str],
                 errs.append((name, e))
                 readies[name].set()
 
+        # all three start together: Llama warms up and captures its step
+        # while the loader makes its first batches on another thread
         ths = [threading.Thread(target=run, args=(n,), name=f"mt-{n}")
                for n in workloads]
         for t in ths:
@@ -3087,6 +3138,261 @@ def phase_multitenant(workdir: str, pdec: str, pq_paths: list[str],
         raise AssertionError("multitenant: llama losses with the scheduler "
                              "off differ from the solo run's")
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------- resilience (11)
+CHAOS_BATCHES = 4
+CHAOS_BATCH = 128
+BREAKER_BYTES = 256 * MiB
+# the drain grace after a deadline miss (strom_torch/engine/base.py's
+# read_vectored: min(engine_wait_timeout_s, 1.0))
+DEADLINE_GRACE_S = 1.0
+
+
+def _resil_counts() -> dict:
+    """The process-wide resilience counters (RESILIENCE_FIELDS)."""
+    return {k: global_stats.counter(k).value for k in RESILIENCE_FIELDS
+            if k != "breaker_state"}
+
+
+def _chaos_pass(make_pipe, plan: str) -> tuple[float, list[str], int]:
+    """One pass of CHAOS_BATCHES batches through a fresh context: images
+    a second, each batch's hash after .cpu(), the faults injected. The
+    residency hybrid is off, so the plan sees the media op stream."""
+    cfg = StromConfig.from_env(residency_hybrid=False, io_retries=3,
+                               fault_plan=plan)
+    ctx = StromContext(cfg)
+    try:
+        with make_pipe(ctx) as pipe:
+            hashes = []
+            t0 = time.perf_counter()
+            for _ in range(CHAOS_BATCHES):
+                imgs, lbls = next(pipe)
+                h = hashlib.sha256(imgs.cpu().numpy().tobytes())
+                h.update(lbls.cpu().numpy().tobytes())
+                hashes.append(h.hexdigest())
+            dt = time.perf_counter() - t0
+        plan_obj = getattr(ctx.engine, "plan", None)
+        injected = plan_obj.stats()["faults_injected"] if plan_obj else 0
+        return CHAOS_BATCHES * CHAOS_BATCH / dt, hashes, injected
+    finally:
+        ctx.close()
+
+
+def _chaos_arm(arm: str, path: str, make_pipe) -> None:
+    """The reference's bench_chaos: the loader clean, then under chaos:0;
+    the faulted pass must finish with the clean pass's batches."""
+    _drop_cache(path)
+    clean_rate, clean, _ = _chaos_pass(make_pipe, "")
+    before = _resil_counts()
+    _drop_cache(path)
+    faulty_rate, faulty, injected = _chaos_pass(make_pipe, "chaos:0")
+    d = {k: v - before[k] for k, v in _resil_counts().items()}
+    out = {"chaos_ok": int(bool(clean) and clean == faulty),
+           "chaos_slowdown": f"{clean_rate / faulty_rate:.3f}",
+           "chaos_clean_images_per_s": f"{clean_rate:.1f}",
+           "chaos_faulty_images_per_s": f"{faulty_rate:.1f}",
+           "chaos_faults_injected": injected,
+           "chaos_chunk_retries": d["chunk_retries"],
+           "chaos_failover_reads": d["failover_reads"],
+           "chaos_breaker_trips": d["breaker_trips"],
+           "chaos_hedges_fired": d["hedges_fired"]}
+    assert set(out) == set(CHAOS_BENCH_FIELDS)
+    say("chaos", arm=arm, fault_plan="chaos:0", batches=CHAOS_BATCHES,
+        batch=CHAOS_BATCH, **out,
+        hedges="not_ported_yet_so_chaos_hedges_fired_is_0",
+        retry_backoff_waits=d["retry_backoff_waits"],
+        retry_budget_exhausted=d["retry_budget_exhausted"])
+    if out["chaos_ok"] != 1 or injected <= 0:
+        raise AssertionError(f"chaos {arm}: batches under chaos:0 differ "
+                             f"from the clean pass's, or no fault was "
+                             f"injected ({injected})")
+
+
+def _breaker_arm(path: str, want: torch.Tensor) -> None:
+    """memcpy_ssd2gpu of 256 MiB with the engine dead from op 16: the
+    gather that fails trips the breaker (breaker_min_events=1) and is read
+    by the fallback engine; the next delivery goes straight there. Both
+    deliver to *want*'s device."""
+    plan = json.dumps({"seed": 0, "rules": [{"kind": "engine_death",
+                                             "op_lo": 16}]})
+    cfg = StromConfig.from_env(residency_hybrid=False, fault_plan=plan,
+                               breaker_min_events=1, breaker_cooldown_s=60.0)
+    ctx = StromContext(cfg)
+    try:
+        before = _resil_counts()
+        t0 = time.perf_counter()
+        got = ctx.memcpy_ssd2gpu(path, device=want.device)
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        d = {k: v - before[k] for k, v in _resil_counts().items()}
+        st = ctx.stats()
+        landed = 16 * ctx.config.block_size
+        exact = torch.equal(got, want)
+        say("breaker", bytes=BREAKER_BYTES, death_at_op=16,
+            breaker_min_events=1, s=f"{dt:.3f}",
+            gbps=f"{BREAKER_BYTES / dt / 1e9:.3f}", exact=exact,
+            breaker_trips=d["breaker_trips"],
+            failover_reads=d["failover_reads"],
+            failover_bytes=d["failover_bytes"],
+            chunk_retries=d["chunk_retries"],
+            state=st["resilience"]["state"],
+            engine_dead=st["resilience"]["fault_plan"]["engine_dead"])
+        if not exact or d["breaker_trips"] < 1 \
+                or d["failover_bytes"] < BREAKER_BYTES - landed:
+            raise AssertionError("breaker: the delivery over a dead engine "
+                                 "was not exact, tripped nothing, or the "
+                                 "fallback did not cover the rest")
+        ops = ctx.engine.plan.stats()["ops_seen"]
+        before = _resil_counts()
+        got = ctx.memcpy_ssd2gpu(path, length=64 * MiB, device=want.device)
+        d = {k: v - before[k] for k, v in _resil_counts().items()}
+        straight = ctx.engine.plan.stats()["ops_seen"] == ops
+        exact = torch.equal(got, want[:64 * MiB])
+        say("breaker", arm="while_open", bytes=64 * MiB, exact=exact,
+            primary_ops=ctx.engine.plan.stats()["ops_seen"] - ops,
+            failover_bytes=d["failover_bytes"], straight_to_fallback=straight)
+        if not (exact and straight and d["failover_bytes"] == 64 * MiB):
+            raise AssertionError("breaker: a delivery while the breaker is "
+                                 "open touched the primary or was not exact")
+    finally:
+        ctx.close()
+
+
+def _deadline_arm(path: str) -> None:
+    """A pread under a 0.5 s latency on every read with deadline_s=0.05
+    raises DeadlineExceeded within the deadline plus the drain grace; a
+    tenant queued behind a held grant leaves the queue at its deadline."""
+    plan = json.dumps({"seed": 0, "rules": [{"kind": "latency",
+                                             "latency_s": 0.5}]})
+    ctx = StromContext(StromConfig.from_env(residency_hybrid=False,
+                                            fault_plan=plan))
+    try:
+        before = _resil_counts()
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            ctx.pread(path, 0, 4 * MiB, deadline_s=0.05)
+        except DeadlineExceeded as e:
+            raised = e
+        dt = time.perf_counter() - t0
+        d = {k: v - before[k] for k, v in _resil_counts().items()}
+        ok = raised is not None and dt < 0.05 + DEADLINE_GRACE_S
+        say("deadline", arm="latency", latency_s=0.5, deadline_s=0.05,
+            raised=type(raised).__name__ if raised else "nothing",
+            s_to_raise=f"{dt:.4f}", bound_s=0.05 + DEADLINE_GRACE_S,
+            deadline_exceeded=d["deadline_exceeded"], within_bound=ok)
+        if not ok or d["deadline_exceeded"] < 1:
+            raise AssertionError(f"deadline: pread raised {raised!r} after "
+                                 f"{dt:.3f} s")
+    finally:
+        ctx.close()
+    ctx = StromContext(StromConfig.from_env())
+    try:
+        sched = ctx.scheduler
+        ctx.register_tenant("holder")
+        ctx.register_tenant("late")
+        w = sched.acquire("holder", 1)
+        got: dict = {}
+
+        def late() -> None:
+            t = time.perf_counter()
+            try:
+                ctx.pread(path, 0, MiB, tenant="late", deadline_s=0.2)
+            except DeadlineExceeded as e:
+                got["e"] = e
+            got["s"] = time.perf_counter() - t
+
+        th = threading.Thread(target=late)
+        th.start()
+        th.join(10.0)
+        queued = len(sched.tenant("late").queue)
+        sched.release(w)
+        ok = isinstance(got.get("e"), DeadlineExceeded) \
+            and 0.2 <= got["s"] < 0.2 + DEADLINE_GRACE_S and queued == 0
+        say("deadline", arm="queued_behind_grant", deadline_s=0.2,
+            raised=type(got.get("e")).__name__,
+            s_to_dequeue=f"{got.get('s', -1):.4f}", left_queued=queued,
+            dequeued_at_deadline=ok)
+        if not ok:
+            raise AssertionError(f"deadline: the queued tenant was not "
+                                 f"dequeued at its deadline: {got}")
+    finally:
+        ctx.close()
+
+
+def _resume_arm(workdir: str) -> None:
+    """The reference's bench_resume phase 2: run_kill_resume(seed=1) on
+    the card host's disk."""
+    wd = os.path.join(workdir, "resume")
+    t0 = time.perf_counter()
+    out = run_kill_resume(wd, seed=1)
+    dt = time.perf_counter() - t0
+    served = []
+    with open(os.path.join(wd, "batches_resume.log")) as f:
+        served = [int(ln.split()[0]) for ln in f if ln.strip()]
+    leftovers = sorted(os.path.basename(p) for p in os.listdir(wd)
+                       if p.startswith(("ckpt.tmp-", "ckpt.old-")))
+    first = served[0] if served else -1
+    say("resume", **{k: out[k] for k in RESUME_FIELDS},
+        resume_first_batch_s=out["resume_first_batch_s"],
+        resume_total_steps=out["resume_total_steps"],
+        first_resumed_serial=first, tmp_left=len(leftovers),
+        harness_s=f"{dt:.2f}", failures=json.dumps(out["failures"]))
+    if out["resume_ok"] != 1 or first != out["resume_restart_step"] \
+            or leftovers:
+        raise AssertionError(f"resume: {out['failures']} first resumed "
+                             f"serial {first}, leftovers {leftovers}")
+
+
+def _handle_arm(path: str, want: torch.Tensor) -> None:
+    """block_until_ready(), then the tensor read on a fresh stream with no
+    synchronize: exact."""
+    ctx = StromContext(StromConfig.from_env())
+    try:
+        for length in (64 * MiB, BREAKER_BYTES):
+            h = ctx.memcpy_ssd2gpu(path, length=length, async_=True)
+            t = h.block_until_ready()
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                host = t.to("cpu")
+            exact = torch.equal(host, want[:length].cpu())
+            say("handle", bytes=length, exact=exact,
+                elapsed_s=f"{h.elapsed_s:.4f}",
+                events=len(h._ready), exception=h.exception())
+            if not exact or not h._ready:
+                raise AssertionError("handle: the tensor read on a fresh "
+                                     "stream after block_until_ready() "
+                                     "differs from the file")
+    finally:
+        ctx.close()
+
+
+def phase_resilience(workdir: str, pdec: str, tar: str | None) -> None:
+    """Phase 11: the chaos arms, the breaker, deadlines, kill-and-resume
+    and the handle's barrier."""
+    cuda = torch.device("cuda")
+    if tar is None:
+        say("chaos", arm="jpeg", skipped=NO_JPEG)
+    else:
+        _chaos_arm("jpeg", tar, lambda ctx: make_imagenet_resnet_pipeline(
+            ctx, [tar], batch=CHAOS_BATCH, device=cuda))
+    _chaos_arm("predecoded", pdec,
+               lambda ctx: make_predecoded_vision_pipeline(
+                   ctx, [pdec], batch=CHAOS_BATCH, image_size=IMAGE,
+                   device=cuda))
+    path = os.path.join(workdir, "resilience.bin")
+    data = np.random.default_rng(11).integers(0, 256, BREAKER_BYTES,
+                                              dtype=np.uint8)
+    _write_file(path, data)
+    want = torch.from_numpy(data).to(cuda)
+    _breaker_arm(path, want)
+    _deadline_arm(path)
+    _handle_arm(path, want)
+    del want
+    os.unlink(path)
+    _resume_arm(workdir)
 
 
 PROFILE_PAD_S = 0.1   # on the card, ~15 us of drift a second of process age
@@ -3198,6 +3504,7 @@ def main() -> int:
         phase_vit(pdec, tar)
         pq_paths, pq_hits = phase_parquet(workdir, tar)
         phase_multitenant(workdir, pdec, pq_paths, pq_hits)
+        phase_resilience(workdir, pdec, tar)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

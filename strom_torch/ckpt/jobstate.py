@@ -19,7 +19,8 @@ durable.
 
 The context's counters are not yet folded into the stats registry, so
 :func:`set_resume_gauges` sets the verdict's numbers as counters of
-``ctx.stats()``.
+``ctx.stats()`` when it is given a context, and as gauges of the
+process-wide registry otherwise.
 """
 
 from __future__ import annotations
@@ -147,9 +148,18 @@ def restore_warm_state(ctx, warm: "dict | None") -> int:
     return warmed
 
 
-def set_resume_gauges(results: dict, ctx) -> None:
+def set_resume_gauges(results: dict, ctx=None) -> None:
     """Every numeric RESUME_FIELDS value of a verdict (a bool as 0 or 1)
-    set as a counter of ``ctx.stats()``."""
-    ctx.set_counters(**{k: int(v) if isinstance(v, bool) else v
-                        for k in RESUME_FIELDS
-                        if isinstance(v := results.get(k), (int, float))})
+    set as a counter of ``ctx.stats()``; without a *ctx* (the harness's
+    own process), as gauges of the process-wide stats registry, as the
+    reference sets them."""
+    vals = {k: int(v) if isinstance(v, bool) else v
+            for k in RESUME_FIELDS
+            if isinstance(v := results.get(k), (int, float))}
+    if ctx is not None:
+        ctx.set_counters(**vals)
+        return
+    from strom_torch.utils.stats import global_stats
+
+    for k, v in vals.items():
+        global_stats.set_gauge(k, v)

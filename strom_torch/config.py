@@ -61,9 +61,35 @@ class StromConfig:
     residency_hybrid: bool = True
     raid_chunk: int = 512 * KiB        # RAID0 stripe chunk
     fault_every: int = 0               # fail every Nth op with EIO (tests)
+    # retry backoff (engine/resilience.py): a failed transient piece waits
+    # base * 2^attempts, jittered and capped at the max, before its
+    # resubmit; the per-gather budget bounds the resubmits of one transfer
+    io_retry_backoff_s: float = 0.005
+    io_retry_backoff_max_s: float = 0.2
+    io_retry_budget: int = 64
     # the longest a gather waits with no progress before it raises
     # EngineStallError naming the stuck ops
     engine_wait_timeout_s: float = 30.0
+    # default request deadline in seconds (0 = none): a demand gather's
+    # request carries it, and the scheduler's queue waits, the engine's
+    # waits and the retry backoff stop at it (DeadlineExceeded). A
+    # per-call deadline_s= wins
+    request_deadline_s: float = 0.0
+    # per-engine circuit breaker (delivery/resilient.py): trips open at an
+    # error rate >= breaker_error_rate over a rolling window holding >=
+    # breaker_min_events outcomes; while open, demand reads and failed
+    # streamed chunks go to a fallback preadv pool; after the cooldown,
+    # half-open probes (breaker_half_open_successes in a row) close it
+    breaker_enabled: bool = True
+    breaker_window_s: float = 10.0
+    breaker_min_events: int = 8
+    breaker_error_rate: float = 0.5
+    breaker_cooldown_s: float = 5.0
+    breaker_half_open_successes: int = 3
+    # a seeded fault plan (faults/plan.py): a JSON file path, an inline
+    # JSON object or a preset ("chaos[:seed]", "chaos_writes[:seed]",
+    # "chaos_net[:seed]"). Non-empty wraps the engine in FaultyEngine
+    fault_plan: str = ""
 
     # delivery
     # extent-aware gather planning: split plain-file chunks at FIEMAP extent
@@ -185,6 +211,14 @@ class StromConfig:
             raise ValueError("coalesce_max_bytes must be >= 0 (0 = off)")
         if self.engine_wait_timeout_s <= 0:
             raise ValueError("engine_wait_timeout_s must be positive")
+        if self.io_retry_backoff_s < 0 or self.io_retry_backoff_max_s < 0:
+            raise ValueError("io_retry_backoff(_max)_s must be >= 0")
+        if self.io_retry_budget < 0:
+            raise ValueError("io_retry_budget must be >= 0")
+        if self.request_deadline_s < 0:
+            raise ValueError("request_deadline_s must be >= 0 (0 = none)")
+        if not 0.0 < self.breaker_error_rate <= 1.0:
+            raise ValueError("breaker_error_rate must be in (0, 1]")
         if self.stripe_window_bytes < -1:
             raise ValueError("stripe_window_bytes must be >= 0 (0 = off) "
                              "or exactly -1 (auto)")

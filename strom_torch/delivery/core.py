@@ -39,6 +39,16 @@ The write path runs the other way: ``pwrite`` and ``write_chunks`` hand
 host bytes to the engine's write scatter (``Engine.write_vectored``), one
 grant a slice, count them in ``host2ssd_bytes``, and drop what the context
 cached of the path afterwards (``invalidate_file``).
+
+Failures: every demand gather is a traced request (``obs/request.py``)
+that may carry a deadline (``deadline_s=`` on ``pread``, else
+``request_deadline_s``); the scheduler's queue, its slices and the
+engine's waits stop at it with ``DeadlineExceeded``. The gather's outcome
+feeds a per-engine circuit breaker (``delivery/resilient.py``): the gather
+that trips it, and every gather while it is open, is read by a fallback
+preadv pool under the tenant's grants (``failover_reads``). With
+``fault_plan`` set, the engine is wrapped in ``faults.FaultyEngine``
+before anything binds it.
 """
 
 from __future__ import annotations
@@ -65,11 +75,15 @@ from strom_torch.delivery.coalesce import coalesce_chunks, coalesce_segments
 from strom_torch.delivery.extents import ExtentList
 from strom_torch.delivery.handle import DMAHandle, deferred_handle
 from strom_torch.delivery.hotcache import HotCache
+from strom_torch.delivery.resilient import ResilientIo
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
-from strom_torch.engine.base import Engine, EngineError
+from strom_torch.engine.base import (DeadlineExceeded, Engine, EngineError,
+                                     EngineStallError)
 from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX, plan_stripe_reads,
                                       plan_stripe_windows)
+from strom_torch.engine.resilience import RESILIENCE_FIELDS, classify_errno
+from strom_torch.obs import request as _request
 from strom_torch.probe.fiemap import fiemap
 from strom_torch.utils.stats import global_stats
 
@@ -319,6 +333,15 @@ class StromContext:
                  scope: "dict | None | object" = None):
         self.config = config or StromConfig.from_env()
         self.engine = engine or make_engine(self.config)
+        # a fault plan wraps the engine before anything (the scheduler, the
+        # resilience layer, the locks) binds it: every read this context
+        # issues runs under the plan's seeded chaos
+        if self.config.fault_plan:
+            from strom_torch.faults import FaultPlan, FaultyEngine
+
+            if not isinstance(self.engine, FaultyEngine):
+                self.engine = FaultyEngine(
+                    self.engine, FaultPlan.from_spec(self.config.fault_plan))
         if scope is None:
             self.scope = global_stats
         elif isinstance(scope, dict):
@@ -364,6 +387,11 @@ class StromContext:
             self._scheduler = IoScheduler(self.engine, self.config,
                                           pool=self._slab_pool,
                                           scope=self.scope)
+        # the circuit breaker and the fallback engine: every demand
+        # gather's outcome feeds the breaker; while it is open, reads go to
+        # the fallback under the tenant's grants
+        self._resilience = ResilientIo(self.config, self.engine,
+                                       scope=self.scope)
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
             {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
@@ -502,6 +530,12 @@ class StromContext:
         """The NVMe spill tier under the hot cache when ``spill_bytes > 0``
         (and a hot cache exists), else None."""
         return self._spill
+
+    @property
+    def resilience(self):
+        """The circuit breaker and failover layer
+        (:class:`strom_torch.delivery.resilient.ResilientIo`)."""
+        return self._resilience
 
     @property
     def scheduler(self):
@@ -765,7 +799,8 @@ class StromContext:
 
     def _read_segments(self, source: Source, segments: Sequence[Segment],
                        dest: "np.ndarray | None", base_offset: int = 0, *,
-                       _warm: bool = False, tenant: str | None = None) -> int:
+                       _warm: bool = False, tenant: str | None = None,
+                       deadline_s: "float | None" = None) -> int:
         """Read (file_offset+base_offset → dest_offset) segments into *dest*,
         chunked at block_size, pipelined at queue_depth. Raises EngineError
         on any failed or short chunk.
@@ -778,10 +813,15 @@ class StromContext:
         with ``sched_enabled=False``). ``_warm=True`` is the readahead path
         (:meth:`warm`): cached ranges are skipped, *dest* may be None,
         misses are read in engine-budget slices that yield to demand reads
-        and force-admitted, and a short pass returns quietly."""
-        chunks, idx_paths = self._plan(source, segments, base_offset)
-        cache = self._active_cache()
+        and force-admitted, and a short pass returns quietly.
+
+        A demand gather is (or joins) a traced ``gather`` request; a
+        request it mints carries *deadline_s* (else the config's
+        ``request_deadline_s``). Its outcome feeds the circuit breaker,
+        which may send it to the fallback engine (:meth:`_demand_read`)."""
         if _warm:
+            chunks, idx_paths = self._plan(source, segments, base_offset)
+            cache = self._active_cache()
             if cache is None:
                 return 0
             if chunks:
@@ -790,6 +830,23 @@ class StromContext:
                                                    tenant=tenant)
             return self._warm_read_chunks(cache, chunks, dest, idx_paths,
                                           tenant)
+        with _request.active("gather", tenant) as req:
+            # a deadline binds a gather request only: a pipeline's
+            # enclosing batch or step request keeps its own contract
+            if req.kind == "gather":
+                req.set_deadline_s(deadline_s if deadline_s is not None
+                                   else (self.config.request_deadline_s
+                                         or None))
+            chunks, idx_paths = self._plan(source, segments, base_offset)
+            return self._demand_read(chunks, idx_paths, dest, tenant)
+
+    def _demand_read(self, chunks: list[tuple[int, int, int, int]],
+                     idx_paths: dict[int, str], dest: np.ndarray,
+                     tenant: str | None) -> int:
+        """The demand half of :meth:`_read_segments` after planning: the
+        cache consult, the engine gather under the breaker (one grant a
+        slice, failover slices too), the byte check and the admissions."""
+        cache = self._active_cache()
         cache_hit = 0
         dflat = None
         if cache is not None and chunks:
@@ -801,15 +858,35 @@ class StromContext:
         total = 0
         if chunks:
             retries = self.config.io_retries
+            sched = self._scheduler
+
+            def primary() -> int:
+                if sched is not None:
+                    return sched.read_chunks(chunks, dest, tenant=tenant,
+                                             retries=retries)
+                with self._engine_lock:
+                    return self.engine.read_vectored(chunks, dest,
+                                                     retries=retries)
+
+            def arbitrate(read_slice) -> int:
+                # failover reads stay under the tenant's grants, one a
+                # slice, as the primary's; a thread that already holds a
+                # grant (a spill demotion's) must not queue for another
+                if sched is None or sched.held_by_me():
+                    return read_slice(chunks)
+                n = 0
+                for sl in sched.iter_slices(chunks):
+                    with sched.grant(tenant, sum(c[3] for c in sl)):
+                        n += read_slice(sl)
+                return n
+
             try:
                 with self._demand_gate():
-                    if self._scheduler is not None:
-                        total = self._scheduler.read_chunks(
-                            chunks, dest, tenant=tenant, retries=retries)
-                    else:
-                        with self._engine_lock:
-                            total = self.engine.read_vectored(
-                                chunks, dest, retries=retries)
+                    total = self._resilience.execute(
+                        primary, chunks, dest, idx_paths,
+                        arbitrate=arbitrate)
+            except (DeadlineExceeded, EngineStallError):
+                raise   # typed failures keep their class
             except EngineError as e:
                 raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
         if total != planned:
@@ -940,11 +1017,17 @@ class StromContext:
 
     def pread(self, source: Source, offset: int = 0,
               length: int | None = None, *,
-              tenant: str | None = None) -> np.ndarray:
+              tenant: str | None = None,
+              deadline_s: "float | None" = None) -> np.ndarray:
         """Read bytes of *source* into a fresh aligned host buffer, with no
         device copy: the path format readers take for indexes, labels and
         members before decode. *tenant*: whose scheduler queue the gather
-        takes (None: the default tenant)."""
+        takes (None: the default tenant). *deadline_s* arms a request
+        deadline: the read fails fast with DeadlineExceeded instead of
+        waiting out a sick engine (default: ``request_deadline_s``; 0 or
+        None: none). Inside an enclosing traced request (a pipeline's batch
+        or step) the enclosing contract stands and *deadline_s* is not
+        applied."""
         if self._closed:
             raise RuntimeError("StromContext is closed")
         source = self.resolve_source(source)
@@ -954,7 +1037,7 @@ class StromContext:
             return np.empty(0, dtype=np.uint8)
         dest = alloc_aligned(length)
         self._read_segments(source, [Segment(0, 0, length)], dest, offset,
-                            tenant=tenant)
+                            tenant=tenant, deadline_s=deadline_s)
         return dest
 
     def memcpy_ssd2host(self, source: Source, *, offset: int = 0,
@@ -1211,8 +1294,20 @@ class StromContext:
                 shape)
 
         if async_:
-            return deferred_handle(run, self._executor, nbytes,
-                                   f"{source!r}@{offset}")
+            # the copy stream's event after the tensor's last copy: the
+            # handle's block_until_ready() waits on it
+            ready: list = []
+
+            def run_async() -> torch.Tensor:
+                out = run()
+                if cuda:
+                    ev = torch.cuda.Event()
+                    ev.record(self._copy_stream(device))
+                    ready.append(ev)
+                return out
+
+            return deferred_handle(run_async, self._executor, nbytes,
+                                   f"{source!r}@{offset}", ready=ready)
         return run()
 
     # -- the write path: host bytes to the SSD through the engine ----------
@@ -1221,14 +1316,18 @@ class StromContext:
         """Run a planned write scatter, (file_index, file_offset,
         src_offset, length) chunks out of *src*: one scheduler grant a
         slice, billed to *tenant* (its budgets and priority apply to
-        writes), or under the engine lock with ``sched_enabled=False``. The
-        port has no circuit breaker yet. Returns bytes written; raises
-        EngineError on a failed or short chunk: nothing falls back."""
+        writes), or under the engine lock with ``sched_enabled=False``.
+        Feeds the circuit breaker (a sick engine's write failures count
+        toward a trip as read failures do), but writes never fail over: a
+        half-written checkpoint on a second engine is worse than a loud
+        error. Returns bytes written; raises EngineError on a failed or
+        short chunk."""
         if not chunks:
             return 0
         if self._closed:
             raise RuntimeError("StromContext is closed")
         planned = sum(ln for (_, _, _, ln) in chunks)
+        br = self._resilience.breaker
         try:
             with self._demand_gate():
                 if self._scheduler is not None:
@@ -1239,8 +1338,15 @@ class StromContext:
                     with self._engine_lock:
                         total = self.engine.write_vectored(
                             chunks, src, retries=self.config.io_retries)
+        except (DeadlineExceeded, EngineStallError):
+            raise
         except EngineError as e:
+            if br is not None and \
+                    classify_errno(e.errno or errno.EIO) == "transient":
+                br.record_failure()
             raise EngineError(e.errno, f"host2ssd {e.strerror}") from None
+        if br is not None:
+            br.record_success()
         if total != planned:
             raise EngineError(errno.EIO, f"host2ssd wrote {total} bytes, "
                                          f"planned {planned}")
@@ -1319,6 +1425,17 @@ class StromContext:
             out["sched"] = self._scheduler.stats()
         if self._decoded_cache is not None:
             out["decode_cache"] = self._decoded_cache.stats()
+        # the resilience counters under the reference's names, from the
+        # process-wide registry as the reference reads them, and the
+        # breaker's state and the fault plan's tally
+        for k in RESILIENCE_FIELDS:
+            out[k] = global_stats.gauge(k).value if k == "breaker_state" \
+                else global_stats.counter(k).value
+        res = self._resilience.stats()
+        plan = getattr(self.engine, "plan", None)
+        if plan is not None:
+            res["fault_plan"] = plan.stats()
+        out["resilience"] = res
         return out
 
     def close(self) -> None:
@@ -1326,6 +1443,7 @@ class StromContext:
             return
         self._closed = True
         self._executor.shutdown(wait=True)
+        self._resilience.close()
         if self._spill_io is not None:
             # the spill file's registrations leave while the engine lives;
             # the tier keeps its own fd until it closes

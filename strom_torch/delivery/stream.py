@@ -1,5 +1,5 @@
 """Completion-driven gather (the port's copy of ``strom/delivery/stream.py``,
-without peers, hedges and fallback recovery).
+without peers and hedges).
 
 A blocking gather makes every sample of a batch wait for the slowest
 extent. :class:`StreamingGather` plans the gather as
@@ -22,6 +22,15 @@ Rules:
   (the context's engine lock with ``sched_enabled=False``; per-ring locks
   on the multi-ring engine) is held that long, then released at once, and
   on every error path.
+- The gather is (or joins) a traced request, and a request it mints
+  carries ``request_deadline_s``: past it, the open chunks retire with
+  DeadlineExceeded, which ``finish`` raises after cancelling the rest.
+- The token runs ``fail_fast=False``: a chunk that failed after its
+  retries is read again, inline, by the context's fallback engine
+  (``ResilientIo.read_chunk_fallback``, counted in ``failover_reads``), so
+  one bad extent does not fail the batch. A token that died at submission
+  (engine death) gets one fallback pass over its unserved chunks. The
+  circuit breaker hears one outcome per gather.
 - ``finish`` raises ``EngineError`` only after every in-flight piece has
   retired, and checks that the engine moved exactly the planned bytes.
 - ``close`` is idempotent and safe mid-flight: the token is cancelled
@@ -39,7 +48,9 @@ from typing import Sequence
 import numpy as np
 
 from strom_torch.delivery.shard import Segment
-from strom_torch.engine.base import EngineError, EngineStallError
+from strom_torch.engine.base import (DeadlineExceeded, EngineError,
+                                     EngineStallError)
+from strom_torch.obs import request as _request
 
 
 class StreamingGather:
@@ -67,66 +78,141 @@ class StreamingGather:
         self._closed = False
         self._finished = False
         self._token = None
-        self._failed: set[int] = set()   # chunk indices that failed
         self._stack = contextlib.ExitStack()
         self._engine_released = False
         # gather-level watchdog: piece progress (bytes_done) resets it
         self._stall_t0 = time.monotonic()
         self._stall_bytes = -1
         self._instant: list[tuple[int, int]] = []
+        self._resil = ctx.resilience
+        self._completed: set[int] = set()   # engine-served chunk indices
+        self._recovered: set[int] = set()   # fallback-served after failure
+        self._failed: dict[int, int] = {}   # unrecovered: ci -> errno
+        self._recovery_attempted = False
+        self._breaker_fed = False           # one breaker outcome a gather
+        # join the enclosing request (a streamed batch's) or mint one; a
+        # minted request carries the config's deadline and finishes at
+        # release
+        req = _request.current()
+        self._own_req = req is None
+        self.req = req if req is not None \
+            else _request.Request("gather", tenant)
+        if self._own_req:
+            self.req.set_deadline_s(ctx.config.request_deadline_s or None)
         try:
-            chunks, self._idx_paths = ctx._plan(source, segments, base_offset)
-            planned = sum(ln for (_, _, _, ln) in chunks)
-            if planned > self._dflat.nbytes:
-                raise ValueError(f"dest holds {self._dflat.nbytes} bytes, the "
-                                 f"gather plans {planned}")
-            self._cache = ctx._active_cache()
-            hit_bytes = 0
-            if self._cache is not None and chunks:
-                chunks, hit_bytes, self._instant = ctx._consult_cache(
-                    self._cache, chunks, self._idx_paths, self._dflat,
-                    tenant=tenant)
-            self._chunks = chunks
-            self._miss_planned = planned - hit_bytes
-            self.total_bytes = planned
-            self.instant_bytes = hit_bytes
-            if self._chunks:
-                # both held for the token's lifetime; released by
-                # _release_engine the moment the last piece retires
-                self._stack.enter_context(ctx._demand_gate())
-                if ctx.scheduler is not None:
-                    self._stack.enter_context(ctx.scheduler.grant(
-                        tenant, self._miss_planned))
-                else:
-                    self._stack.enter_context(ctx._engine_lock)
-                self._token = ctx.engine.submit_vectored(
-                    self._chunks, self._dflat, retries=ctx.config.io_retries,
-                    fail_fast=False)
-            ctx._count(stream_gathers=1, stream_instant_bytes=hit_bytes)
-        except BaseException:
+            with _request.attach(self.req):
+                chunks, self._idx_paths = ctx._plan(source, segments,
+                                                    base_offset)
+                planned = sum(ln for (_, _, _, ln) in chunks)
+                if planned > self._dflat.nbytes:
+                    raise ValueError(f"dest holds {self._dflat.nbytes} "
+                                     f"bytes, the gather plans {planned}")
+                self._cache = ctx._active_cache()
+                hit_bytes = 0
+                if self._cache is not None and chunks:
+                    chunks, hit_bytes, self._instant = ctx._consult_cache(
+                        self._cache, chunks, self._idx_paths, self._dflat,
+                        tenant=tenant)
+                self._chunks = chunks
+                self._miss_planned = planned - hit_bytes
+                self.total_bytes = planned
+                self.instant_bytes = hit_bytes
+                if self._chunks:
+                    # both held for the token's lifetime; released by
+                    # _release_engine the moment the last piece retires
+                    self._stack.enter_context(ctx._demand_gate())
+                    if ctx.scheduler is not None:
+                        self._stack.enter_context(ctx.scheduler.grant(
+                            tenant, self._miss_planned))
+                    else:
+                        self._stack.enter_context(ctx._engine_lock)
+                    self._token = ctx.engine.submit_vectored(
+                        self._chunks, self._dflat,
+                        retries=ctx.config.io_retries, fail_fast=False,
+                        deadline=self.req.deadline)
+                ctx._count(stream_gathers=1, stream_instant_bytes=hit_bytes)
+        except BaseException as e:
             self._stack.close()
             self._closed = True
+            if self._own_req:
+                self.req.mark_error(e)
+                self.req.finish()
             raise
 
     @property
     def done(self) -> bool:
-        """Every cache-served range reported and every piece retired (or
-        the gather was cancelled). ``finish`` must still be called."""
+        """Every cache-served range reported and every chunk served, by
+        the engine or the fallback (or the gather was cancelled).
+        ``finish`` must still be called."""
         if self._instant:
             return False
-        return self._token is None or self._token.done
+        tok = self._token
+        if tok is None:
+            return True
+        if tok.done:
+            # a token that died at submission leaves chunks unserved: one
+            # fallback pass still owes their ranges
+            return self._recovery_attempted or tok.error is None \
+                or not self._n_unaccounted()
+        # a live token: done once every chunk is served, or once the
+        # deadline closed the open ones (finish cancels the pieces still
+        # in flight and raises DeadlineExceeded)
+        if self._n_unaccounted():
+            return False
+        return not self._failed or isinstance(tok.error, DeadlineExceeded)
 
     @property
     def inflight_peak(self) -> int:
         """The deepest the engine's queue ran for this gather."""
         return self._token.inflight_peak if self._token is not None else 0
 
+    def _n_unaccounted(self) -> int:
+        """How many chunks no one has served or failed yet, in O(1) (the
+        pump checks ``done`` every poll): each chunk lands in exactly one
+        of the three disjoint sets."""
+        return len(self._chunks) - len(self._completed) \
+            - len(self._recovered) - len(self._failed)
+
+    def _unaccounted(self) -> list[int]:
+        served = self._completed | self._recovered
+        return [ci for ci in range(len(self._chunks))
+                if ci not in served and ci not in self._failed]
+
+    def _chunk_fallback(self, ci: int) -> bool:
+        """Read chunk *ci* on the fallback engine straight into dest; True
+        on success. Recovered bytes are not offered to the cache: the
+        primary just failed around them."""
+        fi, fo, do, ln = self._chunks[ci]
+        path = self._idx_paths.get(fi)
+        if path is None:
+            return False
+        ok = self._resil.read_chunk_fallback(path, fo, ln,
+                                             self._dflat[do: do + ln])
+        if ok:
+            self._resil.scope.add("failover_reads")
+            self._resil.scope.add("failover_bytes", ln)
+        return ok
+
+    def _feed_breaker(self, *, ok: bool) -> None:
+        """One breaker outcome a gather, not a chunk: a batch of 10^4
+        chunks with a few recovered must not read as a 100 % error rate.
+        The first outcome wins: failures are fed at recovery, the success
+        at finish."""
+        if self._resil.breaker is None or self._breaker_fed:
+            return
+        self._breaker_fed = True
+        if ok:
+            self._resil.breaker.record_success()
+        else:
+            self._resil.breaker.record_failure()
+
     def poll(self, min_completions: int = 1,
              timeout_s: float | None = None) -> list[tuple[int, int]]:
         """Dest ranges landed since the last call. The first call returns
-        the cache-served ranges at once; later calls reap the engine.
-        ``min_completions=0`` never blocks. A failed chunk yields no range;
-        ``finish`` raises for it."""
+        the cache-served ranges at once; later calls reap the engine, a
+        failed chunk recovered on the fallback inline. ``min_completions=0``
+        never blocks. An unrecovered chunk yields no range; ``finish``
+        raises for it."""
         if self._closed:
             return []
         if self._instant:
@@ -141,8 +227,18 @@ class StreamingGather:
             for c in self._ctx.engine.poll(tok, min_completions, timeout_s):
                 fi, fo, do, ln = self._chunks[c.index]
                 if c.result < 0:
-                    self._failed.add(c.index)
+                    # a deadline miss is the request's contract, not
+                    # evidence about the engine: no lifeboat, no breaker
+                    missed = isinstance(tok.error, DeadlineExceeded)
+                    if not missed and self._chunk_fallback(c.index):
+                        self._recovered.add(c.index)
+                        out.append((do, do + ln))
+                    else:
+                        self._failed[c.index] = -c.result
+                    if not missed:
+                        self._feed_breaker(ok=False)
                     continue
+                self._completed.add(c.index)
                 out.append((do, do + ln))
                 if self._cache is not None:
                     # the bytes just landed in dest: admitting is one
@@ -152,6 +248,11 @@ class StreamingGather:
                         self._cache.admit(path, fo, fo + ln,
                                           self._dflat[do: do + ln],
                                           tenant=self._tenant)
+        if tok.done and tok.error is not None \
+                and not self._recovery_attempted:
+            # the token died at submission (engine death mid-gather): one
+            # fallback pass over the chunks that never completed
+            out.extend(self._recover_unaccounted())
         if out:
             self._stall_t0 = time.monotonic()
         elif min_completions > 0 and not tok.done:
@@ -164,6 +265,7 @@ class StreamingGather:
                 self._stall_t0 = time.monotonic()
             elif time.monotonic() - self._stall_t0 \
                     >= self._ctx.config.engine_wait_timeout_s:
+                self._ctx.engine._note_stall()
                 raise EngineStallError(self._ctx.config.engine_wait_timeout_s,
                                        list(tok._pending), "stream.poll")
         if tok.done:
@@ -171,37 +273,86 @@ class StreamingGather:
             self._release_engine()
         return out
 
+    def _recover_unaccounted(self) -> list[tuple[int, int]]:
+        self._recovery_attempted = True
+        out: list[tuple[int, int]] = []
+        err = self._token.error
+        if isinstance(err, DeadlineExceeded):
+            for ci in self._unaccounted():
+                self._failed[ci] = errno.ETIMEDOUT
+            return out
+        for ci in self._unaccounted():
+            fi, fo, do, ln = self._chunks[ci]
+            if self._chunk_fallback(ci):
+                self._recovered.add(ci)
+                out.append((do, do + ln))
+            else:
+                self._failed[ci] = err.errno or errno.EIO
+            self._feed_breaker(ok=False)
+        return out
+
     def finish(self) -> int:
         """Run the gather to its end and verify it. Returns the bytes
-        gathered. Raises the first chunk error after every piece retired."""
+        gathered, cache hits included. Raises the first unrecovered chunk
+        error after every piece retired; past the deadline, the rest is
+        cancelled first and DeadlineExceeded raised."""
         if self._finished:
             return self.total_bytes
         tok = self._token
         try:
-            while tok is not None and not tok.done:
+            while tok is not None and not self.done:
+                if isinstance(tok.error, DeadlineExceeded):
+                    break   # fail fast: the cancel below reaps in-flight
                 self.poll(min_completions=1, timeout_s=1.0)
         except EngineError as e:
             # cancel before the caller can react: the engine owns the
             # in-flight pieces' dest bytes until each retires
             if tok is not None and not tok.done:
                 self._ctx.engine.cancel(tok)
+            self.req.mark_error(e)
             self._release()
-            if isinstance(e, EngineStallError):
+            if isinstance(e, (DeadlineExceeded, EngineStallError)):
                 raise
             raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
+        if tok is not None and not tok.done:
+            # deadline leftovers: reaped before the grant goes
+            self._ctx.engine.cancel(tok)
+        self._release_engine()
+        missed = tok is not None and isinstance(tok.error, DeadlineExceeded) \
+            and (self._failed or self._unaccounted())
+        if self._failed or missed:
+            err = tok.error if tok.error is not None \
+                else EngineError(errno.EIO,
+                                 f"{len(self._failed)} chunk(s) failed")
+            self.req.mark_error(err)
+            self._release()
+            if isinstance(err, (DeadlineExceeded, EngineStallError)):
+                raise err
+            raise EngineError(err.errno or errno.EIO,
+                              f"ssd2gpu {err.strerror}")
+        if tok is not None:
+            if self._recovered:
+                missing = self._unaccounted()
+                if missing:
+                    err = EngineError(errno.EIO,
+                                      f"ssd2gpu streamed gather left "
+                                      f"{len(missing)} chunk(s) unserved")
+                    self.req.mark_error(err)
+                    self._release()
+                    raise err
+            elif tok.bytes_done != self._miss_planned:
+                # any engine accounting bug surfaces here, not as a batch
+                # with a zero tail (exact only when the engine served
+                # every chunk; recovered chunks are accounted one by one)
+                err = EngineError(errno.EIO,
+                                  f"ssd2gpu streamed read {tok.bytes_done} "
+                                  f"bytes, planned {self._miss_planned}")
+                self.req.mark_error(err)
+                self._release()
+                raise err
+            # recoveries already fed their failure: the first outcome wins
+            self._feed_breaker(ok=True)
         self._release()
-        if self._failed:
-            err = tok.error
-            code = err.errno if err is not None else errno.EIO
-            why = err.strerror if err is not None \
-                else f"{len(self._failed)} chunk(s) failed"
-            raise EngineError(code or errno.EIO, f"ssd2gpu {why}")
-        if tok is not None and tok.bytes_done != self._miss_planned:
-            # any engine accounting bug surfaces here, not as a batch with
-            # a zero tail
-            raise EngineError(errno.EIO,
-                              f"ssd2gpu streamed read {tok.bytes_done} "
-                              f"bytes, planned {self._miss_planned}")
         self._ctx._count(ssd2gpu_bytes=self.total_bytes)
         return self.total_bytes
 
@@ -213,9 +364,13 @@ class StreamingGather:
             self._stack.close()
 
     def _release(self) -> None:
+        if self._finished:
+            return
         self._finished = True
         self._closed = True
         self._release_engine()
+        if self._own_req:
+            self.req.finish()
 
     def close(self) -> None:
         """Idempotent teardown. A live token is cancelled, every in-flight

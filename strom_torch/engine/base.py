@@ -20,9 +20,16 @@ later ones are in flight. ``op="write"`` runs the same machine in reverse
 (:meth:`Engine.write_vectored`): each chunk writes the buffer's bytes to a
 file registered ``writable=True``. Each op's submit-to-completion latency
 goes to the ``engine_op_lat`` histogram of the scope :meth:`Engine.set_scope`
-installed. Request deadlines and the retry backoff policy of the reference
-are not ported yet: a failed piece is resubmitted at once, up to
-``retries`` times, as ``read_vectored`` does.
+installed.
+
+Failures follow the reference's resilience policy
+(:mod:`strom_torch.engine.resilience`): a failed or short piece is
+resubmitted after an exponential, jittered backoff, up to ``retries``
+times a piece and ``io_retry_budget`` times a gather; a permanent errno
+fails at once. A traced request's deadline (``obs.request.current()``)
+bounds every wait and every retry: past it the gather fails with
+:class:`DeadlineExceeded`, and its in-flight pieces drain with a short
+grace instead of the stall watchdog.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from strom_torch.config import StromConfig
+from strom_torch.engine.resilience import RetryPolicy
+from strom_torch.obs import request as _request
 
 _ENODATA = errno.ENODATA
 _ECANCELED = errno.ECANCELED
@@ -124,20 +133,35 @@ class EngineStallError(EngineError):
             f"with {len(self.stuck_tags)} op(s) in flight (tags: {shown})")
 
 
+class DeadlineExceeded(EngineError):
+    """The request's deadline expired mid-gather: retries stop, waits
+    stop, and the gather fails fast instead of finishing a read nobody is
+    still waiting for."""
+
+    def __init__(self, msg: str):
+        super().__init__(errno.ETIMEDOUT, f"deadline exceeded: {msg}")
+
+
 class StreamToken:
     """One in-flight vectored gather (:meth:`Engine.submit_vectored`): which
-    chunks retired, which block-size pieces are in flight, and each chunk's
-    result. Not thread-safe: one thread drives poll/drain per token."""
+    chunks retired, which block-size pieces are in flight or backing off,
+    and each chunk's result. Not thread-safe: one thread drives poll/drain
+    per token."""
 
-    __slots__ = ("chunks", "retries", "fail_fast", "op", "_d8", "_left",
-                 "_results", "_pending", "_pieces", "_backlog", "_exhausted",
-                 "_ready", "bytes_done", "cancelled", "inflight_peak", "_err")
+    __slots__ = ("chunks", "retries", "fail_fast", "op", "deadline", "_d8",
+                 "_left", "_results", "_pending", "_pieces", "_backlog",
+                 "_delayed", "_exhausted", "_ready", "bytes_done",
+                 "cancelled", "inflight_peak", "_err", "retries_used")
 
     def __init__(self, chunks: Sequence[tuple[int, int, int, int]],
                  dest: np.ndarray, block: int, retries: int,
-                 fail_fast: bool = True, op: str = "read"):
+                 fail_fast: bool = True, op: str = "read",
+                 deadline: "float | None" = None):
         self.chunks = list(chunks)
         self.retries = retries
+        # absolute time.monotonic() seconds: poll/drain waits and retry
+        # scheduling stop at it (DeadlineExceeded)
+        self.deadline = deadline
         # "read" gathers file -> dest; "write" scatters dest -> file (dest
         # is then the source). Only the op built per piece differs
         self.op = op
@@ -157,17 +181,34 @@ class StreamToken:
         # pieces bounced by a full queue or due for a retry: resubmitted
         # before the iterator advances
         self._backlog: list[tuple[int, int, int, int, int, int]] = []
+        # retries waiting out their backoff: (ready_monotonic_s, piece);
+        # _pump_token moves the due ones to the backlog
+        self._delayed: list[tuple[float,
+                                  tuple[int, int, int, int, int, int]]] = []
         self._exhausted = not self.chunks
         self._ready: list[ChunkCompletion] = []
         self.bytes_done = 0
         self.cancelled = False
         self.inflight_peak = 0
         self._err: EngineError | None = None
+        self.retries_used = 0   # against the policy's per-gather budget
 
     @property
     def done(self) -> bool:
-        return (self._exhausted and not self._backlog
-                and not self._pending) or self.cancelled
+        return (self._exhausted and not self._backlog and not self._pending
+                and not self._delayed) or self.cancelled
+
+    def next_retry_in_s(self) -> "float | None":
+        """Seconds until the earliest backoff retry is due (None: none
+        pending)."""
+        if not self._delayed:
+            return None
+        return max(0.0, min(t for t, _ in self._delayed) - time.monotonic())
+
+    def deadline_remaining_s(self) -> "float | None":
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
 
     def pending_chunk_indices(self) -> set:
         """Chunk indices with at least one piece in flight right now."""
@@ -317,75 +358,183 @@ class Engine(abc.ABC):
         completion before raising EngineStallError."""
         return self.config.engine_wait_timeout_s
 
+    # -- resilience policy --------------------------------------------------
+    @property
+    def retry_policy(self):
+        """The engine's retry policy (backoff, jitter, per-gather budget),
+        built from the config at first use and shared by the blocking and
+        the async gather, so their retries cannot diverge."""
+        pol = getattr(self, "_retry_policy", None)
+        if pol is None:
+            pol = self._retry_policy = RetryPolicy.from_config(self.config)
+        return pol
+
+    @staticmethod
+    def _request_deadline() -> "float | None":
+        """The current traced request's absolute deadline (monotonic
+        seconds), if one is active and carries one: how a caller's deadline
+        reaches the engine's wait loops without a parameter through every
+        override."""
+        req = _request.current()
+        return req.deadline if req is not None else None
+
+    def _note_stall(self) -> None:
+        """Count one ``engine_stall_timeouts`` episode."""
+        with contextlib.suppress(Exception):
+            self.op_scope.add("engine_stall_timeouts")
+
     # -- vectored gather: the delivery layer's hot path ---------------------
     def read_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                       dest: np.ndarray, *, retries: int = 1) -> int:
         """Execute a gather list: chunks of (file_index, file_offset,
         dest_offset, length) → dest, block_size-chunked and pipelined at
-        queue_depth, each piece resubmitted up to *retries* times on error
-        or short read. Returns total bytes read.
+        queue_depth. A failed or short piece is resubmitted under the
+        retry policy (backoff, up to *retries* times a piece, the budget a
+        gather); the current request's deadline stops waits and retries.
+        Returns total bytes read.
 
         Must not run concurrently with other submitters on this engine (the
         delivery layer serializes transfers). Raises EngineError; ENODATA
-        means a short read (range extends past EOF). In-flight pieces are
-        drained before any error propagates, so no worker writes into
-        *dest* after this returns."""
+        means a short read (range extends past EOF), DeadlineExceeded a
+        missed deadline. In-flight pieces are drained before any error
+        propagates (a deadline miss with a short grace), so no worker
+        writes into *dest* after this returns."""
         block = self.config.block_size
         qd = self.config.queue_depth
+        policy = self.retry_policy
+        deadline = self._request_deadline()
+        stall_s = self.wait_timeout_s
         d8 = dest.view(np.uint8).reshape(-1)
         # tag -> (file_idx, file_off, dest_off, want, attempts)
         pending: dict[int, tuple[int, int, int, int, int]] = {}
-        redo: list[tuple[int, int, int, int, int]] = []
-        it = ((fi, fo + p, do + p, min(block, ln - p), 0)
+        # retries backing off: (ready_t, fi, fo, do, want, attempts),
+        # resubmitted ahead of fresh pieces once due
+        delayed: list[tuple[float, int, int, int, int, int]] = []
+        it = ((fi, fo + p, do + p, min(block, ln - p))
               for (fi, fo, do, ln) in chunks
               for p in range(0, ln, block))
         exhausted = False
         total = 0
+        retries_used = 0
         err: EngineError | None = None
 
-        def submit(piece: tuple[int, int, int, int, int]) -> None:
-            fi, fo, do, want, _ = piece
+        def submit(fi: int, fo: int, do: int, want: int,
+                   attempts: int) -> None:
             tag = self._vec_tag
             self._vec_tag += 1
             self.submit_raw([RawRead(fi, fo, want, d8[do: do + want], tag)])
-            pending[tag] = piece
+            pending[tag] = (fi, fo, do, want, attempts)
+
+        def missed(what: str) -> DeadlineExceeded:
+            self.op_scope.add("deadline_exceeded")
+            return DeadlineExceeded(what)
 
         try:
-            while True:
-                while err is None and len(pending) < qd:
-                    if redo:
-                        submit(redo.pop())
-                        continue
-                    piece = None if exhausted else next(it, None)
+            while not exhausted or pending or delayed:
+                now = time.monotonic()
+                while delayed and len(pending) < qd and err is None:
+                    # due retries first; the rest wait out their backoff
+                    delayed.sort()
+                    if delayed[0][0] > now:
+                        break
+                    submit(*delayed.pop(0)[1:])
+                while not exhausted and len(pending) < qd and err is None:
+                    piece = next(it, None)
                     if piece is None:
                         exhausted = True
                         break
-                    submit(piece)
+                    submit(*piece, 0)
                 if not pending:
+                    if delayed and err is None:
+                        # nothing in flight: sleep out the earliest backoff
+                        wake = min(d[0] for d in delayed)
+                        if deadline is not None and wake >= deadline:
+                            raise missed(f"{len(delayed)} retrie(s) still "
+                                         "backing off at deadline")
+                        time.sleep(max(0.0, wake - time.monotonic()))
+                        continue
                     break
-                for c in self.wait(min_completions=1):
+                wait_s = stall_s
+                if delayed:
+                    # wake for the earliest backoff retry
+                    wait_s = min(wait_s,
+                                 max(min(d[0] for d in delayed)
+                                     - time.monotonic(), 0.001))
+                if deadline is not None:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise missed(f"{len(pending)} op(s) still in flight")
+                    wait_s = min(wait_s, left)
+                got = self.wait(min_completions=1, timeout_s=wait_s)
+                if not got:
+                    if err is None and deadline is not None \
+                            and time.monotonic() >= deadline:
+                        raise missed(f"{len(pending)} op(s) still in flight")
+                    if wait_s >= stall_s:
+                        self._note_stall()
+                        if err is None:
+                            raise EngineStallError(stall_s, list(pending),
+                                                   "read_vectored")
+                        # wedged while draining after a chunk error: give
+                        # up on the stuck ops and raise the first error
+                        break
+                for c in got:
                     entry = pending.pop(c.tag, None)
                     if entry is None:
                         continue  # foreign tag: not ours to account
                     fi, fo, do, want, attempts = entry
-                    if c.result == want:
-                        total += want
-                        continue
-                    if err is None and attempts < retries:
-                        redo.append((fi, fo, do, want, attempts + 1))
-                        continue
+                    failed_errno = -c.result if c.result < 0 else \
+                        (_ENODATA if c.result < want else 0)
+                    if failed_errno and err is None:
+                        if policy.should_retry(failed_errno, attempts,
+                                               retries, retries_used):
+                            if deadline is None \
+                                    or time.monotonic() < deadline:
+                                retries_used += 1
+                                self.op_scope.add("chunk_retries")
+                                delay = policy.delay_s(attempts)
+                                if delay > 0:
+                                    self.op_scope.add("retry_backoff_waits")
+                                delayed.append((time.monotonic() + delay,
+                                                fi, fo, do, want,
+                                                attempts + 1))
+                                continue
+                            # a retry the policy would take, denied by the
+                            # deadline
+                            err = missed(f"piece retry at +{fo} denied "
+                                         f"({len(pending)} op(s) in flight)")
+                        elif attempts < retries and \
+                                retries_used >= policy.budget:
+                            self.op_scope.add("retry_budget_exhausted")
                     if c.result < 0:
-                        err = err or EngineError(
-                            -c.result, f"read failed after {attempts + 1} "
-                                       f"attempts: {os.strerror(-c.result)}")
+                        if err is None:
+                            err = EngineError(
+                                -c.result,
+                                f"read failed after {attempts + 1} attempts: "
+                                f"{os.strerror(-c.result)}")
+                    elif c.result < want:
+                        total += c.result
+                        if err is None:
+                            err = EngineError(
+                                _ENODATA, f"short read ({c.result} < {want}) — "
+                                          "file smaller than requested range?")
                     else:
                         total += c.result
-                        err = err or EngineError(
-                            _ENODATA, f"short read ({c.result} < {want}) — "
-                                      "file smaller than requested range?")
-        except BaseException:
+                if err is not None:
+                    exhausted = True  # stop feeding; drain what's in flight
+                    delayed.clear()
+        except BaseException as exc:
+            # a deadline miss drains with a short grace, not the watchdog:
+            # ops a wedged engine will never complete are abandoned (and
+            # counted) either way
+            drain_s = min(self.wait_timeout_s, 1.0) \
+                if isinstance(exc, DeadlineExceeded) else self.wait_timeout_s
             while pending:  # no worker may write into dest after we return
-                for c in self.wait(min_completions=1):
+                done = self.wait(min_completions=1, timeout_s=drain_s)
+                if not done:
+                    self._note_stall()
+                    break
+                for c in done:
                     pending.pop(c.tag, None)
             raise
         if err is not None:
@@ -401,7 +550,8 @@ class Engine(abc.ABC):
     def submit_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                         dest: np.ndarray, *, retries: int = 1,
                         fail_fast: bool = True,
-                        op: str = "read") -> StreamToken:
+                        op: str = "read",
+                        deadline: "float | None" = None) -> StreamToken:
         """Begin an async gather of (file_index, file_offset, dest_offset,
         length) chunks into *dest*. Pieces go out up to queue_depth at once;
         the rest follow as :meth:`poll` reaps completions. The token must be
@@ -412,11 +562,14 @@ class Engine(abc.ABC):
         source and each chunk writes dest[dest_offset:+length) to
         file[file_offset:), the files registered ``writable=True``; a
         retry rewrites the whole piece, and a short write retries as a
-        short read does."""
+        short read does. *deadline* (absolute monotonic seconds; default:
+        the current request's) bounds the waits and the retries."""
         if op not in ("read", "write"):
             raise ValueError(f"op must be 'read' or 'write', got {op!r}")
+        if deadline is None:
+            deadline = self._request_deadline()
         tok = StreamToken(chunks, dest, self.config.block_size, retries,
-                          fail_fast=fail_fast, op=op)
+                          fail_fast=fail_fast, op=op, deadline=deadline)
         self._track_token(tok)
         self._pump_token(tok)
         return tok
@@ -433,26 +586,50 @@ class Engine(abc.ABC):
 
     def poll(self, token: StreamToken, min_completions: int = 1,
              timeout_s: float | None = None) -> list[ChunkCompletion]:
-        """Reap engine completions, resubmit failed pieces within the retry
-        budget, top the queue back up, and return the chunks that retired
-        since the last call. Blocks until *min_completions* chunks retired
-        (0: never blocks), the token is done, or *timeout_s* passed; a wait
-        with no completion at all for ``engine_wait_timeout_s`` raises
-        EngineStallError."""
+        """Reap engine completions, schedule failed pieces' retries, top
+        the queue back up, and return the chunks that retired since the
+        last call. Blocks until *min_completions* chunks retired (0: never
+        blocks), the token is done, or *timeout_s* passed. Every wait is
+        capped at the token's deadline (past it, every open chunk retires
+        with DeadlineExceeded's errno) and at the next backoff retry; a
+        wait with no completion at all for ``engine_wait_timeout_s``
+        raises EngineStallError."""
         if token.cancelled:
             raise EngineError(_ECANCELED, "token cancelled (engine closing?)")
         deadline = None if timeout_s is None else \
             time.monotonic() + timeout_s
         self._pump_token(token)
         while (len(token._ready) < max(min_completions, 1)
-               and token._pending and not token.cancelled):
+               and (token._pending or token._delayed)
+               and not token.cancelled):
             if min_completions <= 0:
                 wait_s = 0.0
             elif deadline is None:
-                wait_s = self.wait_timeout_s
+                wait_s = None
             else:
-                wait_s = min(max(0.0, deadline - time.monotonic()),
-                             self.wait_timeout_s)
+                wait_s = max(0.0, deadline - time.monotonic())
+            req_left = token.deadline_remaining_s()
+            if wait_s is None or wait_s > 0:
+                bound = self.wait_timeout_s
+                retry_in = token.next_retry_in_s()
+                if retry_in is not None:
+                    bound = min(bound, max(retry_in, 0.001))
+                if req_left is not None:
+                    bound = min(bound, max(req_left, 0.0))
+                wait_s = bound if wait_s is None else min(wait_s, bound)
+            if req_left is not None and req_left <= 0:
+                # close the token even when a chunk error came first: the
+                # zero wait above would otherwise spin zero-timeout reaps
+                if token._err is None:
+                    self.op_scope.add("deadline_exceeded")
+                    token._err = DeadlineExceeded(
+                        f"{len(token._pending)} op(s) in flight, "
+                        f"{len(token._delayed)} retrie(s) backing off")
+                token._exhausted = True
+                token._backlog.clear()
+                token._delayed.clear()
+                self._fail_pending_chunks(token)
+                break
             wait_t0 = time.monotonic()
             got = self._reap_token(token, wait_s)
             self._pump_token(token)
@@ -462,8 +639,10 @@ class Engine(abc.ABC):
             # wait that returned early with another token's completions is
             # a busy engine, not a wedged one
             if not got and not token._ready and token._pending \
+                    and wait_s is not None \
                     and wait_s >= self.wait_timeout_s \
                     and time.monotonic() - wait_t0 >= self.wait_timeout_s:
+                self._note_stall()
                 raise EngineStallError(self.wait_timeout_s,
                                        list(token._pending), "poll")
             if not got and deadline is not None \
@@ -475,11 +654,28 @@ class Engine(abc.ABC):
             self._untrack_token(token)
         return out
 
+    def _fail_pending_chunks(self, token: StreamToken) -> None:
+        """Retire every open chunk with the token's error (a deadline
+        miss): the chunks get their negative ChunkCompletion, while pieces
+        still in flight keep draining through poll/cancel (their dest
+        writes stay the worker's until each retires)."""
+        e = token._err.errno if token._err is not None else errno.EIO
+        for ci, r in enumerate(token._results):
+            if r is None:
+                token._results[ci] = -(e or errno.EIO)
+                token._ready.append(ChunkCompletion(ci, token._results[ci]))
+
     def drain(self, token: StreamToken) -> int:
         """Run the token to completion and return the bytes landed. Raises
         the first chunk error only after every in-flight piece has retired,
-        so a caller reacting to it never races a write into its buffer."""
+        so a caller reacting to it never races a write into its buffer.
+        Two bounded exceptions: a token past its deadline fails fast (the
+        caller must :meth:`cancel` before it touches dest), and a wait with
+        no completion for ``engine_wait_timeout_s`` raises
+        EngineStallError."""
         while not token.done:
+            if isinstance(token._err, DeadlineExceeded):
+                raise token._err
             self.poll(token, min_completions=1)
         self._untrack_token(token)
         if token.cancelled:
@@ -495,15 +691,19 @@ class Engine(abc.ABC):
         so none may be left to land in memory the caller reuses. The token
         is marked cancelled first, so a concurrent poll/drain raises
         ECANCELED on its next call instead of competing for completions.
-        *timeout_s* (default ``engine_wait_timeout_s``) bounds the reap."""
+        *timeout_s* (default ``engine_wait_timeout_s``) bounds the reap; a
+        reap that runs out counts an ``engine_stall_timeouts`` episode."""
         if timeout_s is None:
             timeout_s = self.wait_timeout_s
         token.cancelled = True
         token._exhausted = True
         token._backlog.clear()
+        token._delayed.clear()
         deadline = time.monotonic() + timeout_s
         while token._pending and time.monotonic() < deadline:
             self._reap_token(token, 0.05)
+        if token._pending:
+            self._note_stall()
         self._untrack_token(token)
 
     def _track_token(self, tok) -> None:
@@ -523,11 +723,18 @@ class Engine(abc.ABC):
                 self.cancel(tok)
 
     def _pump_token(self, tok: StreamToken) -> None:
-        """Refill the queue from the backlog and the piece iterator up to
-        queue_depth, in one submit_raw call. Pieces past a partial accept
-        (the uring engine's ``.accepted``) go back onto the backlog."""
+        """Refill the queue from the due backoff retries, the backlog and
+        the piece iterator up to queue_depth, in one submit_raw call.
+        Pieces past a partial accept (the uring engine's ``.accepted``) go
+        back onto the backlog."""
         if (tok._err is not None and tok.fail_fast) or tok.cancelled:
             return
+        if tok._delayed:
+            now = time.monotonic()
+            due = [p for t, p in tok._delayed if t <= now]
+            if due:
+                tok._delayed = [(t, p) for t, p in tok._delayed if t > now]
+                tok._backlog.extend(due)
         qd = self.config.queue_depth
         while len(tok._pending) < qd:
             batch: list[tuple[int, int, int, int, int, int]] = []
@@ -566,14 +773,15 @@ class Engine(abc.ABC):
                     tok._err = e
                     tok._exhausted = True
                     tok._backlog.clear()
+                    tok._delayed.clear()
                     return
                 tok._backlog.extend(batch[accepted:])
                 break
             tok.inflight_peak = max(tok.inflight_peak, len(tok._pending))
 
     def _reap_token(self, tok: StreamToken, timeout_s: float | None) -> int:
-        """One wait() round: retire pieces, queue failed ones for a retry
-        within the budget, record chunk completions. Returns how many of
+        """One wait() round: retire pieces, schedule failed ones' retries
+        under the policy, record chunk completions. Returns how many of
         this token's pieces completed."""
         try:
             comps = self.wait(min_completions=1, timeout_s=timeout_s)
@@ -581,7 +789,9 @@ class Engine(abc.ABC):
             tok._err = tok._err or e
             tok._exhausted = True
             tok._backlog.clear()
+            tok._delayed.clear()
             return 0
+        policy = self.retry_policy
         n = 0
         for c in comps:
             piece = tok._pending.pop(c.tag, None)
@@ -589,16 +799,29 @@ class Engine(abc.ABC):
                 continue  # foreign tag: not ours to account
             n += 1
             ci, fi, fo, do, want, attempts = piece
-            failed = c.result < want
+            # a short read or write retries the whole piece: a truncated
+            # transfer recovers, a true EOF fails once retries are spent
+            failed_errno = -c.result if c.result < 0 else \
+                (_ENODATA if c.result < want else 0)
             chunk_failed = tok._results[ci] is not None and not tok.fail_fast
-            if failed and (tok._err is None or not tok.fail_fast) \
-                    and not tok.cancelled and not chunk_failed \
-                    and attempts < tok.retries:
-                # a short read or write retries the whole piece: a
-                # truncated transfer recovers, a true EOF fails once
-                # retries are spent
-                tok._backlog.append((ci, fi, fo, do, want, attempts + 1))
-                continue
+            if failed_errno and (tok._err is None or not tok.fail_fast) \
+                    and not tok.cancelled and not chunk_failed:
+                left = tok.deadline_remaining_s()
+                if policy.should_retry(failed_errno, attempts, tok.retries,
+                                       tok.retries_used) \
+                        and (left is None or left > 0):
+                    tok.retries_used += 1
+                    self.op_scope.add("chunk_retries")
+                    delay = policy.delay_s(attempts)
+                    if delay > 0:
+                        self.op_scope.add("retry_backoff_waits")
+                    tok._delayed.append(
+                        (time.monotonic() + delay,
+                         (ci, fi, fo, do, want, attempts + 1)))
+                    continue
+                if attempts < tok.retries \
+                        and tok.retries_used >= policy.budget:
+                    self.op_scope.add("retry_budget_exhausted")
             if c.result < 0:
                 err = EngineError(
                     -c.result, f"{tok.op} failed after {attempts + 1} "
@@ -618,6 +841,7 @@ class Engine(abc.ABC):
                 if tok.fail_fast:
                     tok._exhausted = True   # stop feeding; drain the rest
                     tok._backlog.clear()
+                    tok._delayed.clear()
                 if tok._results[ci] is None:
                     tok._results[ci] = -(err.errno or errno.EIO)
                     tok._ready.append(ChunkCompletion(ci, tok._results[ci]))

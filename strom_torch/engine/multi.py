@@ -268,15 +268,19 @@ class MultiRingEngine(Engine):
     def submit_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                         dest: np.ndarray, *, retries: int = 1,
                         fail_fast: bool = True,
-                        op: str = "read") -> _FanToken:
+                        op: str = "read",
+                        deadline: "float | None" = None) -> _FanToken:
         """The async twin of read_vectored's routing: one child token per
         ring, completions mapped back to the caller's chunk indices
         (``op="write"``: the same fan-out of a write scatter). The
         live rings' locks are held for the token's lifetime (a blocking
         gather on the same ring would reap, and drop as foreign, the
-        token's completions) and released at drain or cancel."""
+        token's completions) and released at drain or cancel. Every child
+        token carries one *deadline* (default: the current request's)."""
         if self._closed:
             raise EngineError(_errno.EBADF, "engine closed")
+        if deadline is None:
+            deadline = self._request_deadline()
         n = len(self._children)
         per_ring: dict[int, tuple[list, list]] = {}  # ring -> (chunks, imap)
         if chunks and (n == 1 or len({c[0] for c in chunks}) == 1):
@@ -303,7 +307,8 @@ class MultiRingEngine(Engine):
                 parts.append((r, self._children[r],
                               self._children[r].submit_vectored(
                                   ch, dest, retries=retries,
-                                  fail_fast=fail_fast, op=op), imap))
+                                  fail_fast=fail_fast, op=op,
+                                  deadline=deadline), imap))
         except BaseException:
             for _, child, ctok, _ in parts:
                 child.cancel(ctok)

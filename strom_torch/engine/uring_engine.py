@@ -15,12 +15,14 @@ import ctypes
 import errno as _errno
 import os
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
 
 from strom_torch.config import StromConfig
-from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
+from strom_torch.engine.base import (Completion, DeadlineExceeded, Engine,
+                                     EngineError, RawRead,
                                      RawWrite, ReadRequest)
 
 _HIST_BUCKETS = 24
@@ -404,13 +406,52 @@ class UringEngine(Engine):
         return self._lib.sc_in_flight(self._h)
 
     # -- the native gather --------------------------------------------------
+    def _deadline_groups(self, chunks: Sequence[tuple[int, int, int, int]]
+                         ) -> list[list[tuple[int, int, int, int]]]:
+        """Order-preserving sub-batches for a gather under a deadline: big
+        enough to amortise the native call (at least one queue depth of
+        blocks, floored at 64 MiB), small enough that a check between them
+        bounds the lateness."""
+        cap = max(64 << 20,
+                  self.config.block_size * self.config.queue_depth)
+        groups: list[list] = []
+        cur: list = []
+        size = 0
+        for c in chunks:
+            cur.append(c)
+            size += c[3]
+            if size >= cap:
+                groups.append(cur)
+                cur, size = [], 0
+        if cur:
+            groups.append(cur)
+        return groups
+
     def read_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                       dest: np.ndarray, *, retries: int = 1) -> int:
         """The whole gather inside libstrom_core (sc_read_vectored), the GIL
-        released for the entire transfer. Raises EngineError; ENODATA means
-        a short read (range past EOF)."""
+        released for the entire transfer; retries run in C++ (resubmitted
+        at once, the native path has no backoff). Under a request deadline
+        the gather runs as native sub-batches with a deadline check between
+        them. Raises EngineError; ENODATA means a short read (range past
+        EOF), DeadlineExceeded a missed deadline."""
         if not chunks:
             return 0
+        deadline = self._request_deadline()
+        if deadline is not None:
+            if time.monotonic() >= deadline:
+                self.op_scope.add("deadline_exceeded")
+                raise DeadlineExceeded("gather not started")
+            groups = self._deadline_groups(chunks)
+            if len(groups) > 1:
+                total = 0
+                for g in groups:
+                    if time.monotonic() >= deadline:
+                        self.op_scope.add("deadline_exceeded")
+                        raise DeadlineExceeded(
+                            f"native gather stopped after {total} bytes")
+                    total += self.read_vectored(g, dest, retries=retries)
+                return total
         d8 = dest.view(np.uint8).reshape(-1)
         if not d8.flags["C_CONTIGUOUS"] or not d8.flags["WRITEABLE"]:
             raise EngineError(_errno.EINVAL, "dest must be writable C-contiguous")
@@ -422,10 +463,14 @@ class UringEngine(Engine):
         for i, (fi, fo, do, ln) in enumerate(chunks):
             segs[i] = _ScVecSeg(fi, ln, fo, do)
         base = d8.__array_interface__["data"][0]
+        retried0 = self._native_chunk_retries()
         res = self._lib.sc_read_vectored(self._h, segs, len(chunks),
                                          ctypes.c_void_p(base),
                                          self.config.block_size, retries,
                                          self._dest_index(base, need))
+        retried = self._native_chunk_retries() - retried0
+        if retried > 0:
+            self.op_scope.add("chunk_retries", retried)
         if res < 0:
             if -res == _errno.ENODATA:
                 raise EngineError(_errno.ENODATA, "short read — file smaller "
@@ -433,6 +478,11 @@ class UringEngine(Engine):
             raise EngineError(-res, f"read failed after {retries + 1} attempts: "
                                     f"{os.strerror(-res)}")
         return int(res)
+
+    def _native_chunk_retries(self) -> int:
+        s = _ScStats()
+        self._lib.sc_get_stats(self._h, ctypes.byref(s))
+        return int(s.chunk_retries)
 
     # -- observability and lifecycle ----------------------------------------
     def stats(self) -> dict:

@@ -29,6 +29,18 @@ The flash-attention wrappers count their launches in Python, which under
 a capture runs once and launches nothing: the capture's counts are taken
 back out and each replay adds them (``counting_capture``,
 ``count_replay``).
+
+Captures run on a stream of their own (``capture_stream``). A capture may
+run while other threads copy (a loader's batches), which its
+``thread_local`` mode allows, but only if no other thread uses the stream
+being captured. ``torch.cuda.Stream()`` does not make a stream: it hands
+out the pool's 32 streams of its priority round-robin, and
+``torch.cuda.graph`` captures by default on one of the default-priority
+ones. So a data context's copy stream made anywhere in the process can be
+that very stream, and a loader's copy and event wait on it then land in
+the capture and invalidate it (``cudaErrorStreamCaptureInvalidated``).
+Captures therefore take a higher-priority pool, from which the port hands
+out nothing else.
 """
 
 from __future__ import annotations
@@ -40,6 +52,25 @@ from typing import Any, Callable
 import torch
 
 from strom_torch.ops import flash_attention as fa
+
+
+# device index -> the stream every capture on that device runs on
+_capture_streams: dict[int, torch.cuda.Stream] = {}
+
+
+def capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream graphs on *device* are captured on: from the pool of
+    priority -1, which no other stream of the port comes from (they all
+    take the default priority's pool, shared round-robin; see the module's
+    docstring). A capture runs on one thread at a time, so one a device
+    will do."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    s = _capture_streams.get(index)
+    if s is None:
+        s = _capture_streams[index] = torch.cuda.Stream(index, priority=-1)
+    return s
 
 
 @dataclasses.dataclass
@@ -129,7 +160,9 @@ class CapturedStep:
             # thread_local: the loader's threads keep copying on their own
             # streams while this thread captures
             with fa.counting_capture() as launches, torch.cuda.graph(
-                    graph, pool=self._pool, capture_error_mode="thread_local"):
+                    graph, pool=self._pool,
+                    stream=capture_stream(self.device),
+                    capture_error_mode="thread_local"):
                 outputs = self.body(entry.owner, *entry.inputs)
         finally:
             # a capture that raised leaves its stream current

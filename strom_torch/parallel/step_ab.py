@@ -4,6 +4,7 @@ card in the same call.
 
     python3 -m strom_torch.parallel.step_ab DIR [DIR ...]
     python3 -m strom_torch.parallel.step_ab --delivery [--sched-rounds N] DIR [DIR ...]
+    python3 -m strom_torch.parallel.step_ab --loaders DIR [DIR ...]
 
 Each DIR is a checkout: this repo's root, or an older commit unpacked
 with ``git archive``. Each runs in its own process, in the order given
@@ -18,8 +19,16 @@ them. ``--delivery`` drives phases 3 (the 1 GiB delivery beside the
 engine alone, and where the checkout has them the ``[sched]`` arms, N
 alternating rounds of the scheduler on and off), 5 (the streamed gather),
 6 (the predecoded loader and ResNet-50) and 7 (the JPEG-fed ResNet-50)
-instead. Host-side step times move from call to call, so only checkouts
-run in one call compare. Needs one CUDA device.
+instead. ``--loaders`` drives only the host-bound delivery paths, with no
+train step: phase 5's streamed gather (``[stream]``) and the loaders
+alone over phase 7's tar of 512 448-pixel JPEGs, the ResNet one at batch
+128 streamed and not (``[ab_resnet_jpeg_streamed]``,
+``[ab_resnet_jpeg_barrier]``) and the ViT one at batch 64 over the tar
+striped on 4 members (``[ab_vit_jpeg]``), 4 batches each from a dropped
+page cache, each line's ``images_per_s``. Host-side times move from call to call, and within one call
+with the call's age, so only checkouts run in one call compare, in an
+order that alternates (parent, change, change, parent). Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -49,6 +58,40 @@ try:
         os.unlink(path)
         model, step, pdec = cs.phase_resnet(workdir)
         cs.phase_resnet_jpeg(workdir, model, step)
+    elif sys.argv[2] == "loaders":
+        import numpy as np
+        import strom_torch
+        from strom_torch.config import StromConfig
+
+        path = os.path.join(workdir, "stream.bin")
+        cs._write_file(path, np.frombuffer(
+            bytearray(np.random.default_rng(0).bytes(cs.GiB)), np.uint8))
+        cs.phase_stream(path)
+        os.unlink(path)
+        tar = os.path.join(workdir, "imagenet.tar")
+        cs._jpeg_fixture(tar, 512, 448)
+        cuda = torch.device("cuda")
+        ctx = strom_torch.init(StromConfig.from_env())
+        for streamed in (True, False):
+            cs._drop_cache(tar)
+            pipe = cs.make_imagenet_resnet_pipeline(
+                ctx, [tar], batch=128, device=cuda,
+                stream_intra_batch=streamed)
+            cs._loader_alone("ab_resnet_jpeg_" + ("streamed" if streamed
+                                                  else "barrier"),
+                             pipe, 4, 128)
+            pipe.close()
+        chunk = StromConfig().raid_chunk
+        members = cs._stripe_members(tar, 4, chunk)
+        walias = tar + ".raid0"
+        ctx.register_striped(walias, members, chunk, size=os.path.getsize(tar))
+        for m in members:
+            cs._drop_cache(m)
+        pipe = cs.make_vit_wds_pipeline(ctx, [walias], batch=64,
+                                        image_size=cs.IMAGE, device=cuda)
+        cs._loader_alone("ab_vit_jpeg", pipe, 4, 64)
+        pipe.close()
+        strom_torch.close()
     else:
         cs.phase_train(workdir)
         model, step, pdec = cs.phase_resnet(workdir)
@@ -66,11 +109,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--delivery", action="store_true",
                     help="phases 3, 5, 6 and 7 in place of the train phases")
+    ap.add_argument("--loaders", action="store_true",
+                    help="phase 5's streamed gather and the JPEG loaders "
+                         "alone, no train step")
     ap.add_argument("--sched-rounds", type=int, default=4,
                     help="rounds of phase 3's [sched] arms (--delivery)")
     ap.add_argument("dirs", nargs="+")
     args = ap.parse_args()
-    mode = "delivery" if args.delivery else "train"
+    mode = "delivery" if args.delivery else \
+        "loaders" if args.loaders else "train"
     rc = 0
     for root in args.dirs:
         rc |= subprocess.run([sys.executable, "-c", CHILD,

@@ -5,7 +5,10 @@ Ties together the sampler (which record indices), a batch builder (engine
 read → host→device copy) and the Prefetcher. The sampler runs *ahead* of
 consumption by the prefetch depth, so the saved state is derived from the
 consumed count, never from the sampler's own cursor: a resume replays
-nothing and skips nothing.
+nothing and skips nothing. :meth:`Pipeline.token` captures that position
+with the prefetch depth and the dataset's fingerprint as a StepToken, and
+:meth:`Pipeline.restore` continues from one. Each ``__next__`` is a traced
+``step`` request (``obs/request.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 
 from strom_torch.delivery.prefetch import Prefetcher, bound_depth
+from strom_torch.obs import request as _request
 from strom_torch.pipelines.sampler import (EpochShuffleSampler, SamplerState,
                                            dataset_fingerprint,
                                            load_loader_state,
@@ -57,10 +61,11 @@ class Pipeline:
         st = sampler.state
         self._consumed = st.epoch * sampler.batches_per_epoch + st.batch_in_epoch
         self._seed = st.seed
-        self._prefetcher = self._start_stream()
+        self._prefetcher = self._start_stream(depth)
 
-    def _start_stream(self) -> Prefetcher:
-        """Thunk generator + prefetcher from the sampler's CURRENT cursor."""
+    def _start_stream(self, depth: int) -> Prefetcher:
+        """Thunk generator + prefetcher from the sampler's CURRENT cursor,
+        starting at *depth*."""
         sampler = self.sampler
         make_batch = self._make_batch
         start = self._consumed
@@ -73,7 +78,7 @@ class Pipeline:
                 yield lambda idx=indices, s=serial: make_batch(idx, s)
                 serial += 1
 
-        depth, auto_depth, max_depth = self._depth_args
+        _, auto_depth, max_depth = self._depth_args
         return Prefetcher(thunks(), depth=depth, auto_depth=auto_depth,
                           max_depth=max_depth, executor=self._executor)
 
@@ -81,7 +86,12 @@ class Pipeline:
         return self
 
     def __next__(self) -> Any:
-        batch = next(self._prefetcher)
+        # the consumer's wait for a batch, as a "step" request of the
+        # pipeline's tenant (the batch's own gathers are minted where they
+        # run, on the prefetcher's threads)
+        tname = getattr(self.scope, "labels", {}).get("tenant")
+        with _request.active("step", tname):
+            batch = next(self._prefetcher)
         self._consumed += 1
         self.scope.add("pipeline_steps")
         return batch
@@ -96,25 +106,64 @@ class Pipeline:
     def save_state(self, path: str, extra: dict | None = None) -> None:
         save_loader_state(path, self.state(), self.fingerprint, extra)
 
-    def restore(self, state: SamplerState) -> "Pipeline":
-        """Rewind/fast-forward to *state*: the next delivered batch is the
-        one an uninterrupted run would have delivered there. In-flight
-        prefetched batches are discarded. Returns self."""
-        if state.seed != self._seed:
+    def token(self, ctx: Any | None = None, *, warm_state: bool = False,
+              extra: dict | None = None):
+        """The :class:`~strom_torch.ckpt.jobstate.StepToken` of the next
+        unconsumed batch: the sampler position derived from the consumed
+        count (the no-replay, no-skip contract of :meth:`state`), the
+        global serial, the prefetcher's current depth, the dataset's
+        fingerprint and, with ``warm_state=True`` and a *ctx*, the cache
+        and spill manifests as advisory rewarm hints."""
+        # imported here: ckpt.jobstate imports this package's sampler
+        from strom_torch.ckpt.jobstate import StepToken, capture_warm_state
+
+        return StepToken(
+            sampler=self.state(),
+            consumed=self._consumed,
+            prefetch_depth=self._prefetcher.depth,
+            fingerprint=dict(self.fingerprint),
+            warm=capture_warm_state(ctx) if (warm_state and ctx is not None)
+            else None,
+            extra=dict(extra or {}))
+
+    def restore(self, token) -> "Pipeline":
+        """Rewind/fast-forward to *token* (a StepToken or a SamplerState):
+        the next delivered batch is the one an uninterrupted run would have
+        delivered there. A token of another dataset (its fingerprint) or
+        another shuffle seed raises ValueError. A pipeline already at the
+        position keeps its prefetch window; otherwise the in-flight batches
+        are discarded and the prefetcher restarts at the token's depth.
+        Returns self."""
+        from strom_torch.ckpt.jobstate import StepToken
+
+        if isinstance(token, StepToken):
+            st, depth = token.sampler, token.prefetch_depth
+            if token.fingerprint and self.fingerprint \
+                    and token.fingerprint != self.fingerprint:
+                raise ValueError(
+                    "StepToken was captured against a different dataset "
+                    f"({len(token.fingerprint.get('paths', ()))} shards vs "
+                    f"{len(self.fingerprint.get('paths', ()))}); refusing "
+                    "to resume")
+        else:
+            st, depth = token, 0
+        if st.seed != self._seed:
             raise ValueError(
-                f"state was captured with seed {state.seed} but this pipeline "
+                f"token was captured with seed {st.seed} but this pipeline "
                 f"shuffles with seed {self._seed}; refusing to resume a "
                 "different batch order")
-        target = state.epoch * self.sampler.batches_per_epoch \
-            + state.batch_in_epoch
-        if self._consumed == target:
+        target = st.epoch * self.sampler.batches_per_epoch \
+            + st.batch_in_epoch
+        if self._consumed == target \
+                and (depth <= 0 or depth == self._prefetcher.depth):
             return self   # the in-flight window is already the right one
         self._prefetcher.close()
-        self.sampler.state = SamplerState(epoch=state.epoch,
-                                          batch_in_epoch=state.batch_in_epoch,
-                                          seed=state.seed)
+        self.sampler.state = SamplerState(epoch=st.epoch,
+                                          batch_in_epoch=st.batch_in_epoch,
+                                          seed=st.seed)
         self._consumed = target
-        self._prefetcher = self._start_stream()
+        self._prefetcher = self._start_stream(
+            depth if depth > 0 else self._depth_args[0])
         return self
 
     # -- observability ------------------------------------------------------
@@ -173,15 +222,28 @@ def _auto_depth_bounds(ctx, auto_prefetch: bool | None,
 
 
 def resolve_state(paths: tuple[str, ...], *, seed: int,
-                  resume_from: "str | SamplerState | None",
+                  resume_from: "str | SamplerState | Any | None",
                   ctx=None) -> tuple[SamplerState | None, dict]:
     """Fingerprint the shard list (striped aliases through *ctx*) and, when
     resuming, validate both the dataset identity and the shuffle seed.
-    Accepts a loader-state path or a SamplerState."""
+    Accepts a loader-state path, a SamplerState or a StepToken (its
+    fingerprint checked against the live shard list). Only the position
+    is taken from a token: adopt its prefetch depth and warm hints with
+    ``Pipeline.restore(token)`` and ``restore_warm_state`` after
+    construction."""
+    from strom_torch.ckpt.jobstate import StepToken
+
     fp = dataset_fingerprint(paths, ctx)
     if resume_from is None:
         return None, fp
-    if isinstance(resume_from, SamplerState):
+    if isinstance(resume_from, StepToken):
+        if resume_from.fingerprint and resume_from.fingerprint != fp:
+            raise ValueError(
+                "StepToken was captured against a different dataset "
+                f"(saved {len(resume_from.fingerprint.get('paths', ()))} "
+                f"shards, now {len(fp['paths'])}); refusing to resume")
+        state = resume_from.sampler
+    elif isinstance(resume_from, SamplerState):
         state = resume_from
     else:
         state, _ = load_loader_state(resume_from, fp)

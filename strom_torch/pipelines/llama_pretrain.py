@@ -8,7 +8,7 @@ no Python touching bulk bytes.
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import TYPE_CHECKING, Any, Sequence
 
 import numpy as np
 import torch
@@ -19,6 +19,9 @@ from strom_torch.pipelines.base import (Pipeline, _auto_depth_bounds,
                                         resolve_state)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 
+if TYPE_CHECKING:
+    from strom_torch.ckpt.jobstate import StepToken
+
 
 def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                         batch: int, seq_len: int,
@@ -28,16 +31,17 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                         shuffle: bool = True,
                         prefetch_depth: int | None = None,
                         auto_prefetch: bool | None = None,
-                        resume_from: "str | SamplerState | None" = None,
+                        resume_from: "str | SamplerState | StepToken | None"
+                        = None,
                         scope: dict | None = None
                         ) -> Pipeline:
     """Infinite stream of token batches [batch, seq_len+1] (inputs+targets
     window) as torch tensors on *device* (None → the current CUDA device;
     raises without one). *auto_prefetch* (None: the config's
     ``prefetch_auto``) lets the prefetch depth move from *prefetch_depth*
-    on stalls and ample lead. *resume_from* accepts a loader-state path or a
-    SamplerState; a live pipeline also restores in place with
-    ``Pipeline.restore(state)``.
+    on stalls and ample lead. *resume_from* accepts a loader-state path, a
+    SamplerState or a StepToken; a live pipeline also restores in place
+    with ``Pipeline.restore(token)``.
 
     *scope*: labels of the pipeline's telemetry scope over the context's
     (default ``{"pipeline": "llama"}``); a ``"tenant"`` label names the

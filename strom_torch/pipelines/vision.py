@@ -28,7 +28,7 @@ import concurrent.futures
 import inspect
 import queue as _queue
 import threading
-from typing import Any, Callable, Sequence
+from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +46,12 @@ from strom_torch.formats.wds import WdsShardSet
 from strom_torch.pipelines.base import (Pipeline, _auto_depth_bounds,
                                         resolve_state)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
+
+if TYPE_CHECKING:
+    from strom_torch.ckpt.jobstate import StepToken
+
+    # what resume_from takes: a loader-state path, a position, or a token
+    ResumeFrom = str | SamplerState | StepToken | None
 
 # transform(jpeg_bytes, rng[, out=row]) -> HWC uint8; transforms accepting
 # an `out=` keyword get direct-to-slot decode (see make_train_transform)
@@ -286,7 +292,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                              opgraph: Any = None,
                              opgraph_fuse: bool | None = None,
                              stream_intra_batch: bool | None = None,
-                             resume_from: "str | SamplerState | None" = None,
+                             resume_from: "ResumeFrom" = None,
                              scope: dict | None = None
                              ) -> Pipeline:
     """Infinite stream of ``(images [B,S,S,3] uint8, labels [B] int32)``
@@ -525,7 +531,7 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                                     shuffle: bool = True,
                                     prefetch_depth: int | None = None,
                                     auto_prefetch: bool | None = None,
-                                    resume_from: "str | SamplerState | None" = None,
+                                    resume_from: "ResumeFrom" = None,
                                     scope: dict | None = None
                                     ) -> Pipeline:
     """Decode-free vision loader over predecoded shards

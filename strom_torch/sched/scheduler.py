@@ -1,5 +1,5 @@
 """Shared I/O scheduler: many tenants, one engine (the port's copy of
-``strom/sched/scheduler.py``, without request deadlines and tracing spans).
+``strom/sched/scheduler.py``).
 
 Without a scheduler a context lets one gather at a time own the engine
 (its engine lock, held for the whole transfer), so a second pipeline's
@@ -22,6 +22,13 @@ small read queues behind a first pipeline's epoch gather.
   engine) grants are not exclusive: budgets and accounting still apply,
   queueing does not.
 - **Budgets and admission control** (:mod:`strom_torch.sched.budget`).
+- **Deadlines.** A grant request whose traced request
+  (``obs.request.current()``) carries a deadline leaves the queue when the
+  deadline passes (``DeadlineExceeded``, counted in ``deadline_exceeded``),
+  and a sliced gather stops at the first slice boundary past it. The
+  queue wait is noted on that request (its ``req_throttled`` outcome).
+  The reference's ``sched.queue``/``sched.grant``/``engine.slice`` spans
+  are left out until the port has a reader for them (the trace module).
 
 Every grant adds ``sched_granted_ops`` / ``sched_granted_bytes`` and a
 ``sched_queue_wait_us`` observation to the tenant's scope (and so to the
@@ -36,6 +43,8 @@ import threading
 import time
 from typing import Callable, Sequence
 
+from strom_torch.engine.base import DeadlineExceeded
+from strom_torch.obs import request as _request
 from strom_torch.sched.budget import AdmissionGate
 from strom_torch.sched.tenant import PRIORITIES, PRIORITY_ORDER, Tenant
 
@@ -224,11 +233,29 @@ class IoScheduler:
                 nbytes: int = 0, *, priority: str | None = None) -> _Waiter:
         """Queue for, and block until, an engine grant; pass the handle to
         :meth:`release`. Non-exclusive engines grant at once (budgets still
-        charged, throttles still wait)."""
+        charged, throttles still wait). A waiter whose request deadline
+        passes leaves the queue and raises DeadlineExceeded."""
         t = self.resolve(tenant)
         prio = PRIORITY_ORDER[priority] if priority is not None \
             else PRIORITY_ORDER[t.priority]
         w = _Waiter(t, max(int(nbytes), 0), prio, self._clock())
+        # deadlines ride time.monotonic (the engine's clock), not the
+        # injectable scheduler clock
+        req = _request.current()
+        req_deadline = req.deadline if req is not None else None
+
+        def _expired() -> bool:
+            return req_deadline is not None \
+                and time.monotonic() >= req_deadline
+
+        def _abort_locked() -> None:
+            with contextlib.suppress(ValueError):
+                t.queue.remove(w)
+                t.queued_bytes -= w.nbytes
+            t.scope.set_gauge("sched_queue_depth", len(t.queue))
+            t.scope.add("deadline_exceeded")
+            self._cond.notify_all()
+
         with self._cond:
             self._enqueue_locked(w)
             t.scope.set_gauge("sched_queue_depth", len(t.queue))
@@ -236,6 +263,10 @@ class IoScheduler:
                 while t.queue[0] is not w or \
                         max(t.byte_bucket.peek(w.nbytes),
                             t.iops_bucket.peek(1)) > 0:
+                    if _expired():
+                        _abort_locked()
+                        raise DeadlineExceeded(
+                            f"queued on tenant '{t.name}' (throttled)")
                     if t.queue[0] is w:
                         d = max(t.byte_bucket.peek(w.nbytes),
                                 t.iops_bucket.peek(1))
@@ -248,7 +279,17 @@ class IoScheduler:
             else:
                 delay = self._dispatch_locked()
                 while self._current is not w:
-                    self._cond.wait(delay)
+                    if _expired():
+                        _abort_locked()
+                        raise DeadlineExceeded(
+                            f"queued on tenant '{t.name}' behind "
+                            f"{len(t.queue)} op(s)")
+                    wait_s = delay
+                    if req_deadline is not None:
+                        left = max(req_deadline - time.monotonic(), 0.001)
+                        wait_s = left if wait_s is None \
+                            else min(wait_s, left)
+                    self._cond.wait(wait_s)
                     delay = self._dispatch_locked()
             t.scope.set_gauge("sched_queue_depth", len(t.queue))
             w.owner_ident = threading.get_ident()
@@ -259,6 +300,8 @@ class IoScheduler:
         t.scope.add("sched_granted_ops")
         if w.nbytes:
             t.scope.add("sched_granted_bytes", w.nbytes)
+        if req is not None:
+            req.note_queue_wait(w.wait_s * 1e6, throttled=w.throttled)
         if self.exclusive and t.scope is not self._scope:
             # one owner at a time: the engine's per-op latency goes to the
             # tenant's scope for the grant, back to the context's at release
@@ -343,13 +386,26 @@ class IoScheduler:
                     retries: int = 1, priority: str | None = None) -> int:
         """Run a planned gather one grant a slice: byte-identical to
         ``engine.read_vectored(chunks, dest)``, and a concurrent tenant
-        waits behind at most about one slice of it."""
+        waits behind at most about one slice of it. Past the request's
+        deadline the gather stops at the next slice boundary."""
+        return self._sliced(self.engine.read_vectored, "read", chunks, dest,
+                            tenant, retries, priority)
+
+    def _sliced(self, run, cat: str, chunks, buf, tenant, retries: int,
+                priority: str | None) -> int:
         t = self.resolve(tenant)
+        req = _request.current()
+        req_deadline = req.deadline if req is not None else None
         total = 0
-        for sl in self.iter_slices(chunks):
+        for si, sl in enumerate(self.iter_slices(chunks)):
+            if req_deadline is not None \
+                    and time.monotonic() >= req_deadline:
+                t.scope.add("deadline_exceeded")
+                raise DeadlineExceeded(
+                    f"{cat} stopped at slice {si} ({total} bytes landed)")
             nbytes = sum(ln for (_, _, _, ln) in sl)
             with self.grant(t, nbytes, priority=priority):
-                total += self.engine.read_vectored(sl, dest, retries=retries)
+                total += run(sl, buf, retries=retries)
         return total
 
     def write_chunks(self, chunks: Sequence[tuple[int, int, int, int]],
@@ -357,14 +413,9 @@ class IoScheduler:
                      retries: int = 1, priority: str | None = None) -> int:
         """The write twin of :meth:`read_chunks`: a planned scatter of
         (file_index, file_offset, src_offset, length) chunks out of *src*,
-        one grant a slice."""
-        t = self.resolve(tenant)
-        total = 0
-        for sl in self.iter_slices(chunks):
-            nbytes = sum(ln for (_, _, _, ln) in sl)
-            with self.grant(t, nbytes, priority=priority):
-                total += self.engine.write_vectored(sl, src, retries=retries)
-        return total
+        one grant a slice, stopped at a slice boundary past the deadline."""
+        return self._sliced(self.engine.write_vectored, "write", chunks, src,
+                            tenant, retries, priority)
 
     # -- drain --------------------------------------------------------------
     def drain(self, tenant: "Tenant | str | None" = None,

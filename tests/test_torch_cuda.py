@@ -7,9 +7,12 @@ its copy, a ResNet step on the card against the CPU's, ViT steps: the
 tiny one against the CPU's, ViT-B/16 at full width; and the train steps
 captured as CUDA graphs against their eager bodies, bit for bit (new
 shapes, the lr across replays, the scalar kernels' cluster launch under
-capture, a capture that fails); the Parquet scan on the card against the
-CPU's (one host-to-device copy a unit chunk, no host sync in its loop)
-and the OpGraph vision batches on the card. Every test is marked ``cuda``
+capture, a capture that fails, a capture while another thread delivers);
+the Parquet scan on the card against the CPU's (one host-to-device copy
+a unit chunk, no host sync in its loop) and the OpGraph vision batches
+on the card; an async delivery's
+``block_until_ready`` tensor read on another stream, and a delivery under
+the ``chaos:0`` fault plan equal to a clean one. Every test is marked ``cuda``
 and skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -19,6 +22,7 @@ package, so it runs on a machine that has only PyTorch:
 
 import collections
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -1358,3 +1362,144 @@ def test_cancelled_tenant_stream_releases_its_grant_on_the_card(
         assert torch.equal(got.cpu(), torch.from_numpy(data))
         assert sched.tenant("pq").granted_bytes == data.nbytes
         assert ctx.stats()["sched"]["sched_active_grants"] == 0
+
+
+@pytest.mark.parametrize("capture_on", ["port", "torch_default"])
+def test_capture_while_another_thread_delivers(cuda_device, tmp_path,
+                                               capture_on):
+    """A graph captured while another thread delivers a batch whose copy
+    stream is a default-priority pool stream, as a loader's first batches
+    do beside a train step's capture. torch.cuda.Stream() hands those out
+    round-robin, 32 to a pool, so one of the next 32 is the stream that
+    torch.cuda.graph captures on by default: a delivery on that one lands
+    in the capture and breaks it. The port captures on a stream of another
+    pool, which none of them is, and the capture and the delivery both
+    succeed, bit for bit."""
+    from strom_torch.parallel.capture import CapturedStep, capture_stream
+
+    rng = np.random.default_rng(25)
+    path = str(tmp_path / "loader.bin")
+    data = rng.integers(0, 256, 32 * MiB, dtype=np.uint8)
+    data.tofile(path)
+    if capture_on == "port":
+        target = capture_stream(cuda_device)
+    else:
+        torch.cuda.graph(torch.cuda.CUDAGraph())   # makes the default stream
+        target = torch.cuda.graph.default_capture_stream
+    pool = [torch.cuda.Stream(device=cuda_device) for _ in range(32)]
+    aliases = [s for s in pool if s == target]
+    assert len(aliases) == (0 if capture_on == "port" else 1)
+    copy_stream = aliases[0] if aliases else pool[0]
+
+    go, landed = threading.Event(), threading.Event()
+    got: dict = {}
+    # where the capture breaks, unpinned slabs: a pinned slab whose copy
+    # fails mid-flight is never handed back, and its registration would
+    # outlive the test (ROADMAP Queue C)
+    ctx = StromContext(StromConfig(
+        overlap_chunk_bytes=8 * MiB, overlap_min_bytes=16 * MiB,
+        **({} if capture_on == "port" else {"slab_pool_bytes": 0})))
+    ctx._copy_stream = lambda device: copy_stream
+
+    def loader():
+        try:
+            go.wait(30)
+            got["out"] = ctx.memcpy_ssd2gpu(path, device=cuda_device)
+            torch.cuda.current_stream(cuda_device).synchronize()
+        except BaseException as e:   # asserted below
+            got["err"] = e
+        finally:
+            landed.set()
+
+    def body(owner, x):
+        owner.mul_(2).add_(x)
+        go.set()   # the delivery runs on the other thread mid-capture
+        assert landed.wait(60)
+        owner.add_(1)
+        return {"loss": owner.sum()}
+
+    th = threading.Thread(target=loader, daemon=True)
+    owner = torch.zeros(4, device=cuda_device)
+    one = torch.ones(4, device=cuda_device)
+    failed = []
+    try:
+        if capture_on == "port":
+            step = CapturedStep(body, cuda_device)
+            landed.set()
+            step(owner, one)   # the warm-up, alone
+            go.clear()
+            landed.clear()
+            th.start()
+            step(owner, one)   # the capture, then its first replay
+            assert step.last_call == "capture"
+        else:
+            current = torch.cuda.current_stream(cuda_device)
+            th.start()
+            try:
+                with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                                      capture_error_mode="thread_local"):
+                    body(owner, one)
+            except RuntimeError as e:
+                failed.append(e)
+            finally:
+                torch.cuda.set_stream(current)
+    finally:
+        go.set()
+        th.join(60)
+        torch.cuda.synchronize()
+        ctx.close()
+    if "err" in got:
+        failed.append(got["err"])
+    if capture_on == "port":
+        assert not failed, failed
+        assert torch.equal(got["out"].cpu(), torch.from_numpy(data))
+        # the warm-up ran the body once, the capture's replay once more
+        assert owner.tolist() == [6.0] * 4
+    else:
+        assert failed, "the capture on the aliased stream went through"
+
+
+def test_block_until_ready_tensor_reads_on_another_stream(cuda_device,
+                                                          tmp_path):
+    """The async handle's full barrier: after block_until_ready() the
+    delivered tensor is read on a fresh stream, with no synchronize and no
+    wait_stream, and holds the file's bytes; a streamed and an unstreamed
+    delivery both."""
+    rng = np.random.default_rng(23)
+    path = str(tmp_path / "bur.bin")
+    data = rng.integers(0, 256, 48 * MiB, dtype=np.uint8)
+    data.tofile(path)
+    with StromContext(StromConfig(overlap_chunk_bytes=8 * MiB,
+                                  overlap_min_bytes=16 * MiB)) as ctx:
+        for length in (4 * MiB, data.nbytes):
+            h = ctx.memcpy_ssd2gpu(path, length=length, device=cuda_device,
+                                   async_=True)
+            t = h.block_until_ready()
+            assert h._ready and h.exception() is None and h.elapsed_s > 0
+            side = torch.cuda.Stream(device=cuda_device)
+            with torch.cuda.stream(side):
+                host = t.to("cpu", non_blocking=False)
+            assert torch.equal(host, torch.from_numpy(data[:length]))
+
+
+def test_chaos_streamed_delivery_equals_clean(cuda_device, tmp_path):
+    """A streamed delivery into device memory under the chaos:0 plan (EIO,
+    short reads, latency spikes) lands the same bytes as a clean one; the
+    plan injected faults and the retries absorbed them."""
+    rng = np.random.default_rng(24)
+    path = str(tmp_path / "chaos.bin")
+    data = rng.integers(0, 256, 64 * MiB, dtype=np.uint8)
+    data.tofile(path)
+    outs = []
+    for plan in ("", "chaos:0"):
+        with StromContext(StromConfig(
+                engine="python", residency_hybrid=False, io_retries=3,
+                fault_plan=plan, overlap_chunk_bytes=8 * MiB,
+                overlap_min_bytes=16 * MiB)) as ctx:
+            outs.append(ctx.memcpy_ssd2gpu(path, device=cuda_device).cpu())
+            if plan:
+                st = ctx.stats()
+                assert st["resilience"]["fault_plan"]["faults_injected"] > 0
+                assert st["streamed_transfers"] == 1
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], torch.from_numpy(data))

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package, no source of it imports either, and with no device given and no
-CUDA present its entry points raise instead of running on the CPU."""
+package, no source of it imports either (the request context, the fault
+and failover layers and the kill/restart harness's trainer process
+included), and with no device given and no CUDA present its entry points
+raise instead of running on the CPU."""
 
+import json
 import os
 import pathlib
 import re
@@ -180,3 +183,77 @@ def test_scan_covers_the_scheduler_and_utils():
     for sub in ("sched", "utils"):
         for f in (PKG / sub).rglob("*.py"):
             assert not _FORBIDDEN.search(f.read_text()), f
+
+
+@pytest.mark.parametrize("module", ["strom_torch.obs",
+                                    "strom_torch.obs.request",
+                                    "strom_torch.faults",
+                                    "strom_torch.faults.resume_harness",
+                                    "strom_torch.delivery.resilient",
+                                    "strom_torch.engine.resilience"])
+def test_resilience_modules_load_no_jax_or_strom(module, tmp_path):
+    """The request context, the fault layer and the failover layer load
+    neither jax* nor strom.*, also with a fault plan driving a read."""
+    shard = tmp_path / "d.bin"
+    shard.write_bytes(bytes(range(256)) * 1024)
+    code = (
+        f"import sys, {module}\n"
+        "from strom_torch.config import StromConfig\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "cfg = StromConfig(engine='python', fault_plan='chaos:1',"
+        " io_retries=3)\n"
+        "with StromContext(cfg) as ctx:\n"
+        "    assert bytes(ctx.pread(sys.argv[1], 0, 4096, deadline_s=30)) =="
+        " bytes(range(256)) * 16\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+        "('jax.', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(shard)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_scan_covers_obs_and_faults():
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    assert {"obs/__init__.py", "obs/events.py", "obs/request.py",
+            "faults/__init__.py", "faults/plan.py", "faults/proxy.py",
+            "faults/resume_harness.py", "delivery/resilient.py",
+            "engine/resilience.py", "utils/locks.py"} <= names
+    for sub in ("obs", "faults"):
+        for f in (PKG / sub).rglob("*.py"):
+            assert not _FORBIDDEN.search(f.read_text()), f
+
+
+def test_trainer_loads_neither_jax_nor_strom(tmp_path):
+    """One uninterrupted trainer run with the module's import check: the
+    trainer and the modules it pulls in (checkpoints, pipelines, faults)
+    load no jax* or strom.* module."""
+    shard = tmp_path / "tokens.bin"
+    np.arange(96 * 64, dtype=np.int32).tofile(shard)
+    code = (
+        "import sys, runpy\n"
+        "sys.argv = ['resume_harness', 'trainer', '--workdir', sys.argv[1],"
+        " '--shard', sys.argv[2], '--steps', '6', '--ckpt-every', '2',"
+        " '--fault-plan', 'chaos:1']\n"
+        "try:\n"
+        "    runpy.run_module('strom_torch.faults.resume_harness',"
+        " run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+        "('jax.', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n"
+        "assert 'strom_torch.faults.proxy' in sys.modules\n"
+        "assert 'strom_torch.obs.request' in sys.modules\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path),
+                           str(shard)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    with open(tmp_path / "meta_ref.json") as f:
+        meta = json.load(f)
+    assert meta["final_steps"] == 6 and meta["ckpt_commits"] == 2
