@@ -283,7 +283,7 @@ from strom_torch.delivery.core import StripedFile, StromContext
 from strom_torch.delivery.extents import Extent, ExtentList
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
-from strom_torch.engine.base import DeadlineExceeded
+from strom_torch.engine.base import DeadlineExceeded, EngineError
 from strom_torch.engine.resilience import (CHAOS_BENCH_FIELDS,
                                            RESILIENCE_FIELDS)
 from strom_torch.engine import uring_engine
@@ -311,7 +311,11 @@ from strom_torch.pipelines.parquet_scan import (parquet_count_where,
                                                 parquet_scan_aggregate)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 from strom_torch.utils.codec import default_codec
-from strom_torch.faults import run_kill_resume
+from strom_torch.faults import FaultPlan, FaultyEngine, run_kill_resume
+from strom_torch.obs import chrome_trace, stall
+from strom_torch.obs.events import ring as events_ring
+from strom_torch.obs.flight import load_bundle
+from strom_torch.utils import locks
 from strom_torch.utils.stats import global_stats, percentile_from_buckets
 from strom_torch.pipelines.vision import (make_imagenet_resnet_pipeline,
                                           make_predecoded_vision_pipeline,
@@ -1992,12 +1996,49 @@ def phase_resnet_jpeg(workdir: str, model, step) -> str | None:
                                  "differ")
     say("resnet_jpeg", check="streamed and barrier batches bit-identical",
         batches=4, exact=True)
+    # the train steps on a context of their own: its steps section covers
+    # them alone
+    strom_torch.close()
+    ctx = strom_torch.init(StromConfig.from_env())
     _drop_cache(tar)
     pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=128, device=cuda)
-    _train_steps("resnet_jpeg", model, step, pipe, 3)
+    _train_steps("resnet_jpeg", model, step, pipe, JPEG_STEPS)
     pipe.close()
+    stall_line("resnet_jpeg", ctx)
+    trace_round_trip(workdir)
     strom_torch.close()
     return tar
+
+
+JPEG_STEPS = 6
+
+
+def stall_line(arm: str, ctx) -> dict:
+    """``goodput_pct`` and each bucket's p50 and p99 from the context's
+    steps section (obs/stall.py over the event ring since the context
+    started)."""
+    steps = ctx.stats()["steps"]
+    say("stall", arm=arm, goodput_pct=steps["goodput_pct"],
+        steps_observed=steps["steps_observed"],
+        **{f"{b}_{q}_us": steps[f"step_{b}_{q}_us"]
+           for b in stall.BUCKETS for q in ("p50", "p99")})
+    if steps["steps_observed"] < 1:
+        raise AssertionError(f"stall {arm}: no step window in the ring")
+    return steps
+
+
+def trace_round_trip(workdir: str) -> None:
+    """The event ring as a Chrome trace file, loaded back whole."""
+    n = len(events_ring.snapshot())
+    path = chrome_trace.dump(os.path.join(workdir, "phase7_trace.json"))
+    back = chrome_trace.load_events(path)
+    cats = sorted({e["cat"] for e in back if e["ph"] == "X"})
+    say("trace", events=n, loaded=len(back), bytes=os.path.getsize(path),
+        ring_dropped=events_ring.events_dropped,
+        span_cats=",".join(cats))
+    if len(back) != n or n == 0:
+        raise AssertionError(f"trace: dumped {n} events, loaded {len(back)}")
+    os.unlink(path)
 
 
 NO_JPEG = ("no_cv2_and_no_PIL:_neither_a_JPEG_encoder_for_the_fixture_nor_"
@@ -3155,12 +3196,15 @@ def _resil_counts() -> dict:
             if k != "breaker_state"}
 
 
-def _chaos_pass(make_pipe, plan: str) -> tuple[float, list[str], int]:
-    """One pass of CHAOS_BATCHES batches through a fresh context: images
-    a second, each batch's hash after .cpu(), the faults injected. The
-    residency hybrid is off, so the plan sees the media op stream."""
+def _chaos_pass(arm: str, make_pipe, plan: str
+                ) -> tuple[float, list[str], int]:
+    """One pass of CHAOS_BATCHES batches through a fresh context under the
+    lock-order witness (debug_locks, as the reference's bench_chaos runs):
+    images a second, each batch's hash after .cpu(), the faults injected,
+    then the pass's stall buckets. The residency hybrid is off, so the
+    plan sees the media op stream."""
     cfg = StromConfig.from_env(residency_hybrid=False, io_retries=3,
-                               fault_plan=plan)
+                               fault_plan=plan, debug_locks=True)
     ctx = StromContext(cfg)
     try:
         with make_pipe(ctx) as pipe:
@@ -3174,19 +3218,22 @@ def _chaos_pass(make_pipe, plan: str) -> tuple[float, list[str], int]:
             dt = time.perf_counter() - t0
         plan_obj = getattr(ctx.engine, "plan", None)
         injected = plan_obj.stats()["faults_injected"] if plan_obj else 0
+        stall_line(f"chaos_{arm}_{'faulty' if plan else 'clean'}", ctx)
         return CHAOS_BATCHES * CHAOS_BATCH / dt, hashes, injected
     finally:
         ctx.close()
 
 
 def _chaos_arm(arm: str, path: str, make_pipe) -> None:
-    """The reference's bench_chaos: the loader clean, then under chaos:0;
-    the faulted pass must finish with the clean pass's batches."""
+    """The reference's bench_chaos: the loader clean, then under chaos:0,
+    both under the lock-order witness; the faulted pass must finish with
+    the clean pass's batches, and no lock-order cycle may show."""
+    cycles0 = locks.witness.cycles
     _drop_cache(path)
-    clean_rate, clean, _ = _chaos_pass(make_pipe, "")
+    clean_rate, clean, _ = _chaos_pass(arm, make_pipe, "")
     before = _resil_counts()
     _drop_cache(path)
-    faulty_rate, faulty, injected = _chaos_pass(make_pipe, "chaos:0")
+    faulty_rate, faulty, injected = _chaos_pass(arm, make_pipe, "chaos:0")
     d = {k: v - before[k] for k, v in _resil_counts().items()}
     out = {"chaos_ok": int(bool(clean) and clean == faulty),
            "chaos_slowdown": f"{clean_rate / faulty_rate:.3f}",
@@ -3198,15 +3245,17 @@ def _chaos_arm(arm: str, path: str, make_pipe) -> None:
            "chaos_breaker_trips": d["breaker_trips"],
            "chaos_hedges_fired": d["hedges_fired"]}
     assert set(out) == set(CHAOS_BENCH_FIELDS)
+    cycles = locks.witness.cycles - cycles0
     say("chaos", arm=arm, fault_plan="chaos:0", batches=CHAOS_BATCHES,
-        batch=CHAOS_BATCH, **out,
-        hedges="not_ported_yet_so_chaos_hedges_fired_is_0",
+        batch=CHAOS_BATCH, **out, debug_locks=True, lock_order_cycles=cycles,
+        hedges_won=d["hedges_won"],
         retry_backoff_waits=d["retry_backoff_waits"],
         retry_budget_exhausted=d["retry_budget_exhausted"])
-    if out["chaos_ok"] != 1 or injected <= 0:
+    if out["chaos_ok"] != 1 or injected <= 0 or cycles:
         raise AssertionError(f"chaos {arm}: batches under chaos:0 differ "
-                             f"from the clean pass's, or no fault was "
-                             f"injected ({injected})")
+                             f"from the clean pass's, no fault was "
+                             f"injected ({injected}), or the witness saw "
+                             f"{cycles} lock-order cycle(s)")
 
 
 def _breaker_arm(path: str, want: torch.Tensor) -> None:
@@ -3369,9 +3418,224 @@ def _handle_arm(path: str, want: torch.Tensor) -> None:
         ctx.close()
 
 
+def _slab_leak_arm(path: str, want: torch.Tensor) -> None:
+    """A failed streamed delivery on pinned slabs keeps none: 256 MiB
+    through memcpy_ssd2gpu (two 128 MiB pieces) where the read op over one
+    byte of the second piece fails twice, once more than io_retries, with
+    the breaker off, so the delivery raises. slab_in_use_bytes must read 0
+    after the raise; a clean delivery follows in the same context, and
+    another in a new context after this one closed (a registration that
+    outlived its pool would make that one's cudaHostRegister fail)."""
+    off = BREAKER_BYTES - BREAKER_BYTES // 8
+    plan = json.dumps({"seed": 0, "rules": [
+        {"kind": "errno", "op": "read", "offset_lo": off,
+         "offset_hi": off + 1, "times": 2}]})
+    cfg = dict(residency_hybrid=False, io_retries=1, breaker_enabled=False)
+    ctx = StromContext(StromConfig.from_env(fault_plan=plan, **cfg))
+    try:
+        raised = None
+        try:
+            ctx.memcpy_ssd2gpu(path, device=want.device)
+        except EngineError as e:
+            raised = e
+        pool = ctx.stats()["slab_pool"]
+        t0 = time.perf_counter()
+        got = ctx.memcpy_ssd2gpu(path, device=want.device)
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        exact = torch.equal(got, want)
+        del got
+        say("slab_leak", bytes=BREAKER_BYTES, failed_at=off,
+            raised=type(raised).__name__ if raised else "nothing",
+            slab_in_use_bytes=pool["slab_in_use_bytes"],
+            parked_bytes=pool["parked_bytes"],
+            registered_slabs=pool["registered_slabs"],
+            streamed_transfers=ctx.stats()["streamed_transfers"],
+            clean_exact=exact, clean_gbps=f"{BREAKER_BYTES / dt / 1e9:.3f}")
+        if raised is None or pool["slab_in_use_bytes"] != 0 or not exact:
+            raise AssertionError(f"slab_leak: raised {raised!r}, "
+                                 f"{pool['slab_in_use_bytes']} bytes of slabs "
+                                 f"still out, clean delivery exact={exact}")
+    finally:
+        ctx.close()
+    left = ctx._slab_pool.stats()["registered_slabs"]
+    with StromContext(StromConfig.from_env(**cfg)) as again:
+        got = again.memcpy_ssd2gpu(path, device=want.device)
+        exact = torch.equal(got, want)
+        del got
+    say("slab_leak", arm="new_context", registered_after_close=left,
+        exact=exact)
+    if left or not exact:
+        raise AssertionError(f"slab_leak: {left} slab(s) registered after "
+                             f"close, or the new context's delivery "
+                             f"differs")
+
+
+HEDGE_BYTES = 64 * MiB
+HEDGE_HOLD_S = 0.5
+
+
+def _hedge_arm(path: str, want: torch.Tensor) -> None:
+    """A 64 MiB streamed gather (StreamingGather into a pinned slab) whose
+    read op 8 is held 0.5 s by a latency rule, once with hedges off and
+    once on: both exact; with hedges on the held chunk is re-read on the
+    fallback engine and wins."""
+    plan = json.dumps({"seed": 0, "rules": [
+        {"kind": "latency", "op": "read", "op_lo": 8, "op_hi": 9,
+         "latency_s": HEDGE_HOLD_S}]})
+    host = want[:HEDGE_BYTES].cpu().numpy()
+    for hedge in (False, True):
+        ctx = StromContext(StromConfig.from_env(
+            residency_hybrid=False, fault_plan=plan, hedge_enabled=hedge))
+        try:
+            dest = ctx.host_batch((HEDGE_BYTES,), want.device)
+            before = _resil_counts()
+            t0 = time.perf_counter()
+            g = ctx.stream_segments(path, [Segment(0, 0, HEDGE_BYTES)], dest)
+            try:
+                while not g.done:
+                    g.poll(min_completions=1, timeout_s=1.0)
+                g.finish()
+            finally:
+                g.close()
+            dt = time.perf_counter() - t0
+            d = {k: v - before[k] for k, v in _resil_counts().items()}
+            exact = bool(np.array_equal(dest, host))
+            thr = ctx.stats()["resilience"].get("hedge_threshold_us")
+            ctx.release_host_batch(dest, want.device)
+            say("hedge", hedge_enabled=hedge, bytes=HEDGE_BYTES,
+                held_op=8, hold_s=HEDGE_HOLD_S, s=f"{dt:.4f}",
+                gbps=f"{HEDGE_BYTES / dt / 1e9:.3f}", exact=exact,
+                hedges_fired=d["hedges_fired"], hedges_won=d["hedges_won"],
+                hedge_wasted_bytes=d["hedge_wasted_bytes"],
+                hedge_threshold_us=thr)
+            if not exact or (hedge and (d["hedges_fired"] < 1
+                                        or d["hedges_won"] < 1)) \
+                    or (not hedge and d["hedges_fired"]):
+                raise AssertionError(f"hedge: exact={exact}, hedges {d}")
+        finally:
+            ctx.close()
+
+
+QUARANTINE_RECOVERY_S = 0.5
+
+
+def _quarantine_arm(workdir: str) -> None:
+    """Two files over a 2-ring engine whose ring 0 fails every read of its
+    file with EIO (a fault plan on that ring): gathers fail until ring 0
+    is quarantined, then the file routes to ring 1, exact; after
+    ring_recovery_s the rebuilt ring serves again, exact. Needs io_uring;
+    elsewhere the arm says why it is skipped."""
+    if not uring_engine.uring_available():
+        say("quarantine", skipped=uring_engine.unavailable_reason
+            .replace(" ", "_") or "io_uring_unavailable")
+        return
+    from strom_torch.engine.multi import MultiRingEngine
+
+    n = 16 * MiB
+    rng = np.random.default_rng(17)
+    files = []
+    for i in range(2):
+        p = os.path.join(workdir, f"ring{i}.bin")
+        d = rng.integers(0, 256, n, dtype=np.uint8)
+        _write_file(p, d)
+        files.append((p, d))
+    eng = MultiRingEngine(StromConfig.from_env(
+        engine_rings=2, breaker_min_events=2, io_retries=0,
+        ring_recovery_s=QUARANTINE_RECOVERY_S))
+    plan = FaultPlan.from_spec(json.dumps(
+        {"seed": 0, "rules": [{"kind": "errno", "op": "read",
+                               "path": "ring0.bin"}]}))
+    eng._children[0] = FaultyEngine(eng._children[0], plan)
+    try:
+        fis = [eng.register_file(p) for p, _ in files]
+        chunks = [(fis[0], 0, 0, n), (fis[1], 0, n, n)]
+        want = np.concatenate([d for _, d in files])
+        dest = alloc_aligned(2 * n)
+        failed = 0
+        while failed < 4 and not eng.stats()["quarantined_rings"]:
+            try:
+                eng.read_vectored(chunks, dest)
+            except EngineError:
+                failed += 1
+        quarantined = eng.stats()["quarantined_rings"]
+        exact = eng.read_vectored(chunks, dest) == 2 * n \
+            and np.array_equal(dest, want)
+        time.sleep(QUARANTINE_RECOVERY_S)
+        dest[:] = 0
+        recovered = eng.read_vectored(chunks, dest) == 2 * n \
+            and np.array_equal(dest, want)
+        st = eng.stats()
+        say("quarantine", rings=2, failed_gathers=failed,
+            quarantined_rings=json.dumps(quarantined).replace(" ", ""),
+            exact_degraded=exact, ring_recoveries=st["ring_recoveries"],
+            exact_recovered=recovered,
+            ring0_ops=st["ring_stats"][0]["ops_submitted"])
+        if quarantined != [0] or not exact or not recovered \
+                or st["ring_recoveries"] != 1:
+            raise AssertionError(
+                f"quarantine: {quarantined}, exact {exact}, recovered "
+                f"{recovered}, {st['ring_recoveries']} recoveries")
+    finally:
+        eng.close()
+        for p, _ in files:
+            os.unlink(p)
+
+
+def _stress_arm() -> None:
+    """The stress harness on the card's default engine under the witness:
+    readers, a stats poller and a dest registrar over one context."""
+    from strom_torch.engine.stress import run_stress
+
+    cycles0 = locks.witness.cycles
+    was_on = locks.witness_enabled()
+    locks.enable_witness(True)
+    t0 = time.perf_counter()
+    try:
+        rc = run_stress("", seconds=3)
+    finally:
+        locks.enable_witness(was_on)
+    cycles = locks.witness.cycles - cycles0
+    say("stress", rc=rc, seconds=3, debug_locks=True,
+        lock_order_cycles=cycles, wall_s=f"{time.perf_counter() - t0:.2f}")
+    if rc != 0 or cycles:
+        raise AssertionError(f"stress: rc {rc}, {cycles} lock-order cycles")
+
+
+def _flight_arm(workdir: str, path: str, device: torch.device) -> None:
+    """A context with flight_dir: one delivery, capture("on_demand"), then
+    a dumped bundle loaded back with stats, stacks and a trace."""
+    fdir = os.path.join(workdir, "flight")
+    ctx = StromContext(StromConfig.from_env(flight_dir=fdir,
+                                            flight_stall_s=0.0))
+    try:
+        ctx.memcpy_ssd2gpu(path, length=16 * MiB, device=device)
+        rec = ctx.flight_recorder
+        cap = rec.capture("on_demand")
+        b = load_bundle(rec.dump("on_demand", note="chip_smoke"))
+        ok = bool(b["stats"].get("sections")) and "thread" in b["stacks"] \
+            and len(b["trace"]["traceEvents"]) > 0 \
+            and b["manifest"]["fields"] == cap["fields"]
+        say("flight", capture_samples=len(cap["samples"]),
+            bundle_trace_events=len(b["trace"]["traceEvents"]),
+            stacks_bytes=len(b["stacks"]),
+            sections=len(b["stats"].get("sections", {})),
+            slab_in_use_bytes=cap["samples"][-1]["slab_in_use_bytes"],
+            round_trip=ok)
+        if not ok:
+            raise AssertionError("flight: the bundle lacks stats, stacks "
+                                 "or a trace")
+    finally:
+        ctx.close()
+    shutil.rmtree(fdir, ignore_errors=True)
+
+
 def phase_resilience(workdir: str, pdec: str, tar: str | None) -> None:
-    """Phase 11: the chaos arms, the breaker, deadlines, kill-and-resume
-    and the handle's barrier."""
+    """Phase 11: the chaos arms (under the lock-order witness, with their
+    stall buckets), the breaker, deadlines, the handle's barrier, the
+    failed delivery's slabs, hedged reads, ring quarantine, the stress
+    harness, the flight recorder and kill-and-resume."""
     cuda = torch.device("cuda")
     if tar is None:
         say("chaos", arm="jpeg", skipped=NO_JPEG)
@@ -3390,8 +3654,13 @@ def phase_resilience(workdir: str, pdec: str, tar: str | None) -> None:
     _breaker_arm(path, want)
     _deadline_arm(path)
     _handle_arm(path, want)
+    _slab_leak_arm(path, want)
+    _hedge_arm(path, want)
+    _flight_arm(workdir, path, cuda)
     del want
     os.unlink(path)
+    _quarantine_arm(workdir)
+    _stress_arm()
     _resume_arm(workdir)
 
 

@@ -30,7 +30,6 @@ Entry points target the current CUDA device unless the caller passes
 
 from __future__ import annotations
 
-import threading
 from typing import Any
 
 from strom_torch.config import StromConfig  # noqa: F401
@@ -44,11 +43,12 @@ from strom_torch.pipelines import (  # noqa: F401
     make_wds_vision_pipeline)
 from strom_torch.probe.check import FileReport, PathTier  # noqa: F401
 from strom_torch.probe.check import check_file as _probe_check_file
+from strom_torch.utils.locks import make_lock
 
 __version__ = "0.1.0"
 
 _ctx: StromContext | None = None
-_ctx_lock = threading.Lock()
+_ctx_lock = make_lock("app.ctx")
 
 
 def check_file(path, **kwargs) -> FileReport:

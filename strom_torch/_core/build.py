@@ -17,6 +17,11 @@ the library records the answer it was built with. ``STROM_JPEG_CFLAGS``
 prepends compiler flags to the probe and the build (tests poison the
 include path through it to exercise the build without the decoder).
 
+``variant`` (``"tsan"`` or ``"asan"``) builds the sanitizer variant of the
+library, ``-O1 -g -fsanitize=thread|address``, into its own library name
+(the variant is part of the name and the hash) for the stress harness
+(:mod:`strom_torch.engine.stress`); ``""`` is the plain build.
+
 Safe across processes: the compile runs under an ``flock`` on a lock file
 beside the library, into a temporary file that is ``rename()``d into place,
 so a concurrent ``dlopen`` never sees a half-written object and six test
@@ -32,13 +37,26 @@ import hashlib
 import os
 import subprocess
 import tempfile
-import threading
 import time
+
+from strom_torch.utils.locks import make_lock
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_DIR, "strom_core.cpp")
 BUILD_DIR = os.path.join(_DIR, "build")
 CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-pthread", "-shared"]
+VARIANTS = ("", "tsan", "asan")
+_SANITIZER = {"tsan": "thread", "asan": "address"}
+
+
+def _cxx_flags(variant: str) -> list[str]:
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown build variant {variant!r} "
+                         f"(one of {VARIANTS})")
+    if not variant:
+        return CXX_FLAGS
+    return ["-O1", "-g", "-std=c++17", "-fPIC", "-pthread", "-shared",
+            f"-fsanitize={_SANITIZER[variant]}"]
 
 # exactly the API surface sc_jpeg_decode needs: plain (non-turbo) libjpeg
 # has jpeglib.h but not the partial-decode entry points, so either the
@@ -59,7 +77,7 @@ int main() {
 }
 """
 
-_lock = threading.Lock()
+_lock = make_lock("app.core_build")
 build_seconds: float | None = None   # this process's compile time; None: cached
 # probe answer memoized per STROM_JPEG_CFLAGS value
 _jpeg_probe: dict[tuple[str, ...], bool] = {}
@@ -89,18 +107,22 @@ def jpeg_probe() -> bool:
     return _jpeg_probe[extra]
 
 
-def _build_cmd(out: str) -> list[str]:
+def _build_cmd(out: str, variant: str = "") -> list[str]:
+    flags = _cxx_flags(variant)
     if jpeg_probe():
-        return ["g++", *_jpeg_extra_cflags(), *CXX_FLAGS, "-DSTROM_HAVE_JPEG",
+        return ["g++", *_jpeg_extra_cflags(), *flags, "-DSTROM_HAVE_JPEG",
                 "-o", out, SRC, "-ljpeg"]
-    return ["g++", *CXX_FLAGS, "-o", out, SRC]
+    return ["g++", *flags, "-o", out, SRC]
 
 
-def lib_path(build_dir: str = BUILD_DIR) -> str:
+def lib_path(build_dir: str = BUILD_DIR, variant: str = "") -> str:
     with open(SRC, "rb") as f:
         digest = hashlib.sha1(
-            f.read() + " ".join(_build_cmd("")).encode()).hexdigest()
-    return os.path.join(build_dir, f"libstrom_core-{digest[:12]}.so")
+            f.read() + " ".join(_build_cmd("", variant)).encode()
+        ).hexdigest()
+    suffix = f"_{variant}" if variant else ""
+    return os.path.join(build_dir,
+                        f"libstrom_core{suffix}-{digest[:12]}.so")
 
 
 def built_with_jpeg(so: str) -> bool | None:
@@ -112,10 +134,11 @@ def built_with_jpeg(so: str) -> bool | None:
         return None
 
 
-def ensure_built(build_dir: str = BUILD_DIR) -> str:
-    """Path of the built library, compiling it first if it is missing."""
+def ensure_built(build_dir: str = BUILD_DIR, variant: str = "") -> str:
+    """Path of the built library (of the sanitizer *variant*), compiling
+    it first if it is missing."""
     global build_seconds
-    so = lib_path(build_dir)
+    so = lib_path(build_dir, variant)
     with _lock:
         if os.path.exists(so):
             return so
@@ -126,7 +149,7 @@ def ensure_built(build_dir: str = BUILD_DIR) -> str:
                 if os.path.exists(so):
                     return so   # another process built it while we waited
                 tmp = f"{so}.tmp.{os.getpid()}"
-                cmd = _build_cmd(tmp)
+                cmd = _build_cmd(tmp, variant)
                 t0 = time.perf_counter()
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:

@@ -33,8 +33,8 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import os
-import threading
 import time
 from typing import Any
 
@@ -43,6 +43,7 @@ import torch
 from strom_torch.ckpt.checkpoint import (CkptError, _build_manifest,
                                          _commit_checkpoint, _host_leaves,
                                          _PinnedArena, load_manifest)
+from strom_torch.utils.locks import make_lock
 
 # the numbers an async-save measurement reports
 CKPT_ASYNC_FIELDS = (
@@ -72,7 +73,7 @@ class AsyncCheckpointer:
         self._dir = os.path.abspath(directory)
         self._exec = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="strom-ckpt-commit")
-        self._lock = threading.Lock()
+        self._lock = make_lock("app.ckpt_async")
         self._fut: "concurrent.futures.Future | None" = None
         self._error: "BaseException | None" = None
         self._last_manifest: "dict | None" = None
@@ -113,12 +114,29 @@ class AsyncCheckpointer:
                 self._error = e
                 self.failures += 1
             self._ctx._count(ckpt_async_failures=1)
+            self._dump_flight(e)
             raise
         with self._lock:
             self._last_manifest = m
             self.commits += 1
         self._ctx._count(ckpt_async_commits=1)
         return m
+
+    def _dump_flight(self, exc: BaseException) -> None:
+        """A failed commit is a post-mortem moment: a ``ckpt_commit_failed``
+        bundle carries the stats, stacks and trace that led up to it (the
+        context's recorder, or a one-shot capture into ``flight_dir``).
+        Best effort: the error is latched either way."""
+        with contextlib.suppress(Exception):
+            fr = getattr(self._ctx, "flight_recorder", None)
+            if fr is not None:
+                fr.dump("ckpt_commit_failed", note=repr(exc))
+            elif self._ctx.config.flight_dir:
+                from strom_torch.obs.flight import dump_capture
+
+                dump_capture(self._ctx.config.flight_dir,
+                             reason="ckpt_commit_failed", note=repr(exc),
+                             ctx=self._ctx)
 
     def _join(self, *, raise_error: bool) -> None:
         with self._lock:

@@ -54,6 +54,10 @@ class StromConfig:
                                        # (RAID0 member i → ring i mod N)
     sqpoll: bool = False               # IORING_SETUP_SQPOLL: a kernel thread
                                        # polls the SQ (falls back when refused)
+    ring_recovery_s: float = 0.0       # multi-ring quarantine cooldown: > 0
+                                       # rebuilds a quarantined ring after
+                                       # this many seconds and replays its
+                                       # dest-slab registrations; 0 = sticky
     io_retries: int = 1                # per-chunk resubmits before erroring
     # route page-cache-resident ranges of a gather through the buffered fd
     # (a memcpy from the cache) instead of re-reading them O_DIRECT; both
@@ -86,10 +90,32 @@ class StromConfig:
     breaker_error_rate: float = 0.5
     breaker_cooldown_s: float = 5.0
     breaker_half_open_successes: int = 3
+    # hedged reads (streamed gathers): a gather quiet for longer than
+    # max(hedge_min_s, hedge_multiplier * rolling-p99 completion latency)
+    # re-reads its incomplete chunks on the fallback path; the first
+    # completion wins, the loser is cancelled. 0 multiplier and min disable
+    hedge_enabled: bool = True
+    hedge_min_s: float = 0.05
+    hedge_multiplier: float = 3.0
     # a seeded fault plan (faults/plan.py): a JSON file path, an inline
     # JSON object or a preset ("chaos[:seed]", "chaos_writes[:seed]",
     # "chaos_net[:seed]"). Non-empty wraps the engine in FaultyEngine
     fault_plan: str = ""
+
+    # observability
+    # torch.profiler.record_function around delivery spans; the event
+    # ring's spans follow the ring's own switch, not this one
+    trace_annotations: bool = True
+    # flight recorder (obs/flight.py): a non-empty flight_dir runs a
+    # watchdog for the context's lifetime and dumps an atomic bundle there
+    # on SIGTERM, an unhandled exception, a breaker trip, or no progress
+    # for flight_stall_s seconds (<= 0 disables that trigger)
+    flight_dir: str = ""
+    flight_stall_s: float = 30.0
+    # lock-order witness (utils/locks.py): every lock built through
+    # make_lock after the context starts records its acquisition order and
+    # raises LockOrderError on a cycle. Off = plain threading.Lock
+    debug_locks: bool = False
 
     # delivery
     # extent-aware gather planning: split plain-file chunks at FIEMAP extent
@@ -200,6 +226,8 @@ class StromConfig:
             raise ValueError("queue_depth must be positive")
         if self.engine_rings < 1:
             raise ValueError("engine_rings must be >= 1")
+        if self.ring_recovery_s < 0:
+            raise ValueError("ring_recovery_s must be >= 0 (0 = sticky)")
         if self.num_buffers <= 0:
             raise ValueError("num_buffers must be positive")
         if self.engine not in ("auto", "uring", "python"):

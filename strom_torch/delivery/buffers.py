@@ -19,10 +19,10 @@ from __future__ import annotations
 
 import contextlib
 import mmap
-import threading
 from typing import Callable
 
 import numpy as np
+from strom_torch.utils.locks import make_lock
 
 PAGE = mmap.PAGESIZE
 _MAP_POPULATE = getattr(mmap, "MAP_POPULATE", 0x8000)
@@ -89,16 +89,19 @@ class SlabPool:
 
     Slabs are allocated at size-class granularity; acquire() hands out a
     view of the first ``nbytes``; release() walks the view back to its slab.
-    With ``pin=True`` each slab is registered with CUDA when it is made, then
-    handed to ``on_alloc`` (the engine's ring registration); when it leaves
+    Each slab is registered when it is made: with CUDA under ``pin=True``,
+    then with ``on_alloc`` (the engine's ring registration). When it leaves
     the pool (past ``max_bytes`` cached, or at :meth:`close`) ``on_free``
     runs first and the CUDA registration goes second, so the ring never
     holds pages CUDA has released. The pool keeps every registered slab
-    alive until then.
+    alive until then, and :meth:`close` unregisters every one of them,
+    those still out included: no registered slab outlives the pool.
 
-    The recycle contract: ``release()`` only once nothing reads the slab —
-    for delivery, after the device copy out of it has *retired* (its CUDA
-    event completed), not when ``copy_()`` returns.
+    The recycle contract: ``release()`` only once nothing reads or writes
+    the slab — for delivery, after the device copy out of it has *retired*
+    (its CUDA event completed), not when ``copy_()`` returns. A slab an
+    engine may still write into (an abandoned piece) goes to :meth:`park`
+    instead: never reused, kept registered until the pool closes.
     """
 
     def __init__(self, max_bytes: int = 512 * 1024 * 1024, *, pin: bool = False,
@@ -110,8 +113,10 @@ class SlabPool:
         self._on_free = on_free
         self._free: dict[int, list[np.ndarray]] = {}  # class size -> slabs
         self._registered: dict[int, np.ndarray] = {}  # addr -> slab
+        # slabs an engine may still write into: out of use, never reused
+        self._parked: list[np.ndarray] = []
         self._cached_bytes = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("slab.pool")
         self._closed = False
         self.hits = 0
         self.misses = 0
@@ -136,8 +141,14 @@ class SlabPool:
             with contextlib.suppress(Exception):
                 fn()
 
+    @property
+    def _registers(self) -> bool:
+        return self.pin or self._on_alloc is not None \
+            or self._on_free is not None
+
     def _register(self, slab: np.ndarray) -> None:
-        host_register(slab)
+        if self.pin:
+            host_register(slab)
         self._registered[buf_addr(slab)] = slab
         if self._on_alloc is not None:
             self._on_alloc(slab)
@@ -146,7 +157,8 @@ class SlabPool:
         if self._registered.pop(buf_addr(slab), None) is not None:
             if self._on_free is not None:
                 self._on_free(slab)   # the ring lets go before CUDA does
-            host_unregister(slab)
+            if self.pin:
+                host_unregister(slab)
 
     def acquire(self, nbytes: int) -> np.ndarray:
         cls = size_class(nbytes)
@@ -167,7 +179,7 @@ class SlabPool:
             return slab
         try:
             slab = alloc_aligned(cls, populate=True)
-            if self.pin:
+            if self._registers:
                 with self._lock:
                     self._register(slab)
         except BaseException:
@@ -185,26 +197,48 @@ class SlabPool:
             if not self._closed and self._cached_bytes + cls <= self.max_bytes:
                 self._free.setdefault(cls, []).append(slab)
                 self._cached_bytes += cls
-            elif self.pin:
+            elif self._registers:
                 self._unregister(slab)
         self._occupancy_changed()
 
+    def park(self, arr: np.ndarray) -> None:
+        """Take back a slab that an engine may still write into (see
+        ``strom_torch.engine.base.may_still_write``) without reusing it:
+        it leaves ``in_use_bytes``, stays registered and referenced, and is
+        unregistered only at :meth:`close`, which the owner calls after
+        its engine has closed and joined its workers."""
+        slab = _base(arr)
+        with self._lock:
+            self.in_use_bytes -= slab.nbytes
+            self._parked.append(slab)
+        self._occupancy_changed()
+
     def close(self) -> None:
-        """Unregister and drop every cached slab; slabs still out are
-        unregistered when they come back."""
+        """Unregister every registered slab — cached, parked and still out
+        — and drop the cached and parked ones. The owner calls it once no
+        engine op and no copy can touch a slab any more; a slab still out
+        then needs no unregistering when it comes back."""
+        err: "BaseException | None" = None
         with self._lock:
             self._closed = True
-            for bucket in self._free.values():
-                for slab in bucket:
-                    if self.pin:
-                        self._unregister(slab)
+            for slab in list(self._registered.values()):
+                try:
+                    self._unregister(slab)
+                except BaseException as e:   # the rest still leave
+                    err = err or e
             self._free.clear()
+            self._parked.clear()
             self._cached_bytes = 0
+        if err is not None:
+            raise err
 
     def stats(self) -> dict:
         with self._lock:
             return {"cached_bytes": self._cached_bytes,
                     "slab_in_use_bytes": self.in_use_bytes,
+                    "parked_bytes": sum(s.nbytes for s in self._parked),
+                    "registered_slabs": len(self._registered),
                     "pinned_bytes": sum(s.nbytes for s in
-                                        self._registered.values()),
+                                        self._registered.values())
+                    if self.pin else 0,
                     "hits": self.hits, "misses": self.misses}

@@ -63,6 +63,7 @@ import math
 import os
 import queue
 import threading
+import time
 from typing import Any, Sequence
 
 import numpy as np
@@ -79,13 +80,31 @@ from strom_torch.delivery.resilient import ResilientIo
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
 from strom_torch.engine.base import (DeadlineExceeded, Engine, EngineError,
-                                     EngineStallError)
+                                     EngineStallError, may_still_write)
 from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX, plan_stripe_reads,
                                       plan_stripe_windows)
 from strom_torch.engine.resilience import RESILIENCE_FIELDS, classify_errno
 from strom_torch.obs import request as _request
+from strom_torch.obs.events import ring as _events_ring
 from strom_torch.probe.fiemap import fiemap
+from strom_torch.utils import locks as _locks
 from strom_torch.utils.stats import global_stats
+from strom_torch.utils.tracing import trace_span
+
+# the steps section of stats() is recomputed at most this often: a
+# whole-ring attribution is not free
+_STEPS_TTL_S = 2.0
+
+
+class _Retired:
+    """The event of a copy that already ran (a CPU target's)."""
+
+    @staticmethod
+    def synchronize() -> None:
+        return None
+
+
+_RETIRED = _Retired()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,6 +351,17 @@ class StromContext:
                  engine: Engine | None = None, *,
                  scope: "dict | None | object" = None):
         self.config = config or StromConfig.from_env()
+        self._witness_enabled_here = False
+        if self.config.debug_locks:
+            # on BEFORE the engine and every subsystem lock below is built,
+            # so their make_lock calls return WitnessLocks (module-level
+            # locks made at import need STROM_DEBUG_LOCKS=1); close()
+            # reverts it
+            self._witness_enabled_here = not _locks.witness_enabled()
+            _locks.enable_witness(True)
+            if self.config.flight_dir:
+                # a cycle's bundle lands where crash bundles go
+                _locks.set_flight_dir(self.config.flight_dir)
         self.engine = engine or make_engine(self.config)
         # a fault plan wraps the engine before anything (the scheduler, the
         # resilience layer, the locks) binds it: every read this context
@@ -357,13 +387,14 @@ class StromContext:
         self._striped: dict[str, StripedFile] = {}
         # path -> FIEMAP extent map (None: unavailable), probed once
         self._extent_maps: dict[str, list | None] = {}
-        self._files_lock = threading.Lock()
+        self._files_lock = _locks.make_lock("app.files")
         # without the scheduler, one gather at a time on the engine:
         # concurrent transfers must not interleave queue-depth budgets. A
         # multi-ring engine serializes per ring instead (concurrent_gathers);
         # a lock here would re-serialize the transfers its rings interleave.
         self._engine_lock = contextlib.nullcontext() \
-            if self.engine.concurrent_gathers else threading.Lock()
+            if self.engine.concurrent_gathers \
+            else _locks.make_lock("engine.transfer")
         self._executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(2, self.config.delivery_workers),
             thread_name_prefix="strom-delivery")
@@ -380,7 +411,7 @@ class StromContext:
         # a weighted fair drain at slice granularity, budgets and slab-pool
         # admission control, in place of the engine lock
         self._scheduler = None
-        self._tenant_reg_lock = threading.Lock()
+        self._tenant_reg_lock = _locks.make_lock("app.tenant_reg")
         if self.config.sched_enabled:
             from strom_torch.sched.scheduler import IoScheduler
 
@@ -392,12 +423,19 @@ class StromContext:
         # the fallback under the tenant's grants
         self._resilience = ResilientIo(self.config, self.engine,
                                        scope=self.scope)
+        # per-step stall attribution over the ring's events since now
+        self._obs_t0_us = _events_ring.now_us()
+        self._steps_cache: "tuple[float, dict] | None" = None
+        self._steps_cache_lock = _locks.make_lock("app.steps_cache")
+        # each bucket's total at the last publication: its growth goes to
+        # the stall_<bucket>_us counters
+        self._stall_published: dict[str, float] = {}
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
         self._counts = collections.Counter(
             {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
              "stream_gathers": 0, "stream_instant_bytes": 0,
              "host2ssd_bytes": 0})
-        self._counts_lock = threading.Lock()
+        self._counts_lock = _locks.make_lock("app.counts")
         # hot-set host cache: repeat traffic serves from RAM instead of the
         # engine. Its buffers are its own aligned allocations, not pool
         # slabs (see delivery/hotcache.py); bound_depth still subtracts
@@ -436,9 +474,28 @@ class StromContext:
         # the vision pipeline's decoded-frame cache (attach_decoded_cache)
         self._decoded_cache = None
         # demand gathers in flight: readahead yields to them
-        self._demand_lock = threading.Lock()
+        self._demand_lock = _locks.make_lock("app.demand")
         self._demand_reads = 0
         self._closed = False
+        # the flight recorder: with a flight_dir, a watchdog samples
+        # progress and pressure for the context's lifetime and dumps an
+        # atomic bundle on SIGTERM, an unhandled exception, no progress,
+        # or a breaker trip
+        self._flight = None
+        if self.config.flight_dir:
+            from strom_torch.obs.flight import FlightRecorder
+
+            self._flight = FlightRecorder(
+                self.config.flight_dir, ctx=self,
+                stall_s=self.config.flight_stall_s)
+            if self._resilience.breaker is not None:
+                flight = self._flight
+
+                def _dump_on_trip(note: str, _f=flight) -> None:
+                    with contextlib.suppress(Exception):
+                        _f.dump("breaker_trip", note=note)
+
+                self._resilience.breaker.on_trip = _dump_on_trip
 
     # -- files --------------------------------------------------------------
     def file_index(self, path: str, *, writable: bool = False) -> int:
@@ -519,6 +576,14 @@ class StromContext:
     def _count(self, **kv: int) -> None:
         with self._counts_lock:
             self._counts.update(kv)
+        if "ssd2gpu_bytes" in kv:
+            # the flight recorder's progress signal reads the registry
+            self.scope.add("ssd2gpu_bytes", kv["ssd2gpu_bytes"])
+
+    @property
+    def flight_recorder(self):
+        """The flight recorder when ``flight_dir`` is set, else None."""
+        return self._flight
 
     @property
     def hot_cache(self) -> HotCache | None:
@@ -881,7 +946,10 @@ class StromContext:
                 return n
 
             try:
-                with self._demand_gate():
+                with self._demand_gate(), \
+                        _request.span("strom.read_segments", cat="read",
+                                      args={"ops": len(chunks),
+                                            "bytes": planned}):
                     total = self._resilience.execute(
                         primary, chunks, dest, idx_paths,
                         arbitrate=arbitrate)
@@ -1083,19 +1151,52 @@ class StromContext:
                 s = self._copy_streams[device] = torch.cuda.Stream(device=device)
             return s
 
-    def _acquire(self, n: int, cuda: bool) -> np.ndarray:
-        if cuda and self._slab_pool is not None:
+    def _acquire(self, n: int, pooled: bool) -> np.ndarray:
+        """A slab from the pool when *pooled*, else plain page-aligned
+        memory."""
+        if pooled and self._slab_pool is not None:
             return self._slab_pool.acquire(n)
         return alloc_aligned(n)
 
-    def _release(self, slab: np.ndarray, cuda: bool) -> None:
-        if cuda and self._slab_pool is not None:
+    def _release(self, slab: np.ndarray, pooled: bool) -> None:
+        if pooled and self._slab_pool is not None:
             self._slab_pool.release(slab)
 
+    def _release_failed(self, slab: np.ndarray, pooled: bool) -> None:
+        """Give back the slab of a read that raised. Its pieces have
+        drained unless an engine abandoned one (a deadline's drain grace
+        or the stall watchdog ran out): then a worker may still write
+        there, and the pool parks the slab instead of reusing it."""
+        if pooled and self._slab_pool is not None and may_still_write(slab):
+            self._slab_pool.park(slab)
+        else:
+            self._release(slab, pooled)
+
+    def _retire(self, inflight: "collections.deque", pooled: bool,
+                keep: int = 0) -> None:
+        """Wait for the copies out of *inflight*'s (event, slab) pairs, the
+        oldest first, until *keep* remain, and give each slab back. Every
+        slab goes back even when a wait raises: the first error is raised
+        after the loop."""
+        err: BaseException | None = None
+        while len(inflight) > keep:
+            ev, slab = inflight.popleft()
+            try:
+                ev.synchronize()   # the slab's last reader has retired
+            except BaseException as e:
+                err = err or e
+            self._release(slab, pooled)
+        if err is not None:
+            raise err
+
     def _copy_async(self, dst: torch.Tensor, slab: np.ndarray,
-                    stream: torch.cuda.Stream) -> torch.cuda.Event:
+                    stream: "torch.cuda.Stream | None") -> Any:
         """Enqueue slab → dst on the copy stream; the returned event retires
-        when the copy (and so the slab's last reader) does."""
+        when the copy (and so the slab's last reader) does. A CPU target
+        (*stream* None) copies at once and returns a retired event."""
+        if stream is None:
+            dst.copy_(torch.from_numpy(slab))
+            return _RETIRED
         with torch.cuda.stream(stream):
             dst.copy_(torch.from_numpy(slab), non_blocking=True)
             ev = torch.cuda.Event()
@@ -1126,11 +1227,13 @@ class StromContext:
         later work on *consumer*; the slab goes back to the pool once the
         copy that reads it has retired (its event completed)."""
         try:
-            out = self._device_out(slab.shape, torch_dtype(slab.dtype),
-                                   device, consumer)
-            ev = self._copy_async(out, slab, self._copy_stream(device))
-            consumer.wait_event(ev)
-            ev.synchronize()   # the slab's last reader has retired
+            with trace_span("strom.device_put", cat="put",
+                            enabled=self.config.trace_annotations):
+                out = self._device_out(slab.shape, torch_dtype(slab.dtype),
+                                       device, consumer)
+                ev = self._copy_async(out, slab, self._copy_stream(device))
+                consumer.wait_event(ev)
+                ev.synchronize()   # the slab's last reader has retired
         finally:
             self._release(slab, True)
         return out
@@ -1160,8 +1263,10 @@ class StromContext:
                           tenant: str | None = None) -> torch.Tensor:
         """Pipeline one transfer: the reader thread reads piece k+1 from disk
         while piece k's slice copy into the preallocated *out* (uint8, on
-        the target device) is in flight."""
-        cuda = out.is_cuda
+        the target device) is in flight. Its slabs come from the pool for
+        a CUDA target, and for any target when the pool pins nothing."""
+        pool = self._slab_pool
+        pooled = out.is_cuda or (pool is not None and not pool.pin)
         pieces = split_segments(segments, self.config.overlap_chunk_bytes)
         # one piece waiting + one being read + up to two copies in flight
         ready: queue.Queue = queue.Queue(maxsize=1)
@@ -1173,9 +1278,14 @@ class StromContext:
                 for base, n, segs in pieces:
                     if stop.is_set():
                         break
-                    slab = self._acquire(n, cuda)
-                    self._read_segments(source, segs, slab, base_offset,
-                                        tenant=tenant)
+                    slab = self._acquire(n, pooled)
+                    try:
+                        self._read_segments(source, segs, slab, base_offset,
+                                            tenant=tenant)
+                    except BaseException:
+                        # drained (or parked if a piece was abandoned)
+                        self._release_failed(slab, pooled)
+                        raise
                     ready.put((base, slab))
             except BaseException as e:  # surfaced on the consumer side
                 fail.append(e)
@@ -1185,32 +1295,27 @@ class StromContext:
         t = threading.Thread(target=reader, name="strom-stream-reader",
                              daemon=True)
         t.start()
-        stream = self._copy_stream(out.device) if cuda else None
+        stream = self._copy_stream(out.device) if out.is_cuda else None
         inflight: collections.deque = collections.deque()  # (event, slab)
         item: Any = ()
         try:
             while (item := ready.get()) is not None:
                 base, slab = item
                 dst = out[base: base + slab.nbytes]
-                if cuda:
-                    inflight.append((self._copy_async(dst, slab, stream), slab))
-                    while len(inflight) > 1:   # recycle once the copy retired
-                        ev, done = inflight.popleft()
-                        ev.synchronize()
-                        self._release(done, cuda)
-                else:
-                    dst.copy_(torch.from_numpy(slab))
+                with trace_span("strom.device_put", cat="put",
+                                enabled=self.config.trace_annotations):
+                    inflight.append((self._copy_async(dst, slab, stream),
+                                     slab))
+                    # recycle once the copy retired
+                    self._retire(inflight, pooled, keep=1)
         finally:
             stop.set()
             while item is not None:   # unblock the reader before joining
                 item = ready.get()
                 if item:
-                    self._release(item[1], cuda)
+                    self._release(item[1], pooled)
             t.join()
-            while inflight:
-                ev, done = inflight.popleft()
-                ev.synchronize()
-                self._release(done, cuda)
+            self._retire(inflight, pooled)
         if fail:
             raise fail[0]
         self._count(streamed_transfers=1)
@@ -1286,7 +1391,7 @@ class StromContext:
                 self._read_segments(source, segs, slab, offset,
                                     tenant=tenant)
             except BaseException:
-                self._release(slab, cuda)
+                self._release_failed(slab, cuda)
                 raise
             if not cuda:
                 return torch.from_numpy(slab.view(np_dtype).reshape(shape))
@@ -1436,12 +1541,63 @@ class StromContext:
         if plan is not None:
             res["fault_plan"] = plan.stats()
         out["resilience"] = res
+        out["steps"] = self._steps_section()
         return out
+
+    def _steps_section(self) -> dict:
+        """``goodput_pct`` and each bucket's p50/p99 over the step windows
+        the ring holds from this context's lifetime (flat keys,
+        :data:`strom_torch.obs.stall.STALL_FIELDS`), recomputed at most
+        once every ``_STEPS_TTL_S``; each recompute adds the buckets'
+        growth to the ``stall_<bucket>_us`` counters."""
+        from strom_torch.obs import stall
+
+        now = time.monotonic()
+        with self._steps_cache_lock:
+            cached = self._steps_cache
+            if cached is not None and now - cached[0] < _STEPS_TTL_S:
+                return dict(cached[1])
+            summary = stall.steps_summary(_events_ring.snapshot(),
+                                          lo_us=self._obs_t0_us)
+            steps = stall.flatten_summary(summary)
+            self._steps_cache = (now, dict(steps))
+            deltas = self._stall_deltas_locked(summary)
+        # counter writes outside the cache lock; the delta state was
+        # settled under it, so two racing recomputes never publish the
+        # same growth twice
+        for k, d in deltas.items():
+            global_stats.add(k, d)
+        return steps
+
+    def _stall_deltas_locked(self, summary: dict) -> "dict[str, int]":
+        """Growth of each bucket's total since the last publication, as
+        ``stall_<bucket>_us`` increments (caller holds
+        ``_steps_cache_lock``). The window is the whole retained ring, so
+        a drop-oldest wrap can shrink a total: that publishes no growth
+        and re-anchors."""
+        out: dict[str, int] = {}
+        for b, v in summary.get("buckets", {}).items():
+            total = float(v.get("total_us", 0.0))
+            last = self._stall_published.get(b, 0.0)
+            if total > last:
+                out[f"stall_{b}_us"] = int(total - last)
+            self._stall_published[b] = total
+        return out
+
+    def _current_goodput(self) -> "float | None":
+        """The stall attribution's goodput (None: unknown — no step
+        window yet, or a context closing mid-read)."""
+        try:
+            return self._steps_section().get("goodput_pct")
+        except Exception:
+            return None
 
     def close(self) -> None:
         if self._closed:
             return
         self._closed = True
+        if self._flight is not None:
+            self._flight.close()
         self._executor.shutdown(wait=True)
         self._resilience.close()
         if self._spill_io is not None:
@@ -1454,8 +1610,19 @@ class StromContext:
             # after the engine: no gather can be mid-consult any more
             self._hot_cache.spill = None
             self._spill.close()
+        for s in list(self._copy_streams.values()):
+            # no copy reads a slab any more; a stream in an error state
+            # (a broken capture) runs no copy either
+            with contextlib.suppress(RuntimeError):
+                s.synchronize()
         if self._slab_pool is not None:
+            # every registered slab leaves, those still out too: none may
+            # outlive the pool while registered
             self._slab_pool.close()
+        if self._witness_enabled_here:
+            # later contexts' locks go back to plain ones; locks already
+            # built as WitnessLocks keep witnessing
+            _locks.enable_witness(False)
 
     def __enter__(self) -> "StromContext":
         return self

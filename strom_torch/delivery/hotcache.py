@@ -50,6 +50,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 
 from strom_torch.delivery.buffers import alloc_aligned, size_class
+from strom_torch.utils.locks import make_lock
 
 ADMIT_POLICIES = ("second_touch", "always")
 
@@ -114,7 +115,7 @@ class HotCache:
         self.spill_errors = 0
         # a disabled cache serves, admits and warms nothing (entries kept)
         self.enabled = True
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.meta")
         # skey -> entries sorted by lo (disjoint ranges per skey)
         self._index: dict[Any, list[_Entry]] = {}
         # LRU: oldest first; the key is the entry's id()

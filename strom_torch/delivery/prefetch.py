@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
-import threading
 import time
 from collections import deque
 from typing import Callable, Generic, Iterable, Iterator, TypeVar
+
+from strom_torch.obs.events import ring as _events_ring
+from strom_torch.utils.locks import make_lock
 
 T = TypeVar("T")
 
@@ -91,7 +93,7 @@ class Prefetcher(Generic[T]):
             max_workers=max_depth if auto_depth else depth,
             thread_name_prefix="strom-prefetch")
         self._queue: deque[concurrent.futures.Future] = deque()
-        self._lock = threading.Lock()
+        self._lock = make_lock("app.prefetch")
         # steps, data_stall_steps, depth_grow, depth_shrink, and lead_count
         # (pops that found the head ready) with their lead_us_total
         self._counts: collections.Counter = collections.Counter()
@@ -172,7 +174,8 @@ class Prefetcher(Generic[T]):
                 fut = self._queue.popleft()
         if not fut.done():
             self._counts["data_stall_steps"] += 1
-            result = fut.result()
+            with _events_ring.span("prefetch.stall_wait", cat="ingest_wait"):
+                result = fut.result()
             if self._auto:
                 # a stall: the window was too shallow for the jitter
                 self._ready_streak = 0

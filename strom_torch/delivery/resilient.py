@@ -12,13 +12,15 @@ the delivery read paths and the engine:
   gives ENOSYS, the primary is a preadv pool too). Half-open probes ride
   real traffic.
 - the streamed path uses :meth:`ResilientIo.read_chunk_fallback` to
-  recover a failed chunk inline, so one bad extent does not fail the batch.
+  recover a failed chunk inline, so one bad extent does not fail the batch,
+  and to hedge a quiet gather's in-flight chunks past the threshold of
+  :attr:`ResilientIo.hedge` (a ``HedgeController``; the first completion
+  wins).
 
 The fallback engine is serialized under its own lock (one fallback gather
 at a time: it is a lifeboat, not a second fleet). Chunks are remapped by
 path, so failover covers exactly the reads the delivery layer planned;
 engine-level callers with untracked file indexes stay on the primary.
-The reference's hedged reads ride this layer too; the port has none yet.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from typing import Callable, Sequence
 import numpy as np
 
 from strom_torch.engine.base import DeadlineExceeded, EngineError
-from strom_torch.engine.resilience import CircuitBreaker, classify_errno
+from strom_torch.engine.resilience import (CircuitBreaker, HedgeController,
+                                           classify_errno)
 from strom_torch.utils.locks import make_lock
 
 
@@ -50,6 +53,13 @@ class ResilientIo:
                 half_open_successes=config.breaker_half_open_successes,
                 scope=self.scope,
                 name=getattr(engine, "name", "engine"))
+        self.hedge: "HedgeController | None" = None
+        # a zero floor and a zero multiplier are the off spelling: a
+        # zero-threshold controller would hedge every chunk on every poll
+        if config.hedge_enabled \
+                and (config.hedge_min_s > 0 or config.hedge_multiplier > 0):
+            self.hedge = HedgeController(min_s=config.hedge_min_s,
+                                         multiplier=config.hedge_multiplier)
         self._fb = None
         self._fb_failed = False
         self._fb_lock = make_lock("resil.fallback")    # creation + fi map
@@ -188,6 +198,9 @@ class ResilientIo:
         if self.breaker is not None:
             out.update(self.breaker.info())
         out["failover_available"] = self._fb is not None
+        if self.hedge is not None:
+            out["hedge_threshold_us"] = round(
+                self.hedge.threshold_s() * 1e6, 1)
         return out
 
     def close(self) -> None:

@@ -35,13 +35,13 @@ from __future__ import annotations
 import bisect
 import contextlib
 import os
-import threading
 from collections import OrderedDict
 from typing import Any
 
 import numpy as np
 
 from strom_torch.delivery.buffers import size_class
+from strom_torch.utils.locks import make_lock
 
 # the columns the spill epoch measurement prints (the reference's
 # bench_checkpoint spill pass names)
@@ -119,7 +119,7 @@ class SpillTier:
         # buffered fd below (strom_torch.delivery.core._SpillEngineIo).
         # None = always the buffered fd (spill_engine_io=False).
         self._io = io
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.spill")
         self._index: dict[Any, list[_SpillEntry]] = {}
         self._lru: "OrderedDict[int, _SpillEntry]" = OrderedDict()
         self._free: dict[int, list[int]] = {}   # class -> file offsets

@@ -1,5 +1,5 @@
 """Completion-driven gather (the port's copy of ``strom/delivery/stream.py``,
-without peers and hedges).
+without peers).
 
 A blocking gather makes every sample of a batch wait for the slowest
 extent. :class:`StreamingGather` plans the gather as
@@ -31,6 +31,12 @@ Rules:
   one bad extent does not fail the batch. A token that died at submission
   (engine death) gets one fallback pass over its unserved chunks. The
   circuit breaker hears one outcome per gather.
+- Hedged reads: a gather quiet past ``ResilientIo.hedge``'s threshold
+  re-reads its chunks with primary pieces in flight on the fallback
+  engine, each chunk at most once (``hedges_fired``). The first completion
+  wins (``hedges_won``); a losing primary completion is dropped, its bytes
+  counted in ``hedge_wasted_bytes``, and the loser's pieces still in flight
+  are cancelled (reaped) before the grant goes.
 - ``finish`` raises ``EngineError`` only after every in-flight piece has
   retired, and checks that the engine moved exactly the planned bytes.
 - ``close`` is idempotent and safe mid-flight: the token is cancelled
@@ -47,10 +53,12 @@ from typing import Sequence
 
 import numpy as np
 
+from strom_torch.delivery.buffers import alloc_aligned
 from strom_torch.delivery.shard import Segment
 from strom_torch.engine.base import (DeadlineExceeded, EngineError,
                                      EngineStallError)
 from strom_torch.obs import request as _request
+from strom_torch.obs.events import ring as _events_ring
 
 
 class StreamingGather:
@@ -80,13 +88,19 @@ class StreamingGather:
         self._token = None
         self._stack = contextlib.ExitStack()
         self._engine_released = False
+        self.t0_us = _events_ring.now_us()
+        self._first_c_us: "float | None" = None
+        self._last_c_us: "float | None" = None
         # gather-level watchdog: piece progress (bytes_done) resets it
         self._stall_t0 = time.monotonic()
         self._stall_bytes = -1
+        self._last_prog_t = time.monotonic()   # the hedges' quiet clock
         self._instant: list[tuple[int, int]] = []
         self._resil = ctx.resilience
         self._completed: set[int] = set()   # engine-served chunk indices
         self._recovered: set[int] = set()   # fallback-served after failure
+        self._hedged: set[int] = set()      # fallback-served by a hedge
+        self._hedge_tried: set[int] = set()  # one hedge a chunk, ever
         self._failed: dict[int, int] = {}   # unrecovered: ci -> errno
         self._recovery_attempted = False
         self._breaker_fed = False           # one breaker outcome a gather
@@ -169,14 +183,22 @@ class StreamingGather:
     def _n_unaccounted(self) -> int:
         """How many chunks no one has served or failed yet, in O(1) (the
         pump checks ``done`` every poll): each chunk lands in exactly one
-        of the three disjoint sets."""
+        of the four disjoint sets."""
         return len(self._chunks) - len(self._completed) \
-            - len(self._recovered) - len(self._failed)
+            - len(self._recovered) - len(self._hedged) - len(self._failed)
 
     def _unaccounted(self) -> list[int]:
-        served = self._completed | self._recovered
+        served = self._completed | self._recovered | self._hedged
         return [ci for ci in range(len(self._chunks))
                 if ci not in served and ci not in self._failed]
+
+    def _mark_progress(self) -> None:
+        now = _events_ring.now_us()
+        if self._first_c_us is None:
+            self._first_c_us = now
+        self._last_c_us = now
+        self._last_prog_t = time.monotonic()
+        self._stall_t0 = self._last_prog_t
 
     def _chunk_fallback(self, ci: int) -> bool:
         """Read chunk *ci* on the fallback engine straight into dest; True
@@ -217,21 +239,40 @@ class StreamingGather:
             return []
         if self._instant:
             out, self._instant = self._instant, []
-            self._stall_t0 = time.monotonic()
+            self._mark_progress()
             return out
         tok = self._token
         if tok is None:
             return []
         out: list[tuple[int, int]] = []
         if not tok.done:
-            for c in self._ctx.engine.poll(tok, min_completions, timeout_s):
+            hedge = self._resil.hedge
+            wait_s = timeout_s
+            if min_completions > 0 and hedge is not None:
+                # wake at the hedge threshold: a quiet gather gets its
+                # hedge decision even when the caller asked for a long wait
+                quiet = time.monotonic() - self._last_prog_t
+                to_hedge = max(hedge.threshold_s() - quiet, 0.005)
+                wait_s = to_hedge if wait_s is None else min(wait_s,
+                                                             to_hedge)
+            for c in self._ctx.engine.poll(tok, min_completions, wait_s):
                 fi, fo, do, ln = self._chunks[c.index]
+                if c.index in self._hedged or c.index in self._recovered:
+                    # the fallback already served (and emitted) this
+                    # chunk: this late primary completion lost the race.
+                    # Its range must not reach the consumer twice, and its
+                    # bytes are not offered to the cache
+                    if c.index in self._hedged and c.result >= 0:
+                        # both sides moved the bytes: the loser's are waste
+                        self._resil.scope.add("hedge_wasted_bytes", ln)
+                    continue
                 if c.result < 0:
                     # a deadline miss is the request's contract, not
                     # evidence about the engine: no lifeboat, no breaker
                     missed = isinstance(tok.error, DeadlineExceeded)
                     if not missed and self._chunk_fallback(c.index):
                         self._recovered.add(c.index)
+                        self._mark_progress()
                         out.append((do, do + ln))
                     else:
                         self._failed[c.index] = -c.result
@@ -239,6 +280,9 @@ class StreamingGather:
                         self._feed_breaker(ok=False)
                     continue
                 self._completed.add(c.index)
+                if hedge is not None:
+                    hedge.observe(time.monotonic() - self._last_prog_t)
+                self._mark_progress()
                 out.append((do, do + ln))
                 if self._cache is not None:
                     # the bytes just landed in dest: admitting is one
@@ -248,14 +292,17 @@ class StreamingGather:
                         self._cache.admit(path, fo, fo + ln,
                                           self._dflat[do: do + ln],
                                           tenant=self._tenant)
+            if not out and min_completions > 0 and hedge is not None \
+                    and not tok.done \
+                    and time.monotonic() - self._last_prog_t \
+                    >= hedge.threshold_s():
+                out.extend(self._fire_hedges())
         if tok.done and tok.error is not None \
                 and not self._recovery_attempted:
             # the token died at submission (engine death mid-gather): one
             # fallback pass over the chunks that never completed
             out.extend(self._recover_unaccounted())
-        if out:
-            self._stall_t0 = time.monotonic()
-        elif min_completions > 0 and not tok.done:
+        if not out and min_completions > 0 and not tok.done:
             # callers poll in short slices, so the engine's own watchdog
             # never fires from here: this one turns a silent hang into an
             # error. One long chunk moving at full speed retires no chunk
@@ -271,6 +318,53 @@ class StreamingGather:
         if tok.done:
             # drained: hand the engine back now, not at finish()
             self._release_engine()
+        elif self.done:
+            # every chunk served but the token still owns in-flight loser
+            # pieces (hedges won over a wedged primary): cancel first, so
+            # the next tenant's gather never reaps their completions while
+            # their dest writes are still the engine's
+            with contextlib.suppress(Exception):
+                self._ctx.engine.cancel(tok)
+            self._release_engine()
+        return out
+
+    def _fire_hedges(self) -> list[tuple[int, int]]:
+        """Hedge the quiet gather's stragglers on the fallback engine: each
+        chunk with primary pieces in flight is re-read into a scratch
+        buffer, and the copy wins (``hedges_won``: poll reaps on this same
+        thread, so a chunk still unaccounted here has no delivered
+        primary). The losing pieces are cancelled before the grant goes; a
+        loser completing before that is dropped in poll, its bytes counted
+        in ``hedge_wasted_bytes``. Each chunk is hedged at most once a
+        gather: a straggler whose fallback read fails too must not refire
+        every poll. The winner's paste can overlap a loser's write still
+        landing only where both read the same file range: the same bytes.
+        Runs under the grant the gather's thread already holds."""
+        scope = self._resil.scope
+        out: list[tuple[int, int]] = []
+        # only chunks with primary pieces in flight: a quiet gap must not
+        # re-read the not-yet-submitted tail the primary will still read
+        live = self._token.pending_chunk_indices()
+        for ci in self._unaccounted():
+            if ci not in live or ci in self._hedge_tried:
+                continue
+            fi, fo, do, ln = self._chunks[ci]
+            path = self._idx_paths.get(fi)
+            if path is None:
+                continue
+            self._hedge_tried.add(ci)
+            scope.add("hedges_fired")
+            scratch = alloc_aligned(ln)
+            if not self._resil.read_chunk_fallback(path, fo, ln, scratch):
+                continue
+            self._dflat[do: do + ln] = scratch
+            self._hedged.add(ci)
+            scope.add("hedges_won")
+            self._mark_progress()
+            out.append((do, do + ln))
+        # even a pass that won nothing resets the quiet clock: the next
+        # decision waits a whole threshold
+        self._last_prog_t = time.monotonic()
         return out
 
     def _recover_unaccounted(self) -> list[tuple[int, int]]:
@@ -285,6 +379,7 @@ class StreamingGather:
             fi, fo, do, ln = self._chunks[ci]
             if self._chunk_fallback(ci):
                 self._recovered.add(ci)
+                self._mark_progress()
                 out.append((do, do + ln))
             else:
                 self._failed[ci] = err.errno or errno.EIO
@@ -315,7 +410,9 @@ class StreamingGather:
                 raise
             raise EngineError(e.errno, f"ssd2gpu {e.strerror}") from None
         if tok is not None and not tok.done:
-            # deadline leftovers: reaped before the grant goes
+            # hedge losers and deadline leftovers: the first completion
+            # won; the primary's pieces still in flight are reaped before
+            # the grant goes
             self._ctx.engine.cancel(tok)
         self._release_engine()
         missed = tok is not None and isinstance(tok.error, DeadlineExceeded) \
@@ -331,7 +428,7 @@ class StreamingGather:
             raise EngineError(err.errno or errno.EIO,
                               f"ssd2gpu {err.strerror}")
         if tok is not None:
-            if self._recovered:
+            if self._recovered or self._hedged:
                 missing = self._unaccounted()
                 if missing:
                     err = EngineError(errno.EIO,
@@ -368,6 +465,16 @@ class StreamingGather:
             return
         self._finished = True
         self._closed = True
+        if self._token is not None:
+            # the async token never passes through the gather's read span:
+            # the engine window is billed here, so the stall attribution's
+            # read bucket sees streamed batches
+            end = self._last_c_us if self._last_c_us is not None \
+                else _events_ring.now_us()
+            self.req.record("stream.read", "read", self.t0_us,
+                            max(end - self.t0_us, 0.0),
+                            {"ops": len(self._chunks),
+                             "bytes": self._miss_planned})
         self._release_engine()
         if self._own_req:
             self.req.finish()

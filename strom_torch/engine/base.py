@@ -39,6 +39,7 @@ import contextlib
 import dataclasses
 import errno
 import os
+import threading
 import time
 from typing import Iterable, Sequence
 
@@ -50,6 +51,29 @@ from strom_torch.obs import request as _request
 
 _ENODATA = errno.ENODATA
 _ECANCELED = errno.ECANCELED
+
+# dest ranges (address, end) of pieces an engine stopped waiting for: a
+# deadline miss whose drain grace ran out, a drain the stall watchdog cut,
+# a cancel whose reap timed out. A worker or the kernel may still write
+# there, so the memory must not be reused. Keyed by the engine's id; an
+# engine drops its entries once it has closed and joined its workers.
+_abandoned_lock = threading.Lock()
+_abandoned: dict[int, list[tuple[int, int]]] = {}
+
+
+def _addr(arr: np.ndarray) -> int:
+    return arr.__array_interface__["data"][0]
+
+
+def may_still_write(arr: np.ndarray) -> bool:
+    """True while some engine may still write into *arr*'s bytes: one of
+    its pieces there was abandoned and that engine has not closed yet. A
+    buffer for which this holds must never be reused."""
+    lo = _addr(arr)
+    hi = lo + arr.nbytes
+    with _abandoned_lock:
+        return any(a < hi and lo < b
+                   for ranges in _abandoned.values() for a, b in ranges)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,6 +407,20 @@ class Engine(abc.ABC):
         with contextlib.suppress(Exception):
             self.op_scope.add("engine_stall_timeouts")
 
+    def _note_abandoned(self, ranges: Iterable[tuple[int, int]]) -> None:
+        """Record the (address, length) dest ranges of pieces this engine
+        stopped waiting for (see :func:`may_still_write`)."""
+        new = [(a, a + n) for a, n in ranges if n > 0]
+        if new:
+            with _abandoned_lock:
+                _abandoned.setdefault(id(self), []).extend(new)
+
+    def _forget_abandoned(self) -> None:
+        """Drop this engine's abandoned ranges: call only once no worker
+        and no kernel op of it can still write (closed and joined)."""
+        with _abandoned_lock:
+            _abandoned.pop(id(self), None)
+
     # -- vectored gather: the delivery layer's hot path ---------------------
     def read_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                       dest: np.ndarray, *, retries: int = 1) -> int:
@@ -477,6 +515,8 @@ class Engine(abc.ABC):
                                                    "read_vectored")
                         # wedged while draining after a chunk error: give
                         # up on the stuck ops and raise the first error
+                        self._note_abandoned(
+                            (_addr(d8) + p[2], p[3]) for p in pending.values())
                         break
                 for c in got:
                     entry = pending.pop(c.tag, None)
@@ -533,6 +573,8 @@ class Engine(abc.ABC):
                 done = self.wait(min_completions=1, timeout_s=drain_s)
                 if not done:
                     self._note_stall()
+                    self._note_abandoned(
+                        (_addr(d8) + p[2], p[3]) for p in pending.values())
                     break
                 for c in done:
                     pending.pop(c.tag, None)
@@ -704,6 +746,8 @@ class Engine(abc.ABC):
             self._reap_token(token, 0.05)
         if token._pending:
             self._note_stall()
+            self._note_abandoned((_addr(token._d8) + p[3], p[4])
+                                 for p in token._pending.values())
         self._untrack_token(token)
 
     def _track_token(self, tok) -> None:

@@ -1,6 +1,5 @@
 """Multi-ring engine: N independent io_uring rings, gathers fanned out per
-file (the port's copy of ``strom/engine/multi.py``, without ring quarantine
-and recovery).
+file (the port's copy of ``strom/engine/multi.py``).
 
 Each ring is a child :class:`UringEngine` with its own SQ/CQ, staging pool,
 locks and counters. Routing:
@@ -17,24 +16,36 @@ whole-transfer engine lock; serialization happens here, per ring. An async
 gather (:meth:`MultiRingEngine.submit_vectored`) is routed the same way:
 one child token per ring, its ring's lock held until the fan token drains
 or is cancelled.
+
+Quarantine: a ring whose gathers fail transiently ``breaker_min_events``
+times leaves the rotation while a healthy peer remains; its files redirect
+to a survivor, every other file keeps its home ring. With
+``ring_recovery_s`` > 0 a quarantined ring is rebuilt after that cooldown
+and every live dest-slab registration is replayed onto the new ring.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import errno as _errno
 import itertools
 import threading
 import time
+import weakref
 from typing import Sequence
 
 import numpy as np
 
 from strom_torch.config import StromConfig
-from strom_torch.engine.base import (ChunkCompletion, Completion, Engine,
-                                     EngineError, EngineStallError, RawRead,
-                                     RawWrite, ReadRequest, StreamToken)
+from strom_torch.engine.base import (ChunkCompletion, Completion,
+                                     DeadlineExceeded, Engine, EngineError,
+                                     EngineStallError, RawRead, RawWrite,
+                                     ReadRequest, StreamToken)
+from strom_torch.engine.resilience import classify_errno
 from strom_torch.engine.uring_engine import UringEngine
+from strom_torch.obs import events as _events
+from strom_torch.utils.locks import make_lock
 
 
 class _FanToken:
@@ -44,7 +55,7 @@ class _FanToken:
     _pending, pending_chunk_indices)."""
 
     __slots__ = ("chunks", "parts", "locks", "cancelled", "last_progress_t",
-                 "last_bytes_done")
+                 "last_bytes_done", "rings_noted")
 
     def __init__(self, chunks, parts, locks):
         self.chunks = list(chunks)
@@ -56,6 +67,9 @@ class _FanToken:
         # the children's watchdog never fires; piece progress resets it
         self.last_progress_t = time.monotonic()
         self.last_bytes_done = -1
+        # rings this gather already fed one quarantine outcome: ring health
+        # is judged a gather at a time, not a chunk
+        self.rings_noted: set[int] = set()
 
     @property
     def done(self) -> bool:
@@ -95,13 +109,14 @@ class MultiRingEngine(Engine):
     name = "multi"
     concurrent_gathers = True  # delivery must not wrap gathers in its own lock
 
-    def __init__(self, config: StromConfig):
+    def __init__(self, config: StromConfig, *, variant: str = ""):
         super().__init__(config)
         n = config.engine_rings
+        self._variant = variant
         self._children: list[UringEngine] = []
         try:
             for _ in range(n):
-                self._children.append(UringEngine(config))
+                self._children.append(UringEngine(config, variant=variant))
         except BaseException:
             # a later ring failing (RLIMIT_MEMLOCK, fd caps) must not leak
             # the earlier rings' pinned pools and fds
@@ -114,14 +129,28 @@ class MultiRingEngine(Engine):
         self._files: dict[int, tuple[str, bool | None, bool]] = {}
         self._next_fi = 0
         self._child_fi: list[dict[int, int]] = [dict() for _ in range(n)]
-        self._reg_lock = threading.Lock()
+        self._reg_lock = make_lock("engine.multi_reg")
         # per-ring transfer locks: a child's read_vectored reaps its whole
         # CQ, so two gathers on one ring must not overlap
-        self._ring_locks = [threading.Lock() for _ in range(n)]
+        self._ring_locks = [make_lock("engine.multi_ring") for _ in range(n)]
         self._rr = itertools.count()
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=n, thread_name_prefix="strom-ring")
         self._closed = False
+        # quarantine: a ring whose gathers keep failing transiently leaves
+        # the rotation, and the engine serves degraded on the survivors
+        self._ring_errors = [0] * n
+        self._quarantined: set[int] = set()
+        self._quarantine_after = max(int(config.breaker_min_events), 1)
+        # recovery (ring_recovery_s > 0): a quarantined ring is rebuilt
+        # after the cooldown and its dest-slab registrations replayed
+        self._recovery_s = float(config.ring_recovery_s)
+        self._quarantine_t: dict[int, float] = {}
+        self._ring_recoveries = 0
+        # live dest-slab registrations by base address, the replay source
+        # for a rebuilt ring (weak: tracking must not keep a slab alive).
+        # Guarded by _reg_lock
+        self._dest_refs: dict[int, "weakref.ref"] = {}
 
     # -- files --------------------------------------------------------------
     def register_file(self, path: str, *, o_direct: bool | None = None,
@@ -215,49 +244,168 @@ class MultiRingEngine(Engine):
                     d.unregister_dest(arr)
                 return -1
             done.append(c)
+        # tracked for the recovery replay: only slabs registered on every
+        # ring (the caller's unregister hook exists)
+        with self._reg_lock:
+            self._dest_refs[arr.__array_interface__["data"][0]] = \
+                weakref.ref(arr)
         return 0
 
     def unregister_dest(self, arr: np.ndarray) -> None:
-        for c in self._children:
+        with self._reg_lock:
+            self._dest_refs.pop(arr.__array_interface__["data"][0], None)
+            children = list(self._children)
+        for c in children:
             c.unregister_dest(arr)
 
     def unregister_dest_addr(self, addr: int) -> None:
-        for c in self._children:
+        with self._reg_lock:
+            self._dest_refs.pop(addr, None)
+            children = list(self._children)
+        for c in children:
             c.unregister_dest_addr(addr)
 
-    # -- the vectored hot path: route, fan out, join ------------------------
-    def _route(self, fi: int) -> int:
-        """A file's home ring: stable, so its fds and READ_FIXED
-        registrations stay where its gathers land."""
-        return fi % len(self._children)
+    # -- quarantine and recovery --------------------------------------------
+    def _healthy_rings(self) -> list[int]:
+        """Rings still in the rotation; all of them when every ring is
+        quarantined (serving on a sick ring beats serving nothing)."""
+        h = [r for r in range(len(self._children))
+             if r not in self._quarantined]
+        return h if h else list(range(len(self._children)))
 
+    def _route(self, fi: int, healthy: "list[int] | None" = None) -> int:
+        """A file's home ring, ``fi % N``: stable, so its fds and
+        READ_FIXED registrations stay where its gathers land. Only a file
+        whose home ring is quarantined redirects to a survivor."""
+        ring = fi % len(self._children)
+        if ring not in self._quarantined:
+            return ring
+        healthy = self._healthy_rings() if healthy is None else healthy
+        return healthy[fi % len(healthy)]
+
+    def _note_ring_error(self, ring: int, err: EngineError) -> None:
+        """Count a transient ring failure; quarantine past the threshold,
+        only while at least one healthy peer remains."""
+        if err.errno == _errno.ENODATA:
+            # a short read or EOF is data-dependent: it fails the same on
+            # every ring and says nothing of this one
+            return
+        if err.errno == _errno.ETIMEDOUT \
+                and not isinstance(err, EngineStallError):
+            # a chunk retired at the request's deadline: the request's
+            # contract, not ring evidence (a stall watchdog trip is)
+            return
+        if isinstance(err, DeadlineExceeded):
+            return
+        if classify_errno(err.errno or _errno.EIO) != "transient":
+            return
+        self._ring_errors[ring] += 1
+        if ring not in self._quarantined \
+                and self._ring_errors[ring] >= self._quarantine_after \
+                and len(self._healthy_rings()) > 1:
+            self._quarantined.add(ring)
+            self._quarantine_t[ring] = time.monotonic()
+            with contextlib.suppress(Exception):
+                self.op_scope.add("ring_quarantines")
+                self.op_scope.set_gauge("rings_quarantined",
+                                        len(self._quarantined))
+
+    def _maybe_recover_rings(self) -> None:
+        """Rebuild the quarantined rings whose cooldown ran out: a fresh
+        child (new ring, fd table and staging pool) takes the sick one's
+        place, its lazy file map starts empty, and every live dest slab is
+        registered on it again, so the recovered ring serves READ_FIXED.
+        The ring lock is only tried: recovery never stalls a live gather
+        (a busy ring waits for the next call). A failed rebuild leaves the
+        ring quarantined for another cooldown."""
+        now = time.monotonic()
+        due = [r for r in sorted(self._quarantined)
+               if now - self._quarantine_t.get(r, now) >= self._recovery_s]
+        for ring in due:
+            if not self._ring_locks[ring].acquire(blocking=False):
+                continue
+            try:
+                try:
+                    child = UringEngine(self.config, variant=self._variant)
+                except Exception:
+                    # the fault persists: degraded but serving
+                    self._quarantine_t[ring] = now
+                    continue
+                sc = getattr(self, "_op_scope", None)
+                if sc is not None:
+                    child.set_scope(sc)
+                with self._reg_lock:
+                    for addr, ref in list(self._dest_refs.items()):
+                        arr = ref()
+                        if arr is None:
+                            self._dest_refs.pop(addr, None)
+                            continue
+                        if child.register_dest(arr) < 0:
+                            # the ring serves this slab unregistered
+                            self.op_scope.add("ring_recovery_reg_failures")
+                    old = self._children[ring]
+                    self._children[ring] = child
+                    self._child_fi[ring] = {}
+                    self._quarantined.discard(ring)
+                    self._quarantine_t.pop(ring, None)
+                    self._ring_errors[ring] = 0
+                    self._ring_recoveries += 1
+                with contextlib.suppress(Exception):
+                    self.op_scope.add("ring_recoveries")
+                    self.op_scope.set_gauge("rings_quarantined",
+                                            len(self._quarantined))
+                old.close()
+            finally:
+                self._ring_locks[ring].release()
+
+    # -- the vectored hot path: route, fan out, join ------------------------
     def read_vectored(self, chunks: Sequence[tuple[int, int, int, int]],
                       dest: np.ndarray, *, retries: int = 1) -> int:
         if self._closed:
             raise EngineError(_errno.EBADF, "engine closed")
+        if self._recovery_s > 0 and self._quarantined:
+            self._maybe_recover_rings()
         n = len(self._children)
+        healthy = self._healthy_rings()
         if n == 1 or len({c[0] for c in chunks}) == 1:
-            ring = next(self._rr) % n
+            # one file: the whole gather rides one healthy ring, taken in
+            # turn, so concurrent independent transfers spread
+            ring = healthy[next(self._rr) % len(healthy)]
             ch = [(self._child_index(ring, fi), fo, do, ln)
                   for (fi, fo, do, ln) in chunks]
-            with self._ring_locks[ring]:
-                return self._children[ring].read_vectored(ch, dest,
-                                                          retries=retries)
+            try:
+                with _events.ring.span("engine.multi.read_vectored",
+                                       cat="read",
+                                       args={"ops": len(chunks),
+                                             "ring": ring}), \
+                        self._ring_locks[ring]:
+                    return self._children[ring].read_vectored(
+                        ch, dest, retries=retries)
+            except EngineError as e:
+                self._note_ring_error(ring, e)
+                raise
         per_ring: list[list[tuple[int, int, int, int]]] = [[] for _ in range(n)]
         for (fi, fo, do, ln) in chunks:
-            ring = self._route(fi)
+            ring = self._route(fi, healthy)
             per_ring[ring].append((self._child_index(ring, fi), fo, do, ln))
 
         def run(ring: int) -> int:
-            with self._ring_locks[ring]:
-                return self._children[ring].read_vectored(
-                    per_ring[ring], dest, retries=retries)
+            try:
+                with self._ring_locks[ring]:
+                    return self._children[ring].read_vectored(
+                        per_ring[ring], dest, retries=retries)
+            except EngineError as e:
+                self._note_ring_error(ring, e)
+                raise
 
         live = [r for r in range(n) if per_ring[r]]
-        futs = [self._pool.submit(run, r) for r in live]
-        # join every ring before raising: a caller reacting to an error must
-        # not race sub-gathers still writing into dest
-        concurrent.futures.wait(futs)
+        with _events.ring.span("engine.multi.read_vectored", cat="read",
+                               args={"ops": len(chunks),
+                                     "fanout": len(live)}):
+            futs = [self._pool.submit(run, r) for r in live]
+            # join every ring before raising: a caller reacting to an error
+            # must not race sub-gathers still writing into dest
+            concurrent.futures.wait(futs)
         err = next((f.exception() for f in futs if f.exception() is not None),
                    None)
         if err is not None:
@@ -281,16 +429,19 @@ class MultiRingEngine(Engine):
             raise EngineError(_errno.EBADF, "engine closed")
         if deadline is None:
             deadline = self._request_deadline()
+        if self._recovery_s > 0 and self._quarantined:
+            self._maybe_recover_rings()
         n = len(self._children)
+        healthy = self._healthy_rings()
         per_ring: dict[int, tuple[list, list]] = {}  # ring -> (chunks, imap)
         if chunks and (n == 1 or len({c[0] for c in chunks}) == 1):
-            ring = next(self._rr) % n
+            ring = healthy[next(self._rr) % len(healthy)]
             per_ring[ring] = ([(self._child_index(ring, fi), fo, do, ln)
                                for (fi, fo, do, ln) in chunks],
                               list(range(len(chunks))))
         else:
             for i, (fi, fo, do, ln) in enumerate(chunks):
-                ring = self._route(fi)
+                ring = self._route(fi, healthy)
                 ch, imap = per_ring.setdefault(ring, ([], []))
                 ch.append((self._child_index(ring, fi), fo, do, ln))
                 imap.append(i)
@@ -331,18 +482,24 @@ class MultiRingEngine(Engine):
                               "token cancelled (engine closing?)")
         out: list[ChunkCompletion] = []
 
-        def land(imap, cs) -> None:
+        def land(ring: int, imap, cs) -> None:
             for c in cs:
                 token.last_progress_t = time.monotonic()
+                if c.result < 0 and ring not in token.rings_noted:
+                    # streamed gathers feed quarantine too: at most one
+                    # outcome a gather a ring
+                    token.rings_noted.add(ring)
+                    self._note_ring_error(
+                        ring, EngineError(-c.result, "streamed chunk failed"))
                 out.append(ChunkCompletion(imap[c.index], c.result))
 
         deadline = None if timeout_s is None else \
             time.monotonic() + timeout_s
         block_rr = 0
         while True:
-            for _, child, ctok, imap in token.parts:
+            for ring, child, ctok, imap in token.parts:
                 if not ctok.done:
-                    land(imap, child.poll(ctok, min_completions=0))
+                    land(ring, imap, child.poll(ctok, min_completions=0))
             if len(out) >= min_completions or min_completions <= 0 \
                     or token.done:
                 break
@@ -351,12 +508,13 @@ class MultiRingEngine(Engine):
             # block briefly on one unfinished ring, in turn, so a quiet
             # ring cannot starve completions waiting on another
             live = [p for p in token.parts if not p[2].done]
-            _, child, ctok, imap = live[block_rr % len(live)]
+            ring, child, ctok, imap = live[block_rr % len(live)]
             block_rr += 1
             wait_s = 0.005
             if deadline is not None:
                 wait_s = min(wait_s, max(0.0, deadline - time.monotonic()))
-            land(imap, child.poll(ctok, min_completions=1, timeout_s=wait_s))
+            land(ring, imap, child.poll(ctok, min_completions=1,
+                                        timeout_s=wait_s))
             now_bytes = token.bytes_done
             if now_bytes != token.last_bytes_done:
                 token.last_bytes_done = now_bytes
@@ -403,7 +561,12 @@ class MultiRingEngine(Engine):
     # -- observability and lifecycle ----------------------------------------
     def stats(self) -> dict:
         per_ring = [c.stats() for c in self._children]
-        out: dict = {"engine": self.name, "rings": len(self._children)}
+        out: dict = {"engine": self.name, "rings": len(self._children),
+                     # the degraded state: the quarantined rings and each
+                     # ring's transient error tally
+                     "quarantined_rings": sorted(self._quarantined),
+                     "ring_errors": list(self._ring_errors),
+                     "ring_recoveries": self._ring_recoveries}
         for key in ("ops_submitted", "ops_completed", "ops_errored",
                     "ops_faulted", "bytes_read", "ops_written",
                     "bytes_written", "unaligned_fallback_reads",
@@ -453,3 +616,4 @@ class MultiRingEngine(Engine):
         self._pool.shutdown(wait=True)
         for c in self._children:
             c.close()
+        self._forget_abandoned()

@@ -35,8 +35,10 @@ import numpy as np
 from strom_torch.config import StromConfig
 from strom_torch.engine.base import (Completion, Engine, EngineError, RawRead,
                                      RawWrite, ReadRequest)
+from strom_torch.obs.events import ring as _events_ring
 from strom_torch.probe.odirect import probe_dio
 from strom_torch.probe.residency import cached_pages, range_fully_cached
+from strom_torch.utils.locks import make_lock
 
 
 class _File:
@@ -68,7 +70,7 @@ class PythonEngine(Engine):
         self._submit_q: queue.SimpleQueue = queue.SimpleQueue()
         self._done_q: queue.SimpleQueue[Completion] = queue.SimpleQueue()
         self._in_flight = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("engine.python")
         self._stats = {"ops_submitted": 0, "ops_completed": 0,
                        "ops_errored": 0, "bytes_read": 0, "media_bytes": 0,
                        "cached_bytes": 0, "residency_probes": 0,
@@ -212,6 +214,8 @@ class PythonEngine(Engine):
             self._submit_q.put(None)  # workers drain queued reads first
         for w in self._workers:
             w.join(timeout=5)
+        if not any(w.is_alive() for w in self._workers):
+            self._forget_abandoned()   # no worker can write any more
         for idx in list(self._files):
             self.unregister_file(idx)
 
@@ -288,11 +292,14 @@ class PythonEngine(Engine):
         return m
 
     def read_vectored(self, chunks, dest, *, retries: int = 1) -> int:
-        self._warm_map = self._snapshot_residency(chunks)
-        try:
-            return super().read_vectored(chunks, dest, retries=retries)
-        finally:
-            self._warm_map = None
+        with _events_ring.span("engine.python.read_vectored", cat="read",
+                               args={"ops": len(chunks),
+                                     "bytes": sum(c[3] for c in chunks)}):
+            self._warm_map = self._snapshot_residency(chunks)
+            try:
+                return super().read_vectored(chunks, dest, retries=retries)
+            finally:
+                self._warm_map = None
 
     # -- worker -------------------------------------------------------------
     def _take_fault(self) -> bool:

@@ -85,6 +85,13 @@ def plan_stripe_windows(segs: Sequence[StripeSegment], n_members: int,
     coalescing) still sees long member-contiguous streaks."""
     if window_bytes <= 0 or n_members <= 1:
         return list(segs)
+    # the planning decision on the timeline (an instant: planning is pure
+    # arithmetic)
+    from strom_torch.obs.events import ring
+
+    ring.instant("raid0.stripe_windows", cat="read",
+                 args={"segments": len(segs), "members": n_members,
+                       "window_bytes": window_bytes})
     out: list[StripeSegment] = []
     win: list[StripeSegment] = []
     acc = 0

@@ -30,7 +30,6 @@ from __future__ import annotations
 import contextlib
 import errno as _errno
 import random
-import threading
 import time
 from collections import deque
 from typing import Callable

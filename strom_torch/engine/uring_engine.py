@@ -14,7 +14,6 @@ from __future__ import annotations
 import ctypes
 import errno as _errno
 import os
-import threading
 import time
 from typing import Sequence
 
@@ -24,6 +23,7 @@ from strom_torch.config import StromConfig
 from strom_torch.engine.base import (Completion, DeadlineExceeded, Engine,
                                      EngineError, RawRead,
                                      RawWrite, ReadRequest)
+from strom_torch.utils.locks import make_lock
 
 _HIST_BUCKETS = 24
 
@@ -111,21 +111,24 @@ def _split_chunks(chunks, limit: int = _MAX_SEG):
 
 
 _lib = None
-_lib_lock = threading.Lock()
+_lib_lock = make_lock("app.uring_lib")
 # why the last uring_available() said False: the errno of the failed
 # sc_create (0 when a ring was made, or when the library did not build)
 create_errno = 0
 unavailable_reason = ""
 
 
-def _load_lib():
+def _load_lib(variant: str = ""):
+    """The native library, loaded once; a sanitizer *variant* (``"tsan"``,
+    ``"asan"``) loads its own build each call (the process must preload
+    the sanitizer's runtime)."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
+        if _lib is not None and not variant:
             return _lib
         from strom_torch._core.build import ensure_built
 
-        lib = ctypes.CDLL(ensure_built(), use_errno=True)
+        lib = ctypes.CDLL(ensure_built(variant=variant), use_errno=True)
         lib.sc_create.restype = ctypes.c_void_p
         lib.sc_create.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                   ctypes.c_uint64, ctypes.c_uint32]
@@ -170,7 +173,8 @@ def _load_lib():
                                          ctypes.c_uint64]
         lib.sc_unregister_dest.restype = ctypes.c_int
         lib.sc_unregister_dest.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        _lib = lib
+        if not variant:
+            _lib = lib
         return lib
 
 
@@ -198,9 +202,9 @@ def uring_available() -> bool:
 class UringEngine(Engine):
     name = "uring"
 
-    def __init__(self, config: StromConfig):
+    def __init__(self, config: StromConfig, *, variant: str = ""):
         super().__init__(config)
-        self._lib = _load_lib()
+        self._lib = _load_lib(variant)
         # flag bits of sc_create: mlock, register buffers, register files,
         # COOP_TASKRUN, SQPOLL, residency hybrid
         flags = (1 if config.mlock else 0) | (2 if config.register_buffers else 0) \
@@ -231,7 +235,7 @@ class UringEngine(Engine):
         # tears the ring down.
         self._dest_regs: dict[int, tuple[int, int]] = {}
         self._dest_refused = 0
-        self._dest_lock = threading.Lock()
+        self._dest_lock = make_lock("engine.uring_dest")
 
     # -- files --------------------------------------------------------------
     def register_file(self, path: str, *, o_direct: bool | None = None,
@@ -565,6 +569,7 @@ class UringEngine(Engine):
         self._np_pool = None
         self._lib.sc_destroy(self._h)
         self._h = None
+        self._forget_abandoned()   # the ring's teardown reaped every op
 
     def __del__(self) -> None:
         # GC-time close must never raise (interpreter teardown order is

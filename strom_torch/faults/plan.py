@@ -21,7 +21,6 @@ import errno as _errno
 import json
 import os
 import random
-import threading
 from typing import Sequence
 from strom_torch.utils.locks import make_lock
 

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import contextlib
 import errno as _errno
-import threading
 import time
 from typing import Sequence
 
@@ -330,3 +329,4 @@ class FaultyEngine(Engine):
         self.release_stuck()
         self._cancel_live_tokens()
         self.inner.close()
+        self._forget_abandoned()

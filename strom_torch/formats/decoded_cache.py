@@ -30,11 +30,11 @@ Counters (``decode_cache_*``) are kept apart from the extent cache's
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Any
 
 import numpy as np
+from strom_torch.utils.locks import make_lock
 
 _DIMS_CAP = 1 << 16  # bounded (ckey -> (h, w)) ledger for plan-time probes
 
@@ -68,7 +68,7 @@ class DecodedCache:
         # frames charge this tenant's cache partition (None: shared)
         self._tenant = tenant
         self._fp = fingerprint
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.decoded")
         self.hits = 0
         self.misses = 0
         self.hit_bytes = 0

@@ -47,6 +47,9 @@ from typing import Callable, Iterable, NamedTuple, Sequence
 import numpy as np
 
 from strom_torch.formats.decoded_cache import ServedFrame
+from strom_torch.obs import request as _request
+from strom_torch.obs.events import ring as _events_ring
+from strom_torch.utils.locks import make_lock
 
 try:
     import cv2
@@ -541,7 +544,7 @@ class DecodePool:
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=workers, thread_name_prefix="strom-decode")
         self.decode_errors = 0
-        self._err_lock = threading.Lock()
+        self._err_lock = make_lock("app.jpeg_errs")
         self.fuse_runs = fuse_runs
         # average per-image decode+transform micros, seeded at 1 ms;
         # updated by fused runs
@@ -558,18 +561,48 @@ class DecodePool:
         cap = -(-n // (self.workers * 2))
         return max(1, min(want, cap))
 
+    @staticmethod
+    def _worker_span(req):
+        """The per-sample ``decode.worker`` span: on the submitter's request
+        lane when it was inside a traced request (*req* is taken at submit
+        time: a worker thread has no request of its own), else a plain
+        ring span; None when the ring is off (no span object at all)."""
+        if req is not None:
+            return req.span("decode.worker", cat="decode")
+        if not _events_ring.enabled:
+            return None
+        return _events_ring.span("decode.worker", cat="decode")
+
     def map(self, fn: Callable[..., np.ndarray],
             items: Iterable, *extra: Sequence) -> list[np.ndarray]:
-        return list(self._pool.map(fn, items, *extra))
+        req = _request.current()
+
+        def traced(*a) -> np.ndarray:
+            cm = self._worker_span(req)
+            if cm is None:
+                return fn(*a)
+            with cm:
+                return fn(*a)
+
+        return list(self._pool.map(traced, items, *extra))
 
     # -- direct-to-slot mapping --------------------------------------------
+    def _call(self, fn: Callable[..., np.ndarray], item, rng,
+              row: np.ndarray, ckey) -> None:
+        if ckey is None:
+            fn(item, rng, out=row)
+        else:
+            fn(item, rng, out=row, ckey=ckey)
+
     def _one_sample(self, fn: Callable[..., np.ndarray], item, rng,
-                    row: np.ndarray, ckey=None) -> None:
+                    row: np.ndarray, ckey=None, req=None) -> None:
         try:
-            if ckey is None:
-                fn(item, rng, out=row)
+            cm = self._worker_span(req)
+            if cm is None:
+                self._call(fn, item, rng, row, ckey)
             else:
-                fn(item, rng, out=row, ckey=ckey)
+                with cm:
+                    self._call(fn, item, rng, row, ckey)
         except ValueError:
             # per-sample failure policy: a truncated/corrupt member costs
             # one zero image and a counter bump, not the whole batch
@@ -578,13 +611,14 @@ class DecodePool:
                 self.decode_errors += 1
 
     def _run_into(self, fn: Callable[..., np.ndarray], items: Sequence,
-                  rngs: Sequence, rows: Sequence, ckeys=None) -> None:
+                  rngs: Sequence, rows: Sequence, ckeys=None,
+                  req=None) -> None:
         """One pool task decoding a run of samples; feeds the per-image
         average :meth:`run_size` tunes from."""
         t0 = time.perf_counter()
         for i, (item, rng, row) in enumerate(zip(items, rngs, rows)):
             self._one_sample(fn, item, rng, row,
-                             None if ckeys is None else ckeys[i])
+                             None if ckeys is None else ckeys[i], req)
         n = len(items)
         per_img = (time.perf_counter() - t0) * 1e6 / max(n, 1)
         with self._err_lock:
@@ -594,14 +628,16 @@ class DecodePool:
                     row: np.ndarray, ckey=None) -> concurrent.futures.Future:
         """One decode+transform job writing its result into *row*
         (*ckey*: the sample's decoded-cache key, passed to *fn*)."""
-        return self._pool.submit(self._one_sample, fn, item, rng, row, ckey)
+        return self._pool.submit(self._one_sample, fn, item, rng, row, ckey,
+                                 _request.current())
 
     def submit_run_into(self, fn: Callable[..., np.ndarray],
                         items: Sequence, rngs: Sequence, rows: Sequence,
                         ckeys: "Sequence | None" = None
                         ) -> concurrent.futures.Future:
         """A fused run: one pool task decoding items[i] into rows[i]."""
-        return self._pool.submit(self._run_into, fn, items, rngs, rows, ckeys)
+        return self._pool.submit(self._run_into, fn, items, rngs, rows, ckeys,
+                                 _request.current())
 
     def map_into(self, fn: Callable[..., np.ndarray], items: Sequence,
                  rngs: Sequence, out: np.ndarray,

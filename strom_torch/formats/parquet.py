@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import bisect
 import os
-import threading
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
@@ -34,6 +33,7 @@ from strom_torch.formats.parquet_thrift import (_thrift_struct, _uvarint,
                                                 encode_file_metadata,
                                                 encode_statistics,
                                                 read_file_metadata)
+from strom_torch.utils.locks import make_lock
 
 if TYPE_CHECKING:
     import pyarrow as pa
@@ -384,7 +384,7 @@ class ParquetShard:
         self._footer_bytes: np.ndarray | None = None  # engine-read once, reused
         # scan decode pools read row groups of one shard concurrently; the
         # lock keeps "read once" true under that concurrency
-        self._footer_lock = threading.Lock()
+        self._footer_lock = make_lock("app.parquet_footer")
         self._col_index = {
             self.metadata.schema.column(i).path: i
             for i in range(self.metadata.num_columns)

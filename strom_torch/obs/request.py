@@ -212,9 +212,9 @@ class Request:
                            "queue_wait_us": round(self.queue_wait_us, 1),
                            "throttled": self.throttled,
                            "error": self.error})
-        # the reference offers the request to its tail-sampling exemplar
-        # store here; that store comes with the port's observability
-        # module (registry folding, exemplars, flight recorder)
+        from strom_torch.obs.exemplars import store
+
+        store.offer(self)
         with _observers_lock:
             obs = list(_observers)
         for fn in obs:

@@ -30,10 +30,10 @@ known-zero null count, because a NaN row WOULD match ``!=``.
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
+from strom_torch.utils.locks import make_lock
 
 # the pushdown counters: the parquet scan planner feeds them into the
 # context's counters (ctx.stats())
@@ -328,7 +328,7 @@ class CompiledOpGraph:
             np.zeros(self.in_shape, dtype=self.in_dtype), count=False)
         self.out_shape = probe.shape
         self.out_dtype = probe.dtype
-        self._lock = threading.Lock()
+        self._lock = make_lock("ops.graph")
         self._counts: dict[str, int] = {k: 0 for k in OPS_FIELDS}
 
     def _apply_sample(self, x: np.ndarray, *, count: bool = True

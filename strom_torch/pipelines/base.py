@@ -90,7 +90,9 @@ class Pipeline:
         # pipeline's tenant (the batch's own gathers are minted where they
         # run, on the prefetcher's threads)
         tname = getattr(self.scope, "labels", {}).get("tenant")
-        with _request.active("step", tname):
+        with _request.active("step", tname), \
+                _request.span("pipeline.next", cat="ingest_wait",
+                              args={"step": self._consumed}):
             batch = next(self._prefetcher)
         self._consumed += 1
         self.scope.add("pipeline_steps")

@@ -46,6 +46,7 @@ from strom_torch.formats.wds import WdsShardSet
 from strom_torch.pipelines.base import (Pipeline, _auto_depth_bounds,
                                         resolve_state)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
+from strom_torch.utils.locks import make_lock
 
 if TYPE_CHECKING:
     from strom_torch.ckpt.jobstate import StepToken
@@ -164,7 +165,7 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
     events: _queue.SimpleQueue = _queue.SimpleQueue()
     stop = threading.Event()
     futs: list[concurrent.futures.Future] = []
-    futs_lock = threading.Lock()
+    futs_lock = make_lock("app.vision_futs")
     g = ctx.stream_segments(el, [Segment(0, 0, el.size)], buf,
                             tenant=tenant)
     counts.add("stream_batches")

@@ -16,9 +16,9 @@ Both take an injectable clock, so the fairness tests run deterministically.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable
+from strom_torch.utils.locks import make_condition, make_lock
 
 
 class TokenBucket:
@@ -33,7 +33,7 @@ class TokenBucket:
         self._clock = clock
         self._tokens = self.burst
         self._t = clock()
-        self._lock = threading.Lock()
+        self._lock = make_lock("budget.bucket")
 
     @property
     def unlimited(self) -> bool:
@@ -96,7 +96,7 @@ class AdmissionGate:
         self.high_water = float(high_water)
         self._scope = scope if scope is not None else global_stats
         self._clock = clock
-        self._cond = threading.Condition()
+        self._cond = make_condition("sched.admission")
         self.waits = 0
         if pool is not None:
             pool.add_change_hook(self._on_pool_change)

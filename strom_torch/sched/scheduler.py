@@ -27,8 +27,9 @@ small read queues behind a first pipeline's epoch gather.
   deadline passes (``DeadlineExceeded``, counted in ``deadline_exceeded``),
   and a sliced gather stops at the first slice boundary past it. The
   queue wait is noted on that request (its ``req_throttled`` outcome).
-  The reference's ``sched.queue``/``sched.grant``/``engine.slice`` spans
-  are left out until the port has a reader for them (the trace module).
+- **Spans.** On a traced request's lane: ``sched.queue`` (the queue wait),
+  ``sched.grant`` (the engine-ownership window) and ``engine.slice`` (one
+  slice's engine gather, ``cat="read"`` or ``"write"``).
 
 Every grant adds ``sched_granted_ops`` / ``sched_granted_bytes`` and a
 ``sched_queue_wait_us`` observation to the tenant's scope (and so to the
@@ -45,8 +46,10 @@ from typing import Callable, Sequence
 
 from strom_torch.engine.base import DeadlineExceeded
 from strom_torch.obs import request as _request
+from strom_torch.obs.events import ring as _ring
 from strom_torch.sched.budget import AdmissionGate
 from strom_torch.sched.tenant import PRIORITIES, PRIORITY_ORDER, Tenant
+from strom_torch.utils.locks import make_condition
 
 # the per-tenant columns the multitenant measurement prints (the
 # reference's bench_multitenant names)
@@ -102,7 +105,7 @@ class IoScheduler:
         # a live slice size (the reference's autotuner writes it; None
         # defers to the config)
         self.slice_bytes_override: int | None = None
-        self._cond = threading.Condition()
+        self._cond = make_condition("sched.arbiter")
         self._tenants: dict[str, Tenant] = {}
         self._current: _Waiter | None = None
         # grants outstanding per acquiring thread: a thread that holds one
@@ -239,6 +242,7 @@ class IoScheduler:
         prio = PRIORITY_ORDER[priority] if priority is not None \
             else PRIORITY_ORDER[t.priority]
         w = _Waiter(t, max(int(nbytes), 0), prio, self._clock())
+        enq_us = _ring.now_us()
         # deadlines ride time.monotonic (the engine's clock), not the
         # injectable scheduler clock
         req = _request.current()
@@ -301,7 +305,14 @@ class IoScheduler:
         if w.nbytes:
             t.scope.add("sched_granted_bytes", w.nbytes)
         if req is not None:
+            # the queue wait on the request's lane, throttled verdict
+            # included (the exemplar store keys off it)
             req.note_queue_wait(w.wait_s * 1e6, throttled=w.throttled)
+            req.record("sched.queue", "sched", enq_us,
+                       _ring.now_us() - enq_us,
+                       args={"tenant": t.name, "bytes": w.nbytes,
+                             "throttled": w.throttled},
+                       parent=req.parent_of())
         if self.exclusive and t.scope is not self._scope:
             # one owner at a time: the engine's per-op latency goes to the
             # tenant's scope for the grant, back to the context's at release
@@ -344,12 +355,24 @@ class IoScheduler:
     def grant(self, tenant: "Tenant | str | None" = None, nbytes: int = 0,
               *, priority: str | None = None):
         """``with sched.grant(tenant, nbytes):``, the scheduler's form of
-        ``with ctx._engine_lock:``."""
+        ``with ctx._engine_lock:``. The ownership window is a
+        ``sched.grant`` span on the current request's lane."""
+        # the request and its parent are taken at entry: the exit may run
+        # on another thread (a streamed gather releases at drain)
+        req = _request.current()
+        parent = req.parent_of() if req is not None else None
         w = self.acquire(tenant, nbytes, priority=priority)
+        grant_us = _ring.now_us()
         try:
             yield w
         finally:
             self.release(w)
+            if req is not None:
+                req.record("sched.grant", "sched", grant_us,
+                           _ring.now_us() - grant_us,
+                           args={"tenant": w.tenant.name,
+                                 "bytes": w.nbytes},
+                           parent=parent)
 
     # -- sliced gather execution (the delivery hot path) --------------------
     def _slice_bytes(self) -> int:
@@ -404,7 +427,10 @@ class IoScheduler:
                 raise DeadlineExceeded(
                     f"{cat} stopped at slice {si} ({total} bytes landed)")
             nbytes = sum(ln for (_, _, _, ln) in sl)
-            with self.grant(t, nbytes, priority=priority):
+            with self.grant(t, nbytes, priority=priority), \
+                    _request.span("engine.slice", cat=cat,
+                                  args={"slice": si, "ops": len(sl),
+                                        "bytes": nbytes}):
                 total += run(sl, buf, retries=retries)
         return total
 

@@ -1393,12 +1393,11 @@ def test_capture_while_another_thread_delivers(cuda_device, tmp_path,
 
     go, landed = threading.Event(), threading.Event()
     got: dict = {}
-    # where the capture breaks, unpinned slabs: a pinned slab whose copy
-    # fails mid-flight is never handed back, and its registration would
-    # outlive the test (ROADMAP Queue C)
-    ctx = StromContext(StromConfig(
-        overlap_chunk_bytes=8 * MiB, overlap_min_bytes=16 * MiB,
-        **({} if capture_on == "port" else {"slab_pool_bytes": 0})))
+    # pinned slabs in both cases: where the capture breaks, a slab whose
+    # copy fails mid-flight still goes back, and none stays registered
+    # past the context
+    ctx = StromContext(StromConfig(overlap_chunk_bytes=8 * MiB,
+                                   overlap_min_bytes=16 * MiB))
     ctx._copy_stream = lambda device: copy_stream
 
     def loader():
@@ -1447,7 +1446,9 @@ def test_capture_while_another_thread_delivers(cuda_device, tmp_path,
         go.set()
         th.join(60)
         torch.cuda.synchronize()
+        assert ctx.stats()["slab_pool"]["slab_in_use_bytes"] == 0
         ctx.close()
+        assert ctx._slab_pool.stats()["registered_slabs"] == 0
     if "err" in got:
         failed.append(got["err"])
     if capture_on == "port":
@@ -1457,6 +1458,43 @@ def test_capture_while_another_thread_delivers(cuda_device, tmp_path,
         assert owner.tolist() == [6.0] * 4
     else:
         assert failed, "the capture on the aliased stream went through"
+
+
+def test_failed_streamed_delivery_keeps_no_pinned_slab(cuda_device,
+                                                       tmp_path):
+    """A streamed delivery on pinned slabs whose piece fails more times
+    than io_retries raises with every slab back in the pool; a clean
+    delivery follows in the same context, exact, and another in a new
+    context after the first closed, with no cudaHostRegister failure."""
+    import json
+
+    from strom_torch.engine.base import EngineError
+
+    rng = np.random.default_rng(29)
+    path = str(tmp_path / "leak.bin")
+    data = rng.integers(0, 256, 32 * MiB, dtype=np.uint8)
+    data.tofile(path)
+    want = torch.from_numpy(data)
+    # every read op over byte 20 MiB fails, twice: the op and its retry
+    plan = json.dumps({"seed": 0, "rules": [
+        {"kind": "errno", "op": "read", "offset_lo": 20 * MiB,
+         "offset_hi": 20 * MiB + 1, "times": 2}]})
+    cfg = dict(overlap_chunk_bytes=8 * MiB, overlap_min_bytes=16 * MiB,
+               io_retries=1, breaker_enabled=False, residency_hybrid=False)
+    ctx = StromContext(StromConfig(fault_plan=plan, **cfg))
+    try:
+        with pytest.raises(EngineError):
+            ctx.memcpy_ssd2gpu(path, device=cuda_device)
+        pool = ctx.stats()["slab_pool"]
+        assert pool["slab_in_use_bytes"] == 0 and pool["parked_bytes"] == 0
+        got = ctx.memcpy_ssd2gpu(path, device=cuda_device)
+        assert torch.equal(got.cpu(), want)
+    finally:
+        ctx.close()
+    assert ctx._slab_pool.stats()["registered_slabs"] == 0
+    with StromContext(StromConfig(**cfg)) as again:
+        got = again.memcpy_ssd2gpu(path, device=cuda_device)
+        assert torch.equal(got.cpu(), want)
 
 
 def test_block_until_ready_tensor_reads_on_another_stream(cuda_device,

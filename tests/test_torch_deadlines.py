@@ -171,8 +171,11 @@ def test_streamed_gather_deadline(data_file):
     """A streamed gather minted under request_deadline_s over a stuck
     engine raises DeadlineExceeded from finish, its token cancelled."""
     path, _ = data_file
+    # hedges off: a hedge would serve the stuck chunk on the fallback
+    # engine before the deadline
     with StromContext(_cfg(StromConfig, fault_plan=STUCK,
-                           request_deadline_s=0.2)) as ctx:
+                           request_deadline_s=0.2,
+                           hedge_enabled=False)) as ctx:
         dest = alloc_aligned(256 * 1024)
         g = ctx.stream_segments(path, [Segment(0, 0, 256 * 1024)], dest)
         t0 = time.monotonic()

@@ -36,7 +36,7 @@ def any_engine(request, monkeypatch):
         from strom_torch.engine import multi
 
         monkeypatch.setattr(multi, "UringEngine",
-                            lambda config: PythonEngine(config))
+                            lambda config, **kw: PythonEngine(config))
         eng = multi.MultiRingEngine(StromConfig(queue_depth=8, num_buffers=16,
                                                 engine_rings=2))
     else:

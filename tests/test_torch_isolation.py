@@ -257,3 +257,48 @@ def test_trainer_loads_neither_jax_nor_strom(tmp_path):
     with open(tmp_path / "meta_ref.json") as f:
         meta = json.load(f)
     assert meta["final_steps"] == 6 and meta["ckpt_commits"] == 2
+
+
+@pytest.mark.parametrize("module", ["strom_torch.obs.chrome_trace",
+                                    "strom_torch.obs.exemplars",
+                                    "strom_torch.obs.stall",
+                                    "strom_torch.obs.flight",
+                                    "strom_torch.utils.locks",
+                                    "strom_torch.utils.tracing",
+                                    "strom_torch.engine.stress"])
+def test_readers_witness_and_stress_load_no_jax_or_strom(module, tmp_path):
+    """The span readers, the lock-order witness, the trace helper and the
+    stress harness load neither jax* nor strom.*, also with the witness
+    and a flight recorder on a context that reads."""
+    shard = tmp_path / "d.bin"
+    shard.write_bytes(bytes(range(256)) * 1024)
+    code = (
+        f"import sys, {module}\n"
+        "from strom_torch.config import StromConfig\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "cfg = StromConfig(engine='python', debug_locks=True,"
+        " flight_dir=sys.argv[2], flight_stall_s=0.0)\n"
+        "with StromContext(cfg) as ctx:\n"
+        "    assert bytes(ctx.pread(sys.argv[1], 0, 4096)) =="
+        " bytes(range(256)) * 16\n"
+        "    ctx.flight_recorder.dump('probe')\n"
+        "    ctx.stats()['steps']\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+        "('jax.', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(shard),
+                           str(tmp_path / "fl")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_scan_covers_the_readers_witness_and_stress():
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    new = {"obs/chrome_trace.py", "obs/exemplars.py", "obs/stall.py",
+           "obs/flight.py", "utils/locks.py", "utils/tracing.py",
+           "engine/stress.py"}
+    assert new <= names
+    for name in new:
+        assert not _FORBIDDEN.search((PKG / name).read_text()), name
