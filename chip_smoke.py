@@ -242,6 +242,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
                reference run, one SIGKILLed mid-epoch, the restart):
                RESUME_FIELDS, resume_ok must be 1, the first resumed
                serial the committed token's, no tmp checkpoint left.
+12. observability -- one context with an ephemeral metrics_port, the
+               snapshot history and a flight directory. [server]: phase
+               4's Llama step (Llama-3-8B widths, 2 layers, flash,
+               captured) for 16 steps from a fresh state and pipeline, in
+               four arms, the scraper off, on, on, off; with it on, a
+               thread GETs every route once (each one's status, bytes and
+               ms; 200 except the documented 404 of /tune and /cluster and
+               400 of a malformed since_us) and then
+               /metrics?sections=context,sched at 20 Hz beside the
+               capture and the replays (scrapes, ms, the /metrics lines
+               and bytes); each arm's median replay ms; the losses and
+               grad norms of all four arms must be equal. Then phase 7's
+               JPEG loader alone, 4 batches from a dropped page cache,
+               with the server, the history and the 20 Hz scraper and
+               without (off, on, on, off): images/s each. [slo]: two
+               tenants, one with a gather target under half its own
+               engine ops' p50: it must burn on /slo and on its /tenants
+               row, the other must not. [federation]: a ClusterView over this context's
+               endpoint and a subprocess context's (python -c, a registry
+               of its own): the aggregate's counters must equal the hosts'
+               sum; killing the subprocess must flip it unhealthy within
+               stale_s plus two poll intervals and leave a flight bundle.
+               [history]: the ring's samples and a rate. [tune]: the
+               reference's bench_tune arm (32 MiB in 128 KiB blocks,
+               shuffled, an 8 MiB cache, 16 trials, then an interleaved
+               A/B; the reference's defaults are 128 and 32 MiB): hand and tuned items/s, moves, reverts, holds;
+               tuned_vs_hand must be at least 1.0. Then attach_tuner(
+               start=False) on the JPEG ResNet loader feeding a captured
+               ResNet-50 step: 8 beats of 2.05 s, each beat's goodput,
+               action and knobs (skipped= where phase 7 was). [inflight]:
+               the engine_inflight gauge read from another thread during a
+               256 MiB gather on the preadv pool (above 0) and after it
+               (0).
 
 Each phase prints its own lines. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -1049,17 +1082,18 @@ def phase_ssd2gpu(workdir: str) -> str:
         queue_depth=cfg.queue_depth,
         overlap_chunk_bytes=cfg.overlap_chunk_bytes,
         overlap_min_bytes=cfg.overlap_min_bytes)
+    streamed0 = strom_torch.stats()["context"]["streamed_transfers"]
     for label in ("64MiB-unstreamed-cold", "64MiB-unstreamed-warm"):
         _timed_delivery(label, lambda: strom_torch.memcpy_ssd2gpu(
             path, length=64 * MiB, device="cuda"), want[:64 * MiB])
-    if strom_torch.stats()["streamed_transfers"] != 0:
+    if strom_torch.stats()["context"]["streamed_transfers"] != streamed0:
         raise AssertionError("a 64 MiB read must not be streamed")
     _timed_delivery("1GiB-streamed-sync", lambda: strom_torch.memcpy_ssd2gpu(
         path, device="cuda"), want)
     _timed_delivery("1GiB-streamed-async", lambda: strom_torch.memcpy_wait(
         strom_torch.memcpy_ssd2gpu(path, device="cuda", async_=True)), want)
     st = strom_torch.stats()
-    if st["streamed_transfers"] != 2:
+    if st["context"]["streamed_transfers"] - streamed0 != 2:
         raise AssertionError(f"expected 2 streamed transfers, got {st}")
     eng = st["engine"]
     say("ssd2gpu", stats=json.dumps(st, sort_keys=True))
@@ -1519,12 +1553,12 @@ def phase_ckpt(workdir: str) -> dict[str, int]:
     snapshot_s = time.perf_counter() - t0
     d1 = os.path.join(workdir, "ckpt_sync")
     before = _write_counts(ctx)
-    d2h_us = ctx.stats().get("ckpt_d2h_us", 0)
+    d2h_us = global_stats.counter("ckpt_d2h_us").value
     t0 = time.perf_counter()
     manifest = save_checkpoint(ctx, d1, tree, extra={TOKEN_KEY:
                                                      token.to_dict()})
     save_s = time.perf_counter() - t0
-    d2h_s = (ctx.stats()["ckpt_d2h_us"] - d2h_us) / 1e6
+    d2h_s = (global_stats.counter("ckpt_d2h_us").value - d2h_us) / 1e6
     payload = manifest["payload_bytes"]
     save_mb_s = payload / save_s / 1e6
     counts = {k: v - before[k] for k, v in _write_counts(ctx).items()}
@@ -1786,7 +1820,7 @@ def phase_stream(path: str) -> None:
         raise AssertionError("stream: the gather after close() differs")
     say("stream", check="close mid-flight, then a gather", closed_after_ranges=
         len(first), in_flight_after_close=0, next_gather_exact=True,
-        stream_gathers=ctx.stats()["stream_gathers"])
+        stream_gathers=ctx.stats()["stream"]["stream_gathers"])
     strom_torch.close()
 
 
@@ -2249,8 +2283,10 @@ def phase_decoded_cache(tar: str | None, model, step, *, batch: int = 128,
                     raise AssertionError("decoded_cache: the third epoch "
                                          "found no frame in the cache")
             if r == passes - 1:
+                dec = ctx.stats(["decode"])["decode"]
                 say("decoded_cache", stats=json.dumps(
-                    ctx.stats()["decode_cache"], sort_keys=True))
+                    {k: v for k, v in dec.items()
+                     if k.startswith("decode_cache")}, sort_keys=True))
         finally:
             pipe.close()
             ctx.close()
@@ -2444,10 +2480,11 @@ def _pq_pyarrow_check(path: str, workdir: str) -> None:
                    use_dictionary=False)
     ctx = StromContext(StromConfig.from_env())
     try:
+        decoded0 = global_stats.counter("parquet_decode_bytes").value
         shard = ParquetShard(theirs, ctx=ctx)
         got = [shard.read_row_group_arrays(ctx, g, ["seq", "value", "f0"])
                for g in range(shard.num_row_groups)]
-        if ctx.stats().get("parquet_decode_bytes", 0):
+        if global_stats.counter("parquet_decode_bytes").value != decoded0:
             raise AssertionError("parquet: pyarrow's PLAIN file left the "
                                  "PLAIN route")
     finally:
@@ -2501,7 +2538,7 @@ def _pq_arm(label: str, ctx, paths: list[str], cols: list[str], scan,
     selected = sum(e.length for e in extents)
     dest = alloc_aligned(selected, populate=True)
     scans, raws, cpus = [], [], []
-    st0 = ctx.stats()
+    st0 = global_stats.snapshot()
     for i in range(2):
         for arm in (("scan", "raw") if i % 2 == 0 else ("raw", "scan")):
             for p in paths:
@@ -2514,7 +2551,7 @@ def _pq_arm(label: str, ctx, paths: list[str], cols: list[str], scan,
             scans.append(time.perf_counter() - t0)
             cpus.append(_cpu_s() - cpu0)
             check(out)
-    st1 = ctx.stats()
+    st1 = global_stats.snapshot()
     delta = {k: st1.get(k, 0) - st0.get(k, 0) for k in (
         "parquet_plain_bytes", "parquet_decode_bytes",
         "parquet_scan_units", "parquet_scan_data_stalls") + PQ_STAGES}
@@ -2550,7 +2587,7 @@ def _pq_stages(ctx, paths: list[str], cols: list[str], scan_at) -> None:
     for label in ("gathers_fresh", "gathers_reused", "depth1", "depth4"):
         for p in paths:
             _drop_cache(p)
-        st0 = ctx.stats()
+        st0 = global_stats.snapshot()
         t0 = time.perf_counter()
         if label == "gathers_fresh":
             for el in els:
@@ -2561,7 +2598,7 @@ def _pq_stages(ctx, paths: list[str], cols: list[str], scan_at) -> None:
         else:
             scan_at(int(label[-1]))
         secs[label] = time.perf_counter() - t0
-        st1 = ctx.stats()
+        st1 = global_stats.snapshot()
         stages.update({f"{label}_{k[13:]}": st1.get(k, 0) - st0.get(k, 0)
                        for k in PQ_STAGES if label.startswith("depth")})
     say("parquet", arm="wide_stages", units=len(els),
@@ -2680,12 +2717,12 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
     for label, fn in (("pushed", pushed), ("post_hoc", post)):
         for p in paths:
             _drop_cache(p)
-        st0 = ctx.stats()
+        st0 = global_stats.snapshot()
         t0 = time.perf_counter()
         hits[label] = int(fn()["hits"])
         rates[label] = PQ_SHARDS * PQ_ROWS / (time.perf_counter() - t0)
         if label == "pushed":
-            st1 = ctx.stats()
+            st1 = global_stats.snapshot()
             d = {k: st1.get(k, 0) - st0.get(k, 0) for k in PUSHDOWN_FIELDS}
     unpushed = d["parquet_pushdown_skipped_bytes"] \
         + d["parquet_pushdown_submitted_bytes"]
@@ -2735,6 +2772,7 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
     runs = {}
     for fuse in (True, False):
         gctx = StromContext(StromConfig.from_env())
+        ops0 = global_stats.snapshot()
         graph = (OpGraph().filter(lambda x: x[0, 0, 0] < 250)
                  .project(slice(0, 24), slice(0, 24))
                  .normalize([127.5] * 3, [63.0] * 3).cast(np.float32))
@@ -2745,7 +2783,9 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
                                         stream_intra_batch=fuse)
         runs[fuse] = [next(pipe) for _ in range(3)]
         pipe.close()
-        ops = {k: v for k, v in gctx.stats().items() if k.startswith("ops_")}
+        ops = {k: v - ops0.get(k, 0)
+               for k, v in global_stats.snapshot().items()
+               if k.startswith("ops_") and v != ops0.get(k, 0)}
         gctx.close()
         say("parquet", opgraph="fused" if fuse else "unfused", batches=3,
             shape=tuple(runs[fuse][0][0].shape),
@@ -3451,7 +3491,7 @@ def _slab_leak_arm(path: str, want: torch.Tensor) -> None:
             slab_in_use_bytes=pool["slab_in_use_bytes"],
             parked_bytes=pool["parked_bytes"],
             registered_slabs=pool["registered_slabs"],
-            streamed_transfers=ctx.stats()["streamed_transfers"],
+            streamed_transfers=ctx.stats()["context"]["streamed_transfers"],
             clean_exact=exact, clean_gbps=f"{BREAKER_BYTES / dt / 1e9:.3f}")
         if raised is None or pool["slab_in_use_bytes"] != 0 or not exact:
             raise AssertionError(f"slab_leak: raised {raised!r}, "
@@ -3664,6 +3704,530 @@ def phase_resilience(workdir: str, pdec: str, tar: str | None) -> None:
     _resume_arm(workdir)
 
 
+# ---------------------------------------------------- observability (12)
+OBS_STEPS = 16            # Llama steps an arm: warm-up, capture, replays
+SCRAPE_HZ = 20            # the [server] loop's /metrics?sections= rate
+SCRAPE_LOOP = "/metrics?sections=context,sched"
+ROUTES = ("/metrics", "/stats", "/trace", "/trace?cat=sched",
+          "/trace?since_us=x", "/slo", "/tune", "/history", "/tenants",
+          "/flight", "/cluster")
+# the documented answers other than 200 on a context with no tuner and no
+# cluster view, and on a malformed filter
+ROUTE_CODES = {"/tune": 404, "/cluster": 404, "/trace?since_us=x": 400}
+FED_STALE_S, FED_INTERVAL_S = 1.0, 0.2
+# the registry counters the [federation] check sums host by host (a gauge
+# such as engine_inflight moves between two scrapes)
+FED_SUM_KEYS = ("ssd2gpu_bytes", "sched_granted_bytes", "sched_granted_ops",
+                "engine_op_lat_count")
+# the reference's bench_tune defaults (128 KiB blocks, queue depth 32, 16
+# trials, 3 iterations) over a quarter of its 128 MiB file and 32 MiB
+# cache: on the card's preadv pool its 128 MiB epochs took 1.8 s each
+TUNE_BYTES, TUNE_BLOCK, TUNE_DEPTH = 32 * MiB, 128 * 1024, 32
+TUNE_CACHE, TUNE_TRIALS, TUNE_ITERS = 8 * MiB, 16, 3
+TUNE_BEATS, TUNE_BEAT_S = 8, 2.05   # a beat outlasts the steps TTL (2 s)
+OBS_LLAMA = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+OBS_B, OBS_SEQ = 2, 2047
+
+
+def _http(port: int, route: str) -> tuple[int, bytes, float]:
+    """GET *route*: (status, body, ms)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=30) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+class _Scraper(threading.Thread):
+    """Each of *routes* once, then SCRAPE_LOOP at SCRAPE_HZ until
+    stopped."""
+
+    def __init__(self, port: int, routes=ROUTES) -> None:
+        super().__init__(name="chip-smoke-scraper", daemon=True)
+        self.port = port
+        self.first = routes
+        self.stop = threading.Event()
+        self.routes: dict[str, tuple[int, int, float]] = {}
+        self.loop: list[tuple[int, float]] = []
+        self.metrics_text = b""
+
+    def run(self) -> None:
+        for r in self.first:
+            code, body, ms = _http(self.port, r)
+            self.routes[r] = (code, len(body), ms)
+            if r == "/metrics":
+                self.metrics_text = body
+        while not self.stop.wait(1.0 / SCRAPE_HZ):
+            code, _, ms = _http(self.port, SCRAPE_LOOP)
+            self.loop.append((code, ms))
+
+
+def _obs_llama_arm(ctx, paths: list[str], cfg, scraped: bool, B: int,
+                   seq_len: int) -> tuple[list, float, "_Scraper | None"]:
+    """OBS_STEPS captured flash steps on a fresh state and pipeline (seed
+    0): the losses and grad norms, the median replay ms, and the scraper
+    that ran beside them."""
+    pipe = make_llama_pipeline(ctx, paths, batch=B, seq_len=seq_len,
+                               device="cuda", seed=0)
+    state = init_train_state(cfg, device="cuda", seed=0)
+    step = make_train_step(cfg, attn="flash", device="cuda")
+    scraper = _Scraper(ctx.metrics_server.port) if scraped else None
+    if scraper is not None:
+        scraper.start()
+    metrics, times = [], []
+    try:
+        for _ in range(OBS_STEPS):
+            batch = next(pipe)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            times.append((time.perf_counter() - t0, step.last_call))
+    finally:
+        if scraper is not None:
+            scraper.stop.set()
+            scraper.join()
+        pipe.close()
+    if step.graphs != 1 or step.last_call != "replay":
+        raise AssertionError(f"server: the captured step ran {step.graphs} "
+                             f"graphs, last call {step.last_call}")
+    replay = statistics.median(t for t, c in times[2:])
+    del state, step
+    torch.cuda.empty_cache()
+    return metrics, replay * 1e3, scraper
+
+
+def _server_arm(ctx, workdir: str) -> None:
+    """[server]: the Llama step at the main path's widths, captured and
+    replayed, with a scraper on the live endpoint and without, alternating
+    (off, on, on, off); every route's status and ms; losses equal."""
+    cfg, B, seq_len, records = OBS_LLAMA, OBS_B, OBS_SEQ, 2 * OBS_STEPS
+    rng = np.random.default_rng(12)
+    paths = []
+    for i in range(2):
+        paths.append(os.path.join(workdir, f"obs_tokens{i}.bin"))
+        write_token_shard(ctx, paths[-1], rng.integers(
+            0, cfg.vocab, (records, seq_len + 1), dtype=np.int32))
+    runs = []
+    for scraped in (False, True, True, False):
+        metrics, ms, scraper = _obs_llama_arm(ctx, paths, cfg, scraped, B,
+                                              seq_len)
+        runs.append((scraped, metrics, ms))
+        say("server", scraper="on" if scraped else "off", steps=OBS_STEPS,
+            step_ms_replay_median=f"{ms:.2f}",
+            loss_last=f"{metrics[-1][0]:.5f}")
+        if scraper is None:
+            continue
+        for r, (code, nbytes, rms) in scraper.routes.items():
+            say("server", route=r, status=code, bytes=nbytes, ms=f"{rms:.2f}")
+            if code != ROUTE_CODES.get(r, 200):
+                raise AssertionError(f"server: {r} answered {code}")
+        loop_ms = sorted(ms_ for _, ms_ in scraper.loop)
+        bad = [c for c, _ in scraper.loop if c != 200]
+        lines = scraper.metrics_text.decode().splitlines()
+        say("server", loop=SCRAPE_LOOP, hz=SCRAPE_HZ,
+            scrapes=len(scraper.loop),
+            ms_p50=f"{loop_ms[len(loop_ms) // 2]:.2f}" if loop_ms else "-",
+            ms_max=f"{loop_ms[-1]:.2f}" if loop_ms else "-",
+            metrics_lines=len(lines), metrics_bytes=len(scraper.metrics_text),
+            non_200=len(bad))
+        if bad or not scraper.loop:
+            raise AssertionError(f"server: loop scrapes {len(scraper.loop)}, "
+                                 f"non-200 {bad[:5]}")
+    want = runs[0][1]
+    for scraped, metrics, _ in runs[1:]:
+        if metrics != want:
+            raise AssertionError(f"server: losses with the scraper "
+                                 f"{'on' if scraped else 'off'} differ from "
+                                 "the unscraped run's")
+    on = [ms for sc, _, ms in runs if sc]
+    off = [ms for sc, _, ms in runs if not sc]
+    say("server", check="losses and grad norms equal across the four arms",
+        exact=True, step_ms_on=",".join(f"{v:.2f}" for v in on),
+        step_ms_off=",".join(f"{v:.2f}" for v in off),
+        on_over_off=f"{statistics.mean(on) / statistics.mean(off):.4f}")
+    for p in paths:
+        os.unlink(p)
+
+
+def _server_loader_arm(tar: str | None) -> None:
+    """[server] loader: the JPEG ResNet loader alone, 4 batches of 128 from
+    a dropped page cache, on a context with the live server, the history
+    and the 20 Hz scraper, and on one with none of them, alternating
+    (off, on, on, off): the host threads they add share the interpreter
+    lock with the loader's."""
+    if tar is None:
+        say("server", loader="jpeg", skipped=NO_JPEG)
+        return
+    cuda = torch.device("cuda")
+    rates = {False: [], True: []}
+    for on in (False, True, True, False):
+        ctx = StromContext(StromConfig.from_env(history_interval_s=0.5),
+                           metrics_port=0 if on else None)
+        scraper = _Scraper(ctx.metrics_server.port, routes=()) if on else None
+        try:
+            _drop_cache(tar)
+            pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=128,
+                                                 device=cuda)
+            if scraper is not None:
+                scraper.start()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                next(pipe)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            pipe.close()
+        finally:
+            if scraper is not None:
+                scraper.stop.set()
+                scraper.join()
+            ctx.close()
+        rates[on].append(4 * 128 / dt)
+        say("server", loader="jpeg", scraper_and_history="on" if on else "off",
+            images_per_s=f"{rates[on][-1]:.1f}",
+            scrapes=len(scraper.loop) if scraper else 0)
+    on, off = statistics.mean(rates[True]), statistics.mean(rates[False])
+    say("server", loader="jpeg", on_over_off=f"{on / off:.4f}")
+
+
+def _slo_arm(ctx, path: str) -> None:
+    """[slo]: two tenants on one context, one with a gather target under
+    half its own engine ops' p50 (a gather waits for its slowest op, so
+    most of its reads miss it): it burns on /slo and on its /tenants row,
+    the other does not."""
+    port = ctx.metrics_server.port
+    ctx.register_tenant("slo_tight")
+    ctx.register_tenant("slo_loose")
+    for t in ("slo_tight", "slo_loose"):
+        for i in range(16):
+            ctx.pread(path, i * MiB, MiB, tenant=t)
+    # the tenant's own scope: the process-wide histogram holds every
+    # earlier phase's ops
+    p50 = global_stats.scoped(tenant="slo_tight").histogram(
+        "engine_op_lat").percentile(0.5)
+    ctx.slo.set_target("slo_tight", gather_p99_us=max(p50 / 2, 1.0))
+    for i in range(16):
+        ctx.pread(path, i * MiB, MiB, tenant="slo_tight")
+    code, body, ms = _http(port, "/slo")
+    rows = json.loads(body)["tenants"]
+    tcode, tbody, tms = _http(port, "/tenants")
+    trows = json.loads(tbody)["tenants"]
+    for t in ("slo_tight", "slo_loose"):
+        say("slo", tenant=t, requests=rows[t]["requests"], bad=rows[t]["bad"],
+            target_us=rows[t]["target"]["gather_p99_us"],
+            burn_fast=rows[t]["slo_burn_fast"],
+            burn_slow=rows[t]["slo_burn_slow"],
+            burning=rows[t]["slo_burning"],
+            tenants_row_burning=trows[t].get("slo_burning"))
+    say("slo", tenant_engine_op_p50_us=p50, slo_status=code,
+        slo_ms=f"{ms:.2f}",
+        tenants_status=tcode, tenants_ms=f"{tms:.2f}")
+    if not (rows["slo_tight"]["slo_burning"]
+            and trows["slo_tight"].get("slo_burning") is True
+            and not rows["slo_loose"]["slo_burning"]
+            and trows["slo_loose"].get("slo_burning") is False):
+        raise AssertionError("slo: the tight tenant must burn on /slo and "
+                             "/tenants, the loose one must not")
+
+
+_FED_HOST = (
+    "import sys\n"
+    "from strom_torch.config import StromConfig\n"
+    "from strom_torch.delivery.core import StromContext\n"
+    "ctx = StromContext(StromConfig.from_env(), metrics_port=0)\n"
+    "ctx.pread(sys.argv[1], 0, 64 << 20)\n"
+    "print(ctx.metrics_server.port, flush=True)\n"
+    "sys.stdin.read()\n")
+
+
+def _federation_arm(ctx, path: str, flight_dir: str) -> None:
+    """[federation]: a ClusterView over this context's endpoint and a
+    subprocess context's (a registry of its own): the aggregate equals the
+    hosts' sum; killing the subprocess flips it unhealthy within stale_s
+    (plus the poll interval) and leaves a flight bundle."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", _FED_HOST, path],
+                            cwd=root, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        sub = int(proc.stdout.readline())
+        start_s = time.perf_counter() - t0
+        me = ctx.metrics_server.port
+        hosts = {"sub": f"127.0.0.1:{sub}", "me": f"127.0.0.1:{me}"}
+        view = ctx.attach_cluster(hosts, interval_s=FED_INTERVAL_S,
+                                  stale_s=FED_STALE_S, stall_s=600.0)
+        deadline = time.monotonic() + 30.0
+        while not all(r["age_s"] is not None for r in
+                      view.snapshot()["hosts"].values()):
+            if time.monotonic() > deadline:
+                raise AssertionError("federation: a host was never scraped")
+            time.sleep(0.05)
+        snap = view.snapshot()
+        fetched = {h: json.loads(_http(int(a.rsplit(":", 1)[1]),
+                                       "/stats?sections=steps")[1])["global"]
+                   for h, a in hosts.items()}
+        agg = snap["aggregate"]
+        sums = {k: sum(f.get(k, 0) for f in fetched.values())
+                for k in FED_SUM_KEYS}
+        say("federation", hosts=len(hosts), sub_start_s=f"{start_s:.2f}",
+            **{f"agg_{k}": agg.get(k, 0) for k in FED_SUM_KEYS},
+            **{f"{h}_ssd2gpu_bytes": f.get("ssd2gpu_bytes", 0)
+               for h, f in fetched.items()},
+            agg_engine_op_lat_p99_us=agg.get("engine_op_lat_p99_us"))
+        if any(agg.get(k, 0) != sums[k] for k in FED_SUM_KEYS) \
+                or sums["ssd2gpu_bytes"] <= 0:
+            raise AssertionError(f"federation: aggregate {agg} is not the "
+                                 f"sum {sums}")
+        proc.kill()
+        proc.wait(timeout=30)
+        t_kill = time.monotonic()
+        while view.snapshot()["hosts"]["sub"]["healthy"]:
+            if time.monotonic() - t_kill > 30.0:
+                raise AssertionError("federation: the killed host never "
+                                     "turned unhealthy")
+            time.sleep(0.02)
+        flip_s = time.monotonic() - t_kill
+        # the view's thread dumps the bundle after the flip, outside its
+        # lock: a full ring takes about a second to write
+        while True:
+            bundles = sorted(b for b in os.listdir(flight_dir)
+                             if b.startswith("flight-")
+                             and "cluster_unhealthy" in b)
+            if bundles or time.monotonic() - t_kill > 30.0:
+                break
+            time.sleep(0.05)
+        bundle_s = time.monotonic() - t_kill
+        code, body, _ = _http(me, "/cluster")
+        say("federation", killed="sub", flip_s=f"{flip_s:.3f}",
+            stale_s=FED_STALE_S, interval_s=FED_INTERVAL_S,
+            cluster_status=code,
+            hosts_unhealthy=json.loads(body)["cluster_hosts_unhealthy"],
+            flight_bundles=len(bundles), bundle_s=f"{bundle_s:.3f}")
+        if flip_s > FED_STALE_S + 2 * FED_INTERVAL_S or not bundles:
+            raise AssertionError(f"federation: flipped after {flip_s:.3f} s "
+                                 f"(stale_s {FED_STALE_S}), bundles "
+                                 f"{bundles}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _bench_tune(workdir: str) -> None:
+    """[tune]: the reference's bench_tune arm on the card's engine: one
+    shuffled block-read workload on the hand knobs, then after the
+    coordinate-descent tuner searched the scheduler's slice and the cache
+    budget against measured items/s, then a final interleaved A/B (a
+    tuned state that loses it ships the hand knobs). ``tuned_vs_hand`` is
+    at least 1.0 by that construction, so its check only shows the arm
+    ran; ``searched_vs_hand`` is the searched state's own rate over the
+    hand knobs' in that A/B, which a search that hurts drives below 1."""
+    import random
+
+    from strom_torch.tune import Autotuner, standard_knobs
+
+    path = os.path.join(workdir, "tune.bin")
+    _write_file(path, np.frombuffer(bytearray(
+        np.random.default_rng(16).bytes(TUNE_BYTES)), np.uint8))
+    cfg = StromConfig.from_env(block_size=TUNE_BLOCK, queue_depth=TUNE_DEPTH,
+                               num_buffers=max(TUNE_DEPTH * 2, 8),
+                               hot_cache_bytes=TUNE_CACHE,
+                               hot_cache_admit="always")
+    ctx = StromContext(cfg)
+    try:
+        offs = list(range(0, TUNE_BYTES, TUNE_BLOCK))
+        rng = random.Random(0)
+
+        def epoch() -> float:
+            order = offs[:]
+            rng.shuffle(order)
+            t0 = time.perf_counter()
+            for off in order:
+                ctx.pread(path, off, TUNE_BLOCK)
+            return len(order) / (time.perf_counter() - t0)
+
+        t_start = time.perf_counter()
+        epoch()
+        hand = max(epoch() for _ in range(TUNE_ITERS))
+        last = {"rate": hand}
+        knobs = standard_knobs(ctx)
+        hand_knobs = {k.name: float(k.get()) for k in knobs}
+        tuner = Autotuner(knobs, lambda: {"objective": last["rate"]},
+                          guard_frac=cfg.tune_guard_frac, scope=ctx.scope,
+                          profile_name="tune")
+        for _ in range(TUNE_TRIALS):
+            tuner.step()
+            last["rate"] = epoch()
+        tuner.settle()
+        tuned_knobs = {k.name: float(k.get()) for k in knobs}
+
+        def apply(vals: dict) -> None:
+            for k in knobs:
+                k.set(k.clamp(vals[k.name]))
+
+        # the searched state's own rate, before the A/B may ship the hand
+        # knobs in its place: a search that made things worse shows here
+        searched_knobs = tuned_knobs
+        if tuned_knobs == hand_knobs:
+            searched = tuned = hand = max(hand, epoch())
+        else:
+            searched = hand = 0.0
+            for _ in range(TUNE_ITERS):
+                apply(tuned_knobs)
+                searched = max(searched, epoch())
+                apply(hand_knobs)
+                hand = max(hand, epoch())
+            tuned = searched
+            if searched >= hand:
+                apply(tuned_knobs)
+            else:
+                tuned_knobs = hand_knobs
+                tuned = hand
+        ts = tuner.stats()
+        ratio = tuned / hand if hand else 0.0
+        say("tune", arm="bench_tune", bytes=TUNE_BYTES, block=TUNE_BLOCK,
+            engine=ctx.engine.stats()["engine"], trials=TUNE_TRIALS,
+            hand_items_per_s=f"{hand:.2f}", tuned_items_per_s=f"{tuned:.2f}",
+            searched_items_per_s=f"{searched:.2f}",
+            searched_vs_hand=f"{searched / hand if hand else 0.0:.4f}",
+            searched_knobs=json.dumps(searched_knobs, sort_keys=True),
+            tuned_vs_hand=f"{ratio:.4f}", tune_moves=ts["tune_moves"],
+            tune_reverts=ts["tune_reverts"], tune_holds=ts["tune_holds"],
+            hand_knobs=json.dumps(hand_knobs, sort_keys=True),
+            tuned_knobs=json.dumps(tuned_knobs, sort_keys=True),
+            s=f"{time.perf_counter() - t_start:.2f}")
+        if ratio < 1.0:
+            raise AssertionError(f"tune: tuned_vs_hand {ratio:.4f} < 1.0")
+    finally:
+        ctx.close()
+        os.unlink(path)
+
+
+def _tune_beats(tar: str | None) -> None:
+    """[tune] beats: attach_tuner(start=False) on a context feeding the
+    JPEG ResNet loader into a captured ResNet-50 step; TUNE_BEATS beats,
+    each at least TUNE_BEAT_S of steps (past the steps section's TTL, so
+    each beat reads a fresh goodput): the beat's goodput, its action and
+    the knob values."""
+    from strom_torch.tune import prefetcher_knob, standard_knobs
+
+    if tar is None:
+        say("tune", arm="beats", skipped=NO_JPEG)
+        return
+    cuda = torch.device("cuda")
+    cfg = ResNetConfig.resnet50()
+    model = ResNet(cfg, device=cuda)
+    step = make_resnet_sgd_step(cfg, device=cuda)
+    ctx = StromContext(StromConfig.from_env(history_interval_s=0.5,
+                                            hot_cache_bytes=256 * MiB,
+                                            readahead_window_batches=2),
+                       metrics_port=0)
+    try:
+        pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=128,
+                                             device=cuda)
+        knobs = standard_knobs(ctx) + [prefetcher_knob(pipe._prefetcher)]
+        tuner = ctx.attach_tuner(knobs, start=False)
+        steps = 0
+        for beat in range(TUNE_BEATS):
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < TUNE_BEAT_S:
+                imgs, lbls = next(pipe)
+                step(model, imgs, lbls)["loss"].item()
+                steps += 1
+            action = tuner.step()
+            m = ctx._tune_metrics()
+            say("tune", arm="beats", beat=beat, action=action, steps=steps,
+                goodput_pct=m["objective"],
+                ingest_wait_us_per_s=m.get("stall_ingest_wait_us_per_s"),
+                knobs=json.dumps(tuner.stats()["tune_knobs"],
+                                 sort_keys=True))
+        st = ctx.stats(["tune"])["tune"]
+        say("tune", arm="beats", **{k: st[k] for k in (
+            "tune_moves", "tune_reverts", "tune_holds", "tune_trials",
+            "tuned_vs_baseline")}, route_tune=_http(
+                ctx.metrics_server.port, "/tune")[0])
+        pipe.close()
+    finally:
+        ctx.close()
+        del model, step
+        torch.cuda.empty_cache()
+
+
+def _inflight_arm(path: str) -> None:
+    """[inflight]: the engine_inflight gauge read from another thread while
+    a 256 MiB gather on the preadv pool runs (above 0), and after it
+    (0)."""
+    seen: list[float] = []
+    done = threading.Event()
+
+    def watch() -> None:
+        while not done.is_set():
+            seen.append(global_stats.gauge("engine_inflight").value)
+            time.sleep(0.0005)
+
+    # the preadv pool (the card's engine: io_uring is refused there) sets
+    # the gauge at every submit and reap; io_uring's native gather sets it
+    # once, after the gather
+    ctx = StromContext(StromConfig.from_env(engine="python"))
+    w = threading.Thread(target=watch)
+    try:
+        _drop_cache(path)
+        w.start()
+        ctx.pread(path, 0, 256 * MiB)
+    finally:
+        done.set()
+        w.join()
+        ctx.close()
+    after = global_stats.gauge("engine_inflight").value
+    say("inflight", reads=len(seen), max_mid_gather=max(seen, default=0),
+        after=after)
+    if max(seen, default=0) <= 0 or after != 0:
+        raise AssertionError(f"inflight: max {max(seen, default=0)} "
+                             f"mid-gather, {after} after")
+
+
+def phase_observability(workdir: str, tar: str | None) -> None:
+    """Phase 12: the live observability plane beside the main path, the
+    SLO engine, federation across processes, the autotuner, and the
+    engine_inflight gauge."""
+    t0 = time.perf_counter()
+    flight_dir = os.path.join(workdir, "flight12")
+    path = os.path.join(workdir, "obs.bin")
+    _write_file(path, np.frombuffer(bytearray(
+        np.random.default_rng(13).bytes(256 * MiB)), np.uint8))
+    ctx = StromContext(StromConfig.from_env(history_interval_s=0.5,
+                                            flight_dir=flight_dir,
+                                            flight_stall_s=0.0),
+                       metrics_port=0)
+    try:
+        _server_arm(ctx, workdir)
+        _slo_arm(ctx, path)
+        _federation_arm(ctx, path, flight_dir)
+        code, body, _ = _http(ctx.metrics_server.port, "/history?keys="
+                              "ssd2gpu_bytes")
+        hist = json.loads(body)
+        say("history", status=code, samples=len(hist["samples"]),
+            interval_s=hist["interval_s"],
+            sample_errors=hist["sample_errors"],
+            ssd2gpu_bytes_per_s=ctx.history.rate("ssd2gpu_bytes"))
+    finally:
+        ctx.close()
+    _server_loader_arm(tar)
+    _bench_tune(workdir)
+    _tune_beats(tar)
+    _inflight_arm(path)
+    os.unlink(path)
+    say("observability", s=f"{time.perf_counter() - t0:.2f}")
+
+
 PROFILE_PAD_S = 0.1   # on the card, ~15 us of drift a second of process age
 
 
@@ -3774,6 +4338,7 @@ def main() -> int:
         pq_paths, pq_hits = phase_parquet(workdir, tar)
         phase_multitenant(workdir, pdec, pq_paths, pq_hits)
         phase_resilience(workdir, pdec, tar)
+        phase_observability(workdir, tar)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

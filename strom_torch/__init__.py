@@ -13,7 +13,7 @@ STROM_IOCTL__LIST/INFO...      strom_torch.buffer_info()
 STROM_IOCTL__MEMCPY_SSD2GPU    strom_torch.memcpy_ssd2gpu(..., async_=False)
   ..._ASYNC                    strom_torch.memcpy_ssd2gpu(..., async_=True)
 STROM_IOCTL__MEMCPY_WAIT       strom_torch.memcpy_wait(handle)
-/proc/nvme-strom               strom_torch.stats()
+/proc/nvme-strom               strom_torch.stats() / prometheus()
 (in-kernel md-raid0 decode)    strom_torch.StripedFile / register_striped
 =============================  ==========================================
 
@@ -122,13 +122,29 @@ def map_buffers() -> list:
 
 
 def stats() -> dict:
-    """Plain counters of the process-wide context (bytes, transfers, engine
-    and slab-pool counters), creating the context as the reference does."""
+    """The process-wide context's nested stats sections (``context``,
+    ``engine``, ``slab_pool``, ...), creating the context as the reference
+    does."""
     global _ctx
     with _ctx_lock:
         if _ctx is None:
             _ctx = StromContext()
         return _ctx.stats()
+
+
+def prometheus() -> str:
+    """One scrape of the whole data path as Prometheus text: the
+    process-wide registry (scopes as labelled samples) and, when the
+    process context exists, its sections (≙ the reference's /proc node)."""
+    from strom_torch.utils.stats import global_stats, sections_prometheus
+
+    text = global_stats.prometheus()
+    # inside the lock: a concurrent close() or init() must not tear the
+    # engine down under the scrape
+    with _ctx_lock:
+        if _ctx is not None:
+            text += sections_prometheus(_ctx.stats())
+    return text
 
 
 def close() -> None:

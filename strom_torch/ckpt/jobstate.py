@@ -17,10 +17,8 @@ A token commits with the checkpoint it describes: the manifest's
 ``extra`` carries ``{"step_token": ...}``, so one rename makes both
 durable.
 
-The context's counters are not yet folded into the stats registry, so
-:func:`set_resume_gauges` sets the verdict's numbers as counters of
-``ctx.stats()`` when it is given a context, and as gauges of the
-process-wide registry otherwise.
+:func:`set_resume_gauges` sets the verdict's numbers as gauges of the
+stats registry, through a context's scope when it is given one.
 """
 
 from __future__ import annotations
@@ -148,18 +146,16 @@ def restore_warm_state(ctx, warm: "dict | None") -> int:
     return warmed
 
 
-def set_resume_gauges(results: dict, ctx=None) -> None:
+def set_resume_gauges(results: dict, scope=None) -> None:
     """Every numeric RESUME_FIELDS value of a verdict (a bool as 0 or 1)
-    set as a counter of ``ctx.stats()``; without a *ctx* (the harness's
-    own process), as gauges of the process-wide stats registry, as the
-    reference sets them."""
-    vals = {k: int(v) if isinstance(v, bool) else v
-            for k in RESUME_FIELDS
-            if isinstance(v := results.get(k), (int, float))}
-    if ctx is not None:
-        ctx.set_counters(**vals)
-        return
-    from strom_torch.utils.stats import global_stats
+    set as a same-named gauge of *scope* (a context's ``ctx.scope``; None
+    is the process-wide registry): the live-scrape twin of the verdict."""
+    if scope is None:
+        from strom_torch.utils.stats import global_stats as scope
 
-    for k, v in vals.items():
-        global_stats.set_gauge(k, v)
+    for k in RESUME_FIELDS:
+        v = results.get(k)
+        if isinstance(v, bool):
+            scope.set_gauge(k, int(v))
+        elif isinstance(v, (int, float)):
+            scope.set_gauge(k, v)

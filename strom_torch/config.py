@@ -116,6 +116,26 @@ class StromConfig:
     # make_lock after the context starts records its acquisition order and
     # raises LockOrderError on a cycle. Off = plain threading.Lock
     debug_locks: bool = False
+    # the live endpoint (obs/server.py): > 0 serves /metrics (Prometheus),
+    # /stats, /trace, /slo, /tune, /history, /tenants, /flight and
+    # /cluster on 127.0.0.1:<port> for the context's lifetime. 0 = no
+    # server (StromContext(metrics_port=0) asks for an ephemeral port)
+    metrics_port: int = 0
+    # snapshot history (obs/history.py): with the live server on, a thread
+    # samples the process-wide registry every history_interval_s into a
+    # bounded ring served on /history. <= 0 = no sampler (/history 404s)
+    history_interval_s: float = 2.0
+
+    # closed-loop knob autotuner (tune/): coordinate descent over the live
+    # knob surfaces against goodput, with a guarded revert and a hold
+    # while an SLO burns
+    tune: bool = False                 # arm the tuner thread in the context
+    tune_interval_s: float = 1.0       # settle window between moves
+    tune_guard_frac: float = 0.10      # a move costing more than this
+                                       # fraction of the objective reverts
+                                       # and halves the knob's step
+    tune_profile: str = ""             # JSON profile path, applied at
+                                       # attach when it exists
 
     # delivery
     # extent-aware gather planning: split plain-file chunks at FIEMAP extent
@@ -252,6 +272,12 @@ class StromConfig:
                              "or exactly -1 (auto)")
         if self.prefetch_max_depth < 1:
             raise ValueError("prefetch_max_depth must be >= 1")
+        if self.metrics_port < 0 or self.metrics_port > 65535:
+            raise ValueError("metrics_port must be in [0, 65535] (0 = off)")
+        if self.tune_interval_s <= 0:
+            raise ValueError("tune_interval_s must be > 0")
+        if not 0.0 < self.tune_guard_frac <= 1.0:
+            raise ValueError("tune_guard_frac must be in (0, 1]")
         if self.hot_cache_bytes < 0:
             raise ValueError("hot_cache_bytes must be >= 0 (0 = off)")
         if self.hot_cache_admit not in ("second_touch", "always"):

@@ -49,6 +49,15 @@ that trips it, and every gather while it is open, is read by a fallback
 preadv pool under the tenant's grants (``failover_reads``). With
 ``fault_plan`` set, the engine is wrapped in ``faults.FaultyEngine``
 before anything binds it.
+
+Observability: ``stats(sections=)`` gives the nested per-section state
+(the reference's shape), every counter of it kept in the stats registry;
+the SLO engine (``ctx.slo``) reads every finished request of this context;
+``metrics_port`` (or ``StromContext(metrics_port=0)``) serves it live
+(``obs/server.py``) with a snapshot history; ``attach_cluster`` federates
+other processes' endpoints; ``attach_tuner`` (or ``tune=True``) runs the
+knob autotuner over the context's surfaces against the stall
+attribution's goodput.
 """
 
 from __future__ import annotations
@@ -81,7 +90,8 @@ from strom_torch.delivery.shard import Segment
 from strom_torch.engine import make_engine
 from strom_torch.engine.base import (DeadlineExceeded, Engine, EngineError,
                                      EngineStallError, may_still_write)
-from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX, plan_stripe_reads,
+from strom_torch.engine.raid0 import (SIZE_SIDECAR_SUFFIX,
+                                      count_stripe_windows, plan_stripe_reads,
                                       plan_stripe_windows)
 from strom_torch.engine.resilience import RESILIENCE_FIELDS, classify_errno
 from strom_torch.obs import request as _request
@@ -94,6 +104,24 @@ from strom_torch.utils.tracing import trace_span
 # the steps section of stats() is recomputed at most this often: a
 # whole-ring attribution is not free
 _STEPS_TTL_S = 2.0
+
+# the registry counters of stats()["decode"] (the reference's keys)
+_DECODE_COUNTERS = (
+    "decode_reduced_hits_2", "decode_reduced_hits_4",
+    "decode_reduced_hits_8", "decode_slot_bytes", "decode_errors",
+    "decode_put_overlap_ms", "decode_native_imgs",
+    "decode_native_fallbacks", "decode_fused_runs", "decode_fused_samples",
+    "decode_roi_hits", "decode_roi_rows_skipped", "decode_cache_hits",
+    "decode_cache_misses", "decode_cache_hit_bytes",
+    "decode_cache_admitted_bytes")
+
+
+def _hist_fields(name: str) -> dict:
+    """A registry histogram's keys in a stats section (the reference's)."""
+    h = global_stats.histogram(name)
+    return {f"{name}_p50_us": h.percentile(0.50),
+            f"{name}_mean_us": h.mean_us, f"{name}_total_us": h.total_us,
+            f"{name}_count": h.count, f"{name}_hist": list(h.buckets)}
 
 
 class _Retired:
@@ -345,10 +373,15 @@ class StromContext:
 
     *scope*: the telemetry scope counters go through: None is the
     process-wide registry (``strom_torch.utils.stats.global_stats``), a
-    dict of labels a scope of it, and a prebuilt scope passes through."""
+    dict of labels a scope of it, and a prebuilt scope passes through.
+
+    *metrics_port*: None takes ``config.metrics_port`` (0 there = no
+    server); a port given here serves the live endpoint on it, and 0 given
+    here asks for an ephemeral port (``ctx.metrics_server.port``)."""
 
     def __init__(self, config: StromConfig | None = None,
                  engine: Engine | None = None, *,
+                 metrics_port: "int | None" = None,
                  scope: "dict | None | object" = None):
         self.config = config or StromConfig.from_env()
         self._witness_enabled_here = False
@@ -423,6 +456,32 @@ class StromContext:
         # the fallback under the tenant's grants
         self._resilience = ResilientIo(self.config, self.engine,
                                        scope=self.scope)
+        if self._scheduler is not None:
+            self._scheduler.resilience_info = self._resilience.stats
+        # the per-tenant SLO engine: every finished request of this context
+        # feeds its windows; burn rates show on /slo, as slo_* gauges per
+        # tenant scope, and as slo_burning on tenants_info() rows
+        from strom_torch.obs.slo import SloEngine
+
+        self._slo = SloEngine(goodput_fn=self._current_goodput)
+        # requests this context mints carry this token: the observer list
+        # is process-wide, and two live contexts must not feed each
+        # other's SLO engines
+        self._req_owner: object = object()
+
+        def _observe(req, _slo=self._slo, _own=self._req_owner):
+            if req.owner is None or req.owner is _own:
+                _slo.observe_request(req)
+
+        self._slo_observer = _observe
+        if self._scheduler is not None:
+            self._scheduler.slo_hook = self._slo.burning
+        # pipeline surfaces the autotuner can steer (register_tunable)
+        self._tunables: dict = {}
+        self._tuner = None
+        self._cluster = None
+        self._metrics_server = None
+        self._history = None
         # per-step stall attribution over the ring's events since now
         self._obs_t0_us = _events_ring.now_us()
         self._steps_cache: "tuple[float, dict] | None" = None
@@ -431,11 +490,6 @@ class StromContext:
         # the stall_<bucket>_us counters
         self._stall_published: dict[str, float] = {}
         self._copy_streams: dict[torch.device, torch.cuda.Stream] = {}
-        self._counts = collections.Counter(
-            {"ssd2gpu_bytes": 0, "transfers": 0, "streamed_transfers": 0,
-             "stream_gathers": 0, "stream_instant_bytes": 0,
-             "host2ssd_bytes": 0})
-        self._counts_lock = _locks.make_lock("app.counts")
         # hot-set host cache: repeat traffic serves from RAM instead of the
         # engine. Its buffers are its own aligned allocations, not pool
         # slabs (see delivery/hotcache.py); bound_depth still subtracts
@@ -496,6 +550,37 @@ class StromContext:
                         _f.dump("breaker_trip", note=note)
 
                 self._resilience.breaker.on_trip = _dump_on_trip
+        port = self.config.metrics_port if metrics_port is None \
+            else metrics_port
+        if port is not None and (port > 0 or metrics_port == 0):
+            from strom_torch.obs.server import MetricsServer
+
+            # the snapshot history rides with the live server, built first
+            # so /history answers as soon as the port does
+            if self.config.history_interval_s > 0:
+                from strom_torch.obs.history import StatsHistory
+
+                self._history = StatsHistory(
+                    interval_s=self.config.history_interval_s)
+            try:
+                self._metrics_server = MetricsServer(
+                    self.stats, port=port, flight=self._flight, ctx=self)
+            except Exception:
+                # a failed bind must not leak the threads just started for
+                # a context that will never exist
+                if self._history is not None:
+                    self._history.close()
+                if self._flight is not None:
+                    self._flight.close()
+                raise
+        # registered last: a process-wide observer pointing at a context
+        # whose __init__ failed would keep it alive and fed for good
+        _request.add_observer(self._slo_observer)
+        # the autotuner is armed last: every knob surface exists and the
+        # endpoint already serves stats()["tune"]
+        if self.config.tune:
+            self.attach_tuner(
+                profile_path=self.config.tune_profile or None)
 
     # -- files --------------------------------------------------------------
     def file_index(self, path: str, *, writable: bool = False) -> int:
@@ -574,16 +659,122 @@ class StromContext:
         return source
 
     def _count(self, **kv: int) -> None:
-        with self._counts_lock:
-            self._counts.update(kv)
-        if "ssd2gpu_bytes" in kv:
-            # the flight recorder's progress signal reads the registry
-            self.scope.add("ssd2gpu_bytes", kv["ssd2gpu_bytes"])
+        """Add to counters of the stats registry, through this context's
+        scope."""
+        for k, v in kv.items():
+            self.scope.add(k, v)
 
     @property
     def flight_recorder(self):
         """The flight recorder when ``flight_dir`` is set, else None."""
         return self._flight
+
+    @property
+    def metrics_server(self):
+        """The live endpoint when one was asked for (``.port`` is the bound
+        port), else None."""
+        return self._metrics_server
+
+    @property
+    def slo(self):
+        """The per-tenant SLO engine (:mod:`strom_torch.obs.slo`)."""
+        return self._slo
+
+    @property
+    def history(self):
+        """The snapshot history when the live server runs with
+        ``history_interval_s > 0``, else None."""
+        return self._history
+
+    @property
+    def cluster_view(self):
+        """The federation view :meth:`attach_cluster` wired (the
+        ``/cluster`` route), else None."""
+        return self._cluster
+
+    @property
+    def tuner(self):
+        """The knob autotuner when ``tune=True`` or :meth:`attach_tuner`
+        ran, else None."""
+        return self._tuner
+
+    def register_tunable(self, kind: str, obj) -> None:
+        """Expose a live pipeline surface (``"decode_pool"``,
+        ``"readahead"``) for :func:`strom_torch.tune.standard_knobs` to
+        build a knob over; the last registration of a *kind* wins."""
+        self._tunables[str(kind)] = obj
+
+    def attach_cluster(self, hosts, *, interval_s: float = 1.0,
+                       stall_s: float = 10.0, **kwargs):
+        """Start the cluster view: a background loop polling each worker's
+        ``/stats`` (*hosts* maps a host id to its ``ip:port``), merging the
+        fleet into one aggregate (served on this context's ``/cluster``)
+        and flagging hosts whose scrape fails or whose progress stalls; an
+        unhealthy edge asks the host for ``/flight?dump=1`` and dumps this
+        context's flight recorder. Replaces any previous view; returns
+        it."""
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        from strom_torch.obs.federation import ClusterView
+
+        if self._cluster is not None:
+            self._cluster.close()
+        self._cluster = ClusterView(
+            hosts, recorder=self._flight, interval_s=interval_s,
+            stall_s=stall_s, **kwargs)
+        return self._cluster
+
+    def attach_tuner(self, knobs=None, *, profile_path: "str | None" = None,
+                     start: bool = True):
+        """Arm the closed-loop autotuner over this context's live knob
+        surfaces (the scheduler's slice bytes, the cache budget and the
+        registered tunables by default, or the *knobs* given; a pipeline
+        adds its prefetch depth with
+        :func:`strom_torch.tune.prefetcher_knob`). It climbs the stall
+        attribution's goodput and holds while any tenant's SLO burns or no
+        goodput is measurable yet. *profile_path* warm-starts from a saved
+        :class:`strom_torch.tune.Profile`; ``start=False`` builds the
+        controller without its thread (the caller beats it). Idempotent."""
+        if getattr(self, "_closed", False):
+            raise RuntimeError("StromContext is closed")
+        if self._tuner is not None:
+            return self._tuner
+        from strom_torch.tune import Autotuner, Profile, standard_knobs
+
+        ks = list(knobs) if knobs is not None else standard_knobs(self)
+        name = "default"
+        if profile_path:
+            name = os.path.splitext(os.path.basename(profile_path))[0]
+        tuner = Autotuner(
+            ks, self._tune_metrics,
+            interval_s=self.config.tune_interval_s,
+            guard_frac=self.config.tune_guard_frac,
+            scope=self.scope, profile_name=name)
+        if profile_path and os.path.exists(profile_path):
+            tuner.apply_profile(Profile.load(profile_path))
+        self._tuner = tuner
+        if start:
+            tuner.start()
+        return tuner
+
+    def _tune_metrics(self) -> dict:
+        """The autotuner's objective: the stall attribution's goodput (it
+        rides the steps section's TTL cache). No goodput yet reads as a
+        hold: the controller never experiments without a signal. With the
+        history on, each bucket's ``stall_<bucket>_us`` rate rides along,
+        so the controller sees where the stall time goes."""
+        goodput = self._current_goodput()
+        burning = bool(self._slo.stats().get("slo_tenants_burning", 0))
+        metrics = {"objective": float(goodput or 0.0),
+                   "slo_burning": burning or goodput is None}
+        if self._history is not None:
+            from strom_torch.obs.stall import BUCKETS
+
+            for b in BUCKETS:
+                r = self._history.rate(f"stall_{b}_us", window_s=30.0)
+                if r is not None:
+                    metrics[f"stall_{b}_us_per_s"] = r
+        return metrics
 
     @property
     def hot_cache(self) -> HotCache | None:
@@ -701,6 +892,14 @@ class StromContext:
         order (``extent_aware``)."""
         return self._plan(source, segments, base_offset)[0]
 
+    def _note_coalesce(self, n_in: int, n_out: int) -> None:
+        """Engine ops before and after coalescing, summed and of the last
+        transfer."""
+        self.scope.add("coalesce_ops_in", n_in)
+        self.scope.add("coalesce_ops_out", n_out)
+        self.scope.set_gauge("coalesce_ops_in_last", n_in)
+        self.scope.set_gauge("coalesce_ops_out_last", n_out)
+
     def _plan(self, source: Source, segments: Sequence[Segment],
               base_offset: int = 0
               ) -> tuple[list[tuple[int, int, int, int]], dict[int, str]]:
@@ -731,7 +930,10 @@ class StromContext:
             if wb > 0 and len(sf.members) > 1 and length > wb:
                 # per-member sequential runs inside windows of the in-flight
                 # budget, not a round-robin hopping members every chunk
+                self.scope.add("stripe_windows", count_stripe_windows(
+                    segs, len(sf.members), wb))
                 segs = plan_stripe_windows(segs, len(sf.members), wb)
+                self.scope.set_gauge("stripe_overlap_window_bytes", wb)
             chunks.extend((member_idx[s.member], s.member_offset,
                            dest_off + (s.logical_offset - file_off), s.length)
                           for s in segs)
@@ -757,7 +959,9 @@ class StromContext:
                                        r.dest_offset, r.length))
             for sf, runs in striped_runs.items():
                 if cmax and len(runs) > 1:
+                    n_in = len(runs)
                     runs = coalesce_segments(runs, cmax)
+                    self._note_coalesce(n_in, len(runs))
                 for s in runs:
                     stripe_chunks(sf, s.file_offset, s.dest_offset, s.length)
         else:
@@ -767,7 +971,9 @@ class StromContext:
         if cmax and len(chunks) > 1 and not member_cache:
             # striped gathers are exempt: member ops interleave by design,
             # and their fragments merged at the segment level above
+            n_in = len(chunks)
             chunks = coalesce_chunks(chunks, cmax)
+            self._note_coalesce(n_in, len(chunks))
         if self.config.extent_aware and chunks and not member_cache:
             # per-file runs, each in physical-address order. Striped gathers
             # are exempt: the engine submits in list order within a
@@ -895,7 +1101,7 @@ class StromContext:
                                                    tenant=tenant)
             return self._warm_read_chunks(cache, chunks, dest, idx_paths,
                                           tenant)
-        with _request.active("gather", tenant) as req:
+        with _request.active("gather", tenant, owner=self._req_owner) as req:
             # a deadline binds a gather request only: a pipeline's
             # enclosing batch or step request keeps its own contract
             if req.kind == "gather":
@@ -1503,45 +1709,98 @@ class StromContext:
         """The engine's staging pool (≙ LIST/INFO_GPU_MEMORY)."""
         return self.engine.buffer_info()
 
-    def set_counters(self, **kv: int) -> None:
-        """Set counters of :meth:`stats` to values (gauges: the resume
-        layer's verdict), where ``_count`` adds."""
-        with self._counts_lock:
-            for k, v in kv.items():
-                self._counts[k] = v
+    def stats(self, sections: "Sequence[str] | None" = None) -> dict:
+        """Nested per-section stats (the ``/stats`` shape and what
+        ``sections_prometheus`` renders). *sections* selects a subset by
+        name, and only those are computed: a scrape that wants counters
+        never recomputes the stall attribution (``steps``, which keeps its
+        TTL cache). None = every section. The sections: ``context``,
+        ``decode``, ``stream``, ``steps``, ``cache``, ``spill``,
+        ``slab_pool``, ``engine``, ``sched``, ``slo``, ``tune``,
+        ``exemplars``, ``resilience`` and ``scopes``; ``cache``, ``spill``,
+        ``slab_pool``, ``sched`` and ``tune`` only where the context has
+        one. The reference's ``dist`` section waits for the peer fabric.
+        Counters are the process-wide registry's, as the reference reads
+        them. No section makes a CUDA call."""
+        want = None if sections is None else set(sections)
 
-    def stats(self) -> dict:
-        with self._counts_lock:
-            out = dict(self._counts)
-        with self._files_lock:
-            out["context"] = {"registered_files": len(self._files),
-                              "host2ssd_bytes": out["host2ssd_bytes"]}
-        out["engine"] = self.engine.stats()
-        if self._slab_pool is not None:
-            out["slab_pool"] = self._slab_pool.stats()
-        if self._hot_cache is not None:
+        def wanted(name: str) -> bool:
+            return want is None or name in want
+
+        c = global_stats.counter
+        g = global_stats.gauge
+        out: dict = {}
+        if wanted("context"):
+            with self._files_lock:
+                nfiles = len(self._files)
+            out["context"] = {
+                "registered_files": nfiles,
+                "ssd2gpu_bytes": c("ssd2gpu_bytes").value,
+                "host2ssd_bytes": c("host2ssd_bytes").value,
+                "coalesce_ops_in": c("coalesce_ops_in").value,
+                "coalesce_ops_out": c("coalesce_ops_out").value,
+                "coalesce_ops_in_last": g("coalesce_ops_in_last").value,
+                "coalesce_ops_out_last": g("coalesce_ops_out_last").value,
+                "stripe_overlap_window_bytes":
+                    g("stripe_overlap_window_bytes").value,
+                "stripe_windows": c("stripe_windows").value,
+                # the port's own: whole-tensor and streamed deliveries
+                "transfers": c("transfers").value,
+                "streamed_transfers": c("streamed_transfers").value,
+            }
+        if wanted("decode"):
+            dec = {k: c(k).value for k in _DECODE_COUNTERS}
+            dec.update(_hist_fields("decode_batch"))
+            out["decode"] = dec
+        if wanted("stream"):
+            st = {"stream_batches": c("stream_batches").value,
+                  "stream_inflight_peak": g("stream_inflight_peak").value,
+                  "stream_instant_bytes": c("stream_instant_bytes").value,
+                  "stream_samples_early": c("stream_samples_early").value}
+            for name in ("stream_first_decode_lat", "stream_tail_extent"):
+                st.update(_hist_fields(name))
+            # the port's own: streamed gathers (stream_segments calls)
+            st["stream_gathers"] = c("stream_gathers").value
+            out["stream"] = st
+        if wanted("steps"):
+            steps = self._steps_section()
+            steps["events_dropped"] = _events_ring.events_dropped
+            out["steps"] = steps
+        if wanted("cache") and self._hot_cache is not None:
             out["cache"] = self._hot_cache.stats()
-        if self._spill is not None:
+        if wanted("spill") and self._spill is not None:
             sp = self._spill.stats()
             sp["spill_errors"] = self._hot_cache.spill_errors + (
                 self._spill_io.errors if self._spill_io is not None else 0)
             out["spill"] = sp
-        if self._scheduler is not None:
+        if wanted("slab_pool") and self._slab_pool is not None:
+            out["slab_pool"] = self._slab_pool.stats()
+        if wanted("engine"):
+            out["engine"] = self.engine.stats()
+        if wanted("sched") and self._scheduler is not None:
             out["sched"] = self._scheduler.stats()
-        if self._decoded_cache is not None:
-            out["decode_cache"] = self._decoded_cache.stats()
-        # the resilience counters under the reference's names, from the
-        # process-wide registry as the reference reads them, and the
-        # breaker's state and the fault plan's tally
-        for k in RESILIENCE_FIELDS:
-            out[k] = global_stats.gauge(k).value if k == "breaker_state" \
-                else global_stats.counter(k).value
-        res = self._resilience.stats()
-        plan = getattr(self.engine, "plan", None)
-        if plan is not None:
-            res["fault_plan"] = plan.stats()
-        out["resilience"] = res
-        out["steps"] = self._steps_section()
+        if wanted("slo"):
+            out["slo"] = self._slo.stats()
+        if wanted("tune") and self._tuner is not None:
+            out["tune"] = self._tuner.stats()
+        if wanted("resilience"):
+            # the counters under the reference's names, from the registry,
+            # and the breaker's state and the fault plan's tally
+            res: dict = {k: g(k).value if k == "breaker_state"
+                         else c(k).value for k in RESILIENCE_FIELDS}
+            res.update(self._resilience.stats())
+            plan = getattr(self.engine, "plan", None)
+            if plan is not None:
+                res["fault_plan"] = plan.stats()
+            out["resilience"] = res
+        if wanted("exemplars"):
+            from strom_torch.obs.exemplars import store as _exemplars
+
+            out["exemplars"] = _exemplars.stats()
+        if wanted("scopes"):
+            # every label scope's series, the JSON twin of the labelled
+            # samples /metrics renders (the sections exposition skips it)
+            out["scopes"] = global_stats.scopes_snapshot()
         return out
 
     def _steps_section(self) -> dict:
@@ -1596,6 +1855,18 @@ class StromContext:
         if self._closed:
             return
         self._closed = True
+        _request.remove_observer(self._slo_observer)
+        # the tuner first: its thread reads stats() and knob surfaces about
+        # to go (knobs stay where the search left them: close is no revert)
+        if self._tuner is not None:
+            self._tuner.close()
+        # the cluster view before the server and the recorder it uses
+        if self._cluster is not None:
+            self._cluster.close()
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+        if self._history is not None:
+            self._history.close()
         if self._flight is not None:
             self._flight.close()
         self._executor.shutdown(wait=True)

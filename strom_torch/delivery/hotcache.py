@@ -181,11 +181,21 @@ class HotCache:
             if pos < hi:
                 misses.append((pos, hi))
             if record:
-                self.hit_bytes += sum(t - s for s, t, _ in hits)
+                hb = sum(t - s for s, t, _ in hits)
+                self.hit_bytes += hb
                 self.hits += len(hits)
                 if count_misses:
                     self.miss_bytes += sum(t - s for s, t in misses)
                     self.misses += len(misses)
+        if record:
+            # the registry mirror, outside the cache lock
+            if hits:
+                self._scope.add("cache_hits", len(hits))
+                self._scope.add("cache_hit_bytes", hb)
+            if count_misses and misses:
+                self._scope.add("cache_misses", len(misses))
+                self._scope.add("cache_miss_bytes",
+                                sum(t - s for s, t in misses))
         return hits, misses, pinned
 
     def note_miss(self, nbytes: int, n: int = 1) -> None:
@@ -195,6 +205,8 @@ class HotCache:
         with self._lock:
             self.miss_bytes += nbytes
             self.misses += n
+        self._scope.add("cache_misses", n)
+        self._scope.add("cache_miss_bytes", nbytes)
 
     def view(self, skey: Any, lo: int, hi: int, *, record: bool = True
              ) -> tuple[np.ndarray, _Entry] | None:
@@ -215,6 +227,9 @@ class HotCache:
             if record:
                 self.hit_bytes += hi - lo
                 self.hits += 1
+        if record:
+            self._scope.add("cache_hits")
+            self._scope.add("cache_hit_bytes", hi - lo)
         return e.buf[lo - e.lo: hi - e.lo], e
 
     def unpin(self, entries: Iterable[_Entry]) -> None:
@@ -298,6 +313,7 @@ class HotCache:
         if admitted:
             with self._lock:
                 self.admitted_bytes += admitted
+            self._scope.add("cache_admitted_bytes", admitted)
         return admitted
 
     def _insert(self, skey: Any, lo: int, hi: int, data: np.ndarray, *,
@@ -378,6 +394,8 @@ class HotCache:
                 self._tenant_bytes.pop(e.tenant, None)
         self.evictions += 1
         self.evicted_bytes += e.nbytes
+        self._scope.add("cache_evictions")
+        self._scope.add("cache_evicted_bytes", e.nbytes)
         e.demote = demote and self.spill is not None
         if e.refs == 0:
             buf, e.buf = e.buf, None  # type: ignore[assignment]
@@ -415,10 +433,12 @@ class HotCache:
     def note_readahead(self, nbytes: int) -> None:
         with self._lock:
             self.readahead_bytes += nbytes
+        self._scope.add("cache_readahead_bytes", nbytes)
 
     def note_yield(self) -> None:
         with self._lock:
             self.readahead_yields += 1
+        self._scope.add("cache_readahead_yields")
 
     def note_error(self) -> None:
         """A readahead tick died (the window function raised, a source
@@ -426,6 +446,7 @@ class HotCache:
         nothing to warm."""
         with self._lock:
             self.readahead_errors += 1
+        self._scope.add("cache_readahead_errors")
 
     # -- introspection ------------------------------------------------------
     @property

@@ -19,7 +19,6 @@ Prefetcher itself (:meth:`Prefetcher.snapshot`, ``depth_trace``).
 
 from __future__ import annotations
 
-import collections
 import concurrent.futures
 import time
 from collections import deque
@@ -27,6 +26,7 @@ from typing import Callable, Generic, Iterable, Iterator, TypeVar
 
 from strom_torch.obs.events import ring as _events_ring
 from strom_torch.utils.locks import make_lock
+from strom_torch.utils.stats import StatsRegistry
 
 T = TypeVar("T")
 
@@ -95,8 +95,10 @@ class Prefetcher(Generic[T]):
         self._queue: deque[concurrent.futures.Future] = deque()
         self._lock = make_lock("app.prefetch")
         # steps, data_stall_steps, depth_grow, depth_shrink, and lead_count
-        # (pops that found the head ready) with their lead_us_total
-        self._counts: collections.Counter = collections.Counter()
+        # (pops that found the head ready) with their lead_us_total, in a
+        # registry of the prefetcher's own (all_counter_names sees it)
+        self.stats = StatsRegistry("prefetch")
+        self.stats.set_gauge("prefetch_depth", self._depth)
         self.depth_trace: list[tuple[int, int]] = [(0, self._depth)]
         self._ready_streak = 0
         self._exhausted = False
@@ -108,15 +110,18 @@ class Prefetcher(Generic[T]):
 
     @property
     def data_stall_steps(self) -> int:
-        return self._counts["data_stall_steps"]
+        return self.stats.counter("data_stall_steps").value
 
     @property
     def steps(self) -> int:
-        return self._counts["steps"]
+        return self.stats.counter("steps").value
 
     def snapshot(self) -> dict:
         """The counters and the current depth (``prefetch_depth``)."""
-        return {**self._counts, "prefetch_depth": self._depth}
+        out = {k: self.stats.counter(k).value
+               for k in self.stats.counter_names()}
+        out["prefetch_depth"] = self._depth
+        return out
 
     def set_depth(self, depth: int) -> None:
         """Move the target depth inside [min_depth, max_depth] from outside
@@ -151,9 +156,10 @@ class Prefetcher(Generic[T]):
         if depth == self._depth:
             return
         self._depth = depth
-        self._counts["depth_grow" if kind == "grow" else "depth_shrink"] += 1
+        self.stats.add("depth_grow" if kind == "grow" else "depth_shrink")
+        self.stats.set_gauge("prefetch_depth", depth)
         if len(self.depth_trace) < _TRACE_CAP:
-            self.depth_trace.append((self._counts["steps"], depth))
+            self.depth_trace.append((self.steps, depth))
 
     def __iter__(self) -> Iterator[T]:
         return self
@@ -173,7 +179,7 @@ class Prefetcher(Generic[T]):
                     raise StopIteration
                 fut = self._queue.popleft()
         if not fut.done():
-            self._counts["data_stall_steps"] += 1
+            self.stats.add("data_stall_steps")
             with _events_ring.span("prefetch.stall_wait", cat="ingest_wait"):
                 result = fut.result()
             if self._auto:
@@ -186,9 +192,9 @@ class Prefetcher(Generic[T]):
             if done_at is not None:
                 # lead time: how long the head batch sat ready before the
                 # consumer came for it
-                self._counts["lead_count"] += 1
-                self._counts["lead_us_total"] += int(
-                    max(time.monotonic() - done_at, 0.0) * 1e6)
+                self.stats.add("lead_count")
+                self.stats.add("lead_us_total", int(
+                    max(time.monotonic() - done_at, 0.0) * 1e6))
             if self._auto:
                 with self._lock:
                     full_ready = (len(self._queue) + 1 >= self._depth
@@ -201,7 +207,7 @@ class Prefetcher(Generic[T]):
                         self._ready_streak = 0
                 else:
                     self._ready_streak = 0
-        self._counts["steps"] += 1
+        self.stats.add("steps")
         self._fill()
         return result
 

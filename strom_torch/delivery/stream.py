@@ -466,6 +466,8 @@ class StreamingGather:
         self._finished = True
         self._closed = True
         if self._token is not None:
+            self._ctx.scope.gauge("stream_inflight_peak").max(
+                self._token.inflight_peak)
             # the async token never passes through the gather's read span:
             # the engine window is billed here, so the stall attribution's
             # read bucket sees streamed batches
@@ -475,6 +477,11 @@ class StreamingGather:
                             max(end - self.t0_us, 0.0),
                             {"ops": len(self._chunks),
                              "bytes": self._miss_planned})
+        if self._first_c_us is not None and self._last_c_us is not None:
+            # how long the slowest extent lagged the first completion: the
+            # wait a whole-batch barrier would put on every sample
+            self._ctx.scope.observe_us("stream_tail_extent",
+                                       self._last_c_us - self._first_c_us)
         self._release_engine()
         if self._own_req:
             self.req.finish()

@@ -341,8 +341,9 @@ class Engine(abc.ABC):
     # scope of the tenant holding an exclusive grant, so per-op latency
     # (the engine_op_lat histogram, submit to completion) lands per tenant
     # while the unlabelled aggregate stays the whole engine's. The
-    # reference's engine_inflight gauge is left out: reading the in-flight
-    # count takes the engine's lock twice an op.
+    # engine_inflight gauge is the last state, not a sum across scopes:
+    # each write is the engine-wide in-flight count at that scope's latest
+    # submit or reap.
     def set_scope(self, scope) -> None:
         """Install the telemetry scope (a ``StatsRegistry`` or
         ``ScopedStats``) per-op accounting writes through."""
@@ -358,23 +359,29 @@ class Engine(abc.ABC):
         return sc
 
     def _note_submitted(self, requests: Sequence) -> None:
-        """Stamp each op's submit time."""
+        """Stamp each op's submit time and refresh the in-flight gauge."""
         m = getattr(self, "_op_submit_t", None)
         if m is None:
             m = self._op_submit_t = {}
         t = time.perf_counter()
         for r in requests:
             m[r.tag] = t
+        # accounting never fails a submission
+        with contextlib.suppress(Exception):
+            self.op_scope.set_gauge("engine_inflight", self.in_flight())
 
     def _note_completed(self, completions: Sequence) -> None:
         m = getattr(self, "_op_submit_t", None)
+        sc = self.op_scope
         if m:
             t = time.perf_counter()
-            h = self.op_scope.histogram("engine_op_lat")
+            h = sc.histogram("engine_op_lat")
             for c in completions:
                 t0 = m.pop(c.tag, None)
                 if t0 is not None:
                     h.observe_us((t - t0) * 1e6)
+        with contextlib.suppress(Exception):
+            sc.set_gauge("engine_inflight", self.in_flight())
 
     @property
     def wait_timeout_s(self) -> float:

@@ -475,6 +475,7 @@ class UringEngine(Engine):
         retried = self._native_chunk_retries() - retried0
         if retried > 0:
             self.op_scope.add("chunk_retries", retried)
+        self.op_scope.set_gauge("engine_inflight", self.in_flight())
         if res < 0:
             if -res == _errno.ENODATA:
                 raise EngineError(_errno.ENODATA, "short read — file smaller "

@@ -35,6 +35,7 @@ from typing import Any
 
 import numpy as np
 from strom_torch.utils.locks import make_lock
+from strom_torch.utils.stats import global_stats
 
 _DIMS_CAP = 1 << 16  # bounded (ckey -> (h, w)) ledger for plan-time probes
 
@@ -63,12 +64,15 @@ class DecodedCache:
     never across cache calls."""
 
     def __init__(self, cache, *, tenant: "str | None" = None,
-                 fingerprint: str = "rgb8"):
+                 fingerprint: str = "rgb8", scope=None):
         self._hot_cache = cache
         # frames charge this tenant's cache partition (None: shared)
         self._tenant = tenant
         self._fp = fingerprint
         self._lock = make_lock("cache.decoded")
+        # the registry mirror of the counts below (the context's decode
+        # section and /metrics read it)
+        self._scope = scope if scope is not None else global_stats
         self.hits = 0
         self.misses = 0
         self.hit_bytes = 0
@@ -97,11 +101,14 @@ class DecodedCache:
         if got is None:
             with self._lock:
                 self.misses += 1
+            self._scope.add("decode_cache_misses")
             return None
         buf, entry = got
         with self._lock:
             self.hits += 1
             self.hit_bytes += n
+        self._scope.add("decode_cache_hits")
+        self._scope.add("decode_cache_hit_bytes", n)
         return buf.reshape(h, w, 3), entry
 
     def _note_dims(self, ckey: Any, h: int, w: int) -> None:
@@ -135,6 +142,9 @@ class DecodedCache:
             self.hit_bytes += h * w * 3
             self.plan_hits += 1
             self.plan_skipped_bytes += skipped_bytes
+        self._scope.add("decode_cache_hits")
+        self._scope.add("decode_cache_hit_bytes", h * w * 3)
+        self._scope.add("decode_cache_plan_hits")
         return ServedFrame(buf.reshape(h, w, 3), entry, self)
 
     def release(self, pin) -> None:
@@ -159,10 +169,12 @@ class DecodedCache:
         if admitted:
             with self._lock:
                 self.admitted_bytes += admitted
+            self._scope.add("decode_cache_admitted_bytes", admitted)
         return admitted
 
     def stats(self) -> dict:
-        """The ``decode_cache`` section of ``StromContext.stats()``."""
+        """This cache's own counts (the context's ``decode`` section reads
+        their registry mirror)."""
         with self._lock:
             return {"decode_cache_hits": self.hits,
                     "decode_cache_misses": self.misses,

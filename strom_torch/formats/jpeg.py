@@ -50,6 +50,7 @@ from strom_torch.formats.decoded_cache import ServedFrame
 from strom_torch.obs import request as _request
 from strom_torch.obs.events import ring as _events_ring
 from strom_torch.utils.locks import make_lock
+from strom_torch.utils.stats import global_stats
 
 try:
     import cv2
@@ -70,9 +71,20 @@ except Exception:  # pragma: no cover
     _HAVE_PIL = False
 
 
+# DecodeCounts keys and the registry series they mirror into (the
+# reference's names); other keys mirror under their own
+_REGISTRY_NAMES = {"native_imgs": "decode_native_imgs",
+                   "native_fallbacks": "decode_native_fallbacks",
+                   "roi_hits": "decode_roi_hits",
+                   "reduced_hits_2": "decode_reduced_hits_2",
+                   "reduced_hits_4": "decode_reduced_hits_4",
+                   "reduced_hits_8": "decode_reduced_hits_8"}
+
+
 class DecodeCounts:
     """Thread-safe counters of the routes decode took (``native_imgs``,
-    ``native_fallbacks``, ``roi_hits``, ``reduced_hits_<d>``, ...)."""
+    ``native_fallbacks``, ``roi_hits``, ``reduced_hits_<d>``, ...), one
+    pipeline's, each mirrored into the process-wide registry."""
 
     def __init__(self) -> None:
         self._c: collections.Counter = collections.Counter()
@@ -81,6 +93,7 @@ class DecodeCounts:
     def add(self, key: str, n: int = 1) -> None:
         with self._lock:
             self._c[key] += n
+        global_stats.add(_REGISTRY_NAMES.get(key, key), n)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -546,6 +559,9 @@ class DecodePool:
         self.decode_errors = 0
         self._err_lock = make_lock("app.jpeg_errs")
         self.fuse_runs = fuse_runs
+        # the live per-task work target: per instance, so the autotuner's
+        # decode_run_target_us knob steers a running pool's run length
+        self.run_target_us = float(self._RUN_TARGET_US)
         # average per-image decode+transform micros, seeded at 1 ms;
         # updated by fused runs
         self._img_us = 1000.0
@@ -557,7 +573,7 @@ class DecodePool:
             return 1
         with self._err_lock:
             per_img = self._img_us
-        want = int(self._RUN_TARGET_US / max(per_img, 1.0))
+        want = int(self.run_target_us / max(per_img, 1.0))
         cap = -(-n // (self.workers * 2))
         return max(1, min(want, cap))
 
@@ -609,6 +625,7 @@ class DecodePool:
             row[...] = 0
             with self._err_lock:
                 self.decode_errors += 1
+            global_stats.add("decode_errors")
 
     def _run_into(self, fn: Callable[..., np.ndarray], items: Sequence,
                   rngs: Sequence, rows: Sequence, ckeys=None,
@@ -623,6 +640,9 @@ class DecodePool:
         per_img = (time.perf_counter() - t0) * 1e6 / max(n, 1)
         with self._err_lock:
             self._img_us += 0.2 * (per_img - self._img_us)
+        if n > 1:
+            global_stats.add("decode_fused_runs")
+            global_stats.add("decode_fused_samples", n)
 
     def submit_into(self, fn: Callable[..., np.ndarray], item, rng,
                     row: np.ndarray, ckey=None) -> concurrent.futures.Future:

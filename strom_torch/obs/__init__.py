@@ -14,6 +14,13 @@ and causal request tracing with deadlines, and the ring's readers.
   put / read / compute, and ``goodput_pct``.
 - :mod:`.flight` — the flight recorder: a watchdog and atomic crash
   bundles.
+- :mod:`.slo` — per-tenant SLO targets and multi-window burn rates.
+- :mod:`.history` — a bounded ring of periodic registry snapshots, with
+  rates.
+- :mod:`.server` — the live endpoint: /metrics, /stats, /trace, /slo,
+  /tune, /history, /tenants, /flight, /cluster.
+- :mod:`.federation` — many processes' endpoints merged into one view,
+  with a health watchdog.
 """
 
 from strom_torch.obs.events import EventRing, ring  # noqa: F401

@@ -80,8 +80,10 @@ def _make_readahead(ctx: StromContext, sampler: EpochShuffleSampler,
                 out.append((el, [Segment(0, 0, el.size)], 0))
         return out
 
-    return Readahead(ctx, window, tenant=tenant,
-                     window_batches=ctx.config.readahead_window_batches)
+    ra = Readahead(ctx, window, tenant=tenant,
+                   window_batches=ctx.config.readahead_window_batches)
+    ctx.register_tunable("readahead", ra)
+    return ra
 
 
 def _chain_close(*closers) -> Callable[[], None] | None:
@@ -359,7 +361,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             and ctx.hot_cache is not None:
         engine = "turbo" if (native and jpeg.native_available()) else "cv2"
         dcache = DecodedCache(ctx.hot_cache, tenant=tname,
-                              fingerprint=f"rgb8/{engine}")
+                              fingerprint=f"rgb8/{engine}", scope=pscope)
         ctx.attach_decoded_cache(dcache)
     tf = transform or make_train_transform(
         image_size, reduced_scale=reduced, native=native,
@@ -382,6 +384,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             stream = overlap_put = False
     pool = DecodePool(decode_workers,
                       fuse_runs=knob(decode_fuse_runs, cfg.decode_fuse_runs))
+    ctx.register_tunable("decode_pool", pool)
     shape = (batch, image_size, image_size, 3)
     # what a batch slot holds: the decoded images, or the graph's output
     out_shape = (batch,) + (cgraph.out_shape if cgraph is not None

@@ -117,6 +117,13 @@ class IoScheduler:
         self.admission = AdmissionGate(
             pool, getattr(config, "sched_high_water", 0.9),
             scope=self._scope, clock=clock)
+        # set by the owning context (ctx.slo.burning): tenants_info rows
+        # flag a tenant that burns its error budget, and the scheduler
+        # stays SLO-agnostic
+        self.slo_hook: "Callable[[str], bool] | None" = None
+        # set by the owning context (ctx.resilience.stats): the breaker's
+        # and the failover's state beside the queue rows
+        self.resilience_info: "Callable[[], dict] | None" = None
         self._default = self.register(_DEFAULT_TENANT, _label=False)
 
     # -- tenant registry ----------------------------------------------------
@@ -157,13 +164,27 @@ class IoScheduler:
         return self.tenant(tenant)
 
     def tenants_info(self) -> dict:
-        """``{"tenants": {name: row}, "admission": ..., ...}``."""
+        """``{"tenants": {name: row}, "admission": ..., ...}``: the
+        ``/tenants`` route body. With an ``slo_hook`` each row carries
+        ``slo_burning``; with ``resilience_info`` the body carries the
+        breaker's state."""
         with self._cond:
             tenants = list(self._tenants.values())
-        return {"tenants": {t.name: t.info() for t in tenants},
-                "admission": self.admission.state(),
-                "exclusive": self.exclusive,
-                "engine": getattr(self.engine, "name", "?")}
+        rows = {}
+        for t in tenants:
+            row = t.info()
+            if self.slo_hook is not None:
+                with contextlib.suppress(Exception):
+                    row["slo_burning"] = bool(self.slo_hook(t.name))
+            rows[t.name] = row
+        out = {"tenants": rows,
+               "admission": self.admission.state(),
+               "exclusive": self.exclusive,
+               "engine": getattr(self.engine, "name", "?")}
+        if self.resilience_info is not None:
+            with contextlib.suppress(Exception):
+                out["resilience"] = self.resilience_info()
+        return out
 
     # -- the fair-drain core ------------------------------------------------
     def _enqueue_locked(self, w: _Waiter) -> None:

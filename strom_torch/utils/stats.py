@@ -1,5 +1,5 @@
-"""Counters, gauges and latency histograms with label scopes (the port's
-copy of ``strom/utils/stats.py``, without its Prometheus text).
+"""Counters, gauges and latency histograms with label scopes, and their
+Prometheus text (the port's copy of ``strom/utils/stats.py``).
 
 A :class:`StatsRegistry` holds named series; ``registry.scoped(tenant="t0")``
 is a label-scoped child view whose writes land in BOTH the scoped series and
@@ -7,12 +7,20 @@ the registry's unlabelled aggregate, so the aggregate is always the sum of
 its scopes. The scheduler writes its per-tenant counters through such
 scopes, and the engine's per-op latency histogram goes through the scope of
 the tenant that holds the grant.
+
+:meth:`StatsRegistry.prometheus` renders a registry (its scopes as labelled
+samples of the same families) and :func:`sections_prometheus` the nested
+``StromContext.stats()`` sections, under the reference's series names and
+``strom`` prefix, so a dashboard built on the reference reads the port.
 """
 
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Sequence
+
+from strom_torch.utils.locks import make_lock
 
 
 class _Counter:
@@ -244,10 +252,12 @@ class StatsRegistry:
         self._counters: dict[str, _Counter] = {}
         self._hists: dict[str, _Histogram] = {}
         self._gauges: dict[str, _Gauge] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("stats.registry")
         # sorted label tuple -> the child registry holding that scope
         self._scopes: dict[tuple, "StatsRegistry"] = {}
         self.labels: dict[str, str] = {}
+        with _registries_lock:
+            _registries.add(self)
 
     def scoped(self, **labels) -> "ScopedStats | StatsRegistry":
         """A label-scoped child view (``scoped(pipeline="resnet",
@@ -264,6 +274,9 @@ class StatsRegistry:
             reg = self._scopes.get(key)
         if reg is not None:
             return reg
+        # built outside self._lock: the constructor takes the registries
+        # lock, which all_counter_names holds while it takes each
+        # registry's
         fresh = StatsRegistry(self.name)
         fresh.labels = dict(labels)
         with self._lock:
@@ -325,6 +338,20 @@ class StatsRegistry:
             out[k + "_hist"] = list(h.buckets)
         return out
 
+    def counter_names(self) -> frozenset[str]:
+        """Names registered as monotonic counters (the exposition types
+        these ``counter``; every other number is a gauge)."""
+        with self._lock:
+            return frozenset(self._counters)
+
+    def prometheus(self) -> str:
+        """Prometheus text of every series. Scoped series render as
+        labelled samples of the same families, under the unlabelled
+        aggregate: one ``# HELP``/``# TYPE`` header a family covers both."""
+        return _flat_prometheus(self.snapshot(), self.name,
+                                counters=self.counter_names(),
+                                scopes=self.scopes_snapshot())
+
 
 def percentile_from_buckets(buckets: Sequence[int], q: float) -> float:
     """Approximate percentile (upper bucket bound, microseconds) of a log2
@@ -340,5 +367,130 @@ def percentile_from_buckets(buckets: Sequence[int], q: float) -> float:
             return float(2 ** (i + 1))
     return float(2 ** len(buckets))
 
+
+def _metric(*parts: str) -> str:
+    return "_".join(parts).replace(".", "_").replace("-", "_")
+
+
+def _hist_lines(base: str, buckets, sum_us: float, *, labels: str = "",
+                header: bool = True) -> list[str]:
+    """A cumulative Prometheus histogram from log2 microsecond buckets
+    (bucket i = [2^i, 2^(i+1)) us). ``_count`` comes from the same bucket
+    list, so ``+Inf`` always equals it; ``_sum`` is the exact total carried
+    through the snapshot. *labels* (a label body) scopes every sample;
+    *header* emits the family's ``# HELP``/``# TYPE``."""
+    lines = []
+    if header:
+        lines += [
+            f"# HELP {base}_us latency histogram (log2 microsecond buckets)",
+            f"# TYPE {base}_us histogram"]
+    extra = f",{labels}" if labels else ""
+    acc = 0
+    for i, n in enumerate(buckets):
+        acc += int(n)
+        lines.append(f'{base}_us_bucket{{le="{2 ** (i + 1)}"{extra}}} {acc}')
+    lines.append(f'{base}_us_bucket{{le="+Inf"{extra}}} {acc}')
+    brace = f"{{{labels}}}" if labels else ""
+    lines.append(f"{base}_us_sum{brace} {sum_us}")
+    lines.append(f"{base}_us_count{brace} {acc}")
+    return lines
+
+
+# the summary keys snapshot() derives from one histogram: folded into its
+# histogram block, never series of their own
+_HIST_SUMMARY_SUFFIXES = ("_total_us", "_mean_us", "_count",
+                          "_p50_us", "_p99_us")
+
+
+def _hist_stem(k: str, snap: dict) -> str | None:
+    """The histogram stem when *k* is a summary key of a histogram present
+    in *snap* (``read_latency_total_us`` beside ``read_latency_hist``)."""
+    for suf in _HIST_SUMMARY_SUFFIXES:
+        if k.endswith(suf) and (k[: -len(suf)] + "_hist") in snap:
+            return k[: -len(suf)]
+    return None
+
+
+def _flat_prometheus(snap: dict, prefix: str,
+                     counters: "frozenset[str] | set[str] | None" = None,
+                     scopes: "dict[str, dict] | None" = None) -> str:
+    """``*_hist`` bucket lists become histograms (``_sum`` from their
+    ``*_total_us`` sibling, ``_count`` from the buckets); names in
+    *counters* are typed ``counter``, every other number ``gauge``; a
+    histogram's summary keys fold into its block; non-numeric leaves are
+    skipped. *scopes* (``{label string: scope snapshot}``) adds a labelled
+    sample under each family's unlabelled one."""
+    counters = counters or frozenset()
+    scopes = scopes or {}
+    lines: list[str] = []
+    for k, v in sorted(snap.items()):
+        if k.endswith("_hist") and isinstance(v, (list, tuple)):
+            stem = k[: -len("_hist")]
+            total = snap.get(stem + "_total_us")
+            if total is None:
+                total = float(snap.get(stem + "_mean_us", 0.0)) \
+                    * int(snap.get(stem + "_count", sum(int(n) for n in v)))
+            base = _metric(prefix, stem)
+            lines.extend(_hist_lines(base, v, float(total)))
+            for lbl, ssnap in sorted(scopes.items()):
+                sv = ssnap.get(k)
+                if not isinstance(sv, (list, tuple)):
+                    continue
+                stotal = float(ssnap.get(stem + "_total_us", 0.0))
+                lines.extend(_hist_lines(base, sv, stotal, labels=lbl,
+                                         header=False))
+        elif _hist_stem(k, snap) is not None:
+            continue
+        elif isinstance(v, bool):
+            m = _metric(prefix, k)
+            lines.append(f"# HELP {m} strom stat {k}")
+            lines.append(f"# TYPE {m} gauge")
+            lines.append(f"{m} {int(v)}")
+        elif isinstance(v, (int, float)):
+            m = _metric(prefix, k)
+            typ = "counter" if k in counters else "gauge"
+            lines.append(f"# HELP {m} strom stat {k}")
+            lines.append(f"# TYPE {m} {typ}")
+            lines.append(f"{m} {v}")
+            for lbl, ssnap in sorted(scopes.items()):
+                sv = ssnap.get(k)
+                if isinstance(sv, bool):
+                    lines.append(f"{m}{{{lbl}}} {int(sv)}")
+                elif isinstance(sv, (int, float)):
+                    lines.append(f"{m}{{{lbl}}} {sv}")
+    return "\n".join(lines) + "\n"
+
+
+def all_counter_names() -> frozenset[str]:
+    """Counter names across every live registry (the process-wide one,
+    the scopes, each prefetcher's): how the sections exposition, which
+    sees plain dicts, types a key ``counter``. The weak set is copied under
+    its lock, so a registry built during a scrape cannot resize it
+    mid-iteration."""
+    with _registries_lock:
+        regs = list(_registries)
+    names: set[str] = set()
+    for reg in regs:
+        names.update(reg.counter_names())
+    return frozenset(names)
+
+
+def sections_prometheus(sections: dict, prefix: str = "strom",
+                        counters: "frozenset[str] | None" = None) -> str:
+    """Prometheus text of a nested stats dict (``{section: {key: value}}``,
+    the shape ``StromContext.stats()`` returns), each section under
+    ``<prefix>_<section>``. A section that is not a dict is skipped; a key
+    that names a registered counter is typed ``counter``."""
+    counters = all_counter_names() if counters is None else counters
+    return "".join(
+        _flat_prometheus(vals, f"{prefix}_{sec}", counters=counters)
+        for sec, vals in sections.items() if isinstance(vals, dict))
+
+
+# live registries, for all_counter_names(); weak, so a short-lived
+# registry (a prefetcher's) does not pile up. Adds and the copy taken for
+# iteration hold the lock
+_registries: "weakref.WeakSet[StatsRegistry]" = weakref.WeakSet()
+_registries_lock = make_lock("stats.registries")
 
 global_stats = StatsRegistry("strom")

@@ -61,6 +61,7 @@ def _equal(a: dict, b: dict) -> None:
 def test_commit_matches_the_blocking_save(ctx, tmp_path):
     state = _state()
     d, ds = str(tmp_path / "ckpt"), str(tmp_path / "sync")
+    commits0 = ctx.scope.counter("ckpt_async_commits").value
     with AsyncCheckpointer(ctx, d) as cp:
         assert cp.last_committed() is None
         cp.save(state)
@@ -71,7 +72,7 @@ def test_commit_matches_the_blocking_save(ctx, tmp_path):
         assert open(os.path.join(d, name), "rb").read() \
             == open(os.path.join(ds, name), "rb").read()
     _equal(restore_checkpoint(ctx, d, state, verify=True), state)
-    assert ctx.stats()["ckpt_async_commits"] == 1
+    assert ctx.scope.counter("ckpt_async_commits").value - commits0 == 1
 
 
 def test_commit_bytes_equal_the_reference(ctx, tmp_path):
@@ -237,7 +238,8 @@ def test_recovery_helpers(ctx, tmp_path):
 
 def test_warm_state_and_gauges(tmp_path):
     """Warm hints of the hot cache replay through ctx.warm on a fresh
-    context; the resume verdict's numbers land in ctx.stats()."""
+    context; the resume verdict's numbers land in the stats registry as
+    gauges, through the context's scope."""
     path = str(tmp_path / "f.bin")
     np.random.default_rng(3).integers(0, 256, 1 << 20,
                                       dtype=np.uint8).tofile(path)
@@ -252,8 +254,8 @@ def test_warm_state_and_gauges(tmp_path):
         assert restore_warm_state(ctx, warm) == 1 << 19
         assert restore_warm_state(ctx, None) == 0
         set_resume_gauges({"resume_ok": True, "resume_kill_step": 7,
-                           "resume_wall_s": 1.5, "other": 9}, ctx)
-        st = ctx.stats()
+                           "resume_wall_s": 1.5, "other": 9}, ctx.scope)
+        st = ctx.scope.snapshot()
         assert (st["resume_ok"], st["resume_kill_step"],
                 st["resume_wall_s"]) == (1, 7, 1.5)
         assert "other" not in st

@@ -583,6 +583,11 @@ def test_kernel_wrapper_raises_on_unsupported_cuda_input(cuda_device):
         tfa._bwd_dq_kernel(q, q, q, q, lse.cpu(), lse, causal=True)
 
 
+def _streamed(ctx) -> int:
+    """The process-wide streamed-delivery count, as ctx.stats() reads it."""
+    return ctx.stats(["context"])["context"]["streamed_transfers"]
+
+
 def test_streamed_delivery_recycles_slabs(cuda_device, tmp_path):
     """Two back-to-back streamed transfers: the second reuses the first's
     pinned slabs (pool hits), and both land byte-exact on the card."""
@@ -595,13 +600,14 @@ def test_streamed_delivery_recycles_slabs(cuda_device, tmp_path):
                                    overlap_chunk_bytes=MiB,
                                    overlap_min_bytes=2 * MiB))
     try:
+        streamed0 = _streamed(ctx)
         a = ctx.memcpy_ssd2gpu(path, length=6 * MiB, device=cuda_device)
         b = ctx.memcpy_ssd2gpu(
             path, length=6 * MiB, device=cuda_device, async_=True).result(60)
         torch.cuda.synchronize()
         assert torch.equal(a, want) and torch.equal(b, want)
         st = ctx.stats()
-        assert st["streamed_transfers"] == 2
+        assert _streamed(ctx) - streamed0 == 2
         assert st["slab_pool"]["hits"] > 0 and st["slab_pool"]["pinned_bytes"] > 0
         small = ctx.memcpy_ssd2gpu(path, offset=4096, shape=(256, 256),
                                    dtype=np.int32, device=cuda_device)
@@ -663,6 +669,7 @@ def test_delivered_tensor_never_takes_a_block_in_queued_use(cuda_device,
         return lambda: ctx.memcpy_ssd2gpu(path, length=n, device=cuda_device)
 
     try:
+        streamed0 = _streamed(ctx)
         # what may wait for the card happens before the queued work: the
         # first delivery sets up the copy stream, and the first launch of
         # a kernel loads its module. The first delivery stays alive, so
@@ -680,7 +687,7 @@ def test_delivered_tensor_never_takes_a_block_in_queued_use(cuda_device,
         torch.cuda.synchronize()
         assert torch.equal(first, want) and torch.equal(out, want)
         if route == "streamed":
-            assert ctx.stats()["streamed_transfers"] == 2
+            assert _streamed(ctx) - streamed0 == 2
     finally:
         ctx.close()
 
@@ -708,12 +715,13 @@ def test_ring_registered_slabs_recycle_byte_exact(cuda_device, tmp_path):
                                    overlap_chunk_bytes=MiB,
                                    overlap_min_bytes=2 * MiB))
     try:
+        streamed0 = _streamed(ctx)
         a = ctx.memcpy_ssd2gpu(path, device=cuda_device)
         b = ctx.memcpy_ssd2gpu(path, device=cuda_device, async_=True).result(60)
         torch.cuda.synchronize()
         assert torch.equal(a, want) and torch.equal(b, want)
         st = ctx.stats()
-        assert st["streamed_transfers"] == 2 and st["slab_pool"]["hits"] > 0
+        assert _streamed(ctx) - streamed0 == 2 and st["slab_pool"]["hits"] > 0
         eng = st["engine"]
         assert eng["engine"] == "uring" and eng["dest_refused"] == 0
         assert eng["ext_buffers"] == st["slab_pool"]["misses"] > 0
@@ -953,6 +961,52 @@ def test_captured_llama_steps_equal_uncaptured(cuda_device, n_heads):
     assert step.graphs == 1 and step.last_call == "replay"
 
 
+def _scrape_loop(port: int, routes, stop: threading.Event,
+                 out: "collections.Counter") -> None:
+    """GET each route in turn until *stop*; counts status codes."""
+    import urllib.error
+    import urllib.request
+
+    while not stop.is_set():
+        for r in routes:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{r}",
+                                            timeout=10) as resp:
+                    resp.read()
+                    out[resp.status] += 1
+            except urllib.error.HTTPError as e:
+                out[e.code] += 1
+
+
+@pytest.mark.parametrize("routes", [
+    ("/metrics?sections=context,sched",),
+    ("/metrics", "/stats", "/trace", "/slo", "/history", "/tenants",
+     "/flight")])
+def test_scrapes_during_a_capture_leave_it_intact(cuda_device, routes):
+    """A scraper thread hammers the live endpoint (the history sampler
+    running too) while a flash step warms up, is captured and replays: no
+    reader makes a device call that joins or breaks the capture, so the
+    captured steps stay bit-equal to the eager body, and every scrape
+    answers 200."""
+    cfg = LlamaConfig.tiny()
+    ctx = StromContext(StromConfig(history_interval_s=0.01), metrics_port=0)
+    codes: collections.Counter = collections.Counter()
+    stop = threading.Event()
+    t = threading.Thread(target=_scrape_loop, args=(
+        ctx.metrics_server.port, routes, stop, codes))
+    try:
+        t.start()
+        runs = _llama_runs(cuda_device, cfg,
+                           _token_batches(cuda_device, cfg, [(2, 128)] * 5))
+    finally:
+        stop.set()
+        t.join()
+        ctx.close()
+    _assert_bit_equal(runs)
+    assert runs[True][2].graphs == 1
+    assert codes[200] > 0 and set(codes) == {200}, codes
+
+
 def test_captured_lr_moves_across_replays(cuda_device):
     """warmup=2: the first step runs at lr 0 and leaves the weights as they
     were; the third, a replay at the schedule's peak, moves them, as the
@@ -1119,6 +1173,7 @@ def test_parquet_scan_on_cuda_equals_cpu(cuda_device, tmp_path):
     paths, cols = _pq_fixture(tmp_path)
     ctx = StromContext(StromConfig())
     try:
+        decoded0 = ctx.scope.counter("parquet_decode_bytes").value
         for pred in (None, col("seq") < 37_000):
             out = {dev: parquet_scan_aggregate(
                        ctx, paths, ["value", "wide", "seq"],
@@ -1133,7 +1188,7 @@ def test_parquet_scan_on_cuda_equals_cpu(cuda_device, tmp_path):
                                        rtol=1e-5, atol=1e-3)
             keep = slice(None) if pred is None else slice(0, 37_000)
             assert out["cuda"]["hits"] == int((cols["value"][keep] > 0).sum())
-        assert ctx.stats().get("parquet_decode_bytes", 0) == 0
+        assert ctx.scope.counter("parquet_decode_bytes").value == decoded0
     finally:
         ctx.close()
 
@@ -1233,10 +1288,12 @@ def test_cuda_state_saved_and_restored_on_the_card(cuda_device, tmp_path,
             "t": torch.randn(64, 96, device=cuda_device, generator=g).t(),
             "step": 5}
     with _ckpt_ctx() as ctx:
+        w0 = ctx.stats()["context"]["host2ssd_bytes"]
         m = save_checkpoint(ctx, str(tmp_path / "c"), tree)
         got = restore_checkpoint(ctx, str(tmp_path / "c"), tree,
                                  verify=verify)
-        assert ctx.stats()["context"]["host2ssd_bytes"] >= m["payload_bytes"]
+        assert ctx.stats()["context"]["host2ssd_bytes"] - w0 \
+            >= m["payload_bytes"]
     assert got["step"] == 5
     for a, b in ((got["w"], tree["w"]), (got["m"][0], tree["m"][0]),
                  (got["m"][1], tree["m"][1]), (got["t"], tree["t"])):
@@ -1534,10 +1591,11 @@ def test_chaos_streamed_delivery_equals_clean(cuda_device, tmp_path):
                 engine="python", residency_hybrid=False, io_retries=3,
                 fault_plan=plan, overlap_chunk_bytes=8 * MiB,
                 overlap_min_bytes=16 * MiB)) as ctx:
+            streamed0 = _streamed(ctx)
             outs.append(ctx.memcpy_ssd2gpu(path, device=cuda_device).cpu())
             if plan:
                 st = ctx.stats()
                 assert st["resilience"]["fault_plan"]["faults_injected"] > 0
-                assert st["streamed_transfers"] == 1
+                assert _streamed(ctx) - streamed0 == 1
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[0], torch.from_numpy(data))

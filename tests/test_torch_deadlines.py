@@ -61,7 +61,7 @@ def test_latency_gather_fails_fast(Ctx, Cfg, Exc, sched_enabled, data_file):
         assert took < 0.05 + DRAIN_GRACE_S, took
         if Ctx is StromContext:
             assert global_stats.counter("deadline_exceeded").value > before
-            assert ctx.stats()["deadline_exceeded"] > before
+            assert ctx.stats()["resilience"]["deadline_exceeded"] > before
     finally:
         ctx.close()
 

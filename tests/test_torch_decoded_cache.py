@@ -61,9 +61,29 @@ def _cfg(cls, cache: bool, admit: str):
 N_BATCHES = EPOCHS * N_SAMPLES // BATCH
 
 
+def _decode_cache_counts(ctx) -> dict:
+    """The decoded-cache counters of the context's decode section."""
+    return {k: v for k, v in ctx.stats(["decode"])["decode"].items()
+            if k.startswith("decode_cache_")}
+
+
+# the label scope of make_wds_vision_pipeline's series by default
+VISION_SCOPE = 'pipeline="vision"'
+
+
+def _scope_cache_counts(ctx) -> dict:
+    """The decoded-cache counters of the vision pipeline's label scope."""
+    snap = ctx.stats(["scopes"])["scopes"].get(VISION_SCOPE, {})
+    return {k: v for k, v in snap.items() if k.startswith("decode_cache_")}
+
+
 def _port(path, *, cache: bool, admit: str = "always", stream: bool = True):
+    """(batches, the pipeline's counters, the growth of the context's
+    decoded-cache counters over the run, and of the pipeline's label
+    scope's), all read once the pipeline stopped."""
     ctx = StromContext(_cfg(StromConfig, cache, admit))
     try:
+        c0, s0 = _decode_cache_counts(ctx), _scope_cache_counts(ctx)
         with make_wds_vision_pipeline(
                 ctx, [path], batch=BATCH, image_size=SIZE, device="cpu",
                 seed=5, decode_workers=2, prefetch_depth=1,
@@ -71,7 +91,9 @@ def _port(path, *, cache: bool, admit: str = "always", stream: bool = True):
                 stream_intra_batch=stream) as pipe:
             out = [tuple(t.numpy().copy() for t in next(pipe))
                    for _ in range(N_BATCHES)]
-            return out, pipe.stats(), ctx.stats()
+        c1, s1 = _decode_cache_counts(ctx), _scope_cache_counts(ctx)
+        return (out, pipe.stats(), {k: c1[k] - c0[k] for k in c1},
+                {k: s1[k] - s0.get(k, 0) for k in s1})
     finally:
         ctx.close()
 
@@ -95,9 +117,9 @@ def _reference(path, *, admit: str):
 @pytest.mark.parametrize("stream", [True, False])
 @pytest.mark.parametrize("admit", ["always", "second_touch"])
 def test_batches_identical_with_and_without_cache(wds_tar, admit, stream):
-    got, pstats, cstats = _port(wds_tar, cache=True, admit=admit,
-                                stream=stream)
-    plain, _, _ = _port(wds_tar, cache=False, stream=stream)
+    got, pstats, cstats, sstats = _port(wds_tar, cache=True, admit=admit,
+                                        stream=stream)
+    plain, _, _, _ = _port(wds_tar, cache=False, stream=stream)
     want = _reference(wds_tar, admit=admit)
     for (gi, gl), (pi, pl), (wi, wl) in zip(got, plain, want):
         assert np.array_equal(gi, pi) and np.array_equal(gl, pl)
@@ -112,8 +134,12 @@ def test_batches_identical_with_and_without_cache(wds_tar, admit, stream):
         <= pstats["decode_cache_plan_hits"]
     assert pstats["decode_cache_plan_skipped_bytes"] > 0
     assert pstats["decode_cache_admitted_bytes"] > 0
-    assert set(cstats["decode_cache"]) == {
-        k for k in pstats if k.startswith("decode_cache_")}
+    # the context's decode section mirrors the cache's own counts
+    assert set(cstats) <= {k for k in pstats if k.startswith("decode_cache_")}
+    assert cstats == {k: pstats[k] for k in cstats}
+    assert cstats["decode_cache_admitted_bytes"] > 0
+    # ... and so do the pipeline's labelled series
+    assert {k: sstats.get(k, 0) for k in cstats} == cstats
 
 
 def test_cache_off_without_hot_cache(wds_tar):
@@ -121,12 +147,14 @@ def test_cache_off_without_hot_cache(wds_tar):
     is inert and no decoded-cache counter appears."""
     ctx = StromContext(_cfg(StromConfig, False, "always"))
     try:
+        c0 = _decode_cache_counts(ctx)
         with make_wds_vision_pipeline(ctx, [wds_tar], batch=BATCH,
                                       image_size=SIZE, device="cpu",
                                       decode_cache=True) as pipe:
             next(pipe)
             assert "decode_cache_hits" not in pipe.stats()
-        assert ctx.decoded_cache is None and "decode_cache" not in ctx.stats()
+        assert ctx.decoded_cache is None
+        assert _decode_cache_counts(ctx) == c0
     finally:
         ctx.close()
 

@@ -65,15 +65,21 @@ def contexts(request):
         ctx.close()
 
 
+def _streamed(ctx) -> int:
+    """The process-wide streamed-delivery count, as ctx.stats() reads it."""
+    return ctx.stats(["context"])["context"]["streamed_transfers"]
+
+
 def test_whole_file(contexts, data_file):
     path, data = data_file
     tctx, jctx = contexts()
+    streamed0 = _streamed(tctx)
     got = tctx.memcpy_ssd2gpu(path, device="cpu")
     assert got.device.type == "cpu" and got.dtype.itemsize == 1
     np.testing.assert_array_equal(got.numpy(), data)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jctx.memcpy_ssd2tpu(path)))
-    assert tctx.stats()["streamed_transfers"] == 0
+    assert _streamed(tctx) - streamed0 == 0
 
 
 def test_range_as_typed_array(contexts, data_file):
@@ -101,15 +107,16 @@ def test_extent_list(contexts, data_file):
 def test_streamed(contexts, data_file):
     path, data = data_file
     tctx, jctx = contexts(stream=True)
+    streamed0 = _streamed(tctx)
     got = tctx.memcpy_ssd2gpu(path, device="cpu").numpy()
-    assert tctx.stats()["streamed_transfers"] == 1
+    assert _streamed(tctx) - streamed0 == 1
     np.testing.assert_array_equal(got, data)
     np.testing.assert_array_equal(got, np.asarray(jctx.memcpy_ssd2tpu(path)))
     # a streamed ExtentList: pieces cut across extents
     spans = [(4096, 3 * MiB), (7, MiB + 5)]
     el = ExtentList([Extent(path, o, n) for o, n in spans])
     got = tctx.memcpy_ssd2gpu(el, device="cpu").numpy()
-    assert tctx.stats()["streamed_transfers"] == 2
+    assert _streamed(tctx) - streamed0 == 2
     np.testing.assert_array_equal(
         got, np.concatenate([data[o: o + n] for o, n in spans]))
 
@@ -131,10 +138,13 @@ def test_module_level_api(data_file):
     path, data = data_file
     strom_torch.init(StromConfig(queue_depth=4, num_buffers=4))
     try:
+        c0 = strom_torch.stats()["context"]
         got = strom_torch.memcpy_ssd2gpu(path, length=65536, device="cpu")
         np.testing.assert_array_equal(got.numpy(), data[:65536])
         st = strom_torch.stats()
-        assert st["transfers"] == 1 and st["ssd2gpu_bytes"] == 65536
+        c1 = st["context"]
+        assert c1["transfers"] - c0["transfers"] == 1
+        assert c1["ssd2gpu_bytes"] - c0["ssd2gpu_bytes"] == 65536
         # engine="auto" (the default) picks what the reference picks
         want = JContext(JConfig(queue_depth=4, num_buffers=4))
         try:
@@ -145,7 +155,7 @@ def test_module_level_api(data_file):
         strom_torch.close()
     # as the reference's: stats() with no context creates a fresh one
     try:
-        assert strom_torch.stats()["transfers"] == 0
+        assert strom_torch.stats()["context"]["registered_files"] == 0
     finally:
         strom_torch.close()
 

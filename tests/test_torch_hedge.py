@@ -146,7 +146,13 @@ def test_loser_bytes_count_as_wasted(data_file):
     """Queue depth 1 and two chunks: the held primary piece of chunk 0
     loses to its hedge while chunk 1 waits behind it. The loser's late
     completion is dropped (no range emitted twice) and its bytes count in
-    hedge_wasted_bytes; chunk 1 then lands from the primary."""
+    hedge_wasted_bytes; chunk 1 then lands from the primary.
+
+    Once the hedge has won, the test lifts the threshold out of reach. The
+    loser's completion marks no progress, so without that the quiet clock
+    can run out while chunk 1's read (submitted when the loser retires) is
+    in flight, and chunk 1 would be hedged too: both packages race the
+    same way under load."""
     path, golden = data_file
     blk = 128 * 1024
     want = np.concatenate([golden[:blk], golden[MiB: MiB + blk]])
@@ -165,6 +171,10 @@ def test_loser_bytes_count_as_wasted(data_file):
                 end = time.monotonic() + 10.0
                 while not g.done and time.monotonic() < end:
                     ranges.extend(g.poll(min_completions=1, timeout_s=0.5))
+                    if reg.counter("hedges_won").value \
+                            > before["hedges_won"]:
+                        # the race is decided: no second hedge pass
+                        ctx.resilience.hedge.min_s = 3600.0
                 g.finish()
             finally:
                 g.close()

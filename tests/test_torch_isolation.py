@@ -302,3 +302,58 @@ def test_scan_covers_the_readers_witness_and_stress():
     assert new <= names
     for name in new:
         assert not _FORBIDDEN.search((PKG / name).read_text()), name
+
+
+@pytest.mark.parametrize("module", ["strom_torch.obs.slo",
+                                    "strom_torch.obs.history",
+                                    "strom_torch.obs.server",
+                                    "strom_torch.obs.federation",
+                                    "strom_torch.tune",
+                                    "strom_torch.tune.knobs",
+                                    "strom_torch.tune.autotuner"])
+def test_observability_plane_and_tuner_load_no_jax_or_strom(module,
+                                                            tmp_path):
+    """The SLO engine, the history, the metrics server, the federation and
+    the autotuner load neither jax* nor strom.*, also on a context that
+    serves every route, federates itself and beats its tuner."""
+    shard = tmp_path / "d.bin"
+    shard.write_bytes(bytes(range(256)) * 1024)
+    code = (
+        f"import sys, urllib.request, {module}\n"
+        "import strom_torch\n"
+        "from strom_torch.config import StromConfig\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "cfg = StromConfig(engine='python', history_interval_s=0.05)\n"
+        "with StromContext(cfg, metrics_port=0) as ctx:\n"
+        "    assert bytes(ctx.pread(sys.argv[1], 0, 4096)) =="
+        " bytes(range(256)) * 16\n"
+        "    port = ctx.metrics_server.port\n"
+        "    ctx.attach_cluster({'self': f'127.0.0.1:{port}'},"
+        " interval_s=0.05)\n"
+        "    ctx.attach_tuner(start=False).step()\n"
+        "    for route in ('metrics', 'stats', 'trace', 'slo', 'tune',"
+        " 'history', 'tenants', 'flight', 'cluster'):\n"
+        "        with urllib.request.urlopen("
+        "f'http://127.0.0.1:{port}/{route}', timeout=10) as r:\n"
+        "            assert r.status == 200, route\n"
+        "    assert '# TYPE strom_ssd2gpu_bytes counter' in"
+        " strom_torch.prometheus()\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+        "('jax.', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(shard)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_scan_covers_the_observability_plane_and_tuner():
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    new = {"obs/slo.py", "obs/history.py", "obs/server.py",
+           "obs/federation.py", "tune/__init__.py", "tune/knobs.py",
+           "tune/autotuner.py"}
+    assert new <= names
+    for name in new:
+        assert not _FORBIDDEN.search((PKG / name).read_text()), name

@@ -222,7 +222,8 @@ def test_loader_run_emits_reference_spans_and_steps(token_shards):
         assert name in port, (name, sorted(port))
     assert {n: port[n] for n in port if n in ref} == \
         {n: ref[n] for n in port if n in ref}
-    assert set(steps) == set(stall.STALL_FIELDS)
+    # the reference's steps section: the STALL_FIELDS and the ring's drops
+    assert set(steps) == set(stall.STALL_FIELDS) | {"events_dropped"}
     assert steps["steps_observed"] >= 6
     assert 0.0 < steps["goodput_pct"] <= 100.0
     assert steps["step_compute_p50_us"] > 0

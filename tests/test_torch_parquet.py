@@ -102,7 +102,9 @@ def ctxs():
 
 
 def _counts(ctx) -> tuple[int, int]:
-    st = ctx.stats()
+    """The port's PLAIN and pyarrow byte counters, through the context's
+    scope of the process-wide registry."""
+    st = ctx.scope.snapshot()
     return st.get("parquet_plain_bytes", 0), st.get("parquet_decode_bytes", 0)
 
 
@@ -482,11 +484,11 @@ def test_pyarrow_route_reads_its_footer_from_the_range_cache(ctxs, files):
     pyarrow's): the pyarrow route has no cache misses."""
     tctx, _ = ctxs
     p, table = files["snappy"]
-    before = tctx.stats().get("parquet_cache_miss_bytes", 0)
+    before = tctx.scope.snapshot().get("parquet_cache_miss_bytes", 0)
     shard = tpq.ParquetShard(p, ctx=tctx)
     t = shard.read_row_group(tctx, 1, ["f32", "i64"])
     assert t.equals(table.slice(GROUP, GROUP).select(["f32", "i64"]))
-    assert tctx.stats().get("parquet_cache_miss_bytes", 0) == before
+    assert tctx.scope.snapshot().get("parquet_cache_miss_bytes", 0) == before
 
 
 # ------------------------------------------------------------------ writer
@@ -613,11 +615,12 @@ def test_without_pyarrow_plain_files_open_write_and_scan(tmp_path,
     p = str(tmp_path / "plain.parquet")
     ctx = StromContext(StromConfig(engine="python"))
     try:
+        decoded0 = _counts(ctx)[1]
         tpq.write_parquet(ctx, p, {"value": vals}, row_group_rows=2_500)
         assert tpq.ParquetShard(p, ctx=ctx).num_row_groups == 4
         assert parquet_count_where(ctx, [p], "value", lambda v: v > 0,
                                    devices=["cpu"]) == int((vals > 0).sum())
-        assert ctx.stats().get("parquet_decode_bytes", 0) == 0
+        assert _counts(ctx)[1] == decoded0
         shard = tpq.ParquetShard(snappy, ctx=ctx)   # the footer: no pyarrow
         assert shard.num_rows == ROWS
         with pytest.raises(RuntimeError, match="needs pyarrow"):

@@ -202,12 +202,12 @@ def test_plain_encoded_scan_rides_direct_decoder(ctxs, tmp_path, writer):
     else:
         pq.write_table(pa.table({"value": vals}), path, row_group_size=3_000,
                        compression="NONE", use_dictionary=False)
-    t0, j0 = tctx.stats(), global_stats.snapshot()
+    t0, j0 = tctx.scope.snapshot(), global_stats.snapshot()
     got = parquet_count_where(tctx, [path], "value", lambda v: v > 0,
                               unit_batch=2, devices=CPU)
     want = j_count_where(jctx, [path], "value", lambda v: v > 0,
                          unit_batch=2)
-    t1, j1 = tctx.stats(), global_stats.snapshot()
+    t1, j1 = tctx.scope.snapshot(), global_stats.snapshot()
     assert got == want == int((vals > 0).sum())
 
     def delta(a, b, k):
@@ -320,9 +320,9 @@ class TestParquetPushdown:
         """The port's pushed and post-hoc results and pushdown counters,
         and the reference's pushed result and counters."""
         tctx, jctx = ctxs
-        t0 = tctx.stats()
+        t0 = tctx.scope.snapshot()
         pushed, post = self._scan_pair(tctx, path, cutoff)
-        t1 = tctx.stats()
+        t1 = tctx.scope.snapshot()
         j0 = global_stats.snapshot()
         jpushed = self._j_pushed(jctx, path, cutoff)
         j1 = global_stats.snapshot()
@@ -400,6 +400,7 @@ def test_opgraph_fused_matches_unfused_and_the_reference(tmp_path):
 
     def run(fuse, stream):
         ctx = StromContext(StromConfig(**kw))
+        s0 = ctx.scope.snapshot()
         try:
             with make_wds_vision_pipeline(
                     ctx, [path], batch=8, image_size=32, device="cpu",
@@ -407,7 +408,10 @@ def test_opgraph_fused_matches_unfused_and_the_reference(tmp_path):
                     opgraph=graph(OpGraph), opgraph_fuse=fuse) as pipe:
                 out = [tuple(t.numpy().copy() for t in next(pipe))
                        for _ in range(pipe.sampler.batches_per_epoch * 2)]
-            return out, ctx.stats()
+            # the counts of this run: growth of the context's scope
+            return out, {k: v - s0.get(k, 0)
+                         for k, v in ctx.scope.snapshot().items()
+                         if isinstance(v, int)}
         finally:
             ctx.close()
 

@@ -109,7 +109,7 @@ def test_stats_carry_every_resilience_field(data_file):
                                   io_retries=3, **CFG)) as ctx:
         ctx.pread(path, 0, 4 * MiB)
         st = ctx.stats()
-        assert set(RESILIENCE_FIELDS) <= set(st)
+        assert set(RESILIENCE_FIELDS) <= set(st["resilience"])
         assert st["resilience"]["state"] == "closed"
         assert st["resilience"]["fault_plan"]["by_kind"]["errno"] == 3
         assert st["engine"]["engine"] == "faulty+python"
