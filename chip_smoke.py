@@ -66,6 +66,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                0.90 (SCHED_LIMIT). Last, the file striped RAID0 over 4 member
                files, checked with check_file, and delivered through a
                striped alias under 4 rings and under 1, exact.
+3b. numa    -- [numa]: the host's NUMA nodes (/sys/devices/system/node)
+               and CPUs per node, the node of the disk under phase 3's
+               file and of the card (/sys/bus/pci/devices/<bus id>/
+               numa_node). On more than one node, phase 3's 1 GiB delivery
+               with numa_affinity off and on (slabs bound to the disk's
+               node, else the card's, before cudaHostRegister pins them),
+               alternating for 4 rounds: GB/s and host CPU s per GiB; on
+               one node, uma=True and no A/B. irq_affinity stays off (it
+               writes /proc/irq, a setting of the machine).
 4. train    -- seeded packed-token shards through make_llama_pipeline into
                make_train_step(Llama-3-8B widths, 2 layers, attn="flash"),
                which on the card runs each step as one captured CUDA
@@ -98,8 +107,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
                and restore MB/s; 3 resumed steps on a new captured step,
                whose losses, grad norms and final leaves must equal the
                uninterrupted run's bit for bit (resume_ok), the flash
-               kernels' launches counted over them as in phase 4;
-               save_pickle of the same host leaves (MB/s, over the save);
+               kernels' launches counted over them as in phase 4
+               (the pickle baseline runs in phase 13, at Llama small);
                last, two AsyncCheckpointer.save calls (the first makes its
                pinned snapshot arena, the second reuses it), each followed
                at once by 2 replays while the commit drains: the caller's
@@ -149,14 +158,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
                plan-time hits per epoch; every batch equal to the uncached
                pipeline's; each epoch's images/s over the passes.
    7e. spill -- the NVMe spill tier under the hot cache. arm=pread: the
-               reference's spill epoch pair at 1 GiB (a seeded int32 token
+               reference's spill epoch pair at 256 MiB (a seeded int32 token
                shard, values below 2^15, written through
-               write_token_shard(ctx, ...); hot_cache_bytes 128 MiB,
-               admission "always", spill_bytes 2 GiB in the work
+               write_token_shard(ctx, ...); hot_cache_bytes 32 MiB,
+               admission "always", spill_bytes 512 MiB in the work
                directory; 32 records of 4 KiB a pread; two epochs), with
-               spill_compress off and then on: per epoch the SPILL_FIELDS,
-               cache_miss_bytes, engine bytes, MB/s, the compression ratio
-               and the codec's name; every read equal to the shard's bytes
+               spill_compress off and then on (the reference's 1 GiB cut
+               to 256 MiB to keep the run inside its time): per epoch the
+               SPILL_FIELDS, cache_miss_bytes, engine bytes, MB/s, the
+               compression ratio and the codec's name; every read equal to the shard's bytes
                and no source miss in epoch 2. arm=resnet: phase 6's shard
                into a fresh ResNet-50's captured step for 3 epochs (one
                pipeline an epoch, prefetch depth 1), uncached and then
@@ -202,15 +212,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
                equal to the plain shard's bit for bit; where phase 7 made
                its tar, the wds pipeline with an OpGraph (filter, project,
                normalize, cast) fused and streamed against unfused, bit-equal.
-10. multitenant -- the reference's bench_multitenant at full width on one
+10. multitenant -- strom_torch.cli.bench_multitenant (the reference's
+               arm) at full width on one
                context with three registered tenants: llama (training:
                phase 4's shards into a fresh captured flash step, 2 warm-up
                and capture steps, then 16 timed), vis0 (training: phase
                6's shard through the predecoded loader alone, 48 batches
                of 128) and pq (interactive: phase 9's narrow scan, 12
                times). Each solo, then the three started at once on
-               threads (Llama captures while the loader makes its first
-               batches), then at once with sched_enabled=False. Per
+               threads, then the same with the scheduler off
+               (STROM_SCHED_ENABLED=0). Per
                tenant the SCHED_FIELDS (items/s, vs_solo, queue-wait p50
                and p99, granted ops and bytes, throttle waits, the engine's
                per-op p99), mt_vs_solo_mean, Llama's timed data stalls, and
@@ -218,7 +229,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
                concurrent Llama losses must equal solo's bit for bit (both
                modes), every pq count is exact, and the Llama tenant must
                launch the three sm90 kernels.
-11. resilience -- [chaos]: the reference's bench_chaos. Phase 7's JPEG
+11. resilience -- [chaos]: strom_torch.cli.bench_chaos. Phase 7's JPEG
                tar through make_imagenet_resnet_pipeline (skipped= where
                phase 7 was) and phase 6's predecoded shard through
                make_predecoded_vision_pipeline, batch 128 into device
@@ -237,11 +248,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
                deadline leaves the queue at it. [handle]: 64 and 256 MiB
                async deliveries, block_until_ready(), the tensor read on a
                fresh stream with no synchronize: exact; elapsed_s.
-               [resume]: the reference's bench_resume phase 2,
+               [resume]: strom_torch.cli.bench_resume with --model tiny,
+               one async save (its round trip exact), then
                run_kill_resume(seed=1) (three trainer processes: the
                reference run, one SIGKILLed mid-epoch, the restart):
-               RESUME_FIELDS, resume_ok must be 1, the first resumed
-               serial the committed token's, no tmp checkpoint left.
+               RESUME_FIELDS; resume_ok, which holds the restart serial,
+               the batch stream and no tmp checkpoint left, must be 1.
 12. observability -- one context with an ephemeral metrics_port, the
                snapshot history and a flight directory. [server]: phase
                4's Llama step (Llama-3-8B widths, 2 layers, flash,
@@ -264,19 +276,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
                of its own): the aggregate's counters must equal the hosts'
                sum; killing the subprocess must flip it unhealthy within
                stale_s plus two poll intervals and leave a flight bundle.
-               [history]: the ring's samples and a rate. [tune]: the
-               reference's bench_tune arm (32 MiB in 128 KiB blocks,
-               shuffled, an 8 MiB cache, 16 trials, then an interleaved
-               A/B; the reference's defaults are 128 and 32 MiB): hand and tuned items/s, moves, reverts, holds;
-               tuned_vs_hand must be at least 1.0. Then attach_tuner(
+               [history]: the ring's samples and a rate. [tune]:
+               strom_torch.cli.bench_tune at the reference's defaults (128
+               MiB in 128 KiB blocks, shuffled, a 32 MiB cache, 16 trials,
+               3 iterations, then an interleaved A/B): hand, tuned and
+               searched items/s, moves, reverts, holds; tuned_vs_hand must
+               be at least 1.0. Then attach_tuner(
                start=False) on the JPEG ResNet loader feeding a captured
-               ResNet-50 step: 8 beats of 2.05 s, each beat's goodput,
+               ResNet-50 step: 4 beats of 2.05 s, each beat's goodput,
                action and knobs (skipped= where phase 7 was). [inflight]:
                the engine_inflight gauge read from another thread during a
                256 MiB gather on the preadv pool (above 0) and after it
                (0).
+13. cli     -- strom_torch.cli as a user runs it: subprocesses of python
+               -m strom_torch.cli ... --json --tmpdir <work dir>: nvme (256
+               MiB; --numa-node the disk's node where it has one), check of
+               its file, all (the reference's twelve phases at their quick
+               shapes, ssd2gpu for ssd2tpu: rc 0, failed [], every byte
+               count the size asked for, the four Parquet counts equal to
+               numpy's over the same seeded column, finite losses,
+               Llama-small's data-stall steps, and its flash step's
+               launches, which must be the three sm90 kernels),
+               checkpoint --model small (round trip exact, no spill-epoch
+               source miss) and daemon (the ready line, a tenant
+               registered over POST /tenants, SIGTERM: drained with
+               stuck=[] and ended by the signal). A line a subcommand with
+               its seconds and the fields it checked.
 
-Each phase prints its own lines. The line before the last is one JSON
+Each phase prints its own lines, and a [phase] line with its seconds. The line before the last is one JSON
 object describing every kernel; the last line is the result,
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with an error and prints no result.
@@ -284,9 +311,10 @@ with an error and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import errno
-import hashlib
+import glob
 import json
 import math
 import os
@@ -303,11 +331,11 @@ import numpy as np
 import torch
 
 import strom_torch
+from strom_torch import cli
 from strom_torch.config import StromConfig
 from strom_torch._core import build as core_build
-from strom_torch.ckpt import (AsyncCheckpointer, load_manifest, load_pickle,
-                              restore_checkpoint, save_checkpoint,
-                              save_pickle)
+from strom_torch.ckpt import (AsyncCheckpointer, load_manifest,
+                              restore_checkpoint, save_checkpoint)
 from strom_torch.ckpt.checkpoint import (_host_leaves, tree_flatten,
                                          tree_unflatten)
 from strom_torch.ckpt.jobstate import RESUME_FIELDS, TOKEN_KEY, StepToken
@@ -344,7 +372,7 @@ from strom_torch.pipelines.parquet_scan import (parquet_count_where,
                                                 parquet_scan_aggregate)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 from strom_torch.utils.codec import default_codec
-from strom_torch.faults import FaultPlan, FaultyEngine, run_kill_resume
+from strom_torch.faults import FaultPlan, FaultyEngine
 from strom_torch.obs import chrome_trace, stall
 from strom_torch.obs.events import ring as events_ring
 from strom_torch.obs.flight import load_bundle
@@ -1511,8 +1539,8 @@ def _series(metrics: list) -> str:
 def phase_ckpt(workdir: str) -> dict[str, int]:
     """Phase 4b: the write path, then checkpoints of phase 4's train state
     (Llama-3-8B widths, 2 layers, bf16, flash, fused AdamW, captured, fed
-    by make_llama_pipeline from the engine): a blocking save against the
-    pickle baseline, the restore into a fresh state and a fresh pipeline
+    by make_llama_pipeline from the engine): a blocking save, the restore
+    into a fresh state and a fresh pipeline
     whose steps must equal the uninterrupted run's bit for bit, and an
     async save under replays. Returns the resumed steps' launches per
     kernel (check_variants)."""
@@ -1546,10 +1574,9 @@ def phase_ckpt(workdir: str) -> dict[str, int]:
     if token.consumed != CKPT_STEPS or token.sampler != pipe.state():
         raise AssertionError(f"ckpt: pipe.token() says {token}, the "
                              f"pipeline consumed {CKPT_STEPS}")
-    # the state at step k, copied to the host: the roundtrip's and the
-    # pickle's reference
+    # the state at step k, copied to the host: the roundtrip's reference
     t0 = time.perf_counter()
-    host, treedef = _host_leaves(tree, snapshot=True)
+    host, _ = _host_leaves(tree, snapshot=True)
     snapshot_s = time.perf_counter() - t0
     d1 = os.path.join(workdir, "ckpt_sync")
     before = _write_counts(ctx)
@@ -1619,23 +1646,10 @@ def phase_ckpt(workdir: str) -> dict[str, int]:
     shutil.rmtree(d1)
     torch.cuda.empty_cache()
 
-    # the pickle baseline of the same host leaves
-    pk = os.path.join(workdir, "state.pkl")
-    host_tree = tree_unflatten(treedef, [h.obj for h in host])
-    t0 = time.perf_counter()
-    pk_bytes = save_pickle(pk, host_tree)
-    pickle_s = time.perf_counter() - t0
-    pickle_mb_s = payload / pickle_s / 1e6
-    bad = _differ(tree_flatten(load_pickle(pk))[0],
-                  tree_flatten(host_tree)[0])
-    os.unlink(pk)
-    say("ckpt", arm="pickle", bytes=pk_bytes, s=f"{pickle_s:.3f}",
-        ckpt_pickle_save_mb_per_s=f"{pickle_mb_s:.1f}",
-        ckpt_save_vs_pickle=f"{save_mb_s / pickle_mb_s:.3f}",
-        roundtrip_ok=not bad)
-    if bad:
-        raise AssertionError(f"ckpt: pickle leaves {bad} differ")
-    del host, host_tree
+    # the pickle baseline runs in phase 13 (cli checkpoint --model small:
+    # ckpt_pickle_save_mb_per_s, ckpt_save_vs_pickle); here it is cut to
+    # keep the run inside its time
+    del host
 
     # async saves, the captured step replaying while each commits: the
     # first save also makes the checkpointer's pinned arena, the second
@@ -2802,6 +2816,7 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
 
 # ------------------------------------------------------- spill (7e)
 SPILL_RECORD_TOKENS = 1024           # the reference arm's records: 4 KiB
+SPILL_PREAD_BYTES = 256 * MiB        # the epoch pair's token shard
 SPILL_STEP = 32                      # records a pread
 
 
@@ -2843,7 +2858,7 @@ def _spill_epoch_line(arm: str, epoch: int, before: dict, after: dict,
 
 
 def _spill_pread_arm(workdir: str, toks: np.ndarray, compress: bool) -> None:
-    """The reference's spill epoch pair (at 1 GiB of *toks*): the token
+    """The reference's spill epoch pair (at SPILL_PREAD_BYTES of *toks*): the token
     shard written through the context, a hot cache of 1/8 of it with
     admission "always", a spill file of twice it, 32 records a pread, two
     epochs, every read checked against the tokens; the second epoch must
@@ -2946,13 +2961,16 @@ def _spill_resnet_run(pdec: str, cfg: StromConfig, epochs: int, B: int,
 
 def phase_spill(workdir: str, pdec: str) -> None:
     """Phase 7e: the NVMe spill tier under the hot cache. arm=pread: the
-    reference's epoch pair at 1 GiB, spill_compress off then on. arm=resnet:
+    reference's epoch pair at SPILL_PREAD_BYTES, spill_compress off then
+    on. arm=resnet:
     BASELINE config #2's predecoded shard into ResNet-50 for 3 epochs with
     hot_cache_bytes 64 MiB, admission "always" and a 1 GiB spill file,
     against the same run with no cache: batches and losses bit-equal, and
     no source misses from epoch 2 on."""
-    toks = np.random.default_rng(7).integers(0, 1 << 15, GiB // 4,
+    toks = np.random.default_rng(7).integers(0, 1 << 15, SPILL_PREAD_BYTES // 4,
                                              dtype=np.int32)
+    # the epoch pair runs at 256 MiB (the reference's 1 GiB, cut) to keep
+    # the script inside its time
     for compress in (False, True):
         _spill_pread_arm(workdir, toks, compress)
     del toks
@@ -2999,225 +3017,162 @@ MT_VIS_BATCHES = 48
 MT_PQ_SCANS = 12
 
 
-def _mt_delta(scope, snap0: dict) -> dict:
-    """A tenant's SCHED_FIELDS counters since *snap0* (a snapshot of its
-    scope), with the queue-wait and per-op latency percentiles of the
-    bucket deltas."""
-    snap1 = scope.snapshot()
-    out = {k: int(snap1.get(k, 0) - snap0.get(k, 0))
-           for k in ("sched_granted_ops", "sched_granted_bytes",
-                     "sched_throttle_waits")}
-
-    def buckets(stem: str) -> list:
-        b0 = snap0.get(stem + "_hist") or [0] * 24
-        return [a - b for a, b in zip(snap1.get(stem + "_hist") or [0] * 24,
-                                      b0)]
-
-    qw = buckets("sched_queue_wait")
-    out["sched_queue_wait_p50_us"] = percentile_from_buckets(qw, 0.50)
-    out["sched_queue_wait_p99_us"] = percentile_from_buckets(qw, 0.99)
-    out["engine_op_lat_p99_us"] = percentile_from_buckets(
-        buckets("engine_op_lat"), 0.99)
-    return out
+@contextlib.contextmanager
+def _env(**kv):
+    """STROM_* switches for one CLI call (its config honours them)."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update({k: str(v) for k, v in kv.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def phase_multitenant(workdir: str, pdec: str, pq_paths: list[str],
                       pq_hits: int) -> None:
-    """Phase 10: the reference's bench_multitenant at full width on one
+    """Phase 10: strom_torch.cli.bench_multitenant at full width on one
     context with three registered tenants: llama (training; phase 4's
     shards into the captured flash step, Llama-3-8B widths, 2 layers, batch
-    2 x 2048, from a fresh state of one seed, 16 timed steps), vis0
-    (training; the predecoded ResNet-50 loader alone, batch 128 x 224^2)
-    and pq (interactive; phase 9's narrow scan, repeated). Each solo, then
-    the three concurrently on threads, then concurrently with
-    sched_enabled=False. Concurrent Llama losses equal the solo run's bit
-    for bit, every pq count is exact, and the llama tenant launches the
-    three sm90 kernels."""
+    2 x 2048, from a fresh state of one seed: 2 warm-up and capture steps,
+    then 16 timed), vis0 (training; the predecoded ResNet-50 loader alone,
+    batch 128 x 224^2) and pq (interactive; phase 9's narrow scan,
+    repeated). Each solo, then the three concurrently on threads; then the
+    same with the scheduler off (STROM_SCHED_ENABLED=0). Concurrent Llama
+    losses equal the solo run's bit for bit, every pq count is exact, and
+    the llama tenant launches the three sm90 kernels."""
     cuda = torch.device("cuda")
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
     tok_paths = [os.path.join(workdir, f"tokens{i}.bin") for i in range(2)]
     for p in tok_paths + [pdec] + pq_paths:
         if not os.path.exists(p):
             raise AssertionError(f"multitenant: fixture {p} is gone")
+    side: dict[str, list] = {"losses": [], "llama": []}
 
-    def llama(ctx, ready=None, go=None) -> dict:
-        pipe = make_llama_pipeline(
-            ctx, tok_paths, batch=2, seq_len=2047, device="cuda", seed=0,
-            scope={"pipeline": "llama", "tenant": "llama"})
-        state = init_train_state(cfg, device="cuda", seed=0)
-        step = make_train_step(cfg, attn="flash", device="cuda")
-        losses = []
-        try:
-            # the warm-up and the capture before the others start
-            for _ in range(2):
-                state, m = step(state, next(pipe))
-                losses.append(m["loss"])
-            torch.cuda.current_stream().synchronize()
-            if ready is not None:
-                ready.set()
-                go.wait()
-            stalls0 = pipe.data_stall_steps
-            t0 = time.perf_counter()
-            for _ in range(MT_LLAMA_STEPS):
-                state, m = step(state, next(pipe))
-                losses.append(m["loss"])
-            torch.cuda.current_stream().synchronize()
-            dt = time.perf_counter() - t0
-            if step.last_call != "replay":
-                raise AssertionError("multitenant llama: the timed steps "
-                                     "did not replay the captured graph")
-            return {"items_per_s": MT_LLAMA_STEPS * 2 * 2048 / dt,
-                    "step_ms": dt / MT_LLAMA_STEPS * 1e3,
-                    "stalls": pipe.data_stall_steps - stalls0,
-                    "losses": torch.stack(losses).cpu()}
-        finally:
-            pipe.close()
-            del state, step
-
-    def vis(ctx, ready=None, go=None) -> dict:
-        pipe = make_predecoded_vision_pipeline(
-            ctx, [pdec], batch=128, image_size=IMAGE, device=cuda,
-            scope={"pipeline": "resnet", "tenant": "vis0"})
-        try:
-            next(pipe)
-            if ready is not None:
-                ready.set()
-                go.wait()
-            t0 = time.perf_counter()
-            for _ in range(MT_VIS_BATCHES):
-                imgs, _lbls = next(pipe)
-            torch.cuda.current_stream().synchronize()
-            dt = time.perf_counter() - t0
-            return {"items_per_s": MT_VIS_BATCHES * 128 / dt}
-        finally:
-            pipe.close()
-
-    def pq(ctx, ready=None, go=None) -> dict:
-        if ready is not None:
-            ready.set()
-            go.wait()
-        t0 = time.perf_counter()
-        counts = [parquet_count_where(
-            ctx, pq_paths, "value", lambda v: v > 0,
-            scope={"pipeline": "parquet", "tenant": "pq"})
-            for _ in range(MT_PQ_SCANS)]
-        dt = time.perf_counter() - t0
-        if any(c != pq_hits for c in counts):
-            raise AssertionError(f"multitenant pq: counts {counts} against "
-                                 f"{pq_hits}")
-        return {"items_per_s": MT_PQ_SCANS * PQ_SHARDS * PQ_ROWS / dt}
-
-    workloads = {"llama": llama, "vis0": vis, "pq": pq}
-
-    def make_ctx(sched: bool) -> StromContext:
-        ctx = StromContext(StromConfig.from_env(sched_enabled=sched),
-                           scope={"phase": f"multitenant-{sched}"})
-        if sched:
-            ctx.register_tenant("llama", priority="training")
-            ctx.register_tenant("vis0", priority="training")
-            ctx.register_tenant("pq", priority="interactive")
-        return ctx
-
-    def concurrent(ctx) -> tuple[dict, float]:
-        out: dict = {}
-        errs: list = []
-        go = threading.Event()
-        readies = {n: threading.Event() for n in workloads}
-
-        def run(name):
+    def make(ctx):
+        def llama(tenant: str) -> float:
+            pipe = make_llama_pipeline(
+                ctx, tok_paths, batch=2, seq_len=2047, device="cuda", seed=0,
+                scope={"pipeline": "llama", "tenant": tenant})
+            state = init_train_state(cfg, device="cuda", seed=0)
+            step = make_train_step(cfg, attn="flash", device="cuda")
+            losses = []
             try:
-                out[name] = workloads[name](ctx, readies[name], go)
-            except BaseException as e:   # surfaced after the join
-                errs.append((name, e))
-                readies[name].set()
+                for _ in range(2):   # the warm-up and the capture
+                    state, m = step(state, next(pipe))
+                    losses.append(m["loss"])
+                torch.cuda.current_stream().synchronize()
+                stalls0 = pipe.data_stall_steps
+                t0 = time.perf_counter()
+                for _ in range(MT_LLAMA_STEPS):
+                    state, m = step(state, next(pipe))
+                    losses.append(m["loss"])
+                torch.cuda.current_stream().synchronize()
+                dt = time.perf_counter() - t0
+                if step.last_call != "replay":
+                    raise AssertionError("multitenant llama: the timed "
+                                         "steps did not replay the graph")
+                side["losses"].append(torch.stack(losses).cpu())
+                side["llama"].append(
+                    {"step_ms": f"{dt / MT_LLAMA_STEPS * 1e3:.2f}",
+                     "stalls": pipe.data_stall_steps - stalls0})
+                return MT_LLAMA_STEPS * 2 * 2048 / dt
+            finally:
+                pipe.close()
+                del state, step
 
-        # all three start together: Llama warms up and captures its step
-        # while the loader makes its first batches on another thread
-        ths = [threading.Thread(target=run, args=(n,), name=f"mt-{n}")
-               for n in workloads]
-        for t in ths:
-            t.start()
-        for ev in readies.values():
-            ev.wait()
-        t0 = time.perf_counter()
-        go.set()
-        for t in ths:
-            t.join()
-        if errs:
-            raise errs[0][1]
-        return out, time.perf_counter() - t0
+        def vis(tenant: str) -> float:
+            pipe = make_predecoded_vision_pipeline(
+                ctx, [pdec], batch=128, image_size=IMAGE, device=cuda,
+                scope={"pipeline": "resnet", "tenant": tenant})
+            try:
+                next(pipe)
+                t0 = time.perf_counter()
+                for _ in range(MT_VIS_BATCHES):
+                    imgs, _lbls = next(pipe)
+                torch.cuda.current_stream().synchronize()
+                return MT_VIS_BATCHES * 128 / (time.perf_counter() - t0)
+            finally:
+                pipe.close()
 
-    ctx = make_ctx(True)
-    sched = ctx.scheduler
-    rate = ENGINE_ALONE_GBPS[-1] if ENGINE_ALONE_GBPS else 2.0
-    slice_s = sched._slice_bytes() / (rate * 1e9)
+        def pq(tenant: str) -> float:
+            t0 = time.perf_counter()
+            counts = [parquet_count_where(
+                ctx, pq_paths, "value", lambda v: v > 0,
+                scope={"pipeline": "parquet", "tenant": tenant})
+                for _ in range(MT_PQ_SCANS)]
+            dt = time.perf_counter() - t0
+            if any(c != pq_hits for c in counts):
+                raise AssertionError(f"multitenant pq: counts {counts} "
+                                     f"against {pq_hits}")
+            return MT_PQ_SCANS * PQ_SHARDS * PQ_ROWS / dt
+
+        if ctx.scheduler is not None:
+            side["slice_bytes"] = [ctx.scheduler._slice_bytes()]
+            say("multitenant", exclusive=ctx.scheduler.exclusive,
+                slice_bytes=side["slice_bytes"][0],
+                engine=ctx.engine.stats()["engine"])
+        return [("llama", "training", llama), ("vis0", "training", vis),
+                ("pq", "interactive", pq)]
+
     say("multitenant", tenants="llama:training,vis0:training,pq:interactive",
-        exclusive=sched.exclusive, slice_bytes=sched._slice_bytes(),
-        engine=ctx.engine.stats()["engine"], llama_steps=MT_LLAMA_STEPS,
-        vis_batches=MT_VIS_BATCHES, pq_scans=MT_PQ_SCANS)
-    try:
-        solo, solo_sched = {}, {}
-        for name, fn in workloads.items():
-            t = sched.tenant(name)
-            snap0 = t.scope.snapshot()
-            solo[name] = fn(ctx)
-            solo_sched[name] = _mt_delta(t.scope, snap0)
-            say("multitenant", arm="solo", tenant=name,
-                items_per_s=f"{solo[name]['items_per_s']:.1f}",
-                **{k: v for k, v in solo[name].items()
-                   if k not in ("items_per_s", "losses")},
-                **solo_sched[name])
-        snaps = {n: sched.tenant(n).scope.snapshot() for n in workloads}
-        fa.reset_launch_counts()
-        conc, wall = concurrent(ctx)
-        launches = check_variants(KERNELS, dict(fa.VARIANT_LAUNCHES),
-                                  "multitenant llama tenant")
-        ratios = []
-        for name in workloads:
-            d = _mt_delta(sched.tenant(name).scope, snaps[name])
-            vs = conc[name]["items_per_s"] / solo[name]["items_per_s"]
-            ratios.append(vs)
-            say("multitenant", arm="concurrent", tenant=name,
-                items_per_s=f"{conc[name]['items_per_s']:.1f}",
-                vs_solo=f"{vs:.3f}",
-                **{k: v for k, v in conc[name].items()
-                   if k not in ("items_per_s", "losses")}, **d)
-        pq_wait = _mt_delta(sched.tenant("pq").scope, snaps["pq"])
-        say("multitenant", arm="concurrent", wall_s=f"{wall:.3f}",
-            mt_vs_solo_mean=f"{statistics.mean(ratios):.3f}",
-            llama_data_stalls_timed=conc["llama"]["stalls"],
-            pq_queue_wait_p99_us=pq_wait["sched_queue_wait_p99_us"],
-            one_slice_us=f"{slice_s * 1e6:.0f}",
-            one_slice_at_gbps=f"{rate:.3f}",
-            launches=json.dumps(launches, sort_keys=True),
-            sched=json.dumps(sched.stats(), sort_keys=True))
-        if not torch.equal(conc["llama"]["losses"], solo["llama"]["losses"]):
-            raise AssertionError(
-                f"multitenant: concurrent llama losses "
-                f"{conc['llama']['losses'].tolist()} differ from solo "
-                f"{solo['llama']['losses'].tolist()}")
-        say("multitenant", check="concurrent llama losses equal solo, pq "
-            "counts exact", exact=True,
-            last_losses=",".join(f"{x:.6f}" for x in
-                                 conc["llama"]["losses"].tolist()[-4:]))
-    finally:
-        ctx.close()
+        llama_steps=MT_LLAMA_STEPS, vis_batches=MT_VIS_BATCHES,
+        pq_scans=MT_PQ_SCANS, via="strom_torch.cli.bench_multitenant")
+    base = StromConfig()   # the engine shapes of the other phases
+    args = cli.build_parser().parse_args([
+        "multitenant", "--json", "--tmpdir", workdir,
+        "--steps", str(MT_LLAMA_STEPS), "--batch", "128",
+        "--image-size", str(IMAGE), "--block", str(base.block_size),
+        "--depth", str(base.queue_depth)])
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli.bench_multitenant(args, workloads=make)
+    wall = time.perf_counter() - t0
+    launches = check_variants(KERNELS, dict(fa.VARIANT_LAUNCHES),
+                              "multitenant llama tenant")
+    rate = ENGINE_ALONE_GBPS[-1] if ENGINE_ALONE_GBPS else 2.0
+    slice_s = side["slice_bytes"][0] / (rate * 1e9)
+    for name in out["mt_tenants"]:
+        pre = f"mt_{name}_"
+        say("multitenant", arm="solo", tenant=name,
+            items_per_s=out[pre + "solo_items_per_s"],
+            **(side["llama"][0] if name == "llama" else {}))
+        say("multitenant", arm="concurrent", tenant=name,
+            **{k[len(pre):]: v for k, v in out.items()
+               if k.startswith(pre) and not k.endswith("solo_items_per_s")},
+            **(side["llama"][1] if name == "llama" else {}))
+    say("multitenant", arm="concurrent", wall_s=out["concurrent_wall_s"],
+        mt_vs_solo_mean=out["mt_vs_solo_mean"],
+        llama_data_stalls_timed=side["llama"][1]["stalls"],
+        pq_queue_wait_p99_us=out["mt_pq_sched_queue_wait_p99_us"],
+        one_slice_us=f"{slice_s * 1e6:.0f}", one_slice_at_gbps=f"{rate:.3f}",
+        launches=json.dumps(launches, sort_keys=True),
+        s=f"{wall:.2f}")
+    solo_l, conc_l = side["losses"][:2]
+    if not torch.equal(conc_l, solo_l):
+        raise AssertionError(f"multitenant: concurrent llama losses "
+                             f"{conc_l.tolist()} differ from solo "
+                             f"{solo_l.tolist()}")
+    say("multitenant", check="concurrent llama losses equal solo, pq "
+        "counts exact", exact=True,
+        last_losses=",".join(f"{x:.6f}" for x in conc_l.tolist()[-4:]))
     torch.cuda.empty_cache()
-    off = make_ctx(False)
-    try:
-        conc_off, wall_off = concurrent(off)
-    finally:
-        off.close()
-    say("multitenant", arm="concurrent_sched_off", wall_s=f"{wall_off:.3f}",
-        **{f"{n}_items_per_s": f"{conc_off[n]['items_per_s']:.1f}"
-           for n in workloads},
-        **{f"{n}_vs_solo":
-           f"{conc_off[n]['items_per_s'] / solo[n]['items_per_s']:.3f}"
-           for n in workloads},
-        llama_data_stalls_timed=conc_off["llama"]["stalls"])
-    if not torch.equal(conc_off["llama"]["losses"], solo["llama"]["losses"]):
-        raise AssertionError("multitenant: llama losses with the scheduler "
-                             "off differ from the solo run's")
+    with _env(STROM_SCHED_ENABLED=0):
+        off = cli.bench_multitenant(args, workloads=make)
+    say("multitenant", arm="concurrent_sched_off",
+        sched_enabled=off["sched_enabled"],
+        wall_s=off["concurrent_wall_s"],
+        **{f"{n}_items_per_s": off[f"mt_{n}_items_per_s"]
+           for n in off["mt_tenants"]},
+        **{f"{n}_vs_solo": off[f"mt_{n}_vs_solo"] for n in off["mt_tenants"]},
+        llama_data_stalls_timed=side["llama"][3]["stalls"])
+    if off["sched_enabled"] or not torch.equal(side["losses"][3], solo_l):
+        raise AssertionError("multitenant: with the scheduler off the llama "
+                             "losses differ from the solo run's (or the "
+                             "scheduler was on)")
     torch.cuda.empty_cache()
 
 
@@ -3236,66 +3191,40 @@ def _resil_counts() -> dict:
             if k != "breaker_state"}
 
 
-def _chaos_pass(arm: str, make_pipe, plan: str
-                ) -> tuple[float, list[str], int]:
-    """One pass of CHAOS_BATCHES batches through a fresh context under the
-    lock-order witness (debug_locks, as the reference's bench_chaos runs):
-    images a second, each batch's hash after .cpu(), the faults injected,
-    then the pass's stall buckets. The residency hybrid is off, so the
-    plan sees the media op stream."""
-    cfg = StromConfig.from_env(residency_hybrid=False, io_retries=3,
-                               fault_plan=plan, debug_locks=True)
-    ctx = StromContext(cfg)
-    try:
-        with make_pipe(ctx) as pipe:
-            hashes = []
-            t0 = time.perf_counter()
-            for _ in range(CHAOS_BATCHES):
-                imgs, lbls = next(pipe)
-                h = hashlib.sha256(imgs.cpu().numpy().tobytes())
-                h.update(lbls.cpu().numpy().tobytes())
-                hashes.append(h.hexdigest())
-            dt = time.perf_counter() - t0
-        plan_obj = getattr(ctx.engine, "plan", None)
-        injected = plan_obj.stats()["faults_injected"] if plan_obj else 0
-        stall_line(f"chaos_{arm}_{'faulty' if plan else 'clean'}", ctx)
-        return CHAOS_BATCHES * CHAOS_BATCH / dt, hashes, injected
-    finally:
-        ctx.close()
-
-
 def _chaos_arm(arm: str, path: str, make_pipe) -> None:
-    """The reference's bench_chaos: the loader clean, then under chaos:0,
-    both under the lock-order witness; the faulted pass must finish with
-    the clean pass's batches, and no lock-order cycle may show."""
+    """strom_torch.cli.bench_chaos over *make_pipe*'s loader: CHAOS_BATCHES
+    batches clean, then under chaos:0, each pass on a fresh context under
+    the lock-order witness with the residency hybrid off (and io_retries 3
+    through STROM_IO_RETRIES), its stall buckets printed before it closes;
+    the faulted pass must finish with the clean pass's batches, and no
+    lock-order cycle may show."""
     cycles0 = locks.witness.cycles
-    _drop_cache(path)
-    clean_rate, clean, _ = _chaos_pass(arm, make_pipe, "")
-    before = _resil_counts()
-    _drop_cache(path)
-    faulty_rate, faulty, injected = _chaos_pass(arm, make_pipe, "chaos:0")
-    d = {k: v - before[k] for k, v in _resil_counts().items()}
-    out = {"chaos_ok": int(bool(clean) and clean == faulty),
-           "chaos_slowdown": f"{clean_rate / faulty_rate:.3f}",
-           "chaos_clean_images_per_s": f"{clean_rate:.1f}",
-           "chaos_faulty_images_per_s": f"{faulty_rate:.1f}",
-           "chaos_faults_injected": injected,
-           "chaos_chunk_retries": d["chunk_retries"],
-           "chaos_failover_reads": d["failover_reads"],
-           "chaos_breaker_trips": d["breaker_trips"],
-           "chaos_hedges_fired": d["hedges_fired"]}
-    assert set(out) == set(CHAOS_BENCH_FIELDS)
+    cfg = StromConfig()
+    args = cli.build_parser().parse_args([
+        "chaos", "--json", "--file", path, "--batch", str(CHAOS_BATCH),
+        "--image-size", str(IMAGE), "--steps", str(CHAOS_BATCHES),
+        "--block", str(cfg.block_size), "--depth", str(cfg.queue_depth),
+        "--seed", "0"])
+
+    def on_pass(plan: str, ctx) -> None:
+        stall_line(f"chaos_{arm}_{'faulty' if plan else 'clean'}", ctx)
+
+    with _env(STROM_IO_RETRIES=3):
+        res = cli.bench_chaos(args, make_pipe=make_pipe, on_pass=on_pass)
+    out = {k: res[k] for k in CHAOS_BENCH_FIELDS}
     cycles = locks.witness.cycles - cycles0
-    say("chaos", arm=arm, fault_plan="chaos:0", batches=CHAOS_BATCHES,
-        batch=CHAOS_BATCH, **out, debug_locks=True, lock_order_cycles=cycles,
-        hedges_won=d["hedges_won"],
-        retry_backoff_waits=d["retry_backoff_waits"],
-        retry_budget_exhausted=d["retry_budget_exhausted"])
-    if out["chaos_ok"] != 1 or injected <= 0 or cycles:
+    say("chaos", arm=arm, fault_plan=res["fault_plan"],
+        batches=CHAOS_BATCHES, batch=CHAOS_BATCH, **out, debug_locks=True,
+        lock_order_cycles=cycles, hedges_won=res["hedges_won"],
+        retry_backoff_waits=res["retry_backoff_waits"],
+        retry_budget_exhausted=res["retry_budget_exhausted"],
+        via="strom_torch.cli.bench_chaos")
+    if out["chaos_ok"] != 1 or out["chaos_faults_injected"] <= 0 or cycles:
         raise AssertionError(f"chaos {arm}: batches under chaos:0 differ "
                              f"from the clean pass's, no fault was "
-                             f"injected ({injected}), or the witness saw "
-                             f"{cycles} lock-order cycle(s)")
+                             f"injected ({out['chaos_faults_injected']}), "
+                             f"or the witness saw {cycles} lock-order "
+                             f"cycle(s)")
 
 
 def _breaker_arm(path: str, want: torch.Tensor) -> None:
@@ -3412,27 +3341,27 @@ def _deadline_arm(path: str) -> None:
 
 
 def _resume_arm(workdir: str) -> None:
-    """The reference's bench_resume phase 2: run_kill_resume(seed=1) on
-    the card host's disk."""
-    wd = os.path.join(workdir, "resume")
+    """strom_torch.cli.bench_resume with --model tiny and one async save
+    (its phase 1 on the card), then run_kill_resume(seed=1): three trainer
+    processes (the reference run, one SIGKILLed mid-epoch, the restart).
+    resume_ok folds the harness's checks (the restart serial, the batch
+    stream, no tmp checkpoint left) and must be 1; the async checkpoint's
+    round trip must be exact."""
     t0 = time.perf_counter()
-    out = run_kill_resume(wd, seed=1)
+    out = cli.bench_resume(cli.build_parser().parse_args([
+        "resume", "--json", "--tmpdir", workdir, "--model", "tiny",
+        "--saves", "1", "--seed", "1", "--signal", "KILL"]))
     dt = time.perf_counter() - t0
-    served = []
-    with open(os.path.join(wd, "batches_resume.log")) as f:
-        served = [int(ln.split()[0]) for ln in f if ln.strip()]
-    leftovers = sorted(os.path.basename(p) for p in os.listdir(wd)
-                       if p.startswith(("ckpt.tmp-", "ckpt.old-")))
-    first = served[0] if served else -1
     say("resume", **{k: out[k] for k in RESUME_FIELDS},
-        resume_first_batch_s=out["resume_first_batch_s"],
-        resume_total_steps=out["resume_total_steps"],
-        first_resumed_serial=first, tmp_left=len(leftovers),
-        harness_s=f"{dt:.2f}", failures=json.dumps(out["failures"]))
-    if out["resume_ok"] != 1 or first != out["resume_restart_step"] \
-            or leftovers:
-        raise AssertionError(f"resume: {out['failures']} first resumed "
-                             f"serial {first}, leftovers {leftovers}")
+        ckpt_async_roundtrip_ok=out["ckpt_async_roundtrip_ok"],
+        ckpt_async_stall_frac=out["ckpt_async_stall_frac"],
+        harness_s=f"{dt:.2f}", failures=json.dumps(
+            out.get("resume_failures", [])),
+        via="strom_torch.cli.bench_resume")
+    if out["resume_ok"] != 1 or out["ckpt_async_roundtrip_ok"] != 1:
+        raise AssertionError(f"resume: {out.get('resume_failures')}, "
+                             f"async round trip "
+                             f"{out['ckpt_async_roundtrip_ok']}")
 
 
 def _handle_arm(path: str, want: torch.Tensor) -> None:
@@ -3719,12 +3648,7 @@ FED_STALE_S, FED_INTERVAL_S = 1.0, 0.2
 # such as engine_inflight moves between two scrapes)
 FED_SUM_KEYS = ("ssd2gpu_bytes", "sched_granted_bytes", "sched_granted_ops",
                 "engine_op_lat_count")
-# the reference's bench_tune defaults (128 KiB blocks, queue depth 32, 16
-# trials, 3 iterations) over a quarter of its 128 MiB file and 32 MiB
-# cache: on the card's preadv pool its 128 MiB epochs took 1.8 s each
-TUNE_BYTES, TUNE_BLOCK, TUNE_DEPTH = 32 * MiB, 128 * 1024, 32
-TUNE_CACHE, TUNE_TRIALS, TUNE_ITERS = 8 * MiB, 16, 3
-TUNE_BEATS, TUNE_BEAT_S = 8, 2.05   # a beat outlasts the steps TTL (2 s)
+TUNE_BEATS, TUNE_BEAT_S = 4, 2.05   # a beat outlasts the steps TTL (2 s)
 OBS_LLAMA = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
 OBS_B, OBS_SEQ = 2, 2047
 
@@ -4022,93 +3946,28 @@ def _federation_arm(ctx, path: str, flight_dir: str) -> None:
 
 
 def _bench_tune(workdir: str) -> None:
-    """[tune]: the reference's bench_tune arm on the card's engine: one
-    shuffled block-read workload on the hand knobs, then after the
-    coordinate-descent tuner searched the scheduler's slice and the cache
-    budget against measured items/s, then a final interleaved A/B (a
-    tuned state that loses it ships the hand knobs). ``tuned_vs_hand`` is
-    at least 1.0 by that construction, so its check only shows the arm
-    ran; ``searched_vs_hand`` is the searched state's own rate over the
-    hand knobs' in that A/B, which a search that hurts drives below 1."""
-    import random
-
-    from strom_torch.tune import Autotuner, standard_knobs
-
-    path = os.path.join(workdir, "tune.bin")
-    _write_file(path, np.frombuffer(bytearray(
-        np.random.default_rng(16).bytes(TUNE_BYTES)), np.uint8))
-    cfg = StromConfig.from_env(block_size=TUNE_BLOCK, queue_depth=TUNE_DEPTH,
-                               num_buffers=max(TUNE_DEPTH * 2, 8),
-                               hot_cache_bytes=TUNE_CACHE,
-                               hot_cache_admit="always")
-    ctx = StromContext(cfg)
-    try:
-        offs = list(range(0, TUNE_BYTES, TUNE_BLOCK))
-        rng = random.Random(0)
-
-        def epoch() -> float:
-            order = offs[:]
-            rng.shuffle(order)
-            t0 = time.perf_counter()
-            for off in order:
-                ctx.pread(path, off, TUNE_BLOCK)
-            return len(order) / (time.perf_counter() - t0)
-
-        t_start = time.perf_counter()
-        epoch()
-        hand = max(epoch() for _ in range(TUNE_ITERS))
-        last = {"rate": hand}
-        knobs = standard_knobs(ctx)
-        hand_knobs = {k.name: float(k.get()) for k in knobs}
-        tuner = Autotuner(knobs, lambda: {"objective": last["rate"]},
-                          guard_frac=cfg.tune_guard_frac, scope=ctx.scope,
-                          profile_name="tune")
-        for _ in range(TUNE_TRIALS):
-            tuner.step()
-            last["rate"] = epoch()
-        tuner.settle()
-        tuned_knobs = {k.name: float(k.get()) for k in knobs}
-
-        def apply(vals: dict) -> None:
-            for k in knobs:
-                k.set(k.clamp(vals[k.name]))
-
-        # the searched state's own rate, before the A/B may ship the hand
-        # knobs in its place: a search that made things worse shows here
-        searched_knobs = tuned_knobs
-        if tuned_knobs == hand_knobs:
-            searched = tuned = hand = max(hand, epoch())
-        else:
-            searched = hand = 0.0
-            for _ in range(TUNE_ITERS):
-                apply(tuned_knobs)
-                searched = max(searched, epoch())
-                apply(hand_knobs)
-                hand = max(hand, epoch())
-            tuned = searched
-            if searched >= hand:
-                apply(tuned_knobs)
-            else:
-                tuned_knobs = hand_knobs
-                tuned = hand
-        ts = tuner.stats()
-        ratio = tuned / hand if hand else 0.0
-        say("tune", arm="bench_tune", bytes=TUNE_BYTES, block=TUNE_BLOCK,
-            engine=ctx.engine.stats()["engine"], trials=TUNE_TRIALS,
-            hand_items_per_s=f"{hand:.2f}", tuned_items_per_s=f"{tuned:.2f}",
-            searched_items_per_s=f"{searched:.2f}",
-            searched_vs_hand=f"{searched / hand if hand else 0.0:.4f}",
-            searched_knobs=json.dumps(searched_knobs, sort_keys=True),
-            tuned_vs_hand=f"{ratio:.4f}", tune_moves=ts["tune_moves"],
-            tune_reverts=ts["tune_reverts"], tune_holds=ts["tune_holds"],
-            hand_knobs=json.dumps(hand_knobs, sort_keys=True),
-            tuned_knobs=json.dumps(tuned_knobs, sort_keys=True),
-            s=f"{time.perf_counter() - t_start:.2f}")
-        if ratio < 1.0:
-            raise AssertionError(f"tune: tuned_vs_hand {ratio:.4f} < 1.0")
-    finally:
-        ctx.close()
-        os.unlink(path)
+    """[tune]: strom_torch.cli.bench_tune at the reference's defaults (a 128
+    MiB file in shuffled 128 KiB blocks, a 32 MiB cache, 16 trials, 3
+    iterations): the hand knobs, the coordinate-descent search over the
+    scheduler's slice and the cache budget, an interleaved A/B (a searched
+    state that loses it ships the hand knobs). ``tuned_vs_hand`` is at
+    least 1.0 by that construction, so its check only shows the arm ran;
+    ``searched_vs_hand`` is the searched state's own rate over the hand
+    knobs', which a search that hurts drives below 1."""
+    t0 = time.perf_counter()
+    # the reference's defaults: 128 MiB, a 32 MiB cache, 16 trials
+    out = cli.bench_tune(cli.build_parser().parse_args(
+        ["tune", "--json", "--tmpdir", workdir]))
+    say("tune", arm="bench_tune", **{k: out[k] for k in (
+        "bytes", "block", "engine", "trials", "hand_items_per_s",
+        "tuned_items_per_s", "searched_items_per_s", "searched_vs_hand",
+        "tuned_vs_hand", "tune_moves", "tune_reverts", "tune_holds")},
+        tune_knobs=json.dumps(out["tune_knobs"], sort_keys=True),
+        s=f"{time.perf_counter() - t0:.2f}", via="strom_torch.cli.bench_tune")
+    os.unlink(os.path.join(workdir, "strom_bench_tune.bin"))
+    if out["tuned_vs_hand"] < 1.0:
+        raise AssertionError(f"tune: tuned_vs_hand {out['tuned_vs_hand']} "
+                             f"< 1.0")
 
 
 def _tune_beats(tar: str | None) -> None:
@@ -4298,6 +4157,292 @@ def profile_step(step, state, batch) -> None:
             kernel=name[:110].replace(" ", "_"))
 
 
+# ------------------------------------------------------------ numa (3b)
+NUMA_ROUNDS = 4
+
+
+def _gpu_numa_node() -> tuple[str, int | None]:
+    """The card's PCI address and its NUMA node from sysfs (None: the
+    kernel reports none, -1, or the file is missing)."""
+    p = torch.cuda.get_device_properties(0)
+    if not hasattr(p, "pci_domain_id"):
+        return "unknown", None
+    bus = (f"{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:"
+           f"{p.pci_device_id:02x}.0")
+    try:
+        with open(f"/sys/bus/pci/devices/{bus}/numa_node") as f:
+            node = int(f.read().strip())
+    except (OSError, ValueError):
+        node = None
+    return bus, (node if node is not None and node >= 0 else None)
+
+
+def phase_numa(path: str) -> int | None:
+    """[numa]: the host's NUMA nodes and CPUs per node, the node of the disk
+    holding *path* and of the card. On more than one node, phase 3's 1 GiB
+    delivery with numa_affinity off and on, alternating for NUMA_ROUNDS
+    rounds (the slabs bound to the disk's node, else the card's, before
+    they are pinned): GB/s and host CPU s per GiB. irq_affinity stays off:
+    it writes /proc/irq. Returns the disk's node (None: unknown)."""
+    from strom_torch.probe.topology import device_for_file
+    from strom_torch.utils.numa import node_cpus
+
+    nodes = sorted(int(os.path.basename(p)[4:]) for p in
+                   glob.glob("/sys/devices/system/node/node[0-9]*"))
+    try:
+        dev = device_for_file(path)
+    except OSError:
+        dev = None
+    disk_node = dev.numa_node if dev is not None else None
+    bus, gpu_node = _gpu_numa_node()
+    say("numa", nodes=len(nodes), node_ids=",".join(map(str, nodes)),
+        cpus_per_node=json.dumps({n: len(node_cpus(n)) for n in nodes}),
+        disk=dev.name if dev is not None else "none(no_block_device)",
+        disk_node=disk_node, gpu_bus=bus, gpu_node=gpu_node)
+    if len(nodes) < 2:
+        say("numa", uma=True, ab="none: one node, so no A/B can run"
+            if nodes else "none: sysfs shows no NUMA node, so no A/B can "
+            "run")
+        return disk_node
+    target = disk_node if disk_node is not None else gpu_node
+    if target is None:
+        say("numa", ab="none: neither the disk nor the card reports a node")
+        return disk_node
+    data = np.fromfile(path, dtype=np.uint8)
+    want = torch.from_numpy(data).to("cuda")
+    del data
+    before = os.sched_getaffinity(0)
+    res: dict[bool, list] = {False: [], True: []}
+    try:
+        for r in range(NUMA_ROUNDS):
+            for on in ((False, True) if r % 2 == 0 else (True, False)):
+                ctx = StromContext(StromConfig.from_env(
+                    engine="auto", numa_affinity=on, numa_node=target))
+                try:
+                    _drop_cache(path)
+                    res[on].append(_timed_delivery(
+                        f"numa-{'on' if on else 'off'}-r{r}",
+                        lambda: ctx.memcpy_ssd2gpu(path, device="cuda"),
+                        want))
+                finally:
+                    ctx.close()
+    finally:
+        os.sched_setaffinity(0, before)
+    for on in (False, True):
+        say("numa", arm="on" if on else "off", node=target,
+            rounds=NUMA_ROUNDS,
+            gbps_median=f"{statistics.median(g for g, _ in res[on]):.3f}",
+            gbps=",".join(f"{g:.3f}" for g, _ in res[on]),
+            cpu_s_per_gib_median=
+            f"{statistics.median(c for _, c in res[on]):.4f}")
+    del want
+    torch.cuda.empty_cache()
+    return disk_node
+
+
+# -------------------------------------------------------------- cli (13)
+# python -m strom_torch.cli, run as -m runs it (runpy, __main__), with the
+# flash wrappers' launch counts printed on stderr at exit
+_CLI_LAUNCHER = (
+    "import atexit, json, runpy, sys\n"
+    "from strom_torch.ops import flash_attention as fa\n"
+    "atexit.register(lambda: print('launches ' + json.dumps(dict("
+    "fa.VARIANT_LAUNCHES)), file=sys.stderr, flush=True))\n"
+    "sys.argv = ['strom_torch.cli'] + sys.argv[1:]\n"
+    "runpy.run_module('strom_torch.cli', run_name='__main__')\n")
+CLI_TIMEOUT_S = 420
+
+
+def _cli_run(args: list[str], timeout: float = CLI_TIMEOUT_S
+             ) -> tuple[int, dict, dict, float, str]:
+    """(rc, the last stdout line as JSON, the flash launches, seconds,
+    stderr's tail) of one strom_torch.cli subprocess."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CLI_LAUNCHER, *args],
+                          capture_output=True, text=True, env=env,
+                          timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.strip().splitlines() if ln.strip()]
+    try:
+        out = json.loads(lines[-1]) if lines else {}
+    except json.JSONDecodeError:
+        out = {}
+    launches = {}
+    for ln in proc.stderr.splitlines():
+        if ln.startswith("launches "):
+            launches = json.loads(ln[len("launches "):])
+    return proc.returncode, out, launches, dt, proc.stderr[-3000:]
+
+
+def _cli_fail(cmd: str, rc: int, err: str, why: str) -> None:
+    raise AssertionError(f"cli {cmd}: {why} (rc {rc}); stderr tail:\n{err}")
+
+
+def _daemon_start(fdir: str):
+    """``python -m strom_torch.cli daemon`` started, its ready line read on
+    a thread; returns (process, the reader's result, its thread, t0)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "strom_torch.cli", "daemon", "--metrics-port",
+         "0", "--flight-dir", fdir, "--flight-stall-s", "0",
+         "--drain-timeout", "5"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    got: dict = {}
+
+    def read_ready() -> None:
+        got["line"] = proc.stdout.readline()
+        got["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=read_ready, name="cli-daemon-ready")
+    th.start()
+    return proc, got, th, t0, fdir
+
+
+def _daemon_finish(proc, got: dict, th, t0: float, fdir: str) -> str:
+    """The daemon's checks: the ready line, a tenant registered over POST
+    /tenants, then SIGTERM: drained with stuck=[], ended by the signal, a
+    flight bundle. Returns its output."""
+    import signal
+    import urllib.request
+
+    try:
+        th.join(timeout=120)
+        ready = got.get("line", "")
+        if "strom daemon ready" not in ready:
+            raise AssertionError(f"cli daemon: no ready line: {ready!r}")
+        port = int(ready.split("port=")[1].split()[0])
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/tenants",
+            data=json.dumps({"op": "register", "name": "ext",
+                             "priority": "interactive"}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            reg = json.load(r)
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate(timeout=30)
+    bundles = os.listdir(fdir) if os.path.isdir(fdir) else []
+    say("cli", cmd="daemon", s=f"{time.perf_counter() - t0:.1f}",
+        ready_s=f"{got['s']:.1f}", registered=reg.get("name"),
+        drained="strom daemon drained" in text,
+        stuck_none="stuck=[]" in text, rc=proc.returncode,
+        sigterm_bundle=any("sigterm" in b for b in bundles))
+    if reg.get("name") != "ext" or "stuck=[]" not in text \
+            or proc.returncode != -signal.SIGTERM:
+        raise AssertionError(f"cli daemon: register {reg}, rc "
+                             f"{proc.returncode}, output {text[-2000:]}")
+    return text
+
+
+def _expected_hits() -> dict[str, int]:
+    """The count of value > 0 in each parquet fixture ``all`` writes: its
+    value column is the first draw of default_rng(0)."""
+    h500 = int((np.random.default_rng(0).standard_normal(500_000) > 0).sum())
+    h200 = int((np.random.default_rng(0).standard_normal(200_000) > 0).sum())
+    return {"parquet": h500, "parquet_raid0": h500, "parquet_wide": h200,
+            "parquet_plain": h200}
+
+
+def phase_cli(workdir: str, disk_node: int | None) -> dict[str, int]:
+    """Phase 13: the CLI as a user runs it, each subcommand a subprocess of
+    ``python -m strom_torch.cli ... --json --tmpdir <workdir>`` (the files
+    stay off /tmp): ``nvme`` (256 MiB, the disk's NUMA node where it has
+    one), ``check`` of its file, ``all`` (rc 0, nothing failed, every byte
+    count the size asked for, the Parquet counts exact, finite losses,
+    Llama-small's data-stall steps, its flash step on the three wgmma
+    kernels), ``checkpoint --model small`` (the round trip exact, no
+    spill-epoch source miss), and ``daemon`` (started first and idle
+    while the others run; then ready, a tenant registered over POST
+    /tenants, drained on SIGTERM, ended by it). Returns the Llama-small
+    flash launches of ``all``."""
+    d = os.path.join(workdir, "cli")
+    os.makedirs(d, exist_ok=True)
+    common = ["--json", "--tmpdir", d]
+    # the daemon starts first and idles (no stall trigger) while the other
+    # subcommands run; it is driven at the end
+    daemon = _daemon_start(os.path.join(d, "flight"))
+    try:
+        size = 256 * MiB
+        numa = ["--numa-node", str(disk_node)] if disk_node is not None else []
+        rc, out, _, dt, err = _cli_run(["nvme", "--size", str(size), "--iters",
+                                        "1", *numa, *common])
+        if rc or out.get("bytes") != size:
+            _cli_fail("nvme", rc, err, f"bytes {out.get('bytes')} != {size}")
+        say("cli", cmd="nvme", s=f"{dt:.1f}", rc=rc, bytes=out["bytes"],
+            gbps=out["gbps"], engine=out["engine"], numa_node=out["numa_node"],
+            media_bytes=out["media_bytes"], cached_bytes=out["cached_bytes"])
+        path = os.path.join(d, "strom_bench_nvme.bin")
+        rc, out, _, dt, err = _cli_run(["check", path, "--json"])
+        if rc or out.get("size") != os.path.getsize(path):
+            _cli_fail("check", rc, err, "no report of the file")
+        say("cli", cmd="check", s=f"{dt:.1f}", rc=rc, size=out["size"],
+            fs=out["fs"], tier=out["tier"], supported=out["supported"],
+            extents=out["extents"], cached_frac=out["cached_frac"])
+
+        rc, out, launches, dt, err = _cli_run(["all", *common])
+        if rc or out.get("failed") != []:
+            _cli_fail("all", rc, err, f"failed {out.get('failed')}")
+        byte_ok = {k: out[k]["bytes"] == size for k in
+                   ("nvme", "ssd2host", "ssd2host_raid", "ssd2gpu")}
+        want_hits = _expected_hits()
+        hits_ok = {k: out[k]["hits"] == v for k, v in want_hits.items()}
+        losses = {k: out[k]["train_loss"] for k in
+                  ("llama", "resnet", "resnet_predecoded", "vit")}
+        small = check_variants(KERNELS, launches, "cli all llama small")
+        for k, v in out.items():
+            if isinstance(v, dict):
+                say("cli", cmd="all", part=k, wall_s=v.get("wall_s"),
+                    **{f: v[f] for f in (
+                        "gbps", "bytes", "vs_raw", "tokens_per_s",
+                        "train_tokens_per_s", "train_data_stalls",
+                        "images_per_s", "train_images_per_s", "train_loss",
+                        "rows_per_s", "selected_gbps", "hits", "vs_disk",
+                        "devices") if f in v})
+        say("cli", cmd="all", s=f"{dt:.1f}", rc=rc, failed=out["failed"],
+            bytes_exact=all(byte_ok.values()), hits_exact=all(hits_ok.values()),
+            hits=json.dumps({k: out[k]["hits"] for k in want_hits}),
+            losses=json.dumps(losses),
+            llama_small_data_stalls=out["llama"]["train_data_stalls"],
+            llama_small_step_ms=f"{8 * 2048 / out['llama']['train_tokens_per_s'] * 1e3:.2f}",
+            llama_small_bounded=out["llama"].get("bounded_train_data_stalls"),
+            llama_small_launches=json.dumps(small, sort_keys=True))
+        if not all(byte_ok.values()) or not all(hits_ok.values()) or not all(
+                math.isfinite(x) for x in losses.values()):
+            _cli_fail("all", rc, err, f"bytes {byte_ok}, hits {hits_ok} "
+                      f"(want {want_hits}), losses {losses}")
+
+        rc, out, _, dt, err = _cli_run(["checkpoint", "--model", "small",
+                                        *common])
+        if rc or out.get("ckpt_roundtrip_ok") != 1 \
+                or out.get("spill_cache_miss_bytes") != 0:
+            _cli_fail("checkpoint", rc, err, f"round trip "
+                      f"{out.get('ckpt_roundtrip_ok')}, spill misses "
+                      f"{out.get('spill_cache_miss_bytes')}")
+        say("cli", cmd="checkpoint", model="small", s=f"{dt:.1f}", rc=rc,
+            **{k: out[k] for k in ("ckpt_bytes", "ckpt_leaves",
+                                   "ckpt_save_mb_per_s", "ckpt_restore_mb_per_s",
+                                   "ckpt_pickle_save_mb_per_s",
+                                   "ckpt_save_vs_pickle", "ckpt_roundtrip_ok", "spill_hit_bytes",
+                                   "spill_cache_miss_bytes")})
+
+    except BaseException:
+        daemon[0].kill()   # a failed subcommand leaves no daemon
+        daemon[0].communicate(timeout=30)
+        daemon[2].join(timeout=30)
+        raise
+    _daemon_finish(*daemon)
+    shutil.rmtree(d, ignore_errors=True)
+    return small
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4314,31 +4459,47 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            ".chip_smoke")
     os.makedirs(workdir, exist_ok=True)
+    t_run = time.perf_counter()
+
+    def timed(name: str, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            say("phase", name=name, s=f"{time.perf_counter() - t0:.1f}",
+                total_s=f"{time.perf_counter() - t_run:.1f}")
+
     try:
-        phase_build()
-        rows = phase_kernels()
-        wide_launches = phase_wide_path()
-        path = phase_ssd2gpu(workdir)
-        launches = phase_train(workdir)
-        phase_ckpt(workdir)
-        phase_stream(path)
+        timed("build", phase_build)
+        rows = timed("kernels", phase_kernels)
+        wide_launches = timed("wide_path", phase_wide_path)
+        path = timed("ssd2gpu", phase_ssd2gpu, workdir)
+        disk_node = timed("numa", phase_numa, path)
+        launches = timed("train", phase_train, workdir)
+        timed("ckpt", phase_ckpt, workdir)
+        timed("stream", phase_stream, path)
         os.unlink(path)
-        model, step, pdec = phase_resnet(workdir)
-        tar = phase_resnet_jpeg(workdir, model, step)
+        model, step, pdec = timed("resnet", phase_resnet, workdir)
+        tar = timed("resnet_jpeg", phase_resnet_jpeg, workdir, model, step)
         if tar is None:
             say("auto_depth", skipped=NO_JPEG)
         else:
-            phase_auto_depth(tar, model, step)
-        phase_cache(pdec)
-        phase_decoded_cache(tar, model, step)
+            timed("auto_depth", phase_auto_depth, tar, model, step)
+        timed("cache", phase_cache, pdec)
+        timed("decoded_cache", phase_decoded_cache, tar, model, step)
         del model, step
         torch.cuda.empty_cache()
-        phase_spill(workdir, pdec)
-        phase_vit(pdec, tar)
-        pq_paths, pq_hits = phase_parquet(workdir, tar)
-        phase_multitenant(workdir, pdec, pq_paths, pq_hits)
-        phase_resilience(workdir, pdec, tar)
-        phase_observability(workdir, tar)
+        timed("spill", phase_spill, workdir, pdec)
+        timed("vit", phase_vit, pdec, tar)
+        pq_paths, pq_hits = timed("parquet", phase_parquet, workdir, tar)
+        timed("multitenant", phase_multitenant, workdir, pdec, pq_paths,
+              pq_hits)
+        timed("resilience", phase_resilience, workdir, pdec, tar)
+        timed("observability", phase_observability, workdir, tar)
+        for p in pq_paths + [pdec] + ([tar] if tar else []):
+            with contextlib.suppress(OSError):
+                os.unlink(p)
+        timed("cli", phase_cli, workdir, disk_node)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = [{"name": name, "route": "cuda", "source": info["source"],

@@ -137,6 +137,14 @@ class StromConfig:
     tune_profile: str = ""             # JSON profile path, applied at
                                        # attach when it exists
 
+    # NUMA affinity (multi-socket hosts): pin submitting threads to the
+    # disk's home node, bind fresh staging slabs there before they are
+    # pinned, optionally steer the device's IRQs (needs root). Off by
+    # default; a no-op on one-node hosts (utils/numa.py)
+    numa_affinity: bool = False
+    numa_node: int = -1                # -1 = discover from the device
+    irq_affinity: bool = False
+
     # delivery
     # extent-aware gather planning: split plain-file chunks at FIEMAP extent
     # boundaries and submit them in physical-address order (helps

@@ -26,6 +26,8 @@ from strom_torch.utils.locks import make_lock
 
 PAGE = mmap.PAGESIZE
 _MAP_POPULATE = getattr(mmap, "MAP_POPULATE", 0x8000)
+_MAP_HUGETLB = getattr(mmap, "MAP_HUGETLB", 0x40000)
+HUGE_PAGE = 2 * 1024 * 1024
 _HOST_REGISTER_PORTABLE = 1
 
 
@@ -34,16 +36,26 @@ def buf_addr(arr: np.ndarray) -> int:
     return arr.view(np.uint8).reshape(-1).__array_interface__["data"][0]
 
 
-def alloc_aligned(nbytes: int, *, populate: bool = False) -> np.ndarray:
+def alloc_aligned(nbytes: int, *, populate: bool = False,
+                  huge: bool = False) -> np.ndarray:
     """A page-aligned uint8 slab of *nbytes* as a numpy array (an anonymous
     mmap that lives as long as the array). populate=True prefaults the
-    pages inside the mmap call instead of during the read."""
+    pages inside the mmap call instead of during the read. huge=True tries
+    MAP_HUGETLB (2 MiB pages) and takes normal pages where none are
+    reserved."""
     if nbytes <= 0:
         raise ValueError("nbytes must be positive")
-    padded = (nbytes + PAGE - 1) // PAGE * PAGE
     flags = mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS
     if populate:
         flags |= _MAP_POPULATE
+    if huge:
+        hpadded = (nbytes + HUGE_PAGE - 1) // HUGE_PAGE * HUGE_PAGE
+        try:
+            mm = mmap.mmap(-1, hpadded, flags=flags | _MAP_HUGETLB)
+            return np.frombuffer(mm, dtype=np.uint8)[:nbytes]
+        except OSError:
+            pass   # no huge pages reserved: normal pages below
+    padded = (nbytes + PAGE - 1) // PAGE * PAGE
     mm = mmap.mmap(-1, padded, flags=flags)
     return np.frombuffer(mm, dtype=np.uint8)[:nbytes]
 
@@ -106,9 +118,13 @@ class SlabPool:
 
     def __init__(self, max_bytes: int = 512 * 1024 * 1024, *, pin: bool = False,
                  on_alloc: Callable[[np.ndarray], object] | None = None,
-                 on_free: Callable[[np.ndarray], None] | None = None):
+                 on_free: Callable[[np.ndarray], None] | None = None,
+                 place: Callable[[np.ndarray], object] | None = None):
         self.max_bytes = max_bytes
         self.pin = pin
+        # runs on a fresh slab before anything registers it (NUMA binding:
+        # mbind cannot move pages that cudaHostRegister has pinned)
+        self._place = place
         self._on_alloc = on_alloc
         self._on_free = on_free
         self._free: dict[int, list[np.ndarray]] = {}  # class size -> slabs
@@ -144,9 +160,11 @@ class SlabPool:
     @property
     def _registers(self) -> bool:
         return self.pin or self._on_alloc is not None \
-            or self._on_free is not None
+            or self._on_free is not None or self._place is not None
 
     def _register(self, slab: np.ndarray) -> None:
+        if self._place is not None:
+            self._place(slab)
         if self.pin:
             host_register(slab)
         self._registered[buf_addr(slab)] = slab

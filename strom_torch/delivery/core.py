@@ -431,6 +431,15 @@ class StromContext:
         self._executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(2, self.config.delivery_workers),
             thread_name_prefix="strom-delivery")
+        # NUMA placement (numa_affinity): submitting threads pinned to the
+        # disk's home node, fresh slabs bound there before CUDA pins them
+        if self.config.numa_affinity:
+            from strom_torch.utils.numa import NumaAffinity
+
+            self._numa = NumaAffinity(node=self.config.numa_node,
+                                      steer_irqs=self.config.irq_affinity)
+        else:
+            self._numa = None
         # slabs are pinned on first use, which needs CUDA: the pool serves
         # CUDA targets only. Each slab is registered with CUDA and then with
         # the engine's ring (gathers into it ride READ_FIXED); leaving the
@@ -438,7 +447,8 @@ class StromContext:
         self._slab_pool = SlabPool(
             self.config.slab_pool_bytes, pin=True,
             on_alloc=self.engine.register_dest,
-            on_free=self.engine.unregister_dest) \
+            on_free=self.engine.unregister_dest,
+            place=self._numa.bind if self._numa is not None else None) \
             if self.config.slab_pool_bytes > 0 else None
         # the multi-tenant scheduler: per-tenant queues, priority classes,
         # a weighted fair drain at slice granularity, budgets and slab-pool
@@ -657,6 +667,17 @@ class StromContext:
             with self._files_lock:
                 return self._striped.get(source, source)
         return source
+
+    @staticmethod
+    def _numa_path(source: Source) -> str | None:
+        """A representative file path for NUMA node discovery."""
+        if isinstance(source, str):
+            return source
+        if isinstance(source, StripedFile):
+            return source.members[0]
+        if isinstance(source, ExtentList) and len(source):
+            return source.extents[0].path
+        return None
 
     def _count(self, **kv: int) -> None:
         """Add to counters of the stats registry, through this context's
@@ -905,6 +926,11 @@ class StromContext:
               ) -> tuple[list[tuple[int, int, int, int]], dict[int, str]]:
         """:meth:`_plan_chunks` and the path of every file index it used
         (the hot cache keys on physical paths)."""
+        if self._numa is not None:
+            # pin this thread (the engine submit path runs on it) to the
+            # disk's home node; once a thread, resolved from the source
+            self._numa.ensure_thread(self._numa_path(self.resolve_source(
+                source)))
         cmax = self.config.coalesce_max_bytes
         if cmax and len(segments) > 1:
             # merge before expansion: a merged logical run stripes as one
@@ -1282,12 +1308,27 @@ class StromContext:
         return StreamingGather(self, self.resolve_source(source), segments,
                                dest, base_offset, tenant=tenant)
 
+    def _numa_resolve(self, source: Source) -> None:
+        """Resolve the NUMA node from *source* before a slab leaves the
+        pool: a slab made before would be pinned unbound for the context's
+        lifetime."""
+        if self._numa is not None:
+            self._numa.resolve(self._numa_path(source))
+
+    def _alloc(self, nbytes: int) -> np.ndarray:
+        """Fresh page-aligned host memory, bound to the resolved NUMA node
+        where there is one."""
+        dest = alloc_aligned(nbytes)
+        if self._numa is not None:
+            self._numa.bind(dest)
+        return dest
+
     def alloc_read_buffer(self, source: Source, nbytes: int) -> np.ndarray:
         """A fresh page-aligned host buffer for a gather from *source* that
-        the caller drives itself (the streamed batch assembly), as ``pread``
-        allocates its own. (The reference binds it to *source*'s NUMA node;
-        the port binds none.)"""
-        return alloc_aligned(nbytes)
+        the caller drives itself (the streamed batch assembly), bound to
+        *source*'s NUMA node as ``pread`` binds its own."""
+        self._numa_resolve(self.resolve_source(source))
+        return self._alloc(nbytes)
 
     def pread(self, source: Source, offset: int = 0,
               length: int | None = None, *,
@@ -1309,7 +1350,8 @@ class StromContext:
             length = source_size(source) - offset
         if length == 0:
             return np.empty(0, dtype=np.uint8)
-        dest = alloc_aligned(length)
+        self._numa_resolve(source)
+        dest = self._alloc(length)
         self._read_segments(source, [Segment(0, 0, length)], dest, offset,
                             tenant=tenant, deadline_s=deadline_s)
         return dest
@@ -1332,10 +1374,11 @@ class StromContext:
         if self._closed:
             raise RuntimeError("StromContext is closed")
         source = self.resolve_source(source)
+        self._numa_resolve(source)
         shape, np_dtype, nbytes = self._resolve_read_shape(
             source, offset, shape, dtype, length)
         if out is None:
-            dest = alloc_aligned(nbytes)
+            dest = self._alloc(nbytes)
         else:
             if not out.flags.c_contiguous:
                 # reshape(-1) of a strided view copies: the engine would
@@ -1358,11 +1401,11 @@ class StromContext:
             return s
 
     def _acquire(self, n: int, pooled: bool) -> np.ndarray:
-        """A slab from the pool when *pooled*, else plain page-aligned
-        memory."""
+        """A slab from the pool when *pooled* (the pool binds fresh slabs),
+        else plain page-aligned memory, bound here."""
         if pooled and self._slab_pool is not None:
             return self._slab_pool.acquire(n)
-        return alloc_aligned(n)
+        return self._alloc(n)
 
     def _release(self, slab: np.ndarray, pooled: bool) -> None:
         if pooled and self._slab_pool is not None:
@@ -1409,11 +1452,14 @@ class StromContext:
             ev.record(stream)
         return ev
 
-    def host_batch(self, shape: Sequence[int], device: torch.device
-                   ) -> np.ndarray:
+    def host_batch(self, shape: Sequence[int], device: torch.device, *,
+                   source: Source | None = None) -> np.ndarray:
         """A uint8 host array of *shape* to fill and then hand to
         :meth:`put_host_batch`: for a CUDA target a pinned slab from the
-        pool, else plain page-aligned memory."""
+        pool, else plain page-aligned memory. *source*, what the array is
+        filled from, resolves the NUMA node before the slab is made."""
+        if source is not None:
+            self._numa_resolve(self.resolve_source(source))
         nbytes = math.prod(shape)
         return self._acquire(nbytes, device.type == "cuda").reshape(shape)
 
@@ -1567,6 +1613,7 @@ class StromContext:
             raise RuntimeError("StromContext is closed")
         device = resolve_device(device)
         source = self.resolve_source(source)
+        self._numa_resolve(source)
         shape, np_dtype, nbytes = self._resolve_read_shape(
             source, offset, shape, dtype, length)
         if nbytes <= 0:
@@ -1816,8 +1863,11 @@ class StromContext:
             cached = self._steps_cache
             if cached is not None and now - cached[0] < _STEPS_TTL_S:
                 return dict(cached[1])
-            summary = stall.steps_summary(_events_ring.snapshot(),
-                                          lo_us=self._obs_t0_us)
+            # only the events of this context's lifetime become dicts: a
+            # full ring of older ones made each scrape cost 0.5 s of CPU
+            summary = stall.steps_summary(
+                _events_ring.snapshot(since_us=self._obs_t0_us),
+                lo_us=self._obs_t0_us)
             steps = stall.flatten_summary(summary)
             self._steps_cache = (now, dict(steps))
             deltas = self._stall_deltas_locked(summary)

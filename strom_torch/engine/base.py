@@ -904,6 +904,76 @@ class Engine(abc.ABC):
                 tok._ready.append(ChunkCompletion(ci, ln))
         return n
 
+    # -- convenience: synchronous reads of an arbitrary range ---------------
+    def read_into(self, file_index: int, offset: int, length: int,
+                  out: "np.ndarray | memoryview", out_offset: int = 0) -> int:
+        """Read file[offset:offset+length] into *out* at *out_offset* through
+        the staging pool, block_size chunks pipelined at queue_depth.
+        Returns the bytes read (short at EOF: no chunk is submitted past
+        the first short one)."""
+        block = self.config.block_size
+        out_mv = memoryview(out.view(np.uint8)) \
+            if isinstance(out, np.ndarray) else memoryview(out).cast("B")
+        pending: dict[int, tuple[int, int, int]] = {}  # tag -> buf, pos, want
+        free = list(range(min(self.num_buffers, self.config.queue_depth)))
+        next_tag = pos = done = 0
+        short_read = False
+        while pos < length or pending:
+            while pos < length and free and not short_read:
+                want = min(block, length - pos)
+                buf = free.pop()
+                self.submit([ReadRequest(file_index, offset + pos, want, buf,
+                                         next_tag)])
+                pending[next_tag] = (buf, pos, want)
+                next_tag += 1
+                pos += want
+            if not pending:
+                break
+            for c in self.wait(min_completions=1):
+                buf, out_pos, want = pending.pop(c.tag)
+                if c.result < 0:
+                    raise EngineError(-c.result, "read failed: "
+                                      f"{os.strerror(-c.result)}")
+                if c.result:
+                    at = out_offset + out_pos
+                    out_mv[at: at + c.result] = self.buffer(buf)[:c.result]
+                done += c.result
+                if c.result < want:
+                    short_read = True   # EOF: submit no further chunk
+                free.append(buf)
+        return done
+
+    def read_into_direct(self, file_index: int, offset: int, length: int,
+                         dest: np.ndarray) -> int:
+        """Read file[offset:offset+length) straight into *dest* (at least
+        *length* bytes), block_size chunks pipelined at queue_depth, with
+        no staging bounce. Returns the bytes read (short at EOF)."""
+        block = self.config.block_size
+        pending: dict[int, int] = {}   # tag -> want
+        next_tag = pos = done = 0
+        short_read = False
+        d8 = dest.view(np.uint8).reshape(-1)
+        while pos < length or pending:
+            while (pos < length and len(pending) < self.config.queue_depth
+                   and not short_read):
+                want = min(block, length - pos)
+                self.submit_raw([RawRead(file_index, offset + pos, want,
+                                         d8[pos: pos + want], next_tag)])
+                pending[next_tag] = want
+                next_tag += 1
+                pos += want
+            if not pending:
+                break
+            for c in self.wait(min_completions=1):
+                want = pending.pop(c.tag)
+                if c.result < 0:
+                    raise EngineError(-c.result, "read failed: "
+                                      f"{os.strerror(-c.result)}")
+                done += c.result
+                if c.result < want:
+                    short_read = True
+        return done
+
 
 def iter_chunks(offset: int, length: int, block: int) -> Iterable[tuple[int, int]]:
     """Split [offset, offset+length) into (offset, len) chunks of *block* bytes."""

@@ -47,11 +47,29 @@ def _pyarrow_parquet(what: str):
     with other errors than ImportError; absent, *what* raises a
     RuntimeError that says so."""
     try:
+        import pyarrow as pa
         import pyarrow.parquet as pq
     except Exception as e:
         raise RuntimeError(f"{what} needs pyarrow, which does not import "
                            f"here ({e!r})") from e
+    _malloc_pool(pa)
     return pq
+
+
+_pool_chosen = False
+
+
+def _malloc_pool(pa) -> None:
+    """Make malloc pyarrow's default pool, once, unless the user chose one
+    (``ARROW_DEFAULT_MEMORY_POOL``), whoever loaded pyarrow first: its
+    bundled mimalloc pool, in a process that loaded torch, crashed it
+    (SIGSEGV in ``read_row_group`` on the scan's prefetch threads) within
+    ten scans; the system pool did not."""
+    global _pool_chosen
+    if not _pool_chosen:
+        _pool_chosen = True
+        if "ARROW_DEFAULT_MEMORY_POOL" not in os.environ:
+            pa.set_memory_pool(pa.system_memory_pool())
 
 
 def pyarrow_version() -> str | None:

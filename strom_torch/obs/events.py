@@ -134,11 +134,13 @@ class EventRing:
         with self._lock:
             return min(self._idx, self._cap)
 
-    def snapshot(self) -> list[dict]:
+    def snapshot(self, since_us: float | None = None) -> list[dict]:
         """The retained events as dicts, oldest first (ts-sorted within the
         retained window). The lock is held only for a C-level list copy —
         a scrape of a full ring must not stall every hot-path writer for
-        the duration of 64Ki dict constructions."""
+        the duration of 64Ki dict constructions. *since_us* keeps only the
+        events that end at or after it, dropped before any dict is built
+        (a context's step summary over a full ring of older events)."""
         with self._lock:
             slots = list(self._slots)
             idx = self._idx
@@ -150,6 +152,9 @@ class EventRing:
             if ev is None:  # cleared ring / not yet wrapped
                 continue
             ts, dur, tid, cat, name, args = ev
+            if since_us is not None and (ts + dur if dur >= 0 else ts) \
+                    < since_us:
+                continue
             if dur in _FLOW_PH:
                 d = {"ts_us": ts, "tid": tid, "cat": cat, "name": name,
                      "ph": _FLOW_PH[dur],

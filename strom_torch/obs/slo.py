@@ -219,6 +219,10 @@ class SloEngine:
                 "burn_threshold": self.BURN_THRESHOLD,
                 "tenants": rows}
 
+    def ok(self) -> bool:
+        """True when no tenant is burning (the bench's ``slo_ok`` column)."""
+        return not any(self.burning(t) for t in self.tenants())
+
     def stats(self) -> dict:
         """The ``slo`` section of ``StromContext.stats()``."""
         names = self.tenants()

@@ -292,7 +292,8 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
         t0 = time.perf_counter()
         # the gathers land in recycled pool slabs (pinned and prefaulted
         # for a CUDA target), handed back once packed
-        bufs = [ctx.host_batch((sizes[u],), device) for u in chunk]
+        bufs = [ctx.host_batch((sizes[u],), device, source=u[0].path)
+                for u in chunk]
         try:
             if decode_pool is not None and len(chunk) > 1:
                 parts = list(decode_pool.map(

@@ -451,8 +451,8 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             return torch.from_numpy(images).to(device), labels_out(labels)
         # workers write the final rows straight into the batch slot (with a
         # graph, into a decode slot the graph reads from)
-        slot = ctx.host_batch((out_bytes,), device).view(out_dtype).reshape(
-            out_shape)
+        slot = ctx.host_batch((out_bytes,), device, source=el).view(
+            out_dtype).reshape(out_shape)
         images = slot if cgraph is None else np.empty(shape, np.uint8)
         put_called = False
 

@@ -1599,3 +1599,71 @@ def test_chaos_streamed_delivery_equals_clean(cuda_device, tmp_path):
                 assert _streamed(ctx) - streamed0 == 1
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[0], torch.from_numpy(data))
+
+
+def test_cli_ssd2gpu_delivers_every_byte(cuda_device, tmp_path, capsys):
+    """``strom_torch.cli.main(["ssd2gpu", ...])`` on the card: rc 0, the
+    64 MiB in 32 MiB copies, delivered to the card; the last chunk it
+    delivers equals the file's bytes."""
+    import json
+
+    from strom_torch import cli
+
+    rc = cli.main(["ssd2gpu", "--size", str(64 * MiB), "--chunk",
+                   str(32 * MiB), "--iters", "1", "--json", "--tmpdir",
+                   str(tmp_path)])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert out["bench"] == "ssd2gpu" and out["bytes"] == 64 * MiB
+    assert out["device"].startswith("cuda") and out["gbps"] > 0
+    path = str(tmp_path / "strom_bench_nvme.bin")
+    with StromContext() as ctx:
+        got = ctx.memcpy_ssd2gpu(path, offset=32 * MiB, length=32 * MiB,
+                                 device=cuda_device)
+        cli._fetch_one(got)
+        want = np.fromfile(path, np.uint8, count=32 * MiB,
+                           offset=32 * MiB)
+        assert torch.equal(got.cpu(), torch.from_numpy(want))
+
+
+def _page_node(addr: int) -> int:
+    """The NUMA node of the page at *addr* (get_mempolicy MPOL_F_NODE |
+    MPOL_F_ADDR)."""
+    import ctypes
+    import platform
+
+    nr = {"x86_64": 239, "aarch64": 236}[platform.machine()]
+    libc = ctypes.CDLL(None, use_errno=True)
+    node = ctypes.c_int(-1)
+    rc = libc.syscall(ctypes.c_long(nr), ctypes.byref(node), None,
+                      ctypes.c_ulong(0), ctypes.c_void_p(addr),
+                      ctypes.c_ulong(1 | 2))
+    assert rc == 0, ctypes.get_errno()
+    return node.value
+
+
+def test_pool_slab_pages_sit_on_the_disk_node(cuda_device, tmp_path):
+    """With numa_affinity on, a pinned pool slab's pages are on the disk's
+    node (bound before cudaHostRegister pinned them). Skips on a one-node
+    host or where the disk reports no node."""
+    import glob
+
+    from strom_torch.probe.topology import device_for_file
+
+    if len(glob.glob("/sys/devices/system/node/node[0-9]*")) < 2:
+        pytest.skip("one NUMA node: nothing to place")
+    path = str(tmp_path / "n.bin")
+    np.zeros(8 * MiB, np.uint8).tofile(path)
+    dev = device_for_file(path)
+    if dev is None or dev.numa_node is None:
+        pytest.skip("the disk reports no NUMA node")
+    with StromContext(StromConfig(numa_affinity=True)) as ctx:
+        ctx.memcpy_ssd2gpu(path, device=cuda_device)  # resolves the node
+        slab = ctx._slab_pool.acquire(4 * MiB)
+        try:
+            base = buf_addr(slab)
+            nodes = {_page_node(base + off)
+                     for off in range(0, 4 * MiB, 1 * MiB)}
+        finally:
+            ctx._slab_pool.release(slab)
+    assert nodes == {dev.numa_node}, nodes

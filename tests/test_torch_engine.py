@@ -500,3 +500,65 @@ def test_stats_match_reference_keys(uring):
     finally:
         tp.close()
         jp.close()
+
+
+@pytest.mark.parametrize("engine", ["python", "uring"])
+@pytest.mark.parametrize("direct", [False, True])
+@pytest.mark.parametrize("offset,length", [
+    (0, 3 * MiB),                      # whole blocks
+    (4096, 3 * MiB - 8192),            # a short tail block
+    (3 * MiB - 100_000, 300_000),      # past EOF: short at the end
+    (5 * MiB, 4096),                   # wholly past EOF
+])
+def test_read_into_matches_reference(tmp_path, engine, direct, offset,
+                                     length):
+    """``read_into`` (through the staging pool) and ``read_into_direct``
+    (straight into the dest) give the reference's bytes and return counts,
+    short at EOF, on the preadv pool and the io_uring engine."""
+    if engine == "uring" and not ue.uring_available():
+        pytest.skip(f"io_uring unavailable: {ue.unavailable_reason}")
+    path = str(tmp_path / "r.bin")
+    data = np.random.default_rng(9).integers(0, 256, 3 * MiB,
+                                             dtype=np.uint8)
+    write_cold(path, data)
+    kw = dict(engine=engine, block_size=256 * 1024, **SMALL)
+    got = {}
+    for name, eng in (("torch", make_engine(StromConfig(**kw))),
+                      ("jax", j_make_engine(JConfig(**kw)))):
+        try:
+            fi = eng.register_file(path)
+            dest = alloc_aligned(length + 4096)
+            dest[:] = 0xAB
+            if direct:
+                n = eng.read_into_direct(fi, offset, length, dest)
+            else:
+                n = eng.read_into(fi, offset, length, dest, out_offset=4096
+                                  if length + 4096 <= dest.nbytes else 0)
+            got[name] = (n, dest.copy())
+        finally:
+            eng.close()
+        drop_cache(path)
+    assert got["torch"][0] == got["jax"][0]
+    np.testing.assert_array_equal(got["torch"][1], got["jax"][1])
+    n = got["torch"][0]
+    assert n == max(0, min(length, data.size - offset))
+
+
+def test_read_into_raises_engine_error_on_a_failed_op(tmp_path):
+    """An op that fails (its file unregistered under it: EBADF) raises
+    EngineError from ``read_into`` and ``read_into_direct``, as the
+    reference's engine does."""
+    path = str(tmp_path / "e.bin")
+    write_cold(path, np.zeros(1 * MiB, np.uint8))
+    for mk, cfg, err in ((make_engine, StromConfig, EngineError),
+                         (j_make_engine, JConfig, JEngineError)):
+        eng = mk(cfg(engine="python", **SMALL))
+        try:
+            fi = eng.register_file(path)
+            eng.unregister_file(fi)
+            with pytest.raises(err):
+                eng.read_into_direct(fi, 0, 1 * MiB, alloc_aligned(1 * MiB))
+            with pytest.raises(err):
+                eng.read_into(fi, 0, 1 * MiB, np.zeros(1 * MiB, np.uint8))
+        finally:
+            eng.close()

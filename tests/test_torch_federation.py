@@ -189,9 +189,14 @@ def test_two_processes_federate_and_a_killed_one_flips(data_file,
         with StromContext(cfg, metrics_port=0) as ctx:
             ctx.pread(path, 0, 1 << 20)
             me = ctx.metrics_server.port
+            # no background loop: its first poll would scrape this
+            # process's endpoint beside the test's own (the reference's
+            # test builds its view the same way); stale_s above the 2 s
+            # scrape timeout, so a slow scrape that succeeds cannot age a
+            # host out before snapshot() reads it
             view = ctx.attach_cluster(
                 {"sub": f"127.0.0.1:{port}", "me": f"127.0.0.1:{me}"},
-                interval_s=60.0, stale_s=1.0, stall_s=600.0)
+                interval_s=60.0, stale_s=5.0, stall_s=600.0, start=False)
             view.poll_now()
             snap = view.snapshot()
             assert all(r["healthy"] for r in snap["hosts"].values())
@@ -226,3 +231,56 @@ def _get_json(port: int, route: str) -> dict:
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
                                 timeout=10) as r:
         return json.loads(r.read())
+
+
+def test_steps_section_builds_only_the_contexts_events(tmp_path,
+                                                       monkeypatch):
+    """A scrape's ``steps`` section summarises the ring's events of the
+    context's lifetime and builds no dict for older ones: a full ring
+    (65,536 events) of another workload made each scrape of this process's
+    endpoint cost ~0.5 s of CPU, which under load ran past the 2 s scrape
+    timeout. The summary is the one over the whole ring."""
+    from strom_torch.obs import stall
+    from strom_torch.obs.events import ring
+
+    for i in range(ring.capacity + 8):
+        with ring.span("old", cat="engine", args={"i": i}):
+            pass
+    seen = []
+    real = stall.steps_summary
+    monkeypatch.setattr(stall, "steps_summary",
+                        lambda evs, **kw: seen.append(len(evs))
+                        or real(evs, **kw))
+    with StromContext(StromConfig(engine="python")) as ctx:
+        lo = ctx._obs_t0_us
+        for i in range(3):
+            with ring.span("train.step", cat="step", args={"step": i}):
+                with ring.span("pipeline.next", cat="pipeline"):
+                    time.sleep(0.001)
+        got = ctx.stats(sections=["steps"])["steps"]
+        whole = stall.flatten_summary(real(ring.snapshot(), lo_us=lo))
+    assert seen and seen[0] < 64, seen
+    assert {k: got[k] for k in whole} == whole
+    assert got["steps_observed"] == 3
+
+
+def test_snapshot_since_keeps_what_ends_after_it():
+    """``EventRing.snapshot(since_us=)`` is the full snapshot less the
+    events that end before *since_us* (spans by their end, instants by
+    their time)."""
+    from strom_torch.obs.events import EventRing
+
+    r = EventRing(capacity=64)
+    with r.span("a", cat="x"):
+        time.sleep(0.002)
+        mid = r.now_us()
+        r.instant("before", cat="x")
+        time.sleep(0.002)
+    r.instant("after", cat="x")
+    full = r.snapshot()
+    cut = r.snapshot(since_us=mid + 1000)
+    assert [e["name"] for e in cut] == [
+        e["name"] for e in full
+        if e["ts_us"] + e.get("dur_us", 0.0) >= mid + 1000]
+    assert {e["name"] for e in r.snapshot(since_us=mid)} == \
+        {"a", "before", "after"}

@@ -357,3 +357,43 @@ def test_scan_covers_the_observability_plane_and_tuner():
     assert new <= names
     for name in new:
         assert not _FORBIDDEN.search((PKG / name).read_text()), name
+
+
+@pytest.mark.parametrize("how", ["import", "help"])
+def test_cli_loads_no_jax_or_strom(how):
+    """``import strom_torch.cli`` and ``python -m strom_torch.cli --help``
+    load no jax* or strom.* module."""
+    check = ("bad = sorted(n for n in sys.modules if n.startswith("
+             "('jax', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+             "assert not bad, bad\n")
+    if how == "import":
+        code = "import sys, strom_torch.cli\n" + check
+    else:
+        code = ("import sys, runpy\n"
+                "sys.argv = ['strom_torch.cli', '--help']\n"
+                "try:\n"
+                "    runpy.run_module('strom_torch.cli', run_name='__main__')\n"
+                "except SystemExit as e:\n"
+                "    assert e.code == 0, e.code\n" + check +
+                "print('checked')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    if how == "help":
+        assert "ssd2gpu" in proc.stdout and "checked" in proc.stdout
+        # the script form too
+        proc = subprocess.run([sys.executable, "-m", "strom_torch.cli",
+                               "--help"], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0 and "daemon" in proc.stdout, proc.stderr
+
+
+def test_scan_covers_the_cli_and_numa():
+    """The source scan above reads the CLI and the NUMA module."""
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    new = {"cli.py", "utils/numa.py"}
+    assert new <= names
+    for name in new:
+        assert not _FORBIDDEN.search((PKG / name).read_text()), name

@@ -471,3 +471,43 @@ def test_leaves_of_mixed_sizes_come_back(ctxs, pq_shards):
                            range=(-2, 2))
     np.testing.assert_array_equal(out["hist"][0], hist)
     assert out["hist"][1] == int((np.abs(vals) < 1).sum())
+
+
+@pytest.mark.parametrize("first", ["torch", "torch, pyarrow"])
+def test_pyarrow_route_survives_scans_after_torch(tmp_path, first):
+    """A process that loaded torch first (and pyarrow after it, or the port
+    loads pyarrow) scans a snappy shard (the pyarrow route, on the scan's
+    prefetch threads) ten times and exits 0: pyarrow's bundled mimalloc
+    pool made such a process die of SIGSEGV within ten scans; the port's
+    pyarrow route makes the system pool the default whoever loaded pyarrow,
+    unless ARROW_DEFAULT_MEMORY_POOL says otherwise."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        f"import sys, numpy as np, {first}\n"
+        "from strom_torch.config import StromConfig\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "from strom_torch.formats.parquet import write_parquet\n"
+        "from strom_torch.pipelines.parquet_scan import parquet_count_where\n"
+        "p = sys.argv[1]\n"
+        "v = np.random.default_rng(0).standard_normal(20_000)\n"
+        "with StromContext(StromConfig(engine='python')) as ctx:\n"
+        "    write_parquet(ctx, p, {'value': v, 'key': np.arange(20_000)},\n"
+        "                  row_group_rows=5000, compression='snappy')\n"
+        "    for _ in range(10):\n"
+        "        n = parquet_count_where(ctx, [p], 'value', lambda x: x > 0,\n"
+        "                                devices=['cpu'], prefetch_depth=1)\n"
+        "        assert n == int((v > 0).sum()), n\n"
+        "import pyarrow\n"
+        "print(pyarrow.default_memory_pool().backend_name)\n")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONSTARTUP", "ARROW_DEFAULT_MEMORY_POOL")}
+    env["PYTHONPATH"] = root
+    proc = subprocess.run([sys.executable, "-c", code,
+                           str(tmp_path / "s.parquet")], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    assert proc.stdout.split()[-1] == "system"

@@ -150,11 +150,15 @@ def _parts(k: str):
                                "lat_total_us": 4.0}},
              "h1": {"global": {"ssd2gpu_bytes": 7, "lat_hist": [0, 3],
                                "lat_total_us": 9.0}}}
+    # polled once here and read seconds later: every route served before
+    # /cluster (the /trace ones serialise the process-wide event ring, full
+    # after earlier tests) can take longer than the default stale_s (5 s)
+    # under load, and aged-out hosts would empty the aggregate
     view = fed.ClusterView({"h0": "a:1", "h1": "b:2"},
                            fetch_fn=lambda a: snaps["h0" if a == "a:1"
                                                     else "h1"],
                            flight_fn=lambda a: None, start=False,
-                           publish=False)
+                           publish=False, stale_s=3600.0)
     view.poll_now()
 
     class Ctx(_Ctx):
