@@ -1,8 +1,12 @@
 """Run the PyTorch port's main path once on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases build,kernels,dp   # those phases alone
 
-Phases, in order; any failure ends the run with a non-zero exit:
+Phases, in order; any failure ends the run with a non-zero exit.
+``--phases`` runs a subset of the phases that take nothing from another
+(build, kernels, wide_path, train, ckpt, dp), for a machine with four
+cards where only the data-parallel path needs them:
 
 1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
                print each kernel instantiation's ptxas registers and
@@ -288,6 +292,43 @@ Phases, in order; any failure ends the run with a non-zero exit:
                the engine_inflight gauge read from another thread during a
                256 MiB gather on the preadv pool (above 0) and after it
                (0).
+12b. dp     -- the data-parallel path over every card of the machine:
+               world 1, and where there are N > 1 cards then world N, one
+               process a card (this script with --dp-worker; the parent
+               has built the kernels), joined by torch.distributed (NCCL,
+               and gloo for host collectives). Rank 0 prints [topo]
+               (nvidia-smi topo -m, the NCCL version). Each rank holds the
+               three kernels against their plain versions on its own card
+               at the main shape (BF16_TOL); reads Llama-3-8B widths with
+               2 of 32 layers, 2 rows a card x 2048 tokens, from two
+               seeded token shards (3 global batches an epoch) through
+               make_llama_pipeline(sharding=P("dp", None), epoch_sync=True)
+               into make_train_step(mesh=), captured with its NCCL
+               all-reduces: 4 counted steps (every kernel launched on
+               every rank), 4 timed, across two epoch boundaries. Each
+               step's local rows and the all-gathered global batch must
+               equal the file's rows in sampler order, bit for bit, and
+               the replicas' parameter checksums (each parameter's bits
+               summed) must be equal after every step; rank 0's loss and
+               grad_norm of the counted steps must agree, within
+               DP_PLAIN_RTOL, with make_train_step without a mesh on the
+               whole global batch from the same parameters (run first,
+               on rank 0's card alone); the engine must
+               have read only the rank's rows (bytes_read = deliveries x
+               one rank's rows); 0 data stalls in the timed steps. Then
+               the straggler report, one replay under torch.profiler (the
+               NCCL kernels' device ms and share of the step), and phase
+               9's wide scan (warm) with reduce="collective" and
+               "allgather": hits exact against numpy, the feature sum in
+               phase 9's bound, on every rank. Per world: each rank's
+               median step ms, the losses equal on every rank, tokens/s;
+               then the weak-scaling ratio (world N's median step over
+               world 1's), beside each card's name and power limit. Last,
+               the launched CLI on every card: python -m
+               torch.distributed.run --nproc-per-node N -m strom_torch.cli
+               llama --train-step --model small --attn flash, 8 rows a
+               card (one JSON line, devices N, a finite loss, the three
+               sm90 kernels launched on every rank).
 13. cli     -- strom_torch.cli as a user runs it: subprocesses of python
                -m strom_torch.cli ... --json --tmpdir <work dir>: nvme (256
                MiB; --numa-node the disk's node where it has one), check of
@@ -1789,7 +1830,8 @@ def _drive(g) -> tuple[list[tuple[int, int]], int]:
 def phase_stream(path: str) -> None:
     """2048 seeded, scattered records of the 1 GiB file through
     stream_segments into a pinned slab, checked on the card; then a gather
-    closed mid-flight and an exact one after it on the same context."""
+    closed mid-flight and an exact one after it on the same context. The
+    file's last phase: it is removed at the end."""
     cuda = torch.device("cuda")
     recs = np.random.default_rng(5).choice(GiB // RECORD, 2048, replace=False)
     el = ExtentList([Extent(path, int(r) * RECORD, RECORD) for r in recs])
@@ -1836,6 +1878,7 @@ def phase_stream(path: str) -> None:
         len(first), in_flight_after_close=0, next_gather_exact=True,
         stream_gathers=ctx.stats()["stream"]["stream_gathers"])
     strom_torch.close()
+    os.unlink(path)
 
 
 # ----------------------------------------------------------------- resnet
@@ -2094,11 +2137,15 @@ NO_JPEG = ("no_cv2_and_no_PIL:_neither_a_JPEG_encoder_for_the_fixture_nor_"
 
 
 # ------------------------------------------------ auto depth and caches
-def phase_auto_depth(tar: str, model, step, steps: int = 16, *,
+def phase_auto_depth(tar: str | None, model, step, steps: int = 16, *,
                      batch: int = 128, device: str = "cuda") -> None:
     """Phase 7b: the JPEG-fed ResNet pipeline at fixed prefetch depth 2 and
     with prefetch_auto (starting at 2), 1 warm-up and *steps* timed steps
-    each: the depth trajectory, timed stalls and step ms per arm."""
+    each: the depth trajectory, timed stalls and step ms per arm. Skipped
+    without phase 7's JPEG fixture (*tar* None)."""
+    if tar is None:
+        say("auto_depth", skipped=NO_JPEG)
+        return
     ctx = strom_torch.init(StromConfig.from_env())
     for arm, auto in (("fixed2", False), ("auto", True)):
         _drop_cache(tar)
@@ -2655,11 +2702,12 @@ def _profile_scan(scan) -> None:
         kernel_ms=f"{sum(e - s for s, e, _ in kernels) / 1e3:.2f}")
 
 
-def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
+def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], dict]:
     """BASELINE config #5 on one H100: the port's PLAIN shards scanned
     into device aggregates, narrow and wide, cold, beside a bare gather of
     the same extents; the pushdown A/B; a striped shard; the OpGraph.
-    Returns the shards' paths and the narrow count for phase 10."""
+    Returns the shards' paths and numpy's answers over them (the narrow
+    count for phase 10, the wide scan's for phase 12b)."""
     cuda = torch.device("cuda")
     paths, ref = _pq_fixture(workdir)
     _pq_pyarrow_check(paths[0], workdir)
@@ -2780,7 +2828,7 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
 
     if tar is None:
         say("parquet", opgraph="skipped=" + NO_JPEG)
-        return paths, ref["hits"]
+        return paths, ref
     # the reference test's graph on phase 7's tar: fused and streamed
     # against unfused, batches bit-equal
     runs = {}
@@ -2811,7 +2859,7 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], int]:
                                  "differ")
     say("parquet", opgraph="fused and streamed against unfused",
         exact=True)
-    return paths, ref["hits"]
+    return paths, ref
 
 
 # ------------------------------------------------------- spill (7e)
@@ -3032,8 +3080,8 @@ def _env(**kv):
                 os.environ[k] = v
 
 
-def phase_multitenant(workdir: str, pdec: str, pq_paths: list[str],
-                      pq_hits: int) -> None:
+def phase_multitenant(workdir: str, pdec: str,
+                      pq: tuple[list[str], dict]) -> None:
     """Phase 10: strom_torch.cli.bench_multitenant at full width on one
     context with three registered tenants: llama (training; phase 4's
     shards into the captured flash step, Llama-3-8B widths, 2 layers, batch
@@ -3044,6 +3092,7 @@ def phase_multitenant(workdir: str, pdec: str, pq_paths: list[str],
     same with the scheduler off (STROM_SCHED_ENABLED=0). Concurrent Llama
     losses equal the solo run's bit for bit, every pq count is exact, and
     the llama tenant launches the three sm90 kernels."""
+    pq_paths, pq_hits = pq[0], pq[1]["hits"]
     cuda = torch.device("cuda")
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
     tok_paths = [os.path.join(workdir, f"tokens{i}.bin") for i in range(2)]
@@ -4443,12 +4492,488 @@ def phase_cli(workdir: str, disk_node: int | None) -> dict[str, int]:
     return small
 
 
+# --------------------------------------------------------------- dp (12b)
+DP_CONFIG = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2)
+DP_ROWS, DP_SEQ = 2, 2047       # a card's rows of the batch, phase 4's
+DP_COUNTED, DP_TIMED = 4, 4     # warm-up, capture, 2 replays; then timed
+DP_TIMEOUT_S = 600
+# the dp step's counted (loss, grad_norm) against make_train_step without a
+# mesh on the global batch, relative. Two sound runs on H100s: world 1 equal
+# bit for bit; world 4 (bf16 rows reduced in another order, gradients
+# averaged in a bf16 bucket) at most 4.5e-6 and 2.4e-5. A step that skipped
+# the division by the world (or summed a bucket twice) reports grad_norm x
+# world: a relative error of 1 or more at world 2 and above.
+DP_PLAIN_RTOL = {"loss": 1e-4, "grad_norm": 1e-3}
+
+
+def _card_line(index: int) -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def _param_checksum(model) -> torch.Tensor:
+    """Each parameter's bits summed as integers (int64, in 64M-element
+    pieces): replicas that hold the same bits give the same row."""
+    out = []
+    for p in model.parameters():
+        bits = p.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[p.element_size()])
+        out.append(sum(c.sum(dtype=torch.int64) for c in bits.split(1 << 26)))
+    return torch.stack(out)
+
+
+def _dp_profile(step, state, batch) -> dict:
+    """One more replay under torch.profiler: the device time of the NCCL
+    kernels (the gradient and loss all-reduces), of every kernel, and the
+    step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
+        step(state, batch)[1]["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    nccl = [(a, b) for a, b, n in spans if "nccl" in n.lower()]
+    return {"wall_ms": wall_ms, "device_events": len(spans),
+            "device_ms": sum(b - a for a, b, _ in spans) / 1e3,
+            "allreduce_kernels": len(nccl),
+            "allreduce_ms": sum(b - a for a, b in nccl) / 1e3}
+
+
+def _plain_steps(cfg, dev: torch.device, batches: list[torch.Tensor]
+                 ) -> list[dict[str, float]]:
+    """{loss, grad_norm} of each step of make_train_step without a mesh (one
+    card, the whole global batch), from init_train_state(seed=0): the
+    parameters every dp replica starts from. Its state is freed after."""
+    state = init_train_state(cfg, device=dev, seed=0)
+    step = make_train_step(cfg, attn="flash", device=dev)
+    out = []
+    for b in batches:
+        state, m = step(state, b)
+        out.append({k: m[k].item() for k in ("loss", "grad_norm")})
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of phase 12b, on card *rank*: its kernels against the plain
+    versions, the sharded Llama loader into the data-parallel captured
+    step (rank 0 holding its counted steps against the step without a
+    mesh on the global batch), and the group-summed Parquet scans. Prints
+    its [dp] lines and writes its numbers to dp_rank<rank>.json in
+    *workdir*."""
+    from strom_torch.parallel import mesh as pmesh
+    from strom_torch.parallel.sharding import P, TorchSharding
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    pmesh.init_distributed("cuda", rank=rank, world_size=world,
+                           init_method=f"tcp://localhost:{port}")
+    dev = torch.device("cuda", rank)
+    card = _card_line(rank)
+    tag = {"world": world, "rank": rank, "device": f"cuda:{rank}",
+           "card": card.replace(" ", "_")}
+    n = torch.cuda.device_count()
+    if rank == 0 and world == n:   # once, at the machine's full world
+        got = subprocess.run(["nvidia-smi", "topo", "-m"],
+                             capture_output=True, text=True)
+        for line in (got.stdout + got.stderr).rstrip().splitlines():
+            print(f"[topo] topo -m: {line}", flush=True)
+        # nvlink --status: a "GPU i: ..." line, then "Link j: <rate> GB/s"
+        got = subprocess.run(["nvidia-smi", "nvlink", "--status"],
+                             capture_output=True, text=True)
+        links: dict[str, list[float]] = {}
+        for line in got.stdout.splitlines():
+            if line.startswith("GPU "):
+                gpu = line.split(":")[0][4:]
+                links[gpu] = []
+            elif "Link" in line and "GB/s" in line and links:
+                links[gpu].append(float(line.split(":")[1].split()[0]))
+        for gpu, rates in links.items():
+            say("topo", gpu=gpu, nvlinks=len(rates),
+                gbps_each=",".join(sorted({f"{r:g}" for r in rates})),
+                gbps_total=f"{sum(rates):.3f}")
+        say("topo", world=world, cards=n, nccl=".".join(
+            map(str, torch.cuda.nccl.version())), torch=torch.__version__,
+            cuda=torch.version.cuda, peer_access=";".join(
+                "".join("x" if i == j else str(int(
+                    torch.cuda.can_device_access_peer(i, j)))
+                        for j in range(n)) for i in range(n)))
+    # the three kernels against their plain versions on this card, at the
+    # main path's shape
+    q, k, v, g = _inputs(2, 2048, 32, 8, 128, torch.bfloat16, rank)
+    res, lse, delta = _run_kernels(q, k, v, g, True)
+    errs = _check_against_plain(f"dp rank {rank}", res, q, k, v, g, lse,
+                                delta, True, 128, BF16_TOL)
+    say("dp", **tag, check="kernels vs plain (BF16_TOL), B 2 S 2048 H 32 "
+        "KV 8 Dh 128 bf16 causal",
+        **{f"{n}_max_abs_err": f"{e:.4g}" for n, e in errs.items()})
+    del q, k, v, g, res, lse, delta
+    # the sharded loader into the data-parallel step
+    cfg = DP_CONFIG
+    B = DP_ROWS * world
+    records = 3 * world           # a shard: epochs of 3 global batches
+    shards = [np.fromfile(os.path.join(workdir, f"dp_tokens{i}.bin"),
+                          dtype=np.int32).reshape(records, DP_SEQ + 1)
+              for i in range(2)]
+    all_records = torch.from_numpy(np.concatenate(shards)).to(dev)
+    paths = [os.path.join(workdir, f"dp_tokens{i}.bin") for i in range(2)]
+    mesh = pmesh.make_mesh({"dp": world})
+    sharding = TorchSharding(mesh, P("dp", None))
+    ctx = StromContext(StromConfig.from_env())
+    eng0 = ctx.engine.stats()["bytes_read"]
+    xfer0 = ctx.stats()["context"]["transfers"]
+    pipe = make_llama_pipeline(ctx, paths, batch=B, seq_len=DP_SEQ,
+                               sharding=sharding, epoch_sync=True, seed=0)
+    sampler = iter(EpochShuffleSampler(2 * records, B, seed=0))
+    orders = [torch.from_numpy(next(sampler)).to(dev)
+              for _ in range(DP_COUNTED + DP_TIMED)]
+    # before the replicas exist, so that one card holds one model at a time
+    plain = _plain_steps(cfg, dev, [all_records[o] for o in
+                                    orders[:DP_COUNTED]]) if rank == 0 else []
+    state = init_train_state(cfg, device=dev, seed=0, mesh=mesh)
+    step = make_train_step(cfg, attn="flash", device=dev, mesh=mesh)
+    rows = slice(rank * DP_ROWS, (rank + 1) * DP_ROWS)
+    fa.reset_launch_counts()
+    times, calls, losses, variants, stalls0 = [], [], [], {}, 0
+    sums = torch.empty(world, len(list(state.model.parameters())),
+                       dtype=torch.int64, device=dev)
+    for i in range(DP_COUNTED + DP_TIMED):
+        batch = next(pipe)
+        want = all_records[orders[i]]
+        local = batch.to_local()
+        if tuple(batch.shape) != (B, DP_SEQ + 1) or local.device != dev \
+                or not torch.equal(local, want[rows]) \
+                or not torch.equal(batch.full_tensor(), want):
+            raise AssertionError(f"dp rank {rank} step {i}: the batch "
+                                 "differs from the file's rows in sampler "
+                                 "order")
+        if i == DP_COUNTED:
+            stalls0 = pipe.data_stall_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        calls.append(step.last_call)
+        losses.append(loss)
+        got = {"loss": loss, "grad_norm": metrics["grad_norm"].item()}
+        rel = {f"{k}_rel_to_plain": abs(got[k] - plain[i][k]) / abs(plain[i][k])
+               for k in got} if i < len(plain) else {}
+        torch.distributed.all_gather_into_tensor(
+            sums, _param_checksum(state.model))
+        equal = bool((sums == sums[0]).all())
+        say("dp", **tag, step=i, call=step.last_call, loss=f"{loss:.5f}",
+            grad_norm=f"{got['grad_norm']:.5f}", ms=f"{times[-1] * 1e3:.2f}",
+            param_checksum=int(sums[rank].sum()), replicas_equal=equal,
+            **({"plain_loss": f"{plain[i]['loss']:.5f}",
+                "plain_grad_norm": f"{plain[i]['grad_norm']:.5f}",
+                **{k: f"{v:.3g}" for k, v in rel.items()}} if rel else {}))
+        if not (equal and math.isfinite(loss)):
+            raise AssertionError(f"dp rank {rank} step {i}: loss {loss}, "
+                                 f"replica checksums {sums.tolist()}")
+        if rel and any(rel[f"{k}_rel_to_plain"] > tol
+                       for k, tol in DP_PLAIN_RTOL.items()):
+            raise AssertionError(f"dp rank {rank} step {i}: {got} against "
+                                 f"the step without a mesh {plain[i]} "
+                                 f"(relative tolerance {DP_PLAIN_RTOL})")
+        if i == DP_COUNTED - 1:
+            variants = dict(fa.VARIANT_LAUNCHES)
+    check_variants(KERNELS, variants, f"dp steps of rank {rank}")
+    stalls = pipe.data_stall_steps - stalls0
+    steady = times[DP_COUNTED:]
+    report = pipe.straggler_report()
+    prof = _dp_profile(step, state, next(pipe))
+    pipe.close()
+    nbytes = ctx.engine.stats()["bytes_read"] - eng0
+    xfers = ctx.stats()["context"]["transfers"] - xfer0
+    own = DP_ROWS * (DP_SEQ + 1) * 4
+    say("dp", **tag, **_step_summary(step, times, calls, steady),
+        timed_data_stalls=stalls, engine_bytes_read=nbytes,
+        deliveries=xfers, rows_bytes=own,
+        only_own_rows=nbytes == xfers * own,
+        allreduce_ms=f"{prof['allreduce_ms']:.3f}",
+        allreduce_kernels=prof["allreduce_kernels"],
+        allreduce_share=f"{prof['allreduce_ms'] / prof['wall_ms']:.4f}",
+        profiled_step_ms=f"{prof['wall_ms']:.2f}",
+        device_busy_ms=f"{prof['device_ms']:.2f}",
+        launches=json.dumps(variants, sort_keys=True))
+    if rank == 0:
+        say("dp", world=world, straggler_report=str(report).replace(" ", "_"),
+            stragglers=list(report.stragglers))
+    if nbytes != xfers * own or stalls:
+        raise AssertionError(f"dp rank {rank}: read {nbytes} bytes in "
+                             f"{xfers} deliveries of {own} (own rows only), "
+                             f"{stalls} timed data stalls")
+    del state, step, all_records
+    torch.cuda.empty_cache()
+    # the wide scan of phase 9's shards over the group, both reductions
+    with open(os.path.join(workdir, "dp_pq.json")) as f:
+        pq = json.load(f)
+    fsum_tol = 27 * 2.0 ** -24 * pq["fabs"]   # phase 9's bound
+    scans = {}
+    for reduce in ("collective", "allgather"):
+        units0 = global_stats.counter("parquet_scan_units").value
+        t0 = time.perf_counter()
+        out = parquet_scan_aggregate(
+            ctx, pq["paths"], PQ_WIDE, lambda c: {
+                "hits": (c["value"] > 0).sum(),
+                "fsum": torch.stack([c[n].sum() for n in PQ_FEATURES]).sum()},
+            reduce=reduce)
+        dt = time.perf_counter() - t0
+        hits, fsum = int(out["hits"]), float(out["fsum"])
+        scans[reduce] = {"hits": hits, "fsum": fsum, "s": dt}
+        say("dp", **tag, scan="wide", reduce=reduce, hits=hits,
+            fsum=f"{fsum:.3f}", units=global_stats.counter(
+                "parquet_scan_units").value - units0, s=f"{dt:.3f}",
+            rows_per_s=f"{PQ_SHARDS * PQ_ROWS / dt:.1f}")
+        if hits != pq["hits"] or abs(fsum - pq["fsum"]) > fsum_tol:
+            raise AssertionError(f"dp rank {rank} scan {reduce}: hits {hits}"
+                                 f" fsum {fsum} against {pq['hits']}, "
+                                 f"{pq['fsum']} (tolerance {fsum_tol:.3f})")
+    ctx.close()
+    with open(os.path.join(workdir, f"dp_rank{rank}.json"), "w") as f:
+        json.dump({"step_ms": [t * 1e3 for t in steady], "losses": losses,
+                   "stalls": stalls, "bytes": nbytes, "deliveries": xfers,
+                   "variants": variants, "allreduce_ms": prof["allreduce_ms"],
+                   "allreduce_share": prof["allreduce_ms"] / prof["wall_ms"],
+                   "scans": scans, "card": card}, f)
+    pmesh.shutdown()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_run(world: int, workdir: str) -> list[dict]:
+    """Seeded token shards for *world* cards (3 global batches an epoch),
+    then one worker process a card (this script with --dp-worker); every
+    worker must exit 0 within DP_TIMEOUT_S. Returns their numbers."""
+    rng = np.random.default_rng(14)
+    for i in range(2):
+        rng.integers(0, DP_CONFIG.vocab, (3 * world, DP_SEQ + 1),
+                     dtype=np.int32).tofile(
+            os.path.join(workdir, f"dp_tokens{i}.bin"))
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--dp-worker", str(r), str(world), str(port),
+         workdir], env=env, cwd=os.path.dirname(here)) for r in range(world)]
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise AssertionError(f"dp world {world}: worker exit codes {rcs}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"dp_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _dp_cli(world: int, workdir: str) -> None:
+    """The launched CLI on *world* cards, as the README gives it:
+    ``python -m torch.distributed.run --standalone --nproc-per-node
+    <world> -m strom_torch.cli llama --train-step --model small --attn
+    flash`` (through _CLI_LAUNCHER, which adds each rank's flash launches
+    to its stderr), 8 rows a card. Rank 0 alone prints the JSON: devices
+    the world, a finite loss; every rank must have launched the three
+    sm90 kernels."""
+    launcher = os.path.join(workdir, "cli_launcher.py")
+    with open(launcher, "w") as f:
+        f.write(_CLI_LAUNCHER)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(workdir, "dp_cli")
+    os.makedirs(d, exist_ok=True)
+    batch = 8 * world
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), launcher, "llama", "--train-step",
+         "--model", "small", "--attn", "flash", "--batch", str(batch),
+         "--steps", "10", "--json", "--tmpdir", d],
+        capture_output=True, text=True, env=env, timeout=CLI_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    ranks = [json.loads(ln[len("launches "):]) for ln in
+             proc.stderr.splitlines() if ln.startswith("launches ")]
+    cmd = f"torch.distributed.run --nproc-per-node {world} llama"
+    if proc.returncode or len(lines) != 1 or len(ranks) != world:
+        _cli_fail(cmd, proc.returncode, proc.stderr[-3000:],
+                  f"{len(lines)} JSON lines, {len(ranks)} ranks' launches")
+    out = json.loads(lines[0])
+    for r, launches in enumerate(ranks):
+        check_variants(KERNELS, launches, f"{cmd}, a rank ({r} of {world})")
+    if out["devices"] != world or not math.isfinite(out["train_loss"]):
+        _cli_fail(cmd, 0, proc.stderr[-3000:], f"devices {out['devices']}, "
+                  f"loss {out['train_loss']}")
+    say("dp", cli=cmd.replace(" ", "_"), s=f"{dt:.1f}", batch=batch,
+        devices=out["devices"], train_loss=out["train_loss"],
+        train_tokens_per_s=out["train_tokens_per_s"],
+        train_step_ms=f"{batch * 2048 / out['train_tokens_per_s'] * 1e3:.2f}",
+        train_data_stalls=out["train_data_stalls"],
+        tokens_per_s=out["tokens_per_s"], card=_card_line(0).replace(" ", "_"))
+
+
+def phase_dp(workdir: str, pq: tuple[list[str], dict] | None = None
+             ) -> dict[str, list[int]]:
+    """Phase 12b: the data-parallel path over every card (world 1 on a
+    machine with one; world 1 and then world N on one with N). Per world,
+    one worker a card (``dp_worker``), the parent having built the
+    kernels; then per world the step ms of each rank, the losses (the
+    group's mean: equal on every rank), and the weak-scaling ratio of
+    world N's median step over world 1's, beside each card's name and
+    power limit. Last, the launched CLI's llama arm on every card
+    (``_dp_cli``). *pq*: phase 9's shards and numpy's answers (made here
+    when phase 9 did not run). Returns each rank's launches over the last
+    world's counted steps, by row of KERNELS."""
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()   # card 0's worker shares it with this process
+    paths, ref = pq if pq is not None else _pq_fixture(workdir)
+    with open(os.path.join(workdir, "dp_pq.json"), "w") as f:
+        json.dump({"paths": paths, **ref}, f)
+    medians: dict[int, float] = {}
+    for world in ([1] if n == 1 else [1, n]):
+        ranks = _dp_run(world, workdir)
+        medians[world] = statistics.median(
+            statistics.median(r["step_ms"]) for r in ranks)
+        losses = {tuple(r["losses"]) for r in ranks}
+        say("dp", world=world, cards=",".join(
+            r["card"].replace(" ", "_") for r in ranks),
+            step_ms_median=",".join(f"{statistics.median(r['step_ms']):.2f}"
+                                    for r in ranks),
+            allreduce_ms=",".join(f"{r['allreduce_ms']:.3f}" for r in ranks),
+            allreduce_share=",".join(f"{r['allreduce_share']:.4f}"
+                                     for r in ranks),
+            timed_data_stalls=",".join(str(r["stalls"]) for r in ranks),
+            losses_equal=len(losses) == 1,
+            scan_hits=",".join(str(r["scans"][m]["hits"]) for r in ranks
+                               for m in ("collective", "allgather")),
+            tokens_per_s=f"{world * DP_ROWS * (DP_SEQ + 1) / medians[world] * 1e3:.0f}")
+        if len(losses) != 1:
+            raise AssertionError(f"dp world {world}: the ranks report "
+                                 f"different losses {losses}")
+    say("dp", worlds=",".join(map(str, medians)),
+        weak_scaling=f"{medians[max(medians)] / medians[1]:.4f}",
+        note="median step ms at the largest world over world 1's, the same "
+             "rows a card", card=_card_line(0).replace(" ", "_"))
+    _dp_cli(n, workdir)
+    return {name: [r["variants"].get(info["variant"], 0) for r in ranks]
+            for name, info in KERNELS.items()}
+
+
 # ------------------------------------------------------------------- main
-def main() -> int:
+# the phases --phases may choose: those that take nothing from another
+STANDALONE = ("build", "kernels", "wide_path", "train", "ckpt", "dp")
+MAIN_SHAPE = (2, 2048, 32, 8, 128)
+
+
+def _library_covers(counter: str, kind: str | None) -> str | None:
+    """What a row's library_ms times: SDPA's forward for fa_fwd (no note on
+    the bf16 rows), SDPA's backward for the two backward kernels together;
+    *kind* is the dtype of the rows timed with TF32 off."""
+    if kind is None:
+        return None if counter == "fa_fwd" else \
+            "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"
+    if counter == "fa_fwd":
+        return f"SDPA {kind} forward, TF32 off"
+    return f"fa_bwd_dkv + fa_bwd_dq (SDPA {kind} backward, TF32 off)"
+
+
+def kernels_line(res: dict) -> list[dict]:
+    """The kernels line from the phases' results *res*: a row for each
+    entry of KERNELS, WIDE_KERNELS, F32_KERNELS and DH512_KERNELS, its
+    numbers from phase 2 at the row's shape and its launches from the one
+    phase that drives its path: phase 2b for the Gemma-2 rows, phase 4 for
+    the others, and each rank's from phase 12b beside the main path's rows
+    (``launches_dp``). A phase that did not run gives null; without phase
+    2 there are no rows."""
+    rows = res.get("kernels")
+    if rows is None:
+        return []
+    out = []
+    for table, label, shape, src, kind in (
+            (KERNELS, "main", None, "train", None),
+            (WIDE_KERNELS, "gemma2_9b", GEMMA2_9B, "wide_path", None),
+            (F32_KERNELS, "main_f32", MAIN_SHAPE, "train", "f32"),
+            (DH512_KERNELS, "gemma2_9b_dh512", GEMMA2_9B_DH512, "train",
+             "bf16")):
+        launches = res.get(src)
+        for name, info in table.items():
+            row = {"name": name, "route": "cuda", "source": info["source"],
+                   "design": info["design"], "replaces": info["replaces"],
+                   "launches": None if launches is None else launches[name]}
+            if table is KERNELS and "dp" in res:
+                row["launches_dp"] = res["dp"][name]
+            if shape is not None:
+                row["shape"] = f"{label} {json.dumps(list(shape))}"
+            row.update({k: rows[info["counter"]][label][k] for k in (
+                "max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")})
+            covers = _library_covers(info["counter"], kind)
+            if covers is not None:
+                row["library_covers"] = covers
+            out.append(row)
+    return out
+
+
+def _remove(*paths: str | None) -> None:
+    for p in paths:
+        if p is not None:
+            with contextlib.suppress(OSError):
+                os.unlink(p)
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+    if argv[:1] == ["--dp-worker"]:
+        rank, world, port = (int(a) for a in argv[1:4])
+        dp_worker(rank, world, port, argv[4])
+        return 0
+    ap = argparse.ArgumentParser(description="Run the port's main path on "
+                                 "the card and check it.")
+    ap.add_argument("--phases", help="a comma list of phases to run alone, "
+                    f"of {', '.join(STANDALONE)} (default: every phase)")
+    args = ap.parse_args(argv)
+    only = set(args.phases.split(",")) if args.phases else None
+    if only is not None and not only <= set(STANDALONE):
+        ap.error(f"--phases takes {', '.join(STANDALONE)}; got "
+                 f"{', '.join(sorted(only - set(STANDALONE)))}")
     torch.cuda.set_device(0)
     smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4460,84 +4985,52 @@ def main() -> int:
                            ".chip_smoke")
     os.makedirs(workdir, exist_ok=True)
     t_run = time.perf_counter()
+    res: dict = {}
 
-    def timed(name: str, fn, *a):
+    def run(name: str, fn, *a):
+        """Phase *name* in its place in the one order unless --phases
+        leaves it out; its result is kept in *res* and returned. A phase
+        left out returns None, which only phases that --phases cannot
+        choose take as an argument."""
+        if only is not None and name not in only:
+            return None
         t0 = time.perf_counter()
         try:
-            return fn(*a)
+            res[name] = fn(*a)
+            return res[name]
         finally:
             say("phase", name=name, s=f"{time.perf_counter() - t0:.1f}",
                 total_s=f"{time.perf_counter() - t_run:.1f}")
 
     try:
-        timed("build", phase_build)
-        rows = timed("kernels", phase_kernels)
-        wide_launches = timed("wide_path", phase_wide_path)
-        path = timed("ssd2gpu", phase_ssd2gpu, workdir)
-        disk_node = timed("numa", phase_numa, path)
-        launches = timed("train", phase_train, workdir)
-        timed("ckpt", phase_ckpt, workdir)
-        timed("stream", phase_stream, path)
-        os.unlink(path)
-        model, step, pdec = timed("resnet", phase_resnet, workdir)
-        tar = timed("resnet_jpeg", phase_resnet_jpeg, workdir, model, step)
-        if tar is None:
-            say("auto_depth", skipped=NO_JPEG)
-        else:
-            timed("auto_depth", phase_auto_depth, tar, model, step)
-        timed("cache", phase_cache, pdec)
-        timed("decoded_cache", phase_decoded_cache, tar, model, step)
+        run("build", phase_build)
+        run("kernels", phase_kernels)
+        run("wide_path", phase_wide_path)
+        path = run("ssd2gpu", phase_ssd2gpu, workdir)
+        disk_node = run("numa", phase_numa, path)
+        run("train", phase_train, workdir)
+        run("ckpt", phase_ckpt, workdir)
+        run("stream", phase_stream, path)   # removes the file
+        model, step, pdec = run("resnet", phase_resnet, workdir) or (None,) * 3
+        tar = run("resnet_jpeg", phase_resnet_jpeg, workdir, model, step)
+        run("auto_depth", phase_auto_depth, tar, model, step)
+        run("cache", phase_cache, pdec)
+        run("decoded_cache", phase_decoded_cache, tar, model, step)
         del model, step
+        res.pop("resnet", None)
         torch.cuda.empty_cache()
-        timed("spill", phase_spill, workdir, pdec)
-        timed("vit", phase_vit, pdec, tar)
-        pq_paths, pq_hits = timed("parquet", phase_parquet, workdir, tar)
-        timed("multitenant", phase_multitenant, workdir, pdec, pq_paths,
-              pq_hits)
-        timed("resilience", phase_resilience, workdir, pdec, tar)
-        timed("observability", phase_observability, workdir, tar)
-        for p in pq_paths + [pdec] + ([tar] if tar else []):
-            with contextlib.suppress(OSError):
-                os.unlink(p)
-        timed("cli", phase_cli, workdir, disk_node)
+        run("spill", phase_spill, workdir, pdec)
+        run("vit", phase_vit, pdec, tar)
+        pq = run("parquet", phase_parquet, workdir, tar)
+        run("multitenant", phase_multitenant, workdir, pdec, pq)
+        run("resilience", phase_resilience, workdir, pdec, tar)
+        run("observability", phase_observability, workdir, tar)
+        run("dp", phase_dp, workdir, pq)
+        _remove(*(pq[0] if pq else ()), pdec, tar)
+        run("cli", phase_cli, workdir, disk_node)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    kernels = [{"name": name, "route": "cuda", "source": info["source"],
-                "design": info["design"], "replaces": info["replaces"],
-                "launches": launches[name],
-                **{k: rows[name]["main"][k] for k in
-                   ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms")},
-                **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
-                   if name != "fa_fwd" else {})}
-               for name, info in KERNELS.items()]
-    kernels += [{"name": name, "route": "cuda", "source": info["source"],
-                 "design": info["design"], "replaces": info["replaces"],
-                 "launches": wide_launches[name],
-                 "shape": "gemma2_9b " + json.dumps(GEMMA2_9B),
-                 **{k: rows[info["counter"]]["gemma2_9b"][k] for k in
-                    ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
-                     "bound_ms", "bound_by", "library_ms")},
-                 **({"library_covers": "fa_bwd_dkv + fa_bwd_dq (SDPA backward)"}
-                    if info["counter"] != "fa_fwd" else {})}
-                for name, info in WIDE_KERNELS.items()]
-    kernels += [{"name": name, "route": "cuda", "source": info["source"],
-                 "design": info["design"], "replaces": info["replaces"],
-                 "launches": launches[name],
-                 "shape": f"{label} {json.dumps(shape)}",
-                 **{k: rows[info["counter"]][label][k] for k in
-                    ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms",
-                     "bound_ms", "bound_by", "library_ms")},
-                 "library_covers": (f"SDPA {kind} forward, TF32 off"
-                                    if info["counter"] == "fa_fwd" else
-                                    f"fa_bwd_dkv + fa_bwd_dq (SDPA {kind} "
-                                    "backward, TF32 off)")}
-                for table, label, shape, kind in (
-                    (F32_KERNELS, "main_f32", [2, 2048, 32, 8, 128], "f32"),
-                    (DH512_KERNELS, "gemma2_9b_dh512", GEMMA2_9B_DH512,
-                     "bf16"))
-                for name, info in table.items()]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels_line(res)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

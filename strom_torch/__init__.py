@@ -24,6 +24,12 @@ and ``make_predecoded_vision_pipeline``; for WebDataset → ViT-B/16
 ``make_vit_wds_pipeline``) take a context and yield batches as tensors on
 one device.
 
+Many cards run one process a card: ``init_distributed()`` joins the
+process group, ``make_mesh`` lays the ranks out on named axes, and a
+``TorchSharding(mesh, P("dp", None))`` given as ``sharding=`` to
+``memcpy_ssd2gpu`` or ``make_llama_pipeline`` delivers each process only
+its own block, as a global ``DTensor``.
+
 Entry points target the current CUDA device unless the caller passes
 ``device="cpu"``; with no device given and no CUDA present they raise.
 """
@@ -41,6 +47,9 @@ from strom_torch.pipelines import (  # noqa: F401
     make_imagenet_resnet_pipeline, make_llama_pipeline,
     make_predecoded_vision_pipeline, make_vit_wds_pipeline,
     make_wds_vision_pipeline)
+from strom_torch.parallel.mesh import (  # noqa: F401
+    init_distributed, make_mesh, shutdown as shutdown_distributed)
+from strom_torch.parallel.sharding import P, TorchSharding  # noqa: F401
 from strom_torch.probe.check import FileReport, PathTier  # noqa: F401
 from strom_torch.probe.check import check_file as _probe_check_file
 from strom_torch.utils.locks import make_lock

@@ -9,8 +9,13 @@ yet), with its flags, defaults and JSON keys. The deliberate differences:
 - every arm that delivers to a device takes ``--device`` (default: the
   current CUDA device; without one the arm raises — ``--device cpu`` runs
   it on the CPU, as the tests do);
-- the arms run on one device: ``_fit_dp_devices`` returns 1 and the
-  ``devices`` key says so;
+- ``llama`` is data-parallel over the process group where one is
+  initialised (one process a card: ``python -m torch.distributed.run
+  --standalone --nproc-per-node N -m strom_torch.cli llama ...``; rank 0
+  prints the JSON): its batch is split over every process, and a world
+  size that does not divide ``--batch`` is refused, where the reference
+  takes the largest device count that divides it. Without a group, and
+  in the other arms, one device; the ``devices`` key says which;
 - ``tune`` adds ``searched_items_per_s`` and ``searched_vs_hand``: the
   searched knobs' own rate in the final A/B, before a losing search is
   replaced by the hand knobs;
@@ -405,9 +410,33 @@ def _fetch_one(arr) -> None:
 
 
 def _fit_dp_devices(batch: int) -> int:
-    """The devices the batch is split over: one (data parallelism over
-    several cards is not ported yet)."""
-    return 1
+    """The processes (one card each) the batch is split over: the group's
+    size where one is initialised, else 1. A size that does not divide
+    *batch* raises ValueError."""
+    from strom_torch.parallel import mesh
+
+    if not mesh.is_initialized():
+        return 1
+    n = mesh.world_size()
+    if batch % n:
+        raise ValueError(f"--batch {batch} does not split over {n} processes")
+    return n
+
+
+def _rank0_first(make) -> None:
+    """Run *make* (a fixture's writer) on rank 0 only, the others waiting
+    at a barrier until it has; *make* alone without a group. Every rank
+    calls this unconditionally: whether a fixture is missing is decided
+    inside *make*, on rank 0, since a rank that looked for itself could
+    find rank 0's finished file and skip the barrier rank 0 waits at."""
+    from strom_torch.parallel import mesh
+
+    if mesh.rank() == 0:
+        make()
+    if mesh.is_initialized():
+        import torch.distributed as dist
+
+        dist.barrier(group=mesh.host_group())
 
 
 def _timed_train_phase(pipe_factory, step, steps: int,
@@ -493,15 +522,21 @@ def _run_bounded_arm(args: argparse.Namespace, out: dict, pipe_factory, step,
 
 
 def bench_llama(args: argparse.Namespace) -> dict:
-    """The packed-token loader's tokens/s and data-stall count on one
-    device, in two phases:
+    """The packed-token loader's tokens/s and data-stall count, in two
+    phases:
 
     1. the loader flat out, each batch consumed at once (loader rate);
     2. with --train-step, the captured Llama train step of
        ``parallel/train.py`` consumes the batches: the loader must hide
-       its I/O behind the step."""
+       its I/O behind the step.
+
+    With a process group the batch is ``P("dp", None)`` over a dp mesh of
+    every process (each reads its own rows onto its own card) and the step
+    is data-parallel; without one, one device."""
     from strom_torch.config import StromConfig
     from strom_torch.delivery.core import StromContext
+    from strom_torch.parallel.mesh import is_initialized, make_mesh
+    from strom_torch.parallel.sharding import P, TorchSharding, local_tensor
     from strom_torch.pipelines import make_llama_pipeline
 
     record = (args.seq_len + 1) * 4
@@ -509,8 +544,12 @@ def bench_llama(args: argparse.Namespace) -> dict:
     if path is None:
         path = os.path.join(args.tmpdir, "strom_bench_tokens.bin")
         want = args.steps * args.batch * record * 2
-        if not os.path.exists(path) or os.path.getsize(path) < want:
-            _mk_testfile(path, want)
+
+        def make() -> None:
+            if not os.path.exists(path) or os.path.getsize(path) < want:
+                _mk_testfile(path, want)
+
+        _rank0_first(make)
     dev = _device(args)
     cfg = StromConfig(engine=args.engine, block_size=args.block,
                       queue_depth=args.depth, num_buffers=max(args.depth * 2, 8),
@@ -518,10 +557,14 @@ def bench_llama(args: argparse.Namespace) -> dict:
     ctx = StromContext(cfg)
     try:
         n_dev = _fit_dp_devices(args.batch)
+        mesh = make_mesh({"dp": n_dev}) if is_initialized() else None
+        where = {"device": dev} if mesh is None else \
+            {"sharding": TorchSharding(mesh, P("dp", None))}
         _drop_cache_hint(path)
         with make_llama_pipeline(ctx, [path], batch=args.batch,
-                                 seq_len=args.seq_len, device=dev,
-                                 prefetch_depth=args.prefetch) as pipe:
+                                 seq_len=args.seq_len,
+                                 prefetch_depth=args.prefetch,
+                                 **where) as pipe:
             toks = next(pipe)  # warm-up outside the timed region
             _fetch_one(toks)
             t0 = time.perf_counter()
@@ -547,21 +590,23 @@ def bench_llama(args: argparse.Namespace) -> dict:
 
             mcfg = getattr(LlamaConfig, args.model)()
             opt = make_optimizer()
-            state = init_train_state(mcfg, opt, device=dev, seed=0)
-            step_fn = make_train_step(mcfg, opt, attn=args.attn, device=dev)
+            state = init_train_state(mcfg, opt, device=dev, seed=0,
+                                     mesh=mesh)
+            step_fn = make_train_step(mcfg, opt, attn=args.attn, device=dev,
+                                      mesh=mesh)
 
             def step(toks):
                 nonlocal state
                 # bench tokens are random bytes: clamped into the vocab
-                state, m = step_fn(state, toks % mcfg.vocab)
+                state, m = step_fn(state, local_tensor(toks) % mcfg.vocab)
                 return m["loss"]
 
             auto = bool(getattr(args, "auto_prefetch", False))
             rate, stalls, loss, dinfo = _timed_train_phase(
                 lambda: make_llama_pipeline(ctx, [path], batch=args.batch,
-                                            seq_len=args.seq_len, device=dev,
+                                            seq_len=args.seq_len,
                                             prefetch_depth=args.prefetch,
-                                            auto_prefetch=auto),
+                                            auto_prefetch=auto, **where),
                 step, args.steps, args.batch * (args.seq_len + 1))
             out["train_tokens_per_s"] = rate
             out["train_data_stalls"] = stalls
@@ -575,7 +620,7 @@ def bench_llama(args: argparse.Namespace) -> dict:
                 args, out,
                 lambda depth: make_llama_pipeline(
                     ctx, [path], batch=args.batch, seq_len=args.seq_len,
-                    device=dev, prefetch_depth=depth),
+                    prefetch_depth=depth, **where),
                 step, rate, args.batch * (args.seq_len + 1),
                 "bounded_train_tokens_per_s", [path])
     finally:
@@ -982,7 +1027,7 @@ def _vision_arm(args: argparse.Namespace, kind: str) -> dict:
                 data_paths = [plain]
             drop_paths = data_paths
             make_jpeg = make_imagenet_resnet_pipeline
-        n_dev = _fit_dp_devices(args.batch)
+        n_dev = 1   # the vision arms run one card (their dp is a later slice)
 
         if predecoded:
             def pipe_factory(depth=args.prefetch, auto=False):
@@ -2565,7 +2610,21 @@ def main(argv: list[str] | None = None) -> int:
              "reasons": list(rep.reasons)}
         print(json.dumps(d, indent=None if args.json else 2))
         return 0
+    # under a launcher (torch.distributed.run sets WORLD_SIZE) every
+    # process joins the group, one card each, and rank 0 alone reports
+    launched = "WORLD_SIZE" in os.environ
+    if launched:
+        from strom_torch.parallel import mesh
+
+        mesh.init_distributed("cpu" if getattr(args, "device", None) == "cpu"
+                              else None)
     out = args.fn(args)
+    if launched:
+        # not on an error: a rank that raised leaves, and the launcher
+        # stops the rest, rather than every rank waiting at a barrier
+        mesh.shutdown()
+        if int(os.environ.get("RANK", 0)) != 0:
+            return 3 if out.get("failed") else 0
     if getattr(args, "trace_out", None):
         from strom_torch.obs.chrome_trace import dump
 

@@ -86,7 +86,7 @@ from strom_torch.delivery.extents import ExtentList
 from strom_torch.delivery.handle import DMAHandle, deferred_handle
 from strom_torch.delivery.hotcache import HotCache
 from strom_torch.delivery.resilient import ResilientIo
-from strom_torch.delivery.shard import Segment
+from strom_torch.delivery.shard import Segment, plan_sharded_read
 from strom_torch.engine import make_engine
 from strom_torch.engine.base import (DeadlineExceeded, Engine, EngineError,
                                      EngineStallError, may_still_write)
@@ -194,6 +194,17 @@ def resolve_device(device: Any) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_device(device: torch.device):
+    """*device* as the calling thread's current CUDA device for a block: a
+    thread starts on card 0, whichever card its process drives, and the
+    runtime calls of a copy (pinning a slab, making an event) belong on
+    the target's. Nothing for the CPU, nor for a device without an index
+    (the current one)."""
+    if device.type == "cuda" and device.index is not None:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def torch_dtype(np_dtype: np.dtype) -> torch.dtype:
@@ -1461,7 +1472,8 @@ class StromContext:
         if source is not None:
             self._numa_resolve(self.resolve_source(source))
         nbytes = math.prod(shape)
-        return self._acquire(nbytes, device.type == "cuda").reshape(shape)
+        with on_device(device):
+            return self._acquire(nbytes, device.type == "cuda").reshape(shape)
 
     def put_host_batch(self, host: np.ndarray, device: torch.device
                        ) -> torch.Tensor:
@@ -1471,7 +1483,9 @@ class StromContext:
         copy that reads it has retired. CPU: a tensor aliasing *host*."""
         if device.type != "cuda":
             return torch.from_numpy(host)
-        return self._put_slab(host, device, torch.cuda.current_stream(device))
+        with on_device(device):
+            return self._put_slab(host, device,
+                                  torch.cuda.current_stream(device))
 
     def _put_slab(self, slab: np.ndarray, device: torch.device,
                   consumer: torch.cuda.Stream) -> torch.Tensor:
@@ -1594,6 +1608,7 @@ class StromContext:
                        dtype: Any = np.uint8,
                        length: int | None = None,
                        device: Any = None,
+                       sharding: Any = None,
                        async_: bool = False,
                        tenant: str | None = None) -> "torch.Tensor | DMAHandle":
         """Read bytes from *source* and deliver them as a torch.Tensor.
@@ -1603,6 +1618,11 @@ class StromContext:
         - device: the target; None → the current CUDA device (raises when
           there is none). ``device="cpu"`` returns a tensor aliasing the
           host slab.
+        - sharding: instead of *device*, a
+          :class:`~strom_torch.parallel.sharding.TorchSharding` of the
+          global array: this process reads only its own block's bytes
+          (``plan_sharded_read``) onto its own device, and the result is
+          the global ``DTensor`` over the sharding's mesh.
         - async_: return a DMAHandle at once (≙ MEMCPY_SSD2GPU_ASYNC);
           otherwise the tensor (≙ MEMCPY_SSD2GPU). The tensor is ordered
           before any later work on the stream that was current at the call.
@@ -1611,22 +1631,34 @@ class StromContext:
         """
         if self._closed:
             raise RuntimeError("StromContext is closed")
-        device = resolve_device(device)
+        if sharding is not None and device is not None:
+            raise ValueError("pass device= or sharding=, not both")
         source = self.resolve_source(source)
         self._numa_resolve(source)
         shape, np_dtype, nbytes = self._resolve_read_shape(
             source, offset, shape, dtype, length)
         if nbytes <= 0:
             raise ValueError("nothing to read")
+        if sharding is None:
+            device = resolve_device(device)
+            segs, local_shape = [Segment(0, 0, nbytes)], shape
+        else:
+            plans = plan_sharded_read(shape, np_dtype, sharding)
+            if len(plans) != 1:
+                raise ValueError(f"{sharding!r} gives this process "
+                                 f"{len(plans)} devices; a process delivers "
+                                 "to one (one rank, one card)")
+            (plan,) = plans
+            device, segs = plan.device, list(plan.segments)
+            local_shape, nbytes = plan.local_shape, plan.nbytes
         tdt = torch_dtype(np_dtype)
         cuda = device.type == "cuda"
         consumer = torch.cuda.current_stream(device) if cuda else None
         cfg = self.config
         streamed = cfg.overlap_chunk_bytes > 0 and \
             nbytes >= max(cfg.overlap_min_bytes, cfg.overlap_chunk_bytes)
-        segs = [Segment(0, 0, nbytes)]
 
-        def run() -> torch.Tensor:
+        def local() -> torch.Tensor:
             self._count(transfers=1)
             if streamed:
                 if cuda:
@@ -1638,7 +1670,7 @@ class StromContext:
                                              tenant)
                 if cuda:
                     consumer.wait_stream(self._copy_stream(device))
-                return out.view(tdt).reshape(shape)
+                return out.view(tdt).reshape(local_shape)
             slab = self._acquire(nbytes, cuda)
             try:
                 self._read_segments(source, segs, slab, offset,
@@ -1647,9 +1679,15 @@ class StromContext:
                 self._release_failed(slab, cuda)
                 raise
             if not cuda:
-                return torch.from_numpy(slab.view(np_dtype).reshape(shape))
+                return torch.from_numpy(
+                    slab.view(np_dtype).reshape(local_shape))
             return self._put_slab(slab, device, consumer).view(tdt).reshape(
-                shape)
+                local_shape)
+
+        def run() -> torch.Tensor:
+            with on_device(device):
+                out = local()
+            return out if sharding is None else sharding.to_global(out, shape)
 
         if async_:
             # the copy stream's event after the tensor's last copy: the

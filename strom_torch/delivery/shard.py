@@ -1,7 +1,12 @@
-"""Byte segments of a row-major array (the port's copy of the first half of
-``strom/delivery/shard.py``). A shard that restricts only leading axes is a
-handful of large contiguous reads; inner-axis slices decompose into per-row
-segments. Per-device sharded planning waits for a multi-GPU slice.
+"""Sharded read planning: a sharding → this process's contiguous byte
+segments (the port's copy of ``strom/delivery/shard.py``).
+
+Rows are row-major on disk: a shard that restricts only leading axes is a
+handful of large contiguous reads; inner-axis slices (sequence-parallel
+batches) decompose into per-row segments. The planner reads a sharding's
+``addressable_devices_indices_map``: the port's ``TorchSharding`` holds one
+device a process (one rank, one card), a ``NamedSharding`` every device
+its process addresses.
 """
 
 from __future__ import annotations
@@ -9,7 +14,9 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Iterator
+from typing import Any, Iterator
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,3 +73,37 @@ def contiguous_segments(shape: tuple[int, ...], itemsize: int,
         off = sum(c * strides[i] for i, c in enumerate(combo)) + start_k * inner
         yield Segment(off, dest, run)
         dest += run
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePlan:
+    device: Any                    # torch.device
+    local_shape: tuple[int, ...]
+    nbytes: int
+    segments: tuple[Segment, ...]  # file offsets relative to array start
+
+
+def plan_sharded_read(global_shape: tuple[int, ...], dtype,
+                      sharding) -> list[DevicePlan]:
+    """Per-addressable-device read plans for a global array laid out row-major
+    in the source at byte offset 0 (callers add their own base offset)."""
+    itemsize = np.dtype(dtype).itemsize
+    idx_map = sharding.addressable_devices_indices_map(tuple(global_shape))
+    plans: list[DevicePlan] = []
+    for device, index in idx_map.items():
+        bounds = _normalize_index(index if index is not None else (), tuple(global_shape))
+        local_shape = tuple(hi - lo for lo, hi in bounds)
+        segs = tuple(contiguous_segments(tuple(global_shape), itemsize, index))
+        nbytes = math.prod(local_shape) * itemsize if local_shape else itemsize
+        assert sum(s.length for s in segs) == nbytes, "segment plan disagrees with shard size"
+        plans.append(DevicePlan(device, local_shape, nbytes, segs))
+    return plans
+
+
+def dedupe_plans(plans: list[DevicePlan]) -> dict[tuple[Segment, ...], list[DevicePlan]]:
+    """Group plans by identical segment sets (replicated shards are read once
+    and copied to every replica)."""
+    groups: dict[tuple[Segment, ...], list[DevicePlan]] = {}
+    for p in plans:
+        groups.setdefault(p.segments, []).append(p)
+    return groups

@@ -5,7 +5,10 @@ Every ``*.cu`` file under ``strom_torch/csrc`` is compiled by ``nvcc`` for
 ``ctypes``. A build happens at first use, into ``strom_torch/csrc/build/``
 (listed in ``.gitignore``); the library's name carries a hash of its source,
 so an edited source is rebuilt and a stale library is never loaded.
-Several sources build in parallel, one ``nvcc`` process each.
+Several sources build in parallel, one ``nvcc`` process each. A build
+holds an ``flock`` on a lock file beside its library, so of several
+processes that want it at once (one a card) one compiles and the rest
+wait and load its result.
 
 Nothing here runs at import time: this module is imported on machines with
 no ``nvcc`` (the CPU tests), where only the kernels' plain versions run.
@@ -14,6 +17,7 @@ no ``nvcc`` (the CPU tests), where only the kernels' plain versions run.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -54,16 +58,20 @@ def _compile(name: str) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                           os.path.join(CSRC, name)],
-                          capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{build_logs[name]}")
-    os.replace(tmp, out)
+    with open(out + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # another process may be building
+        if os.path.exists(out):
+            return out
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                               os.path.join(CSRC, name)],
+                              capture_output=True, text=True)
+        build_seconds[name] = time.perf_counter() - t0
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{build_logs[name]}")
+        os.replace(tmp, out)
     return out
 
 

@@ -30,6 +30,11 @@ a capture runs once and launches nothing: the capture's counts are taken
 back out and each replay adds them (``counting_capture``,
 ``count_replay``).
 
+An input may be a ``DTensor`` (a sharded loader's global batch): the step
+takes its local block. A body's collectives (the data-parallel step's
+all-reduces, NCCL) are captured with it: the warm-up has run each once
+before the capture, on the same communicator.
+
 Captures run on a stream of their own (``capture_stream``). A capture may
 run while other threads copy (a loader's batches), which its
 ``thread_local`` mode allows, but only if no other thread uses the stream
@@ -52,6 +57,7 @@ from typing import Any, Callable
 import torch
 
 from strom_torch.ops import flash_attention as fa
+from strom_torch.parallel.sharding import local_tensor
 
 
 # device index -> the stream every capture on that device runs on
@@ -107,13 +113,15 @@ class CapturedStep:
         return sum(g.graph is not None for g in self._graphs.values())
 
     def eager(self, owner: Any, *inputs: torch.Tensor) -> Any:
-        inputs = tuple(t.to(self.device, non_blocking=True) for t in inputs)
+        inputs = tuple(local_tensor(t).to(self.device, non_blocking=True)
+                       for t in inputs)
         self.last_call = "eager"
         return self._finish(owner, self.body(owner, *inputs))
 
     def __call__(self, owner: Any, *inputs: torch.Tensor) -> Any:
         if self.device.type != "cuda":
             return self.eager(owner, *inputs)
+        inputs = tuple(local_tensor(t) for t in inputs)
         key = (id(owner),) + tuple((tuple(t.shape), t.dtype) for t in inputs)
         entry = self._graphs.get(key)
         if entry is None:

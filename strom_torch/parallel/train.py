@@ -17,6 +17,16 @@ every call (``strom_torch.parallel.capture``), where the reference jits the
 step and donates its state; on the CPU the same body runs eagerly. Either
 way the updates are in place: parameters, moments and batch-norm
 statistics are overwritten, and the step body never waits for the device.
+
+Given a mesh with a ``dp`` axis, the Llama step is data-parallel, where
+the reference lets XLA place the gradients' psum: each process runs its
+own rows of the global batch (the ``DTensor`` the sharded loader
+delivers, or its local block), and after ``backward`` the gradients are
+summed over the dp group (NCCL on the card, gloo on the CPU) in one flat
+bucket a dtype and divided by its size, before the global norm and the
+clip, so the norm is the global batch's as in the reference. The loss it
+reports is the group's mean. The collectives are captured in the step's
+graph with the rest.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from strom_torch.delivery.core import resolve_device
 from strom_torch.models.llama import Llama, LlamaConfig, next_token_loss
@@ -33,6 +44,7 @@ from strom_torch.models import vit
 from strom_torch.models.resnet import (ResNet, ResNetConfig, imagenet_mean_std,
                                        loss_fn, normalize_images)
 from strom_torch.parallel.capture import CapturedStep
+from strom_torch.parallel.mesh import Mesh
 
 DECAY_STEPS = 10_000
 
@@ -87,14 +99,23 @@ class TrainState:
 
 def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
                      *, device: Any = None, seed: int = 0,
-                     params: dict[str, torch.Tensor] | None = None) -> TrainState:
+                     params: dict[str, torch.Tensor] | None = None,
+                     mesh: Mesh | None = None) -> TrainState:
     """Model (random from *seed*, or *params*, e.g. from
-    ``models.llama.params_from_jax``) and optimizer state on *device*."""
+    ``models.llama.params_from_jax``) and optimizer state on *device*.
+    With a dp *mesh* every replica starts from the parameters of the dp
+    group's first rank (broadcast)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Llama(cfg, device=device, generator=gen)
     if params is not None:
         model.load_state_dict(params)
+    if mesh is not None:
+        group, _ = _dp_group(mesh)
+        src = int(mesh.devices.flat[0])
+        with torch.no_grad():
+            for p in model.parameters():
+                dist.broadcast(p, src=src, group=group)
     opt, sched = (optimizer or make_optimizer()).build(model.parameters())
     return TrainState(model, opt, sched)
 
@@ -175,16 +196,61 @@ def global_norm(tensors) -> torch.Tensor:
         torch._foreach_norm(list(tensors), 2, dtype=torch.float32)))
 
 
+def _dp_group(mesh: Mesh):
+    """(the dp axis's process group, its size). A mesh axis other than dp
+    of size above 1 waits for the tensor-parallel slice."""
+    if "dp" not in mesh.axis_names:
+        raise ValueError(f"a data-parallel step needs a 'dp' axis, the mesh "
+                         f"has {mesh.axis_names}")
+    other = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other}: only data parallelism is ported; tp comes "
+            "with param_shardings' slice, sp with the ring-attention slice")
+    return mesh.device_mesh.get_group("dp"), mesh.shape["dp"]
+
+
+def _mean_over(tensors: list[torch.Tensor], group, size: int
+               ) -> list[torch.Tensor]:
+    """The group's mean of each tensor: one flat bucket a dtype, summed in
+    one all-reduce and divided by the group's size. Returns views of the
+    buckets shaped as the tensors."""
+    out: list = [None] * len(tensors)
+    by_dtype: dict[torch.dtype, list[int]] = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)   # gloo has no AVG: sum, divide
+        flat.div_(size)
+        for i, piece in zip(idx, flat.split([tensors[i].numel()
+                                             for i in idx])):
+            out[i] = piece.view_as(tensors[i])
+    return out
+
+
 def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
-                    *, attn: str = "dense", device: Any = None) -> CapturedStep:
+                    *, attn: str = "dense", device: Any = None,
+                    mesh: Mesh | None = None, sp: bool = False
+                    ) -> CapturedStep:
     """A ``(state, tokens) -> (state, metrics)`` step; metrics are
     ``{"loss", "grad_norm"}`` as 0-dim tensors (reading them waits for the
     step). On CUDA the step is captured as a graph (``CapturedStep``; its
     ``eager`` is the same step op by op). attn="flash": the CUDA
     flash-attention kernels (blockwise forward and backward) replace the
-    dense op in every layer."""
+    dense op in every layer.
+
+    *mesh* with a ``dp`` axis: the step is data-parallel over it (the
+    module's docstring); *tokens* is the global batch's ``DTensor`` or this
+    process's rows of it. ``sp=True`` (sequence parallelism over ring
+    attention) is not ported yet."""
     if attn not in ("dense", "flash"):
         raise ValueError(f"attn must be 'dense' or 'flash', got {attn!r}")
+    if sp:
+        raise NotImplementedError(
+            "sp=True: ring attention (strom/parallel/ring.py) over the flash "
+            "block API comes with its own slice")
+    group, dp = _dp_group(mesh) if mesh is not None else (None, 1)
     device = resolve_device(device)
     spec = optimizer or make_optimizer()
     attn_fn = None
@@ -199,12 +265,18 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
         loss = next_token_loss(state.model, tokens, attn_fn=attn_fn, remat=True)
         loss.backward()
         grads = [p.grad for p in params]
+        loss = loss.detach()
+        if group is not None:
+            grads = _mean_over(grads, group, dp)
+            for p, g in zip(params, grads):
+                p.grad = g
+            loss = _mean_over([loss], group, dp)[0]
         norm = global_norm(grads)
         # optax.clip_by_global_norm: scale by max_norm / norm when above it
         clip = torch.clamp(spec.max_grad_norm / norm, max=1.0)
         torch._foreach_mul_(grads, clip)
         state.optimizer.step()
-        return {"loss": loss.detach(), "grad_norm": norm}
+        return {"loss": loss, "grad_norm": norm}
 
     def finish(state: TrainState, metrics: dict):
         # on the host, outside the graph: the next step's lr, filled into

@@ -8,18 +8,22 @@ consumed count, never from the sampler's own cursor: a resume replays
 nothing and skips nothing. :meth:`Pipeline.token` captures that position
 with the prefetch depth and the dataset's fingerprint as a StepToken, and
 :meth:`Pipeline.restore` continues from one. Each ``__next__`` is a traced
-``step`` request (``obs/request.py``).
+``step`` request (``obs/request.py``) and a step of the pipeline's
+:class:`~strom_torch.parallel.multihost.StragglerMonitor`; with
+``epoch_sync`` every process meets at each epoch boundary.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import time
 from typing import Any, Callable, Iterator
 
 import numpy as np
 
 from strom_torch.delivery.prefetch import Prefetcher, bound_depth
 from strom_torch.obs import request as _request
+from strom_torch.parallel.multihost import StragglerMonitor, epoch_barrier
 from strom_torch.pipelines.sampler import (EpochShuffleSampler, SamplerState,
                                            dataset_fingerprint,
                                            load_loader_state,
@@ -39,6 +43,7 @@ class Pipeline:
                  executor: concurrent.futures.Executor | None = None,
                  on_close: Callable[[], None] | None = None,
                  counters: Callable[[], dict] | None = None,
+                 epoch_sync: bool = False,
                  scope: Any | None = None):
         """*depth* is the prefetch depth, the starting one when
         *auto_depth* moves it inside [1, *max_depth*]. *on_close* runs once
@@ -47,7 +52,15 @@ class Pipeline:
         :meth:`stats`. *scope*: the telemetry scope the pipeline counts
         its steps in (``pipeline_steps``), a label scope of the context's
         whose ``tenant`` label names the scheduler tenant its gathers take;
-        None is the process-wide registry."""
+        None is the process-wide registry.
+
+        *epoch_sync*: every process meets at a barrier before the first
+        batch of each epoch after the first is dispatched, so that no
+        process issues next-epoch reads while another still reads the
+        previous epoch. The barrier sits where the prefetcher pulls that
+        batch, not in ``__next__``: the sampler runs ahead of consumption
+        by the prefetch depth. One gloo round trip an epoch; every
+        process must build its pipeline with the same arguments."""
         from strom_torch.utils.stats import global_stats
 
         self.scope = scope if scope is not None else global_stats
@@ -58,6 +71,9 @@ class Pipeline:
         self._executor = executor
         self._on_close = on_close
         self._counters = counters
+        self._epoch_sync = epoch_sync
+        self.monitor = StragglerMonitor()
+        self._last_next: float | None = None
         st = sampler.state
         self._consumed = st.epoch * sampler.batches_per_epoch + st.batch_in_epoch
         self._seed = st.seed
@@ -69,12 +85,15 @@ class Pipeline:
         sampler = self.sampler
         make_batch = self._make_batch
         start = self._consumed
+        bpe = sampler.batches_per_epoch
 
         def thunks() -> Iterator[Callable[[], Any]]:
             # make_batch gets (indices, serial): serial is the global batch
             # number, stable across resume
             serial = start
             for indices in sampler:
+                if self._epoch_sync and serial % bpe == 0 and serial != start:
+                    epoch_barrier(f"strom-epoch-{serial // bpe}")
                 yield lambda idx=indices, s=serial: make_batch(idx, s)
                 serial += 1
 
@@ -96,6 +115,12 @@ class Pipeline:
             batch = next(self._prefetcher)
         self._consumed += 1
         self.scope.add("pipeline_steps")
+        # the process's step cadence (consumer compute + any data wait):
+        # the input of the cross-process straggler accounting
+        now = time.monotonic()
+        if self._last_next is not None:
+            self.monitor.record(now - self._last_next)
+        self._last_next = now
         return batch
 
     # -- checkpoint/resume --------------------------------------------------
@@ -182,6 +207,11 @@ class Pipeline:
     def prefetch_depth_trace(self) -> list[tuple[int, int]]:
         """(step, depth) at every controller move, starting depth included."""
         return list(self._prefetcher.depth_trace)
+
+    def straggler_report(self, threshold: float = 1.25):
+        """Cross-process step-time skew (a collective: every process must
+        call)."""
+        return self.monitor.report(threshold)
 
     def stats(self) -> dict:
         """``data_stall_steps``, the prefetcher's counters (``prefetch_*``)

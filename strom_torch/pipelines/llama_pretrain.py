@@ -3,11 +3,14 @@
 
 Token records go NVMe → pinned host slab (an O_DIRECT gather over the
 batch's record extents) → one host→device copy per batch: no decode step,
-no Python touching bulk bytes.
+no Python touching bulk bytes. With a sharding each process gathers only
+its own block of the batch (its rows, or its slice of every row under
+sequence sharding) and the batch is the global ``DTensor``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import TYPE_CHECKING, Any, Sequence
 
 import numpy as np
@@ -26,6 +29,7 @@ if TYPE_CHECKING:
 def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                         batch: int, seq_len: int,
                         device: Any = None,
+                        sharding: Any = None,
                         dtype: Any = np.int32,
                         seed: int = 0,
                         shuffle: bool = True,
@@ -33,6 +37,7 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                         auto_prefetch: bool | None = None,
                         resume_from: "str | SamplerState | StepToken | None"
                         = None,
+                        epoch_sync: bool = False,
                         scope: dict | None = None
                         ) -> Pipeline:
     """Infinite stream of token batches [batch, seq_len+1] (inputs+targets
@@ -43,10 +48,21 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
     SamplerState or a StepToken; a live pipeline also restores in place
     with ``Pipeline.restore(token)``.
 
+    *sharding* (instead of *device*): a
+    :class:`~strom_torch.parallel.sharding.TorchSharding` of the
+    [batch, seq_len+1] array, e.g. ``P("dp", None)``; batches are then
+    global ``DTensor``s of which this process read only its block. Every
+    process builds the pipeline with the same arguments (the sampler is
+    deterministic in (seed, epoch)). *epoch_sync*: a barrier of all
+    processes at each epoch boundary (``Pipeline``).
+
     *scope*: labels of the pipeline's telemetry scope over the context's
     (default ``{"pipeline": "llama"}``); a ``"tenant"`` label names the
     scheduler tenant every batch gather takes."""
-    device = resolve_device(device)
+    if sharding is not None and device is not None:
+        raise ValueError("pass device= or sharding=, not both")
+    if sharding is None:
+        device = resolve_device(device)
     # sizes through the context, so striped-set aliases (paths that need
     # not exist on disk) work like files
     shards = TokenShardSet(
@@ -60,15 +76,18 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
                                  else {"pipeline": "llama"}))
     tname = getattr(pscope, "labels", {}).get("tenant")
     shape = (batch, seq_len + 1)
+    # the bytes one batch stages on this process: its block's
+    local = sharding.shard_shape(shape) if sharding is not None else shape
 
     def make_batch(indices: np.ndarray, serial: int) -> torch.Tensor:
         return ctx.memcpy_ssd2gpu(shards.extents(indices), shape=shape,
                                   dtype=shards.dtype, device=device,
-                                  tenant=tname)
+                                  sharding=sharding, tenant=tname)
 
     depth = prefetch_depth if prefetch_depth is not None \
         else ctx.config.prefetch_depth
     auto, max_depth = _auto_depth_bounds(
-        ctx, auto_prefetch, batch * (seq_len + 1) * np.dtype(dtype).itemsize)
+        ctx, auto_prefetch, math.prod(local) * np.dtype(dtype).itemsize)
     return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
-                    max_depth=max_depth, fingerprint=fp, scope=pscope)
+                    max_depth=max_depth, fingerprint=fp,
+                    epoch_sync=epoch_sync, scope=pscope)

@@ -18,10 +18,12 @@ reach ``map_fn`` as float32; here a float64 column stays float64 (the
 narrowing is no part of the scan's semantics).
 
 ``devices=["cpu"]`` runs the same code on the CPU (dispatch by device, not
-a fallback). The reference's cross-process reduction (an XLA all-reduce or
-an allgather) waits for the port's process groups (ROADMAP Queue A item 8):
-with ``torch.distributed`` initialised at a world size above 1 the scan
-raises instead of returning one process's partial sum.
+a fallback). Across processes (``torch.distributed`` initialised) every
+process scans its LPT share and the partials are summed over the group,
+as the reference sums them: ``reduce="collective"`` all-reduces every
+leaf where it lies (NCCL for a leaf on the card, the gloo host group for
+one on the CPU), ``"allgather"`` gathers the host partials over gloo and
+sums them. A process that drew no unit contributes zeros.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 from strom_torch.delivery.core import StromContext, resolve_device, torch_dtype
 from strom_torch.delivery.prefetch import Prefetcher, bound_depth
 from strom_torch.formats.parquet import ParquetShard
+from strom_torch.parallel import mesh as _mesh
 from strom_torch.parallel.multihost import assign_balanced
 
 # map_fn: dict[column -> tensor of the unit's rows] -> tree of aggregates
@@ -110,19 +113,40 @@ def _add(a: Any, b: Any) -> Any:
 def _process_layout(process_index: int | None, process_count: int | None
                     ) -> tuple[int, int]:
     """(index, count) of this scan's process partition: the arguments where
-    given, else torch.distributed's rank and world size where it is
-    initialised, else (0, 1)."""
-    rank, world = 0, 1
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        rank = torch.distributed.get_rank()
-        world = torch.distributed.get_world_size()
-    if world > 1:
-        raise NotImplementedError(
-            f"parquet scan across {world} processes: the cross-process "
-            f"reduction waits for ROADMAP Queue A item 8; one process's "
-            f"partial sum is not the scan's result")
-    return (rank if process_index is None else process_index,
-            world if process_count is None else process_count)
+    given, else torch.distributed's rank and world size (0 and 1 without a
+    group)."""
+    return (_mesh.rank() if process_index is None else process_index,
+            _mesh.world_size() if process_count is None else process_count)
+
+
+def _collective_sum(acc: Any) -> Any:
+    """Every leaf summed over the group where it lies: a tensor on the card
+    over the default (NCCL) group, on the CPU over the gloo host group, a
+    number as a CPU tensor. A collective: every process calls it with a
+    tree of the same structure."""
+    import torch.distributed as dist
+
+    def leaf(x: Any) -> torch.Tensor:
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        t = t.detach().clone()
+        dist.all_reduce(t, group=None if t.is_cuda else _mesh.host_group())
+        return t
+
+    return _tree_map(leaf, acc)
+
+
+def _allgather_sum(host: Any) -> Any:
+    """The host partials (numpy leaves) gathered over gloo and summed on
+    every process."""
+    import torch.distributed as dist
+
+    def leaf(x: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(np.array(x))   # a contiguous copy, 0-d kept
+        rows = [torch.empty_like(t) for _ in range(_mesh.world_size())]
+        dist.all_gather(rows, t, group=_mesh.host_group())
+        return np.sum(np.stack([r.numpy() for r in rows]), axis=0)
+
+    return _tree_map(leaf, host)
 
 
 def _align(n: int) -> int:
@@ -173,9 +197,11 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
     every process with no coordination); *process_index* / *process_count*
     default to torch.distributed's rank and world size where it is
     initialised, else 0 and 1. Explicit values scan one partition in this
-    process (the partials of all partitions sum to the whole). *reduce*
-    (``"collective"`` or ``"allgather"``) is validated as the reference
-    does; with one process both return the local sum.
+    process (the partials of all partitions sum to the whole). *reduce*:
+    with a process group, how the partials are summed across it
+    (``"collective"``: an all-reduce of each leaf on its device;
+    ``"allgather"``: the host partials gathered over gloo, summed on each
+    process); without one, both return the local sum.
 
     unit_batch > 1 packs that many row groups' columns into one slab, one
     copy and one ``map_fn`` call: valid only when map_fn is
@@ -373,7 +399,11 @@ def parquet_scan_aggregate(ctx: StromContext, paths: Sequence[str],
         empty = {c: torch.zeros(0, dtype=tdtypes[c], device=devs[0])
                  for c in columns}
         acc = _tree_map(_zero, map_fn(empty))
-    return _to_host(acc)
+    if not _mesh.is_initialized():
+        return _to_host(acc)
+    if reduce == "collective":
+        return _to_host(_collective_sum(acc))
+    return _allgather_sum(_to_host(acc))
 
 
 def parquet_count_where(ctx: StromContext, paths: Sequence[str],

@@ -395,8 +395,8 @@ def test_help_lists_every_subcommand_but_dist(capsys):
 def test_deliberate_differences(tmp_path):
     """Every deliberate difference from the reference, in one place:
     ``ssd2tpu`` is ``ssd2gpu``, ``dist`` is absent, the arms take
-    ``--device``, the arms run one device, and ``tune`` adds the searched
-    state's own rate."""
+    ``--device``, without a process group the arms run one device, and
+    ``tune`` adds the searched state's own rate."""
     sub = next(a for a in tcli.build_parser()._actions
                if isinstance(a, argparse._SubParsersAction)).choices
     assert "ssd2gpu" in sub and "ssd2tpu" not in sub and "dist" not in sub
@@ -410,6 +410,89 @@ def test_deliberate_differences(tmp_path):
     assert set(t) - set(j) == {"searched_items_per_s", "searched_vs_hand"}
     assert set(j) <= set(t)
     assert t["tuned_vs_hand"] >= 1.0
+
+
+def test_fit_dp_devices_is_the_world_or_refuses(monkeypatch):
+    """With a group the batch splits over every process, and a world that
+    does not divide it is refused (the reference would take the largest
+    device count that divides it)."""
+    from strom_torch.parallel import mesh
+
+    assert tcli._fit_dp_devices(3) == 1   # no group: one device
+    monkeypatch.setattr(mesh, "is_initialized", lambda: True)
+    monkeypatch.setattr(mesh, "world_size", lambda: 2)
+    assert tcli._fit_dp_devices(32) == 2
+    with pytest.raises(ValueError, match="does not split over 2"):
+        tcli._fit_dp_devices(3)
+
+
+_LLAMA_ARGS = ["llama", "--train-step", "--model", "tiny", "--attn", "dense",
+               "--batch", "4", "--seq-len", "31", "--steps", "2", "--device",
+               "cpu", "--engine", "python", "--json"]
+
+
+def _launch_two(target: list[str], tmp_path, timeout: float) -> dict:
+    """``torch.distributed.run`` of *target* (``-m strom_torch.cli`` or a
+    script) with the llama arm's arguments on two gloo ranks; returns the
+    one JSON line, which rank 0 alone prints. Past *timeout* the launcher
+    gets SIGTERM, which it passes on to its ranks (each runs in a session
+    of its own)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "2"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", *target, *_LLAMA_ARGS, "--tmpdir",
+         str(tmp_path)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        stdout, stderr = proc.communicate(timeout=60)
+        raise AssertionError(f"no result within {timeout} s:\n"
+                             f"{stderr[-3000:]}") from None
+    assert proc.returncode == 0, stderr[-3000:]
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1, stdout
+    return json.loads(lines[0])
+
+
+def test_llama_launched_on_two_processes(tmp_path):
+    """``python -m torch.distributed.run --nproc-per-node 2 -m
+    strom_torch.cli llama --train-step ... --device cpu``: two gloo ranks
+    split the batch, train data-parallel, and rank 0 alone prints the
+    JSON, whose ``devices`` is 2."""
+    out = _launch_two(["-m", "strom_torch.cli"], tmp_path, 300)
+    assert out["devices"] == 2 and out["batch"] == 4
+    assert np.isfinite(out["train_loss"]) and out["train_tokens_per_s"] > 0
+
+
+_LATE_RANK1 = """\
+import runpy, sys, time
+from strom_torch.parallel import mesh
+init, delay = mesh.init_distributed, float(sys.argv.pop(1))
+
+def late_rank1(*a, **kw):
+    init(*a, **kw)
+    if mesh.rank() == 1:   # rank 0 writes and closes the fixture meanwhile
+        time.sleep(delay)
+
+mesh.init_distributed = late_rank1
+sys.argv[0] = "strom_torch.cli"
+runpy.run_module("strom_torch.cli", run_name="__main__")
+"""
+
+
+def test_llama_launched_with_a_late_rank(tmp_path):
+    """Rank 1 joins the group, then waits 3 s: rank 0 has written the
+    token fixture by the time rank 1 reaches it, and both still meet at
+    the fixture's barrier (rank 0 alone decides whether the file is
+    short), so the launched arm finishes with ``devices`` 2."""
+    script = tmp_path / "late_rank1.py"
+    script.write_text(_LATE_RANK1)
+    out = _launch_two([str(script), "3"], tmp_path, 120)
+    assert out["devices"] == 2 and np.isfinite(out["train_loss"])
 
 
 # -------------------------------------------------------------- the daemon

@@ -12,7 +12,9 @@ the Parquet scan on the card against the CPU's (one host-to-device copy
 a unit chunk, no host sync in its loop) and the OpGraph vision batches
 on the card; an async delivery's
 ``block_until_ready`` tensor read on another stream, and a delivery under
-the ``chaos:0`` fault plan equal to a clean one. Every test is marked ``cuda``
+the ``chaos:0`` fault plan equal to a clean one; at a world of 1 over NCCL,
+a sharded delivery (a ``DTensor`` on the card) and the data-parallel
+step captured with its all-reduces. Every test is marked ``cuda``
 and skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it runs on a machine that has only PyTorch:
 
@@ -1667,3 +1669,89 @@ def test_pool_slab_pages_sit_on_the_disk_node(cuda_device, tmp_path):
         finally:
             ctx._slab_pool.release(slab)
     assert nodes == {dev.numa_node}, nodes
+
+
+
+@pytest.fixture()
+def world_one(cuda_device):
+    """A world of 1 over NCCL (an in-memory store) and its dp mesh."""
+    from strom_torch.parallel import mesh
+
+    mesh.init_distributed("cuda")
+    try:
+        yield mesh.make_mesh({"dp": 1})
+    finally:
+        mesh.shutdown()
+
+
+def test_sharded_delivery_on_the_card_at_world_one(world_one, tmp_path):
+    """memcpy_ssd2gpu(sharding=P("dp", None)): the global DTensor, its local
+    block on this rank's card holding the file's rows; unstreamed,
+    streamed, and async (block_until_ready, then read on a fresh stream)."""
+    from torch.distributed.tensor import DTensor
+
+    from strom_torch.parallel.sharding import P, TorchSharding
+
+    rng = np.random.default_rng(29)
+    path = str(tmp_path / "rows.bin")
+    rows = rng.integers(0, 1 << 30, (64, 32 * 1024), dtype=np.int32)
+    rows.tofile(path)
+    want = torch.from_numpy(rows)
+    sharding = TorchSharding(world_one, P("dp", None))
+    for chunk in (0, 2 * MiB):   # 8 MiB: unstreamed, then streamed
+        with StromContext(StromConfig(overlap_chunk_bytes=chunk,
+                                      overlap_min_bytes=4 * MiB)) as ctx:
+            before = ctx.stats()["context"]["streamed_transfers"]
+            t = ctx.memcpy_ssd2gpu(path, shape=rows.shape, dtype=np.int32,
+                                   sharding=sharding)
+            assert isinstance(t, DTensor) and tuple(t.shape) == rows.shape
+            local = t.to_local()
+            assert local.device == torch.device("cuda",
+                                                torch.cuda.current_device())
+            assert torch.equal(local.cpu(), want)
+            streamed = ctx.stats()["context"]["streamed_transfers"] - before
+            assert streamed == (1 if chunk else 0)
+            h = ctx.memcpy_ssd2gpu(path, shape=rows.shape, dtype=np.int32,
+                                   sharding=sharding, async_=True)
+            got = h.block_until_ready()
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                host = got.to_local().to("cpu", non_blocking=False)
+            assert torch.equal(host, want)
+            with pytest.raises(ValueError, match="not both"):
+                ctx.memcpy_ssd2gpu(path, device=world_one.device_type,
+                                   sharding=sharding)
+
+
+def test_captured_dp_step_at_world_one(world_one):
+    """The data-parallel flash step at a world of 1, captured with its NCCL
+    all-reduces and fed DTensors: five steps (warm-up, capture, three
+    replays) bit-equal to the step without a mesh (the mean over one rank
+    is the value itself), one graph, through the flash kernels."""
+    from strom_torch.parallel.sharding import P, TorchSharding
+
+    cfg = dataclasses.replace(LlamaConfig.tiny(), n_heads=2, n_kv_heads=1)
+    batches = _token_batches(torch.device("cuda"), cfg, [(2, 128)] * 5)
+    sharding = TorchSharding(world_one, P("dp", None))
+    out = {}
+    for dp in (True, False):
+        mesh = world_one if dp else None
+        spec = make_optimizer(warmup=100)
+        state = init_train_state(cfg, spec, device="cuda", seed=0, mesh=mesh)
+        step = make_train_step(cfg, spec, attn="flash", device="cuda",
+                               mesh=mesh)
+        tfa.reset_launch_counts()
+        metrics = []
+        for b in batches:
+            b = sharding.to_global(b, b.shape) if dp else b
+            state, m = step(state, b)
+            metrics.append((m["loss"], m["grad_norm"]))
+        assert step.graphs == 1 and step.last_call == "replay"
+        assert tfa.LAUNCHES["fa_fwd"] > 0 and tfa.LAUNCHES["fa_bwd_dq"] > 0
+        out[dp] = (metrics, {k: v.clone() for k, v in
+                             state.model.state_dict().items()})
+    (got, gp), (want, wp) = out[True], out[False]
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (i, a, b)
+    for k in gp:
+        assert torch.equal(gp[k], wp[k]), k

@@ -397,3 +397,47 @@ def test_scan_covers_the_cli_and_numa():
     assert new <= names
     for name in new:
         assert not _FORBIDDEN.search((PKG / name).read_text()), name
+
+
+@pytest.mark.parametrize("module", ["strom_torch.parallel.mesh",
+                                    "strom_torch.parallel.sharding",
+                                    "strom_torch.parallel.multihost",
+                                    "strom_torch.delivery.shard"])
+def test_mesh_modules_load_no_jax_or_strom(module, tmp_path):
+    """The many-device modules load neither jax* nor strom.*, also with a
+    world-1 group driving a sharded delivery, a data-parallel step, a
+    straggler report and a group-summed scan."""
+    shard = tmp_path / "t.bin"
+    shard.write_bytes(np.arange(8 * 17, dtype=np.int32).tobytes())
+    code = (
+        f"import sys, {module}\n"
+        "from strom_torch.config import StromConfig\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "from strom_torch.models.llama import LlamaConfig\n"
+        "from strom_torch.parallel import mesh\n"
+        "from strom_torch.parallel.multihost import StragglerMonitor\n"
+        "from strom_torch.parallel.sharding import P, TorchSharding\n"
+        "from strom_torch.parallel.train import (init_train_state,\n"
+        "                                        make_train_step)\n"
+        "mesh.init_distributed('cpu')\n"
+        "m = mesh.make_mesh({'dp': 1})\n"
+        "with StromContext(StromConfig(engine='python')) as ctx:\n"
+        "    t = ctx.memcpy_ssd2gpu(sys.argv[1], shape=(8, 17),\n"
+        "                           dtype='int32',\n"
+        "                           sharding=TorchSharding(m, P('dp')))\n"
+        "assert type(t).__name__ == 'DTensor', type(t)\n"
+        "cfg = LlamaConfig.tiny()\n"
+        "st = init_train_state(cfg, device='cpu', mesh=m)\n"
+        "st, met = make_train_step(cfg, device='cpu', mesh=m)(st, t)\n"
+        "assert met['loss'].isfinite()\n"
+        "assert StragglerMonitor().report().hosts[0].steps == 0\n"
+        "mesh.shutdown()\n"
+        "bad = sorted(n for n in sys.modules if n.startswith(('jax', "
+        "'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(shard)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]

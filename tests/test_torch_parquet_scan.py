@@ -3,7 +3,8 @@ on the same files: counts exactly; float64 sums against numpy at rtol
 1e-12 (the port keeps float64); the JAX package's sums at its own stated
 tolerance (rtol 1e-4, atol 1e-3: it sums float32 in JAX's default 32-bit
 mode). Then the pushdown counters against the reference's, ``reduce`` and
-``decode_workers``, a multi-process group (which must raise), and the
+``decode_workers``, a world-2 gloo group (two processes spawned from this
+file's ``__main__`` block, both reductions equal to one process), and the
 OpGraph on the port's WebDataset pipeline, fused and not, against the JAX
 pipeline's batches."""
 
@@ -251,16 +252,102 @@ def test_decode_workers_one_and_four_equal(ctxs, pq_shards):
     assert a["sum"].tobytes() == b["sum"].tobytes()
 
 
-def test_process_group_above_one_raises(ctxs, pq_shards, monkeypatch):
-    """No silent partial sum: with torch.distributed initialised at a world
-    size of 2 the scan refuses to run."""
-    tctx, _ = ctxs
+def _scan_rank(r: int, port: int, paths: list[str], one: str,
+               out: str) -> None:
+    """One rank of the world-2 gloo scans (run by this file's __main__):
+    the sum/count aggregate with both reductions, and a count over a file
+    of one row group, of which rank 1 draws nothing."""
+    import json
+
+    from strom_torch.parallel import mesh
+
+    mesh.init_distributed("cpu", rank=r, world_size=2,
+                          init_method=f"tcp://localhost:{port}")
+    res = {}
+    with StromContext(StromConfig(engine="python")) as ctx:
+        for reduce in ("collective", "allgather"):
+            got = parquet_scan_aggregate(ctx, paths, ["value"], _sum_n,
+                                         reduce=reduce, devices=CPU)
+            res[reduce] = {"sum": float(got["sum"]), "n": int(got["n"]),
+                           "sum_dtype": str(got["sum"].dtype),
+                           "ndim": [np.ndim(got["sum"]), np.ndim(got["n"])]}
+        res["no_unit"] = parquet_count_where(ctx, [one], "value",
+                                             lambda v: v > 0, devices=CPU)
+    mesh.shutdown()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+@pytest.fixture(scope="module")
+def world_two(pq_shards, tmp_path_factory):
+    """The two ranks' results, and the one-row-group file's path."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
     paths, _ = pq_shards
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 0)
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        parquet_scan_aggregate(tctx, paths, ["value"], _sum_n, devices=CPU)
+    td = tmp_path_factory.mktemp("pq_world2")
+    one = str(td / "one.parquet")
+    pq.write_table(pa.table({"value": np.random.default_rng(2)
+                             .standard_normal(500)}), one,
+                   row_group_size=500)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = root
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(port),
+         json.dumps(paths), one, str(td / f"rank{r}.json")], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    res = []
+    for r in range(2):
+        with open(td / f"rank{r}.json") as f:
+            res.append(json.load(f))
+    return res, one
+
+
+@pytest.mark.parametrize("case", ["collective", "allgather", "no_unit"])
+def test_process_group_above_one_raises(ctxs, pq_shards, world_two, case):
+    """No process's partial sum is returned as the scan's result: at a
+    world of 2 over gloo each rank scans its LPT share and, with either
+    reduction, every rank gets the whole, equal to the world-1 scan
+    (exactly: the same partials summed) and to the reference; a rank
+    that drew no unit contributes zeros to the sum."""
+    tctx, jctx = ctxs
+    paths, vals = pq_shards
+    res, one = world_two
+    if case == "no_unit":
+        want = parquet_count_where(tctx, [one], "value", lambda v: v > 0,
+                                   devices=CPU)
+        assert want == j_count_where(jctx, [one], "value", lambda v: v > 0)
+        assert [r["no_unit"] for r in res] == [want, want]
+        return
+    whole = parquet_scan_aggregate(tctx, paths, ["value"], _sum_n,
+                                   devices=CPU)
+    jwhole = j_scan(jctx, paths, ["value"], _j_sum_n, reduce=case)
+    for r in res:
+        assert r[case]["n"] == int(whole["n"]) == int(jwhole["n"]) == 12_000
+        np.testing.assert_allclose(r[case]["sum"], whole["sum"], rtol=1e-12)
+        np.testing.assert_allclose(r[case]["sum"], jwhole["sum"], **J_TOL)
+        assert r[case]["sum_dtype"] == "float64"
+        assert r[case]["ndim"] == [np.ndim(whole["sum"]), np.ndim(whole["n"])]
+    # the two ranks' results are the same bytes
+    assert res[0][case] == res[1][case]
 
 
 def test_date_columns_refuse_before_reading(ctxs, tmp_path):
@@ -511,3 +598,11 @@ def test_pyarrow_route_survives_scans_after_torch(tmp_path, first):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
     assert proc.stdout.split()[-1] == "system"
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    _scan_rank(int(sys.argv[1]), int(sys.argv[2]), json.loads(sys.argv[3]),
+               sys.argv[4], sys.argv[5])
