@@ -1,12 +1,12 @@
 """Run the PyTorch port's main path once on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases build,kernels,dp   # those phases alone
+    python3 chip_smoke.py --phases build,kernels,dp,dp_vision  # alone
 
 Phases, in order; any failure ends the run with a non-zero exit.
 ``--phases`` runs a subset of the phases that take nothing from another
-(build, kernels, wide_path, train, ckpt, dp), for a machine with four
-cards where only the data-parallel path needs them:
+(build, kernels, wide_path, train, ckpt, dp, dp_vision), for a machine
+with four cards where only the data-parallel paths need them:
 
 1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
                print each kernel instantiation's ptxas registers and
@@ -329,6 +329,41 @@ cards where only the data-parallel path needs them:
                llama --train-step --model small --attn flash, 8 rows a
                card (one JSON line, devices N, a finite loss, the three
                sm90 kernels launched on every rank).
+12c. dp_vision -- the vision pipelines and the ResNet-50 and ViT-B/16
+               steps over every card, world 1 and then world N, one
+               worker process a card (this script with
+               --dp-vision-worker), from phase 6's predecoded shard and
+               phase 7's tar (made here, seeded as those phases make
+               them, when they did not run). ResNet-50, full width, bf16,
+               128 rows a card through make_predecoded_vision_pipeline(
+               sharding=P("dp", None, None, None)) into
+               make_resnet_sgd_step(mesh=), captured with its NCCL
+               all-reduces (the gradient buckets and the loss, and each
+               batch norm's statistics over the global batch, forward and
+               backward): 4 counted steps, 4 timed. Each step's local
+               images and labels must equal the file's rows in sampler
+               order, bit for bit; the parameters' and the batch-norm
+               statistics' checksums equal on every rank after every
+               step; rank 0's counted losses and grad norms within
+               DPV_PLAIN_RTOL of make_resnet_sgd_step without a mesh on
+               the whole global batch from the same parameters (run
+               first, on rank 0's card alone), beside one step with
+               rank-local statistics (its gap printed, with whether it
+               would fail that check); the engine must have read only the
+               rank's rows, with 0 timed data stalls; one replay under
+               torch.profiler splits the NCCL device ms into the batch
+               norms' and the gradient buckets'. Then the JPEG-fed arm
+               (make_imagenet_resnet_pipeline(sharding=), streamed, 4
+               steps): each built batch decoded exactly the rank's 128
+               rows (the decode routes and decode_slot_bytes), and the
+               first batch's rows equal one process's decode of the whole
+               global batch. Then ViT-B/16 at 64 rows a card: 4 counted,
+               4 timed, replicas equal. Per world each rank's median step
+               ms, images/s and all-reduce ms; then each model's weak
+               scaling; on N cards last, the launched CLI: python -m
+               torch.distributed.run --nproc-per-node N -m strom_torch.cli
+               resnet --train-step --predecoded, 128 rows a card (devices
+               N, a finite loss).
 13. cli     -- strom_torch.cli as a user runs it: subprocesses of python
                -m strom_torch.cli ... --json --tmpdir <work dir>: nvme (256
                MiB; --numa-node the disk's node where it has one), check of
@@ -4525,10 +4560,13 @@ def _param_checksum(model) -> torch.Tensor:
     return torch.stack(out)
 
 
-def _dp_profile(step, state, batch) -> dict:
-    """One more replay under torch.profiler: the device time of the NCCL
-    kernels (the gradient and loss all-reduces), of every kernel, and the
-    step's wall time."""
+def _dp_profile(run, tail: int = 0) -> dict:
+    """One more replay under torch.profiler (*run()* takes the step and
+    returns its loss tensor): the device time of the NCCL kernels (the
+    all-reduces), of every kernel, and the step's wall time. *tail*: how
+    many of the NCCL kernels, the last by start, are the gradient buckets
+    and the loss (``tail_ms``; the ones before them, ``head_ms``, are the
+    forward and backward's own: ResNet's batch norm)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4536,7 +4574,7 @@ def _dp_profile(step, state, batch) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
-        step(state, batch)[1]["loss"].item()
+        run().item()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(PROFILE_PAD_S)
@@ -4544,11 +4582,15 @@ def _dp_profile(step, state, batch) -> dict:
              for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)]
-    nccl = [(a, b) for a, b, n in spans if "nccl" in n.lower()]
+    nccl = sorted((a, b) for a, b, n in spans if "nccl" in n.lower())
+    cut = max(len(nccl) - tail, 0)
     return {"wall_ms": wall_ms, "device_events": len(spans),
             "device_ms": sum(b - a for a, b, _ in spans) / 1e3,
             "allreduce_kernels": len(nccl),
-            "allreduce_ms": sum(b - a for a, b in nccl) / 1e3}
+            "allreduce_ms": sum(b - a for a, b in nccl) / 1e3,
+            "head_kernels": cut,
+            "head_ms": sum(b - a for a, b in nccl[:cut]) / 1e3,
+            "tail_ms": sum(b - a for a, b in nccl[cut:]) / 1e3}
 
 
 def _plain_steps(cfg, dev: torch.device, batches: list[torch.Tensor]
@@ -4695,7 +4737,8 @@ def dp_worker(rank: int, world: int, port: int, workdir: str) -> None:
     stalls = pipe.data_stall_steps - stalls0
     steady = times[DP_COUNTED:]
     report = pipe.straggler_report()
-    prof = _dp_profile(step, state, next(pipe))
+    batch = next(pipe)
+    prof = _dp_profile(lambda: step(state, batch)[1]["loss"])
     pipe.close()
     nbytes = ctx.engine.stats()["bytes_read"] - eng0
     xfers = ctx.stats()["context"]["transfers"] - xfer0
@@ -4763,20 +4806,28 @@ def _free_port() -> int:
 
 def _dp_run(world: int, workdir: str) -> list[dict]:
     """Seeded token shards for *world* cards (3 global batches an epoch),
-    then one worker process a card (this script with --dp-worker); every
-    worker must exit 0 within DP_TIMEOUT_S. Returns their numbers."""
+    then one worker process a card (``_spawn_ranks``). Returns their
+    numbers."""
     rng = np.random.default_rng(14)
     for i in range(2):
         rng.integers(0, DP_CONFIG.vocab, (3 * world, DP_SEQ + 1),
                      dtype=np.int32).tofile(
             os.path.join(workdir, f"dp_tokens{i}.bin"))
+    return _spawn_ranks("--dp-worker", "dp", world, workdir)
+
+
+def _spawn_ranks(flag: str, name: str, world: int, workdir: str,
+                 timeout_s: float = DP_TIMEOUT_S) -> list[dict]:
+    """One worker process a card (this script with *flag*); every worker
+    must exit 0 within *timeout_s*. Returns the numbers each wrote to
+    <name>_rank<r>.json in *workdir*."""
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     here = os.path.abspath(__file__)
     procs = [subprocess.Popen(
-        [sys.executable, here, "--dp-worker", str(r), str(world), str(port),
+        [sys.executable, here, flag, str(r), str(world), str(port),
          workdir], env=env, cwd=os.path.dirname(here)) for r in range(world)]
-    deadline = time.monotonic() + DP_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs) \
@@ -4790,10 +4841,10 @@ def _dp_run(world: int, workdir: str) -> list[dict]:
             p.wait()
     rcs = [p.returncode for p in procs]
     if any(rcs):
-        raise AssertionError(f"dp world {world}: worker exit codes {rcs}")
+        raise AssertionError(f"{name} world {world}: worker exit codes {rcs}")
     out = []
     for r in range(world):
-        with open(os.path.join(workdir, f"dp_rank{r}.json")) as f:
+        with open(os.path.join(workdir, f"{name}_rank{r}.json")) as f:
             out.append(json.load(f))
     return out
 
@@ -4891,9 +4942,465 @@ def phase_dp(workdir: str, pq: tuple[list[str], dict] | None = None
             for name, info in KERNELS.items()}
 
 
+# ---------------------------------------------------------- dp_vision (12c)
+DPV_ROWS, DPV_VIT_ROWS = 128, 64   # a card's rows: phases 6 and 8's batches
+DPV_COUNTED, DPV_TIMED = 4, 4      # warm-up, capture, 2 replays; then timed
+DPV_JPEG_STEPS = 4
+DPV_RECORDS, DPV_JPEGS = 2048, 512
+DPV_DEVICE = "cuda"   # the workers' device ("cpu" rehearses them at a tiny size)
+# ResNet-50's gradient buckets (bf16, f32) and the loss: the last three
+# NCCL kernels of a dp step; the 106 before them are its 53 batch norms'
+# forward and backward all-reduces
+DPV_TAIL = 3
+# rank 0's counted dp ResNet-50 steps against make_resnet_sgd_step without
+# a mesh on the whole global batch, each step from the replica's state:
+# loss and grad_norm relative, and "bn", the largest norm-relative gap of
+# a running batch-norm statistic after the step. Two sound runs on H100s
+# (the same numbers in both): world 1 at most 9.4e-4, 7.6e-3 and 3.1e-3
+# (the global batch norm's kernels against the fused one's, in bf16),
+# world 4 at most 6.0e-4, 5.0e-3 and 1.5e-3; about twice the worst seen.
+# A step with rank-local statistics at world 4 (128 rows a card) is off by
+# 1.0e-3, 1.0e-2 and 1.4e-2: its running statistics fail the check, its
+# loss and grad norm do not.
+DPV_PLAIN_RTOL = {"loss": 2e-3, "grad_norm": 1.5e-2, "bn": 6e-3}
+DPV_TIMEOUT_S = 300   # a world's workers
+
+
+def _checksums(tensors, world: int) -> torch.Tensor:
+    """Every rank's row of each tensor's bits summed as integers
+    (all-gathered): replicas that hold the same bits give equal rows."""
+    mine = torch.stack([
+        sum(c.sum(dtype=torch.int64) for c in t.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()]).split(1 << 26))
+        for t in tensors])
+    out = [torch.empty_like(mine) for _ in range(world)]
+    torch.distributed.all_gather(out, mine)
+    return torch.stack(out)
+
+
+class _PlainVisionStep:
+    """make_resnet_sgd_step without a mesh on one card and the whole global
+    batch, each step taken from the parameters and batch-norm statistics
+    of a dp replica (copied in place): the dp step's counterpart from the
+    same parameters. A bf16 update of 1e-3·g mostly rounds to a last-bit
+    change, so two runs that differ in the last bit of a gradient diverge
+    within a step or two: starting each step from the replica's state
+    compares one step at a time."""
+
+    def __init__(self, cfg, dev: torch.device):
+        self.model = ResNet(cfg, device=dev)
+        self.step = make_resnet_sgd_step(cfg, device=dev)
+
+    def __call__(self, replica, imgs: torch.Tensor, lbls: torch.Tensor
+                 ) -> dict[str, float]:
+        self.model.load_state_dict(replica.state_dict())
+        m = self.step(self.model, imgs, lbls)
+        return {k: m[k].item() for k in ("loss", "grad_norm")}
+
+    def stats(self) -> dict[str, torch.Tensor]:
+        """The running batch-norm statistics after the last step."""
+        return dict(self.model.named_buffers())
+
+
+def _local_bn_step(cfg, dev: torch.device, mesh, imgs: torch.Tensor,
+                   lbls: torch.Tensor) -> tuple[dict[str, float], dict]:
+    """One eager dp step from the same seed-0 parameters whose batch norm
+    takes this rank's rows alone (the gradient and loss means as the dp
+    step takes them): what the dp step would give with rank-local
+    statistics. Returns its metrics and its running statistics."""
+    from strom_torch.models.resnet import (imagenet_mean_std, loss_fn,
+                                           normalize_images)
+    from strom_torch.parallel import train as ptrain
+
+    model = ResNet(cfg, device=dev)
+    ptrain.replicate(model, mesh)
+    loss, state = loss_fn(model, normalize_images(imgs,
+                                                  imagenet_mean_std(dev)),
+                          lbls.long() % cfg.num_classes)
+    loss.backward()
+    m = ptrain._dp_sgd(list(model.parameters()), loss,
+                       ptrain._vision_dp(mesh), 1e-3)
+    out = {k: m[k].item() for k in ("loss", "grad_norm")}
+    state = {k: v.detach().clone() for k, v in state.items()}
+    del model, m, loss
+    torch.cuda.empty_cache()
+    return out, state
+
+
+def _rel(got: dict, want: dict) -> dict[str, float]:
+    return {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+
+
+def _bn_gap(got: dict, want: dict) -> float:
+    """The largest ‖got − want‖ / ‖want‖ over running batch-norm
+    statistics (``*.mean``, ``*.var``) keyed by name."""
+    return max(float((got[k].float() - want[k].float()).norm()
+                     / want[k].float().norm()) for k in want
+               if k.endswith((".mean", ".var")))
+
+
+def dp_vision_worker(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of phase 12c, on card *rank*: ResNet-50 fed by the sharded
+    predecoded pipeline into the data-parallel step (batch norm over the
+    global batch; rank 0 holding its counted steps against the step
+    without a mesh on the global batch, and the step with rank-local
+    statistics beside it), the JPEG-fed ResNet arm, and ViT-B/16. Prints
+    its [dp_vision] lines and writes its numbers to
+    dp_vision_rank<rank>.json in *workdir*."""
+    from strom_torch.parallel import mesh as pmesh
+    from strom_torch.parallel.sharding import P, TorchSharding
+    from strom_torch.parallel.train import replicate
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    pmesh.init_distributed(DPV_DEVICE, rank=rank, world_size=world,
+                           init_method=f"tcp://localhost:{port}")
+    dev = pmesh.group_device()
+    card = _card_line(rank)
+    tag = {"world": world, "rank": rank, "device": str(dev),
+           "card": card.replace(" ", "_")}
+    with open(os.path.join(workdir, "dp_vision.json")) as f:
+        paths = json.load(f)
+    pdec, tar = paths["pdec"], paths["tar"]
+    mesh = pmesh.make_mesh({"dp": world})
+    sharding = TorchSharding(mesh, P("dp", None, None, None))
+    B = DPV_ROWS * world
+    rows = slice(rank * DPV_ROWS, (rank + 1) * DPV_ROWS)
+    records = np.fromfile(pdec, dtype=np.uint8).reshape(-1, IMAGE, IMAGE, 3)
+    all_records = torch.from_numpy(records).to(dev)
+    all_labels = torch.from_numpy(np.load(pdec + LABELS_SUFFIX)).to(dev)
+    sampler = iter(EpochShuffleSampler(len(records), B, seed=0))
+    orders = [torch.from_numpy(next(sampler)).to(dev)
+              for _ in range(DPV_COUNTED + DPV_TIMED)]
+    del records
+    cfg = ResNetConfig.resnet50()
+    model = ResNet(cfg, device=dev)
+    replicate(model, mesh)
+    step = make_resnet_sgd_step(cfg, device=dev, mesh=mesh)
+    plain = _PlainVisionStep(cfg, dev) if rank == 0 else None
+    first = (all_records[orders[0]], all_labels[orders[0]])
+    local_bn, local_stats = _local_bn_step(cfg, dev, mesh, first[0][rows],
+                                           first[1][rows])
+    gap = {}
+    if plain is not None:
+        want = plain(model, *first)
+        gap = _rel(local_bn, want) | {"bn": _bn_gap(local_stats,
+                                                    plain.stats())}
+        say("dp_vision", **tag, check="step 0 with rank-local batch-norm "
+            "statistics against the plain global step",
+            loss=f"{local_bn['loss']:.6f}",
+            grad_norm=f"{local_bn['grad_norm']:.6f}",
+            plain_loss=f"{want['loss']:.6f}",
+            plain_grad_norm=f"{want['grad_norm']:.6f}",
+            **{f"{k}_rel_to_plain": f"{v:.3g}" for k, v in gap.items()},
+            would_fail=any(gap[k] > DPV_PLAIN_RTOL[k] for k in gap))
+        # past one card the check must tell rank-local statistics apart
+        if world > 1 and not any(gap[k] > DPV_PLAIN_RTOL[k] for k in gap):
+            raise AssertionError(f"dp_vision rank {rank}: a step with "
+                                 f"rank-local statistics, {gap}, passes the "
+                                 f"check against the plain step "
+                                 f"({DPV_PLAIN_RTOL})")
+    del first, local_stats
+    ctx = StromContext(StromConfig.from_env())
+    eng0 = ctx.engine.stats()["bytes_read"]
+    xfer0 = ctx.stats()["context"]["transfers"]
+    pipe = make_predecoded_vision_pipeline(ctx, [pdec], batch=B,
+                                           image_size=IMAGE,
+                                           sharding=sharding, seed=0)
+    times, calls, losses, stalls0, worst = [], [], [], 0, {}
+    for i in range(DPV_COUNTED + DPV_TIMED):
+        imgs, lbls = next(pipe)
+        order = orders[i]
+        if tuple(imgs.shape) != (B, IMAGE, IMAGE, 3) \
+                or tuple(lbls.shape) != (B,) \
+                or not torch.equal(imgs.to_local(), all_records[order][rows]) \
+                or not torch.equal(lbls.to_local(), all_labels[order][rows]):
+            raise AssertionError(f"dp_vision rank {rank} step {i}: the batch "
+                                 "differs from the file's rows in sampler "
+                                 "order")
+        if i == DPV_COUNTED:
+            stalls0 = pipe.data_stall_steps
+            if plain is not None:   # the timed steps run without it
+                del plain
+                plain = None
+                torch.cuda.empty_cache()
+        want = plain(model, all_records[order], all_labels[order]) \
+            if plain is not None else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(model, imgs, lbls)
+        got = {k: m[k].item() for k in ("loss", "grad_norm")}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        calls.append(step.last_call)
+        losses.append(got["loss"])
+        rel = _rel(got, want) | {"bn": _bn_gap(dict(model.named_buffers()),
+                                               plain.stats())} \
+            if want is not None else {}
+        sums = _checksums(list(model.parameters()), world)
+        bn = _checksums(list(model.buffers()), world)
+        equal = bool((sums == sums[0]).all())
+        bn_equal = bool((bn == bn[0]).all())
+        say("dp_vision", **tag, model="resnet50", step=i,
+            call=step.last_call, loss=f"{got['loss']:.5f}",
+            grad_norm=f"{got['grad_norm']:.5f}", ms=f"{times[-1] * 1e3:.2f}",
+            replicas_equal=equal, bn_stats_equal=bn_equal,
+            **({"plain_loss": f"{want['loss']:.5f}",
+                "plain_grad_norm": f"{want['grad_norm']:.5f}",
+                **{f"{k}_rel_to_plain": f"{v:.3g}" for k, v in rel.items()}}
+               if rel else {}))
+        if not (equal and bn_equal and math.isfinite(got["loss"])):
+            raise AssertionError(f"dp_vision rank {rank} step {i}: {got}, "
+                                 f"replica checksums {sums.tolist()}, "
+                                 f"batch-norm {bn.tolist()}")
+        for k, v in rel.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        if any(rel.get(k, 0.0) > tol for k, tol in DPV_PLAIN_RTOL.items()):
+            raise AssertionError(f"dp_vision rank {rank} step {i}: {got} "
+                                 f"against the step without a mesh "
+                                 f"{want} (relative tolerance "
+                                 f"{DPV_PLAIN_RTOL})")
+    stalls = pipe.data_stall_steps - stalls0
+    steady = times[DPV_COUNTED:]
+    imgs, lbls = next(pipe)
+    prof = _dp_profile(lambda: step(model, imgs, lbls)["loss"], DPV_TAIL)
+    pipe.close()
+    nbytes = ctx.engine.stats()["bytes_read"] - eng0
+    xfers = ctx.stats()["context"]["transfers"] - xfer0
+    own = DPV_ROWS * RECORD
+    med = statistics.median(steady)
+    say("dp_vision", **tag, model="resnet50",
+        **_step_summary(step, times, calls, steady),
+        images_per_s=f"{DPV_ROWS / med:.1f}", timed_data_stalls=stalls,
+        engine_bytes_read=nbytes, deliveries=xfers, rows_bytes=own,
+        only_own_rows=nbytes == xfers * own,
+        nccl_kernels=prof["allreduce_kernels"],
+        bn_allreduce_kernels=prof["head_kernels"],
+        bn_allreduce_ms=f"{prof['head_ms']:.3f}",
+        grad_allreduce_ms=f"{prof['tail_ms']:.3f}",
+        allreduce_share=f"{prof['allreduce_ms'] / prof['wall_ms']:.4f}",
+        profiled_step_ms=f"{prof['wall_ms']:.2f}",
+        device_busy_ms=f"{prof['device_ms']:.2f}")
+    if nbytes != xfers * own or stalls:
+        raise AssertionError(f"dp_vision rank {rank}: read {nbytes} bytes in "
+                             f"{xfers} deliveries of {own} (own rows only), "
+                             f"{stalls} timed data stalls")
+    out = {"resnet_ms": [t * 1e3 for t in steady], "losses": losses,
+           "stalls": stalls, "bytes": nbytes, "deliveries": xfers,
+           "bn_allreduce_ms": prof["head_ms"],
+           "grad_allreduce_ms": prof["tail_ms"],
+           "allreduce_share": prof["allreduce_ms"] / prof["wall_ms"],
+           "plain_gap": worst, "local_gap": gap, "card": card}
+    del all_records, all_labels, orders
+    torch.cuda.empty_cache()
+
+    # the JPEG-fed arm: this rank decodes its own rows of each batch
+    dec0 = ctx.stats(sections=["decode"])["decode"]
+    pipe = make_imagenet_resnet_pipeline(ctx, [tar], batch=B,
+                                         image_size=IMAGE, sharding=sharding)
+    jtimes, first = [], None
+    for i in range(DPV_JPEG_STEPS):
+        t0 = time.perf_counter()
+        imgs, lbls = next(pipe)
+        m = step(model, imgs, lbls)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        jtimes.append(time.perf_counter() - t0)
+        if first is None:
+            first = (imgs.to_local().clone(), lbls.to_local().clone())
+        if not math.isfinite(loss):
+            raise AssertionError(f"dp_vision rank {rank} JPEG step {i}: "
+                                 f"loss {loss}")
+    pipe.close()   # waits for the batches in flight: their counts too
+    jstats = pipe.stats()
+    dec1 = ctx.stats(sections=["decode"])["decode"]
+    built = dec1["decode_batch_count"] - dec0["decode_batch_count"]
+    decoded = sum(jstats.get(k, 0) for k in ("native_imgs", "cv2_imgs",
+                                             "pil_imgs", "frames_from_cache"))
+    slot = dec1["decode_slot_bytes"] - dec0["decode_slot_bytes"]
+    # the same global batch from one process decoding all of it: this
+    # rank's rows must be those, bit for bit (Philox keys by global row)
+    with make_imagenet_resnet_pipeline(ctx, [tar], batch=B, device=dev,
+                                       image_size=IMAGE,
+                                       prefetch_depth=1) as whole:
+        wimgs, wlbls = next(whole)
+    same = torch.equal(first[0], wimgs[rows]) \
+        and torch.equal(first[1], wlbls[rows])
+    del wimgs, wlbls, first
+    jmed = statistics.median(jtimes[1:])
+    say("dp_vision", **tag, model="resnet50", arm="jpeg",
+        steps=DPV_JPEG_STEPS, step_ms_median=f"{jmed * 1e3:.2f}",
+        images_per_s=f"{DPV_ROWS / jmed:.1f}",
+        data_stall_steps=jstats["data_stall_steps"], batches_built=built,
+        rows_decoded=decoded, decode_slot_bytes=slot,
+        only_own_rows=decoded == built * DPV_ROWS
+        and slot == built * DPV_ROWS * RECORD,
+        rows_equal_world1=same, stream_samples_early=jstats.get(
+            "stream_samples_early", 0))
+    if decoded != built * DPV_ROWS or slot != built * DPV_ROWS * RECORD \
+            or not same:
+        raise AssertionError(f"dp_vision rank {rank} JPEG arm: {built} "
+                             f"batches, {decoded} rows decoded, {slot} slot "
+                             f"bytes (own rows {DPV_ROWS} a batch); rows "
+                             f"equal to one process's batch: {same}")
+    out["jpeg_images_per_s"] = DPV_ROWS / jmed
+    del model, step
+    torch.cuda.empty_cache()
+
+    # ViT-B/16, 64 rows a card, from the same shard
+    vcfg = ViTConfig.vit_b16()
+    vit = ViT(vcfg, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(0))
+    replicate(vit, mesh)
+    vstep = make_vit_sgd_step(vcfg, device=dev, mesh=mesh)
+    pipe = make_predecoded_vision_pipeline(
+        ctx, [pdec], batch=DPV_VIT_ROWS * world, image_size=IMAGE,
+        sharding=sharding, seed=0)
+    vtimes, vcalls, vstalls0 = [], [], 0
+    for i in range(DPV_COUNTED + DPV_TIMED):
+        imgs, lbls = next(pipe)
+        if i == DPV_COUNTED:
+            vstalls0 = pipe.data_stall_steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = vstep(vit, imgs, lbls)["loss"].item()
+        torch.cuda.synchronize()
+        vtimes.append(time.perf_counter() - t0)
+        vcalls.append(vstep.last_call)
+        sums = _checksums(list(vit.parameters()), world)
+        equal = bool((sums == sums[0]).all())
+        if not (equal and math.isfinite(loss)):
+            raise AssertionError(f"dp_vision rank {rank} ViT step {i}: loss "
+                                 f"{loss}, replica checksums "
+                                 f"{sums.tolist()}")
+    vstalls = pipe.data_stall_steps - vstalls0
+    pipe.close()
+    vsteady = vtimes[DPV_COUNTED:]
+    say("dp_vision", **tag, model="vit_b16", rows=DPV_VIT_ROWS,
+        **_step_summary(vstep, vtimes, vcalls, vsteady),
+        images_per_s=f"{DPV_VIT_ROWS / statistics.median(vsteady):.1f}",
+        timed_data_stalls=vstalls, replicas_equal=True)
+    out.update(vit_ms=[t * 1e3 for t in vsteady], vit_stalls=vstalls)
+    # a captured graph holds its NCCL calls: free it before the group goes
+    del vit, vstep
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx.close()
+    with open(os.path.join(workdir, f"dp_vision_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    pmesh.shutdown()
+
+
+def _dp_vision_cli(world: int, workdir: str, tar: str) -> None:
+    """The launched CLI's ResNet arm on *world* cards: ``python -m
+    torch.distributed.run --standalone --nproc-per-node <world> -m
+    strom_torch.cli resnet --train-step --predecoded`` over the phase's
+    tar, 128 rows a card. Rank 0 alone prints the JSON: devices the
+    world, a finite loss."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(workdir, "dp_vision_cli")
+    os.makedirs(d, exist_ok=True)
+    batch = DPV_ROWS * world
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), "-m", "strom_torch.cli", "resnet",
+         "--train-step", "--predecoded", "--file", tar, "--batch",
+         str(batch), "--steps", "8", "--prefetch", "16", "--json",
+         "--tmpdir", d], capture_output=True, text=True, env=env,
+        timeout=CLI_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)))
+    dt = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    cmd = f"torch.distributed.run --nproc-per-node {world} resnet"
+    if proc.returncode or len(lines) != 1:
+        _cli_fail(cmd, proc.returncode, proc.stderr[-3000:],
+                  f"{len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    if out["devices"] != world or not math.isfinite(out["train_loss"]):
+        _cli_fail(cmd, 0, proc.stderr[-3000:], f"devices {out['devices']}, "
+                  f"loss {out['train_loss']}")
+    say("dp_vision", cli=cmd.replace(" ", "_"), s=f"{dt:.1f}", batch=batch,
+        devices=out["devices"], train_loss=out["train_loss"],
+        train_images_per_s=out["train_images_per_s"],
+        train_data_stalls=out["train_data_stalls"],
+        images_per_s=out["images_per_s"], card=_card_line(0).replace(" ", "_"))
+
+
+def phase_dp_vision(workdir: str, pdec: str | None = None,
+                    tar: str | None = None) -> None:
+    """Phase 12c: the vision pipelines and the ResNet-50 and ViT-B/16 steps
+    over every card (world 1 on a machine with one; world 1 and then
+    world N on one with N), one worker a card (``dp_vision_worker``).
+    *pdec* and *tar*: phase 6's predecoded shard and phase 7's tar (made
+    here, seeded as those phases make them, when they did not run). Per
+    world, each rank's median step ms and the losses (equal on every
+    rank), then each model's weak-scaling ratio (world N's median step
+    over world 1's), and on N cards the launched CLI's ResNet arm."""
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    made = []
+    if pdec is None:
+        rng = np.random.default_rng(6)
+        pdec = os.path.join(workdir, "dp_vision.pdec")
+        _write_predecoded(pdec, np.frombuffer(
+            rng.bytes(DPV_RECORDS * RECORD), dtype=np.uint8).reshape(
+                DPV_RECORDS, IMAGE, IMAGE, 3),
+            rng.integers(0, 1000, DPV_RECORDS, dtype=np.int32))
+        made.append(pdec)
+    if tar is None:
+        if not (jpeg._HAVE_CV2 or jpeg._HAVE_PIL):
+            raise AssertionError(f"dp_vision: {NO_JPEG}")
+        tar = os.path.join(workdir, "dp_vision.tar")
+        _jpeg_fixture(tar, DPV_JPEGS, 448)
+        made.append(tar)
+    with open(os.path.join(workdir, "dp_vision.json"), "w") as f:
+        json.dump({"pdec": pdec, "tar": tar}, f)
+    medians: dict[str, dict[int, float]] = {"resnet": {}, "vit": {}}
+    for world in ([1] if n == 1 else [1, n]):
+        ranks = _spawn_ranks("--dp-vision-worker", "dp_vision", world,
+                             workdir, DPV_TIMEOUT_S)
+        for m in medians:
+            medians[m][world] = statistics.median(
+                statistics.median(r[f"{m}_ms"]) for r in ranks)
+        losses = {tuple(r["losses"]) for r in ranks}
+        say("dp_vision", world=world, cards=",".join(
+            r["card"].replace(" ", "_") for r in ranks),
+            resnet_step_ms_median=",".join(
+                f"{statistics.median(r['resnet_ms']):.2f}" for r in ranks),
+            resnet_images_per_s=f"{world * DPV_ROWS / medians['resnet'][world] * 1e3:.1f}",
+            bn_allreduce_ms=",".join(f"{r['bn_allreduce_ms']:.3f}"
+                                     for r in ranks),
+            grad_allreduce_ms=",".join(f"{r['grad_allreduce_ms']:.3f}"
+                                       for r in ranks),
+            allreduce_share=",".join(f"{r['allreduce_share']:.4f}"
+                                     for r in ranks),
+            jpeg_images_per_s=",".join(f"{r['jpeg_images_per_s']:.1f}"
+                                       for r in ranks),
+            vit_step_ms_median=",".join(
+                f"{statistics.median(r['vit_ms']):.2f}" for r in ranks),
+            timed_data_stalls=",".join(str(r["stalls"]) for r in ranks),
+            losses_equal=len(losses) == 1,
+            **{f"rank0_max_{k}_rel_to_plain": f"{v:.3g}"
+               for k, v in ranks[0]["plain_gap"].items()},
+            **{f"rank0_local_bn_{k}_rel_to_plain": f"{v:.3g}"
+               for k, v in ranks[0]["local_gap"].items()})
+        if len(losses) != 1:
+            raise AssertionError(f"dp_vision world {world}: the ranks report "
+                                 f"different losses {losses}")
+    for m, by_world in medians.items():
+        say("dp_vision", model=m, worlds=",".join(map(str, by_world)),
+            weak_scaling=f"{by_world[max(by_world)] / by_world[1]:.4f}",
+            note="median step ms at the largest world over world 1's, the "
+                 "same rows a card", card=_card_line(0).replace(" ", "_"))
+    if n > 1:
+        _dp_vision_cli(n, workdir, tar)
+    _remove(*made)
+
+
 # ------------------------------------------------------------------- main
 # the phases --phases may choose: those that take nothing from another
-STANDALONE = ("build", "kernels", "wide_path", "train", "ckpt", "dp")
+STANDALONE = ("build", "kernels", "wide_path", "train", "ckpt", "dp",
+              "dp_vision")
 MAIN_SHAPE = (2, 2048, 32, 8, 128)
 
 
@@ -4961,9 +5468,11 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    if argv[:1] == ["--dp-worker"]:
+    workers = {"--dp-worker": dp_worker,
+               "--dp-vision-worker": dp_vision_worker}
+    if argv[:1] and argv[0] in workers:
         rank, world, port = (int(a) for a in argv[1:4])
-        dp_worker(rank, world, port, argv[4])
+        workers[argv[0]](rank, world, port, argv[4])
         return 0
     ap = argparse.ArgumentParser(description="Run the port's main path on "
                                  "the card and check it.")
@@ -5026,6 +5535,7 @@ def main(argv: list[str] | None = None) -> int:
         run("resilience", phase_resilience, workdir, pdec, tar)
         run("observability", phase_observability, workdir, tar)
         run("dp", phase_dp, workdir, pq)
+        run("dp_vision", phase_dp_vision, workdir, pdec, tar)
         _remove(*(pq[0] if pq else ()), pdec, tar)
         run("cli", phase_cli, workdir, disk_node)
     finally:

@@ -9,10 +9,11 @@ yet), with its flags, defaults and JSON keys. The deliberate differences:
 - every arm that delivers to a device takes ``--device`` (default: the
   current CUDA device; without one the arm raises — ``--device cpu`` runs
   it on the CPU, as the tests do);
-- ``llama`` is data-parallel over the process group where one is
+- ``llama``, ``resnet``, ``vit`` and the vision tenants of
+  ``multitenant`` are data-parallel over the process group where one is
   initialised (one process a card: ``python -m torch.distributed.run
-  --standalone --nproc-per-node N -m strom_torch.cli llama ...``; rank 0
-  prints the JSON): its batch is split over every process, and a world
+  --standalone --nproc-per-node N -m strom_torch.cli resnet ...``; rank 0
+  prints the JSON): the batch is split over every process, and a world
   size that does not divide ``--batch`` is refused, where the reference
   takes the largest device count that divides it. Without a group, and
   in the other arms, one device; the ``devices`` key says which;
@@ -437,6 +438,29 @@ def _rank0_first(make) -> None:
         import torch.distributed as dist
 
         dist.barrier(group=mesh.host_group())
+
+
+def _made_once(make):
+    """*make()*'s result on every rank: rank 0 makes it first, the others
+    then find what it made (a fixture's writer that returns its path)."""
+    out: list = []
+    _rank0_first(lambda: out.append(make()))
+    return out[0] if out else make()
+
+
+def _vision_where(batch: int, dev) -> tuple[int, dict]:
+    """(devices, the vision pipelines' placement keyword): with a process
+    group the batch is ``P("dp", None, None, None)`` over a dp mesh of
+    every process (each decodes its own rows onto its own card), else the
+    whole batch on *dev*. A world that does not divide *batch* raises."""
+    from strom_torch.parallel.mesh import is_initialized, make_mesh
+    from strom_torch.parallel.sharding import P, TorchSharding
+
+    n_dev = _fit_dp_devices(batch)
+    if not is_initialized():
+        return n_dev, {"device": dev}
+    mesh = make_mesh({"dp": n_dev})
+    return n_dev, {"sharding": TorchSharding(mesh, P("dp", None, None, None))}
 
 
 def _timed_train_phase(pipe_factory, step, steps: int,
@@ -986,8 +1010,8 @@ def _vision_arm(args: argparse.Namespace, kind: str) -> dict:
                                        make_vit_wds_pipeline)
     from strom_torch.utils.stats import global_stats as _gs
 
-    plain = args.file or _mk_wds_fixture(args.tmpdir, args.batch,
-                                         args.image_size)
+    plain = args.file or _made_once(lambda: _mk_wds_fixture(
+        args.tmpdir, args.batch, args.image_size))
     dev = _device(args)
     cfg = StromConfig(engine=args.engine, block_size=args.block,
                       queue_depth=args.depth, num_buffers=max(args.depth * 2, 8),
@@ -1007,41 +1031,42 @@ def _vision_arm(args: argparse.Namespace, kind: str) -> dict:
                 from strom_torch.formats.predecoded import \
                     stage_striped_predecoded
 
-                pdec = _ensure_predecoded(ctx, plain, args.image_size,
-                                          args.tmpdir)
-                members, _ = _ensure_striped(pdec, args.raid, args.raid_chunk)
+                pdec = _made_once(lambda: _ensure_predecoded(
+                    ctx, plain, args.image_size, args.tmpdir))
+                members, _ = _made_once(lambda: _ensure_striped(
+                    pdec, args.raid, args.raid_chunk))
                 virt = stage_striped_predecoded(ctx, pdec, members,
                                                 args.raid_chunk, stripe=False)
             else:
-                members, _ = _ensure_striped(plain, args.raid,
-                                             args.raid_chunk)
+                members, _ = _made_once(lambda: _ensure_striped(
+                    plain, args.raid, args.raid_chunk))
                 virt = plain + ".raid0"  # never on disk: reads via the alias
                 ctx.register_striped(virt, members, args.raid_chunk)
             data_paths, drop_paths = [virt], members
             make_jpeg = make_vit_wds_pipeline
         else:
             if predecoded:
-                data_paths = [_ensure_predecoded(ctx, plain, args.image_size,
-                                                 args.tmpdir)]
+                data_paths = [_made_once(lambda: _ensure_predecoded(
+                    ctx, plain, args.image_size, args.tmpdir))]
             else:
                 data_paths = [plain]
             drop_paths = data_paths
             make_jpeg = make_imagenet_resnet_pipeline
-        n_dev = 1   # the vision arms run one card (their dp is a later slice)
+        n_dev, where = _vision_where(args.batch, dev)
 
         if predecoded:
             def pipe_factory(depth=args.prefetch, auto=False):
                 return make_predecoded_vision_pipeline(
                     ctx, data_paths, batch=args.batch,
-                    image_size=args.image_size, device=dev,
-                    prefetch_depth=depth, auto_prefetch=auto)
+                    image_size=args.image_size, prefetch_depth=depth,
+                    auto_prefetch=auto, **where)
         else:
             def pipe_factory(depth=args.prefetch, auto=False, **pkw):
                 return make_jpeg(
                     ctx, data_paths, batch=args.batch,
-                    image_size=args.image_size, device=dev,
-                    prefetch_depth=depth, auto_prefetch=auto,
-                    decode_workers=args.decode_workers, **pkw)
+                    image_size=args.image_size, prefetch_depth=depth,
+                    auto_prefetch=auto, decode_workers=args.decode_workers,
+                    **where, **pkw)
         for p in drop_paths:
             _drop_cache_hint(p)
         with pipe_factory() as pipe:
@@ -1078,7 +1103,9 @@ def _vision_arm(args: argparse.Namespace, kind: str) -> dict:
                                        drop_paths))
 
         if getattr(args, "train_step", False):
-            step = _vision_step(args, kind, dev)
+            sharding = where.get("sharding")
+            step = _vision_step(args, kind, dev,
+                                sharding.mesh if sharding else None)
             for p in drop_paths:
                 _drop_cache_hint(p)
             rate, stalls, loss, dinfo = _timed_train_phase(
@@ -1102,19 +1129,21 @@ def _vision_arm(args: argparse.Namespace, kind: str) -> dict:
     return out
 
 
-def _vision_step(args: argparse.Namespace, kind: str, dev):
+def _vision_step(args: argparse.Namespace, kind: str, dev, mesh=None):
     """*batch* -> loss of the captured SGD step of ``parallel/train.py``
     (``w - 1e-3·g``, labels taken modulo the classes): ResNet with its
-    batch-norm statistics, or ViT at --image-size."""
+    batch-norm statistics, or ViT at --image-size. With a dp *mesh* the
+    step is data-parallel and every replica starts from the dp group's
+    first rank's model."""
     from strom_torch.parallel.train import (make_resnet_sgd_step,
-                                            make_vit_sgd_step)
+                                            make_vit_sgd_step, replicate)
 
     if kind == "resnet":
         from strom_torch.models.resnet import ResNet, ResNetConfig
 
         mcfg = getattr(ResNetConfig, args.model)()
         model = ResNet(mcfg, device=dev)
-        sgd = make_resnet_sgd_step(mcfg, device=dev)
+        sgd = make_resnet_sgd_step(mcfg, device=dev, mesh=mesh)
     else:
         from strom_torch.models.vit import ViT, ViTConfig
 
@@ -1122,7 +1151,9 @@ def _vision_step(args: argparse.Namespace, kind: str, dev):
         if mcfg.image_size != args.image_size:
             mcfg = dataclasses.replace(mcfg, image_size=args.image_size)
         model = ViT(mcfg, device=dev)
-        sgd = make_vit_sgd_step(mcfg, device=dev)
+        sgd = make_vit_sgd_step(mcfg, device=dev, mesh=mesh)
+    if mesh is not None:
+        replicate(model, mesh)
 
     def step(batch):
         imgs, lbls = batch
@@ -1578,23 +1609,31 @@ def _reference_tenants(args, cfg, steps: int, batch: int, image_size: int,
     from strom_torch.pipelines import make_wds_vision_pipeline
     from strom_torch.pipelines.parquet_scan import parquet_count_where
 
-    tar = args.file or _mk_wds_fixture(args.tmpdir, batch, image_size)
+    tar = args.file or _made_once(lambda: _mk_wds_fixture(
+        args.tmpdir, batch, image_size))
     pq_path = os.path.join(args.tmpdir, f"strom_bench_mt_{rows}.parquet")
-    if not os.path.exists(pq_path):
-        rng = np.random.default_rng(0)
-        with StromContext(StromConfig(engine=cfg.engine)) as wctx:
-            write_parquet(wctx, pq_path, {
-                "value": rng.standard_normal(rows),
-                "key": rng.integers(0, 1 << 30, rows, dtype=np.int64)},
-                row_group_rows=max(rows // 8, 1), compression="snappy")
+
+    def make_pq() -> None:
+        if not os.path.exists(pq_path):
+            rng = np.random.default_rng(0)
+            with StromContext(StromConfig(engine=cfg.engine)) as wctx:
+                write_parquet(wctx, pq_path, {
+                    "value": rng.standard_normal(rows),
+                    "key": rng.integers(0, 1 << 30, rows, dtype=np.int64)},
+                    row_group_rows=max(rows // 8, 1), compression="snappy")
+
+    _rank0_first(make_pq)
     dev = _device(args)
 
     def make(ctx):
+        # the vision tenants' rows over every process, one mesh for both
+        _, where = _vision_where(batch, dev)
+
         def vision_run(tenant: str) -> float:
             pipe = make_wds_vision_pipeline(
-                ctx, [tar], batch=batch, image_size=image_size, device=dev,
+                ctx, [tar], batch=batch, image_size=image_size,
                 decode_workers=2,
-                scope={"pipeline": "resnet", "tenant": tenant})
+                scope={"pipeline": "resnet", "tenant": tenant}, **where)
             try:
                 next(pipe)  # warm-up
                 t0 = time.perf_counter()

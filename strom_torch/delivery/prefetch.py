@@ -12,9 +12,10 @@ batches only pin slab-pool memory). Depth stays inside [min_depth,
 max_depth]; callers bound max_depth by slab-pool capacity
 (:func:`bound_depth`).
 
-The reference mirrors its counters into a telemetry registry and its depth
-moves into an event ring; the port keeps the same counts on the
-Prefetcher itself (:meth:`Prefetcher.snapshot`, ``depth_trace``).
+The counts live on the Prefetcher itself (:meth:`Prefetcher.snapshot`,
+``depth_trace``); the depth and the stall count are also mirrored as the
+gauges ``prefetch_depth`` and ``prefetch_data_stall_steps`` into a
+telemetry scope (the pipeline's), so they reach ``/metrics``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Callable, Generic, Iterable, Iterator, TypeVar
 
 from strom_torch.obs.events import ring as _events_ring
 from strom_torch.utils.locks import make_lock
-from strom_torch.utils.stats import StatsRegistry
+from strom_torch.utils.stats import StatsRegistry, global_stats
 
 T = TypeVar("T")
 
@@ -66,13 +67,19 @@ class Prefetcher(Generic[T]):
 
     With ``auto_depth=True``, *depth* is the starting point and the
     controller moves it inside [min_depth, max_depth]. ``depth_trace``
-    records every change as (step, new_depth)."""
+    records every change as (step, new_depth).
+
+    *scope*: the telemetry scope the depth and stall gauges are mirrored
+    into (a pipeline's label scope: the scoped series and the aggregate);
+    None is the process-wide registry. Gauges hold the current state, so
+    within one scope the latest prefetcher wins."""
 
     def __init__(self, thunks: Iterable[Callable[[], T]], *, depth: int = 2,
                  executor: concurrent.futures.Executor | None = None,
                  auto_depth: bool = False,
                  min_depth: int = 1,
-                 max_depth: int | None = None):
+                 max_depth: int | None = None,
+                 scope=None):
         if depth < 1:
             raise ValueError("depth must be >= 1")
         if min_depth < 1:
@@ -99,6 +106,9 @@ class Prefetcher(Generic[T]):
         # registry of the prefetcher's own (all_counter_names sees it)
         self.stats = StatsRegistry("prefetch")
         self.stats.set_gauge("prefetch_depth", self._depth)
+        self._scope = scope if scope is not None else global_stats
+        self._scope.set_gauge("prefetch_depth", self._depth)
+        self._scope.set_gauge("prefetch_data_stall_steps", 0)
         self.depth_trace: list[tuple[int, int]] = [(0, self._depth)]
         self._ready_streak = 0
         self._exhausted = False
@@ -158,6 +168,7 @@ class Prefetcher(Generic[T]):
         self._depth = depth
         self.stats.add("depth_grow" if kind == "grow" else "depth_shrink")
         self.stats.set_gauge("prefetch_depth", depth)
+        self._scope.set_gauge("prefetch_depth", depth)
         if len(self.depth_trace) < _TRACE_CAP:
             self.depth_trace.append((self.steps, depth))
 
@@ -180,6 +191,8 @@ class Prefetcher(Generic[T]):
                 fut = self._queue.popleft()
         if not fut.done():
             self.stats.add("data_stall_steps")
+            self._scope.set_gauge("prefetch_data_stall_steps",
+                                  self.data_stall_steps)
             with _events_ring.span("prefetch.stall_wait", cat="ingest_wait"):
                 result = fut.result()
             if self._auto:

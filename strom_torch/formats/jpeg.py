@@ -76,6 +76,7 @@ except Exception:  # pragma: no cover
 _REGISTRY_NAMES = {"native_imgs": "decode_native_imgs",
                    "native_fallbacks": "decode_native_fallbacks",
                    "roi_hits": "decode_roi_hits",
+                   "roi_rows_skipped": "decode_roi_rows_skipped",
                    "reduced_hits_2": "decode_reduced_hits_2",
                    "reduced_hits_4": "decode_reduced_hits_4",
                    "reduced_hits_8": "decode_reduced_hits_8"}
@@ -509,6 +510,8 @@ def make_train_transform(size: int, *, reduced_scale: bool = True,
                     rect = nat(data, reduced=denom, roi=(r0, c0, rch, rcw))
                     note("native_imgs")
                     note("roi_hits")
+                    # the scaled frame's rows the partial decode skipped
+                    note("roi_rows_skipped", rh - rch)
                     if denom > 1:
                         note(f"reduced_hits_{denom}")
                     return finish(_resize_into(rect, size, out))

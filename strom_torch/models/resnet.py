@@ -20,6 +20,16 @@ The same network and numerics as the JAX package's:
   batch statistics are computed once, by the normalisation's own pass, and
   the running ones derived from them.
 
+Given a data-parallel group (``forward(..., dp=DpGroup(...))``, from
+``make_resnet_sgd_step(mesh=)``), training batch norm takes its statistics
+over the group's global batch, as the reference's batch norm does under
+``jit`` over a ``P("dp", ...)`` batch (:class:`GlobalBatchNorm`): each
+rank's per-channel mean, inverse std and count are all-reduced in the
+forward, and the two per-channel gradient sums in the backward, the
+pattern of ``torch.nn.SyncBatchNorm`` over torch's own batch-norm ops on
+the card (the same arithmetic in plain torch on the CPU, where those ops do
+not exist).
+
 ``forward(images, train)`` returns ``(logits, new_bn_state)``; the train
 step (``strom_torch.parallel.train.make_resnet_sgd_step``) stores the new
 state with :meth:`ResNet.load_bn_state`. ``params_from_jax`` converts the
@@ -30,10 +40,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -98,6 +109,138 @@ def _conv_param(kh: int, kw: int, cin: int, cout: int, dtype, device,
     return nn.Parameter(w.to(dtype).contiguous(memory_format=torch.channels_last))
 
 
+class DpGroup(NamedTuple):
+    """A data-parallel group batch norm reduces over: the process group,
+    its size and this process's rank in it."""
+
+    group: Any
+    size: int
+    rank: int
+
+
+_C = (1, -1, 1, 1)          # a per-channel vector against NCHW
+_REDUCE = (0, 2, 3)         # every dimension but the channel
+
+
+def _bn_stats(x: torch.Tensor, eps: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel f32 mean and 1/sqrt(biased var + eps) of *x*."""
+    if x.is_cuda:
+        return torch.batch_norm_stats(x, eps)
+    xf = x.float()
+    mean = xf.mean(_REDUCE)
+    var = (xf - mean.view(_C)).square().mean(_REDUCE)
+    return mean, (var + eps).rsqrt()
+
+
+def _bn_gather(x: torch.Tensor, means: torch.Tensor, invstds: torch.Tensor,
+               counts: torch.Tensor, eps: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global mean and inverse std from each rank's (rows of *means*,
+    *invstds*, *counts*): the biased variances merged with the spread of
+    the means."""
+    if x.is_cuda:
+        # its first argument only sets the arithmetic's type: f32, as the
+        # statistics and the counts are
+        return torch.batch_norm_gather_stats_with_counts(
+            means, means, invstds, None, None, 0.0, eps, counts)
+    n = counts.sum()
+    w = counts[:, None]
+    mean = (w * means).sum(0) / n
+    var = (w * (invstds.pow(-2) - eps + (means - mean).square())).sum(0) / n
+    return mean, (var + eps).rsqrt()
+
+
+def _bn_elemt(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              mean: torch.Tensor, invstd: torch.Tensor, eps: float
+              ) -> torch.Tensor:
+    """``(x - mean) · invstd · scale + bias`` in f32, in *x*'s dtype."""
+    if x.is_cuda:
+        return torch.batch_norm_elemt(x, scale, bias, mean, invstd, eps)
+    y = (x.float() - mean.view(_C)) * (invstd * scale).view(_C) \
+        + bias.view(_C)
+    return y.to(x.dtype)
+
+
+def _bn_backward_reduce(gy: torch.Tensor, x: torch.Tensor,
+                        mean: torch.Tensor, invstd: torch.Tensor,
+                        scale: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(Σ dy, Σ dy·(x − mean), the scale's gradient, the bias's gradient)
+    per channel, over this rank's rows, in f32."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_reduce(gy, x, mean, invstd, scale,
+                                                True, True, True)
+    gf = gy.float()
+    sum_dy = gf.sum(_REDUCE)
+    sum_dy_xmu = (gf * (x.float() - mean.view(_C))).sum(_REDUCE)
+    return sum_dy, sum_dy_xmu, sum_dy_xmu * invstd, sum_dy
+
+
+def _bn_backward_elemt(gy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                       invstd: torch.Tensor, scale: torch.Tensor,
+                       sum_dy: torch.Tensor, sum_dy_xmu: torch.Tensor,
+                       counts: torch.Tensor) -> torch.Tensor:
+    """The input's gradient from the global sums over the global count:
+    ``scale · invstd · (dy − Σdy/N − (x − mean) · invstd² · Σdy(x−mean)/N)``,
+    in *x*'s dtype."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_elemt(
+            gy, x, mean, invstd, scale, sum_dy, sum_dy_xmu,
+            counts.to(torch.int32))
+    n = counts.sum()
+    xmu = x.float() - mean.view(_C)
+    gx = (gy.float() - (sum_dy / n).view(_C)
+          - xmu * (invstd.square() * sum_dy_xmu / n).view(_C)) \
+        * (invstd * scale).view(_C)
+    return gx.to(x.dtype)
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a dp group: the
+    forward all-reduces a [size, 2C+1] f32 table in which each rank has
+    written its row (per-channel mean, inverse std, element count), so
+    every rank merges the same statistics; the backward all-reduces the
+    per-channel Σdy and Σdy·(x − mean). The scale and bias gradients stay
+    this rank's: the step's gradient mean sums them over the group. One
+    all-reduce each way a layer, captured in the step's graph with the
+    rest. Returns ``(y, mean, invstd)``; the statistics carry no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float, dp: DpGroup):
+        c = x.shape[1]
+        mean, invstd = _bn_stats(x, eps)
+        table = torch.zeros(dp.size, 2 * c + 1, dtype=torch.float32,
+                            device=x.device)
+        row = table[dp.rank]
+        row[:c] = mean
+        row[c: 2 * c] = invstd
+        row[2 * c:].fill_(x.numel() // c)   # a fill: no host copy
+        dist.all_reduce(table, group=dp.group)
+        counts = table[:, 2 * c]
+        mean, invstd = _bn_gather(x, table[:, :c], table[:, c: 2 * c],
+                                  counts, eps)
+        ctx.save_for_backward(x, scale, mean, invstd, counts)
+        ctx.dp = dp
+        ctx.mark_non_differentiable(mean, invstd)
+        return _bn_elemt(x, scale, bias, mean, invstd, eps), mean, invstd
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _ginvstd):
+        x, scale, mean, invstd, counts = ctx.saved_tensors
+        gy = gy.contiguous(memory_format=torch.channels_last) \
+            if x.is_contiguous(memory_format=torch.channels_last) \
+            else gy.contiguous()
+        sum_dy, sum_dy_xmu, gscale, gbias = _bn_backward_reduce(
+            gy, x, mean, invstd, scale)
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums, group=ctx.dp.group)
+        sum_dy, sum_dy_xmu = sums.chunk(2)
+        gx = _bn_backward_elemt(gy, x, mean, invstd, scale, sum_dy,
+                                sum_dy_xmu, counts)
+        return gx, gscale, gbias, None, None
+
+
 class BatchNorm(nn.Module):
     """Functional batch norm: f32 scale and bias, f32 running mean and var
     as buffers, never updated in place."""
@@ -110,8 +253,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c, device=device))
         self.register_buffer("var", torch.ones(c, device=device))
 
-    def forward(self, x: torch.Tensor, train: bool,
-                new_state: dict) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, new_state: dict,
+                dp: DpGroup | None = None) -> torch.Tensor:
         cfg = self.cfg
         if not train:
             new_state[self] = (self.mean, self.var)
@@ -120,9 +263,14 @@ class BatchNorm(nn.Module):
         # one statistics pass: the batch mean and 1/sqrt(biased var + eps),
         # in f32, normalise x (gradients through the batch statistics), and
         # the new running statistics come from the same two numbers; no
-        # running statistics are given, so none are updated in place
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.scale, self.bias, None, None, True, 0.0, cfg.bn_eps)
+        # running statistics are given, so none are updated in place. With
+        # a dp group, the batch is the group's global batch
+        if dp is None:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.scale, self.bias, None, None, True, 0.0, cfg.bn_eps)
+        else:
+            y, mean, invstd = GlobalBatchNorm.apply(x, self.scale, self.bias,
+                                                    cfg.bn_eps, dp)
         with torch.no_grad():
             var = invstd.float().pow(-2) - cfg.bn_eps
             m = cfg.bn_momentum
@@ -155,15 +303,15 @@ class Bottleneck(nn.Module):
             self.proj = _conv_param(1, 1, cin, cout, dt, device, gen)
             self.proj_bn = BatchNorm(cout, cfg, device)
 
-    def forward(self, x: torch.Tensor, train: bool,
-                new_state: dict) -> torch.Tensor:
-        h = F.relu(self.bn1(conv_same(x, self.conv1), train, new_state))
+    def forward(self, x: torch.Tensor, train: bool, new_state: dict,
+                dp: DpGroup | None = None) -> torch.Tensor:
+        h = F.relu(self.bn1(conv_same(x, self.conv1), train, new_state, dp))
         h = F.relu(self.bn2(conv_same(h, self.conv2, self.stride), train,
-                            new_state))
-        h = self.bn3(conv_same(h, self.conv3), train, new_state)
+                            new_state, dp))
+        h = self.bn3(conv_same(h, self.conv3), train, new_state, dp)
         if self.proj is not None:
             x = self.proj_bn(conv_same(x, self.proj, self.stride), train,
-                             new_state)
+                             new_state, dp)
         return F.relu(h + x)
 
 
@@ -200,21 +348,24 @@ class ResNet(nn.Module):
         self._bn_names = {bn: name for name, bn in self.named_modules()
                           if isinstance(bn, BatchNorm)}
 
-    def forward(self, images: torch.Tensor, train: bool = True
+    def forward(self, images: torch.Tensor, train: bool = True,
+                dp: DpGroup | None = None
                 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """images [B,H,W,3], any float dtype, already normalised →
         (logits [B, classes] f32, new batch-norm state keyed as the
-        buffers: ``stem.bn.mean``, ``stem.bn.var``, ...)."""
+        buffers: ``stem.bn.mean``, ``stem.bn.var``, ...). *dp*: the
+        data-parallel group whose global batch training batch norm
+        normalises over (None: these rows alone)."""
         cfg = self.cfg
         # NHWC memory seen as NCHW: the channels_last layout
         x = images.to(cfg.torch_dtype).permute(0, 3, 1, 2)
         new: dict = {}
         x = conv_same(x, self.stem.conv, 2)
-        x = F.relu(self.stem.bn(x, train, new))
+        x = F.relu(self.stem.bn(x, train, new, dp))
         x = max_pool_same(x)
         for si in range(len(cfg.stages)):
             for block in getattr(self, f"stage{si}"):
-                x = block(x, train, new)
+                x = block(x, train, new, dp)
         x = x.float().mean(dim=(2, 3))   # global average pool, in f32
         logits = x @ self.head.w + self.head.b
         state = {}
@@ -238,9 +389,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logz - gold).mean()
 
 
-def loss_fn(model: ResNet, images: torch.Tensor, labels: torch.Tensor
+def loss_fn(model: ResNet, images: torch.Tensor, labels: torch.Tensor,
+            dp: DpGroup | None = None
             ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    logits, new_state = model(images, train=True)
+    logits, new_state = model(images, train=True, dp=dp)
     return softmax_xent(logits, labels), new_state
 
 

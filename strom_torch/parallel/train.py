@@ -1,4 +1,4 @@
-"""Training steps, single device: the flagship Llama model (the port's
+"""Training steps: the flagship Llama model (the port's
 counterpart of ``strom/parallel/train.py``), and ResNet-50 and ViT-B/16
 under plain SGD (``make_resnet_sgd_step`` and ``make_vit_sgd_step``, the
 counterparts of the ``sgd_step`` that ``strom/cli.py``'s ResNet and ViT
@@ -18,7 +18,7 @@ step and donates its state; on the CPU the same body runs eagerly. Either
 way the updates are in place: parameters, moments and batch-norm
 statistics are overwritten, and the step body never waits for the device.
 
-Given a mesh with a ``dp`` axis, the Llama step is data-parallel, where
+Given a mesh with a ``dp`` axis, each step is data-parallel, where
 the reference lets XLA place the gradients' psum: each process runs its
 own rows of the global batch (the ``DTensor`` the sharded loader
 delivers, or its local block), and after ``backward`` the gradients are
@@ -26,7 +26,8 @@ summed over the dp group (NCCL on the card, gloo on the CPU) in one flat
 bucket a dtype and divided by its size, before the global norm and the
 clip, so the norm is the global batch's as in the reference. The loss it
 reports is the group's mean. The collectives are captured in the step's
-graph with the rest.
+graph with the rest. The ResNet step also takes its batch-norm statistics
+over the global batch, as the reference's jitted step does.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ import torch.distributed as dist
 from strom_torch.delivery.core import resolve_device
 from strom_torch.models.llama import Llama, LlamaConfig, next_token_loss
 from strom_torch.models import vit
-from strom_torch.models.resnet import (ResNet, ResNetConfig, imagenet_mean_std,
-                                       loss_fn, normalize_images)
+from strom_torch.models.resnet import (DpGroup, ResNet, ResNetConfig,
+                                       imagenet_mean_std, loss_fn,
+                                       normalize_images)
 from strom_torch.parallel.capture import CapturedStep
 from strom_torch.parallel.mesh import Mesh
 
@@ -111,13 +113,19 @@ def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     if params is not None:
         model.load_state_dict(params)
     if mesh is not None:
-        group, _ = _dp_group(mesh)
-        src = int(mesh.devices.flat[0])
-        with torch.no_grad():
-            for p in model.parameters():
-                dist.broadcast(p, src=src, group=group)
+        replicate(model, mesh)
     opt, sched = (optimizer or make_optimizer()).build(model.parameters())
     return TrainState(model, opt, sched)
+
+
+@torch.no_grad()
+def replicate(model: torch.nn.Module, mesh: Mesh) -> None:
+    """Make every dp replica of *model* hold the dp group's first rank's
+    parameters and buffers (broadcast in place)."""
+    group, _ = _dp_group(mesh)
+    src = int(mesh.devices.flat[0])
+    for t in list(model.parameters()) + list(model.buffers()):
+        dist.broadcast(t, src=src, group=group)
 
 
 def _named_optimizer_state(state: TrainState) -> dict[str, dict]:
@@ -288,8 +296,33 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     return CapturedStep(body, device, finish=finish)
 
 
+def _dp_sgd(params: list[torch.Tensor], loss: torch.Tensor,
+            dp: DpGroup | None, lr: float) -> dict:
+    """The SGD tail of the vision steps after ``backward``: with a dp group
+    the gradients and the loss become the group's means (one flat bucket a
+    dtype); then the gradients' global norm and ``w - lr·g`` in place."""
+    grads = [p.grad for p in params]
+    loss = loss.detach()
+    if dp is not None:
+        grads = _mean_over(grads, dp.group, dp.size)
+        loss = _mean_over([loss], dp.group, dp.size)[0]
+    norm = global_norm(grads)
+    with torch.no_grad():
+        torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
+    return {"loss": loss, "grad_norm": norm}
+
+
+def _vision_dp(mesh: Mesh | None) -> DpGroup | None:
+    """The dp group of a vision step's *mesh* (None without one)."""
+    if mesh is None:
+        return None
+    group, size = _dp_group(mesh)
+    return DpGroup(group, size, dist.get_rank(group))
+
+
 def make_resnet_sgd_step(cfg: ResNetConfig, *, lr: float = 1e-3,
-                         device: Any = None) -> CapturedStep:
+                         device: Any = None, mesh: Mesh | None = None
+                         ) -> CapturedStep:
     """A ``(model, images, labels) -> metrics`` step: the counterpart of
     ``sgd_step`` in ``strom/cli.py``'s ResNet bench. uint8 NHWC images are
     normalised inside the step, labels taken ``% num_classes``; then plain
@@ -299,9 +332,18 @@ def make_resnet_sgd_step(cfg: ResNetConfig, *, lr: float = 1e-3,
     statistics stored. Updates are in place, where the reference's jitted
     step donated its parameters; on CUDA the step is captured as a graph.
     Metrics ``{"loss", "grad_norm"}`` are 0-dim tensors (reading them waits
-    for the step)."""
+    for the step).
+
+    *mesh* with a ``dp`` axis: the step is data-parallel over it, as the
+    reference's jitted step is over a ``P("dp", ...)`` batch. The images
+    and labels are the global batch's ``DTensor``s (or this process's rows
+    of them); batch norm normalises over the global batch
+    (``models.resnet.GlobalBatchNorm``), so the running statistics are the
+    same on every rank; the gradients and the loss are the group's means,
+    all-reduced in one flat bucket a dtype inside the captured graph."""
     device = resolve_device(device)
     mean_std = imagenet_mean_std(device)
+    dp = _vision_dp(mesh)
 
     def body(model: ResNet, images: torch.Tensor, labels: torch.Tensor
              ) -> dict:
@@ -309,20 +351,18 @@ def make_resnet_sgd_step(cfg: ResNetConfig, *, lr: float = 1e-3,
         for p in params:
             p.grad = None
         loss, new_state = loss_fn(model, normalize_images(images, mean_std),
-                                  labels.long() % cfg.num_classes)
+                                  labels.long() % cfg.num_classes, dp=dp)
         loss.backward()
-        grads = [p.grad for p in params]
-        norm = global_norm(grads)
-        with torch.no_grad():
-            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
-            model.load_bn_state(new_state)
-        return {"loss": loss.detach(), "grad_norm": norm}
+        metrics = _dp_sgd(params, loss, dp, lr)
+        model.load_bn_state(new_state)
+        return metrics
 
     return CapturedStep(body, device)
 
 
 def make_vit_sgd_step(cfg: vit.ViTConfig, *, lr: float = 1e-3,
-                      device: Any = None) -> CapturedStep:
+                      device: Any = None, mesh: Mesh | None = None
+                      ) -> CapturedStep:
     """A ``(model, images, labels) -> metrics`` step: the counterpart of the
     ``sgd_step`` of ``strom/cli.py``'s ViT bench. The loss is taken on
     ``normalize_images(images)`` and ``labels % num_classes``; then
@@ -330,9 +370,12 @@ def make_vit_sgd_step(cfg: vit.ViTConfig, *, lr: float = 1e-3,
     with no f32 master copy), in place, where the reference's jitted step
     donated its parameters; on CUDA the step is captured as a graph.
     Metrics ``{"loss", "grad_norm"}`` are 0-dim tensors (reading them waits
-    for the step)."""
+    for the step). *mesh* with a ``dp`` axis: data-parallel over it, the
+    gradients and the loss the group's means (the ViT has no batch
+    norm)."""
     device = resolve_device(device)
     mean_std = imagenet_mean_std(device)
+    dp = _vision_dp(mesh)
 
     def body(model: vit.ViT, images: torch.Tensor, labels: torch.Tensor
              ) -> dict:
@@ -342,10 +385,6 @@ def make_vit_sgd_step(cfg: vit.ViTConfig, *, lr: float = 1e-3,
         loss = vit.loss_fn(model, normalize_images(images, mean_std),
                            labels.long() % cfg.num_classes)
         loss.backward()
-        grads = [p.grad for p in params]
-        norm = global_norm(grads)
-        with torch.no_grad():
-            torch._foreach_sub_(params, torch._foreach_mul(grads, lr))
-        return {"loss": loss.detach(), "grad_norm": norm}
+        return _dp_sgd(params, loss, dp, lr)
 
     return CapturedStep(body, device)

@@ -44,7 +44,8 @@ class Pipeline:
                  on_close: Callable[[], None] | None = None,
                  counters: Callable[[], dict] | None = None,
                  epoch_sync: bool = False,
-                 scope: Any | None = None):
+                 scope: Any | None = None,
+                 req_owner: Any | None = None):
         """*depth* is the prefetch depth, the starting one when
         *auto_depth* moves it inside [1, *max_depth*]. *on_close* runs once
         the prefetcher has stopped (a readahead thread's or a decode pool's
@@ -52,7 +53,10 @@ class Pipeline:
         :meth:`stats`. *scope*: the telemetry scope the pipeline counts
         its steps in (``pipeline_steps``), a label scope of the context's
         whose ``tenant`` label names the scheduler tenant its gathers take;
-        None is the process-wide registry.
+        None is the process-wide registry. The prefetcher mirrors its depth
+        and stall gauges into it. *req_owner*: the owning context's request
+        token (``ctx._req_owner``), carried by each ``step`` request, so
+        that only that context's SLO engine takes them.
 
         *epoch_sync*: every process meets at a barrier before the first
         batch of each epoch after the first is dispatched, so that no
@@ -71,6 +75,7 @@ class Pipeline:
         self._executor = executor
         self._on_close = on_close
         self._counters = counters
+        self._req_owner = req_owner
         self._epoch_sync = epoch_sync
         self.monitor = StragglerMonitor()
         self._last_next: float | None = None
@@ -99,7 +104,8 @@ class Pipeline:
 
         _, auto_depth, max_depth = self._depth_args
         return Prefetcher(thunks(), depth=depth, auto_depth=auto_depth,
-                          max_depth=max_depth, executor=self._executor)
+                          max_depth=max_depth, executor=self._executor,
+                          scope=self.scope)
 
     def __iter__(self) -> "Pipeline":
         return self
@@ -109,7 +115,7 @@ class Pipeline:
         # pipeline's tenant (the batch's own gathers are minted where they
         # run, on the prefetcher's threads)
         tname = getattr(self.scope, "labels", {}).get("tenant")
-        with _request.active("step", tname), \
+        with _request.active("step", tname, owner=self._req_owner), \
                 _request.span("pipeline.next", cat="ingest_wait",
                               args={"step": self._consumed}):
             batch = next(self._prefetcher)

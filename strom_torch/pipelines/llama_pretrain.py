@@ -90,4 +90,5 @@ def make_llama_pipeline(ctx: StromContext, paths: Sequence[str], *,
         ctx, auto_prefetch, math.prod(local) * np.dtype(dtype).itemsize)
     return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
                     max_depth=max_depth, fingerprint=fp,
-                    epoch_sync=epoch_sync, scope=pscope)
+                    epoch_sync=epoch_sync, scope=pscope,
+                    req_owner=ctx._req_owner)

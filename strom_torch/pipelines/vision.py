@@ -1,7 +1,15 @@
 """Vision pipelines over WebDataset and predecoded shards: ImageNet →
-ResNet-50 (BASELINE config #2), single device (the port's counterpart of
-``strom/pipelines/vision.py``, with ``device=`` in place of ``sharding=``,
-so a batch is one row group and one host-to-device copy).
+ResNet-50 (BASELINE config #2) and WebDataset → ViT-B/16 (config #3), the
+port's counterpart of ``strom/pipelines/vision.py``.
+
+A batch goes to one device (``device=``) or is sharded over a mesh
+(``sharding=``, a :class:`~strom_torch.parallel.sharding.TorchSharding` that
+splits the batch dimension only). Sharded, each process gathers and
+decodes only the rows its own card consumes, keys their augmentation by
+the global row index (so every world size gives the same rows), and the
+batch is the global ``DTensor``. The reference's per-device row groups are
+kept: this process's rows form the groups of its devices, one a card, so
+one group a process, put the moment its last row decodes.
 
 Per JPEG batch: gather the samples' members with the engine, decode and
 augment them on the host decode pool straight into the batch slot (a
@@ -9,7 +17,8 @@ pinned slab from the context's pool on a CUDA target), copy the slot to the
 card. With ``stream_intra_batch`` (the default) the gather is
 completion-driven: each sample goes to the decode pool the moment its
 extents land, so read and decode overlap within the batch. Batches are
-bit-identical either way.
+bit-identical either way. Each batch build is one traced ``batch``
+request of the pipeline's tenant and context.
 
 The predecoded pipeline is a pure engine gather and one copy per batch: no
 decoder on the host at all.
@@ -28,6 +37,7 @@ import concurrent.futures
 import inspect
 import queue as _queue
 import threading
+import time
 from typing import TYPE_CHECKING, Any, Callable, Sequence
 
 import numpy as np
@@ -43,10 +53,14 @@ from strom_torch.formats.jpeg import (DecodeCounts, DecodePool,
                                       make_train_transform)
 from strom_torch.formats.predecoded import PredecodedShardSet
 from strom_torch.formats.wds import WdsShardSet
+from strom_torch.obs import request as _request
+from strom_torch.obs.events import ring
+from strom_torch.parallel.sharding import P, TorchSharding
 from strom_torch.pipelines.base import (Pipeline, _auto_depth_bounds,
                                         resolve_state)
 from strom_torch.pipelines.sampler import EpochShuffleSampler, SamplerState
 from strom_torch.utils.locks import make_lock
+from strom_torch.utils.stats import global_stats
 
 if TYPE_CHECKING:
     from strom_torch.ckpt.jobstate import StepToken
@@ -100,59 +114,191 @@ def _chain_close(*closers) -> Callable[[], None] | None:
     return close
 
 
+def _validate_batch_only(sharding: TorchSharding, rank: int = 4) -> None:
+    """Image pipelines shard the batch dimension only: a spec that splits
+    H, W or C raises here, at construction."""
+    spec = tuple(sharding.spec) + (None,) * (rank - len(sharding.spec))
+    split_inner = [i for i, s in enumerate(spec[1:], start=1) if s is not None]
+    if split_inner:
+        raise ValueError(
+            "vision pipelines deliver batch-dim-sharded images only: "
+            f"PartitionSpec {tuple(sharding.spec)} shards inner dim(s) "
+            f"{split_inner} (H/W/C must be None/replicated)")
+
+
+def _local_batch_rows(sharding: TorchSharding, batch: int) -> dict:
+    """device -> (row_lo, row_hi) of the global batch this process feeds:
+    the sharding collapsed to its batch axis, so each device's block is a
+    contiguous row range (one entry: one rank, one card)."""
+    spec0 = sharding.spec[0] if len(sharding.spec) else None
+    probe = TorchSharding(sharding.mesh, P(spec0))
+    out = {}
+    for device, index in probe.addressable_devices_indices_map(
+            (batch,)).items():
+        lo, hi, _ = index[0].indices(batch)
+        out[device] = (lo, hi)
+    return out
+
+
+def _batch_rows(sharding: TorchSharding | None, device: Any, batch: int
+                ) -> tuple[torch.device, dict]:
+    """(this process's device, its rows by device) for a pipeline given
+    *device* or *sharding* (exclusive): the whole batch on *device*, or
+    this rank's rows of a batch-dim sharding, checked as the reference
+    checks it."""
+    if sharding is not None and device is not None:
+        raise ValueError("pass device= or sharding=, not both")
+    if sharding is None:
+        device = resolve_device(device)
+        return device, {device: (0, batch)}
+    if not isinstance(sharding, TorchSharding):
+        raise TypeError("vision pipelines need a TorchSharding (labels "
+                        "derive their spec from its batch axis)")
+    if len(sharding.spec) > 4:
+        raise ValueError("sharding.spec must have rank <= 4 (B, H, W, C)")
+    _validate_batch_only(sharding)
+    rows = _local_batch_rows(sharding, batch)
+    if len(rows) != 1:
+        raise ValueError(f"{sharding!r} gives this process {len(rows)} "
+                         "devices; a process delivers to one (one rank, "
+                         "one card)")
+    return next(iter(rows)), rows
+
+
+def _label_sharding(sharding: TorchSharding) -> TorchSharding:
+    """Labels [B] take the images' batch-axis spec."""
+    return TorchSharding(sharding.mesh,
+                         P(sharding.spec[0] if len(sharding.spec) else None))
+
+
+def _init_group_state(images: np.ndarray, dev_items: Sequence,
+                      row_pos: dict, put: Callable[[int, np.ndarray], Any]
+                      ) -> tuple[list[list[int]], list[int], list]:
+    """Per-device completion bookkeeping shared by the overlapped and
+    streamed batch paths: which device groups each row feeds, how many rows
+    each group still waits on, and the puts of empty row ranges (nothing
+    to wait for). *put(group, rows)* delivers one group."""
+    pos_devs: list[list[int]] = [[] for _ in range(images.shape[0])]
+    pending: list[int] = []
+    shards: list = [None] * len(dev_items)
+    for di, (_, (lo, hi)) in enumerate(dev_items):
+        for r in range(lo, hi):
+            pos_devs[row_pos[r]].append(di)
+        pending.append(hi - lo)
+        if hi <= lo:
+            shards[di] = put(di, images[0:0])
+    return pos_devs, pending, shards
+
+
+def _put_ready_groups(rows: Sequence[int], pos_devs: list[list[int]],
+                      pending: list[int], dev_items: Sequence,
+                      row_pos: dict, images: np.ndarray, shards: list,
+                      put: Callable[[int, np.ndarray], Any]) -> bool:
+    """Count decoded *rows* (slot positions) off their groups and put each
+    group whose last row this was. Returns whether anything was put."""
+    fired = False
+    for p in rows:
+        for di in pos_devs[p]:
+            pending[di] -= 1
+            if pending[di] == 0:
+                _, (lo, hi) = dev_items[di]
+                base = row_pos[lo]
+                shards[di] = put(di, images[base: base + hi - lo])
+                fired = True
+    return fired
+
+
+def _note_decode_overlap(scope, t_decode0: float | None,
+                         t_first_put: float | None,
+                         t_last_decode: float | None) -> None:
+    """The ``decode_batch`` histogram and the decode/put overlap
+    (``decode_put_overlap_ms``, the ``decode.put_overlap`` instant), the
+    same from the overlapped and the streamed path. *scope* is the
+    pipeline's telemetry scope (its series and the aggregate)."""
+    if t_decode0 is None or t_last_decode is None:
+        return
+    scope.observe_us("decode_batch", (t_last_decode - t_decode0) * 1e6)
+    if t_first_put is not None and t_last_decode > t_first_put:
+        scope.add("decode_put_overlap_ms",
+                  int((t_last_decode - t_first_put) * 1000))
+        # a first put fired while decode was still in flight, for this long
+        ring.instant("decode.put_overlap", cat="decode",
+                     args={"overlap_ms":
+                           round((t_last_decode - t_first_put) * 1e3, 2)})
+
+
 def _decode_put_overlapped(pool: DecodePool, tf: Transform, blobs: Sequence,
                            rngs: Sequence, images: np.ndarray,
-                           put: Callable[[np.ndarray], Any],
-                           ckeys: "Sequence | None" = None) -> Any:
-    """Decode every row into its slot and put the batch the moment the last
-    row finishes (completion-ordered; with one device the batch is one row
-    group). Contiguous rows fuse into one pool task per ``pool.run_size``.
-    Every job has finished before an error surfaces."""
+                           dev_items: Sequence, row_pos: dict,
+                           put: Callable[[int, np.ndarray], Any], scope=None,
+                           ckeys: "Sequence | None" = None) -> list:
+    """Decode every row into its slot and put each device's row group the
+    moment its rows finish (completion-ordered). Contiguous rows fuse into
+    one pool task per ``pool.run_size``. Returns one put a group, in
+    *dev_items*' order. Every job has finished before an error
+    surfaces."""
     n = images.shape[0]
+    pos_devs, pending, shards = _init_group_state(images, dev_items, row_pos,
+                                                  put)
     run = pool.run_size(n)
+    futs: dict = {}
     if run <= 1:
-        futs = [pool.submit_into(tf, blobs[i], rngs[i], images[i],
-                                 None if ckeys is None else ckeys[i])
-                for i in range(n)]
+        for i in range(n):
+            futs[pool.submit_into(tf, blobs[i], rngs[i], images[i],
+                                  None if ckeys is None else ckeys[i])] = (i,)
     else:
-        futs = [pool.submit_run_into(tf, blobs[i: i + run], rngs[i: i + run],
-                                     [images[j] for j in
-                                      range(i, min(i + run, n))],
-                                     None if ckeys is None
-                                     else ckeys[i: i + run])
-                for i in range(0, n, run)]
+        for i in range(0, n, run):
+            grp = tuple(range(i, min(i + run, n)))
+            futs[pool.submit_run_into(
+                tf, [blobs[j] for j in grp], [rngs[j] for j in grp],
+                [images[j] for j in grp],
+                None if ckeys is None else [ckeys[j] for j in grp])] = grp
+    t0 = time.perf_counter()
+    t_first_put = None
+    t_last_decode = t0
     try:
         for f in concurrent.futures.as_completed(futs):
             f.result()  # decode ValueErrors are absorbed per row by the
             # pool; anything else (a transform bug) aborts the batch
+            t_last_decode = t_put = time.perf_counter()
+            if _put_ready_groups(futs[f], pos_devs, pending, dev_items,
+                                 row_pos, images, shards, put) \
+                    and t_first_put is None:
+                t_first_put = t_put
     except BaseException:
         concurrent.futures.wait(futs)
         raise
-    return put(images)
+    _note_decode_overlap(scope or global_stats, t0, t_first_put,
+                         t_last_decode)
+    return shards
 
 
 def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
                          el, sizes: Sequence[tuple[int, int]],
                          rngs: Sequence, images: np.ndarray,
-                         put: Callable[[np.ndarray], Any],
-                         counts: DecodeCounts,
+                         dev_items: Sequence, row_pos: dict,
+                         put: Callable[[int, np.ndarray], Any],
+                         counts: DecodeCounts, scope=None,
                          ckeys: "Sequence | None" = None,
                          served: "Sequence | None" = None,
                          tenant: str | None = None
-                         ) -> tuple[Any, list[int]]:
+                         ) -> tuple[list, list[int]]:
     """Completion-driven batch assembly: the member gather goes through
-    ``ctx.stream_segments`` and each sample goes to the decode pool the
-    moment its extents land; the batch is put when its last row decodes.
+    ``ctx.stream_segments``, each sample goes to the decode pool the moment
+    its extents land, and each device's row group is put the moment its
+    rows decode.
 
-    *sizes* is ``[(image_bytes, label_bytes)]`` per row, in the order *el*
-    concatenates them; a row *served* from the decoded cache at plan time
-    has image_bytes 0 and decodes from its ``ServedFrame``. Returns
-    ``(put(images), labels)``, the same contents as the barrier path:
-    decode order differs, bytes do not.
+    *sizes* is ``[(image_bytes, label_bytes)]`` per local row, in the order
+    *el* concatenates them; a row *served* from the decoded cache at plan
+    time has image_bytes 0 and decodes from its ``ServedFrame``. Returns
+    ``(group puts, labels)``, the same contents as the barrier path: decode
+    order differs, bytes do not.
 
     A pump thread drives the gather (poll → per-sample byte countdown →
-    decode submit), so the engine's queue refills at read pace; decode
-    completions come back to this thread over a queue."""
+    decode submit), so the engine's queue refills at read pace; it
+    re-enters the batch's request, so that the gather's work joins it.
+    Decode completions come back to this thread over a queue."""
+    scope = scope or global_stats
     n = images.shape[0]
     starts: list[int] = []
     ends: list[int] = []
@@ -164,12 +310,17 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
     remaining = [e - s for s, e in zip(starts, ends)]
     labels: list[int] = [0] * n
     buf = ctx.alloc_read_buffer(el, max(el.size, 1))
+    pos_devs, pending, shards = _init_group_state(images, dev_items, row_pos,
+                                                  put)
     events: _queue.SimpleQueue = _queue.SimpleQueue()
     stop = threading.Event()
     futs: list[concurrent.futures.Future] = []
     futs_lock = make_lock("app.vision_futs")
+    t_decode0: list[float | None] = [None]
     g = ctx.stream_segments(el, [Segment(0, 0, el.size)], buf,
                             tenant=tenant)
+    # the batch's request, minted by make_batch on this thread
+    req = _request.current()
     counts.add("stream_batches")
     # samples whose extents land together decode together: ready rows are
     # flushed after every poll, in runs of at most run_size
@@ -180,6 +331,11 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
         isz, lsz = sizes[i]
         s = starts[i]
         labels[i] = int(buf[s + isz: s + isz + lsz].tobytes() or b"0")
+        if t_decode0[0] is None:
+            t_decode0[0] = time.perf_counter()
+            # gather start to the first decode dispatch
+            scope.observe_us("stream_first_decode_lat",
+                             ring.now_us() - g.t0_us)
         if not g.done:
             # dispatched while later extents were still in flight
             counts.add("stream_samples_early")
@@ -209,6 +365,10 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
                 lambda fut, g_=grp: events.put(("decoded", g_, fut)))
 
     def pump() -> None:
+        with _request.attach(req):
+            _pump()
+
+    def _pump() -> None:
         try:
             # rows with no bytes at all have no extent to wait for
             for i in range(n):
@@ -242,6 +402,8 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
     decoded = 0
     gather_done = False
     err: BaseException | None = None
+    t_first_put: float | None = None
+    t_last_decode: float | None = None
     try:
         while decoded < n or not gather_done:
             kind, *payload = events.get()
@@ -250,6 +412,11 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
                 fut.result()  # per-sample decode errors were absorbed by
                 # the pool; anything else aborts the batch
                 decoded += len(grp)
+                t_last_decode = t_put = time.perf_counter()
+                if _put_ready_groups(grp, pos_devs, pending, dev_items,
+                                     row_pos, images, shards, put) \
+                        and t_first_put is None:
+                    t_first_put = t_put
             elif kind == "done":
                 gather_done = True
             elif kind == "error":
@@ -270,13 +437,15 @@ def _decode_put_streamed(ctx: StromContext, pool: DecodePool, tf: Transform,
             concurrent.futures.wait(flist)
     if err is not None:
         raise err
-    return put(images), labels
+    _note_decode_overlap(scope, t_decode0[0], t_first_put, t_last_decode)
+    return shards, labels
 
 
 def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                              batch: int,
                              image_size: int,
                              device: Any = None,
+                             sharding: TorchSharding | None = None,
                              image_ext: str = "jpg",
                              label_ext: str = "cls",
                              transform: Transform | None = None,
@@ -303,13 +472,22 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     given) on *device* (None → the current CUDA device; raises without
     one). The decode knobs default to the context's config.
 
-    Augmentation is deterministic in (seed, batch serial, row): Philox keys
-    ``[seed, (serial << 32) + row]``, identical across resume.
-    ``pipe.stats()`` reports ``data_stall_steps``, the prefetcher's
-    counters, ``decode_errors``, the decode routes taken, the streamed
-    counters (``stream_batches``, ``stream_samples_early``), the decoded
-    cache's (``decode_cache_*``) and, given one, the *scope* labels under
-    ``"scope"``.
+    *sharding* (instead of *device*): a
+    :class:`~strom_torch.parallel.sharding.TorchSharding` of the rank-4
+    image batch that splits the batch dimension only (``P("dp", None,
+    None, None)``; a spec that splits H, W or C raises ``ValueError``).
+    This process then gathers and decodes only its own rows, and the batch
+    is a pair of global ``DTensor``s, the labels sharded as the batch axis
+    (``P(spec[0])``). Every process builds the pipeline with the same
+    arguments.
+
+    Augmentation is deterministic in (seed, batch serial, global row):
+    Philox keys ``[seed, (serial << 32) + row]``, identical across resume
+    and across world sizes. ``pipe.stats()`` reports ``data_stall_steps``,
+    the prefetcher's counters, ``decode_errors``, the decode routes taken,
+    the streamed counters (``stream_batches``, ``stream_samples_early``),
+    the decoded cache's (``decode_cache_*``) and, given one, the *scope*
+    labels under ``"scope"``.
 
     *decode_cache* (needs the context's hot cache and the built-in
     transform) keeps full decoded frames in the hot cache: a frame found
@@ -322,18 +500,18 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     uint8) and run on the host between decode and the copy to the device,
     writing the batch slot, which is sized from the graph's output shape and
     dtype; the delivered images take that shape and dtype. With
-    *opgraph_fuse* (default on) the graph runs the moment the batch's rows
-    have decoded, inside the completion-ordered dispatch (the port's one
-    device group is the whole batch); ``opgraph_fuse=False`` is the parity
-    reference: barrier decode, then one batch-wise apply. Both give
-    bit-identical batches (the kernel is per-sample deterministic). The
-    ``ops_*`` counters go to the context's (``ctx.stats()``).
+    *opgraph_fuse* (default on) the graph runs the moment a device group's
+    rows have decoded, inside the completion-ordered dispatch;
+    ``opgraph_fuse=False`` is the parity reference: barrier decode, then
+    one batch-wise apply. Both give bit-identical batches (the kernel is
+    per-sample deterministic). The ``ops_*`` counters go to the context's
+    (``ctx.stats()``).
 
     *scope*: labels of the pipeline's telemetry scope over the context's
     (default ``{"pipeline": "vision"}``); a ``"tenant"`` label routes every
     gather, the readahead's admissions and the decoded cache's frames to
     that tenant (its scheduler queue and cache partition)."""
-    device = resolve_device(device)
+    device, rows_by_device = _batch_rows(sharding, device, batch)
     ss = WdsShardSet(paths, ctx=ctx)
     if len(ss) < batch:
         raise ValueError(f"dataset has {len(ss)} samples < batch {batch}")
@@ -385,21 +563,35 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
     pool = DecodePool(decode_workers,
                       fuse_runs=knob(decode_fuse_runs, cfg.decode_fuse_runs))
     ctx.register_tunable("decode_pool", pool)
-    shape = (batch, image_size, image_size, 3)
+    # the union of rows this process decodes, and each device's slice of it
+    local_rows = sorted({r for lo, hi in rows_by_device.values()
+                         for r in range(lo, hi)})
+    row_pos = {r: i for i, r in enumerate(local_rows)}
+    dev_items = list(rows_by_device.items())
+    n_local = len(local_rows)
+    shape = (n_local, image_size, image_size, 3)
     # what a batch slot holds: the decoded images, or the graph's output
-    out_shape = (batch,) + (cgraph.out_shape if cgraph is not None
-                            else shape[1:])
+    sample_out = cgraph.out_shape if cgraph is not None else shape[1:]
+    out_shape = (n_local,) + tuple(sample_out)
+    global_shape = (batch,) + tuple(sample_out)
     out_dtype = cgraph.out_dtype if cgraph is not None else np.dtype(np.uint8)
     out_bytes = int(np.prod(out_shape)) * out_dtype.itemsize
+    label_sharding = _label_sharding(sharding) if sharding is not None \
+        else None
 
-    def labels_out(labels: Sequence[int]) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(labels, dtype=np.int32)).to(device)
+    def globalize(images: torch.Tensor, labels: Sequence[int]
+                  ) -> tuple[Any, Any]:
+        lbls = torch.from_numpy(np.asarray(labels, dtype=np.int32)).to(device)
+        if sharding is None:
+            return images, lbls
+        return (sharding.to_global(images, global_shape),
+                label_sharding.to_global(lbls, (batch,)))
 
-    def make_batch(indices: np.ndarray, serial: int
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-        samples = [ss.samples[int(i)] for i in indices]
+    def make_batch(indices: np.ndarray, serial: int) -> tuple[Any, Any]:
+        samples = [ss.samples[int(indices[r])] for r in local_rows]
+        # Philox keys are two 64-bit words: (seed, serial ‖ global row)
         rngs = [np.random.Generator(np.random.Philox(
-                    key=[seed, (serial << 32) + r])) for r in range(batch)]
+                    key=[seed, (serial << 32) + r])) for r in local_rows]
         ckeys = served = None
         if dcache is not None:
             # the image member's physical extent: stable across epochs
@@ -422,7 +614,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                       s.members[label_ext].size)
                      for s, sv in zip(samples, served)]
         else:
-            el = ss.batch_extents([int(i) for i in indices],
+            el = ss.batch_extents([int(indices[r]) for r in local_rows],
                                   [image_ext, label_ext])
             sizes = [(s.members[image_ext].size, s.members[label_ext].size)
                      for s in samples]
@@ -440,58 +632,78 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
                     sv.release()
             raise
 
-    def assemble_batch(el, sizes, rngs, ckeys, served
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    def assemble_batch(el, sizes, rngs, ckeys, served) -> tuple[Any, Any]:
         if not to_slot:
             buf = ctx.pread(el, tenant=tname)
             blobs, labels = _split_members(buf, sizes, served)
+            t0 = time.perf_counter()
             images = np.stack(pool.map(tf, blobs, rngs))
+            pscope.observe_us("decode_batch",
+                              (time.perf_counter() - t0) * 1e6)
             if cgraph is not None:
                 images = cgraph.apply_batch(images)
-            return torch.from_numpy(images).to(device), labels_out(labels)
+            return globalize(torch.from_numpy(images).to(device), labels)
         # workers write the final rows straight into the batch slot (with a
-        # graph, into a decode slot the graph reads from)
+        # graph, into a decode array the graph reads from)
         slot = ctx.host_batch((out_bytes,), device, source=el).view(
             out_dtype).reshape(out_shape)
         images = slot if cgraph is None else np.empty(shape, np.uint8)
         put_called = False
 
-        def put(imgs: np.ndarray) -> torch.Tensor:
+        def put(di: int, rows: np.ndarray) -> torch.Tensor:
+            # a process feeds one device, so its one group's rows are the
+            # whole slot
             nonlocal put_called
             if cgraph is not None:
-                cgraph.apply_batch(imgs, out=slot)
+                cgraph.apply_batch(rows, out=slot)
             put_called = True   # put_host_batch hands the slot back itself
             return ctx.put_host_batch(slot, device)
 
         try:
             if stream:
-                out, labels = _decode_put_streamed(ctx, pool, tf, el, sizes,
-                                                   rngs, images, put, counts,
-                                                   ckeys, served, tname)
-                return out, labels_out(labels)
-            buf = ctx.pread(el, tenant=tname)
-            blobs, labels = _split_members(buf, sizes, served)
-            if overlap_put:
-                out = _decode_put_overlapped(pool, tf, blobs, rngs, images,
-                                             put, ckeys)
+                (out,), labels = _decode_put_streamed(
+                    ctx, pool, tf, el, sizes, rngs, images, dev_items,
+                    row_pos, put, counts, pscope, ckeys, served, tname)
             else:
-                pool.map_into(tf, blobs, rngs, images, ckeys)
-                out = put(images)
-            return out, labels_out(labels)
+                buf = ctx.pread(el, tenant=tname)
+                blobs, labels = _split_members(buf, sizes, served)
+                if overlap_put:
+                    (out,) = _decode_put_overlapped(
+                        pool, tf, blobs, rngs, images, dev_items, row_pos,
+                        put, pscope, ckeys)
+                else:
+                    t0 = time.perf_counter()
+                    pool.map_into(tf, blobs, rngs, images, ckeys)
+                    pscope.observe_us("decode_batch",
+                                      (time.perf_counter() - t0) * 1e6)
+                    out = put(0, images)
         except BaseException:
             # a batch that failed before its put (every decode job has
             # finished by now) hands the slot back here
             if not put_called:
                 ctx.release_host_batch(slot, device)
             raise
+        # billed once the decode has completed: an aborted batch claims no
+        # slot bytes
+        pscope.add("decode_slot_bytes", images.nbytes)
+        return globalize(out, labels)
+
+    def traced_make_batch(indices: np.ndarray, serial: int
+                          ) -> tuple[Any, Any]:
+        # one traced request a batch build: the gather (pread or streamed),
+        # the scheduler's waits, the decode jobs and the puts join it
+        with _request.active("batch", tname, owner=ctx._req_owner):
+            return make_batch(indices, serial)
 
     depth = prefetch_depth if prefetch_depth is not None else cfg.prefetch_depth
-    auto, max_depth = _auto_depth_bounds(ctx, auto_prefetch, out_bytes)
-    # warm the members of the upcoming batches (the tar payloads are read
-    # again every epoch; decode still runs per step, the gather not)
+    # the ceiling from this process's rows, as the reference sizes it
+    auto, max_depth = _auto_depth_bounds(
+        ctx, auto_prefetch, n_local * image_size * image_size * 3)
+    # warm this process's members of the upcoming batches (the tar
+    # payloads are read again every epoch; decode still runs per step)
     ra = _make_readahead(
         ctx, sampler,
-        lambda indices: ss.batch_extents([int(i) for i in indices],
+        lambda indices: ss.batch_extents([int(indices[r]) for r in local_rows],
                                          [image_ext, label_ext]),
         tenant=tname)
 
@@ -503,11 +715,12 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             out["scope"] = dict(scope)
         return out
 
-    return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
+    return Pipeline(sampler, traced_make_batch, depth=depth, auto_depth=auto,
                     max_depth=max_depth, fingerprint=fp,
                     on_close=_chain_close(ra.close if ra else None,
                                           pool.close),
-                    counters=counters, scope=pscope)
+                    counters=counters, scope=pscope,
+                    req_owner=ctx._req_owner)
 
 
 def _split_members(buf: np.ndarray, sizes: Sequence[tuple[int, int]],
@@ -531,6 +744,7 @@ def _split_members(buf: np.ndarray, sizes: Sequence[tuple[int, int]],
 def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                                     *, batch: int, image_size: int,
                                     device: Any = None,
+                                    sharding: TorchSharding | None = None,
                                     seed: int = 0,
                                     shuffle: bool = True,
                                     prefetch_depth: int | None = None,
@@ -543,11 +757,16 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
     and one host-to-device copy, the Llama loader's mechanics with pixel
     records. Normalisation belongs to the train step.
 
-    Yields ``(images [B,S,S,3] uint8, labels [B] int32)`` on *device*.
-    *scope*: labels of the pipeline's telemetry scope (default
-    ``{"pipeline": "predecoded"}``); a ``"tenant"`` label routes the
-    gathers and the readahead's admissions to that tenant."""
-    device = resolve_device(device)
+    Yields ``(images [B,S,S,3] uint8, labels [B] int32)`` on *device*, or,
+    given *sharding* (batch dimension only, as
+    :func:`make_wds_vision_pipeline` takes it), as global ``DTensor``s of
+    which this process read only its own rows' bytes
+    (``memcpy_ssd2gpu(sharding=)``). *scope*: labels of the pipeline's
+    telemetry scope (default ``{"pipeline": "predecoded"}``); a
+    ``"tenant"`` label routes the gathers and the readahead's admissions
+    to that tenant."""
+    device, rows_by_device = _batch_rows(sharding, device, batch)
+    ((lo, hi),) = rows_by_device.values()
     # sizes through the context, so striped-set aliases (paths that need
     # not exist on disk) work as the Llama loader's shards do
     shards = PredecodedShardSet(
@@ -564,17 +783,23 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                                  else {"pipeline": "predecoded"}))
     tname = getattr(pscope, "labels", {}).get("tenant")
     shape = (batch, image_size, image_size, 3)
+    label_sharding = _label_sharding(sharding) if sharding is not None \
+        else None
+    where = {"device": device} if sharding is None else {"sharding": sharding}
 
-    def make_batch(indices: np.ndarray, serial: int
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-        imgs = ctx.memcpy_ssd2gpu(shards.extents([int(i) for i in indices]),
-                                  shape=shape, dtype=np.uint8, device=device,
-                                  tenant=tname)
-        lbls = torch.from_numpy(shards.labels(indices)).to(device)
-        return imgs, lbls
+    def make_batch(indices: np.ndarray, serial: int) -> tuple[Any, Any]:
+        with _request.active("batch", tname, owner=ctx._req_owner):
+            imgs = ctx.memcpy_ssd2gpu(
+                shards.extents([int(i) for i in indices]), shape=shape,
+                dtype=np.uint8, tenant=tname, **where)
+            lbls = torch.from_numpy(shards.labels(indices)[lo:hi]).to(device)
+            if label_sharding is not None:
+                lbls = label_sharding.to_global(lbls, (batch,))
+            return imgs, lbls
 
     depth = prefetch_depth if prefetch_depth is not None \
         else ctx.config.prefetch_depth
+    # the ceiling from the whole batch, as the reference sizes it
     auto, max_depth = _auto_depth_bounds(ctx, auto_prefetch,
                                          batch * image_size * image_size * 3)
     # a pure engine gather: warming the upcoming record extents turns a
@@ -585,22 +810,28 @@ def make_predecoded_vision_pipeline(ctx: StromContext, paths: Sequence[str],
                          tenant=tname)
     return Pipeline(sampler, make_batch, depth=depth, auto_depth=auto,
                     max_depth=max_depth, fingerprint=fp,
-                    on_close=ra.close if ra else None, scope=pscope)
+                    on_close=ra.close if ra else None, scope=pscope,
+                    req_owner=ctx._req_owner)
 
 
 def make_imagenet_resnet_pipeline(ctx: StromContext, paths: Sequence[str], *,
                                   batch: int, image_size: int = 224,
-                                  device: Any = None, **kw: Any) -> Pipeline:
+                                  device: Any = None,
+                                  sharding: TorchSharding | None = None,
+                                  **kw: Any) -> Pipeline:
     """BASELINE config #2: ImageNet raw-JPEG WebDataset shards → the
     ResNet-50 input pipeline, its stats tagged ``{"pipeline": "resnet"}``."""
     kw.setdefault("scope", {"pipeline": "resnet"})
     return make_wds_vision_pipeline(ctx, paths, batch=batch,
-                                    image_size=image_size, device=device, **kw)
+                                    image_size=image_size, device=device,
+                                    sharding=sharding, **kw)
 
 
 def make_vit_wds_pipeline(ctx: StromContext, paths: Sequence[str], *,
                           batch: int, image_size: int = 224,
-                          device: Any = None, **kw: Any) -> Pipeline:
+                          device: Any = None,
+                          sharding: TorchSharding | None = None,
+                          **kw: Any) -> Pipeline:
     """BASELINE config #3: WebDataset .tar shards → the ViT-B/16 training
     loader; the mechanics of :func:`make_wds_vision_pipeline`, with its
     stats tagged ``scope={"pipeline": "vit"}``. The shard *paths* typically
@@ -608,4 +839,5 @@ def make_vit_wds_pipeline(ctx: StromContext, paths: Sequence[str], *,
     fans out over the members."""
     kw.setdefault("scope", {"pipeline": "vit"})
     return make_wds_vision_pipeline(ctx, paths, batch=batch,
-                                    image_size=image_size, device=device, **kw)
+                                    image_size=image_size, device=device,
+                                    sharding=sharding, **kw)

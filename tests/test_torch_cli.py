@@ -431,18 +431,19 @@ _LLAMA_ARGS = ["llama", "--train-step", "--model", "tiny", "--attn", "dense",
                "cpu", "--engine", "python", "--json"]
 
 
-def _launch_two(target: list[str], tmp_path, timeout: float) -> dict:
+def _launch_two(target: list[str], tmp_path, timeout: float,
+                args: list[str] = _LLAMA_ARGS) -> dict:
     """``torch.distributed.run`` of *target* (``-m strom_torch.cli`` or a
-    script) with the llama arm's arguments on two gloo ranks; returns the
-    one JSON line, which rank 0 alone prints. Past *timeout* the launcher
-    gets SIGTERM, which it passes on to its ranks (each runs in a session
-    of its own)."""
+    script) with an arm's arguments (the llama arm's by default) on two
+    gloo ranks; returns the one JSON line, which rank 0 alone prints. Past
+    *timeout* the launcher gets SIGTERM, which it passes on to its ranks
+    (each runs in a session of its own)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     env["PYTHONPATH"] = ROOT
     env["OMP_NUM_THREADS"] = "2"
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", *target, *_LLAMA_ARGS, "--tmpdir",
+         "--nproc-per-node", "2", *target, *args, "--tmpdir",
          str(tmp_path)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
@@ -466,6 +467,23 @@ def test_llama_launched_on_two_processes(tmp_path):
     out = _launch_two(["-m", "strom_torch.cli"], tmp_path, 300)
     assert out["devices"] == 2 and out["batch"] == 4
     assert np.isfinite(out["train_loss"]) and out["train_tokens_per_s"] > 0
+
+
+@pytest.mark.parametrize("arm", ["resnet", "vit"])
+def test_vision_arm_launched_on_two_processes(tmp_path, arm):
+    """``torch.distributed.run --nproc-per-node 2 -m strom_torch.cli
+    <resnet|vit> --predecoded --train-step ... --device cpu``: the two
+    ranks read their rows of each batch, step data-parallel (ResNet's
+    batch norm over the global batch), and rank 0 prints ``devices`` 2
+    and a finite loss."""
+    out = _launch_two(
+        ["-m", "strom_torch.cli"], tmp_path, 300,
+        [arm, "--predecoded", "--train-step", "--model", "tiny",
+         "--batch", "4", "--image-size", "32", "--steps", "2",
+         "--prefetch", "4", "--device", "cpu", "--engine", "python",
+         "--json"])
+    assert out["devices"] == 2 and out["batch"] == 4
+    assert np.isfinite(out["train_loss"]) and out["train_images_per_s"] > 0
 
 
 _LATE_RANK1 = """\
