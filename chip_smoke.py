@@ -5,8 +5,8 @@
 
 Phases, in order; any failure ends the run with a non-zero exit.
 ``--phases`` runs a subset of the phases that take nothing from another
-(build, kernels, wide_path, train, ckpt, dp, dp_vision), for a machine
-with four cards where only the data-parallel paths need them:
+(build, kernels, wide_path, train, ckpt, dp, dp_vision, dist), for a
+machine with four cards where only the data-parallel paths need them:
 
 1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
                print each kernel instantiation's ptxas registers and
@@ -378,6 +378,29 @@ with four cards where only the data-parallel paths need them:
                registered over POST /tenants, SIGTERM: drained with
                stuck=[] and ended by the signal). A line a subcommand with
                its seconds and the fields it checked.
+14. dist    -- the peer fabric (strom_torch/dist), lines [dist] arm=...:
+               host-mode fleets of worker processes over 4 seeded token
+               shards of 1,024 rows x 2,048 int32 tokens, 32 rows a global
+               batch, 16 steps, each worker its own context (the default
+               engine, a 256 MiB hot cache) and peer server: 1, 2 and 4
+               processes, then at 4 the batched wire against
+               batch_extents=0 and against peer_compress, and rank 1 of 3
+               killed after step 2. Every judged worker's rows must hash to
+               reference_shard_hashes (dist_ok 1), deliver its own rows
+               only, and, without a kill, read nothing from its engine
+               during ingest (dist_engine_ingest_bytes 0); the killed
+               fleet leaves dead_1. Printed: items/s, dist_vs_single, the
+               peer hit ratio, round trips, each rank's assembly wait p50
+               and p99, dist_batch_vs_single and dist_peer_comp_vs_raw.
+               Then decoded frames cluster-wide: host A (another process)
+               holds one epoch of phase 7's tar decoded; host B's JPEG
+               ResNet-50 pipeline on card 0, alone and then peered with A:
+               the same batches bit for bit, and with peers B decodes only
+               the frames A did not hold; B's step ms both ways. Then
+               python -m strom_torch.cli dist --procs 2 (rc 0, dist_ok 1).
+               With 4 cards or more: measure_ingest(4, mode="mesh"), one
+               worker a card, memcpy_ssd2gpu(sharding=) of each batch, and
+               the CLI's dist --mode mesh --procs 4; else a skip line.
 
 Each phase prints its own lines, and a [phase] line with its seconds. The line before the last is one JSON
 object describing every kernel; the last line is the result,
@@ -433,6 +456,7 @@ from strom_torch.formats.predecoded import (LABELS_SUFFIX, META_SUFFIX,
                                             PredecodedShardSet,
                                             stage_striped_predecoded)
 from strom_torch.delivery.spill import SPILL_FIELDS
+from strom_torch.dist.launch import make_fixture, measure_ingest
 from strom_torch.formats.rawbin import TokenShardSet, write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
 from strom_torch.models.resnet import ResNet, ResNetConfig
@@ -5397,10 +5421,287 @@ def phase_dp_vision(workdir: str, pdec: str | None = None,
     _remove(*made)
 
 
+# ------------------------------------------------------------------- dist
+# the host-mode fleets' token fixture: Llama pretraining rows of 2,048
+# int32 tokens (8 KiB), 4 shards of 1,024 rows (32 MiB); 32 rows a global
+# batch, 16 steps (512 rows, half an epoch)
+DIST_FILES, DIST_RECORDS, DIST_SEQ = 4, 1024, 2048
+DIST_BATCH, DIST_STEPS = 32, 16
+DIST_HOT_BYTES = 256 * MiB       # each worker's hot cache: its shards and
+                                 # the rows its peers serve it
+DIST_TIMEOUT_S = 120.0           # a fleet's rendezvous and join
+DIST_DEVICE = "cuda"             # the frame arm's card ("cpu" rehearses it)
+DIST_RESNET = ResNetConfig.resnet50()
+DIST_FRAME_BATCH = 128
+DIST_FRAME_WAIT_S = 300.0        # the frame server's life at most
+
+
+def _dist_fleet(label: str, procs: int, workdir: str, data: str, *,
+                batch: int = DIST_BATCH, **kw) -> dict:
+    """One ``measure_ingest`` fleet over phase dist's fixture, judged: every
+    judged worker bit-identical to ``reference_shard_hashes``
+    (``dist_ok``), each delivering its own rows only, and, where no host
+    is killed, no engine read during ingest. One line: the fleet's items/s,
+    peer hit ratio, per-extent and p99 round trip, and each rank's
+    assembly wait p50 and p99."""
+    t0 = time.perf_counter()
+    res = measure_ingest(procs, os.path.join(workdir, label),
+                         data_dir=data, steps=DIST_STEPS, batch=batch,
+                         seq_len=DIST_SEQ, engine="auto",
+                         hot_cache_bytes=DIST_HOT_BYTES,
+                         timeout_s=DIST_TIMEOUT_S, **kw)
+    dt = time.perf_counter() - t0
+    workers = res["workers"]
+    killed = kw.get("die_rank", -1)
+    say("dist", arm=label, mode=kw.get("mode", "host"), procs=procs,
+        dist_ok=res["dist_ok"],
+        dist_engine_ingest_bytes=res["dist_engine_ingest_bytes"],
+        only_own_rows=res["dist_only_own_rows"],
+        engines=",".join(str(w.get("engine")) for w in workers),
+        items_per_s=res["dist_items_per_s"],
+        dist_peer_hit_ratio=res["dist_peer_hit_ratio"],
+        peer_hit_bytes=res["dist_peer_hit_bytes"],
+        peer_rtt_per_extent_us=res["peer_rtt_per_extent_us"],
+        peer_rtt_p99_us=res["dist_peer_rtt_p99_us"],
+        peer_wire_bytes=res["dist_peer_wire_bytes"],
+        peer_comp_ratio=res["peer_comp_ratio"],
+        asm_wait_p50_us=",".join(f"{w.get('assembly_wait_p50_us', 0):.0f}"
+                                 for w in workers),
+        asm_wait_p99_us=",".join(f"{w.get('assembly_wait_p99_us', 0):.0f}"
+                                 for w in workers),
+        first_step_us=",".join(f"{w.get('first_step_us', 0):.0f}"
+                               for w in workers),
+        rank_items_per_s=",".join(str(w.get("items_per_s")) for w in workers),
+        peer_errors=",".join(str(w.get("peer_errors", 0)) for w in workers),
+        rcs=",".join(str(w.get("rc")) for w in workers), s=f"{dt:.1f}")
+    bad = [w for i, w in enumerate(workers) if i != killed
+           and (w.get("rc") != 0 or not w.get("ok"))]
+    if not res["dist_ok"] or bad:
+        raise AssertionError(f"dist {label}: a worker failed or diverged "
+                             f"from the reference hashes: "
+                             f"{[w.get('tail', w) for w in bad] or workers}")
+    if not res["dist_only_own_rows"]:
+        raise AssertionError(f"dist {label}: a worker delivered other rows "
+                             f"than its own: {workers}")
+    if killed < 0 and res["dist_engine_ingest_bytes"] != 0:
+        raise AssertionError(f"dist {label}: the engines read "
+                             f"{res['dist_engine_ingest_bytes']} bytes during "
+                             "ingest: a row hot on its owner was read again")
+    return res
+
+
+def dist_frame_server(tar: str, workdir: str, batch: int) -> None:
+    """Host A of the decoded-frame arm (its own process, as a worker is):
+    one epoch of the JPEG tar through make_imagenet_resnet_pipeline with
+    decode_cache on (full-resolution decode, admission always) onto the
+    CPU, so its DecodedCache holds the frames; then it serves them to
+    peers, writes its address and the frames it holds to
+    <workdir>/frames_server.json, and serves until <workdir>/frames_stop
+    exists."""
+    ctx = StromContext(StromConfig.from_env(hot_cache_bytes=GiB,
+                                            hot_cache_admit="always"))
+    try:
+        with make_imagenet_resnet_pipeline(
+                ctx, [tar], batch=batch, device="cpu", decode_cache=True,
+                decode_reduced_scale=False) as pipe:
+            for _ in range(pipe.sampler.batches_per_epoch):
+                next(pipe)
+            held = pipe.stats().get("decode_cache_admitted_bytes", 0)
+            frames = sum(v for k, v in pipe.stats().items()
+                         if k.endswith("_imgs"))
+        addr = ctx.serve_peers()
+        tmp = os.path.join(workdir, "frames_server.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump({"addr": addr, "admitted_bytes": held,
+                       "decoded": frames}, f)
+        os.replace(tmp, os.path.join(workdir, "frames_server.json"))
+        deadline = time.monotonic() + DIST_FRAME_WAIT_S
+        while not os.path.exists(os.path.join(workdir, "frames_stop")) \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        st = ctx.stats(["dist"])["dist"]
+        with open(os.path.join(workdir, "frames_server_stats.json"),
+                  "w") as f:
+            json.dump(st, f)
+    finally:
+        ctx.close()
+
+
+def _decodes(pipe) -> int:
+    return sum(v for k, v in pipe.stats().items() if k.endswith("_imgs"))
+
+
+def _dist_frames(workdir: str, tar: str) -> None:
+    """Decoded frames cluster-wide: host A (``dist_frame_server``, another
+    process) holds one epoch of the tar's decoded frames; host B feeds its
+    JPEG ResNet-50 pipeline on the card, decode_cache on, first without
+    peers, then peered with A (A owns every path). B's batches must be
+    bit-equal, and with peers B must decode only the frames A did not
+    hold. Each run feeds ResNet-50 steps (captured, warmed first on
+    random batches): the step ms of both runs."""
+    dev = torch.device(DIST_DEVICE)
+    B = DIST_FRAME_BATCH
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = here
+    code = ("import sys, chip_smoke as c; "
+            "c.dist_frame_server(sys.argv[1], sys.argv[2], int(sys.argv[3]))")
+    for f in ("frames_server.json", "frames_stop"):
+        _remove(os.path.join(workdir, f))
+    server = subprocess.Popen([sys.executable, "-c", code, tar, workdir,
+                               str(B)], env=env, cwd=here)
+    model = ResNet(DIST_RESNET, device=dev)
+    step = make_resnet_sgd_step(DIST_RESNET, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for _ in range(2):                 # eager, then the capture
+        step(model, torch.randint(0, 256, (B, IMAGE, IMAGE, 3),
+                                  generator=gen, device=dev,
+                                  dtype=torch.uint8),
+             torch.randint(0, 1000, (B,), generator=gen, device=dev,
+                           dtype=torch.int32))
+    kw = dict(batch=B, device=dev, decode_cache=True,
+              decode_reduced_scale=False)
+    runs = {}
+    try:
+        for arm in ("alone", "peered"):
+            # admission always: a frame fetched from A is admitted at once
+            ctx = StromContext(StromConfig.from_env(
+                hot_cache_bytes=GiB, hot_cache_admit="always"))
+            try:
+                if arm == "peered":
+                    info_path = os.path.join(workdir, "frames_server.json")
+                    deadline = time.monotonic() + DIST_FRAME_WAIT_S
+                    while not os.path.exists(info_path):
+                        if server.poll() is not None \
+                                or time.monotonic() > deadline:
+                            raise AssertionError(
+                                "dist frames: host A ended without serving "
+                                f"(rc {server.poll()})")
+                        time.sleep(0.05)
+                    with open(info_path) as f:
+                        info = json.load(f)
+                    ctx.attach_peers({0: info["addr"]},
+                                     owner_fn=lambda path: 0)
+                with make_imagenet_resnet_pipeline(ctx, [tar], **kw) as pipe:
+                    bpe = pipe.sampler.batches_per_epoch
+                    got, times, dt = _epoch(f"dist frames {arm}", pipe, bpe,
+                                            model, step, train=True)
+                    runs[arm] = (got, times, dt, _decodes(pipe), bpe)
+                    if arm == "peered":
+                        fetched = ctx.stats(["dist"])["dist"]
+            finally:
+                ctx.close()
+    finally:
+        with open(os.path.join(workdir, "frames_stop"), "w"):
+            pass
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+    _same_batches("dist frames peered", runs["peered"][0], runs["alone"][0])
+    n = runs["alone"][4] * B
+    held = info["decoded"]
+    for arm, (_, times, dt, decodes, bpe) in runs.items():
+        say("dist", arm=f"frames_{arm}", device=str(dev), samples=n,
+            batches=bpe, decodes=decodes, images_per_s=f"{bpe * B / dt:.1f}",
+            **_step_ms(times),
+            **({"peer_frame_hits": fetched["peer_frame_hits"],
+                "peer_frame_hit_bytes": fetched["peer_frame_hit_bytes"],
+                "host_a_decoded": held,
+                "host_a_admitted_bytes": info["admitted_bytes"]}
+               if arm == "peered" else {}))
+    alone_dec, peered_dec = runs["alone"][3], runs["peered"][3]
+    want = max(n - fetched["peer_frame_hits"], 0)
+    if alone_dec != n or peered_dec != want or fetched["peer_frame_hits"] \
+            != min(held, n):
+        raise AssertionError(
+            f"dist frames: B decoded {peered_dec} of {n} frames with peers "
+            f"(alone {alone_dec}); A held {held}, served "
+            f"{fetched['peer_frame_hits']}")
+    say("dist", arm="frames", check="peered batches bit-equal to the run "
+        "without peers; B decoded only the frames A did not hold",
+        exact=True, card=_card_line(0).replace(" ", "_"))
+
+
+def phase_dist(workdir: str, tar: str | None = None) -> None:
+    """Phase 14: the peer fabric. Host mode on this machine: measure_ingest
+    at 1, 2 and 4 worker processes (the default engine; io_uring where the
+    machine grants it, else the preadv pool), then at 4 the batched wire
+    against batch_extents=0 and against peer_compress, and a host killed
+    at 3 (rank 1 after step 2: the survivors bit-identical, its dead_1
+    marker written). Then the decoded-frame arm on card 0 (phase 7's tar,
+    made here when it did not run), the CLI's dist at 2 processes, and on
+    a machine with 4 cards or more the mesh mode at 4: one worker a card,
+    each rank's slice delivered with memcpy_ssd2gpu(sharding=), then the
+    CLI's dist --mode mesh."""
+    data = os.path.join(workdir, "dist_data")
+    make_fixture(data, files=DIST_FILES, records=DIST_RECORDS,
+                 seq_len=DIST_SEQ, seed=7)
+    say("dist", fixture_files=DIST_FILES, rows=DIST_FILES * DIST_RECORDS,
+        row_bytes=DIST_SEQ * 4, batch=DIST_BATCH, steps=DIST_STEPS,
+        hot_cache_bytes=DIST_HOT_BYTES)
+    one = _dist_fleet("single", 1, workdir, data)
+    fleets = {p: _dist_fleet(f"host{p}", p, workdir, data) for p in (2, 4)}
+    for p, res in fleets.items():
+        say("dist", arm=f"host{p}", dist_vs_single=
+            f"{res['dist_items_per_s'] / one['dist_items_per_s']:.3f}")
+    unb = _dist_fleet("host4_unbatched", 4, workdir, data, batch_extents=0)
+    comp = _dist_fleet("host4_compressed", 4, workdir, data,
+                       peer_compress=True)
+    raw_wire = fleets[4]["dist_peer_wire_bytes"]
+    say("dist", arm="host4_ab", dist_batch_vs_single=
+        f"{fleets[4]['dist_items_per_s'] / unb['dist_items_per_s']:.3f}",
+        dist_peer_comp_vs_raw=f"{raw_wire / comp['dist_peer_wire_bytes']:.4f}"
+        if comp["dist_peer_wire_bytes"] else "none",
+        dist_comp_items_per_s=comp["dist_items_per_s"])
+    # 30 rows a batch: 10 a host
+    _dist_fleet("host3_kill", 3, workdir, data, batch=DIST_BATCH // 3 * 3,
+                die_rank=1, die_after_step=2)
+    if not os.path.exists(os.path.join(workdir, "host3_kill", "run3",
+                                       "dead_1")):
+        raise AssertionError("dist host3_kill: no dead_1 marker")
+    say("dist", arm="host3_kill", check="survivors bit-identical, dead_1 "
+        "written", exact=True)
+    made = None
+    if tar is None:
+        if not (jpeg._HAVE_CV2 or jpeg._HAVE_PIL):
+            raise AssertionError(f"dist: {NO_JPEG}")
+        tar = made = os.path.join(workdir, "dist.tar")
+        _jpeg_fixture(tar, 512, 448)
+    _dist_frames(workdir, tar)
+    _remove(made)
+    rc, out, _, dt, err = _cli_run(
+        ["dist", "--procs", "2", "--json", "--engine", "auto",
+         "--tmpdir", os.path.join(workdir, "cli_dist")])
+    say("dist", arm="cli", cmd="dist --procs 2", rc=rc,
+        dist_ok=out.get("dist_ok"), dist_vs_single=out.get("dist_vs_single"),
+        dist_engine_ingest_bytes=out.get("dist_engine_ingest_bytes"),
+        s=f"{dt:.1f}")
+    if rc != 0 or out.get("dist_ok") != 1:
+        _cli_fail("dist", rc, err, "not dist_ok 1")
+    n = torch.cuda.device_count()
+    if n < 4:
+        say("dist", arm="mesh4", skipped=f"{n}_card(s):_mesh_mode_needs_4")
+        return
+    res = _dist_fleet("mesh4", 4, workdir, data, mode="mesh")
+    say("dist", arm="mesh4", cards=",".join(
+        str(w.get("card")).replace(" ", "_") for w in res["workers"]))
+    rc, out, _, dt, err = _cli_run(
+        ["dist", "--mode", "mesh", "--procs", "4", "--json", "--engine",
+         "auto", "--tmpdir", os.path.join(workdir, "cli_dist_mesh")])
+    say("dist", arm="cli_mesh", cmd="dist --mode mesh --procs 4", rc=rc,
+        dist_ok=out.get("dist_ok"), only_own_rows=out.get(
+            "dist_only_own_rows"), s=f"{dt:.1f}")
+    if rc != 0 or out.get("dist_ok") != 1 \
+            or out.get("dist_only_own_rows") != 1:
+        _cli_fail("dist --mode mesh", rc, err, "not dist_ok 1 on own rows")
+
+
 # ------------------------------------------------------------------- main
 # the phases --phases may choose: those that take nothing from another
 STANDALONE = ("build", "kernels", "wide_path", "train", "ckpt", "dp",
-              "dp_vision")
+              "dp_vision", "dist")
 MAIN_SHAPE = (2, 2048, 32, 8, 128)
 
 
@@ -5536,6 +5837,7 @@ def main(argv: list[str] | None = None) -> int:
         run("observability", phase_observability, workdir, tar)
         run("dp", phase_dp, workdir, pq)
         run("dp_vision", phase_dp_vision, workdir, pdec, tar)
+        run("dist", phase_dist, workdir, tar)
         _remove(*(pq[0] if pq else ()), pdec, tar)
         run("cli", phase_cli, workdir, disk_node)
     finally:

@@ -1,8 +1,8 @@
 """strom-torch-bench — the port's benchmark CLI (``python -m strom_torch.cli``
 or the ``strom-torch-bench`` script), the counterpart of ``strom/cli.py``.
 
-Every subcommand of the reference but ``dist`` (many devices: not ported
-yet), with its flags, defaults and JSON keys. The deliberate differences:
+Every subcommand of the reference, with its flags, defaults and JSON keys.
+The deliberate differences:
 
 - ``ssd2tpu`` is ``ssd2gpu`` here (``memcpy_ssd2gpu``; ``"bench":
   "ssd2gpu"``);
@@ -22,6 +22,11 @@ yet), with its flags, defaults and JSON keys. The deliberate differences:
   replaced by the hand knobs;
 - ``--engine uring`` raises where no ring can be made (io_uring ENOSYS): it
   never falls back to the preadv pool.
+- ``dist --mode mesh`` runs one worker process a card over
+  ``torch.distributed`` (``memcpy_ssd2gpu(sharding=)``), where the
+  reference's workers each address ``--devices-per-proc`` devices through
+  ``jax.distributed``: a ``--devices-per-proc`` other than 1 raises, and
+  so does mesh mode without CUDA.
 
 - ``nvme``: O_DIRECT sequential read, block-size chunks into host RAM (the
   raw NVMe read bandwidth);
@@ -2202,6 +2207,107 @@ def bench_resume(args: argparse.Namespace) -> dict:
     return out
 
 
+def bench_dist(args: argparse.Namespace) -> dict:
+    """The distributed data plane: an N-process ingest over a token fixture
+    written through the engine. Each worker owns the files the
+    consistent-hash ring gives it, warms them into its hot cache, serves
+    them to its peers over the extent service (strom_torch/dist/peers.py)
+    and assembles its slice of every global batch through the delivery
+    plan: rows of another host's files arrive over the socket, not as a
+    second SSD read. ``--mode mesh`` puts each slice on the worker's card
+    (one process a card).
+
+    ``dist_ok=1``: every worker exited 0 and every worker's rows were
+    bit-identical to the single-process reference's;
+    ``dist_peer_hit_ratio`` is the share of batch bytes served by peers;
+    ``dist_engine_ingest_bytes`` must be 0 (no second SSD read). A
+    single-process pass rates the same rows for ``dist_vs_single``.
+    ``--batch-ab`` reruns the fleet unbatched, ``--peer-compress`` with the
+    compressed wire. Keys: ``strom_torch.dist.peers.DIST_BENCH_FIELDS``."""
+    from strom_torch.config import StromConfig
+    from strom_torch.delivery.core import StromContext
+    from strom_torch.dist.launch import measure_ingest
+    from strom_torch.dist.peers import DIST_BENCH_FIELDS  # noqa: F401 (contract)
+    from strom_torch.formats.rawbin import write_token_shard
+
+    wd = os.path.join(args.tmpdir, "strom_bench_dist")
+    shutil.rmtree(wd, ignore_errors=True)
+    data_dir = os.path.join(wd, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    # the fixture through the engine's write path: written by the
+    # machinery that later reads it
+    rng = np.random.default_rng(args.seed)
+    ctx = StromContext(StromConfig(engine=args.engine, queue_depth=8,
+                                   num_buffers=16))
+    try:
+        for i in range(args.files):
+            write_token_shard(
+                ctx, os.path.join(data_dir, f"shard{i}.bin"),
+                rng.integers(0, 32000, (args.records, args.seq_len),
+                             dtype=np.int32))
+    finally:
+        ctx.close()
+
+    worker_engine = args.engine if args.engine != "auto" else "python"
+    kw = dict(data_dir=data_dir, steps=args.steps, batch=args.batch,
+              seq_len=args.seq_len, seed=args.seed, engine=worker_engine,
+              mode=args.mode, devices_per_proc=args.devices_per_proc)
+    single = measure_ingest(1, os.path.join(wd, "single"), **kw)
+    # the fault plan rides the workers (peer-op rules fire on their
+    # fetches); the single process has no peers to fail
+    multi = measure_ingest(args.procs, os.path.join(wd, "multi"),
+                           fault_plan=args.fault_plan or "", **kw)
+    workers = multi.pop("workers")
+    single_rate = single.get("dist_items_per_s") or 0.0
+    out = {
+        "bench": "dist",
+        "procs": args.procs, "mode": args.mode, "engine": worker_engine,
+        "batch": args.batch, "seq_len": args.seq_len, "files": args.files,
+        **multi,
+        "dist_single_items_per_s": single_rate,
+        "dist_vs_single":
+            round(multi["dist_items_per_s"] / single_rate, 3)
+            if single_rate else None,
+        # the single pass must be clean itself, or vs_single is noise
+        "dist_single_ok": single.get("dist_ok"),
+        "dist_worker_errors": sum(w.get("peer_errors", 0) for w in workers),
+    }
+    if args.batch_ab:
+        # the same fleet, seed and steps with the batched wire off: every
+        # peer miss pays its own round trip; both passes bit-identical
+        unb = measure_ingest(args.procs, os.path.join(wd, "multi_unbatched"),
+                             batch_extents=0, **kw)
+        unb.pop("workers", None)
+        unb_rate = unb.get("dist_items_per_s") or 0.0
+        out.update({
+            "dist_unbatched_ok": unb.get("dist_ok"),
+            "dist_unbatched_items_per_s": unb_rate,
+            "dist_batch_vs_single":
+                round(multi["dist_items_per_s"] / unb_rate, 3)
+                if unb_rate else None,
+        })
+    if args.peer_compress:
+        # the same fleet with the compressed wire: the same rows, and the
+        # wire bytes for the same served payloads (the raw pass's wire
+        # bytes are its served bytes)
+        comp = measure_ingest(args.procs, os.path.join(wd, "multi_comp"),
+                              peer_compress=True, **kw)
+        comp.pop("workers", None)
+        raw_wire = multi["dist_peer_wire_bytes"]
+        comp_wire = comp.get("dist_peer_wire_bytes", 0)
+        out.update({
+            "dist_comp_ok": comp.get("dist_ok"),
+            "dist_peer_raw_wire_bytes": raw_wire,
+            "dist_peer_comp_wire_bytes": comp_wire,
+            # > 1: the compressed pass moved fewer bytes for the same rows
+            "dist_peer_comp_vs_raw":
+                round(raw_wire / comp_wire, 4) if comp_wire else None,
+            "peer_comp_ratio": comp.get("peer_comp_ratio", 0.0),
+        })
+    shutil.rmtree(wd, ignore_errors=True)
+    return out
+
+
 def bench_all(args: argparse.Namespace) -> dict:
     """Every configuration in one run at quick shapes: the raw read, the
     host ratio plain and striped, delivery to the device, the llama,
@@ -2336,8 +2442,8 @@ def _add_cache_flags(p: argparse.ArgumentParser) -> None:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The CLI's parser: the reference's subcommands and flags but
-    ``dist``, ``ssd2tpu`` named ``ssd2gpu``, and ``--device``."""
+    """The CLI's parser: the reference's subcommands and flags,
+    ``ssd2tpu`` named ``ssd2gpu``, and ``--device``."""
     ap = argparse.ArgumentParser(prog="strom-torch-bench")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -2583,6 +2689,51 @@ def build_parser() -> argparse.ArgumentParser:
                        choices=["KILL", "TERM"],
                        help="how the victim trainer dies")
     p_res.set_defaults(fn=bench_resume)
+
+    p_dist = sub.add_parser(
+        "dist",
+        help="the distributed data plane: an N-process ingest over an "
+             "engine-written token fixture, each worker with its own "
+             "engine, cache and peer server (a row hot on its owner "
+             "reaches the others over the socket, not as a second SSD "
+             "read). dist_ok=1: every worker bit-identical to the "
+             "single-process reference (keys: "
+             "strom_torch.dist.peers.DIST_BENCH_FIELDS)")
+    common(p_dist)
+    p_dist.add_argument("--procs", type=int, default=2,
+                        help="worker processes (each its own engine, "
+                             "cache and peer server)")
+    p_dist.add_argument("--steps", type=int, default=6)
+    p_dist.add_argument("--batch", type=int, default=16,
+                        help="global batch rows a step (split over the "
+                             "workers)")
+    p_dist.add_argument("--seq-len", type=int, dest="seq_len", default=64)
+    p_dist.add_argument("--files", type=int, default=4,
+                        help="fixture shard files (owned by the ring's "
+                             "members)")
+    p_dist.add_argument("--records", type=int, default=128,
+                        help="rows a fixture shard")
+    p_dist.add_argument("--seed", type=int, default=0)
+    p_dist.add_argument("--mode", default="host", choices=["host", "mesh"],
+                        help="host = the rows in host memory (no device); "
+                             "mesh = one worker a card over "
+                             "torch.distributed, each slice delivered with "
+                             "memcpy_ssd2gpu(sharding=)")
+    p_dist.add_argument("--devices-per-proc", type=int,
+                        dest="devices_per_proc", default=1,
+                        help="devices a worker (mesh mode: 1, one process "
+                             "a card; anything else raises)")
+    p_dist.add_argument("--peer-compress", action="store_true",
+                        dest="peer_compress",
+                        help="also rerun the fleet with the compressed peer "
+                             "wire: the same rows, compressed against raw "
+                             "wire bytes")
+    p_dist.add_argument("--batch-ab", action="store_true", dest="batch_ab",
+                        help="also rerun the fleet with the batched "
+                             "transport off: dist_batch_vs_single = the "
+                             "batched rate over the one-extent-a-round-trip "
+                             "rate")
+    p_dist.set_defaults(fn=bench_dist)
 
     p_tune = sub.add_parser(
         "tune",

@@ -242,6 +242,34 @@ class StromConfig:
     # above it. 0 disables admission control
     sched_high_water: float = 0.9
 
+    # the distributed data plane (strom_torch/dist): the peer extent
+    # service. A context with peers attached (ctx.attach_peers) probes them
+    # in the delivery consult after local RAM and spill and before the
+    # engine: an extent hot on another host arrives over the socket
+    # instead of a second SSD read. A failed fetch falls back to the local
+    # engine, never fatal; a dead peer trips a per-peer circuit breaker
+    dist_peer_timeout_s: float = 0.5   # a fetch's connect/recv timeout
+    dist_server_max_conns: int = 8     # peer-server reads in flight
+    # zero-copy serving: cache hits go to the socket straight from the
+    # pinned views (MSG_ZEROCOPY where the kernel grants SO_ZEROCOPY),
+    # spill hits through sendfile(2). Off = the copy path
+    dist_send_zc: bool = False
+    # peer-response compression: fetches name the probed codec and a
+    # willing server answers compressed where that pays (raw otherwise); a
+    # peer of the older wire is latched back to the plain ops. Off = the
+    # plain wire, byte for byte
+    peer_compress: bool = False
+    # the batched transport packs up to this many extents into one
+    # OP_GET_BATCH round trip (0 = one extent a round trip); the pool keeps
+    # this many persistent connections a peer (overflow rides ephemeral
+    # ones; a failed one is discarded)
+    dist_batch_max_extents: int = 64
+    dist_conn_pool_size: int = 2
+    # shared-key auth: when non-empty every new peer connection passes an
+    # HMAC-SHA256 challenge before its first request; a wrong or missing
+    # key is refused (peer_auth_rejects). Empty = the open wire
+    dist_auth_key: str = ""
+
     def __post_init__(self) -> None:
         if self.buffer_size == 0:
             object.__setattr__(self, "buffer_size", self.block_size)
@@ -303,6 +331,15 @@ class StromConfig:
                              "slicing) or exactly -1 (auto)")
         if not 0.0 <= self.sched_high_water <= 1.0:
             raise ValueError("sched_high_water must be in [0, 1] (0 = off)")
+        if self.dist_peer_timeout_s <= 0:
+            raise ValueError("dist_peer_timeout_s must be > 0")
+        if self.dist_server_max_conns < 1:
+            raise ValueError("dist_server_max_conns must be >= 1")
+        if self.dist_batch_max_extents < 0:
+            raise ValueError("dist_batch_max_extents must be >= 0 (0 = "
+                             "unbatched)")
+        if self.dist_conn_pool_size < 1:
+            raise ValueError("dist_conn_pool_size must be >= 1")
 
     @property
     def resolved_stripe_window_bytes(self) -> int:

@@ -499,6 +499,12 @@ class StromContext:
             self._scheduler.slo_hook = self._slo.burning
         # pipeline surfaces the autotuner can steer (register_tunable)
         self._tunables: dict = {}
+        # the peer fabric (strom_torch/dist): serve_peers() starts the
+        # exporter of this context's hot extents, attach_peers() wires the
+        # client tier the consult probes after RAM and spill and before the
+        # engine. Both None: a single host
+        self._peer_tier = None
+        self._peer_server = None
         self._tuner = None
         self._cluster = None
         self._metrics_server = None
@@ -736,6 +742,80 @@ class StromContext:
         build a knob over; the last registration of a *kind* wins."""
         self._tunables[str(kind)] = obj
 
+    # -- the peer fabric (strom_torch/dist) ----------------------------------
+    @property
+    def peer_tier(self):
+        """The peer extent client :meth:`attach_peers` wired, else None."""
+        return self._peer_tier
+
+    @property
+    def peer_server(self):
+        """The peer extent exporter :meth:`serve_peers` started, else
+        None."""
+        return self._peer_server
+
+    def serve_peers(self, port: int = 0, host: str = "127.0.0.1") -> str:
+        """Start the peer extent service: a bounded threaded TCP server
+        exporting this context's hot-cache and spill extents by their
+        ``(path, physical offset)`` keys. Its reads are billed to the
+        background tenant ``"peer"`` through the scheduler, so peer
+        traffic never starves local demand. Returns the bound
+        ``host:port`` (port 0: an ephemeral one); idempotent."""
+        if self._closed:
+            raise RuntimeError("StromContext is closed")
+        if self._peer_server is not None:
+            return self._peer_server.addr
+        if self._scheduler is not None:
+            self.register_tenant("peer", priority="background")
+        from strom_torch.dist.peers import PeerServer
+
+        self._peer_server = PeerServer(
+            self, host=host, port=port,
+            max_conns=self.config.dist_server_max_conns)
+        return self._peer_server.addr
+
+    def attach_peers(self, peers, owner_fn=None, directory=None) -> None:
+        """Wire the peer tier of the delivery consult. *peers* maps a peer
+        name to its ``host:port`` (or is a list of addresses); *owner_fn*
+        maps a dataset path to the name of the peer expected to hold it
+        hot (None or unknown: the engine), or *directory* is a live
+        :class:`~strom_torch.dist.directory.ExtentDirectory`, which
+        outranks *owner_fn* and re-owns a dead host's keys. A failed fetch
+        falls back to the local engine read, and a dead peer trips its
+        breaker (which publishes the death to the directory). Replaces a
+        tier attached before; the tier is registered as the
+        ``"peer_tier"`` tunable, whose batch size and pool depth the
+        autotuner steers."""
+        from strom_torch.dist.peers import PeerTier
+
+        if self._peer_tier is not None:
+            self._peer_tier.close()
+        self._peer_tier = PeerTier(
+            peers, owner_fn=owner_fn, directory=directory,
+            scope=self.scope,
+            timeout_s=self.config.dist_peer_timeout_s,
+            plan=getattr(self.engine, "plan", None),
+            compress=self.config.peer_compress,
+            batch_max_extents=self.config.dist_batch_max_extents,
+            conn_pool_size=self.config.dist_conn_pool_size,
+            auth_key=self.config.dist_auth_key)
+        self.register_tunable("peer_tier", self._peer_tier)
+
+    def peer_decoded_fetch(self, ckey) -> "np.ndarray | None":
+        """Ask the owning peer for a decoded frame by its DecodedCache key
+        ``("jpegdec", path, lo, hi, fingerprint)``: ``(h, w, 3)`` uint8 RGB
+        or None. The vision pipeline asks on a local decoded-cache miss,
+        before it plans the JPEG member's read, so a frame decoded once is
+        decoded once in the cluster."""
+        if self._peer_tier is None:
+            return None
+        try:
+            _, path, lo, hi, fp = ckey
+        except (TypeError, ValueError):
+            return None
+        return self._peer_tier.fetch_frame(str(path), int(lo), int(hi),
+                                           str(fp))
+
     def attach_cluster(self, hosts, *, interval_s: float = 1.0,
                        stall_s: float = 10.0, **kwargs):
         """Start the cluster view: a background loop polling each worker's
@@ -881,8 +961,9 @@ class StromContext:
         return self._decoded_cache
 
     def attach_decoded_cache(self, dcache) -> None:
-        """Register a pipeline's DecodedCache (its counters show in
-        :meth:`stats`); the last registration wins."""
+        """Register a pipeline's DecodedCache: its counters show in
+        :meth:`stats`, and the peer server exports its frames to the
+        cluster; the last registration wins."""
         self._decoded_cache = dcache
 
     @contextlib.contextmanager
@@ -1022,41 +1103,71 @@ class StromContext:
                 chunks = plan_chunks_multi(chunks, maps)
         return chunks, idx_paths
 
-    def _consult_cache(self, cache: HotCache,
+    def _consult_cache(self, cache: "HotCache | None",
                        chunks: list[tuple[int, int, int, int]],
                        idx_paths: dict[int, str],
                        dflat: "np.ndarray | None", *, warm: bool = False,
                        tenant: "str | None" = None
                        ) -> tuple[list[tuple[int, int, int, int]], int,
                                   list[tuple[int, int]]]:
-        """Split every physical chunk into cached ranges (copied from RAM
-        into *dflat* under a pin that blocks eviction) and miss runs (the
-        only ops the engine sees). Returns ``(miss_chunks, hit_bytes,
-        hit_ranges)``: *hit_ranges* are the dest [lo, hi) spans served
-        without the engine, which the streamed gather reports as instant
-        completions. ``warm=True`` (readahead) records nothing and copies
-        nothing (*dflat* may be None).
+        """Split every physical chunk into served ranges (copied into
+        *dflat*) and miss runs (the only ops the engine sees). Returns
+        ``(miss_chunks, hit_bytes, hit_ranges)``: *hit_ranges* are the dest
+        [lo, hi) spans served without the engine, which the streamed
+        gather reports as instant completions. ``warm=True`` (readahead)
+        records nothing and copies nothing (*dflat* may be None).
 
-        With a spill tier, RAM misses probe the spill file next: a
-        spill-resident range is read from it into *dflat* and offered back
-        to RAM (admission policy applies; *tenant*'s partition is charged),
-        and counts as a hit, never as ``cache_miss_bytes``; only ranges
-        neither tier holds do. On the warm path a spill-resident range is
-        promoted to RAM at once (``spill_promote_bytes``)."""
+        The order is RAM → spill → peers → engine. RAM hits are copied
+        under a pin that blocks eviction. With a spill tier, RAM misses
+        probe the spill file next: a spill-resident range is read from it
+        into *dflat* and offered back to RAM (admission policy applies;
+        *tenant*'s partition is charged), and counts as a hit, never as
+        ``cache_miss_bytes``; on the warm path it is promoted to RAM at
+        once (``spill_promote_bytes``). With a peer tier
+        (:meth:`attach_peers`), the ranges neither tier holds are
+        collected and asked of their owners in one ``fetch_many`` (one
+        round trip an owner's chunk): a peer-served range is a hit,
+        promoted into the local cache, and a failed fetch falls to the
+        engine. *cache* may be None (a peered context without a hot
+        cache still asks its peers); the warm path never asks peers."""
         cache_hit = 0
+        peer_hit = 0
+        spill_served = 0
+        t0 = _events_ring.now_us()
         miss_chunks: list[tuple[int, int, int, int]] = []
         hit_ranges: list[tuple[int, int]] = []
         pinned: list = []
-        spill = cache.spill
+        spill = cache.spill if cache is not None else None
+        peers = self._peer_tier if (not warm and dflat is not None) else None
+        # ranges neither RAM nor spill holds, for the peers:
+        # (fi, path, fo, do, s, t, count_miss)
+        peer_pending: list = []
+
+        def true_miss(fi: int, path: str, fo: int, do: int, s: int, t: int,
+                      count_miss: bool) -> None:
+            """[s, t) is in neither tier: the peers' (resolved in one batch
+            below), else the engine's. *count_miss*: the lookup left miss
+            counting to the caller (a peer hit is no cache miss)."""
+            if peers is not None:
+                peer_pending.append((fi, path, fo, do, s, t, count_miss))
+                return
+            miss_chunks.append((fi, s, do + (s - fo), t - s))
+            if count_miss and not warm:
+                cache.note_miss(t - s)
+
         try:
             for fi, fo, do, ln in chunks:
                 path = idx_paths.get(fi)
                 if path is None:  # an untracked file index: bypass the cache
                     miss_chunks.append((fi, fo, do, ln))
                     continue
+                if cache is None:
+                    # peers but no hot cache: every range misses locally
+                    true_miss(fi, path, fo, do, fo, fo + ln, False)
+                    continue
                 hits, misses, pins = cache.lookup(
                     path, fo, fo + ln, record=not warm,
-                    count_misses=spill is None)
+                    count_misses=spill is None and peers is None)
                 pinned.extend(pins)
                 for s, t, view in hits:
                     if not warm:
@@ -1064,8 +1175,8 @@ class StromContext:
                         hit_ranges.append((do + (s - fo), do + (t - fo)))
                     cache_hit += t - s
                 if spill is None:
-                    miss_chunks.extend((fi, s, do + (s - fo), t - s)
-                                       for s, t in misses)
+                    for s, t in misses:
+                        true_miss(fi, path, fo, do, s, t, peers is not None)
                     continue
                 for s, t in misses:
                     sp_hits, sp_misses = spill.lookup(path, s, t,
@@ -1093,16 +1204,48 @@ class StromContext:
                                             dflat[d_lo: d_lo + n])
                             hit_ranges.append((d_lo, d_lo + n))
                             cache_hit += n
+                            spill_served += n
                             cache.admit(path, ss, tt, dflat[d_lo: d_lo + n],
                                         tenant=tenant)
                     finally:
                         spill.unpin([e for _, _, e in sp_hits])
                     for ss, tt in sp_misses:
-                        miss_chunks.append((fi, ss, do + (ss - fo), tt - ss))
-                        if not warm:
-                            cache.note_miss(tt - ss)
+                        true_miss(fi, path, fo, do, ss, tt, True)
+            if peer_pending:
+                got = peers.fetch_many(
+                    [(path, s, t) for _, path, _, _, s, t, _ in peer_pending])
+                for (fi, path, fo, do, s, t, count_miss), data in zip(
+                        peer_pending, got):
+                    d_lo = do + (s - fo)
+                    if data is None:
+                        miss_chunks.append((fi, s, d_lo, t - s))
+                        if count_miss and not warm:
+                            cache.note_miss(t - s)
+                        continue
+                    dflat[d_lo: d_lo + (t - s)] = data
+                    hit_ranges.append((d_lo, d_lo + (t - s)))
+                    cache_hit += t - s
+                    peer_hit += t - s
+                    if cache is not None:
+                        # promoted as a spill hit is: the next read is a
+                        # RAM hit, and this host can serve it onward
+                        cache.admit(path, s, t, dflat[d_lo: d_lo + (t - s)],
+                                    tenant=tenant)
         finally:
-            cache.unpin(pinned)
+            if cache is not None:
+                cache.unpin(pinned)
+        if not warm:
+            now = _events_ring.now_us()
+            # request-tagged: which request the tiers served, and from where
+            if spill_served:
+                _request.complete(t0, now - t0, "cache", "spill.serve",
+                                  {"bytes": spill_served})
+            if peer_hit:
+                _request.complete(t0, now - t0, "dist", "peer.serve",
+                                  {"bytes": peer_hit})
+            if cache_hit - peer_hit > 0:
+                _request.complete(t0, now - t0, "cache", "cache.serve",
+                                  {"bytes": cache_hit - peer_hit})
         return miss_chunks, cache_hit, hit_ranges
 
     def _read_segments(self, source: Source, segments: Sequence[Segment],
@@ -1157,7 +1300,7 @@ class StromContext:
         cache = self._active_cache()
         cache_hit = 0
         dflat = None
-        if cache is not None and chunks:
+        if (cache is not None or self._peer_tier is not None) and chunks:
             dflat = dest if dest.ndim == 1 and dest.dtype == np.uint8 \
                 else dest.reshape(-1).view(np.uint8)
             chunks, cache_hit, _ = self._consult_cache(
@@ -1203,14 +1346,20 @@ class StromContext:
         if total != planned:
             raise EngineError(errno.EIO,
                               f"ssd2gpu read {total} bytes, planned {planned}")
-        if cache is not None:
+        if cache is not None and chunks:
             # the engine already landed the bytes: admitting is one memcpy
             # into a cache buffer (the admission policy decides)
+            t0a = _events_ring.now_us()
+            admitted = 0
             for fi, fo, do, ln in chunks:
                 path = idx_paths.get(fi)
                 if path is not None:
-                    cache.admit(path, fo, fo + ln, dflat[do: do + ln],
-                                tenant=tenant)
+                    admitted += cache.admit(path, fo, fo + ln,
+                                            dflat[do: do + ln], tenant=tenant)
+            if admitted:
+                _request.complete(t0a, _events_ring.now_us() - t0a,
+                                  "cache", "cache.admit",
+                                  {"bytes": admitted})
         self._count(ssd2gpu_bytes=total + cache_hit)
         return total + cache_hit
 
@@ -1802,9 +1951,10 @@ class StromContext:
         TTL cache). None = every section. The sections: ``context``,
         ``decode``, ``stream``, ``steps``, ``cache``, ``spill``,
         ``slab_pool``, ``engine``, ``sched``, ``slo``, ``tune``,
-        ``exemplars``, ``resilience`` and ``scopes``; ``cache``, ``spill``,
-        ``slab_pool``, ``sched`` and ``tune`` only where the context has
-        one. The reference's ``dist`` section waits for the peer fabric.
+        ``exemplars``, ``resilience``, ``scopes`` and ``dist`` (the peer
+        tier's and the peer server's counters, ``DIST_FIELDS``); ``cache``,
+        ``spill``, ``slab_pool``, ``sched``, ``tune`` and ``dist`` only
+        where the context has one.
         Counters are the process-wide registry's, as the reference reads
         them. No section makes a CUDA call."""
         want = None if sections is None else set(sections)
@@ -1858,6 +2008,14 @@ class StromContext:
             sp["spill_errors"] = self._hot_cache.spill_errors + (
                 self._spill_io.errors if self._spill_io is not None else 0)
             out["spill"] = sp
+        if wanted("dist") and (self._peer_tier is not None
+                               or self._peer_server is not None):
+            d: dict = {}
+            if self._peer_tier is not None:
+                d.update(self._peer_tier.stats())
+            if self._peer_server is not None:
+                d.update(self._peer_server.stats())
+            out["dist"] = d
         if wanted("slab_pool") and self._slab_pool is not None:
             out["slab_pool"] = self._slab_pool.stats()
         if wanted("engine"):
@@ -1951,6 +2109,13 @@ class StromContext:
         # the cluster view before the server and the recorder it uses
         if self._cluster is not None:
             self._cluster.close()
+        # the peer service before the engine: no serve starts a cache or
+        # spill read (or a grant) on a closing context, and the consult
+        # stops asking peers
+        if self._peer_server is not None:
+            self._peer_server.close()
+        if self._peer_tier is not None:
+            self._peer_tier.close()
         if self._metrics_server is not None:
             self._metrics_server.close()
         if self._history is not None:

@@ -388,6 +388,18 @@ class SpillTier:
             self.fallback_ops += 1
         return os.preadv(self._fd, [memoryview(dest)[:n]], off)
 
+    def file_range(self, e: _SpillEntry, s: int, t: int
+                   ) -> "tuple[int, int, int] | None":
+        """``(fd, file_offset, length)`` of bytes [s, t) of *e*'s range:
+        where the zero-copy peer exporter ``sendfile``s spill-resident
+        bytes from, or None for a compressed entry (its file bytes are not
+        the logical ones: the caller reads it with :meth:`read_into`,
+        which decompresses). *e* must be pinned (a :meth:`lookup` hit)
+        until the send ends; the fd is this tier's, not to be closed."""
+        if e.codec is not None:
+            return None
+        return self._fd, e.off + (s - e.lo), t - s
+
     def _pwrite(self, data: np.ndarray, off: int) -> None:
         """Spill-file write: engine-routed when safe, buffered fd
         otherwise. Never called under the tier lock (two-phase

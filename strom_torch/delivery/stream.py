@@ -1,5 +1,4 @@
-"""Completion-driven gather (the port's copy of ``strom/delivery/stream.py``,
-without peers).
+"""Completion-driven gather (the port's copy of ``strom/delivery/stream.py``).
 
 A blocking gather makes every sample of a batch wait for the slowest
 extent. :class:`StreamingGather` plans the gather as
@@ -10,8 +9,10 @@ their chunks land, so the vision pipeline can decode a sample while later
 extents are still in flight. With the hot cache on, the gather consults
 it after planning: cached ranges are copied into *dest* at construction and
 surface as INSTANT completions on the first ``poll`` (counted as
-``stream_instant_bytes``); only the misses reach the engine, and each
-landed chunk is offered for admission.
+``stream_instant_bytes``); so do the ranges a peer served (a context
+with :meth:`StromContext.attach_peers` asks its peers even without a hot
+cache). Only the misses reach the engine, and each landed chunk is
+offered for admission (a ``cache.admit`` span at release).
 
 Rules:
 
@@ -96,6 +97,7 @@ class StreamingGather:
         self._stall_bytes = -1
         self._last_prog_t = time.monotonic()   # the hedges' quiet clock
         self._instant: list[tuple[int, int]] = []
+        self._admitted = 0                  # bytes admitted as chunks land
         self._resil = ctx.resilience
         self._completed: set[int] = set()   # engine-served chunk indices
         self._recovered: set[int] = set()   # fallback-served after failure
@@ -123,7 +125,8 @@ class StreamingGather:
                                      f"bytes, the gather plans {planned}")
                 self._cache = ctx._active_cache()
                 hit_bytes = 0
-                if self._cache is not None and chunks:
+                if (self._cache is not None
+                        or ctx.peer_tier is not None) and chunks:
                     chunks, hit_bytes, self._instant = ctx._consult_cache(
                         self._cache, chunks, self._idx_paths, self._dflat,
                         tenant=tenant)
@@ -289,9 +292,9 @@ class StreamingGather:
                     # memcpy (the admission policy decides)
                     path = self._idx_paths.get(fi)
                     if path is not None:
-                        self._cache.admit(path, fo, fo + ln,
-                                          self._dflat[do: do + ln],
-                                          tenant=self._tenant)
+                        self._admitted += self._cache.admit(
+                            path, fo, fo + ln, self._dflat[do: do + ln],
+                            tenant=self._tenant)
             if not out and min_completions > 0 and hedge is not None \
                     and not tok.done \
                     and time.monotonic() - self._last_prog_t \
@@ -482,6 +485,10 @@ class StreamingGather:
             # wait a whole-batch barrier would put on every sample
             self._ctx.scope.observe_us("stream_tail_extent",
                                        self._last_c_us - self._first_c_us)
+        if self._admitted:
+            self.req.record("cache.admit", "cache", self.t0_us,
+                            _events_ring.now_us() - self.t0_us,
+                            {"bytes": self._admitted})
         self._release_engine()
         if self._own_req:
             self.req.finish()

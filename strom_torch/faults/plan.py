@@ -41,8 +41,12 @@ class FaultRule:
       presets tuned against read traffic). ``bit_flip`` rules never match
       writes regardless: flipping the caller's source buffer would corrupt
       live training state, not the op. ``"peer"`` ops are the network
-      fetches of the reference's peer tier, which the port does not have
-      yet: such rules parse and match nothing here
+      fetches of the peer tier (``strom_torch/dist/peers.py``):
+      ``errno`` reads as a refused connect, ``hangup`` as a mid-stream
+      drop, ``short_read`` as a truncated frame and ``latency`` as a
+      latency spike, all applied on the client's side, so the real outcome
+      (a counted failure, the breaker fed, the engine's read) happens
+      without damaging a live socket
     - ``offset_lo`` / ``offset_hi``: op byte range must OVERLAP [lo, hi)
     - ``op_lo`` / ``op_hi``: plan-global op-index window [lo, hi)
     - ``every``: inject on every Nth op that passes the matchers (0 = all)

@@ -1,5 +1,5 @@
 """Decoded-output cache: predecoded on the fly (the port's copy of
-``strom/formats/decoded_cache.py``, without the peer export).
+``strom/formats/decoded_cache.py``).
 
 The hot cache (``strom_torch/delivery/hotcache.py``) serves repeat
 COMPRESSED bytes from RAM, but a JPEG pipeline still pays the full decode
@@ -146,6 +146,40 @@ class DecodedCache:
         self._scope.add("decode_cache_hit_bytes", h * w * 3)
         self._scope.add("decode_cache_plan_hits")
         return ServedFrame(buf.reshape(h, w, 3), entry, self)
+
+    def export(self, path: str, lo: int, hi: int,
+               fingerprint: "str | None" = None
+               ) -> "tuple[int, int, bytes] | None":
+        """The peer server's lookup: ``(h, w, rgb bytes)`` for the member
+        at [*lo*, *hi*) of *path* when its whole decoded frame is resident,
+        else None. Unlike :meth:`probe` the pixels are copied out (the
+        server writes them to a socket after the call returns, outside any
+        pin), and the asker's decode *fingerprint* must equal ours: pixels
+        decoded under other semantics never cross the wire."""
+        if not self.enabled:
+            return None
+        if fingerprint and fingerprint != self._fp:
+            return None
+        ckey = ("jpegdec", path, lo, hi, self._fp)
+        with self._lock:
+            dims = self._dims.get(ckey)
+        if dims is None:
+            return None
+        h, w = dims
+        got = self._hot_cache.view(ckey, 0, h * w * 3, record=False)
+        if got is None:
+            return None
+        buf, entry = got
+        try:
+            out = bytes(buf)
+        finally:
+            self._hot_cache.unpin((entry,))
+        with self._lock:
+            self.hits += 1
+            self.hit_bytes += h * w * 3
+        self._scope.add("decode_cache_hits")
+        self._scope.add("decode_cache_hit_bytes", h * w * 3)
+        return h, w, out
 
     def release(self, pin) -> None:
         self._hot_cache.unpin((pin,))

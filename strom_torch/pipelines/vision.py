@@ -27,7 +27,10 @@ With the hot cache on (``hot_cache_bytes``), both pipelines warm the
 sampler's upcoming batches into it from a readahead thread
 (``readahead_window_batches``), and the JPEG pipeline can keep decoded
 frames there too (``decode_cache``): a frame found at plan time skips its
-member's read and its decode, leaving crop and resize.
+member's read and its decode, leaving crop and resize. On a context with
+peers (``ctx.attach_peers``) a frame missing here is asked of its owner's
+decoded cache first, so a frame decoded once is decoded once in the
+cluster.
 """
 
 from __future__ import annotations
@@ -491,8 +494,9 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
 
     *decode_cache* (needs the context's hot cache and the built-in
     transform) keeps full decoded frames in the hot cache: a frame found
-    at plan time skips its member's read and its decode. Cached frames are
-    full-resolution, so batches equal the cache-off pipeline's bit for bit
+    at plan time skips its member's read and its decode; with peers
+    attached, a local miss is asked of the owning peer's cache before the
+    read is planned. Cached frames are full-resolution, so batches equal the cache-off pipeline's bit for bit
     where that one decodes in full too (``decode_reduced_scale=False``).
 
     *opgraph*: a :class:`strom_torch.ops.pushdown.OpGraph` compiled once
@@ -540,6 +544,7 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
         engine = "turbo" if (native and jpeg.native_available()) else "cv2"
         dcache = DecodedCache(ctx.hot_cache, tenant=tname,
                               fingerprint=f"rgb8/{engine}", scope=pscope)
+        # registered: the peer server exports its frames to the cluster
         ctx.attach_decoded_cache(dcache)
     tf = transform or make_train_transform(
         image_size, reduced_scale=reduced, native=native,
@@ -603,6 +608,19 @@ def make_wds_vision_pipeline(ctx: StromContext, paths: Sequence[str], *,
             # image member's read (only labels and misses reach the engine)
             served = [dcache.probe(ck, s.members[image_ext].size)
                       for ck, s in zip(ckeys, samples)]
+            # a local miss may be resident in the owning peer's
+            # DecodedCache: its RGB comes over the batch wire, is offered
+            # here and probed again (a refused admission falls back to the
+            # gather: never wrong pixels)
+            for j, sv in enumerate(served):
+                if sv is not None:
+                    continue
+                img = ctx.peer_decoded_fetch(ckeys[j])
+                if img is None:
+                    continue
+                dcache.offer(ckeys[j], img)
+                served[j] = dcache.probe(ckeys[j],
+                                         samples[j].members[image_ext].size)
             if all(sv is None for sv in served):
                 served = None
         if served is not None:

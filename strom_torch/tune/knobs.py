@@ -121,8 +121,7 @@ def standard_knobs(ctx) -> list[Knob]:
             # spot: enough room to trade tail granularity vs dispatch
             # overhead, never so low that fusing degenerates to per-sample
             lo=500.0, hi=20000.0, step=1000.0, min_step=100.0))
-    # the peer tier registers itself once the peer fabric is ported; until
-    # then this branch never binds
+    # the peer tier (StromContext.attach_peers registers it)
     tier = tunables.get("peer_tier")
     if tier is not None and hasattr(tier, "batch_max_extents"):
         def _set_batch(v: float, _t=tier) -> None:

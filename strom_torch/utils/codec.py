@@ -15,9 +15,9 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
-# the compression counters' names: the spill tier feeds the spill_* ones
-# (the peer tier's are not ported); *_in = raw bytes entering the codec,
-# *_out = stored bytes leaving it; ratio = in/out
+# the compression counters' names: the spill tier feeds the spill_* ones,
+# the peer server (dist/peers.py) the peer_* ones; *_in = raw bytes
+# entering the codec, *_out = stored bytes leaving it; ratio = in/out
 COMP_FIELDS = (
     "spill_comp_bytes_in",
     "spill_comp_bytes_out",

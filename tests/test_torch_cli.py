@@ -361,12 +361,11 @@ def _options(parser) -> dict:
 
 
 def test_every_subcommand_has_the_reference_options(monkeypatch):
-    """Every subcommand of the reference but ``dist`` has the same option
-    strings, dests, defaults, types and choices in the port, save the
-    listed differences (``ssd2tpu`` → ``ssd2gpu``, ``--device``)."""
+    """Every subcommand of the reference, ``dist`` included, has the same
+    option strings, dests, defaults, types and choices in the port, save
+    the listed differences (``ssd2tpu`` → ``ssd2gpu``, ``--device``)."""
     ref = _options(_parser_of(jcli.main, monkeypatch))
     port = _options(tcli.build_parser())
-    ref.pop("dist")
     ref["ssd2gpu"] = ref.pop("ssd2tpu")
     assert set(port) == set(ref)
     for name, (opts, defaults) in ref.items():
@@ -380,6 +379,8 @@ def test_every_subcommand_has_the_reference_options(monkeypatch):
 
 
 def test_help_lists_every_subcommand_but_dist(capsys):
+    """The help lists every subcommand; since the peer fabric is ported,
+    ``dist`` among them."""
     with pytest.raises(SystemExit) as e:
         tcli.main(["--help"])
     assert e.value.code == 0
@@ -388,19 +389,25 @@ def test_help_lists_every_subcommand_but_dist(capsys):
                  "parquet", "all", "multitenant", "chaos", "checkpoint",
                  "resume", "tune", "daemon", "check"):
         assert name in text, name
-    assert "dist" not in text.split("positional arguments")[1].split(
+    assert "dist" in text.split("positional arguments")[1].split(
         "options:")[0]
 
 
 def test_deliberate_differences(tmp_path):
     """Every deliberate difference from the reference, in one place:
-    ``ssd2tpu`` is ``ssd2gpu``, ``dist`` is absent, the arms take
-    ``--device``, without a process group the arms run one device, and
-    ``tune`` adds the searched state's own rate."""
+    ``ssd2tpu`` is ``ssd2gpu``, the arms take ``--device``, without a
+    process group the arms run one device, ``tune`` adds the searched
+    state's own rate, and ``dist --mode mesh`` runs one process a card
+    (a ``--devices-per-proc`` other than 1 raises)."""
     sub = next(a for a in tcli.build_parser()._actions
                if isinstance(a, argparse._SubParsersAction)).choices
-    assert "ssd2gpu" in sub and "ssd2tpu" not in sub and "dist" not in sub
-    assert not hasattr(tcli, "bench_dist")
+    assert "ssd2gpu" in sub and "ssd2tpu" not in sub and "dist" in sub
+    assert callable(tcli.bench_dist)
+    with pytest.raises(ValueError, match="one process a card"):
+        tcli.main(["dist", "--mode", "mesh", "--devices-per-proc", "2",
+                   "--procs", "1", "--steps", "1", "--batch", "2",
+                   "--records", "4", "--seq-len", "16", "--files", "1",
+                   "--engine", "python", "--tmpdir", str(tmp_path)])
     assert all(any("--device" in a.option_strings for a in p._actions)
                for n, p in sub.items() if n not in ("check", "daemon"))
     assert tcli._fit_dp_devices(32) == 1

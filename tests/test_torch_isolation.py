@@ -441,3 +441,39 @@ def test_mesh_modules_load_no_jax_or_strom(module, tmp_path):
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_peer_fabric_loads_no_jax_or_strom(tmp_path):
+    """The peer fabric (``strom_torch.dist``: the extent service, the
+    ring, the launcher) loads neither jax* nor strom.*, also with one
+    context serving another a peer hit, and its sources are scanned."""
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    new = {"dist/__init__.py", "dist/peers.py", "dist/directory.py",
+           "dist/launch.py"}
+    assert new <= names
+    for name in new:
+        assert not _FORBIDDEN.search((PKG / name).read_text()), name
+    shard = tmp_path / "d.bin"
+    shard.write_bytes(bytes(range(256)) * 1024)
+    code = (
+        "import sys, strom_torch.dist, strom_torch.dist.launch\n"
+        "from strom_torch.config import StromConfig\n"
+        "from strom_torch.delivery.core import StromContext\n"
+        "cfg = StromConfig(engine='python', hot_cache_bytes=1 << 20,"
+        " hot_cache_admit='always')\n"
+        "with StromContext(cfg) as a, StromContext(cfg) as b:\n"
+        "    addr = a.serve_peers()\n"
+        "    a.pread(sys.argv[1], 0, 4096)\n"
+        "    b.attach_peers({0: addr}, owner_fn=lambda p: 0)\n"
+        "    assert bytes(b.pread(sys.argv[1], 0, 4096)) =="
+        " bytes(range(256)) * 16\n"
+        "    assert b.stats(['dist'])['dist']['peer_hit_bytes'] == 4096\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+        "('jax.', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, str(shard)], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,5 +1,6 @@
 """The port's nested ``stats(sections=)`` held to the JAX package's: the same
-section names, the same keys in each (less the port's documented names:
+section names (``dist`` too, on contexts that serve and ask peers), the
+same keys in each (less the port's documented names:
 ``ssd2gpu_bytes`` for the reference's ``ssd2tpu_bytes``, its own
 ``transfers``/``streamed_transfers``/``stream_gathers`` counters, and the
 engine's and slab pool's keys that differ since those layers were ported),
@@ -71,11 +72,17 @@ def test_same_sections_and_keys(pair, data_file):
     t, j = pair
     t.pread(path, 0, MiB)
     j.pread(path, 0, MiB)
+    # then each serves its peers and asks the other's server: the dist
+    # section (the peer tier's keys and the server's) is in both
+    t.attach_peers({0: j.serve_peers()}, owner_fn=lambda p: 0)
+    j.attach_peers({0: t.serve_peers()}, owner_fn=lambda p: 0)
+    t.pread(path, MiB, MiB)
+    j.pread(path, MiB, MiB)
     ts, js = t.stats(), j.stats()
     assert set(ts) == set(js)
     assert set(ts) >= {"context", "decode", "stream", "steps", "cache",
                        "slab_pool", "engine", "sched", "slo", "exemplars",
-                       "resilience", "scopes"}
+                       "resilience", "scopes", "dist"}
     for sec in ts:
         if sec == "scopes":
             continue
