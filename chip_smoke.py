@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases build,kernels,dp,dp_vision  # alone
+    python3 chip_smoke.py --phases build,kernels,tp_sp         # alone
 
 Phases, in order; any failure ends the run with a non-zero exit.
 ``--phases`` runs a subset of the phases that take nothing from another
-(build, kernels, wide_path, train, ckpt, dp, dp_vision, dist), for a
-machine with four cards where only the data-parallel paths need them:
+(build, kernels, wide_path, train, ckpt, dp, dp_vision, tp_sp, dist), for
+a machine with four cards where only the many-card paths need them:
 
 1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
                print each kernel instantiation's ptxas registers and
@@ -364,6 +365,41 @@ machine with four cards where only the data-parallel paths need them:
                torch.distributed.run --nproc-per-node N -m strom_torch.cli
                resnet --train-step --predecoded, 128 rows a card (devices
                N, a finite loss).
+12d. tp_sp  -- tensor and sequence parallelism, one worker process a card
+               (this script with --tp-sp-worker; the parent has built the
+               kernels), phase 4's model (Llama-3-8B widths, 2 of 32
+               layers, bf16), fed from a seeded token file an arm by
+               make_llama_pipeline(sharding=batch_sharding(mesh, sp=)),
+               P("dp", "sp") on the mesh's axes. World 1: one arm, {"dp":
+               1, "tp": 1, "sp": 1} at 1 x 2048, the flash ring of one. On
+               four cards or more, world 4: first each rank's flash and
+               zigzag rings over sp 4 at its block of 1 x 2048 x 32 heads
+               (Dh 128, bf16) against the dense ring in f32
+               (BF16_VS_F32_TOL: out, dq, dk, dv); then the arms tp4
+               ({"tp": 4}, 2 x 2048, 8 q and 2 kv heads a rank, flash),
+               sp4_flash and sp4_zigzag ({"sp": 4}, 1 x 8192, S_l 2048)
+               and tp2sp2 ({"tp": 2, "sp": 2}, 2 x 4096, 16/4 heads, S_l
+               2048, flash). Each arm: 4 counted steps of make_train_step(
+               mesh=, sp=, attn=) (the warm-up, the capture, 2 replays)
+               and 4 timed, each step's local block equal to the file's
+               rows in sampler order; rank 0's counted losses and grad
+               norms within TPSP_PLAIN_RTOL of make_train_step without a
+               mesh on the global batch from the same parameters (run
+               first on rank 0's card, then timed over as many replays);
+               after every step the blocks of ranks that share a tp
+               coordinate, and the tp-replicated norms of every rank,
+               bit-equal (parameter checksums); each rank's launches of
+               the counted steps by row of KERNELS (check_variants) and
+               equal to the count the ring's blocks give
+               (_tp_sp_launches); the engine read only the rank's block
+               (bytes_read = deliveries x rows x L/sp x 4). Then one
+               replay under torch.profiler: the NCCL AllReduce, SendRecv
+               and AllGather device ms and their shares of the step.
+               Printed a rank: the median step ms, tokens/s, the plain
+               step's ms over the arm's (plain_over_arm), each card's name
+               and power limit; a line an arm with every rank's medians,
+               shares and whether the losses are equal on every rank (they
+               must be).
 13. cli     -- strom_torch.cli as a user runs it: subprocesses of python
                -m strom_torch.cli ... --json --tmpdir <work dir>: nvme (256
                MiB; --numa-node the disk's node where it has one), check of
@@ -4590,7 +4626,9 @@ def _dp_profile(run, tail: int = 0) -> dict:
     all-reduces), of every kernel, and the step's wall time. *tail*: how
     many of the NCCL kernels, the last by start, are the gradient buckets
     and the loss (``tail_ms``; the ones before them, ``head_ms``, are the
-    forward and backward's own: ResNet's batch norm)."""
+    forward and backward's own: ResNet's batch norm). ``nccl_ms`` splits
+    the NCCL device ms by collective (``AllReduce``, ``SendRecv``,
+    ``AllGather``, ...), read from the kernels' names."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -4607,6 +4645,12 @@ def _dp_profile(run, tail: int = 0) -> dict:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not getattr(e, "is_user_annotation", False)]
     nccl = sorted((a, b) for a, b, n in spans if "nccl" in n.lower())
+    by_op: dict[str, float] = {}
+    for a, b, n in spans:
+        if "nccl" in n.lower():
+            m = re.search(r"nccl(?:Dev)?Kernel_([A-Za-z]+)", n)
+            op = m.group(1) if m else "other"
+            by_op[op] = by_op.get(op, 0.0) + (b - a) / 1e3
     cut = max(len(nccl) - tail, 0)
     return {"wall_ms": wall_ms, "device_events": len(spans),
             "device_ms": sum(b - a for a, b, _ in spans) / 1e3,
@@ -4614,7 +4658,8 @@ def _dp_profile(run, tail: int = 0) -> dict:
             "allreduce_ms": sum(b - a for a, b in nccl) / 1e3,
             "head_kernels": cut,
             "head_ms": sum(b - a for a, b in nccl[:cut]) / 1e3,
-            "tail_ms": sum(b - a for a, b in nccl[cut:]) / 1e3}
+            "tail_ms": sum(b - a for a, b in nccl[cut:]) / 1e3,
+            "nccl_ms": by_op}
 
 
 def _plain_steps(cfg, dev: torch.device, batches: list[torch.Tensor]
@@ -5698,10 +5743,312 @@ def phase_dist(workdir: str, tar: str | None = None) -> None:
         _cli_fail("dist --mode mesh", rc, err, "not dist_ok 1 on own rows")
 
 
+# -------------------------------------------------------------- tp_sp (12d)
+TPSP_COUNTED, TPSP_TIMED = 4, 4   # warm-up, capture, 2 replays; then timed
+TPSP_EPOCH = 4                    # global batches in an arm's token file
+TPSP_TIMEOUT_S = 900              # a world's workers, all its arms
+# arm -> (mesh axes, sp, attn, global batch rows, tokens a row), phase 4's
+# model (DP_CONFIG): on one card the plumbing at 1 x 2048; on four, tp over
+# the heads (8 q and 2 kv heads a rank), sp over Llama-3-8B's context of
+# 8192 (S_l 2048) with the flash and the zigzag rings, and both at 2 x 4096
+# (16 q and 4 kv heads a rank, S_l 2048)
+TPSP_ARMS = {
+    1: {"one": ({"dp": 1, "tp": 1, "sp": 1}, True, "flash", 1, 2048)},
+    4: {"tp4": ({"tp": 4}, False, "flash", 2, 2048),
+        "sp4_flash": ({"sp": 4}, True, "flash", 1, 8192),
+        "sp4_zigzag": ({"sp": 4}, True, "zigzag", 1, 8192),
+        "tp2sp2": ({"tp": 2, "sp": 2}, True, "flash", 2, 4096)},
+}
+# rank 0's counted (loss, grad_norm) against make_train_step without a mesh
+# on the global batch from the same parameters, relative. A sound run on
+# four H100s: world 1 equal bit for bit; at world 4 at most 2.88e-5 and
+# 1.46e-4 (tp4: each row-parallel matmul's halves summed in bf16 across
+# ranks; the rings merge bf16 block outputs in f32). A step that skipped
+# the sum over sp (or summed a tp shard's squares twice) reports a loss or
+# grad_norm off by a factor: a relative error of 0.3 or more.
+TPSP_PLAIN_RTOL = {"loss": 2e-4, "grad_norm": 1e-3}
+# a rank's block in the ring check: the sp4 arms' q block (Llama-3-8B's
+# heads), bf16, the kernels' ring against the dense ring in f32
+TPSP_RING_SHAPE = (1, 2048, 32, 8, 128)
+
+
+def _tp_sp_launches(axes: dict, sp: bool, attn: str, sp_index: int
+                    ) -> dict[str, int]:
+    """Each kernel's launches in one step of an arm on the rank of
+    *sp_index*: the forward runs twice a layer (remat), each backward once.
+    The flash ring runs the diagonal block and the sp_index earlier ones
+    (later ones are hidden and skipped), a pair of backward kernels each;
+    zigzag runs 3 half-length calls at its own kv pair and 2 at each other
+    (one of the two that causality decides is hidden)."""
+    n = axes.get("sp", 1) if sp else 1
+    calls = 3 + 2 * (n - 1) if attn == "zigzag" and n > 1 else 1 + sp_index
+    layers = DP_CONFIG.n_layers
+    return {"fa_fwd": 2 * layers * calls, "fa_bwd_dkv": layers * calls,
+            "fa_bwd_dq": layers * calls}
+
+
+def _ring_grads(fn, q, k, v, g):
+    q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    out.backward(g)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def _ring_check(mesh, impl: str, rank: int) -> dict[str, float]:
+    """The ring of *impl* over the mesh's sp axis on this rank's bf16 block
+    (TPSP_RING_SHAPE): the kernels with the global lse and delta against
+    the dense ring (the plain version) in f32 on the same inputs: out and
+    the gradients of sum(out * g), at BF16_VS_F32_TOL."""
+    from strom_torch.parallel.ring import make_ring_attention
+
+    q, k, v, g = _inputs(*TPSP_RING_SHAPE, torch.bfloat16, 100 + rank)
+    got = _ring_grads(make_ring_attention(mesh, impl=impl), q, k, v, g)
+    want = _ring_grads(make_ring_attention(mesh, impl="dense"),
+                       *(t.float() for t in (q, k, v, g)))
+    rtol, frac, _ = BF16_VS_F32_TOL
+    errs = {name: _close(f"tp_sp ring {impl} rank {rank} {name}", a, b,
+                         rtol, frac)
+            for name, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    say("tp_sp", rank=rank, check=f"ring_{impl}_vs_dense_ring_f32",
+        shape=json.dumps(list(TPSP_RING_SHAPE)).replace(" ", ""),
+        tol="BF16_VS_F32_TOL",
+        **{f"{k}_max_abs_err": f"{e:.4g}" for k, e in errs.items()})
+    del q, k, v, g, got, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _tp_sp_plain(cfg, dev: torch.device, batches: list[torch.Tensor]
+                 ) -> tuple[list[dict[str, float]], float]:
+    """make_train_step without a mesh on one card from init_train_state(
+    seed=0), a step a global batch: each step's {loss, grad_norm}, and the
+    median ms of as many more replays (timed on the host around each, the
+    card synchronised). Its state is freed after."""
+    state = init_train_state(cfg, device=dev, seed=0)
+    step = make_train_step(cfg, attn="flash", device=dev)
+    out, times = [], []
+    for b in batches:
+        state, m = step(state, b)
+        out.append({k: m[k].item() for k in ("loss", "grad_norm")})
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, b)[1]["loss"].item()
+        times.append(time.perf_counter() - t0)
+    del state, step
+    torch.cuda.empty_cache()
+    return out, statistics.median(times) * 1e3
+
+
+def _tp_sp_arm(arm: str, rank: int, world: int, workdir: str,
+               dev: torch.device, card: str) -> dict:
+    """One arm of phase 12d on this rank (the phase's docstring)."""
+    from strom_torch.parallel import mesh as pmesh
+    from strom_torch.parallel.sharding import batch_sharding
+
+    axes, sp, attn, B, L = TPSP_ARMS[world][arm]
+    cfg = DP_CONFIG
+    tag = {"arm": arm, "world": world, "rank": rank,
+           "card": card.replace(" ", "_")}
+    mesh = pmesh.make_mesh(axes)
+    sharding = batch_sharding(mesh, sp=sp)
+    (index,) = sharding.addressable_devices_indices_map((B, L)).values()
+    path = os.path.join(workdir, f"tpsp_{arm}.bin")
+    records = torch.from_numpy(np.fromfile(path, dtype=np.int32)
+                               .reshape(-1, L)).to(dev)
+    sampler = iter(EpochShuffleSampler(len(records), B, seed=0))
+    orders = [torch.from_numpy(next(sampler)).to(dev)
+              for _ in range(TPSP_COUNTED + TPSP_TIMED)]
+    # before this rank's blocks exist, so that one card holds one model
+    plain, plain_ms = _tp_sp_plain(cfg, dev, [
+        records[o] for o in orders[:TPSP_COUNTED]]) if rank == 0 else ([], 0.0)
+    shared = torch.tensor([plain_ms], device=dev)
+    torch.distributed.broadcast(shared, src=0)
+    plain_ms = shared.item()
+    ctx = StromContext(StromConfig.from_env())
+    eng0 = ctx.engine.stats()["bytes_read"]
+    xfer0 = ctx.stats()["context"]["transfers"]
+    pipe = make_llama_pipeline(ctx, [path], batch=B, seq_len=L - 1,
+                               sharding=sharding, seed=0)
+    state = init_train_state(cfg, device=dev, seed=0, mesh=mesh)
+    step = make_train_step(cfg, attn=attn, device=dev, mesh=mesh, sp=sp)
+    names = [n for n, _ in state.model.named_parameters()]
+    replicated = torch.tensor([n.endswith("norm") for n in names], device=dev)
+
+    def tp_of(r: int) -> int:
+        return mesh.coords(r)[mesh.axis_names.index("tp")] \
+            if "tp" in axes else 0
+
+    twins = [min(s for s in range(world) if tp_of(s) == tp_of(r))
+             for r in range(world)]
+    fa.reset_launch_counts()
+    times, calls, losses, variants, rels = [], [], [], {}, []
+    sums = torch.empty(world, len(names), dtype=torch.int64, device=dev)
+    for i in range(TPSP_COUNTED + TPSP_TIMED):
+        batch = next(pipe)
+        local = batch.to_local()
+        if tuple(batch.shape) != (B, L) or local.device != dev \
+                or not torch.equal(local, records[orders[i]][index]):
+            raise AssertionError(f"tp_sp {arm} rank {rank} step {i}: the "
+                                 "block differs from the file's rows in "
+                                 "sampler order")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        calls.append(step.last_call)
+        losses.append(loss)
+        got = {"loss": loss, "grad_norm": metrics["grad_norm"].item()}
+        rel = {f"{k}_rel_to_plain": abs(got[k] - plain[i][k]) / abs(plain[i][k])
+               for k in got} if i < len(plain) else {}
+        rels.append(rel)
+        torch.distributed.all_gather_into_tensor(
+            sums.view(-1), _param_checksum(state.model))
+        equal = all(torch.equal(sums[r], sums[twins[r]]) and torch.equal(
+            sums[r][replicated], sums[0][replicated]) for r in range(world))
+        say("tp_sp", **tag, step=i, call=step.last_call, loss=f"{loss:.5f}",
+            grad_norm=f"{got['grad_norm']:.5f}", ms=f"{times[-1] * 1e3:.2f}",
+            replicas_equal=equal,
+            **({"plain_loss": f"{plain[i]['loss']:.5f}",
+                "plain_grad_norm": f"{plain[i]['grad_norm']:.5f}",
+                **{k: f"{v:.3g}" for k, v in rel.items()}} if rel else {}))
+        if not (equal and math.isfinite(loss)):
+            raise AssertionError(f"tp_sp {arm} rank {rank} step {i}: loss "
+                                 f"{loss}, checksums {sums.tolist()}")
+        if rel and any(rel[f"{k}_rel_to_plain"] > tol
+                       for k, tol in TPSP_PLAIN_RTOL.items()):
+            raise AssertionError(f"tp_sp {arm} rank {rank} step {i}: {got} "
+                                 f"against the step without a mesh "
+                                 f"{plain[i]} (relative tolerance "
+                                 f"{TPSP_PLAIN_RTOL})")
+        if i == TPSP_COUNTED - 1:
+            variants = dict(fa.VARIANT_LAUNCHES)
+    launched = check_variants(KERNELS, variants,
+                              f"tp_sp {arm} steps of rank {rank}")
+    want = {k: TPSP_COUNTED * n for k, n in _tp_sp_launches(
+        axes, sp, attn, mesh.axis_index("sp")).items()}
+    if launched != want:
+        raise AssertionError(f"tp_sp {arm} rank {rank}: launched {launched} "
+                             f"in {TPSP_COUNTED} steps, want {want}")
+    steady = times[TPSP_COUNTED:]
+    batch = next(pipe)
+    prof = _dp_profile(lambda: step(state, batch)[1]["loss"])
+    pipe.close()
+    nbytes = ctx.engine.stats()["bytes_read"] - eng0
+    xfers = ctx.stats()["context"]["transfers"] - xfer0
+    ctx.close()
+    own = math.prod(sharding.shard_shape((B, L))) * 4
+    median = statistics.median(steady) * 1e3
+    nccl = {op: prof["nccl_ms"].get(op, 0.0)
+            for op in ("AllReduce", "SendRecv", "AllGather")}
+    say("tp_sp", **tag, **_step_summary(step, times, calls, steady),
+        tokens_per_s=f"{B * L / median * 1e3:.1f}",
+        **{f"{op.lower()}_ms": f"{ms:.3f}" for op, ms in nccl.items()},
+        **{f"{op.lower()}_share": f"{ms / prof['wall_ms']:.4f}"
+           for op, ms in nccl.items()},
+        profiled_step_ms=f"{prof['wall_ms']:.2f}",
+        device_busy_ms=f"{prof['device_ms']:.2f}",
+        plain_step_ms=f"{plain_ms:.2f}",
+        plain_over_arm=f"{plain_ms / median:.4f}",
+        engine_bytes_read=nbytes, deliveries=xfers, block_bytes=own,
+        only_own_rows=nbytes == xfers * own,
+        launches=json.dumps(launched, sort_keys=True).replace(" ", ""))
+    if nbytes != xfers * own:
+        raise AssertionError(f"tp_sp {arm} rank {rank}: read {nbytes} bytes "
+                             f"in {xfers} deliveries of {own} (own block "
+                             "only)")
+    # the graphs go before the groups they captured
+    del state, step, records, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"step_ms": [t * 1e3 for t in steady], "losses": losses,
+            "rels": rels, "launches": launched, "nccl_ms": nccl,
+            "wall_ms": prof["wall_ms"], "plain_ms": plain_ms,
+            "bytes": nbytes, "deliveries": xfers}
+
+
+def tp_sp_worker(rank: int, world: int, port: int, workdir: str) -> None:
+    """One rank of phase 12d on card *rank*: at world 4 the flash and
+    zigzag rings against the dense ring, then every arm of its world.
+    Writes its numbers to tp_sp_rank<rank>.json in *workdir*."""
+    import gc
+
+    from strom_torch.parallel import mesh as pmesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    pmesh.init_distributed("cuda", rank=rank, world_size=world,
+                           init_method=f"tcp://localhost:{port}")
+    dev = torch.device("cuda", rank)
+    card = _card_line(rank)
+    out: dict = {"card": card, "arms": {}}
+    if world > 1:
+        mesh = pmesh.make_mesh({"sp": world})
+        out["ring_check"] = {impl: _ring_check(mesh, impl, rank)
+                             for impl in ("flash", "zigzag")}
+    for arm in TPSP_ARMS[world]:
+        out["arms"][arm] = _tp_sp_arm(arm, rank, world, workdir, dev, card)
+        gc.collect()
+    with open(os.path.join(workdir, f"tp_sp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    pmesh.shutdown()
+
+
+def phase_tp_sp(workdir: str) -> dict[str, dict[str, list[int]]]:
+    """Phase 12d: tensor and sequence parallelism, world 1 and, on a machine
+    with four cards or more, world 4: one worker a card (``tp_sp_worker``),
+    the parent having built the kernels. Per arm the ranks' median step
+    ms, the losses equal on every rank, tokens/s and the plain step's ms
+    over the arm's. Returns each arm's launches by row of KERNELS, a list
+    over the ranks."""
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()   # card 0's worker shares it with this process
+    rng = np.random.default_rng(27)
+    launches: dict[str, dict[str, list[int]]] = {}
+    for world in [1] + ([4] if n >= 4 else []):
+        for arm, (_, _, _, B, L) in TPSP_ARMS[world].items():
+            rng.integers(0, DP_CONFIG.vocab, (TPSP_EPOCH * B, L),
+                         dtype=np.int32).tofile(
+                os.path.join(workdir, f"tpsp_{arm}.bin"))
+        ranks = _spawn_ranks("--tp-sp-worker", "tp_sp", world, workdir,
+                             TPSP_TIMEOUT_S)
+        for arm, (axes, sp, attn, B, L) in TPSP_ARMS[world].items():
+            rs = [r["arms"][arm] for r in ranks]
+            losses = {tuple(r["losses"]) for r in rs}
+            medians = [statistics.median(r["step_ms"]) for r in rs]
+            say("tp_sp", arm=arm, world=world, mesh=json.dumps(axes).replace(
+                " ", ""), sp=sp, attn=attn, batch=f"{B}x{L}",
+                cards=",".join(r["card"].replace(" ", "_") for r in ranks),
+                step_ms_median=",".join(f"{m:.2f}" for m in medians),
+                tokens_per_s=f"{B * L / max(medians) * 1e3:.1f}",
+                plain_step_ms=f"{rs[0]['plain_ms']:.2f}",
+                plain_over_arm=f"{rs[0]['plain_ms'] / max(medians):.4f}",
+                allreduce_share=",".join(
+                    f"{r['nccl_ms']['AllReduce'] / r['wall_ms']:.4f}"
+                    for r in rs),
+                sendrecv_share=",".join(
+                    f"{r['nccl_ms']['SendRecv'] / r['wall_ms']:.4f}"
+                    for r in rs),
+                rel_to_plain=",".join(
+                    f"{v['loss_rel_to_plain']:.3g}/"
+                    f"{v['grad_norm_rel_to_plain']:.3g}"
+                    for v in rs[0]["rels"] if v),
+                losses_equal=len(losses) == 1)
+            if len(losses) != 1:
+                raise AssertionError(f"tp_sp {arm}: the ranks report "
+                                     f"different losses {losses}")
+            launches[arm] = {name: [r["launches"][name] for r in rs]
+                             for name in KERNELS}
+    if n < 4:
+        say("tp_sp", world=4, skipped=f"{n}_card_machine")
+    return launches
+
+
 # ------------------------------------------------------------------- main
 # the phases --phases may choose: those that take nothing from another
 STANDALONE = ("build", "kernels", "wide_path", "train", "ckpt", "dp",
-              "dp_vision", "dist")
+              "dp_vision", "tp_sp", "dist")
 MAIN_SHAPE = (2, 2048, 32, 8, 128)
 
 
@@ -5742,6 +6089,9 @@ def kernels_line(res: dict) -> list[dict]:
                    "launches": None if launches is None else launches[name]}
             if table is KERNELS and "dp" in res:
                 row["launches_dp"] = res["dp"][name]
+            if table is KERNELS and "tp_sp" in res:
+                row["launches_tp_sp"] = {arm: counts[name] for arm, counts
+                                         in res["tp_sp"].items()}
             if shape is not None:
                 row["shape"] = f"{label} {json.dumps(list(shape))}"
             row.update({k: rows[info["counter"]][label][k] for k in (
@@ -5770,7 +6120,8 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 2
     workers = {"--dp-worker": dp_worker,
-               "--dp-vision-worker": dp_vision_worker}
+               "--dp-vision-worker": dp_vision_worker,
+               "--tp-sp-worker": tp_sp_worker}
     if argv[:1] and argv[0] in workers:
         rank, world, port = (int(a) for a in argv[1:4])
         workers[argv[0]](rank, world, port, argv[4])
@@ -5837,6 +6188,7 @@ def main(argv: list[str] | None = None) -> int:
         run("observability", phase_observability, workdir, tar)
         run("dp", phase_dp, workdir, pq)
         run("dp_vision", phase_dp_vision, workdir, pdec, tar)
+        run("tp_sp", phase_tp_sp, workdir)
         run("dist", phase_dist, workdir, tar)
         _remove(*(pq[0] if pq else ()), pdec, tar)
         run("cli", phase_cli, workdir, disk_node)

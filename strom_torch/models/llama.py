@@ -9,19 +9,30 @@ rmsnorm, softmax and loss; GQA, RoPE, SwiGLU; the ``attn_fn`` hook where
 flash attention substitutes for the dense op; and ``remat=True`` wraps each
 block in ``torch.utils.checkpoint`` so the backward recomputes block
 activations instead of keeping them.
+
+On a mesh, :meth:`Llama.shard_` keeps this rank's tp block of each
+parameter (``parallel/sharding.py`` rules; the state-dict keys stay) and
+the model then runs the Megatron block and the vocab-parallel loss of
+``parallel/tensor_parallel.py``. :func:`next_token_loss` takes a sequence
+shard with its ``sp`` axis: global RoPE positions, and the target of the
+shard's last column from the next shard's first token.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from functools import partial
+from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+if TYPE_CHECKING:
+    from strom_torch.parallel.mesh import AxisGroup, Mesh
 
 # parameters stacked over layers, in block order
 LAYER_PARAMS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
@@ -146,7 +157,9 @@ def block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: LlamaConfig,
 
 class Llama(nn.Module):
     """The model's parameters, named as the reference's pytree leaves (the
-    ``layers`` sub-dict flattened), and its forward / loss."""
+    ``layers`` sub-dict flattened), and its forward / loss. ``tp``: the
+    tensor-parallel axis once :meth:`shard_` kept this rank's blocks, else
+    None."""
 
     def __init__(self, cfg: LlamaConfig, *, device: Any = None,
                  generator: torch.Generator | None = None,
@@ -167,42 +180,98 @@ class Llama(nn.Module):
                                 dtype=torch.float32)
                 t = t.mul_(1.0 / math.sqrt(fan_in)).to(cfg.torch_dtype)
             self.register_parameter(name, nn.Parameter(t))
+        self.tp: AxisGroup | None = None
+
+    @torch.no_grad()
+    def shard_(self, mesh: Mesh) -> "Llama":
+        """Keep only this rank's block of each parameter, by
+        ``param_shardings`` over *mesh*, and run tensor-parallel over its
+        ``tp`` axis from now on. Nothing changes where tp is 1."""
+        from strom_torch.parallel.sharding import shard_params
+        from strom_torch.parallel.tensor_parallel import check_tp
+
+        tp = mesh.axis("tp")
+        if tp.size == 1:
+            return self
+        check_tp(self.cfg, tp.size)
+        full = {n: p.detach() for n, p in self.named_parameters()}
+        for name, t in shard_params(full, mesh).items():
+            # a copy: the full tensor goes with the old parameter
+            setattr(self, name, nn.Parameter(t.clone(
+                memory_format=torch.contiguous_format)))
+        self.tp = tp
+        return self
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None,
                 attn_fn: Callable | None = None, remat: bool = False
                 ) -> torch.Tensor:
-        """tokens [B, S] integer → logits [B, S, vocab] float32."""
+        """tokens [B, S] integer → logits [B, S, vocab] float32 (under tp,
+        this rank's vocab columns [B, S, vocab/tp]). *positions* [B, S]:
+        the tokens' places in the whole sequence (default 0..S-1)."""
+        from strom_torch.parallel import tensor_parallel as tpl
+
         cfg = self.cfg
         attn_fn = attn_fn or self.attn_fn
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, device=tokens.device).expand(B, S)
-        x = self.embed[tokens.long()].to(cfg.torch_dtype)
+        x = self.embed[tokens.long()]
+        blk = block
+        if self.tp is not None:
+            x = tpl.gather_from_tp(x, self.tp)
+            blk = partial(tpl.block_tp, tp=self.tp)
+        x = x.to(cfg.torch_dtype)
         for i in range(cfg.n_layers):
             lp = {n: getattr(self, n)[i] for n in LAYER_PARAMS}
             if remat:
                 # the block draws no random numbers: no RNG state to keep
                 # for the recompute (whose get/set would break a capture)
-                x = checkpoint(block, x, lp, cfg, positions, attn_fn,
+                x = checkpoint(blk, x, lp, cfg, positions, attn_fn,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = block(x, lp, cfg, positions, attn_fn)
+                x = blk(x, lp, cfg, positions, attn_fn)
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        if self.tp is not None:
+            x = tpl.copy_to_tp(x, self.tp)
         return (x @ self.lm_head).float()
 
 
 def next_token_loss(model: Llama, tokens: torch.Tensor, attn_fn=None,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, sp: AxisGroup | None = None
+                    ) -> torch.Tensor:
     """Mean cross-entropy of predicting tokens[:, 1:] from tokens[:, :-1],
     computed as a full-length forward plus roll-and-mask (as the reference:
-    every tensor keeps one sequence length)."""
-    B, L = tokens.shape
-    logits = model(tokens, attn_fn=attn_fn, remat=remat)
-    targets = torch.roll(tokens.long(), -1, dims=1)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    mask = (torch.arange(L, device=tokens.device) < L - 1).float()
-    return ((logz - gold) * mask).sum() / (B * (L - 1))
+    every tensor keeps one sequence length).
+
+    *sp*: *tokens* [B, L/n] is shard ``sp.index`` of n of each row, as
+    ``strom/parallel/pipeline.py`` takes it: RoPE sees global positions,
+    the last column's target is the next shard's first token (one
+    neighbour permute), only the last shard masks its last column, and the
+    sum divides by B·(L−1) of the whole rows, so the shards' losses sum to
+    the rows' mean."""
+    B, S = tokens.shape
+    n, idx = (sp.size, sp.index) if sp is not None else (1, 0)
+    toks = tokens.long()
+    positions = (idx * S + torch.arange(S, device=tokens.device)).expand(B, S)
+    logits = model(tokens, positions=positions, attn_fn=attn_fn, remat=remat)
+    if n > 1:
+        from strom_torch.parallel.ring import ppermute
+
+        nxt = ppermute(toks[:, :1], [(i, (i - 1) % n) for i in range(n)], sp)
+        targets = torch.cat([toks[:, 1:], nxt], dim=1)
+    else:
+        targets = torch.roll(toks, -1, dims=1)
+    if model.tp is not None:
+        from strom_torch.parallel.tensor_parallel import vocab_parallel_ce
+
+        per = vocab_parallel_ce(logits, targets, model.tp)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        per = logz - torch.gather(logits, -1, targets[..., None])[..., 0]
+    # only the globally last column has no target
+    cols = torch.arange(S, device=tokens.device)
+    mask = (cols < S - 1 if idx == n - 1 else cols >= 0).float()
+    return (per * mask).sum() / (B * (n * S - 1))
 
 
 def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:

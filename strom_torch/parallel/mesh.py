@@ -23,9 +23,11 @@ meshes existed.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -131,12 +133,28 @@ def shutdown() -> None:
     _device = torch.device("cpu")
 
 
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One mesh axis as this rank sees it, what ``lax.axis_index`` and
+    ``lax.axis_size`` answer inside a ``shard_map``: this rank's *index* on
+    the axis, its *size*, the global *ranks* along the axis through this
+    rank (by index), and the axis's process *group* (None where the size is
+    1: nothing to exchange)."""
+    name: str
+    index: int
+    size: int
+    ranks: tuple[int, ...]
+    group: Any = None
+
+
 class Mesh:
     """Named axes over a row-major array of global ranks: the counterpart of
     ``jax.sharding.Mesh``, whose ``devices`` are device objects where these
     are ranks. Where a process group exists, ``device_mesh`` is the
     ``DeviceMesh`` over the same ranks and names (built by every rank at
-    once: it makes one group an axis)."""
+    once: it makes one group an axis). ``group(*axes)`` gives the group
+    over several axes together, ``axis(name)`` one axis as this rank sees
+    it."""
 
     def __init__(self, ranks: np.ndarray, axis_names: Sequence[str]):
         self.devices = np.asarray(ranks, dtype=np.int64)
@@ -146,6 +164,7 @@ class Mesh:
                              f"{self.axis_names}")
         self.device_type = group_device().type
         self._device_mesh = None
+        self._groups: dict[tuple[str, ...], Any] = {}
         if is_initialized():
             from torch.distributed.device_mesh import DeviceMesh
 
@@ -172,6 +191,66 @@ class Mesh:
         """Rank *r*'s position in the mesh (None: not in it)."""
         hit = np.argwhere(self.devices == r)
         return tuple(int(c) for c in hit[0]) if len(hit) else None
+
+    def axis_size(self, name: str) -> int:
+        """The size of axis *name*; 1 where the mesh has no such axis."""
+        return self.shape.get(name, 1)
+
+    def axis_index(self, name: str) -> int:
+        """This rank's index on axis *name*; 0 where the mesh has no such
+        axis."""
+        if name not in self.axis_names:
+            return 0
+        coords = self.coords(rank())
+        if coords is None:
+            raise ValueError(f"rank {rank()} is not in {self!r}")
+        return coords[self.axis_names.index(name)]
+
+    def group_ranks(self, *names: str) -> tuple[int, ...]:
+        """The global ranks that share this rank's coordinates on every axis
+        but *names*, in row-major order over *names* (axes the mesh lacks
+        are left out): the members of ``group(*names)``."""
+        coords = self.coords(rank())
+        if coords is None:
+            raise ValueError(f"rank {rank()} is not in {self!r}")
+        index = tuple(slice(None) if a in names else c
+                      for a, c in zip(self.axis_names, coords))
+        return tuple(int(r) for r in self.devices[index].ravel())
+
+    def group(self, *names: str):
+        """The process group over the axes *names* together: the ranks that
+        share this rank's coordinates on the other axes (e.g. ``("dp",
+        "sp")``: the ranks of one tp coordinate). None where those axes hold
+        one rank. One axis is the ``DeviceMesh``'s group; several make one
+        group for each coordinate of the other axes, every rank creating
+        every one at its first call (a collective call: every rank makes it
+        in the same order)."""
+        names = tuple(a for a in self.axis_names if a in names)
+        if math.prod(self.shape[a] for a in names) == 1:
+            return None
+        if len(names) == 1:
+            return self.device_mesh.get_group(names[0])
+        if names not in self._groups:
+            self.device_mesh   # raises without a process group
+            keep = [self.axis_names.index(a) for a in names]
+            other = [i for i in range(self.devices.ndim) if i not in keep]
+            rows = self.devices.transpose(other + keep).reshape(
+                -1, math.prod(self.devices.shape[i] for i in keep))
+            mine = None
+            for row in rows:
+                g = dist.new_group([int(r) for r in row])
+                if rank() in row:
+                    mine = g
+            self._groups[names] = mine
+        return self._groups[names]
+
+    def axis(self, name: str) -> AxisGroup:
+        """Axis *name* as this rank sees it (size 1 where the mesh lacks
+        it)."""
+        size = self.axis_size(name)
+        return AxisGroup(name, self.axis_index(name), size,
+                         self.group_ranks(name) if size > 1 else (rank(),),
+                         self.group(name))
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, ranks={self.devices.ravel().tolist()})"

@@ -13,7 +13,9 @@ over the mesh's ``DeviceMesh`` (``to_global``).
 
 As in JAX, a dimension that its axes do not divide raises ``ValueError``;
 ``DTensor``'s ``Shard`` alone would split it unevenly, as ``torch.chunk``
-does. The Llama rules are data: tp is applied in a later slice.
+does. The Llama rules are data: :func:`shard_params` keeps this rank's
+block of each parameter by them, and :func:`gather_params` puts the
+blocks back together.
 """
 
 from __future__ import annotations
@@ -207,18 +209,57 @@ def param_specs(params: dict) -> dict[str, P]:
         for name in params}
 
 
+def restrict(spec: P, mesh: Mesh) -> P:
+    """*spec* on *mesh*: an axis the mesh doesn't have (e.g. tp on a dp×sp
+    mesh) degrades to replicated on that dim."""
+    return P(*(ax if ax in mesh.axis_names else None for ax in spec))
+
+
 def param_shardings(params: dict, mesh: Mesh) -> dict[str, TorchSharding]:
-    """Specs restricted to the mesh's axes: a rule axis the mesh doesn't
-    have (e.g. tp on a dp×sp mesh) degrades to replicated on that dim."""
-
-    def restrict(spec: P) -> P:
-        return P(*(ax if ax in mesh.axis_names else None for ax in spec))
-
-    return {name: TorchSharding(mesh, restrict(spec))
+    """Specs restricted to the mesh's axes (:func:`restrict`)."""
+    return {name: TorchSharding(mesh, restrict(spec, mesh))
             for name, spec in param_specs(params).items()}
+
+
+def shard_params(params: dict[str, torch.Tensor], mesh: Mesh
+                 ) -> dict[str, torch.Tensor]:
+    """This rank's block of each full parameter in *params* (a Llama state
+    dict), by :func:`param_shardings` over *mesh*: views of *params*."""
+    out = {}
+    for name, sh in param_shardings(params, mesh).items():
+        t = params[name]
+        (index,) = sh.addressable_devices_indices_map(t.shape).values()
+        out[name] = t[index]
+    return out
+
+
+def gather_params(local: dict[str, torch.Tensor], mesh: Mesh
+                  ) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_params`: each parameter whole, from every
+    rank's block (a collective call of every rank of *mesh*)."""
+    out = {}
+    sizes = mesh.shape
+    for name, sh in param_shardings(local, mesh).items():
+        t = local[name]
+        if all(e is None for e in sh.spec):
+            out[name] = t
+            continue
+        shape = [dim * math.prod(sizes[a] for a in _axes(entry))
+                 for dim, entry in itertools.zip_longest(
+                     t.shape, sh.spec[:t.dim()])]
+        out[name] = sh.to_global(t.contiguous(), shape).full_tensor()
+    return out
 
 
 def batch_spec(*, sp: bool = False) -> P:
     """Token batches: batch on dp, optionally sequence on sp (long-context
     loaders deliver sequence-sharded batches)."""
     return P("dp", "sp") if sp else P("dp")
+
+
+def batch_sharding(mesh: Mesh, *, sp: bool = False) -> TorchSharding:
+    """The sharding of a [batch, seq_len + 1] token batch that
+    ``make_train_step(mesh=, sp=)`` takes: :func:`batch_spec` restricted to
+    the mesh's axes, so rows (sequences) are replicated where the mesh has
+    no dp (sp) axis."""
+    return TorchSharding(mesh, restrict(P("dp", "sp" if sp else None), mesh))

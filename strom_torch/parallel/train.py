@@ -18,16 +18,25 @@ step and donates its state; on the CPU the same body runs eagerly. Either
 way the updates are in place: parameters, moments and batch-norm
 statistics are overwritten, and the step body never waits for the device.
 
-Given a mesh with a ``dp`` axis, each step is data-parallel, where
-the reference lets XLA place the gradients' psum: each process runs its
-own rows of the global batch (the ``DTensor`` the sharded loader
-delivers, or its local block), and after ``backward`` the gradients are
-summed over the dp group (NCCL on the card, gloo on the CPU) in one flat
-bucket a dtype and divided by its size, before the global norm and the
-clip, so the norm is the global batch's as in the reference. The loss it
-reports is the group's mean. The collectives are captured in the step's
-graph with the rest. The ResNet step also takes its batch-norm statistics
-over the global batch, as the reference's jitted step does.
+Given a mesh, the Llama step runs over its ``dp``, ``tp`` and ``sp``
+axes, one process a card, where the reference lets XLA place every
+collective. Each process runs its block of the global batch (the
+``DTensor`` the sharded loader delivers, or its local block): its rows on
+dp, and with ``sp=True`` its slice of each row on sp, attention then
+running the ring (``parallel/ring.py``). Under tp the model holds this
+rank's parameter blocks and runs the Megatron block
+(``parallel/tensor_parallel.py``). After ``backward`` the gradients are
+summed over the ranks that share this rank's tp coordinate (the dp×sp
+group; NCCL on the card, gloo on the CPU) in one flat bucket a dtype and
+divided by the dp size (and by the sp size where sp does not split the
+rows), before the global norm and the clip, so the norm is the global
+batch's as in the reference; the norm sums each tp shard's squares over
+tp and counts a replicated parameter once. The loss it reports is the
+group's mean, the same on every rank. The collectives, the ring's
+send/recv pairs among them, are captured in the step's graph with the
+rest. The vision steps are data-parallel over ``dp``; the ResNet step
+also takes its batch-norm statistics over the global batch, as the
+reference's jitted step does.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from strom_torch.models.resnet import (DpGroup, ResNet, ResNetConfig,
                                        normalize_images)
 from strom_torch.parallel.capture import CapturedStep
 from strom_torch.parallel.mesh import Mesh
+from strom_torch.parallel.sharding import param_shardings
 
 DECAY_STEPS = 10_000
 
@@ -105,14 +115,17 @@ def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
                      mesh: Mesh | None = None) -> TrainState:
     """Model (random from *seed*, or *params*, e.g. from
     ``models.llama.params_from_jax``) and optimizer state on *device*.
-    With a dp *mesh* every replica starts from the parameters of the dp
-    group's first rank (broadcast)."""
+    With a *mesh* the full parameters are made (or taken) first, then this
+    rank keeps its tp blocks (``Llama.shard_``) and every replica starts
+    from those of the first rank of its dp×sp group (broadcast); the fused
+    AdamW holds this rank's blocks only."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = Llama(cfg, device=device, generator=gen)
     if params is not None:
         model.load_state_dict(params)
     if mesh is not None:
+        model.shard_(mesh)
         replicate(model, mesh)
     opt, sched = (optimizer or make_optimizer()).build(model.parameters())
     return TrainState(model, opt, sched)
@@ -120,10 +133,14 @@ def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
 
 @torch.no_grad()
 def replicate(model: torch.nn.Module, mesh: Mesh) -> None:
-    """Make every dp replica of *model* hold the dp group's first rank's
-    parameters and buffers (broadcast in place)."""
-    group, _ = _dp_group(mesh)
-    src = int(mesh.devices.flat[0])
+    """Make every replica of *model* over the mesh's dp and sp axes hold
+    the parameters and buffers of the first rank of its group, the ranks
+    that share its tp coordinate (broadcast in place): under tp each group
+    broadcasts its own shards."""
+    group = mesh.group("dp", "sp")
+    if group is None:
+        return
+    src = mesh.group_ranks("dp", "sp")[0]
     for t in list(model.parameters()) + list(model.buffers()):
         dist.broadcast(t, src=src, group=group)
 
@@ -158,7 +175,12 @@ def train_state_tree(state: TrainState) -> dict:
     parameter's AdamW state by name), ``lr`` (the optimizer's lr tensor),
     ``scheduler`` (``last_epoch``) and ``step``. The tensors are the
     state's own, not copies; the counterpart of handing the reference an
-    abstract TrainState, and a restore's template."""
+    abstract TrainState, and a restore's template. A tp-sharded state
+    raises NotImplementedError: its checkpoint is not ported yet."""
+    if state.model.tp is not None:
+        raise NotImplementedError(
+            "a checkpoint of a tp-sharded state (each rank holds its tp "
+            "blocks) is not ported yet: ROADMAP.md, Queue A, item 4")
     lr = state.optimizer.param_groups[0]["lr"]
     return {"model": dict(state.model.state_dict()),
             "optimizer": {k: dict(v) for k, v in
@@ -205,17 +227,48 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def _dp_group(mesh: Mesh):
-    """(the dp axis's process group, its size). A mesh axis other than dp
-    of size above 1 waits for the tensor-parallel slice."""
+    """(the dp axis's process group, its size) for the vision steps, which
+    are data-parallel only."""
     if "dp" not in mesh.axis_names:
         raise ValueError(f"a data-parallel step needs a 'dp' axis, the mesh "
                          f"has {mesh.axis_names}")
     other = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
     if other:
         raise NotImplementedError(
-            f"mesh axes {other}: only data parallelism is ported; tp comes "
-            "with param_shardings' slice, sp with the ring-attention slice")
+            f"mesh axes {other}: the vision steps are data-parallel only")
     return mesh.device_mesh.get_group("dp"), mesh.shape["dp"]
+
+
+def _check_llama_mesh(cfg: LlamaConfig, mesh: Mesh, sp: bool) -> None:
+    other = {a: n for a, n in mesh.shape.items()
+             if a not in ("dp", "tp", "sp") and n > 1}
+    if other:
+        raise NotImplementedError(
+            f"mesh axes {other}: the Llama step runs over dp, tp and sp; "
+            "pp and ep come with the pipeline slice (ROADMAP.md, Queue A, "
+            "item 4)")
+    if sp and "sp" not in mesh.axis_names:
+        raise ValueError(f"sp=True shards the sequence over an 'sp' axis, "
+                         f"the mesh has {mesh.axis_names}")
+    if mesh.axis_size("tp") > 1:
+        from strom_torch.parallel.tensor_parallel import check_tp
+
+        check_tp(cfg, mesh.axis_size("tp"))
+
+
+def _tp_global_norm(grads: list[torch.Tensor], sharded: list[bool],
+                    group) -> torch.Tensor:
+    """The global norm of gradients of which those flagged *sharded* are
+    this rank's tp blocks: their squares summed over the tp *group*, each
+    replicated one counted once."""
+    def sq(ts):
+        norms = torch.stack(torch._foreach_norm(ts, 2, dtype=torch.float32))
+        return (norms * norms).sum()
+
+    shard_sq = sq([g for g, s in zip(grads, sharded) if s])
+    dist.all_reduce(shard_sq, group=group)
+    return torch.sqrt(shard_sq + sq([g for g, s in zip(grads, sharded)
+                                     if not s]))
 
 
 def _mean_over(tensors: list[torch.Tensor], group, size: int
@@ -248,38 +301,72 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     flash-attention kernels (blockwise forward and backward) replace the
     dense op in every layer.
 
-    *mesh* with a ``dp`` axis: the step is data-parallel over it (the
-    module's docstring); *tokens* is the global batch's ``DTensor`` or this
-    process's rows of it. ``sp=True`` (sequence parallelism over ring
-    attention) is not ported yet."""
-    if attn not in ("dense", "flash"):
-        raise ValueError(f"attn must be 'dense' or 'flash', got {attn!r}")
-    if sp:
-        raise NotImplementedError(
-            "sp=True: ring attention (strom/parallel/ring.py) over the flash "
-            "block API comes with its own slice")
-    group, dp = _dp_group(mesh) if mesh is not None else (None, 1)
+    *mesh* of ``dp``, ``tp`` and ``sp`` axes (the module's docstring):
+    *tokens* is the global batch's ``DTensor``, ``P("dp", "sp")`` with
+    ``sp=True``, else ``P("dp", None)``, or this process's block of it;
+    the state comes from ``init_train_state(mesh=)``. ``sp=True``:
+    activations stay sequence-sharded and attention runs the ring over the
+    sp axis, with attn "dense" (the plain ring), "flash" (the flash
+    kernels in each ring step) or "zigzag" (the load-balanced causal flash
+    ring)."""
+    if attn not in ("dense", "flash", "zigzag"):
+        raise ValueError(
+            f"attn must be 'dense', 'flash' or 'zigzag', got {attn!r}")
+    if attn == "zigzag" and not sp:
+        raise ValueError("attn='zigzag' is the load-balanced causal RING; "
+                         "it needs sp=True")
+    if sp and mesh is None:
+        raise ValueError("sp=True shards the sequence over a mesh's 'sp' "
+                         "axis: pass mesh=")
+    group, divisor, tp_group, sp_axis, sharded = None, 1, None, None, set()
+    if mesh is not None:
+        _check_llama_mesh(cfg, mesh, sp)
+        group = mesh.group("dp", "sp")
+        # sp ranks that hold the same rows are replicas: averaged too
+        divisor = mesh.axis_size("dp") * (1 if sp else mesh.axis_size("sp"))
+        tp_group = mesh.group("tp")
+        if sp:
+            sp_axis = mesh.axis("sp")
+        if tp_group is not None:
+            from strom_torch.models.llama import param_shapes
+
+            sharded = {n for n, sh in param_shardings(
+                param_shapes(cfg), mesh).items() if "tp" in sh.spec}
     device = resolve_device(device)
     spec = optimizer or make_optimizer()
     attn_fn = None
-    if attn == "flash":
+    if sp:
+        from strom_torch.parallel.ring import make_ring_attention
+
+        # attn="flash"/"zigzag": the flash kernels run INSIDE the ring
+        attn_fn = make_ring_attention(mesh, axis="sp", impl=attn)
+    elif attn == "flash":
         from strom_torch.ops.flash_attention import make_flash_attention
 
         attn_fn = make_flash_attention()
 
     def body(state: TrainState, tokens: torch.Tensor) -> dict:
-        params = list(state.model.parameters())
+        if (tp_group is None) != (state.model.tp is None):
+            raise ValueError("the state's tp blocks do not match the mesh: "
+                             "make it with init_train_state(mesh=)")
+        named = list(state.model.named_parameters())
+        params = [p for _, p in named]
         state.optimizer.zero_grad(set_to_none=True)
-        loss = next_token_loss(state.model, tokens, attn_fn=attn_fn, remat=True)
+        loss = next_token_loss(state.model, tokens, attn_fn=attn_fn,
+                               remat=True, sp=sp_axis)
         loss.backward()
         grads = [p.grad for p in params]
         loss = loss.detach()
         if group is not None:
-            grads = _mean_over(grads, group, dp)
+            grads = _mean_over(grads, group, divisor)
             for p, g in zip(params, grads):
                 p.grad = g
-            loss = _mean_over([loss], group, dp)[0]
-        norm = global_norm(grads)
+            loss = _mean_over([loss], group, divisor)[0]
+        if tp_group is None:
+            norm = global_norm(grads)
+        else:
+            norm = _tp_global_norm(grads, [n in sharded for n, _ in named],
+                                   tp_group)
         # optax.clip_by_global_norm: scale by max_norm / norm when above it
         clip = torch.clamp(spec.max_grad_norm / norm, max=1.0)
         torch._foreach_mul_(grads, clip)

@@ -477,3 +477,39 @@ def test_peer_fabric_loads_no_jax_or_strom(tmp_path):
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_ring_and_tensor_parallel_load_no_jax_or_strom():
+    """Ring attention and tensor parallelism (``parallel/ring.py``,
+    ``parallel/tensor_parallel.py``) load neither jax* nor strom.*, also
+    with a world-1 group running a sequence-parallel step over the flash
+    ring, and their sources are scanned."""
+    names = {str(f.relative_to(PKG)) for f in PKG.rglob("*.py")}
+    new = {"parallel/ring.py", "parallel/tensor_parallel.py"}
+    assert new <= names
+    for name in new:
+        assert not _FORBIDDEN.search((PKG / name).read_text()), name
+    code = (
+        "import sys, torch, strom_torch.parallel.ring\n"
+        "import strom_torch.parallel.tensor_parallel\n"
+        "from strom_torch.models.llama import LlamaConfig\n"
+        "from strom_torch.parallel import mesh\n"
+        "from strom_torch.parallel.train import (init_train_state,\n"
+        "                                        make_train_step)\n"
+        "mesh.init_distributed('cpu')\n"
+        "m = mesh.make_mesh({'dp': 1, 'tp': 1, 'sp': 1})\n"
+        "cfg = LlamaConfig.tiny()\n"
+        "st = init_train_state(cfg, device='cpu', mesh=m)\n"
+        "step = make_train_step(cfg, attn='zigzag', device='cpu', mesh=m,\n"
+        "                       sp=True)\n"
+        "st, met = step(st, torch.randint(0, 512, (1, 32)))\n"
+        "assert met['loss'].isfinite()\n"
+        "mesh.shutdown()\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
+        "('jax.', 'jaxlib')) or n == 'strom' or n.startswith('strom.'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
