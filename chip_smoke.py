@@ -3,10 +3,11 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phases build,kernels,dp,dp_vision  # alone
     python3 chip_smoke.py --phases build,kernels,tp_sp         # alone
+    python3 chip_smoke.py --phases build,kernels,ep            # alone
 
 Phases, in order; any failure ends the run with a non-zero exit.
 ``--phases`` runs a subset of the phases that take nothing from another
-(build, kernels, wide_path, train, ckpt, dp, dp_vision, tp_sp, dist), for
+(build, kernels, wide_path, train, ckpt, dp, dp_vision, tp_sp, ep, dist), for
 a machine with four cards where only the many-card paths need them:
 
 1. build    -- compile every CUDA source of strom_torch with nvcc (sm_90a);
@@ -163,13 +164,13 @@ a machine with four cards where only the many-card paths need them:
                plan-time hits per epoch; every batch equal to the uncached
                pipeline's; each epoch's images/s over the passes.
    7e. spill -- the NVMe spill tier under the hot cache. arm=pread: the
-               reference's spill epoch pair at 256 MiB (a seeded int32 token
+               reference's spill epoch pair at 128 MiB (a seeded int32 token
                shard, values below 2^15, written through
-               write_token_shard(ctx, ...); hot_cache_bytes 32 MiB,
-               admission "always", spill_bytes 512 MiB in the work
+               write_token_shard(ctx, ...); hot_cache_bytes 16 MiB,
+               admission "always", spill_bytes 256 MiB in the work
                directory; 32 records of 4 KiB a pread; two epochs), with
                spill_compress off and then on (the reference's 1 GiB cut
-               to 256 MiB to keep the run inside its time): per epoch the
+               to 128 MiB to keep the run inside its time): per epoch the
                SPILL_FIELDS, cache_miss_bytes, engine bytes, MB/s, the
                compression ratio and the codec's name; every read equal to the shard's bytes
                and no source miss in epoch 2. arm=resnet: phase 6's shard
@@ -400,6 +401,41 @@ a machine with four cards where only the many-card paths need them:
                and power limit; a line an arm with every rank's medians,
                shares and whether the losses are equal on every rank (they
                must be).
+12e. ep     -- the MoE model with expert parallelism, one worker process
+               a card (this script with --ep-worker): EP_CONFIG, phase 4's
+               attention (Llama-3-8B widths, 2 of 32 layers, bf16, flash)
+               with 8 SwiGLU experts a layer of Mixtral-8x7B's shape,
+               top-1, capacity factor 1.25 (3.95 B parameters), fed from
+               a seeded token file an arm by make_llama_pipeline(sharding=
+               batch_sharding(mesh, sp=)). World 1: make_moe_train_step
+               without a mesh at 2 x 2048, then on {"ep": 1}: each step's
+               loss and grad norm, the final parameters and the routes
+               equal bit for bit. On four cards or more, world 4: dp2ep2
+               ({"dp": 2, "ep": 2}, 4 x 2048, 4 experts a rank) and
+               ep2sp2 ({"ep": 2, "sp": 2}, 2 x 4096, the flash ring, S_l
+               2048). Each arm: 4 counted steps (the warm-up, the
+               capture, 2 replays) and 4 timed, each step's local block
+               equal to the file's rows in sampler order; at world 4 rank
+               0's counted losses and grad norms within EP_PLAIN_RTOL of
+               the step without a mesh on the global batch from the same
+               parameters (run first on rank 0's card, its routes of the
+               first batch broadcast), and each rank's count of tokens
+               whose expert (and kept flag) differs from that step's at
+               the same places; after every step the blocks of the ranks
+               that share an ep coordinate, and the replicated parameters
+               of every rank, bit-equal (checksums); each rank's launches
+               of the counted steps by row of KERNELS, equal to the
+               count the ring's blocks give; the engine read only the
+               rank's block. One replay under torch.profiler: the NCCL
+               AllReduce, AllGather and SendRecv shares (before it, world
+               1's meshless arm prints phase 4's [profile] lines: device
+               ms by kernel group and the top kernels). Printed: the
+               steady step ms (median, min, max), tokens/s, the
+               dropped-token share and the largest expert's load over C
+               (the global batch's routes), the peak memory, the launches
+               a step; a line an arm with every rank's medians and
+               shares, and whether the losses are equal on every rank
+               (they must be).
 13. cli     -- strom_torch.cli as a user runs it: subprocesses of python
                -m strom_torch.cli ... --json --tmpdir <work dir>: nvme (256
                MiB; --numa-node the disk's node where it has one), check of
@@ -449,6 +485,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import errno
+import functools
 import glob
 import json
 import math
@@ -461,6 +498,8 @@ import subprocess
 import sys
 import threading
 import time
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -495,12 +534,15 @@ from strom_torch.delivery.spill import SPILL_FIELDS
 from strom_torch.dist.launch import make_fixture, measure_ingest
 from strom_torch.formats.rawbin import TokenShardSet, write_token_shard
 from strom_torch.models.llama import LlamaConfig, next_token_loss
+from strom_torch.models.moe import MoEConfig
 from strom_torch.models.resnet import ResNet, ResNetConfig
 from strom_torch.models.vit import ViT, ViTConfig
 from strom_torch.ops import build
 from strom_torch.ops import flash_attention as fa
 from strom_torch.ops.pushdown import PUSHDOWN_FIELDS, OpGraph, col
-from strom_torch.parallel.train import (init_train_state, load_train_state,
+from strom_torch.parallel.train import (init_moe_train_state,
+                                        init_train_state, load_train_state,
+                                        make_moe_train_step,
                                         make_resnet_sgd_step, make_train_step,
                                         make_vit_sgd_step, train_state_tree)
 from strom_torch.pipelines.llama_pretrain import make_llama_pipeline
@@ -2959,7 +3001,7 @@ def phase_parquet(workdir: str, tar: str | None) -> tuple[list[str], dict]:
 
 # ------------------------------------------------------- spill (7e)
 SPILL_RECORD_TOKENS = 1024           # the reference arm's records: 4 KiB
-SPILL_PREAD_BYTES = 256 * MiB        # the epoch pair's token shard
+SPILL_PREAD_BYTES = 128 * MiB        # the epoch pair's token shard
 SPILL_STEP = 32                      # records a pread
 
 
@@ -3112,7 +3154,7 @@ def phase_spill(workdir: str, pdec: str) -> None:
     no source misses from epoch 2 on."""
     toks = np.random.default_rng(7).integers(0, 1 << 15, SPILL_PREAD_BYTES // 4,
                                              dtype=np.int32)
-    # the epoch pair runs at 256 MiB (the reference's 1 GiB, cut) to keep
+    # the epoch pair runs at 128 MiB (the reference's 1 GiB, cut) to keep
     # the script inside its time
     for compress in (False, True):
         _spill_pread_arm(workdir, toks, compress)
@@ -5744,9 +5786,6 @@ def phase_dist(workdir: str, tar: str | None = None) -> None:
 
 
 # -------------------------------------------------------------- tp_sp (12d)
-TPSP_COUNTED, TPSP_TIMED = 4, 4   # warm-up, capture, 2 replays; then timed
-TPSP_EPOCH = 4                    # global batches in an arm's token file
-TPSP_TIMEOUT_S = 900              # a world's workers, all its arms
 # arm -> (mesh axes, sp, attn, global batch rows, tokens a row), phase 4's
 # model (DP_CONFIG): on one card the plumbing at 1 x 2048; on four, tp over
 # the heads (8 q and 2 kv heads a rank), sp over Llama-3-8B's context of
@@ -5818,18 +5857,118 @@ def _ring_check(mesh, impl: str, rank: int) -> dict[str, float]:
     return errs
 
 
-def _tp_sp_plain(cfg, dev: torch.device, batches: list[torch.Tensor]
-                 ) -> tuple[list[dict[str, float]], float]:
-    """make_train_step without a mesh on one card from init_train_state(
-    seed=0), a step a global batch: each step's {loss, grad_norm}, and the
-    median ms of as many more replays (timed on the host around each, the
-    card synchronised). Its state is freed after."""
-    state = init_train_state(cfg, device=dev, seed=0)
-    step = make_train_step(cfg, attn="flash", device=dev)
-    out, times = [], []
+# ------------------------------------------------------------------ ep (12e)
+# Llama-3-8B's attention at 2 of 32 layers (phase 4's) with 8 SwiGLU
+# experts of d_ff 14,336 at d_model 4,096 a layer: the expert shape of
+# Mixtral-8x7B's public config (mistralai/Mixtral-8x7B-v0.1), routed top-1
+# as the reference routes, capacity factor 1.25; 3.95 B parameters, about
+# 31.6 GB with bf16 gradients and AdamW moments
+EP_CONFIG = MoEConfig(base=DP_CONFIG, n_experts=8)
+# arm -> (mesh axes or None, sp, attn, global batch rows, tokens a row).
+# World 1: the step without a mesh and on {"ep": 1}, which must be the same
+# step bit for bit. World 4: the dry run's dp x ep layout at 4 devices
+# (strom/parallel/dryrun.py:124-127) and its dp x ep x sp configuration
+# (:147-170) cut to 4 cards, both attention "flash" (the ring over sp)
+EP_ARMS = {
+    1: {"meshless": (None, False, "flash", 2, 2048),
+        "ep1": ({"ep": 1}, False, "flash", 2, 2048)},
+    4: {"dp2ep2": ({"dp": 2, "ep": 2}, False, "flash", 4, 2048),
+        "ep2sp2": ({"ep": 2, "sp": 2}, True, "flash", 2, 4096)},
+}
+# rank 0's counted (loss, grad_norm) against make_moe_train_step without a
+# mesh on the global batch from the same parameters, relative. Set before
+# the first four-card run: attention of 2 rows (dp2ep2) or a ring of two
+# blocks merged in f32 (ep2sp2) rounds bf16 activations otherwise than the
+# plain step's 4 rows or whole rows, so a token whose two largest router
+# logits nearly tie may take another expert, which moves the queue places
+# of the tokens after it in that expert (a handful of tokens of 8,192;
+# counted as experts_differ). Such a token changes the loss by about its
+# own share, 1e-4 of it, and the gradient norm about ten times more. A step
+# that summed the experts' outputs over ep twice or not at all, or counted
+# the aux losses ep times, misses the loss by 0.1 or more of it; one that
+# summed the expert gradients' squares twice, the norm by 0.05 or more.
+EP_PLAIN_RTOL = {"loss": 1e-3, "grad_norm": 1e-2}
+
+
+def _ep_routes(model, tokens: torch.Tensor, attn_fn, positions, layout
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each layer's (expert, keep) of *tokens* through *model* without
+    gradients (no remat): two [layers, tokens] tensors."""
+    routes: list = []
+    with torch.no_grad():
+        model(tokens, positions=positions, attn_fn=attn_fn, layout=layout,
+              routes=routes)
+    return (torch.stack([e for e, _ in routes]),
+            torch.stack([k for _, k in routes]))
+
+
+def _ep_load(experts: torch.Tensor, keep: torch.Tensor) -> dict[str, str]:
+    """The dropped-token share and the largest expert's load over the
+    capacity C of a global batch's routes ([layers, N]), each the largest
+    over the layers."""
+    n = experts.shape[1]
+    counts = torch.stack([torch.bincount(e, minlength=EP_CONFIG.n_experts)
+                          for e in experts])
+    return {"dropped_share": f"{1 - keep.float().mean(1).min().item():.4f}",
+            "max_load_over_c": f"{counts.max().item() / EP_CONFIG.capacity(n):.3f}",
+            "capacity": EP_CONFIG.capacity(n)}
+
+
+# ------------------------------------------------ the mesh arms (12d, 12e)
+@dataclasses.dataclass(frozen=True)
+class MeshPhase:
+    """What phases 12d and 12e set for the arms that ``_mesh_arm`` runs.
+    *arms*: world -> arm -> (mesh axes or None, sp, attn, global batch
+    rows, tokens a row); *rtol*: rank 0's counted (loss, grad_norm)
+    against the step without a mesh, relative; the ranks of one
+    coordinate of *shard_axis* hold equal blocks, and every rank the
+    parameters *replicated* names; *init(dev, mesh)* and *make_step(attn,
+    dev, mesh, sp)* make the state and the step; *routes*, for the MoE,
+    gives each layer's (expert, keep) of a batch (``_ep_routes``);
+    *before(rank, world)*, at world 4, runs on each rank before the
+    arms."""
+    name: str
+    flag: str
+    arms: dict
+    rtol: dict
+    shard_axis: str
+    vocab: int
+    layers: int
+    seed: int
+    init: Callable
+    make_step: Callable
+    replicated: Callable[[str], bool]
+    routes: Callable | None = None
+    before: Callable | None = None
+    counted: int = 4     # warm-up, capture, 2 replays
+    timed: int = 4
+    epoch: int = 4       # global batches in an arm's token file
+    timeout_s: float = 900   # a world's workers, all its arms
+
+
+def _token_file(ph: MeshPhase, world: int, arm: str) -> str:
+    """An arm's token file: one for all arms of world 1 (a meshless arm
+    and the arms that must equal it read the same rows)."""
+    return f"{ph.name}_{world}.bin" if world == 1 else f"{ph.name}_{arm}.bin"
+
+
+def _mesh_plain(ph: MeshPhase, dev: torch.device,
+                batches: list[torch.Tensor]) -> dict:
+    """The phase's step without a mesh on one card from its state of seed
+    0, a step a global batch: each step's {loss, grad_norm}, the median ms
+    of as many more replays (timed on the host around each, the card
+    synchronised), and with *routes* the first batch's routes at the
+    initial parameters. Its state is freed after."""
+    state = ph.init(dev, None)
+    out: dict = {}
+    if ph.routes is not None:
+        out["experts"], out["keep"] = ph.routes(
+            state.model, batches[0], fa.make_flash_attention(), None, None)
+    step = ph.make_step("flash", dev, None, False)
+    metrics, times = [], []
     for b in batches:
         state, m = step(state, b)
-        out.append({k: m[k].item() for k in ("loss", "grad_norm")})
+        metrics.append({k: m[k].item() for k in ("loss", "grad_norm")})
     for b in batches:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5837,59 +5976,96 @@ def _tp_sp_plain(cfg, dev: torch.device, batches: list[torch.Tensor]
         times.append(time.perf_counter() - t0)
     del state, step
     torch.cuda.empty_cache()
-    return out, statistics.median(times) * 1e3
+    return {**out, "metrics": metrics, "ms": statistics.median(times) * 1e3}
 
 
-def _tp_sp_arm(arm: str, rank: int, world: int, workdir: str,
-               dev: torch.device, card: str) -> dict:
-    """One arm of phase 12d on this rank (the phase's docstring)."""
+def _share_plain(ph: MeshPhase, plain: dict | None, n: int,
+                 dev: torch.device) -> dict:
+    """Rank 0's *plain* (None on the other ranks) as every rank sees it:
+    its ms and routes (of *n* tokens) broadcast, its metrics rank 0's."""
+    ms = torch.zeros(1, device=dev)
+    routes = torch.zeros(2, ph.layers, n, dtype=torch.int64, device=dev) \
+        if ph.routes is not None else None
+    if plain is not None:
+        ms[0] = plain["ms"]
+        if routes is not None:
+            routes[0], routes[1] = plain["experts"], plain["keep"].long()
+    torch.distributed.broadcast(ms, src=0)
+    shared = {"ms": ms.item()}
+    if routes is not None:
+        torch.distributed.broadcast(routes, src=0)
+        shared.update(experts=routes[0], keep=routes[1] > 0)
+    return {**(plain or {}), **shared}
+
+
+def _mesh_arm(ph: MeshPhase, arm: str, rank: int, world: int, workdir: str,
+              dev: torch.device, card: str, plain: dict | None) -> dict:
+    """One arm of phase 12d or 12e on this rank (their docstrings).
+    *plain*: world 1's meshless arm, which a later arm of world 1 must
+    equal bit for bit; for an arm on a mesh without it, rank 0 runs the
+    step without a mesh here first."""
+    from strom_torch.models.llama import shard_positions
     from strom_torch.parallel import mesh as pmesh
+    from strom_torch.parallel.expert_parallel import token_layout
+    from strom_torch.parallel.ring import make_ring_attention
     from strom_torch.parallel.sharding import batch_sharding
 
-    axes, sp, attn, B, L = TPSP_ARMS[world][arm]
-    cfg = DP_CONFIG
+    axes, sp, attn, B, L = ph.arms[world][arm]
     tag = {"arm": arm, "world": world, "rank": rank,
            "card": card.replace(" ", "_")}
-    mesh = pmesh.make_mesh(axes)
-    sharding = batch_sharding(mesh, sp=sp)
-    (index,) = sharding.addressable_devices_indices_map((B, L)).values()
-    path = os.path.join(workdir, f"tpsp_{arm}.bin")
+    mesh = pmesh.make_mesh(axes) if axes is not None else None
+    sharding = batch_sharding(mesh, sp=sp) if mesh is not None else None
+    index = (next(iter(sharding.addressable_devices_indices_map(
+        (B, L)).values())) if sharding is not None
+        else (slice(None), slice(None)))
+    path = os.path.join(workdir, _token_file(ph, world, arm))
     records = torch.from_numpy(np.fromfile(path, dtype=np.int32)
                                .reshape(-1, L)).to(dev)
     sampler = iter(EpochShuffleSampler(len(records), B, seed=0))
     orders = [torch.from_numpy(next(sampler)).to(dev)
-              for _ in range(TPSP_COUNTED + TPSP_TIMED)]
-    # before this rank's blocks exist, so that one card holds one model
-    plain, plain_ms = _tp_sp_plain(cfg, dev, [
-        records[o] for o in orders[:TPSP_COUNTED]]) if rank == 0 else ([], 0.0)
-    shared = torch.tensor([plain_ms], device=dev)
-    torch.distributed.broadcast(shared, src=0)
-    plain_ms = shared.item()
+              for _ in range(ph.counted + ph.timed)]
+    if plain is None and mesh is not None:
+        # before this rank's state exists, so that one card holds one model
+        if rank == 0:
+            plain = _mesh_plain(ph, dev, [records[o]
+                                          for o in orders[:ph.counted]])
+        plain = _share_plain(ph, plain, B * L, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     ctx = StromContext(StromConfig.from_env())
     eng0 = ctx.engine.stats()["bytes_read"]
     xfer0 = ctx.stats()["context"]["transfers"]
     pipe = make_llama_pipeline(ctx, [path], batch=B, seq_len=L - 1,
                                sharding=sharding, seed=0)
-    state = init_train_state(cfg, device=dev, seed=0, mesh=mesh)
-    step = make_train_step(cfg, attn=attn, device=dev, mesh=mesh, sp=sp)
+    state = ph.init(dev, mesh)
+    experts = keep = None
+    if ph.routes is not None:
+        block0 = records[orders[0]][index]
+        experts, keep = ph.routes(
+            state.model, block0,
+            make_ring_attention(mesh, impl=attn) if sp
+            else fa.make_flash_attention(),
+            shard_positions(block0, mesh.axis("sp") if sp else None),
+            token_layout(mesh, sp))
+    step = ph.make_step(attn, dev, mesh, sp)
     names = [n for n, _ in state.model.named_parameters()]
-    replicated = torch.tensor([n.endswith("norm") for n in names], device=dev)
+    replicated = torch.tensor([ph.replicated(n) for n in names], device=dev)
 
-    def tp_of(r: int) -> int:
-        return mesh.coords(r)[mesh.axis_names.index("tp")] \
-            if "tp" in axes else 0
+    def coord(r: int) -> int:
+        if mesh is None or ph.shard_axis not in mesh.axis_names:
+            return 0
+        return mesh.coords(r)[mesh.axis_names.index(ph.shard_axis)]
 
-    twins = [min(s for s in range(world) if tp_of(s) == tp_of(r))
+    twins = [min(s for s in range(world) if coord(s) == coord(r))
              for r in range(world)]
     fa.reset_launch_counts()
-    times, calls, losses, variants, rels = [], [], [], {}, []
+    times, calls, losses, metrics_all, variants, rels = [], [], [], [], {}, []
     sums = torch.empty(world, len(names), dtype=torch.int64, device=dev)
-    for i in range(TPSP_COUNTED + TPSP_TIMED):
+    for i in range(ph.counted + ph.timed):
         batch = next(pipe)
-        local = batch.to_local()
+        local = batch.to_local() if sharding is not None else batch
         if tuple(batch.shape) != (B, L) or local.device != dev \
                 or not torch.equal(local, records[orders[i]][index]):
-            raise AssertionError(f"tp_sp {arm} rank {rank} step {i}: the "
+            raise AssertionError(f"{ph.name} {arm} rank {rank} step {i}: the "
                                  "block differs from the file's rows in "
                                  "sampler order")
         torch.cuda.synchronize()
@@ -5899,52 +6075,77 @@ def _tp_sp_arm(arm: str, rank: int, world: int, workdir: str,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         calls.append(step.last_call)
-        losses.append(loss)
         got = {"loss": loss, "grad_norm": metrics["grad_norm"].item()}
-        rel = {f"{k}_rel_to_plain": abs(got[k] - plain[i][k]) / abs(plain[i][k])
-               for k in got} if i < len(plain) else {}
+        losses.append(loss)
+        metrics_all.append(got)
+        want = plain["metrics"][i] if plain is not None \
+            and i < len(plain.get("metrics", ())) else None
+        rel = {f"{k}_rel_to_plain": abs(got[k] - want[k]) / abs(want[k])
+               for k in got} if want is not None else {}
         rels.append(rel)
-        torch.distributed.all_gather_into_tensor(
-            sums.view(-1), _param_checksum(state.model))
+        if mesh is not None:
+            torch.distributed.all_gather_into_tensor(
+                sums.view(-1), _param_checksum(state.model))
+        else:
+            sums[0] = _param_checksum(state.model)
         equal = all(torch.equal(sums[r], sums[twins[r]]) and torch.equal(
             sums[r][replicated], sums[0][replicated]) for r in range(world))
-        say("tp_sp", **tag, step=i, call=step.last_call, loss=f"{loss:.5f}",
+        say(ph.name, **tag, step=i, call=step.last_call, loss=f"{loss:.5f}",
             grad_norm=f"{got['grad_norm']:.5f}", ms=f"{times[-1] * 1e3:.2f}",
             replicas_equal=equal,
-            **({"plain_loss": f"{plain[i]['loss']:.5f}",
-                "plain_grad_norm": f"{plain[i]['grad_norm']:.5f}",
+            **({"plain_loss": f"{want['loss']:.5f}",
+                "plain_grad_norm": f"{want['grad_norm']:.5f}",
                 **{k: f"{v:.3g}" for k, v in rel.items()}} if rel else {}))
         if not (equal and math.isfinite(loss)):
-            raise AssertionError(f"tp_sp {arm} rank {rank} step {i}: loss "
-                                 f"{loss}, checksums {sums.tolist()}")
+            raise AssertionError(f"{ph.name} {arm} rank {rank} step {i}: "
+                                 f"loss {loss}, checksums {sums.tolist()}")
         if rel and any(rel[f"{k}_rel_to_plain"] > tol
-                       for k, tol in TPSP_PLAIN_RTOL.items()):
-            raise AssertionError(f"tp_sp {arm} rank {rank} step {i}: {got} "
-                                 f"against the step without a mesh "
-                                 f"{plain[i]} (relative tolerance "
-                                 f"{TPSP_PLAIN_RTOL})")
-        if i == TPSP_COUNTED - 1:
+                       for k, tol in ph.rtol.items()):
+            raise AssertionError(f"{ph.name} {arm} rank {rank} step {i}: "
+                                 f"{got} against the step without a mesh "
+                                 f"{want} (relative tolerance {ph.rtol})")
+        if i == ph.counted - 1:
             variants = dict(fa.VARIANT_LAUNCHES)
     launched = check_variants(KERNELS, variants,
-                              f"tp_sp {arm} steps of rank {rank}")
-    want = {k: TPSP_COUNTED * n for k, n in _tp_sp_launches(
-        axes, sp, attn, mesh.axis_index("sp")).items()}
-    if launched != want:
-        raise AssertionError(f"tp_sp {arm} rank {rank}: launched {launched} "
-                             f"in {TPSP_COUNTED} steps, want {want}")
-    steady = times[TPSP_COUNTED:]
+                              f"{ph.name} {arm} steps of rank {rank}")
+    expected = {k: ph.counted * n for k, n in _tp_sp_launches(
+        axes or {}, sp, attn, mesh.axis_index("sp") if sp else 0).items()}
+    if launched != expected:
+        raise AssertionError(f"{ph.name} {arm} rank {rank}: launched "
+                             f"{launched} in {ph.counted} steps, want "
+                             f"{expected}")
+    routed: dict = {}
+    if experts is not None:
+        # this rank's routes against the plain step's of the global batch
+        # at the same places, from the same parameters
+        global_routes = (experts, keep)
+        if plain is not None:
+            pe, pk = (plain[k].view(ph.layers, B, L)[(slice(None), *index)]
+                      .reshape(ph.layers, -1) for k in ("experts", "keep"))
+            routed = {"experts_differ": int((pe != experts).sum()),
+                      "keep_differ": int((pk != keep).sum())}
+            global_routes = (plain["experts"], plain["keep"])
+        routed.update(_ep_load(*global_routes))
+    steady = times[ph.counted:]
     batch = next(pipe)
+    if mesh is None:
+        profile_step(step, state, batch)   # the cell's device time by group
     prof = _dp_profile(lambda: step(state, batch)[1]["loss"])
     pipe.close()
     nbytes = ctx.engine.stats()["bytes_read"] - eng0
     xfers = ctx.stats()["context"]["transfers"] - xfer0
     ctx.close()
-    own = math.prod(sharding.shard_shape((B, L))) * 4
+    own = B * L * 4 if sharding is None \
+        else math.prod(sharding.shard_shape((B, L))) * 4
     median = statistics.median(steady) * 1e3
+    plain_ms = plain["ms"] if plain is not None else median
     nccl = {op: prof["nccl_ms"].get(op, 0.0)
-            for op in ("AllReduce", "SendRecv", "AllGather")}
-    say("tp_sp", **tag, **_step_summary(step, times, calls, steady),
-        tokens_per_s=f"{B * L / median * 1e3:.1f}",
+            for op in ("AllReduce", "AllGather", "SendRecv")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(ph.name, **tag, **_step_summary(step, times, calls, steady),
+        step_ms_min=f"{min(steady) * 1e3:.2f}",
+        step_ms_max=f"{max(steady) * 1e3:.2f}",
+        tokens_per_s=f"{B * L / median * 1e3:.1f}", **routed,
         **{f"{op.lower()}_ms": f"{ms:.3f}" for op, ms in nccl.items()},
         **{f"{op.lower()}_share": f"{ms / prof['wall_ms']:.4f}"
            for op, ms in nccl.items()},
@@ -5952,27 +6153,36 @@ def _tp_sp_arm(arm: str, rank: int, world: int, workdir: str,
         device_busy_ms=f"{prof['device_ms']:.2f}",
         plain_step_ms=f"{plain_ms:.2f}",
         plain_over_arm=f"{plain_ms / median:.4f}",
+        peak_mem_gb=f"{peak / 1e9:.2f}",
         engine_bytes_read=nbytes, deliveries=xfers, block_bytes=own,
         only_own_rows=nbytes == xfers * own,
-        launches=json.dumps(launched, sort_keys=True).replace(" ", ""))
+        launches_a_step=json.dumps({k: n // ph.counted for k, n in
+                                    launched.items()}).replace(" ", ""))
     if nbytes != xfers * own:
-        raise AssertionError(f"tp_sp {arm} rank {rank}: read {nbytes} bytes "
-                             f"in {xfers} deliveries of {own} (own block "
-                             "only)")
+        raise AssertionError(f"{ph.name} {arm} rank {rank}: read {nbytes} "
+                             f"bytes in {xfers} deliveries of {own} (own "
+                             "block only)")
+    final = sums[rank].clone()
     # the graphs go before the groups they captured
     del state, step, records, batch
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return {"step_ms": [t * 1e3 for t in steady], "losses": losses,
-            "rels": rels, "launches": launched, "nccl_ms": nccl,
-            "wall_ms": prof["wall_ms"], "plain_ms": plain_ms,
-            "bytes": nbytes, "deliveries": xfers}
+            "metrics": metrics_all, "rels": rels, "launches": launched,
+            "nccl_ms": nccl, "wall_ms": prof["wall_ms"], "ms": median,
+            "plain_ms": plain_ms, "bytes": nbytes, "deliveries": xfers,
+            "peak_bytes": peak, "experts_differ": routed.get(
+                "experts_differ"), "final_checksum": final,
+            "experts": experts, "keep": keep}
 
 
-def tp_sp_worker(rank: int, world: int, port: int, workdir: str) -> None:
-    """One rank of phase 12d on card *rank*: at world 4 the flash and
-    zigzag rings against the dense ring, then every arm of its world.
-    Writes its numbers to tp_sp_rank<rank>.json in *workdir*."""
+def _mesh_worker(ph: MeshPhase, rank: int, world: int, port: int,
+                 workdir: str) -> None:
+    """One rank of phase 12d or 12e on card *rank*: at world 4 the phase's
+    *before* first, then every arm of its world. At world 1 an arm after
+    a meshless one must equal it bit for bit: each step's loss and grad
+    norm, the final parameters and the routes. Writes its numbers to
+    <name>_rank<rank>.json in *workdir*."""
     import gc
 
     from strom_torch.parallel import mesh as pmesh
@@ -5983,72 +6193,130 @@ def tp_sp_worker(rank: int, world: int, port: int, workdir: str) -> None:
     dev = torch.device("cuda", rank)
     card = _card_line(rank)
     out: dict = {"card": card, "arms": {}}
-    if world > 1:
-        mesh = pmesh.make_mesh({"sp": world})
-        out["ring_check"] = {impl: _ring_check(mesh, impl, rank)
-                             for impl in ("flash", "zigzag")}
-    for arm in TPSP_ARMS[world]:
-        out["arms"][arm] = _tp_sp_arm(arm, rank, world, workdir, dev, card)
+    if world > 1 and ph.before is not None:
+        out.update(ph.before(rank, world))
+    meshless = None
+    for arm, (axes, *_) in ph.arms[world].items():
+        res = _mesh_arm(ph, arm, rank, world, workdir, dev, card, meshless)
+        if world == 1 and axes is None:
+            meshless = res
+        elif meshless is not None:
+            same = {"metrics": res["metrics"] == meshless["metrics"],
+                    "final_params": torch.equal(res["final_checksum"],
+                                                meshless["final_checksum"])}
+            if res["experts"] is not None:
+                same["routes"] = torch.equal(
+                    res["experts"], meshless["experts"]) and torch.equal(
+                    res["keep"], meshless["keep"])
+            say(ph.name, arm=arm, world=1, check="the mesh step against "
+                "the meshless one, bit for bit", **same)
+            if not all(same.values()):
+                raise AssertionError(f"{ph.name} {arm}: the step on the mesh "
+                                     f"differs from the step without one: "
+                                     f"{same}")
+        out["arms"][arm] = {k: v for k, v in res.items() if k not in (
+            "final_checksum", "experts", "keep")}
         gc.collect()
-    with open(os.path.join(workdir, f"tp_sp_rank{rank}.json"), "w") as f:
+    with open(os.path.join(workdir, f"{ph.name}_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     pmesh.shutdown()
 
 
-def phase_tp_sp(workdir: str) -> dict[str, dict[str, list[int]]]:
-    """Phase 12d: tensor and sequence parallelism, world 1 and, on a machine
-    with four cards or more, world 4: one worker a card (``tp_sp_worker``),
-    the parent having built the kernels. Per arm the ranks' median step
-    ms, the losses equal on every rank, tokens/s and the plain step's ms
-    over the arm's. Returns each arm's launches by row of KERNELS, a list
-    over the ranks."""
+def _mesh_phase(ph: MeshPhase, workdir: str
+                ) -> dict[str, dict[str, list[int]]]:
+    """Phase 12d or 12e: world 1 and, on a machine with four cards or more,
+    world 4, one worker a card (``_mesh_worker``), the parent having built
+    the kernels. Per arm the ranks' median step ms, tokens/s, the plain
+    step's ms over the arm's, the NCCL shares, and the losses equal on
+    every rank (they must be). Returns each arm's launches by row of
+    KERNELS, a list over the ranks."""
     n = torch.cuda.device_count()
     torch.cuda.empty_cache()   # card 0's worker shares it with this process
-    rng = np.random.default_rng(27)
+    rng = np.random.default_rng(ph.seed)
     launches: dict[str, dict[str, list[int]]] = {}
     for world in [1] + ([4] if n >= 4 else []):
-        for arm, (_, _, _, B, L) in TPSP_ARMS[world].items():
-            rng.integers(0, DP_CONFIG.vocab, (TPSP_EPOCH * B, L),
-                         dtype=np.int32).tofile(
-                os.path.join(workdir, f"tpsp_{arm}.bin"))
-        ranks = _spawn_ranks("--tp-sp-worker", "tp_sp", world, workdir,
-                             TPSP_TIMEOUT_S)
-        for arm, (axes, sp, attn, B, L) in TPSP_ARMS[world].items():
+        for arm, (*_, B, L) in ph.arms[world].items():
+            path = os.path.join(workdir, _token_file(ph, world, arm))
+            if not os.path.exists(path):
+                rng.integers(0, ph.vocab, (ph.epoch * B, L),
+                             dtype=np.int32).tofile(path)
+        ranks = _spawn_ranks(ph.flag, ph.name, world, workdir, ph.timeout_s)
+        for arm, (axes, sp, attn, B, L) in ph.arms[world].items():
             rs = [r["arms"][arm] for r in ranks]
             losses = {tuple(r["losses"]) for r in rs}
             medians = [statistics.median(r["step_ms"]) for r in rs]
-            say("tp_sp", arm=arm, world=world, mesh=json.dumps(axes).replace(
+            say(ph.name, arm=arm, world=world, mesh=json.dumps(axes).replace(
                 " ", ""), sp=sp, attn=attn, batch=f"{B}x{L}",
                 cards=",".join(r["card"].replace(" ", "_") for r in ranks),
                 step_ms_median=",".join(f"{m:.2f}" for m in medians),
                 tokens_per_s=f"{B * L / max(medians) * 1e3:.1f}",
                 plain_step_ms=f"{rs[0]['plain_ms']:.2f}",
                 plain_over_arm=f"{rs[0]['plain_ms'] / max(medians):.4f}",
-                allreduce_share=",".join(
-                    f"{r['nccl_ms']['AllReduce'] / r['wall_ms']:.4f}"
-                    for r in rs),
-                sendrecv_share=",".join(
-                    f"{r['nccl_ms']['SendRecv'] / r['wall_ms']:.4f}"
-                    for r in rs),
+                **{f"{op.lower()}_share": ",".join(
+                    f"{r['nccl_ms'][op] / r['wall_ms']:.4f}" for r in rs)
+                   for op in ("AllReduce", "AllGather", "SendRecv")},
                 rel_to_plain=",".join(
                     f"{v['loss_rel_to_plain']:.3g}/"
                     f"{v['grad_norm_rel_to_plain']:.3g}"
-                    for v in rs[0]["rels"] if v),
+                    for v in rs[0]["rels"] if v) or "none",
+                **({"experts_differ": ",".join(
+                    str(r["experts_differ"]) for r in rs)}
+                   if ph.routes is not None else {}),
+                peak_mem_gb=",".join(f"{r['peak_bytes'] / 1e9:.2f}"
+                                     for r in rs),
                 losses_equal=len(losses) == 1)
             if len(losses) != 1:
-                raise AssertionError(f"tp_sp {arm}: the ranks report "
+                raise AssertionError(f"{ph.name} {arm}: the ranks report "
                                      f"different losses {losses}")
             launches[arm] = {name: [r["launches"][name] for r in rs]
                              for name in KERNELS}
     if n < 4:
-        say("tp_sp", world=4, skipped=f"{n}_card_machine")
+        say(ph.name, world=4, skipped=f"{n}_card_machine")
     return launches
+
+
+def _ring_checks(rank: int, world: int) -> dict:
+    """Phase 12d's first step at world 4: the flash and zigzag rings over
+    sp against the dense ring (``_ring_check``)."""
+    from strom_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh({"sp": world})
+    return {"ring_check": {impl: _ring_check(mesh, impl, rank)
+                           for impl in ("flash", "zigzag")}}
+
+
+TP_SP = MeshPhase(
+    name="tp_sp", flag="--tp-sp-worker", arms=TPSP_ARMS,
+    rtol=TPSP_PLAIN_RTOL, shard_axis="tp", vocab=DP_CONFIG.vocab,
+    layers=DP_CONFIG.n_layers, seed=27,
+    init=lambda dev, mesh: init_train_state(DP_CONFIG, device=dev, seed=0,
+                                            mesh=mesh),
+    make_step=lambda attn, dev, mesh, sp: make_train_step(
+        DP_CONFIG, attn=attn, device=dev, mesh=mesh, sp=sp),
+    replicated=lambda name: name.endswith("norm"), before=_ring_checks)
+
+
+def _ep_replicated(name: str) -> bool:
+    from strom_torch.models.moe import EXPERT_PARAMS
+
+    return name not in EXPERT_PARAMS
+
+
+EP = MeshPhase(
+    name="ep", flag="--ep-worker", arms=EP_ARMS, rtol=EP_PLAIN_RTOL,
+    shard_axis="ep", vocab=EP_CONFIG.base.vocab,
+    layers=EP_CONFIG.base.n_layers, seed=29,
+    init=lambda dev, mesh: init_moe_train_state(EP_CONFIG, device=dev,
+                                                seed=0, mesh=mesh),
+    make_step=lambda attn, dev, mesh, sp: make_moe_train_step(
+        EP_CONFIG, attn=attn, device=dev, mesh=mesh, sp=sp),
+    replicated=_ep_replicated, routes=_ep_routes)
 
 
 # ------------------------------------------------------------------- main
 # the phases --phases may choose: those that take nothing from another
 STANDALONE = ("build", "kernels", "wide_path", "train", "ckpt", "dp",
-              "dp_vision", "tp_sp", "dist")
+              "dp_vision", "tp_sp", "ep", "dist")
 MAIN_SHAPE = (2, 2048, 32, 8, 128)
 
 
@@ -6069,8 +6337,9 @@ def kernels_line(res: dict) -> list[dict]:
     entry of KERNELS, WIDE_KERNELS, F32_KERNELS and DH512_KERNELS, its
     numbers from phase 2 at the row's shape and its launches from the one
     phase that drives its path: phase 2b for the Gemma-2 rows, phase 4 for
-    the others, and each rank's from phase 12b beside the main path's rows
-    (``launches_dp``). A phase that did not run gives null; without phase
+    the others, and each rank's from phases 12b, 12d and 12e beside the
+    main path's rows (``launches_dp``, ``launches_tp_sp`` and
+    ``launches_ep``, each arm's counts over its 4 counted steps). A phase that did not run gives null; without phase
     2 there are no rows."""
     rows = res.get("kernels")
     if rows is None:
@@ -6089,9 +6358,11 @@ def kernels_line(res: dict) -> list[dict]:
                    "launches": None if launches is None else launches[name]}
             if table is KERNELS and "dp" in res:
                 row["launches_dp"] = res["dp"][name]
-            if table is KERNELS and "tp_sp" in res:
-                row["launches_tp_sp"] = {arm: counts[name] for arm, counts
-                                         in res["tp_sp"].items()}
+            for phase in ("tp_sp", "ep"):
+                if table is KERNELS and phase in res:
+                    row[f"launches_{phase}"] = {
+                        arm: counts[name] for arm, counts in
+                        res[phase].items()}
             if shape is not None:
                 row["shape"] = f"{label} {json.dumps(list(shape))}"
             row.update({k: rows[info["counter"]][label][k] for k in (
@@ -6121,7 +6392,8 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     workers = {"--dp-worker": dp_worker,
                "--dp-vision-worker": dp_vision_worker,
-               "--tp-sp-worker": tp_sp_worker}
+               **{ph.flag: functools.partial(_mesh_worker, ph)
+                  for ph in (TP_SP, EP)}}
     if argv[:1] and argv[0] in workers:
         rank, world, port = (int(a) for a in argv[1:4])
         workers[argv[0]](rank, world, port, argv[4])
@@ -6188,7 +6460,8 @@ def main(argv: list[str] | None = None) -> int:
         run("observability", phase_observability, workdir, tar)
         run("dp", phase_dp, workdir, pq)
         run("dp_vision", phase_dp_vision, workdir, pdec, tar)
-        run("tp_sp", phase_tp_sp, workdir)
+        run("tp_sp", _mesh_phase, TP_SP, workdir)
+        run("ep", _mesh_phase, EP, workdir)
         run("dist", phase_dist, workdir, tar)
         _remove(*(pq[0] if pq else ()), pdec, tar)
         run("cli", phase_cli, workdir, disk_node)

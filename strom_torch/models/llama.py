@@ -137,8 +137,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, Dh)
 
 
-def block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: LlamaConfig,
-          positions: torch.Tensor, attn_fn: Callable | None = None) -> torch.Tensor:
+def attention_residual(x: torch.Tensor, lp: dict[str, torch.Tensor],
+                       cfg: LlamaConfig, positions: torch.Tensor,
+                       attn_fn: Callable | None = None) -> torch.Tensor:
+    """The block's first half: x + attention(rmsnorm(x)) @ wo (the MoE
+    block's too)."""
     B, S, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
@@ -147,9 +150,14 @@ def block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: LlamaConfig,
     v = (h @ lp["wv"]).reshape(B, S, nkv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    # attn_fn hook: flash attention (or, later, ring attention) substitutes here
+    # attn_fn hook: flash attention (or ring attention) substitutes here
     attn = (attn_fn or attention)(q, k, v)
-    x = x + attn.reshape(B, S, nh * hd) @ lp["wo"]
+    return x + attn.reshape(B, S, nh * hd) @ lp["wo"]
+
+
+def block(x: torch.Tensor, lp: dict[str, torch.Tensor], cfg: LlamaConfig,
+          positions: torch.Tensor, attn_fn: Callable | None = None) -> torch.Tensor:
+    x = attention_residual(x, lp, cfg, positions, attn_fn)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     gated = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
     return x + gated @ lp["w_down"]
@@ -249,11 +257,28 @@ def next_token_loss(model: Llama, tokens: torch.Tensor, attn_fn=None,
     neighbour permute), only the last shard masks its last column, and the
     sum divides by B·(L−1) of the whole rows, so the shards' losses sum to
     the rows' mean."""
+    logits = model(tokens, positions=shard_positions(tokens, sp),
+                   attn_fn=attn_fn, remat=remat)
+    return lm_loss(logits, tokens, sp, model.tp)
+
+
+def shard_positions(tokens: torch.Tensor, sp: AxisGroup | None
+                    ) -> torch.Tensor:
+    """[B, S] global positions of *tokens*, shard ``sp.index`` of each row
+    (the whole rows without *sp*)."""
+    B, S = tokens.shape
+    idx = sp.index if sp is not None else 0
+    return (idx * S + torch.arange(S, device=tokens.device)).expand(B, S)
+
+
+def lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+            sp: AxisGroup | None = None, tp: AxisGroup | None = None
+            ) -> torch.Tensor:
+    """:func:`next_token_loss` from the *logits* of *tokens* (under *tp*
+    this rank's vocab columns)."""
     B, S = tokens.shape
     n, idx = (sp.size, sp.index) if sp is not None else (1, 0)
     toks = tokens.long()
-    positions = (idx * S + torch.arange(S, device=tokens.device)).expand(B, S)
-    logits = model(tokens, positions=positions, attn_fn=attn_fn, remat=remat)
     if n > 1:
         from strom_torch.parallel.ring import ppermute
 
@@ -261,10 +286,10 @@ def next_token_loss(model: Llama, tokens: torch.Tensor, attn_fn=None,
         targets = torch.cat([toks[:, 1:], nxt], dim=1)
     else:
         targets = torch.roll(toks, -1, dims=1)
-    if model.tp is not None:
+    if tp is not None:
         from strom_torch.parallel.tensor_parallel import vocab_parallel_ce
 
-        per = vocab_parallel_ce(logits, targets, model.tp)
+        per = vocab_parallel_ce(logits, targets, tp)
     else:
         logz = torch.logsumexp(logits, dim=-1)
         per = logz - torch.gather(logits, -1, targets[..., None])[..., 0]

@@ -13,9 +13,9 @@ over the mesh's ``DeviceMesh`` (``to_global``).
 
 As in JAX, a dimension that its axes do not divide raises ``ValueError``;
 ``DTensor``'s ``Shard`` alone would split it unevenly, as ``torch.chunk``
-does. The Llama rules are data: :func:`shard_params` keeps this rank's
-block of each parameter by them, and :func:`gather_params` puts the
-blocks back together.
+does. The Llama and MoE rules are data: :func:`shard_params` keeps this
+rank's block of each parameter by them, and :func:`gather_params` puts
+the blocks back together.
 """
 
 from __future__ import annotations
@@ -197,16 +197,35 @@ _LLAMA_RULES = {
     ("final_norm",): P(),
     ("lm_head",): P(None, "tp"),
 }
+# MoE variant (strom_torch.models.moe): attention rules shared with llama;
+# the expert stacks [L, E, ...] carry the ep axis on the expert dim, tp on
+# the hidden dim within each expert.
+_MOE_RULES = {
+    **_LLAMA_RULES,
+    ("layers", "router"): P("pp"),
+    ("layers", "w_gate"): P("pp", "ep", None, "tp"),
+    ("layers", "w_up"): P("pp", "ep", None, "tp"),
+    ("layers", "w_down"): P("pp", "ep", "tp", None),
+}
 _TOP_LEVEL = ("embed", "final_norm", "lm_head")
+
+
+def _specs(params: dict, rules: dict) -> dict[str, P]:
+    return {name: rules.get(
+        (name,) if name in _TOP_LEVEL else ("layers", name), P())
+        for name in params}
 
 
 def param_specs(params: dict) -> dict[str, P]:
     """{parameter name: PartitionSpec} for a Llama state dict (names as
     ``Llama.named_parameters`` gives them; the stacked layer tensors are
     the reference's ``layers`` subtree)."""
-    return {name: _LLAMA_RULES.get(
-        (name,) if name in _TOP_LEVEL else ("layers", name), P())
-        for name in params}
+    return _specs(params, _LLAMA_RULES)
+
+
+def moe_param_specs(params: dict) -> dict[str, P]:
+    """:func:`param_specs` for an MoE state dict."""
+    return _specs(params, _MOE_RULES)
 
 
 def restrict(spec: P, mesh: Mesh) -> P:
@@ -221,25 +240,36 @@ def param_shardings(params: dict, mesh: Mesh) -> dict[str, TorchSharding]:
             for name, spec in param_specs(params).items()}
 
 
-def shard_params(params: dict[str, torch.Tensor], mesh: Mesh
-                 ) -> dict[str, torch.Tensor]:
-    """This rank's block of each full parameter in *params* (a Llama state
-    dict), by :func:`param_shardings` over *mesh*: views of *params*."""
+def moe_param_shardings(params: dict, mesh: Mesh
+                        ) -> dict[str, TorchSharding]:
+    """:func:`param_shardings` for an MoE state dict: the expert stacks
+    split on dim 1 over ep."""
+    return {name: TorchSharding(mesh, restrict(spec, mesh))
+            for name, spec in moe_param_specs(params).items()}
+
+
+def shard_params(params: dict[str, torch.Tensor], mesh: Mesh, *,
+                 shardings=param_shardings) -> dict[str, torch.Tensor]:
+    """This rank's block of each full parameter in *params*, by
+    ``shardings(params, mesh)`` (:func:`param_shardings` for a Llama state
+    dict, :func:`moe_param_shardings` for an MoE one): views of
+    *params*."""
     out = {}
-    for name, sh in param_shardings(params, mesh).items():
+    for name, sh in shardings(params, mesh).items():
         t = params[name]
         (index,) = sh.addressable_devices_indices_map(t.shape).values()
         out[name] = t[index]
     return out
 
 
-def gather_params(local: dict[str, torch.Tensor], mesh: Mesh
-                  ) -> dict[str, torch.Tensor]:
-    """The inverse of :func:`shard_params`: each parameter whole, from every
-    rank's block (a collective call of every rank of *mesh*)."""
+def gather_params(local: dict[str, torch.Tensor], mesh: Mesh, *,
+                  shardings=param_shardings) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_params` with the same *shardings*: each
+    parameter whole, from every rank's block (a collective call of every
+    rank of *mesh*)."""
     out = {}
     sizes = mesh.shape
-    for name, sh in param_shardings(local, mesh).items():
+    for name, sh in shardings(local, mesh).items():
         t = local[name]
         if all(e is None for e in sh.spec):
             out[name] = t

@@ -6,6 +6,7 @@ card in the same call.
     python3 -m strom_torch.parallel.step_ab --delivery [--sched-rounds N] DIR [DIR ...]
     python3 -m strom_torch.parallel.step_ab --loaders [--loader-batches N]
         [--sample-ms MS] DIR[:served] [DIR[:served] ...]
+    python3 -m strom_torch.parallel.step_ab --spill DIR [DIR ...]
 
 Each DIR is a checkout: this repo's root, or an older commit unpacked
 with ``git archive``. Each runs in its own process, in the order given
@@ -28,7 +29,9 @@ alone over phase 7's tar of 512 448-pixel JPEGs, the ResNet one at batch
 striped on 4 members (``[ab_vit_jpeg]``), each ``--loader-batches``
 batches (4 by default) from a dropped page cache, each line's
 ``images_per_s``, and a ``[step_ab] loader=`` line with the process's CPU
-ms an image. ``--sample-ms`` samples every other thread's innermost
+ms an image. ``--spill`` drives phase 7e's pread pair alone, at the
+checkout's own ``SPILL_PREAD_BYTES`` with compression off and then on,
+each with a ``[step_ab] spill_pread_bytes=`` line of its seconds. ``--sample-ms`` samples every other thread's innermost
 Python frame that often beside each loader and prints the 40 most caught
 (``[step_ab] sample=``). A checkout written ``DIR:served`` runs those
 loaders on a context that serves its live endpoint (``metrics_port=0``,
@@ -67,6 +70,17 @@ try:
         os.unlink(path)
         model, step, pdec = cs.phase_resnet(workdir)
         cs.phase_resnet_jpeg(workdir, model, step)
+    elif sys.argv[2] == "spill":
+        import time
+        import numpy as np
+
+        toks = np.random.default_rng(7).integers(
+            0, 1 << 15, cs.SPILL_PREAD_BYTES // 4, dtype=np.int32)
+        for compress in (False, True):
+            t0 = time.perf_counter()
+            cs._spill_pread_arm(workdir, toks, compress)
+            cs.say("step_ab", spill_pread_bytes=toks.nbytes,
+                   compress=compress, s=f"{time.perf_counter() - t0:.1f}")
     elif sys.argv[2] == "loaders":
         import collections, threading, time
         import numpy as np
@@ -207,6 +221,9 @@ def main() -> int:
     ap.add_argument("--loaders", action="store_true",
                     help="phase 5's streamed gather and the JPEG loaders "
                          "alone, no train step")
+    ap.add_argument("--spill", action="store_true",
+                    help="phase 7e's pread pair alone, compression off "
+                         "and on")
     ap.add_argument("--sched-rounds", type=int, default=4,
                     help="rounds of phase 3's [sched] arms (--delivery)")
     ap.add_argument("--loader-batches", type=int, default=4,
@@ -221,7 +238,7 @@ def main() -> int:
                          "(history every 0.5 s) beside a scraper process")
     args = ap.parse_args()
     mode = "delivery" if args.delivery else \
-        "loaders" if args.loaders else "train"
+        "loaders" if args.loaders else "spill" if args.spill else "train"
     rc = 0
     for entry in args.dirs:
         root, _, how = entry.partition(":")

@@ -1,5 +1,5 @@
-"""Training steps: the flagship Llama model (the port's
-counterpart of ``strom/parallel/train.py``), and ResNet-50 and ViT-B/16
+"""Training steps: the flagship Llama model and its MoE variant (the
+port's counterpart of ``strom/parallel/train.py``), and ResNet-50 and ViT-B/16
 under plain SGD (``make_resnet_sgd_step`` and ``make_vit_sgd_step``, the
 counterparts of the ``sgd_step`` that ``strom/cli.py``'s ResNet and ViT
 benches build).
@@ -34,9 +34,13 @@ batch's as in the reference; the norm sums each tp shard's squares over
 tp and counts a replicated parameter once. The loss it reports is the
 group's mean, the same on every rank. The collectives, the ring's
 send/recv pairs among them, are captured in the step's graph with the
-rest. The vision steps are data-parallel over ``dp``; the ResNet step
-also takes its batch-norm statistics over the global batch, as the
-reference's jitted step does.
+rest. The MoE step (``make_moe_train_step``) runs the same way over
+``dp``, ``sp`` and ``ep``: each rank holds its ``E/ep`` experts, routes
+its tokens by the global batch's queues and sums its experts' outputs
+over ep (``parallel/expert_parallel.py``); the global norm sums the
+expert gradients' squares over ep. The vision steps are data-parallel
+over ``dp``; the ResNet step also takes its batch-norm statistics over
+the global batch, as the reference's jitted step does.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ import torch.distributed as dist
 from strom_torch.delivery.core import resolve_device
 from strom_torch.models.llama import Llama, LlamaConfig, next_token_loss
 from strom_torch.models import vit
+from strom_torch.models.moe import MoE, MoEConfig
 from strom_torch.models.resnet import (DpGroup, ResNet, ResNetConfig,
                                        imagenet_mean_std, loss_fn,
                                        normalize_images)
@@ -119,9 +124,27 @@ def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     rank keeps its tp blocks (``Llama.shard_``) and every replica starts
     from those of the first rank of its dp×sp group (broadcast); the fused
     AdamW holds this rank's blocks only."""
+    return _init_state(Llama, cfg, optimizer, device, seed, params, mesh)
+
+
+def init_moe_train_state(cfg: MoEConfig,
+                         optimizer: OptimizerSpec | None = None, *,
+                         device: Any = None, seed: int = 0,
+                         params: dict[str, torch.Tensor] | None = None,
+                         mesh: Mesh | None = None) -> TrainState:
+    """:func:`init_train_state` for the MoE model (``models/moe.py``;
+    *params* e.g. from its ``params_from_jax``): with a *mesh* this rank
+    keeps its experts of each expert stack (``MoE.shard_``, dim 1 over
+    ep) and every replica over dp and sp starts from the first rank of its
+    group, each ep coordinate's with its own experts."""
+    return _init_state(MoE, cfg, optimizer, device, seed, params, mesh)
+
+
+def _init_state(model_cls, cfg, optimizer, device, seed, params, mesh
+                ) -> TrainState:
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = Llama(cfg, device=device, generator=gen)
+    model = model_cls(cfg, device=device, generator=gen)
     if params is not None:
         model.load_state_dict(params)
     if mesh is not None:
@@ -135,8 +158,8 @@ def init_train_state(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
 def replicate(model: torch.nn.Module, mesh: Mesh) -> None:
     """Make every replica of *model* over the mesh's dp and sp axes hold
     the parameters and buffers of the first rank of its group, the ranks
-    that share its tp coordinate (broadcast in place): under tp each group
-    broadcasts its own shards."""
+    that share its tp and ep coordinates (broadcast in place): under tp or
+    ep each group broadcasts its own shards."""
     group = mesh.group("dp", "sp")
     if group is None:
         return
@@ -175,12 +198,16 @@ def train_state_tree(state: TrainState) -> dict:
     parameter's AdamW state by name), ``lr`` (the optimizer's lr tensor),
     ``scheduler`` (``last_epoch``) and ``step``. The tensors are the
     state's own, not copies; the counterpart of handing the reference an
-    abstract TrainState, and a restore's template. A tp-sharded state
-    raises NotImplementedError: its checkpoint is not ported yet."""
+    abstract TrainState, and a restore's template. A tp- or ep-sharded
+    state raises NotImplementedError: its checkpoint is not ported yet."""
     if state.model.tp is not None:
         raise NotImplementedError(
             "a checkpoint of a tp-sharded state (each rank holds its tp "
-            "blocks) is not ported yet: ROADMAP.md, Queue A, item 4")
+            "blocks) is not ported yet: ROADMAP.md, Queue A, item 1")
+    if getattr(state.model, "ep", None) is not None:
+        raise NotImplementedError(
+            "a checkpoint of an ep-sharded state (each rank holds its "
+            "experts) is not ported yet: ROADMAP.md, Queue A, item 3")
     lr = state.optimizer.param_groups[0]["lr"]
     return {"model": dict(state.model.state_dict()),
             "optimizer": {k: dict(v) for k, v in
@@ -239,28 +266,43 @@ def _dp_group(mesh: Mesh):
     return mesh.device_mesh.get_group("dp"), mesh.shape["dp"]
 
 
-def _check_llama_mesh(cfg: LlamaConfig, mesh: Mesh, sp: bool) -> None:
-    other = {a: n for a, n in mesh.shape.items()
-             if a not in ("dp", "tp", "sp") and n > 1}
+def _check_axes(mesh: Mesh, sp: bool, axes: tuple[str, ...],
+                why: str) -> None:
+    """Raise for an axis above 1 outside *axes*, and for sp=True on a mesh
+    without an sp axis."""
+    other = {a: n for a, n in mesh.shape.items() if a not in axes and n > 1}
     if other:
-        raise NotImplementedError(
-            f"mesh axes {other}: the Llama step runs over dp, tp and sp; "
-            "pp and ep come with the pipeline slice (ROADMAP.md, Queue A, "
-            "item 4)")
+        raise NotImplementedError(f"mesh axes {other}: {why}")
     if sp and "sp" not in mesh.axis_names:
         raise ValueError(f"sp=True shards the sequence over an 'sp' axis, "
                          f"the mesh has {mesh.axis_names}")
+
+
+def _check_llama_mesh(cfg: LlamaConfig, mesh: Mesh, sp: bool) -> None:
+    _check_axes(mesh, sp, ("dp", "tp", "sp"),
+                "the Llama step runs over dp, tp and sp; pp comes with the "
+                "pipeline slice (ROADMAP.md, Queue A, item 1), ep is the "
+                "MoE step's (make_moe_train_step)")
     if mesh.axis_size("tp") > 1:
         from strom_torch.parallel.tensor_parallel import check_tp
 
         check_tp(cfg, mesh.axis_size("tp"))
 
 
-def _tp_global_norm(grads: list[torch.Tensor], sharded: list[bool],
-                    group) -> torch.Tensor:
+def _check_moe_mesh(cfg: MoEConfig, mesh: Mesh, sp: bool) -> None:
+    _check_axes(mesh, sp, ("dp", "sp", "ep"),
+                "the MoE step runs over dp, sp and ep; MoE under tp or pp "
+                "is not ported (ROADMAP.md, Queue A, item 3)")
+    if cfg.n_experts % mesh.axis_size("ep"):
+        raise ValueError(f"n_experts {cfg.n_experts} must divide by ep "
+                         f"{mesh.axis_size('ep')}")
+
+
+def _sharded_global_norm(grads: list[torch.Tensor], sharded: list[bool],
+                         group) -> torch.Tensor:
     """The global norm of gradients of which those flagged *sharded* are
-    this rank's tp blocks: their squares summed over the tp *group*, each
-    replicated one counted once."""
+    this rank's blocks (tp or ep): their squares summed over the *group*
+    of the axis that splits them, each replicated one counted once."""
     def sq(ts):
         norms = torch.stack(torch._foreach_norm(ts, 2, dtype=torch.float32))
         return (norms * norms).sum()
@@ -309,6 +351,73 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     sp axis, with attn "dense" (the plain ring), "flash" (the flash
     kernels in each ring step) or "zigzag" (the load-balanced causal flash
     ring)."""
+    _check_attn(attn, mesh, sp)
+    tp_group, sp_axis, sharded = None, None, set()
+    if mesh is not None:
+        _check_llama_mesh(cfg, mesh, sp)
+        tp_group = mesh.group("tp")
+        if sp:
+            sp_axis = mesh.axis("sp")
+        if tp_group is not None:
+            from strom_torch.models.llama import param_shapes
+
+            sharded = {n for n, sh in param_shardings(
+                param_shapes(cfg), mesh).items() if "tp" in sh.spec}
+    attn_fn = _attn_fn(attn, mesh, sp)
+
+    def loss_fn(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
+        if (tp_group is None) != (state.model.tp is None):
+            raise ValueError("the state's tp blocks do not match the mesh: "
+                             "make it with init_train_state(mesh=)")
+        return next_token_loss(state.model, tokens, attn_fn=attn_fn,
+                               remat=True, sp=sp_axis)
+
+    return _adamw_step(loss_fn, optimizer, device, mesh, sp, tp_group,
+                       sharded)
+
+
+def make_moe_train_step(cfg: MoEConfig,
+                        optimizer: OptimizerSpec | None = None, *,
+                        attn: str = "dense", device: Any = None,
+                        mesh: Mesh | None = None, sp: bool = False
+                        ) -> CapturedStep:
+    """:func:`make_train_step` for the MoE model (``models/moe.py``):
+    the loss adds the routers' aux losses, remat per layer. *mesh* of
+    ``dp``, ``sp`` and ``ep`` axes (``parallel/expert_parallel.py``): the
+    tokens as the Llama step takes them (``P("dp", "sp")`` with
+    ``sp=True``, else ``P("dp", None)``), replicated over ep; the state
+    from ``init_moe_train_state(mesh=)``, each rank holding its ``E/ep``
+    experts. Capacity queues and the aux losses are the global batch's;
+    the gradients are averaged over dp×sp as the Llama step's, and the
+    global norm sums the expert gradients' squares over ep. A ``tp`` or
+    ``pp`` axis above 1 raises NotImplementedError."""
+    from strom_torch.models import moe
+    from strom_torch.parallel.expert_parallel import token_layout
+
+    _check_attn(attn, mesh, sp)
+    ep_group, sp_axis, sharded = None, None, set()
+    if mesh is not None:
+        _check_moe_mesh(cfg, mesh, sp)
+        ep_group = mesh.group("ep")
+        if sp:
+            sp_axis = mesh.axis("sp")
+        if ep_group is not None:
+            sharded = set(moe.EXPERT_PARAMS)
+    layout = token_layout(mesh, sp)
+    attn_fn = _attn_fn(attn, mesh, sp)
+
+    def loss_fn(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
+        if (ep_group is None) != (state.model.ep is None):
+            raise ValueError("the state's experts do not match the mesh: "
+                             "make it with init_moe_train_state(mesh=)")
+        return moe.next_token_loss(state.model, tokens, attn_fn=attn_fn,
+                                   remat=True, sp=sp_axis, layout=layout)
+
+    return _adamw_step(loss_fn, optimizer, device, mesh, sp, ep_group,
+                       sharded)
+
+
+def _check_attn(attn: str, mesh: Mesh | None, sp: bool) -> None:
     if attn not in ("dense", "flash", "zigzag"):
         raise ValueError(
             f"attn must be 'dense', 'flash' or 'zigzag', got {attn!r}")
@@ -318,42 +427,43 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
     if sp and mesh is None:
         raise ValueError("sp=True shards the sequence over a mesh's 'sp' "
                          "axis: pass mesh=")
-    group, divisor, tp_group, sp_axis, sharded = None, 1, None, None, set()
-    if mesh is not None:
-        _check_llama_mesh(cfg, mesh, sp)
-        group = mesh.group("dp", "sp")
-        # sp ranks that hold the same rows are replicas: averaged too
-        divisor = mesh.axis_size("dp") * (1 if sp else mesh.axis_size("sp"))
-        tp_group = mesh.group("tp")
-        if sp:
-            sp_axis = mesh.axis("sp")
-        if tp_group is not None:
-            from strom_torch.models.llama import param_shapes
 
-            sharded = {n for n, sh in param_shardings(
-                param_shapes(cfg), mesh).items() if "tp" in sh.spec}
-    device = resolve_device(device)
-    spec = optimizer or make_optimizer()
-    attn_fn = None
+
+def _attn_fn(attn: str, mesh: Mesh | None, sp: bool):
+    """The steps' attention: the ring over sp (the flash kernels inside it
+    for "flash" and "zigzag"), else the flash kernels or the dense op."""
     if sp:
         from strom_torch.parallel.ring import make_ring_attention
 
-        # attn="flash"/"zigzag": the flash kernels run INSIDE the ring
-        attn_fn = make_ring_attention(mesh, axis="sp", impl=attn)
-    elif attn == "flash":
+        return make_ring_attention(mesh, axis="sp", impl=attn)
+    if attn == "flash":
         from strom_torch.ops.flash_attention import make_flash_attention
 
-        attn_fn = make_flash_attention()
+        return make_flash_attention()
+    return None
+
+
+def _adamw_step(loss_fn, optimizer: OptimizerSpec | None, device: Any,
+                mesh: Mesh | None, sp: bool, shard_group,
+                sharded: set[str]) -> CapturedStep:
+    """The captured step around ``loss_fn(state, tokens)``: backward; on a
+    mesh the gradients and the loss averaged over the dp×sp group (divided
+    by the dp size, and by the sp size where sp does not split the rows);
+    the global norm (the *sharded* parameters' squares summed over
+    *shard_group*); the clip; the fused AdamW."""
+    group, divisor = None, 1
+    if mesh is not None:
+        group = mesh.group("dp", "sp")
+        # sp ranks that hold the same rows are replicas: averaged too
+        divisor = mesh.axis_size("dp") * (1 if sp else mesh.axis_size("sp"))
+    device = resolve_device(device)
+    spec = optimizer or make_optimizer()
 
     def body(state: TrainState, tokens: torch.Tensor) -> dict:
-        if (tp_group is None) != (state.model.tp is None):
-            raise ValueError("the state's tp blocks do not match the mesh: "
-                             "make it with init_train_state(mesh=)")
         named = list(state.model.named_parameters())
         params = [p for _, p in named]
         state.optimizer.zero_grad(set_to_none=True)
-        loss = next_token_loss(state.model, tokens, attn_fn=attn_fn,
-                               remat=True, sp=sp_axis)
+        loss = loss_fn(state, tokens)
         loss.backward()
         grads = [p.grad for p in params]
         loss = loss.detach()
@@ -362,11 +472,11 @@ def make_train_step(cfg: LlamaConfig, optimizer: OptimizerSpec | None = None,
             for p, g in zip(params, grads):
                 p.grad = g
             loss = _mean_over([loss], group, divisor)[0]
-        if tp_group is None:
+        if shard_group is None:
             norm = global_norm(grads)
         else:
-            norm = _tp_global_norm(grads, [n in sharded for n, _ in named],
-                                   tp_group)
+            norm = _sharded_global_norm(
+                grads, [n in sharded for n, _ in named], shard_group)
         # optax.clip_by_global_norm: scale by max_norm / norm when above it
         clip = torch.clamp(spec.max_grad_norm / norm, max=1.0)
         torch._foreach_mul_(grads, clip)
